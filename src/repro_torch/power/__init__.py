@@ -1,0 +1,21 @@
+"""repro_torch.power — the energy model the planner charges every correct
+verification against, the port of ``repro.power``.
+
+  * :class:`PowerEnvelope` — idle/peak watts + memory-power fraction of one
+    destination; built-ins :data:`MANY_CORE_XEON`, :data:`GPU_T4`,
+    :data:`FPGA_A10`, :data:`GENERIC`; ``envelope_for(backend)``.
+  * :class:`EnergyModel` / :class:`EnergyReport` — host time x envelope ->
+    joules, watts, EDP.
+  * :func:`energy_for_record` — the planner's per-record charge rule.
+"""
+from repro_torch.power.envelope import (BY_ANALOGUE, FPGA_A10, GENERIC,
+                                        GPU_T4, MANY_CORE_XEON,
+                                        PowerEnvelope, envelope_for)
+from repro_torch.power.model import (EnergyModel, EnergyReport,
+                                     energy_for_record)
+
+__all__ = [
+    "PowerEnvelope", "EnergyModel", "EnergyReport",
+    "MANY_CORE_XEON", "GPU_T4", "FPGA_A10", "GENERIC",
+    "BY_ANALOGUE", "envelope_for", "energy_for_record",
+]

@@ -1,0 +1,79 @@
+"""Per-destination power envelopes (arXiv 2110.11520's measured machines),
+the port of ``repro.power.envelope``.
+
+A :class:`PowerEnvelope` is the static electrical identity of one offload
+destination: what it draws doing nothing (``idle_w``), what it draws flat
+out (``peak_w``), and how much of the active draw belongs to the memory
+system rather than the compute units (``memory_w_fraction``).  The energy
+model (:mod:`repro_torch.power.model`) interpolates between idle and peak
+with utilization.
+
+Calibration contract (see ROADMAP "repro.power"): the built-in numbers are
+vendor TDP / idle figures for the evaluation hardware of Yamato's power
+follow-up (Xeon E5-2660 v4 many-core, Tesla T4 GPU, Intel PAC Arria 10
+FPGA).  Only their *relative* shape matters for selection; override per
+backend through its ``power`` field or per call by passing an envelope to
+:class:`~repro_torch.power.model.EnergyModel`.  The envelope of compiled
+mesh cells comes with the modeled-cost slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class PowerEnvelope:
+    """Idle/peak draw (+ memory share of the active draw) of one device."""
+    name: str
+    idle_w: float
+    peak_w: float
+    # fraction of the active (peak - idle) draw attributable to the memory
+    # system; the rest follows compute utilization
+    memory_w_fraction: float = 0.3
+
+    def __post_init__(self):
+        if self.idle_w < 0 or self.peak_w <= 0:
+            raise ValueError(f"non-physical envelope {self.name!r}: "
+                             f"idle={self.idle_w}, peak={self.peak_w}")
+        if self.peak_w < self.idle_w:
+            raise ValueError(f"envelope {self.name!r}: peak_w {self.peak_w} "
+                             f"< idle_w {self.idle_w}")
+        if not 0.0 <= self.memory_w_fraction <= 1.0:
+            raise ValueError(f"envelope {self.name!r}: memory_w_fraction "
+                             f"must be in [0, 1]")
+
+    @property
+    def active_w(self) -> float:
+        return self.peak_w - self.idle_w
+
+
+# Built-in calibration (vendor TDP/idle for the power follow-up's machines).
+MANY_CORE_XEON = PowerEnvelope("xeon-e5-2660v4", idle_w=55.0, peak_w=105.0,
+                               memory_w_fraction=0.35)
+GPU_T4 = PowerEnvelope("tesla-t4", idle_w=10.0, peak_w=70.0,
+                       memory_w_fraction=0.25)
+FPGA_A10 = PowerEnvelope("intel-pac-arria10", idle_w=25.0, peak_w=66.0,
+                         memory_w_fraction=0.20)
+# last-resort envelope for destinations that declare nothing
+GENERIC = PowerEnvelope("generic-accelerator", idle_w=50.0, peak_w=150.0,
+                        memory_w_fraction=0.30)
+
+# paper_analogue -> envelope for the built-in destinations (kept here so
+# repro_torch.backends can stay import-light; Backend.power overrides this)
+BY_ANALOGUE = {
+    "many-core CPU": MANY_CORE_XEON,
+    "GPU": GPU_T4,
+    "GPU library": GPU_T4,
+    "FPGA": FPGA_A10,
+}
+
+
+def envelope_for(backend) -> PowerEnvelope:
+    """The envelope the planner charges a backend's records against:
+    the backend's declared ``power``, else the built-in calibration for its
+    paper analogue, else :data:`GENERIC`."""
+    declared = getattr(backend, "power", None)
+    if declared is not None:
+        return declared
+    return BY_ANALOGUE.get(getattr(backend, "paper_analogue", ""), GENERIC)
+
