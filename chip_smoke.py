@@ -8,17 +8,30 @@ each printing its seconds:
 
   1. card      the card's name and power limit (nvidia-smi) and the two TF32
                flags, both off;
-  2. build     one nvcc per ``src/repro_torch/csrc/*.cu``, all started
-               together, with each kernel's ``-Xptxas -v`` report;
+  2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
+               flash_attention, decode_attention), all started together,
+               with each kernel's ``-Xptxas -v`` report;
   3. check     every kernel against its plain PyTorch version on the card: the
                JAX tests' shapes at their tolerances, the main-path shapes,
-               and a K and an N that are not multiples of the tile;
+               and lengths that are not multiples of the tile;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
-               warm-up), beside the least time the card could take;
+               warm-up, and device time per call from torch.profiler),
+               beside the least time the card could take;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
-               counters set to 0 just before and read just after.
+               counters set to 0 just before and read just after;
+  6. serve     the port's continuous batcher on granite-3-2b at full width:
+               (a) 2 layers in fp32, eight staggered requests whose greedy
+               tokens must equal batch-1 ``generate``'s; (b) all 40 layers in
+               bf16, the same trace, every request complete and no NaN
+               logit, with wall and tick-clock metrics, the share of tokens
+               that agree with ``generate``, and profiles of a prefill and
+               a decode step (device time against wall time, the heaviest
+               kernels and host ops).  Each engine run sets the launch
+               counters to 0 before and requires one flash-attention launch
+               per layer and prefill and one decode-attention launch per
+               layer and decode step.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -27,6 +40,8 @@ CUDA device it exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -37,16 +52,30 @@ from contextlib import contextmanager
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 FP32_PEAK_FLOPS = 67e12          # non-tensor fp32
+BF16_PEAK_FLOPS = 989e12         # dense bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 MATMUL_MAIN = (512, 512, 512)              # 3mm at N=512, fp32
 TDFIR_MAIN = (64, 4096, 128)               # F, N, K of the paper's tdFIR
 TDFIR_MAIN_BLOCK_N = 128                   # the app's max(128, K)
+# granite-3-2b serving (phase 6): B, H, KV, S, D of the longest prefill, and
+# the 4-slot decode pool at the trace's per-slot lengths
+FLASH_MAIN = (1, 32, 8, 2048, 64)
+FLASH_RAGGED_S = 1000
+DECODE_MAIN = (4, 32, 8, 2112, 64)
+DECODE_MAIN_LENS = (1, 300, 1000, 2112)
+SERVE_ARCH = "granite-3-2b"
+SERVE_PROMPTS = (1000, 2048)               # alternating prompt lengths
+SERVE_GENS = (16, 64, 32, 48, 24, 56, 40, 64)  # (a): mixed max_gen
+SERVE_MAX_GEN = 64                         # (b)
+SERVE_SLOTS = 4
+SERVE_CACHE_LEN = 2112                     # 2048 + 64
 
 
 class SmokeFailure(RuntimeError):
@@ -108,9 +137,47 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
+def device_profile(fn, iters: int = 10):
+    """Device time per call of ``fn`` from a torch.profiler trace of
+    ``iters`` calls after a warm-up: (ms, heaviest kernels as (name, ms),
+    heaviest host ops by self CPU time as (name, ms)), all per call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3 / iters)
+                   for a in prof.key_averages()), key=lambda kv: -kv[1])
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])
+    return sum(kernels.values()), top[:8], host[:8]
+
+
+def time_row(kernel, plain, library, t_bound, by, iters=200,
+             plain_iters=None):
+    """CUDA-event ms per call of a kernel, its plain version and the
+    library call beside the bound, and the device ms of each from a
+    profiler trace (where a call is shorter than its host launch cost, the
+    event time measures the host's launch rate)."""
+    row = {"ms": time_ms(kernel, iters),
+           "plain_ms": time_ms(plain, plain_iters or iters),
+           "library_ms": time_ms(library, iters),
+           "bound_ms": t_bound, "bound_by": by}
+    dev = {k: device_profile(f)[0] for k, f in
+           (("kernel", kernel), ("plain", plain), ("library", library))}
+    return row, dev
+
+
+def bound(flops: float, nbytes: float, peak: float = FP32_PEAK_FLOPS):
     """Least time (ms) for the work, and which term sets it."""
-    t_ops = flops / FP32_PEAK_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -167,21 +234,95 @@ def check_kernels(ops, ref):
     x, h = randn(gen, 4, 1000), randn(gen, 4, 200)
     check_close("tdfir F=4 N=1000 K=200 block_n=128 (ragged N)",
                 ops.tdfir(x, h, block_n=128), ref.tdfir_ref(x, h), 3e-4)
+    errs.update(check_attention(ops, ref, gen))
+    return errs
+
+
+def flash_inputs(gen, s, dtype, b=1, h=32, kv=8, d=64):
+    """q/k/v as ``layers.attention`` hands them to the kernel: [B*H, S, D]
+    views of the [B, S, H, D] projections (strided when B == 1)."""
+    def heads(n):
+        return randn(gen, b, s, n, d, dtype=dtype).transpose(1, 2).reshape(
+            b * n, s, d)
+    return heads(h), heads(kv), heads(kv), h // kv
+
+
+def decode_inputs(gen, dtype, b, h, kv, s, d, lens):
+    """q [B, H, D], a [B, S, KV, D] cache pair, per-row lengths [B]."""
+    return (randn(gen, b, h, d, dtype=dtype),
+            randn(gen, b, s, kv, d, dtype=dtype),
+            randn(gen, b, s, kv, d, dtype=dtype),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def check_attention(ops, ref, gen):
+    """Phase 3, attention kernels: returns the main-path max errors."""
+    errs = {}
+    print(" flash_attention (JAX test shapes: fp32 at 2e-4, bf16 at 5e-2)")
+    for bh, s, d in ((2, 64, 16), (3, 128, 32), (1, 96, 64)):
+        q, k, v = (randn(gen, bh, s, d) for _ in range(3))
+        for causal in (True, False):
+            check_close(f"flash {bh}x{s}x{d} causal={causal}",
+                        ops.flash_attention(q, k, v, causal=causal),
+                        ref.mha_ref(q, k, v, causal=causal), 2e-4)
+    q, k, v = (randn(gen, 2, 64, 32, dtype=torch.bfloat16) for _ in range(3))
+    check_close("flash 2x64x32 bfloat16", ops.flash_attention(q, k, v),
+                ref.mha_ref(q, k, v), 5e-2)
+    print(" flash_attention (main path: granite prefill B=1 H=32 KV=8 D=64 "
+          "as strided views, S=2048 and ragged S=1000, bf16 at 5e-2 and fp32"
+          " at 2e-4; D=128)")
+    for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+            q, k, v, rep = flash_inputs(gen, s, dtype)
+            err = check_close(
+                f"flash H=32 KV=8 S={s} {dtype} causal",
+                ops.flash_attention(q, k, v, kv_group=rep),
+                ref.mha_ref(q, k, v, kv_group=rep), tol)
+            if s == FLASH_MAIN[3] and dtype == torch.bfloat16:
+                errs["flash_attention"] = err
+    q, k, v, rep = flash_inputs(gen, 300, torch.float32, b=2, h=8, kv=2,
+                                d=128)
+    check_close("flash B=2 H=8 KV=2 S=300 D=128 float32",
+                ops.flash_attention(q, k, v, kv_group=rep),
+                ref.mha_ref(q, k, v, kv_group=rep), 2e-4)
+
+    print(" decode_attention (JAX test shapes at 2e-4, one head per row)")
+    for bh, s, d, clen in ((4, 256, 64, 256), (2, 512, 32, 300),
+                           (1, 128, 128, 1)):
+        q = randn(gen, bh, 1, d)
+        kc, vc = randn(gen, bh, s, 1, d), randn(gen, bh, s, 1, d)
+        check_close(f"decode BH={bh} S={s} D={d} len={clen}",
+                    ops.decode_attention(q, kc, vc, clen),
+                    ref.decode_attention_ref(q, kc, vc, clen), 2e-4)
+    print(" decode_attention (main path: 4 slots x 32 heads over a "
+          "[4,2112,8,64] cache, lens 1/300/1000/2112, random cache past "
+          "each length; bf16 at 5e-2, fp32 at 2e-4; D=128)")
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+        q, kc, vc, lens = decode_inputs(gen, dtype, *DECODE_MAIN,
+                                        DECODE_MAIN_LENS)
+        err = check_close(f"decode 4x32 over [4,2112,8,64] {dtype}",
+                          ops.decode_attention(q, kc, vc, lens),
+                          ref.decode_attention_ref(q, kc, vc, lens), tol)
+        if dtype == torch.bfloat16:
+            errs["decode_attention"] = err
+    q, kc, vc, lens = decode_inputs(gen, torch.float32, 2, 16, 4, 700, 128,
+                                    (1, 699))
+    check_close("decode 2x16 over [2,700,4,128] float32",
+                ops.decode_attention(q, kc, vc, lens),
+                ref.decode_attention_ref(q, kc, vc, lens), 2e-4)
     return errs
 
 
 def time_kernels(ops, ref):
     """Phase 4: per-kernel times at the main-path shapes."""
     gen = torch.Generator().manual_seed(1)
-    rows = {}
+    rows, dev = {}, {}
     m, k, n = MATMUL_MAIN
     a, b = randn(gen, m, k), randn(gen, k, n)
     t_bound, by = bound(2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
-    rows["matmul"] = {
-        "ms": time_ms(lambda: ops.matmul(a, b), 200),
-        "plain_ms": time_ms(lambda: ref.matmul_ref(a, b), 200),
-        "library_ms": time_ms(lambda: torch.matmul(a, b), 200),
-        "bound_ms": t_bound, "bound_by": by}
+    rows["matmul"], dev["matmul"] = time_row(
+        lambda: ops.matmul(a, b), lambda: ref.matmul_ref(a, b),
+        lambda: torch.matmul(a, b), t_bound, by)
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     print(f"  matmul 512^3 bfloat16: kernel "
           f"{time_ms(lambda: ops.matmul(a16, b16), 200):.4f} ms, "
@@ -192,23 +333,76 @@ def time_kernels(ops, ref):
     x, h = randn(gen, f, nn), randn(gen, f, kk) * 0.1
     w = h.flip(-1)[:, None, :]
     t_bound, by = bound(2.0 * f * nn * kk, 4.0 * (2 * f * nn + f * kk))
-    rows["tdfir"] = {
-        "ms": time_ms(lambda: ops.tdfir(x, h, block_n=TDFIR_MAIN_BLOCK_N),
-                      200),
-        "plain_ms": time_ms(lambda: ref.tdfir_ref(x, h), 20),
-        "library_ms": time_ms(
-            lambda: F.conv1d(x[None], w, padding=kk - 1, groups=f), 200),
-        "bound_ms": t_bound, "bound_by": by}
+    rows["tdfir"], dev["tdfir"] = time_row(
+        lambda: ops.tdfir(x, h, block_n=TDFIR_MAIN_BLOCK_N),
+        lambda: ref.tdfir_ref(x, h),
+        lambda: F.conv1d(x[None], w, padding=kk - 1, groups=f), t_bound, by,
+        plain_iters=20)
     xi, hi = randn(gen, f, nn), randn(gen, f, kk) * 0.1
     t_complex = time_ms(lambda: ops.tdfir_complex(
         x, xi, h, hi, block_n=TDFIR_MAIN_BLOCK_N), 100)
     print(f"  tdfir_complex 64x4096x128 (4 launches + combine): "
           f"{t_complex:.4f} ms")
+    time_attention(ops, ref, gen, rows, dev)
     for name, r in rows.items():
-        print(f"  {name:7s} kernel {r['ms']:.4f} ms  bound {r['bound_ms']:.4f}"
-              f" ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms  "
-              f"library {r['library_ms']:.4f} ms")
+        print(f"  {name:16s} kernel {r['ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})  plain "
+              f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms")
+    print("  device time per call (torch.profiler):")
+    for name, d in dev.items():
+        print(f"  {name:16s} kernel {d['kernel']:.4f} ms  plain "
+              f"{d['plain']:.4f} ms  library {d['library']:.4f} ms")
     return rows
+
+
+def time_attention(ops, ref, gen, rows, dev):
+    """Phase 4, attention kernels at the serving path's bf16 shapes, held to
+    the bf16 tensor-core peak; fills ``rows`` and ``dev``."""
+    b, h, kv, s, d = FLASH_MAIN
+    q, k, v, rep = flash_inputs(gen, s, torch.bfloat16)
+    q4, k4, v4 = q.reshape(b, h, s, d), k.reshape(b, kv, s, d), \
+        v.reshape(b, kv, s, d)
+    # causal: half of the full 4*B*H*S^2*D; q, k, v read and o written once
+    t_bound, by = bound(2.0 * b * h * s * s * d,
+                        2.0 * (2 * b * h * s * d + 2 * b * kv * s * d),
+                        BF16_PEAK_FLOPS)
+    rows["flash_attention"], dev["flash_attention"] = time_row(
+        lambda: ops.flash_attention(q, k, v, kv_group=rep),
+        lambda: ref.mha_ref(q, k, v, kv_group=rep),
+        lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True), t_bound, by,
+        iters=50, plain_iters=10)
+
+    # four cache pairs in turn (69 MB > the 50 MB L2): each call finds its
+    # cache cold, as each layer of a decode step does
+    b, h, kv, s, d = DECODE_MAIN
+    q, _, _, lens = decode_inputs(gen, torch.bfloat16, b, h, kv, s, d,
+                                  DECODE_MAIN_LENS)
+    caches = itertools.cycle([
+        decode_inputs(gen, torch.bfloat16, b, h, kv, s, d,
+                      DECODE_MAIN_LENS)[1:3] for _ in range(4)])
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+
+    def library():
+        kc, vc = next(caches)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    def kernel():
+        return ops.decode_attention(q, *next(caches), lens)
+
+    def plain():
+        return ref.decode_attention_ref(q, *next(caches), lens)
+
+    # the valid cache rows are what this run's lengths need
+    valid = sum(DECODE_MAIN_LENS)
+    t_bound, by = bound(4.0 * h * d * valid,
+                        2.0 * (2 * valid * kv * d + 2 * b * h * d),
+                        BF16_PEAK_FLOPS)
+    rows["decode_attention"], dev["decode_attention"] = time_row(
+        kernel, plain, library, t_bound, by, plain_iters=50)
 
 
 def run_planner(ops):
@@ -247,6 +441,188 @@ def run_planner(ops):
     return ops.launch_counts()
 
 
+def watched_lm(cfg, seed: int):
+    """The port's LM on the card from seeded random weights, noting on the
+    card whether any logit it returns is NaN (``lm.nan``)."""
+    from repro_torch.models.lm import LM, init_params
+
+    class WatchedLM(LM):
+        def prefill(self, batch, cache_len):
+            logits, cache = super().prefill(batch, cache_len)
+            self.nan |= torch.isnan(logits).any()
+            return logits, cache
+
+        def decode_step(self, cache, tokens, pos):
+            logits, cache = super().decode_step(cache, tokens, pos)
+            self.nan |= torch.isnan(logits).any()
+            return logits, cache
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lm = WatchedLM(cfg, init_params(cfg, gen, "cuda"))
+    lm.nan = torch.zeros((), dtype=torch.bool, device="cuda")
+    return lm
+
+
+def serve_trace(cfg, gens, seed: int):
+    """Staggered requests, one arrival per tick, prompts alternating 1000
+    and 2048 tokens drawn from ``seed``."""
+    from repro_torch.serve import Request
+    from repro_torch.serve.batching import DEFAULT_TICK_S
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i, g in enumerate(gens):
+        n = SERVE_PROMPTS[i % len(SERVE_PROMPTS)]
+        reqs.append(Request(
+            rid=f"r{i}", arch=cfg.name, prompt_len=n, max_gen=g,
+            tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+            arrival_s=i * DEFAULT_TICK_S))
+    return reqs
+
+
+def serve_engine(ops, lm, reqs, label: str):
+    """One engine run with the launch counters set to 0 just before and
+    read just after; returns (engine, tokens, wall seconds, launches)."""
+    from repro_torch.power import envelope_for
+    from repro_torch.serve import ContinuousBatcher
+    engine = ContinuousBatcher(lm, n_slots=SERVE_SLOTS,
+                               cache_len=SERVE_CACHE_LEN,
+                               envelope=envelope_for(None))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_layers = lm.cfg.n_layers
+    print(f"  ({label}) engine calls {engine.calls}, kernel launches "
+          f"{launches}")
+    require(engine.calls["prefill"] == len(reqs), f"({label}) prefills")
+    require(launches["flash_attention"] == n_layers * len(reqs),
+            f"({label}) flash_attention launches != layers x prefills")
+    require(launches["decode_attention"]
+            == n_layers * engine.calls["decode_step"],
+            f"({label}) decode_attention launches != layers x decode steps")
+    require(launches["matmul"] == launches["tdfir"] == 0,
+            f"({label}) the serve path launched a planner kernel")
+    for r in reqs:
+        require(len(out[r.rid]) == r.max_gen,
+                f"({label}) {r.rid}: {len(out[r.rid])} of {r.max_gen} "
+                f"tokens")
+    require(not bool(lm.nan), f"({label}) a logit was NaN")
+    return engine, out, wall, launches
+
+
+def reference_tokens(ops, lm, reqs, label: str):
+    """Batch-1 ``generate`` per request (the sequential reference), each
+    with its launches counted."""
+    from repro_torch.launch.serve import generate
+    out = {}
+    for r in reqs:
+        ops.reset_launch_counts()
+        toks = generate(lm, {"tokens": torch.from_numpy(r.tokens[None])},
+                        r.prompt_len, r.max_gen, SERVE_CACHE_LEN)
+        got = ops.launch_counts()
+        n_layers = lm.cfg.n_layers
+        require(got["flash_attention"] == n_layers
+                and got["decode_attention"] == n_layers * (r.max_gen - 1),
+                f"({label}) generate {r.rid}: launches {got}")
+        out[r.rid] = toks[0].cpu().numpy()
+    require(not bool(lm.nan), f"({label}) a generate logit was NaN")
+    return out
+
+
+def print_profile(what: str, wall_ms: float, fn, iters: int) -> None:
+    """Where one call's time goes: device time against its host-clock
+    wall time, the heaviest kernels, and the heaviest host ops."""
+    dev_ms, kernels, host = device_profile(fn, iters)
+    if dev_ms <= 0:
+        print(f"  (b) {what}: the profiler saw no device time; device share "
+              f"not measured")
+        return
+    print(f"  (b) {what}: {dev_ms:.3f} ms of device time per call, "
+          f"{dev_ms / wall_ms:.1%} of its {wall_ms:.2f} ms wall time "
+          f"(device idle {1 - dev_ms / wall_ms:.1%}); heaviest kernels, "
+          f"ms per call:")
+    for name, ms in kernels:
+        print(f"      {ms:8.4f}  {name[:90]}")
+    print("      heaviest host ops by self CPU time under the profiler, ms "
+          "per call:")
+    for name, ms in host:
+        print(f"      {ms:8.4f}  {name[:90]}")
+
+
+def run_serve(ops):
+    """Phase 6: the port's serving path on granite-3-2b at full width;
+    returns the launches of (b), the slice's main path."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+
+    print(f" (a) {SERVE_ARCH} full width, 2 layers, float32: 8 staggered "
+          f"requests, prompts {SERVE_PROMPTS}, max_gen {SERVE_GENS}, "
+          f"{SERVE_SLOTS} slots, cache_len {SERVE_CACHE_LEN}")
+    cfg_a = dataclasses.replace(cfg, n_layers=2, dtype="float32",
+                                param_dtype="float32")
+    lm = watched_lm(cfg_a, seed=0)
+    reqs = serve_trace(cfg_a, SERVE_GENS, seed=0)
+    _, out, wall, _ = serve_engine(ops, lm, reqs, "a")
+    want = reference_tokens(ops, lm, reqs, "a")
+    same = [np.array_equal(out[r.rid], want[r.rid]) for r in reqs]
+    print(f"  (a) engine {wall:.2f} s wall; tokens identical to batch-1 "
+          f"generate for {sum(same)}/{len(reqs)} requests")
+    require(all(same), "(a) engine tokens differ from batch-1 generate")
+    del lm
+    torch.cuda.empty_cache()
+
+    print(f" (b) {SERVE_ARCH} full width and depth ({cfg.n_layers} layers), "
+          f"bfloat16: the same trace shape, max_gen {SERVE_MAX_GEN}")
+    lm = watched_lm(cfg, seed=1)
+    reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1)
+    engine, out, wall, launches = serve_engine(ops, lm, reqs, "b")
+    summary = engine.metrics.summary()
+    n_tok = sum(len(t) for t in out.values())
+    print(f"  (b) wall {wall:.2f} s, {n_tok} tokens, {n_tok / wall:.1f} "
+          f"generated tokens per wall second; {engine.calls['decode_step']}"
+          f" decode steps; tick clock: ttft p50 {summary['ttft_p50_s']} s, "
+          f"p95 {summary['ttft_p95_s']} s, tpot mean "
+          f"{summary['tpot_mean_s']} s")
+
+    for r in reqs[:len(SERVE_PROMPTS)]:
+        batch = {"tokens": torch.from_numpy(r.tokens[None])}
+        lm.prefill(batch, SERVE_CACHE_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            lm.prefill(batch, SERVE_CACHE_LEN)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"  (b) prefill of {r.prompt_len} tokens: {prefill_ms:.2f} ms "
+              f"(host clock, synchronised)")
+        print_profile(f"prefill of {r.prompt_len} tokens", prefill_ms,
+                      lambda: lm.prefill(batch, SERVE_CACHE_LEN), 3)
+    pool = engine.pool
+    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.tensor([SERVE_PROMPTS[i % len(SERVE_PROMPTS)] + 32
+                        for i in range(SERVE_SLOTS)], device="cuda")
+    lm.decode_step(pool, toks, pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        lm.decode_step(pool, toks, pos)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 20 * 1e3
+    print(f"  (b) decode step over {SERVE_SLOTS} slots: {step_ms:.2f} ms "
+          f"(host clock, synchronised)")
+    print_profile("decode step", step_ms,
+                  lambda: lm.decode_step(pool, toks, pos), 5)
+
+    want = reference_tokens(ops, lm, reqs, "b")
+    agree = sum(int((out[r.rid] == want[r.rid]).sum()) for r in reqs)
+    print(f"  (b) tokens that agree with batch-1 generate: {agree}/{n_tok} "
+          f"({agree / n_tok:.1%}; bf16, reported only)")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -275,11 +651,20 @@ def main() -> int:
         times = time_kernels(ops, ref)
     with phase("5 plan"):
         launches = run_planner(ops)
+    with phase("6 serve"):
+        served = run_serve(ops)
+    launches.update({k: served[k] for k in ("flash_attention",
+                                            "decode_attention")})
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),
                "tdfir": ("src/repro_torch/csrc/tdfir.cu",
-                         "src/repro/kernels/tdfir.py:21")}
+                         "src/repro/kernels/tdfir.py:21"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:22"),
+               "decode_attention": (
+                   "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:26")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name], **times[name]}

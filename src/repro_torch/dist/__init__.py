@@ -1,0 +1,4 @@
+"""repro_torch.dist — execution plans (a copy of ``repro.dist.plan``)."""
+from repro_torch.dist.plan import NAMED_PLANS, Gene, Plan
+
+__all__ = ["Plan", "Gene", "NAMED_PLANS"]

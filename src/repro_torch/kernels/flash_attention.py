@@ -1,0 +1,76 @@
+"""Launch wrapper of the hand-written CUDA flash-attention kernel
+(``csrc/flash_attention.cu``), the prefill attention of the serving path.
+
+Only CUDA tensors are taken; :func:`repro_torch.kernels.ops.flash_attention`
+sends CPU tensors to the plain version instead.  The TPU signature is kept
+(``q, k, v [BH, S, D]``), with ``kv_group`` added for grouped-query
+attention: row ``bh`` of ``q`` reads K/V row ``bh // kv_group``, so the
+model's KV heads are never repeated per query head.  Ragged ``S`` is masked
+in the kernel (the TPU wrapper asserted ``S % block == 0``), and q/k/v may be
+strided views as long as their last dimension is contiguous.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+# kernel launches since the last reset (repro_torch.kernels.ops)
+launches = 0
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    lib.repro_flash_attention.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
+    lib.repro_flash_attention.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_group: int = 1) -> torch.Tensor:
+    """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D] in
+    ``q.dtype``; scale ``1/sqrt(D)``, fp32 softmax carries."""
+    global launches
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"CUDA flash attention needs q, k and v on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"flash attention takes q [BH,S,D] and k/v "
+                         f"[BH/kv_group,S,D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    bh, sq, d = q.shape
+    if kv_group < 1 or k.shape[0] * kv_group != bh or k.shape[2] != d:
+        raise ValueError(f"k/v rows {k.shape[0]} x kv_group {kv_group} must "
+                         f"equal q rows {bh}, with head dim {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"CUDA flash attention takes head dim D in "
+                         f"{HEAD_DIMS}, got {d}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"CUDA flash attention takes float32 or bfloat16 "
+                        f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if any(t.stride(2) != 1 for t in (q, k, v)):
+        raise ValueError("flash attention needs a contiguous last (D) dim")
+    out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    if bh == 0 or sq == 0:
+        return out
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+            k.shape[1], d, kv_group, int(causal), 1.0 / math.sqrt(d),
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+            v.stride(1), _DTYPE_CODES[q.dtype], stream)
+    _build.check(lib, err, "flash_attention")
+    launches += 1
+    return out

@@ -12,9 +12,14 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import tdfir as _fir
+
+_KERNELS = {"matmul": _mm, "tdfir": _fir, "flash_attention": _fa,
+            "decode_attention": _da}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -40,10 +45,26 @@ def tdfir_complex(x_re, x_im, h_re, h_im, block_n: int = 512):
     return _fir.tdfir_complex(x_re, x_im, h_re, h_im, block_n=block_n)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_group: int = 1) -> torch.Tensor:
+    """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D]."""
+    if _on_cpu(q, k, v):
+        return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group)
+    return _fa.flash_attention(q, k, v, causal=causal, kv_group=kv_group)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """q [B, H, D]; caches [B, S, KV, D]; per-row ``cache_len`` -> [B, H, D]."""
+    if _on_cpu(q, k_cache, v_cache):
+        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
+    return _da.decode_attention(q, k_cache, v_cache, cache_len)
+
+
 def launch_counts() -> Dict[str, int]:
-    return {"matmul": _mm.launches, "tdfir": _fir.launches}
+    return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    _mm.launches = 0
-    _fir.launches = 0
+    for mod in _KERNELS.values():
+        mod.launches = 0

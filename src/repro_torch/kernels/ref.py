@@ -39,15 +39,45 @@ def tdfir_complex_ref(x_re, x_im, h_re, h_im):
     return rr - ii, ri + ir
 
 
+NEG_INF = -1e30
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True) -> torch.Tensor:
-    """q [BH, Sq, D], k/v [BH, Skv, D]."""
+            causal: bool = True, kv_group: int = 1) -> torch.Tensor:
+    """q [BH, Sq, D], k/v [BH // kv_group, Skv, D]: row ``bh`` of q attends
+    over K/V row ``bh // kv_group`` (the GQA layout)."""
+    if kv_group != 1:
+        k = k.repeat_interleave(kv_group, dim=0)
+        v = v.repeat_interleave(kv_group, dim=0)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
     if causal:
         sq, sk = q.shape[1], k.shape[1]
         mask = (torch.arange(sq, device=q.device)[:, None]
                 >= torch.arange(sk, device=q.device)[None, :])
-        s = torch.where(mask[None], s, -1e30)
+        s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+    """One query per row over a GQA cache.
+
+    q [B, H, D]; caches [B, S, KV, D]; ``cache_len`` an int or an int
+    tensor [B] (key ``s`` of row ``b`` is valid iff ``s < cache_len[b]``).
+    Query head ``h`` reads KV head ``h // (H // KV)``.  With H = KV = 1 this
+    is the TPU oracle ``decode_attention_ref`` on ``[BH, D]`` /
+    ``[BH, S, D]``.
+    """
+    b, h, d = q.shape
+    s_len, kvh = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d)
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache).to(torch.float32) * scale
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = torch.arange(s_len, device=q.device)[None, :] < lens   # [B?, S]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgrk,bkgd->bgrd", p.to(q.dtype), v_cache)
+    return out.reshape(b, h, d)

@@ -1,0 +1,187 @@
+"""Core layers of the dense LM family: norms, RoPE, projections, attention
+(prefill and decode), FFNs — the port of ``repro.models.layers``.
+
+Functions keep the JAX layouts: activations ``[B, S, D]``, query heads
+``[B, S, H, Dh]``, KV heads ``[B, S, KV, Dh]``, weights ``wq [d, h, hd]``,
+``wk``/``wv [d, kv, hd]``, ``wo [h, hd, d]``.  Grouped-query attention never
+repeats the KV heads per query head: the attention kernels read KV head
+``h // (H // KV)`` in place, as the JAX ``_group_q`` layout (``H -> (KV,
+rep)``, KV-major) does.
+
+Attention goes through :mod:`repro_torch.kernels.ops` — the hand-written
+flash-attention kernel for prefill and the split-K decode kernel for decode
+on the card, their plain versions on the CPU.  The projections and the FFN
+are plain ``torch.matmul``: the JAX package leaves them to XLA, outside any
+Pallas kernel.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
+
+
+def not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item "
+        f"{item})")
+
+
+# ---------------------------------------------------------------------------
+# init helpers (the JAX distributions: N(0, 1/fan_in) and N(0, 0.02^2))
+# ---------------------------------------------------------------------------
+
+def dense_init(shape, in_axis_size, dtype, generator, device):
+    scale = 1.0 / math.sqrt(max(in_axis_size, 1))
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def embed_init(shape, dtype, generator, device):
+    w = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def apply_norm(p, x, kind, eps=1e-6):
+    """RMSNorm or LayerNorm (``p["bias"]``) over the last dim, in fp32."""
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x, positions, theta):
+    """x [B, S, H, Dh]; positions [S] or [B, S] (int)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # [half]
+    pos = positions.to(torch.float32)
+    if pos.dim() == 1:
+        pos = pos[None, :]
+    angles = pos[..., :, None] * freqs                            # [B?,S,half]
+    cos = torch.cos(angles)[..., :, None, :]                  # [B?,S,1,half]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention projections
+# ---------------------------------------------------------------------------
+
+def _project(x, w, b):
+    """x [B, S, d] @ w [d, n, k] (+ b [n, k]) -> [B, S, n, k]."""
+    d, n, k = w.shape
+    y = torch.matmul(x, w.reshape(d, n * k)).reshape(*x.shape[:-1], n, k)
+    return y if b is None else y + b
+
+
+def q_project(p, cfg, x):
+    return _project(x, p["wq"], p.get("bq") if cfg.use_bias else None)
+
+
+def kv_project(p, cfg, x):
+    bias = cfg.use_bias
+    return (_project(x, p["wk"], p.get("bk") if bias else None),
+            _project(x, p["wv"], p.get("bv") if bias else None))
+
+
+def out_project(p, cfg, attn_out):
+    """attn_out [B, S, H, Dh] @ wo [H, Dh, d] -> [B, S, d]."""
+    h, k, d = p["wo"].shape
+    y = torch.matmul(attn_out.reshape(*attn_out.shape[:-2], h * k),
+                     p["wo"].reshape(h * k, d))
+    return y + p["bo"] if cfg.use_bias else y
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
+              softcap: float = 0.0, plan=None):
+    """q [B, Sq, H, Dh], k/v [B, Skv, KV, Dh] -> [B, Sq, H, Dh].
+
+    The JAX layer picks dense or blockwise attention by
+    ``plan.blockwise_attn_threshold``; both compute this one function, and
+    the port computes it with the flash-attention kernel at every length
+    (the kernel is the blockwise algorithm).  ``plan.gqa_grouped`` only
+    changes the JAX layout, not the result.  Windows, soft caps and query
+    offsets belong to other families (ROADMAP item 8).
+    """
+    if window or q_offset or softcap > 0:
+        raise not_ported("attention with a window, soft cap or query "
+                         "offset", 8)
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    # [B, S, H, Dh] -> [B*H, S, Dh]: a view when B == 1 (the serving
+    # engine's prefill), a copy otherwise
+    qh = q.transpose(1, 2).reshape(b * h, sq, dh)
+    kh = k.transpose(1, 2).reshape(b * kvh, skv, dh)
+    vh = v.transpose(1, 2).reshape(b * kvh, skv, dh)
+    out = ops.flash_attention(qh, kh, vh, causal=causal, kv_group=h // kvh)
+    return out.reshape(b, h, sq, dh).transpose(1, 2)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                     softcap: float = 0.0):
+    """q [B, 1, H, Dh]; caches [B, S, KV, Dh]; ``cache_len`` = valid entries,
+    an int or an int tensor [B] (one per row: the batcher's slots sit at
+    different positions) -> [B, 1, H, Dh]."""
+    if window or softcap > 0:
+        raise not_ported("decode attention with a window or soft cap", 8)
+    return ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                                cache_len)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+_ACTS = {"swiglu": F.silu, "geglu": lambda g: F.gelu(g, approximate="tanh")}
+
+
+def apply_ffn(p, x, act, use_bias=False):
+    h = torch.matmul(x, p["w_in"])
+    if use_bias:
+        h = h + p["b_in"]
+    if act in _ACTS:
+        h = _ACTS[act](torch.matmul(x, p["w_gate"])) * h
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif act == "relu2":
+        h = torch.square(F.relu(h))
+    else:
+        raise ValueError(f"unknown act {act}")
+    y = torch.matmul(h, p["w_out"])
+    if use_bias:
+        y = y + p["b_out"]
+    return y

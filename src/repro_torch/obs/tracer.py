@@ -2,11 +2,13 @@
 record through.
 
 The planner opens a ``plan/offload`` span per app and a ``plan/verify`` span
-per verification, and the GA records a ``ga/generation`` event per
-generation, under the same names as the JAX package, so one reader serves
-both.  The ambient tracer defaults to :data:`NULL_TRACER`: instrumented call
-sites write ``with get_tracer().span(...) as sp: sp.set(...)``
-unconditionally and pay only a no-op context manager when tracing is off.
+per verification, the GA records a ``ga/generation`` event per generation,
+and the continuous batcher records one ``engine/tick`` complete-span per
+tick on its virtual clock, under the same names as the JAX package, so one
+reader serves both.  The ambient tracer defaults to :data:`NULL_TRACER`:
+instrumented call sites write ``with get_tracer().span(...) as sp:
+sp.set(...)`` unconditionally and pay only a no-op context manager when
+tracing is off.
 :class:`Tracer` keeps its records in memory (``tracer.records``); the
 exporters and the report CLI come with the observability slice.
 """
@@ -110,8 +112,17 @@ class NullTracer:
     def span(self, name, cat="", track="", t0=None, **attrs):
         return NULL_SPAN
 
+    def complete_span(self, name, t0, t1, cat="", track="", **attrs):
+        return None
+
     def event(self, name, cat="", track="", t=None, **attrs):
         return None
+
+    def set_time(self, t):
+        pass
+
+    def clear_time(self):
+        pass
 
 
 NULL_TRACER = NullTracer()
@@ -120,7 +131,9 @@ NULL_TRACER = NullTracer()
 class Tracer:
     """Recording tracer (see module docstring).
 
-    ``clock`` supplies timestamps (default ``time.perf_counter``).
+    ``clock`` supplies timestamps (default ``time.perf_counter``);
+    :meth:`set_time` overrides it with a pinned virtual time — the
+    serve/control loop pins each tick, so replays are byte-identical.
     Records accumulate in memory (``records``) in completion order.
     """
 
@@ -131,11 +144,19 @@ class Tracer:
         self.records: List[dict] = []
         self._lock = threading.Lock()
         self._seq = 0
+        self._pinned: Optional[float] = None
         self._local = threading.local()
 
     # --------------------------------------------------------------- clock
     def now(self) -> float:
-        return self.clock()
+        return self._pinned if self._pinned is not None else self.clock()
+
+    def set_time(self, t: float):
+        """Pin the current time (virtual tick clocks; deterministic)."""
+        self._pinned = float(t)
+
+    def clear_time(self):
+        self._pinned = None
 
     # --------------------------------------------------------------- spans
     def _stack(self) -> List[int]:
@@ -172,6 +193,17 @@ class Tracer:
                 "name": sp.name, "cat": sp.cat, "track": sp.track,
                 "t0": sp.t0, "t1": sp.t1,
                 "attrs": _jsonable(sp.attrs)})
+
+    def complete_span(self, name: str, t0: float, t1: float, cat: str = "",
+                      track: str = "", **attrs) -> dict:
+        """Record an already-finished span with explicit timestamps (e.g. a
+        request's dispatch->completion window on the tick clock)."""
+        rec = {"type": "span", "id": self._next_id(), "parent": None,
+               "name": name, "cat": cat, "track": track,
+               "t0": float(t0), "t1": float(t1), "attrs": _jsonable(attrs)}
+        with self._lock:
+            self.records.append(rec)
+        return rec
 
     def event(self, name: str, cat: str = "", track: str = "",
               t: Optional[float] = None, **attrs) -> dict:

@@ -5,7 +5,7 @@ verification against, the port of ``repro.power``.
     destination; built-ins :data:`MANY_CORE_XEON`, :data:`GPU_T4`,
     :data:`FPGA_A10`, :data:`GENERIC`; ``envelope_for(backend)``.
   * :class:`EnergyModel` / :class:`EnergyReport` — host time x envelope ->
-    joules, watts, EDP.
+    joules, watts, EDP; ``tick_joules`` charges one serving tick.
   * :func:`energy_for_record` — the planner's per-record charge rule.
 """
 from repro_torch.power.envelope import (BY_ANALOGUE, FPGA_A10, GENERIC,

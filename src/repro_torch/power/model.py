@@ -12,7 +12,8 @@ destination" to performance per watt without changing the pipeline):
 The planner's records carry host times only (a mesh roofline comes with the
 modeled-cost slice), so a record is charged envelope x host time at full
 utilization — peak watts for the measured seconds, the most conservative
-charge.
+charge.  The continuous batcher charges each tick with
+:meth:`EnergyModel.tick_joules`.
 """
 from __future__ import annotations
 
@@ -66,6 +67,23 @@ class EnergyModel:
             perf_per_watt=(1.0 / energy) if energy > 0 else 0.0,
             step_time_s=time_s, source="host-time",
             envelope=self.envelope.name)
+
+    def tick_joules(self, tick_s: float,
+                    active_fraction: float = 1.0) -> float:
+        """Joules one serving tick burns (repro_torch.serve.metrics).
+
+        A continuous-batching slot pool runs the same decode step however
+        many slots are live, so draw scales with occupancy, not work: idle
+        watts are burned for the whole tick unconditionally, active watts
+        for the ``active_fraction`` of slots doing useful decode — the
+        idle-power term is exactly why batching together is cheaper per
+        token than decoding alone.
+        """
+        if not (tick_s > 0.0):
+            return 0.0
+        af = min(max(active_fraction, 0.0), 1.0)
+        return (self.envelope.idle_w
+                + self.envelope.active_w * af) * tick_s
 
 
 def energy_for_record(record, envelope: PowerEnvelope

@@ -1,0 +1,236 @@
+"""Continuous batching: slot-based decode over a fixed-shape pool; the port
+of ``repro.serve.batching``.
+
+The engine holds one decode cache for ``n_slots`` requests — K/V tensors
+``[L, n_slots, cache_len, KV, Dh]`` allocated once on the model's device —
+and advances every slot with **one** batched ``LM.decode_step`` per tick,
+each slot at its own position (its own RoPE angle, cache write index and
+``cache_len`` into the decode-attention kernel).  Requests join and leave at
+decode-step granularity without ever changing a shape.
+
+Slot-pool invariants (the JAX engine's contract):
+
+  * a slot's cache is replaced wholesale at admission (the prefilled cache
+    is copied into the slot in place), so stale state from a previous
+    occupant can never leak;
+  * inactive slots still run the decode step (fixed shapes beat masked
+    compute at this scale); their outputs are discarded host-side and their
+    cache garbage is overwritten by the next admission;
+  * prefill runs at the **exact** prompt length — a padded prefill is
+    *not* token-identical to the sequential reference;
+  * at most one prefill is interleaved per tick, so admissions never starve
+    running decodes.
+
+Time is a virtual tick clock (``tick_s`` per engine tick): arrivals,
+TTFT/TPOT and energy all live on one deterministic timeline, independent of
+host load.  The port runs eagerly, so there is nothing to trace; ``calls``
+counts the engine's prefills, decode steps and slot inserts instead.
+"""
+from __future__ import annotations
+
+import zlib
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.obs import get_tracer
+from repro_torch.serve.metrics import ServeMetrics
+from repro_torch.serve.request import Request
+
+DEFAULT_TICK_S = 0.01
+
+
+def synth_tokens(rid: str, prompt_len: int, vocab: int) -> np.ndarray:
+    """Deterministic synthetic prompt for a request without one (traces,
+    benchmarks): seeded from the request id, stable across runs."""
+    rng = np.random.RandomState(zlib.crc32(rid.encode()) & 0x7FFFFFFF)
+    return rng.randint(0, vocab, size=(prompt_len,)).astype(np.int32)
+
+
+class ContinuousBatcher:
+    """Slot-pool continuous batching over one model replica.
+
+    ``model`` is a :class:`repro_torch.models.lm.LM` (it holds its weights,
+    so no ``params`` argument); ``n_slots`` fixes the pool width and
+    ``cache_len`` the per-slot KV length.  ``envelope``
+    (:class:`repro_torch.power.PowerEnvelope`) prices each tick's energy
+    into the metrics; ``eos_id`` stops a request early on that token.
+    """
+
+    def __init__(self, model, *, n_slots: int, cache_len: int,
+                 metrics: Optional[ServeMetrics] = None,
+                 envelope=None, eos_id: Optional[int] = None,
+                 tick_s: float = DEFAULT_TICK_S):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1: {n_slots}")
+        self.model = model
+        self.cfg = model.cfg
+        self.n_slots = int(n_slots)
+        self.cache_len = int(cache_len)
+        self.metrics = metrics if metrics is not None else ServeMetrics()
+        self.eos_id = eos_id
+        self.tick_s = float(tick_s)
+        self.energy_model = None
+        if envelope is not None:
+            from repro_torch.power import EnergyModel
+            self.energy_model = EnergyModel(envelope)
+
+        self.calls = {"decode_step": 0, "insert": 0, "prefill": 0}
+        self._pool = model.init_cache(self.n_slots, self.cache_len)
+
+        # host-side slot state (numpy: mutated at tick granularity)
+        self._active = np.zeros(self.n_slots, dtype=bool)
+        self._pos = np.zeros(self.n_slots, dtype=np.int64)
+        self._last_tok = np.zeros(self.n_slots, dtype=np.int64)
+        self._remaining = np.zeros(self.n_slots, dtype=np.int64)
+        self._slot_req: List[Optional[Request]] = [None] * self.n_slots
+        self._ticks = 0
+        self._queue: List[Request] = []       # arrived, awaiting a slot
+        self._pending: List[Request] = []     # on the trace, not yet arrived
+        self._out: Dict[str, List[int]] = {}
+
+    # ------------------------------------------------------------- intake
+    @property
+    def now_s(self) -> float:
+        return self._ticks * self.tick_s
+
+    @property
+    def free_slots(self) -> int:
+        return int((~self._active).sum())
+
+    @property
+    def live(self) -> int:
+        return int(self._active.sum())
+
+    @property
+    def pool(self):
+        """The slot pool's cache ``{"attn": {"k", "v"}}`` (read-only use)."""
+        return self._pool
+
+    def submit(self, req: Request):
+        if req.arch and req.arch != self.cfg.name:
+            raise ValueError(
+                f"request {req.rid} wants arch {req.arch!r}, engine serves "
+                f"{self.cfg.name!r} (route first)")
+        self.metrics.on_submit(req.rid, req.arrival_s, arch=req.arch)
+        self._pending.append(req)
+        self._pending.sort(key=lambda r: (r.arrival_s, r.rid))
+
+    # ------------------------------------------------------------ prefill
+    def _insert(self, cache, slot: int):
+        """Copy a batch-1 cache into ``slot`` of the pool, in place."""
+        self.calls["insert"] += 1
+        for name, buf in self._pool["attn"].items():
+            buf[:, slot].copy_(cache["attn"][name][:, 0])
+
+    def _admit(self, req: Request, slot: int, t_done: float):
+        toks = req.tokens
+        if toks is None:
+            toks = synth_tokens(req.rid, req.prompt_len,
+                                self.cfg.vocab_size)
+        toks = np.asarray(toks, dtype=np.int64).reshape(1, -1)
+        if toks.shape[1] != req.prompt_len:
+            raise ValueError(f"request {req.rid}: tokens length "
+                             f"{toks.shape[1]} != prompt_len "
+                             f"{req.prompt_len}")
+        batch = {"tokens": torch.from_numpy(toks)}
+        batch.update(req.extras)
+        self.calls["prefill"] += 1
+        logits, cache = self.model.prefill(batch, self.cache_len)
+        first = int(logits.argmax(dim=-1)[0])
+
+        self._insert(cache, slot)
+        self._active[slot] = True
+        self._pos[slot] = req.prompt_len
+        self._last_tok[slot] = first
+        self._remaining[slot] = req.max_gen - 1
+        self._slot_req[slot] = req
+        self._out[req.rid] = [first]
+
+        self.metrics.on_admit(req.rid, t_done)
+        self.metrics.on_token(req.rid, t_done)
+        if self._remaining[slot] <= 0 or \
+                (self.eos_id is not None and first == self.eos_id):
+            self._retire(slot, t_done)
+
+    def _retire(self, slot: int, t: float):
+        req = self._slot_req[slot]
+        self._active[slot] = False
+        self._slot_req[slot] = None
+        self._remaining[slot] = 0
+        if req is not None:
+            self.metrics.on_finish(req.rid, t)
+
+    # --------------------------------------------------------------- tick
+    def tick(self) -> bool:
+        """One engine tick: admit due arrivals (≤1 prefill), advance every
+        active slot one decode step, retire finished requests.  Returns
+        True while any work remains (live slots, queue, or future
+        arrivals)."""
+        now = self.now_s
+        t_end = now + self.tick_s
+        while self._pending and self._pending[0].arrival_s <= now:
+            self._queue.append(self._pending.pop(0))
+
+        # one interleaved prefill per tick: admissions must not starve the
+        # decode cadence of the requests already running
+        if self._queue and self.free_slots:
+            slot = int(np.flatnonzero(~self._active)[0])
+            self._admit(self._queue.pop(0), slot, t_end)
+
+        live_before = [r.rid for r in self._slot_req if r is not None]
+        if self._active.any():
+            dev = self.model.device
+            toks = torch.from_numpy(self._last_tok).to(dev)[:, None]
+            poss = torch.from_numpy(self._pos).to(dev)
+            self.calls["decode_step"] += 1
+            logits, _ = self.model.decode_step(self._pool, toks, poss)
+            nxt = logits.argmax(dim=-1).cpu().numpy()
+            for slot in np.flatnonzero(self._active):
+                req = self._slot_req[slot]
+                tok = int(nxt[slot])
+                self._out[req.rid].append(tok)
+                self._last_tok[slot] = tok
+                self._pos[slot] += 1
+                self._remaining[slot] -= 1
+                self.metrics.on_token(req.rid, t_end)
+                if self._remaining[slot] <= 0 or \
+                        (self.eos_id is not None and tok == self.eos_id):
+                    self._retire(slot, t_end)
+
+        self._ticks += 1
+        joules = 0.0
+        if self.energy_model is not None:
+            joules = self.energy_model.tick_joules(
+                self.tick_s, len(live_before) / self.n_slots)
+        self.metrics.charge_tick(joules, live_before)
+        # one complete-span per tick on the virtual clock (no-op unless a
+        # tracer is enabled): the engine's swim-lane in a trace
+        get_tracer().complete_span(
+            "tick", now, t_end, cat="engine",
+            track=f"engine:{self.cfg.name}", tick=self._ticks - 1,
+            live=len(live_before), queued=len(self._queue),
+            joules=joules)
+        return bool(self._active.any() or self._queue or self._pending)
+
+    # ---------------------------------------------------------------- run
+    def run(self, requests: Optional[List[Request]] = None,
+            max_ticks: int = 1_000_000) -> Dict[str, np.ndarray]:
+        """Drive ticks until every submitted request completes; returns
+        ``{rid: generated tokens [max_gen]}`` (greedy decode)."""
+        for req in requests or ():
+            self.submit(req)
+        # fast-forward to the first arrival: an empty engine burning idle
+        # ticks until the trace starts is not useful work
+        if not self._active.any() and not self._queue and self._pending:
+            first = self._pending[0].arrival_s
+            if first > self.now_s:
+                self._ticks = int(np.ceil(first / self.tick_s - 1e-9))
+        for _ in range(max_ticks):
+            if not self.tick():
+                break
+        else:
+            raise RuntimeError(f"engine did not drain in {max_ticks} ticks")
+        return {rid: np.asarray(toks, dtype=np.int32)
+                for rid, toks in self._out.items()}

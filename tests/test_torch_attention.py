@@ -1,0 +1,163 @@
+"""The port's attention against the JAX package's: the plain versions of the
+flash-attention and decode-attention kernels against the Pallas kernels
+(interpret mode) at every shape and tolerance of tests/test_kernels.py, and
+the port's GQA layers against the JAX layers with grouped heads, a ragged
+prompt length and per-slot cache lengths.  The CUDA kernels against their
+plain versions are in tests/test_torch_cuda.py."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import decode_attention as jax_da
+from repro.kernels import flash_attention as jax_fa
+from repro.models import layers as jax_layers
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("bh,sq,skv,d,bq,bkv", [
+    (2, 64, 64, 16, 32, 32),
+    (3, 128, 128, 32, 32, 64),
+    (1, 96, 96, 64, 32, 32),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas(bh, sq, skv, d, bq, bkv, causal):
+    rng = np.random.default_rng(3)
+    q, k, v = (_normal(rng, (bh, s, d)) for s in (sq, skv, skv))
+    want = jax_fa.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                  causal=causal, block_q=bq, block_kv=bkv,
+                                  interpret=True)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert torch.equal(got, ref.mha_ref(tq, tk, tv, causal=causal))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_flash_plain_matches_pallas_bf16():
+    rng = np.random.default_rng(4)
+    q, k, v = (_normal(rng, (2, 64, 32)) for _ in range(3))
+    want = jax_fa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), block_q=32,
+        block_kv=32, interpret=True)
+    got = ops.flash_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("rep", [2, 4])
+def test_flash_kv_group_reads_kv_head_bh_over_rep(rep):
+    """Row bh reads K/V row bh // rep: equal to the Pallas kernel on K/V
+    repeated per query head in the same order."""
+    rng = np.random.default_rng(5)
+    q = _normal(rng, (2 * rep, 64, 32))
+    k, v = _normal(rng, (2, 64, 32)), _normal(rng, (2, 64, 32))
+    want = jax_fa.flash_attention(
+        jnp.asarray(q), jnp.asarray(np.repeat(k, rep, axis=0)),
+        jnp.asarray(np.repeat(v, rep, axis=0)), block_q=32, block_kv=32,
+        interpret=True)
+    got = ops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                              kv_group=rep)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bh,s,d,bkv,clen", [
+    (4, 256, 64, 64, 256), (2, 512, 32, 128, 300), (1, 128, 128, 64, 1),
+])
+def test_decode_plain_matches_pallas(bh, s, d, bkv, clen):
+    rng = np.random.default_rng(7)
+    q, k, v = _normal(rng, (bh, d)), _normal(rng, (bh, s, d)), \
+        _normal(rng, (bh, s, d))
+    want = jax_da.decode_attention(*map(jnp.asarray, (q, k, v)),
+                                   jnp.int32(clen), block_kv=bkv,
+                                   interpret=True)
+    # the TPU form [BH, D] / [BH, S, D] is the grouped form with H = KV = 1
+    tq = torch.from_numpy(q)[:, None, :]
+    tk = torch.from_numpy(k)[:, :, None, :]
+    tv = torch.from_numpy(v)[:, :, None, :]
+    got = ops.decode_attention(tq, tk, tv, clen)
+    assert torch.equal(got, ref.decode_attention_ref(tq, tk, tv, clen))
+    np.testing.assert_allclose(got[:, 0].numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 2), (8, 2)])
+@pytest.mark.parametrize("s", [37, 64])
+def test_gqa_prefill_layer_matches_jax_dense_attention(h, kv, s):
+    """layers.attention (flash kernel's plain version, kv_group = H / KV)
+    against the JAX grouped dense attention: rep 2 and 4, a ragged S."""
+    rng = np.random.default_rng(8)
+    q = _normal(rng, (2, s, h, 16))
+    k, v = _normal(rng, (2, s, kv, 16)), _normal(rng, (2, s, kv, 16))
+    want = jax_layers.dense_attention(*map(jnp.asarray, (q, k, v)),
+                                      causal=True)
+    got = layers.attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    assert got.shape == (2, s, h, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("h,kv", [(4, 2), (8, 2)])
+def test_per_slot_decode_layer_matches_vmapped_jax(h, kv):
+    """One batched call with a cache_len per slot equals the JAX engine's
+    vmap of the scalar-length layer over the slots."""
+    rng = np.random.default_rng(9)
+    n, s, d = 4, 96, 32
+    q = _normal(rng, (n, 1, h, d))
+    kc, vc = _normal(rng, (n, s, kv, d)), _normal(rng, (n, s, kv, d))
+    lens = np.array([1, 37, 64, 96], np.int32)
+    want = jax.vmap(
+        lambda q1, k1, v1, n1: jax_layers.decode_attention(
+            q1[None], k1[None], v1[None], n1)[0])(
+        *map(jnp.asarray, (q, kc, vc, lens)))
+    got = layers.decode_attention(*map(torch.from_numpy, (q, kc, vc)),
+                                  torch.from_numpy(lens))
+    assert got.shape == (n, 1, h, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_decode_cache_len_scalar_broadcasts():
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(3, 4, 16, generator=g)
+    kc, vc = (torch.randn(3, 20, 2, 16, generator=g) for _ in range(2))
+    assert torch.equal(ops.decode_attention(q, kc, vc, 7),
+                       ops.decode_attention(q, kc, vc,
+                                            torch.tensor([7, 7, 7])))
+
+
+def test_attention_layers_refuse_other_families():
+    x = torch.zeros(1, 4, 2, 16)
+    for kw in ({"window": 8}, {"softcap": 30.0}, {"q_offset": 2}):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            layers.attention(x, x, x, causal=True, **kw)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        layers.decode_attention(x[:, :1], x, x, 4, window=8)
+
+
+def test_cpu_attention_launches_no_kernel():
+    """CPU tensors take the plain versions; the CUDA wrappers refuse
+    them."""
+    from repro_torch.kernels import decode_attention as cuda_da
+    from repro_torch.kernels import flash_attention as cuda_fa
+    ops.reset_launch_counts()
+    x = torch.ones(2, 8, 16)
+    ops.flash_attention(x, x, x)
+    ops.decode_attention(x[:, :1], x[:, :, None], x[:, :, None], 8)
+    assert ops.launch_counts() == {"matmul": 0, "tdfir": 0,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_fa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_da.decode_attention(x[:, :1], x[:, :, None], x[:, :, None], 8)

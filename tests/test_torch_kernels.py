@@ -68,7 +68,9 @@ def test_cpu_dispatch_launches_no_kernel():
     a = torch.ones(4, 4)
     assert torch.equal(ops.matmul(a, a), ref.matmul_ref(a, a))
     assert torch.equal(ops.tdfir(a, a[:, :2]), ref.tdfir_ref(a, a[:, :2]))
-    assert ops.launch_counts() == {"matmul": 0, "tdfir": 0}
+    assert ops.launch_counts() == {"matmul": 0, "tdfir": 0,
+                                   "flash_attention": 0,
+                                   "decode_attention": 0}
     with pytest.raises(ValueError):
         cuda_mm.matmul(a, a)
     with pytest.raises(ValueError):
