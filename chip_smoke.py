@@ -10,14 +10,21 @@ each printing its seconds:
                flags, both off;
   2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
                flash_attention, decode_attention), all started together,
-               with each kernel's ``-Xptxas -v`` report;
+               with each kernel's ``-Xptxas -v`` report; the flash library's
+               SASS (cuobjdump) must hold HGMMA (wgmma) instructions, and
+               their count is printed;
   3. check     every kernel against its plain PyTorch version on the card: the
                JAX tests' shapes at their tolerances, the main-path shapes,
-               and lengths that are not multiples of the tile;
+               and lengths that are not multiples of the tile; for the bf16
+               tensor-core flash kernel every head dim, lengths around its
+               128-row tiles, causal and not, kv_group 1 and 4, held to an
+               absolute and a row-scaled limit (``kernels/parity.py``) that
+               must also reject three simulated faults at the main shapes;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
-               beside the least time the card could take;
+               beside the least time the card could take; flash attention
+               also at the ragged S=1000 and at D=128;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
@@ -44,6 +51,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +76,7 @@ TDFIR_MAIN_BLOCK_N = 128                   # the app's max(128, K)
 # the 4-slot decode pool at the trace's per-slot lengths
 FLASH_MAIN = (1, 32, 8, 2048, 64)
 FLASH_RAGGED_S = 1000
+FLASH_WIDE_D = 128             # nemotron, command-r+, arctic, ... head dim
 DECODE_MAIN = (4, 32, 8, 2112, 64)
 DECODE_MAIN_LENS = (1, 300, 1000, 2112)
 SERVE_ARCH = "granite-3-2b"
@@ -255,10 +264,27 @@ def decode_inputs(gen, dtype, b, h, kv, s, d, lens):
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
+def check_flash_bf16(what: str, got, want) -> float:
+    """The bf16 tensor-core kernel against its plain version: the absolute
+    limit and the row-scaled one of ``kernels/parity.py``."""
+    from repro_torch.kernels import parity
+    torch.cuda.synchronize()
+    ok, err, rerr = parity.within_limits(got, want)
+    print(f"  {what:48s} max_abs_err {err:.3e}  row_err {rerr:.3e}  "
+          f"{'ok' if ok else 'MISMATCH'}")
+    require(ok, f"{what}: kernel disagrees with its plain version "
+            f"(abs {err:.3e} > {parity.BF16_ABS_TOL} or row {rerr:.3e} > "
+            f"{parity.BF16_ROW_TOL})")
+    return err
+
+
 def check_attention(ops, ref, gen):
     """Phase 3, attention kernels: returns the main-path max errors."""
+    from repro_torch.kernels import parity
     errs = {}
-    print(" flash_attention (JAX test shapes: fp32 at 2e-4, bf16 at 5e-2)")
+    print(f" flash_attention (JAX test shapes: fp32 at 2e-4; bf16 at "
+          f"{parity.BF16_ABS_TOL} and row_err {parity.BF16_ROW_TOL}: each "
+          f"row's largest error over that row's rms)")
     for bh, s, d in ((2, 64, 16), (3, 128, 32), (1, 96, 64)):
         q, k, v = (randn(gen, bh, s, d) for _ in range(3))
         for causal in (True, False):
@@ -266,25 +292,56 @@ def check_attention(ops, ref, gen):
                         ops.flash_attention(q, k, v, causal=causal),
                         ref.mha_ref(q, k, v, causal=causal), 2e-4)
     q, k, v = (randn(gen, 2, 64, 32, dtype=torch.bfloat16) for _ in range(3))
-    check_close("flash 2x64x32 bfloat16", ops.flash_attention(q, k, v),
-                ref.mha_ref(q, k, v), 5e-2)
+    check_flash_bf16("flash 2x64x32 bfloat16", ops.flash_attention(q, k, v),
+                     ref.mha_ref(q, k, v))
     print(" flash_attention (main path: granite prefill B=1 H=32 KV=8 D=64 "
-          "as strided views, S=2048 and ragged S=1000, bf16 at 5e-2 and fp32"
-          " at 2e-4; D=128)")
+          "as strided views, S=2048 and ragged S=1000, fp32 at 2e-4, bf16 "
+          "at both limits, also at D=128, each beside simulated faults "
+          "that the limits must reject; fp32 D=128)")
     for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
-        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
-            q, k, v, rep = flash_inputs(gen, s, dtype)
-            err = check_close(
-                f"flash H=32 KV=8 S={s} {dtype} causal",
-                ops.flash_attention(q, k, v, kv_group=rep),
-                ref.mha_ref(q, k, v, kv_group=rep), tol)
-            if s == FLASH_MAIN[3] and dtype == torch.bfloat16:
+        for dtype, d in ((torch.bfloat16, FLASH_MAIN[4]),
+                         (torch.float32, FLASH_MAIN[4]),
+                         (torch.bfloat16, FLASH_WIDE_D)):
+            q, k, v, rep = flash_inputs(gen, s, dtype, d=d)
+            what = f"flash H=32 KV=8 S={s} D={d} {dtype} causal"
+            got = ops.flash_attention(q, k, v, kv_group=rep)
+            want = ref.mha_ref(q, k, v, kv_group=rep)
+            if dtype == torch.float32:
+                check_close(what, got, want, 2e-4)
+                continue
+            err = check_flash_bf16(what, got, want)
+            if s == FLASH_MAIN[3] and d == FLASH_MAIN[4]:
                 errs["flash_attention"] = err
+            # the limits must reject kernel faults that only late rows show
+            for fault, bad in parity.fault_controls(q, k, v, rep).items():
+                ok, ferr, frerr = parity.within_limits(bad, want)
+                print(f"    control, {fault:26s} max_abs_err {ferr:.3e}  "
+                      f"row_err {frerr:.3e}  {'PASSES' if ok else 'rejected'}")
+                require(not ok, f"{what}: the bf16 limits pass a simulated "
+                        f"fault ({fault})")
     q, k, v, rep = flash_inputs(gen, 300, torch.float32, b=2, h=8, kv=2,
                                 d=128)
     check_close("flash B=2 H=8 KV=2 S=300 D=128 float32",
                 ops.flash_attention(q, k, v, kv_group=rep),
                 ref.mha_ref(q, k, v, kv_group=rep), 2e-4)
+    print(f" flash_attention bf16 tensor-core kernel: S in {parity.SWEEP_S}"
+          ", causal and not, kv_group 1 and 4 (H=8 over KV=8 or 2) as "
+          "strided views; max over each head dim")
+    for d in parity.SWEEP_D:
+        worst, worst_row = 0.0, 0.0
+        for s in parity.SWEEP_S:
+            for rep, causal, q, k, v in parity.sweep_cases(gen, d, s):
+                got = ops.flash_attention(q, k, v, causal=causal,
+                                          kv_group=rep)
+                want = ref.mha_ref(q, k, v, causal=causal, kv_group=rep)
+                torch.cuda.synchronize()
+                ok, err, rerr = parity.within_limits(got, want)
+                require(ok, f"flash bf16 D={d} S={s} kv_group={rep} causal="
+                        f"{causal}: kernel disagrees with its plain version "
+                        f"(abs {err:.3e}, row {rerr:.3e})")
+                worst, worst_row = max(worst, err), max(worst_row, rerr)
+        print(f"  flash bf16 D={d:<3d} 24 shapes {'':23s} max_abs_err "
+              f"{worst:.3e}  row_err {worst_row:.3e}  ok")
 
     print(" decode_attention (JAX test shapes at 2e-4, one head per row)")
     for bh, s, d, clen in ((4, 256, 64, 256), (2, 512, 32, 300),
@@ -355,23 +412,38 @@ def time_kernels(ops, ref):
     return rows
 
 
-def time_attention(ops, ref, gen, rows, dev):
-    """Phase 4, attention kernels at the serving path's bf16 shapes, held to
-    the bf16 tensor-core peak; fills ``rows`` and ``dev``."""
-    b, h, kv, s, d = FLASH_MAIN
-    q, k, v, rep = flash_inputs(gen, s, torch.bfloat16)
+def flash_case(ops, ref, gen, s, d):
+    """Causal bf16 prefill at B=1, H=32, KV=8: (kernel, plain, SDPA) calls
+    and the bound (half of the full 4*B*H*S^2*D FLOP; q, k, v read and o
+    written once), held to the bf16 tensor-core peak."""
+    b, h, kv = FLASH_MAIN[:3]
+    q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, d=d)
     q4, k4, v4 = q.reshape(b, h, s, d), k.reshape(b, kv, s, d), \
         v.reshape(b, kv, s, d)
-    # causal: half of the full 4*B*H*S^2*D; q, k, v read and o written once
     t_bound, by = bound(2.0 * b * h * s * s * d,
                         2.0 * (2 * b * h * s * d + 2 * b * kv * s * d),
                         BF16_PEAK_FLOPS)
+    return (lambda: ops.flash_attention(q, k, v, kv_group=rep),
+            lambda: ref.mha_ref(q, k, v, kv_group=rep),
+            lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True), t_bound, by)
+
+
+def time_attention(ops, ref, gen, rows, dev):
+    """Phase 4, attention kernels at the serving path's bf16 shapes, held to
+    the bf16 tensor-core peak; fills ``rows`` and ``dev``."""
+    kernel, plain, library, t_bound, by = flash_case(
+        ops, ref, gen, FLASH_MAIN[3], FLASH_MAIN[4])
     rows["flash_attention"], dev["flash_attention"] = time_row(
-        lambda: ops.flash_attention(q, k, v, kv_group=rep),
-        lambda: ref.mha_ref(q, k, v, kv_group=rep),
-        lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=True), t_bound, by,
-        iters=50, plain_iters=10)
+        kernel, plain, library, t_bound, by, iters=50, plain_iters=10)
+    for s, d in ((FLASH_RAGGED_S, FLASH_MAIN[4]),
+                 (FLASH_MAIN[3], FLASH_WIDE_D)):
+        kernel, _, library, t_bound, by = flash_case(ops, ref, gen, s, d)
+        ms, lib_ms = time_ms(kernel, 50), time_ms(library, 50)
+        dev_ms, dev_lib = device_profile(kernel)[0], device_profile(library)[0]
+        print(f"  flash_attention S={s} D={d}: kernel {ms:.4f} ms (device "
+              f"{dev_ms:.4f})  bound {t_bound:.4f} ms ({by})  SDPA "
+              f"{lib_ms:.4f} ms (device {dev_lib:.4f})")
 
     # four cache pairs in turn (69 MB > the 50 MB L2): each call finds its
     # cache cold, as each layer of a decode step does
@@ -403,6 +475,16 @@ def time_attention(ops, ref, gen, rows, dev):
                         BF16_PEAK_FLOPS)
     rows["decode_attention"], dev["decode_attention"] = time_row(
         kernel, plain, library, t_bound, by, plain_iters=50)
+
+
+def count_sass(build, name: str, opcode: str) -> int:
+    """How many ``opcode`` instructions the SASS of kernel library ``name``
+    holds (cuobjdump from the toolkit that built it)."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    return len(re.findall(rf"\b{opcode}\.", sass))
 
 
 def run_planner(ops):
@@ -645,6 +727,10 @@ def main() -> int:
     with phase("2 build"):
         for name, log in _build.build_all().items():
             print(f"  [{name}] {_build.library_path(name).name}\n{log}")
+        n_hgmma = count_sass(_build, "flash_attention", "HGMMA")
+        print(f"  flash_attention SASS: {n_hgmma} HGMMA (wgmma) instructions")
+        require(n_hgmma > 0, "the flash_attention library has no HGMMA: its "
+                "bf16 kernel does not run on the tensor cores")
     with phase("3 check"):
         errs = check_kernels(ops, ref)
     with phase("4 time"):

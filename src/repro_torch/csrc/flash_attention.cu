@@ -1,5 +1,5 @@
-// Flash (online-softmax) attention on CUDA cores, the prefill attention of
-// the LM: O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal mask) V[g] with
+// Flash (online-softmax) attention, the prefill attention of the LM:
+// O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal mask) V[g] with
 // g = bh / kv_group (grouped-query attention reads its KV head in place).
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
@@ -8,71 +8,405 @@
 //
 // Numerics follow the TPU kernel: scores and the (max, denominator,
 // accumulator) carries in fp32, masked scores set to NEG_INF = -1e30 (not
-// -inf) and their probabilities zeroed, p rounded to V's type before the PV
-// product, the denominator floored at 1e-20.
+// -inf) so their probabilities come out 0, p rounded to V's type before the
+// PV product, the denominator floored at 1e-20.
 //
 // Bound on the H100: operations.  Causal prefill at the serving path's
-// shapes (1 x 32 heads x 2048 x 64, bf16) is 1.7e10 FLOP against 21 MB of
-// q/k/v/o, so even the bf16 tensor-core peak (989 TFLOP/s, ~17 us) sits far
-// above the memory time (~6 us).  This first version runs fp32 FMAs on the
-// CUDA cores; mma.sync / wgmma tiles and TMA are later work.
+// shapes (1 x 32 heads x 2048 x 64, bf16) is 2*B*H*S^2*D = 1.72e10 FLOP
+// against 21 MB of q/k/v/o: 0.0174 ms at the 989 TFLOP/s bf16 tensor-core
+// peak, far above the ~0.006 ms memory time.  So bf16 has to run on the
+// tensor cores, and it does (two kernels, one entry, chosen by dtype):
 //
-// Design: one 256-thread block per (64-row query tile, bh).  The block stages
-// its Q tile once in shared memory (fp32), then walks the keys in 32-row
-// tiles: stage K and V, compute the 64x32 score tile (each thread a 4x2
-// register tile), run the online-softmax update with four threads per query
-// row (shuffle reductions), and fold P V into a 4 x (D/16) register tile of
-// the accumulator per thread.  Under the causal mask the walk stops after
-// the tile holding the last query row's own key, which skips exactly the
-// tiles the TPU grid ran fully masked (they left every carry unchanged).
-// Ragged Sq and Skv are masked at the loads and the store, so any length
+// bf16 -- flash_bf16_kernel, wgmma + TMA (the FlashAttention-3 layout
+// without warp specialisation).  One block of two consumer warpgroups owns
+// a 128-row query tile, 64 rows per warpgroup; Q is loaded once by TMA.
+// The block shape is set by occupancy: a thread holds 64 score, 32 P and
+// D/2 output registers (ptxas: 151 registers at D = 64, 184 at D = 128),
+// so only one 256-thread block fits an SM's 64 K registers, and its two
+// warpgroups share every K/V tile and hide each other's softmax behind
+// their products.  K and V stream through a ring of shared-memory stages
+// (three, two at D = 128), each filled by TMA (cp.async.bulk.tensor, 3-D
+// tensor maps over [heads, S, D] with the 128/64/32-byte swizzle that a
+// D-wide row allows; D = 128 is two 64-column swizzle atoms) and guarded
+// by a "full" mbarrier (transaction bytes) and an "empty" mbarrier (one
+// arrival per consumer warp).  Thread 0 refills the
+// stage of tile j-1 with tile j-1+STAGES while tile j's products run, so
+// the next loads are always in flight.  S = Q K^T is wgmma.m64n128k16 with
+// both operands K-major in shared memory; the fp32 score fragments get the
+// online softmax in registers (row max and sum over the quad of threads
+// that share a row, __shfl_xor_sync 1 and 2), are rounded to bf16 in place,
+// and are then exactly the A fragments of O += P V (wgmma.m64nDk16, A from
+// registers, V MN-major through the transpose bit), so scores never go back
+// to shared memory.  The fp32 O accumulator stays in registers for the
+// whole walk.  exp(x * scale) is computed as exp2f(x * scale * log2 e): its
+// rounding differs from expf by a few fp32 ulp, far inside the bf16
+// output's tolerance.  The causal and ragged masks are applied only on the
+// diagonal tile and on the last (ragged) tile; full tiles skip the compare.
+// TMA zero-fills rows past S, and the output rows past Sq are not stored.
+// Blocks start with the heaviest query tiles (largest q0: the longest causal
+// walks) so the short ones fill the tail on 132 SMs.  The tensor maps need
+// 16-byte aligned bases and strides (the wrapper checks and raises), and
+// cuTensorMapEncodeTiled is a driver API: it is fetched through
+// cudaGetDriverEntryPoint, so the library never links -lcuda.
+//
+// fp32 -- flash_f32_kernel, fp32 FMAs on the CUDA cores.  TF32 tensor cores
+// would break the 2e-4 fp32 contract of the JAX tests and the exact greedy
+// tokens of the fp32 serving parity run, so fp32 keeps this design: one
+// 256-thread block per (64-row query tile, bh) stages its Q tile once, walks
+// the keys in 32-row tiles (K/V staged in shared memory, a 4x2 register tile
+// of scores per thread, the online-softmax update with four threads per
+// query row, a 4 x (D/16) accumulator tile per thread).
+//
+// Both stop a causal walk after the tile holding the block's last query
+// row, which skips exactly the tiles the TPU grid ran fully masked (they
+// left every carry unchanged).  Ragged Sq and Skv are masked, so any length
 // works; row and sequence strides are arguments, so q/k/v may be views of
 // the model's [B, S, H, D] projections.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;        // query rows per block
-constexpr int BKV = 32;       // keys per tile
-constexpr int THREADS = 256;  // 16 x 16; four threads per query row in softmax
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-// p.astype(v.dtype) of the TPU kernel, read back as fp32
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int NWG = 2;                 // consumer warpgroups per block
+constexpr int BQ = 64 * NWG;           // query rows per block
+constexpr int BKV = 128;               // keys per tile
+constexpr int BF16_THREADS = 128 * NWG;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D> struct Tile {
+  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle bytes
+  static constexpr int ACOLS = SW / 2;   // bf16 columns of one swizzle atom
+  static constexpr int NSUB = D / ACOLS;            // atoms across D
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int STAGES = D == 128 ? 2 : 3;   // K/V ring depth
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BKV * D * 2;      // one K or V tile
+  static constexpr int NO = ACOLS / 2;   // O fragment floats per atom
+  // 1024 bytes of slack to align the tiles, then the 2 * STAGES + 1
+  // mbarriers
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+};
+
+// box (c0 = column, row, head) of a map whose outer dims are (S, heads), or
+// (heads, S) when ``heads_inner`` (the strides must grow outward)
+__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, int head,
+                                         bool heads_inner, uint32_t bar) {
+  hopper::tma_load_3d(dst, map, col, heads_inner ? head : row,
+                      heads_inner ? row : head, bar);
 }
 
-template <int D> constexpr size_t smem_floats() {
-  return BQ * (D + 1)          // qs: Q tile (padded rows: no bank conflicts)
-         + BKV * (D + 1)       // ks: K tile
-         + BKV * D             // vs: V tile
-         + BQ * (BKV + 1)      // ss: scores, then p
-         + 3 * BQ;             // running max, denominator, correction
+template <int D>
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  __nv_bfloat16* __restrict__ o, int n_bh, int sq, int skv,
+                  int kv_group, int causal, float scale, int heads_inner) {
+  using T = Tile<D>;
+  constexpr int SW = T::SW, NSUB = T::NSUB, NO = T::NO, STAGES = T::STAGES;
+  extern __shared__ uint8_t smem[];
+  const uint32_t s_q = (hopper::smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t s_kv = s_q + T::Q_BYTES;  // stage s: K, then V
+  const uint32_t s_bar = s_kv + STAGES * 2 * T::KV_BYTES;
+  // full[s] at s_bar + 8 s, empty[s] at s_bar + 8 (STAGES + s), Q's last
+  const uint32_t q_bar = s_bar + 16 * STAGES;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int n_qt = (sq + BQ - 1) / BQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh) * BQ;
+  const int bh = blockIdx.x % n_bh;
+  const int kvh = bh / kv_group;
+  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int n_kv = (kv_end + BKV - 1) / BKV;
+
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_kv = [&](int j, int s) {
+    const uint32_t full = s_bar + 8 * s;
+    const uint32_t k_dst = s_kv + s * 2 * T::KV_BYTES;
+    hopper::mbar_expect_tx(full, 2 * T::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) {
+      load_box(k_dst + c * BKV * SW, map_k, c * T::ACOLS, j * BKV, kvh,
+               heads_inner & 2, full);
+      load_box(k_dst + T::KV_BYTES + c * BKV * SW, map_v, c * T::ACOLS,
+               j * BKV, kvh, heads_inner & 4, full);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(s_bar + 8 * s, 1);
+      hopper::mbar_init(s_bar + 8 * (STAGES + s), 4 * NWG);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_bar, T::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c)
+      load_box(s_q + c * BQ * SW, &tm_q, c * T::ACOLS, q0, bh,
+               heads_inner & 1, q_bar);
+    for (int j = 0; j < STAGES && j < n_kv; ++j) load_kv(j, j);
+  }
+
+  // this thread's two query rows: r0 holds fragment entries 4i, 4i+1 and
+  // r0 + 8 entries 4i+2, 4i+3 (columns 8i + 2 (lane % 4) + {0, 1})
+  const int r0 = q0 + 64 * wg + 16 * warp + lane / 4;
+  const float c2 = scale * LOG2E;
+  float o_acc[NSUB][NO];
+#pragma unroll
+  for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o_acc[c][i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF;  // running max (raw scores)
+  float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
+
+  hopper::mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % STAGES;
+    const uint32_t k_tile = s_kv + s * 2 * T::KV_BYTES;
+    const uint32_t v_tile = k_tile + T::KV_BYTES;
+    hopper::mbar_wait(s_bar + 8 * s, (j / STAGES) & 1);
+
+    // S = Q K^T: D / 16 k-steps, each 32 bytes into a swizzle atom
+    float sacc[BKV / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int atom = kk * 32 / SW, off = kk * 32 % SW;
+      const uint64_t da = hopper::smem_desc(
+          s_q + atom * BQ * SW + wg * 64 * SW + off, 16, 8 * SW, T::LAYOUT);
+      const uint64_t db = hopper::smem_desc(k_tile + atom * BKV * SW + off,
+                                            16, 8 * SW, T::LAYOUT);
+      hopper::wgmma_ss_n128(sacc, da, db, kk > 0);
+    }
+    hopper::wgmma_commit();
+    // refill the stage tile j-1 used while this tile's products run
+    if (tid == 0 && j >= 1 && j - 1 + STAGES < n_kv) {
+      const int sp = (j - 1) % STAGES;
+      hopper::mbar_wait(s_bar + 8 * (STAGES + sp), ((j - 1) / STAGES) & 1);
+      load_kv(j - 1 + STAGES, sp);
+    }
+    __syncwarp();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+
+    // masks: only the diagonal tile and the ragged last tile need them
+    const int k0 = j * BKV;
+    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > q0 + 64 * wg)) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+        const int row = r0 + 8 * ((i / 2) & 1);
+        if (kpos >= skv || (causal && row < kpos)) sacc[i] = NEG_INF;
+      }
+    }
+
+    // online softmax over the quad that shares each row
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < BKV / 2; i += 4) {
+      mx0 = fmaxf(mx0, fmaxf(sacc[i], sacc[i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[i + 2], sacc[i + 3]));
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float corr0 = exp2f((m0 - mx0) * c2);
+    const float corr1 = exp2f((m1 - mx1) * c2);
+    m0 = mx0;
+    m1 = mx1;
+    const float mc0 = mx0 * c2, mc1 = mx1 * c2;
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pa[BKV / 4];  // P in bf16: the A fragments of P V
+#pragma unroll
+    for (int i = 0; i < BKV / 2; i += 2) {
+      const bool hi = (i / 2) & 1;
+      const float pa0 = exp2f(fmaf(sacc[i], c2, hi ? -mc1 : -mc0));
+      const float pa1 = exp2f(fmaf(sacc[i + 1], c2, hi ? -mc1 : -mc0));
+      if (hi)
+        sum1 += pa0 + pa1;
+      else
+        sum0 += pa0 + pa1;
+      pa[i / 2] = hopper::pack_bf16x2(pa0, pa1);
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o_acc[c][i] *= (i & 2) ? corr1 : corr0;
+
+    // O += P V: BKV / 16 k-steps of 16 keys, one wgmma per swizzle atom
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+#pragma unroll
+      for (int c = 0; c < NSUB; ++c) {
+        const uint64_t db =
+            hopper::smem_desc(v_tile + c * BKV * SW + kk * 16 * SW, 8 * SW,
+                              8 * SW, T::LAYOUT);
+        hopper::WgmmaRS<T::ACOLS>::run(o_acc[c], a, db);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) hopper::fence_regs(o_acc[c]);
+    hopper::fence_regs(pa);
+    if (lane == 0) hopper::mbar_arrive(s_bar + 8 * (STAGES + s));
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
+  __nv_bfloat16* orow0 = o + (static_cast<size_t>(bh) * sq + r0) * D;
+  __nv_bfloat16* orow1 = orow0 + 8 * D;
+#pragma unroll
+  for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < NO; i += 4) {
+      const int col = c * T::ACOLS + 2 * i + 2 * (lane % 4);
+      if (r0 < sq)
+        *reinterpret_cast<uint32_t*>(orow0 + col) = hopper::pack_bf16x2(
+            o_acc[c][i] / den0, o_acc[c][i + 1] / den0);
+      if (r0 + 8 < sq)
+        *reinterpret_cast<uint32_t*>(orow1 + col) = hopper::pack_bf16x2(
+            o_acc[c][i + 2] / den1, o_acc[c][i + 3] / den1);
+    }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-             int kv_group, int causal, float scale, long long q_sb,
-             long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-             long long v_ss) {
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+constexpr int ERR_NO_ENCODER = -1;  // the driver has no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = -2;      // it refused a q/k/v tensor map
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [n, s, d] bf16 tensor with strides (sb, ss, 1) as a 3-D map whose boxes
+// are (acols columns, ``rows`` rows, one head).  The outer dims go in order
+// of growing stride; ``heads_inner`` says whether heads came first.
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int n, int s,
+            int d, long long sb, long long ss, int rows, int acols,
+            CUtensorMapSwizzle swizzle, bool* heads_inner) {
+  *heads_inner = sb < ss;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(*heads_inner ? n : s),
+                              static_cast<cuuint64_t>(*heads_inner ? s : n)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(*heads_inner ? sb : ss) * 2,
+      static_cast<cuuint64_t>(*heads_inner ? ss : sb) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(acols),
+                             static_cast<cuuint32_t>(*heads_inner ? 1 : rows),
+                             static_cast<cuuint32_t>(*heads_inner ? rows : 1)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
+                int sq, int skv, int kv_group, int causal, float scale,
+                long long q_sb, long long q_ss, long long k_sb,
+                long long k_ss, long long v_sb, long long v_ss,
+                cudaStream_t stream) {
+  using T = Tile<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return ERR_NO_ENCODER;
+  const CUtensorMapSwizzle swizzle = T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  bool inner_q, inner_k, inner_v;
+  const int n_kv = bh / kv_group;
+  if (!encode(fn, &tq, q, bh, sq, D, q_sb, q_ss, BQ, T::ACOLS, swizzle,
+              &inner_q) ||
+      !encode(fn, &tk, k, n_kv, skv, D, k_sb, k_ss, BKV, T::ACOLS, swizzle,
+              &inner_k) ||
+      !encode(fn, &tv, v, n_kv, skv, D, v_sb, v_ss, BKV, T::ACOLS, swizzle,
+              &inner_v))
+    return ERR_ENCODE;
+  const int heads_inner = inner_q | inner_k << 1 | inner_v << 2;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = ((sq + BQ - 1) / BQ) * bh;
+  flash_bf16_kernel<D><<<grid, BF16_THREADS, T::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), bh, sq, skv, kv_group,
+      causal, scale, heads_inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BQ = 64;        // query rows per block
+constexpr int F32_BKV = 32;       // keys per tile
+constexpr int F32_THREADS = 256;  // 16 x 16; four threads per query row
+
+template <int D> constexpr size_t f32_smem_floats() {
+  return F32_BQ * (D + 1)          // qs: Q tile (padded rows: no conflicts)
+         + F32_BKV * (D + 1)       // ks: K tile
+         + F32_BKV * D             // vs: V tile
+         + F32_BQ * (F32_BKV + 1)  // ss: scores, then p
+         + 3 * F32_BQ;             // running max, denominator, correction
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS)
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int sq,
+                 int skv, int kv_group, int causal, float scale,
+                 long long q_sb, long long q_ss, long long k_sb,
+                 long long k_ss, long long v_sb, long long v_ss) {
+  constexpr int BQ = F32_BQ, BKV = F32_BKV, THREADS = F32_THREADS;
   constexpr int TJ = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;
+  extern __shared__ float fsmem[];
+  float* qs = fsmem;
   float* ks = qs + BQ * (D + 1);
   float* vs = ks + BKV * (D + 1);
   float* ss = vs + BKV * D;
@@ -85,14 +419,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / 16;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const T* qb = q + bh * q_sb;
-  const T* kb = k + (bh / kv_group) * k_sb;
-  const T* vb = v + (bh / kv_group) * v_sb;
+  const float* qb = q + bh * q_sb;
+  const float* kb = k + (bh / kv_group) * k_sb;
+  const float* vb = v + (bh / kv_group) * v_sb;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
     const int gr = q0 + r;
-    qs[r * (D + 1) + d] = gr < sq ? to_float(qb[gr * q_ss + d]) : 0.f;
+    qs[r * (D + 1) + d] = gr < sq ? qb[gr * q_ss + d] : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = NEG_INF;
@@ -113,8 +447,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / D, d = e % D;
       const int gk = k0 + r;
       const bool ok = gk < skv;
-      ks[r * (D + 1) + d] = ok ? to_float(kb[gk * k_ss + d]) : 0.f;
-      vs[r * D + d] = ok ? to_float(vb[gk * v_ss + d]) : 0.f;
+      ks[r * (D + 1) + d] = ok ? kb[gk * k_ss + d] : 0.f;
+      vs[r * D + d] = ok ? vb[gk * v_ss + d] : 0.f;
     }
     __syncthreads();
 
@@ -165,7 +499,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool valid = kpos < skv && (!causal || q0 + r >= kpos);
         const float p = valid ? expf(srow[c] - m_new) : 0.f;
         sum += p;
-        srow[c] = round_to<T>(p);
+        srow[c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -206,77 +540,72 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int gr = q0 + row;
     if (gr >= sq) continue;
     const float den = fmaxf(l_s[row], 1e-20f);
-    T* orow = o + ((size_t)bh * sq + gr) * D;
+    float* orow = o + ((size_t)bh * sq + gr) * D;
 #pragma unroll
-    for (int j = 0; j < TJ; ++j)
-      orow[tx + 16 * j] = from_float<T>(acc[i][j] / den);
+    for (int j = 0; j < TJ; ++j) orow[tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int skv, int kv_group, int causal, float scale,
-           long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-           long long v_sb, long long v_ss, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
+               int sq, int skv, int kv_group, int causal, float scale,
+               long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+               long long v_sb, long long v_ss, cudaStream_t stream) {
+  const size_t smem = f32_smem_floats<D>() * sizeof(float);
   // above 48 KB (D = 128) only as opted-in dynamic shared memory
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + BQ - 1) / BQ, bh);
-  flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, kv_group, causal,
-      scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
+  const dim3 grid((sq + F32_BQ - 1) / F32_BQ, bh);
+  flash_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, kv_group,
+      causal, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v, void* o,
-             int bh, int sq, int skv, int kv_group, int causal, float scale,
-             long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-             long long v_sb, long long v_ss, cudaStream_t s) {
+typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
+                      int, int, int, float, long long, long long, long long,
+                      long long, long long, long long, cudaStream_t);
+
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
+Launch pick_launch(int d, int dtype) {
+  if (dtype != 0 && dtype != 1) return nullptr;
+  const bool bf16 = dtype == 1;
   switch (d) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, bh, sq, skv, kv_group, causal, scale,
-                           q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, s);
-    case 32:
-      return launch<T, 32>(q, k, v, o, bh, sq, skv, kv_group, causal, scale,
-                           q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, s);
-    case 64:
-      return launch<T, 64>(q, k, v, o, bh, sq, skv, kv_group, causal, scale,
-                           q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, bh, sq, skv, kv_group, causal, scale,
-                            q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return bf16 ? launch_bf16<16> : launch_f32<16>;
+    case 32: return bf16 ? launch_bf16<32> : launch_f32<32>;
+    case 64: return bf16 ? launch_bf16<64> : launch_f32<64>;
+    case 128: return bf16 ? launch_bf16<128> : launch_f32<128>;
+    default: return nullptr;
   }
 }
 
 }  // namespace
 
 // q [bh, sq, d] with strides (q_sb, q_ss, 1); k, v [bh / kv_group, skv, d]
-// with their own strides; o [bh, sq, d] contiguous.  dtype: 0 = float32,
-// 1 = bfloat16 (shared by all four).  d in {16, 32, 64, 128}.  Returns the
-// CUDA error of the launch (0 on success); nothing here synchronises.
+// with their own strides; o [bh, sq, d] contiguous.  dtype: 0 = float32
+// (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel; bases and strides
+// 16-byte aligned), shared by all four.  d in {16, 32, 64, 128}.  Returns
+// the CUDA error of the launch (0 on success; negative: a tensor-map
+// failure, see repro_cuda_error_string); nothing here synchronises.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int bh, int sq,
     int skv, int d, int kv_group, int causal, float scale, long long q_sb,
     long long q_ss, long long k_sb, long long k_ss, long long v_sb,
     long long v_ss, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(d, q, k, v, o, bh, sq, skv, kv_group, causal,
-                           scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(d, q, k, v, o, bh, sq, skv, kv_group,
-                                   causal, scale, q_sb, q_ss, k_sb, k_ss,
-                                   v_sb, v_ss, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Launch launch = pick_launch(d, dtype);
+  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, o, bh, sq, skv, kv_group, causal, scale, q_sb, q_ss,
+                k_sb, k_ss, v_sb, v_ss, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
+  if (err == ERR_NO_ENCODER)
+    return "the driver offers no cuTensorMapEncodeTiled (TMA needs CUDA 12)";
+  if (err == ERR_ENCODE)
+    return "cuTensorMapEncodeTiled refused a q/k/v tensor map (bases and "
+           "strides must be 16-byte aligned)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

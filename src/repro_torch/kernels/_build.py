@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), compiled for
 Hopper (``sm_90a``) into ``csrc/build/`` at first use.  The file name carries
-a hash of the source and the flags, so an edited kernel is rebuilt and a
-stale library is never loaded.  ``build_all`` starts one ``nvcc`` per source
-at once and waits for all of them; each build keeps ``-Xptxas -v``'s report
-(registers, shared memory, spills) beside its library.
+a hash of the source, of every header under ``csrc/`` (``*.cuh``) and of the
+flags, so an edited kernel or header is rebuilt and a stale library is never
+loaded.  ``build_all`` starts one ``nvcc`` per source at once and waits for
+all of them; each build keeps ``-Xptxas -v``'s report (registers, shared
+memory, spills) beside its library.
 """
 from __future__ import annotations
 
@@ -41,9 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:

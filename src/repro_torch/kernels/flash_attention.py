@@ -1,5 +1,7 @@
-"""Launch wrapper of the hand-written CUDA flash-attention kernel
-(``csrc/flash_attention.cu``), the prefill attention of the serving path.
+"""Launch wrapper of the hand-written CUDA flash-attention kernels
+(``csrc/flash_attention.cu``), the prefill attention of the serving path:
+bfloat16 runs on the tensor cores (wgmma tiles fed by TMA), float32 on the
+CUDA cores (fp32 FMAs, so the fp32 contract holds without TF32).
 
 Only CUDA tensors are taken; :func:`repro_torch.kernels.ops.flash_attention`
 sends CPU tensors to the plain version instead.  The TPU signature is kept
@@ -7,7 +9,10 @@ sends CPU tensors to the plain version instead.  The TPU signature is kept
 attention: row ``bh`` of ``q`` reads K/V row ``bh // kv_group``, so the
 model's KV heads are never repeated per query head.  Ragged ``S`` is masked
 in the kernel (the TPU wrapper asserted ``S % block == 0``), and q/k/v may be
-strided views as long as their last dimension is contiguous.
+strided views as long as their last dimension is contiguous.  The bf16
+kernel reads them through TMA tensor maps, which need 16-byte aligned base
+addresses and row/head strides; a view that breaks that raises, it never
+takes another path.
 """
 from __future__ import annotations
 
@@ -32,6 +37,21 @@ def _lib() -> ctypes.CDLL:
         + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention.restype = ctypes.c_int
     return lib
+
+
+def _tma_strides(t: torch.Tensor):
+    """(head, row) strides of a [N, S, D] view for its tensor map: a dim of
+    size 1 is never stepped, so its stride is replaced by a dense one."""
+    n, s, d = t.shape
+    ss = t.stride(1) if s > 1 else d
+    sb = t.stride(0) if n > 1 else s * ss
+    if t.data_ptr() % 16 or (sb * t.element_size()) % 16 \
+            or (ss * t.element_size()) % 16:
+        raise ValueError(
+            f"bf16 flash attention loads q/k/v by TMA, which needs 16-byte "
+            f"aligned base addresses and strides; got a view at address "
+            f"{t.data_ptr():#x} with head/row strides ({sb}, {ss}) elements")
+    return sb, ss
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -60,17 +80,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype}")
     if any(t.stride(2) != 1 for t in (q, k, v)):
         raise ValueError("flash attention needs a contiguous last (D) dim")
+    if q.dtype == torch.bfloat16:
+        strides = [x for t in (q, k, v) for x in _tma_strides(t)]
+    else:
+        strides = [x for t in (q, k, v) for x in t.stride()[:2]]
     out = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
     if bh == 0 or sq == 0:
         return out
+    if k.shape[1] == 0:         # softmax over no keys: the plain version's 0
+        return out.zero_()
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
             k.shape[1], d, kv_group, int(causal), 1.0 / math.sqrt(d),
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-            v.stride(1), _DTYPE_CODES[q.dtype], stream)
+            *strides, _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, err, "flash_attention")
     launches += 1
     return out

@@ -1,0 +1,101 @@
+"""How the bf16 flash kernel is held against its plain version: shared by
+``chip_smoke.py`` (phase 3) and ``tests/test_torch_cuda.py``.
+
+A flat absolute limit is blind to late causal rows: row i averages i+1
+values, so its entries are about (i+1)**-0.5 (0.02-0.05 at S=1000-2048
+with randn inputs) and a 5e-2 limit is as large as what it compares.
+``row_err`` divides each row's largest error by that row's own rms, so a
+fault that disturbs only late rows (a stale K/V ring stage, a skipped key
+tile) shows as plainly as one in row 0.  ``BF16_ROW_TOL`` lies between the
+largest reading of sound kernel runs and the smallest reading of the
+simulated faults of ``fault_controls`` (both in PERF.md, from
+``chip_smoke.py`` on the card); the 5e-2 absolute limit is kept beside it.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .ref import NEG_INF
+
+BF16_ABS_TOL = 5e-2
+BF16_ROW_TOL = 0.15
+BKV = 128                                # the kernel's keys per tile
+SWEEP_D = (16, 32, 64, 128)
+SWEEP_S = (1, 63, 64, 65, 200, 1000)
+
+
+def ring_stages(d: int) -> int:
+    """The depth of the kernel's K/V ring at head dim ``d``."""
+    return 2 if d == 128 else 3
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of max|got - want| / rms(want) along the last dim."""
+    want = want.float()
+    diff = (got.float() - want).abs().amax(-1)
+    rms = want.square().mean(-1).sqrt()
+    return (diff / rms.clamp_min(1e-30)).max().item()
+
+
+def within_limits(got: torch.Tensor, want: torch.Tensor):
+    """(ok, max abs error, row error) against both bf16 limits."""
+    err = (got.float() - want.float()).abs().max().item()
+    rerr = row_err(got, want)
+    return err <= BF16_ABS_TOL and rerr <= BF16_ROW_TOL, err, rerr
+
+
+def sweep_cases(gen: torch.Generator, d: int, s: int, device="cuda"):
+    """H=8 bf16 query heads over KV=8 or 2 heads (kv_group 1 and 4), each
+    a strided [B*H, S, D] view of [1, S, H, D], causal and not: yields
+    (kv_group, causal, q, k, v)."""
+    def heads(n):
+        x = torch.randn(1, s, n, d, generator=gen).to(device, torch.bfloat16)
+        return x.transpose(1, 2).reshape(n, s, d)
+
+    for rep in (1, 4):
+        q, k, v = heads(8), heads(8 // rep), heads(8 // rep)
+        for causal in (True, False):
+            yield rep, causal, q, k, v
+
+
+def _attention(q, k, v, kv_group, p_dtype, drop=None):
+    """``ref.mha_ref`` (causal), with the keys in ``drop`` masked out and p
+    rounded to ``p_dtype`` before it returns to V's type."""
+    k = k.repeat_interleave(kv_group, dim=0)
+    v = v.repeat_interleave(kv_group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() / math.sqrt(q.shape[-1])
+    pos = torch.arange(q.shape[1], device=q.device)
+    keep = pos[:, None] >= torch.arange(k.shape[1], device=q.device)
+    if drop is not None:
+        keep[:, drop] = False
+    s = torch.where(keep[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(p_dtype).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", p, v)
+
+
+def fault_controls(q, k, v, kv_group: int) -> dict:
+    """Causal outputs of kernel faults that disturb late rows, simulated on
+    the plain version: key tile t = 2*STAGES + 1 skipped (past the ring's
+    first two fills), or only its first 16 keys (one k16 step of P V),
+    tile t's K/V read from the stale stage that held tile t - STAGES, and P
+    rounded to fp8 e4m3 instead of bf16."""
+    stages = ring_stages(q.shape[-1])
+    t = 2 * stages + 1
+    tile = slice(t * BKV, (t + 1) * BKV)
+    step = slice(t * BKV, t * BKV + 16)
+    stale = slice((t - stages) * BKV, (t - stages + 1) * BKV)
+    n = len(range(k.shape[1])[tile])
+    ks, vs = k.clone(), v.clone()
+    ks[:, tile], vs[:, tile] = k[:, stale][:, :n], v[:, stale][:, :n]
+    return {
+        f"key tile {t} skipped": _attention(q, k, v, kv_group, v.dtype,
+                                            drop=tile),
+        f"keys {t * BKV}-{t * BKV + 15} skipped": _attention(
+            q, k, v, kv_group, v.dtype, drop=step),
+        f"tile {t} from stale stage": _attention(q, ks, vs, kv_group,
+                                                 v.dtype),
+        "P rounded to fp8": _attention(q, k, v, kv_group,
+                                       torch.float8_e4m3fn),
+    }

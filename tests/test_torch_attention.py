@@ -13,7 +13,7 @@ import torch
 from repro.kernels import decode_attention as jax_da
 from repro.kernels import flash_attention as jax_fa
 from repro.models import layers as jax_layers
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, parity, ref
 from repro_torch.models import layers
 
 
@@ -52,6 +52,51 @@ def test_flash_plain_matches_pallas_bf16():
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=5e-2, atol=5e-2)
+
+
+def test_flash_plain_matches_pallas_bf16_d128_grouped_ragged():
+    """The plain version the card holds the tensor-core kernel against, at
+    the shapes that kernel covers: bf16, D=128, kv_group 4, a ragged S=200
+    (one 200-row block, since the Pallas wrapper needs S % block == 0)."""
+    rng = np.random.default_rng(6)
+    rep, s, d = 4, 200, 128
+    q = _normal(rng, (2 * rep, s, d))
+    k, v = _normal(rng, (2, s, d)), _normal(rng, (2, s, d))
+    want = jax_fa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16)
+          for a in (q, np.repeat(k, rep, axis=0), np.repeat(v, rep, axis=0))),
+        block_q=s, block_kv=s, interpret=True)
+    got = ops.flash_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+        kv_group=rep)
+    assert got.dtype == torch.bfloat16 and got.shape == (2 * rep, s, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_limits_pass_a_tiled_kernel_and_reject_faults(d):
+    """The card's bf16 limits (absolute and row-scaled) pass the Pallas
+    kernel, a sound tiled online softmax with 128-key tiles like the CUDA
+    kernel's, and reject each simulated fault of ``parity.fault_controls``
+    (a skipped tile or k16 step, a stale ring stage, P in fp8)."""
+    rng = np.random.default_rng(7)
+    rep, s = 4, 1024
+    q = _normal(rng, (rep, s, d))
+    k, v = _normal(rng, (1, s, d)), _normal(rng, (1, s, d))
+    tiled = jax_fa.flash_attention(
+        *(jnp.asarray(a, jnp.bfloat16)
+          for a in (q, np.repeat(k, rep, axis=0), np.repeat(v, rep, axis=0))),
+        block_q=128, block_kv=128, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    want = ref.mha_ref(tq, tk, tv, kv_group=rep)
+    got = torch.from_numpy(np.asarray(tiled, np.float32)).to(torch.bfloat16)
+    assert parity.within_limits(got, want)[0]
+    controls = parity.fault_controls(tq, tk, tv, rep)
+    assert len(controls) == 4
+    for fault, bad in controls.items():
+        assert parity.row_err(bad, want) > 4 * parity.BF16_ROW_TOL, fault
 
 
 @pytest.mark.parametrize("rep", [2, 4])

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, parity, ref
 
 
 def _card():
@@ -53,21 +53,29 @@ def test_cuda_attention_kernels_match_plain_versions():
         return torch.randn(shape, generator=gen).to("cuda", dtype)
 
     ops.reset_launch_counts()
+    # fp32 (CUDA cores) at 2e-4 and bf16 (tensor cores) at 5e-2
     for bh, s, d in [(2, 64, 16), (3, 128, 32), (1, 96, 64)]:
-        q, k, v = (randn(bh, s, d) for _ in range(3))
-        for causal in (True, False):
-            torch.testing.assert_close(
-                ops.flash_attention(q, k, v, causal=causal),
-                ref.mha_ref(q, k, v, causal=causal), rtol=2e-4, atol=2e-4)
+        for dtype, tol in ((torch.float32, 2e-4), (torch.bfloat16, 5e-2)):
+            q, k, v = (randn(bh, s, d, dtype=dtype) for _ in range(3))
+            for causal in (True, False):
+                got = ops.flash_attention(q, k, v, causal=causal)
+                want = ref.mha_ref(q, k, v, causal=causal)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol)
+                if dtype == torch.bfloat16:
+                    assert parity.row_err(got, want) <= parity.BF16_ROW_TOL
     # grouped heads (rep 4), ragged S, as strided [B*H, S, D] views
     for s, dtype, tol in ((77, torch.float32, 2e-4),
                           (200, torch.bfloat16, 5e-2)):
         q = randn(1, s, 8, 64, dtype=dtype).transpose(1, 2).reshape(8, s, 64)
         k, v = (randn(1, s, 2, 64, dtype=dtype).transpose(1, 2)
                 .reshape(2, s, 64) for _ in range(2))
-        torch.testing.assert_close(
-            ops.flash_attention(q, k, v, kv_group=4).float(),
-            ref.mha_ref(q, k, v, kv_group=4).float(), rtol=tol, atol=tol)
+        got = ops.flash_attention(q, k, v, kv_group=4)
+        want = ref.mha_ref(q, k, v, kv_group=4)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        if dtype == torch.bfloat16:
+            assert parity.row_err(got, want) <= parity.BF16_ROW_TOL
     for bh, s, d, clen in [(4, 256, 64, 256), (2, 512, 32, 300),
                            (1, 128, 128, 1)]:
         q = randn(bh, 1, d)
@@ -82,14 +90,61 @@ def test_cuda_attention_kernels_match_plain_versions():
                                rtol=2e-4, atol=2e-4)
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"matmul": 0, "tdfir": 0,
-                                   "flash_attention": 8,
+                                   "flash_attention": 14,
                                    "decode_attention": 4}
+    # no keys: the plain version's zeros, without a launch (a tensor map
+    # cannot describe an empty dim)
+    q = randn(2, 8, 64, dtype=torch.bfloat16)
+    kv = randn(2, 0, 64, dtype=torch.bfloat16)
+    assert torch.equal(ops.flash_attention(q, kv, kv, causal=False),
+                       ref.mha_ref(q, kv, kv, causal=False))
+    assert ops.launch_counts()["flash_attention"] == 14
     with pytest.raises(ValueError, match="head dim"):
         x = randn(2, 16, 48)
         ops.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="head dim"):
         ops.decode_attention(randn(1, 2, 48), randn(1, 8, 2, 48),
                              randn(1, 8, 2, 48), 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", parity.SWEEP_D)
+@pytest.mark.parametrize("s", parity.SWEEP_S)
+def test_bf16_tensor_core_flash_matches_plain_version(d, s):
+    """The wgmma/TMA kernel against the plain version at 5e-2 and at the
+    row-scaled limit: every head dim, lengths around and past the 128-row
+    tiles, causal and not, and kv_group 1 and 4 on strided [B*H, S, D]
+    views of [B, S, H, D]."""
+    gen = _card()
+    ops.reset_launch_counts()
+    for rep, causal, q, k, v in parity.sweep_cases(gen, d, s):
+        got = ops.flash_attention(q, k, v, causal=causal, kv_group=rep)
+        want = ref.mha_ref(q, k, v, causal=causal, kv_group=rep)
+        assert got.dtype == torch.bfloat16 and got.shape == (8, s, d)
+        ok, err, rerr = parity.within_limits(got, want)
+        assert ok, (d, s, rep, causal, err, rerr)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 4
+
+
+@pytest.mark.gpu
+def test_bf16_flash_refuses_misaligned_views():
+    """TMA needs 16-byte aligned bases and strides: a misaligned bf16 view
+    raises and launches nothing (fp32 takes the CUDA-core kernel, which
+    has no such rule)."""
+    gen = _card()
+    x = torch.randn(2, 64, 72, generator=gen).cuda()
+    ops.reset_launch_counts()
+    rows_136_bytes_apart = x[..., :68].to(torch.bfloat16)[..., :64]
+    base_8_bytes_in = x.to(torch.bfloat16)[..., 4:68]
+    for bad in (rows_136_bytes_apart, base_8_bytes_in):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops.flash_attention(bad, bad, bad)
+    assert ops.launch_counts()["flash_attention"] == 0
+    f32 = x[..., 1:65]
+    torch.testing.assert_close(ops.flash_attention(f32, f32, f32),
+                               ref.mha_ref(f32, f32, f32), rtol=2e-4,
+                               atol=2e-4)
 
 
 @pytest.mark.gpu

@@ -76,3 +76,27 @@ def test_cpu_dispatch_launches_no_kernel():
     with pytest.raises(ValueError):
         cuda_fir.tdfir(a, a[:, :2])
 
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh header names a new library, so a kernel that
+    includes it is rebuilt and never loaded stale."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc,
+                    ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", csrc / "build")
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "csrc/ has no header to hash"
+    before = {name: _build.library_path(name) for name in _build.KERNELS}
+    assert before == {name: _build.library_path(name)
+                      for name in _build.KERNELS}
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n// edited\n")
+    after = {name: _build.library_path(name) for name in _build.KERNELS}
+    for name in _build.KERNELS:
+        assert after[name] != before[name], name
+        assert after[name].parent == csrc / "build"
+        assert after[name].name.startswith(f"{name}-")
