@@ -11,20 +11,32 @@ each printing its seconds:
   2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
                flash_attention, decode_attention), all started together,
                with each kernel's ``-Xptxas -v`` report; the flash library's
-               SASS (cuobjdump) must hold HGMMA (wgmma) instructions, and
-               their count is printed;
+               SASS (cuobjdump) must hold HGMMA (wgmma) instructions, and the
+               matmul and decode-attention libraries' SASS LDGSTS (cp.async)
+               instructions; their counts are printed;
   3. check     every kernel against its plain PyTorch version on the card: the
                JAX tests' shapes at their tolerances, the main-path shapes,
-               and lengths that are not multiples of the tile; for the bf16
-               tensor-core flash kernel every head dim, lengths around its
-               128-row tiles, causal and not, kv_group 1 and 4, held to an
-               absolute and a row-scaled limit (``kernels/parity.py``) that
-               must also reject three simulated faults at the main shapes;
+               and lengths that are not multiples of the tile (matmul ragged
+               in M, N and K, K below one 16-byte vector; decode lengths
+               around the split size, all at 1, at and above the cache
+               length, D=128 with 8 query heads a KV head, a 64-slot pool
+               whose one split a row wraps each warp's cp.async ring), two
+               identical decode calls that must agree bit for bit; bf16
+               decode also held to a row-scaled limit (``kernels/parity.py``)
+               against the plain version in fp32, which must reject four
+               simulated kernel faults; for the bf16 tensor-core flash
+               kernel every head dim, lengths around its 128-row tiles,
+               causal and not, kv_group 1 and 4, held to an absolute and a
+               row-scaled limit that must also reject four simulated faults
+               at the main shapes;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
                beside the least time the card could take; flash attention
-               also at the ragged S=1000 and at D=128;
+               also at the ragged S=1000 and at D=128, decode attention also
+               with every slot at 2112; the matmul and decode launch plans;
+               a profile of one decode-attention call must hold exactly one
+               device kernel;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
@@ -35,10 +47,10 @@ each printing its seconds:
                logit, with wall and tick-clock metrics, the share of tokens
                that agree with ``generate``, and profiles of a prefill and
                a decode step (device time against wall time, the heaviest
-               kernels and host ops).  Each engine run sets the launch
-               counters to 0 before and requires one flash-attention launch
-               per layer and prefill and one decode-attention launch per
-               layer and decode step.
+               kernels and host ops, decode attention's share).  Each engine
+               run sets the launch counters to 0 before and requires one
+               flash-attention launch per layer and prefill and one
+               decode-attention launch per layer and decode step.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -79,6 +91,9 @@ FLASH_RAGGED_S = 1000
 FLASH_WIDE_D = 128             # nemotron, command-r+, arctic, ... head dim
 DECODE_MAIN = (4, 32, 8, 2112, 64)
 DECODE_MAIN_LENS = (1, 300, 1000, 2112)
+# a 64-slot pool: one split a row, so each warp's cp.async ring wraps
+DECODE_WRAP = (64, 32, 8, 2112, 64)
+DECODE_WRAP_LENS = (1, 17, 300, 640, 1000, 2111, 2112, 2500) * 8
 SERVE_ARCH = "granite-3-2b"
 SERVE_PROMPTS = (1000, 2048)               # alternating prompt lengths
 SERVE_GENS = (16, 64, 32, 48, 24, 56, 40, 64)  # (a): mixed max_gen
@@ -148,8 +163,9 @@ def time_ms(fn, iters: int) -> float:
 
 def device_profile(fn, iters: int = 10):
     """Device time per call of ``fn`` from a torch.profiler trace of
-    ``iters`` calls after a warm-up: (ms, heaviest kernels as (name, ms),
-    heaviest host ops by self CPU time as (name, ms)), all per call."""
+    ``iters`` calls after a warm-up: (ms, kernels as (name, ms) heaviest
+    first, the 8 heaviest host ops by self CPU time as (name, ms)), all per
+    call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -166,7 +182,7 @@ def device_profile(fn, iters: int = 10):
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / iters)
                    for a in prof.key_averages()), key=lambda kv: -kv[1])
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
-    return sum(kernels.values()), top[:8], host[:8]
+    return sum(kernels.values()), top, host[:8]
 
 
 def time_row(kernel, plain, library, t_bound, by, iters=200,
@@ -215,6 +231,15 @@ def check_kernels(ops, ref):
     a, b = randn(gen, 192, 1000), randn(gen, 1000, 130)
     check_close("matmul 192x1000x130 float32 (ragged K, N)",
                 ops.matmul(a, b), ref.matmul_ref(a, b), 1e-4)
+    print(" matmul (ragged M, N and K, 4-byte copies where rows are not "
+          "16-byte aligned, K below one 16-byte vector, warps with unequal "
+          "K slabs; fp32 at 1e-4, bf16 at 2e-2)")
+    for m, k, n in ((513, 1001, 511), (64, 4, 64), (64, 3, 64),
+                    (64, 528, 64)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            a, b = randn(gen, m, k, dtype=dtype), randn(gen, k, n, dtype=dtype)
+            check_close(f"matmul {m}x{k}x{n} {dtype}", ops.matmul(a, b),
+                        ref.matmul_ref(a, b), tol)
 
     print(" tdfir (JAX test shapes at 3e-4)")
     for f, nn, kk, bn in ((2, 128, 8, 32), (4, 300, 16, 64),
@@ -278,8 +303,48 @@ def check_flash_bf16(what: str, got, want) -> float:
     return err
 
 
+def require_same_bits(what: str, first, again) -> None:
+    """Two identical decode calls: the splits merge in a fixed order and
+    the kernel left its merge counters at zero."""
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    print(f"  {what}, called twice: "
+          f"{'bitwise identical' if same else 'DIFFERENT'}")
+    require(same, f"{what}: two identical calls differ (the split merge is "
+            "not in a fixed order, or a counter was not reset)")
+
+
+def check_decode_rows(what: str, got, q, kc, vc, lens, readings,
+                      chunk=None):
+    """bf16 decode attention's row-scaled limit (``kernels/parity.py``)
+    against the plain version run in fp32; where ``chunk`` is given, also
+    the simulated kernel faults that the limit must reject.  ``readings``
+    keeps the largest sound and the smallest fault reading."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import parity
+    torch.cuda.synchronize()
+    want32 = parity.decode_want32(q, kc, vc, lens)
+    rerr = parity.row_err(got, want32)
+    print(f"    {'row_err':44s} {rerr:.3e}  limit {parity.DECODE_ROW_TOL}  "
+          f"{'ok' if rerr <= parity.DECODE_ROW_TOL else 'MISMATCH'}")
+    require(rerr <= parity.DECODE_ROW_TOL, f"{what}: row_err {rerr:.3e} > "
+            f"{parity.DECODE_ROW_TOL}")
+    readings["sound"] = max(readings["sound"], rerr)
+    if chunk is None:
+        return
+    for fault, bad in parity.decode_fault_controls(
+            q, kc, vc, lens, chunk, da.KEY_TILE[q.dtype]).items():
+        frerr = parity.row_err(bad, want32)
+        print(f"    control, {fault:34s} row_err {frerr:.3e}  "
+              f"{'PASSES' if frerr <= parity.DECODE_ROW_TOL else 'rejected'}")
+        require(frerr > parity.DECODE_ROW_TOL, f"{what}: the bf16 decode "
+                f"limit passes a simulated fault ({fault})")
+        readings["fault"] = min(readings["fault"], frerr)
+
+
 def check_attention(ops, ref, gen):
     """Phase 3, attention kernels: returns the main-path max errors."""
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import parity
     errs = {}
     print(f" flash_attention (JAX test shapes: fp32 at 2e-4; bf16 at "
@@ -351,22 +416,73 @@ def check_attention(ops, ref, gen):
         check_close(f"decode BH={bh} S={s} D={d} len={clen}",
                     ops.decode_attention(q, kc, vc, clen),
                     ref.decode_attention_ref(q, kc, vc, clen), 2e-4)
-    print(" decode_attention (main path: 4 slots x 32 heads over a "
-          "[4,2112,8,64] cache, lens 1/300/1000/2112, random cache past "
-          "each length; bf16 at 5e-2, fp32 at 2e-4; D=128)")
+    print(f" decode_attention (main path: 4 slots x 32 heads over a "
+          f"[4,2112,8,64] cache, lens 1/300/1000/2112, random cache past "
+          f"each length; bf16 at 5e-2 and row_err {parity.DECODE_ROW_TOL} "
+          f"against the plain version in fp32, beside simulated faults "
+          f"that the row limit must reject; fp32 at 2e-4; D=128)")
+    readings = {"sound": 0.0, "fault": float("inf")}
     for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
         q, kc, vc, lens = decode_inputs(gen, dtype, *DECODE_MAIN,
                                         DECODE_MAIN_LENS)
-        err = check_close(f"decode 4x32 over [4,2112,8,64] {dtype}",
-                          ops.decode_attention(q, kc, vc, lens),
+        got = ops.decode_attention(q, kc, vc, lens)
+        err = check_close(f"decode 4x32 over [4,2112,8,64] {dtype}", got,
                           ref.decode_attention_ref(q, kc, vc, lens), tol)
         if dtype == torch.bfloat16:
             errs["decode_attention"] = err
+            check_decode_rows("decode main shape", got, q, kc, vc, lens,
+                              readings, decode_plan(dtype).chunk)
     q, kc, vc, lens = decode_inputs(gen, torch.float32, 2, 16, 4, 700, 128,
                                     (1, 699))
     check_close("decode 2x16 over [2,700,4,128] float32",
                 ops.decode_attention(q, kc, vc, lens),
                 ref.decode_attention_ref(q, kc, vc, lens), 2e-4)
+    b, h, kv, s, d = DECODE_MAIN
+    chunk = decode_plan(torch.bfloat16).chunk
+    print(f" decode_attention (main shape, split size {chunk}: lengths "
+          f"around it, all at 1, at and above S; D=128 with 8 query heads a "
+          f"KV head; a 64-slot pool whose one split a row wraps each warp's "
+          f"ring; bf16 at 5e-2 and the row limit, fp32 at 2e-4)")
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+        c = decode_plan(dtype).chunk
+        for lens in ((c - 1, c, c + 1, s), (1, 1, 1, 1),
+                     (s + 100, 1, 2 * c, 2 * c + 1)):
+            q, kc, vc, ln = decode_inputs(gen, dtype, *DECODE_MAIN, lens)
+            what = f"decode [4,2112,8,64] lens {lens} {dtype}"
+            got = ops.decode_attention(q, kc, vc, ln)
+            check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln),
+                        tol)
+            if dtype == torch.bfloat16:
+                check_decode_rows(what, got, q, kc, vc, ln, readings)
+        q, kc, vc, ln = decode_inputs(gen, dtype, 2, 64, 8, 700, 128,
+                                      (1, 699))
+        what = f"decode 2x64 over [2,700,8,128] {dtype}"
+        got = ops.decode_attention(q, kc, vc, ln)
+        check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln), tol)
+        if dtype == torch.bfloat16:
+            check_decode_rows(what, got, q, kc, vc, ln, readings)
+        b, h, kv, s, d = DECODE_WRAP
+        wrap = decode_plan(dtype, DECODE_WRAP)
+        q, kc, vc, ln = decode_inputs(gen, dtype, *DECODE_WRAP,
+                                      DECODE_WRAP_LENS)
+        tiles = wrap.chunk // da.KEY_TILE[dtype]
+        what = f"decode [{b},{s},{kv},{d}] {dtype}, {tiles} tiles a split"
+        first = ops.decode_attention(q, kc, vc, ln)
+        check_close(what, first, ref.decode_attention_ref(q, kc, vc, ln),
+                    tol)
+        if dtype == torch.bfloat16:
+            check_decode_rows(what, first, q, kc, vc, ln, readings,
+                              wrap.chunk)
+        require_same_bits(f"decode 64-slot pool {dtype}", first,
+                          ops.decode_attention(q, kc, vc, ln))
+        q, kc, vc, ln = decode_inputs(gen, dtype, *DECODE_MAIN,
+                                      DECODE_MAIN_LENS)
+        require_same_bits(f"decode main shape {dtype}",
+                          ops.decode_attention(q, kc, vc, ln),
+                          ops.decode_attention(q, kc, vc, ln))
+    print(f"  decode bf16 row_err: largest sound reading "
+          f"{readings['sound']:.3e}, limit {parity.DECODE_ROW_TOL}, smallest "
+          f"fault reading {readings['fault']:.3e}")
     return errs
 
 
@@ -380,6 +496,12 @@ def time_kernels(ops, ref):
     rows["matmul"], dev["matmul"] = time_row(
         lambda: ops.matmul(a, b), lambda: ref.matmul_ref(a, b),
         lambda: torch.matmul(a, b), t_bound, by)
+    from repro_torch.kernels import matmul as mm
+    p = mm.plan(m, n, k)
+    print(f"  matmul 512^3 float32 plan: grid {p.grid_m} x {p.grid_n} = "
+          f"{p.blocks} blocks of {mm.BLOCK_M}x{mm.BLOCK_N} tiles, K split "
+          f"over {p.warps} warps of each block (no split across blocks)")
+    require(p.blocks >= 128, "the matmul grid at 512^3 is under 128 blocks")
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
     print(f"  matmul 512^3 bfloat16: kernel "
           f"{time_ms(lambda: ops.matmul(a16, b16), 200):.4f} ms, "
@@ -475,6 +597,57 @@ def time_attention(ops, ref, gen, rows, dev):
                         BF16_PEAK_FLOPS)
     rows["decode_attention"], dev["decode_attention"] = time_row(
         kernel, plain, library, t_bound, by, plain_iters=50)
+    from repro_torch.kernels import decode_attention as da
+    p = decode_plan(torch.bfloat16)
+    print(f"  decode_attention plan: chunk {p.chunk} keys, grid {p.n_splits}"
+          f" splits x {b * kv} (slot, KV head) = {p.n_splits * b * kv} "
+          f"blocks, {da.live_blocks(p, DECODE_MAIN_LENS, kv)} live at lengths"
+          f" {DECODE_MAIN_LENS}")
+    launched = device_kernels(kernel)
+    print(f"  decode_attention: one call runs {len(launched)} device "
+          f"kernel(s): {launched}")
+    require(len(launched) == 1, "a decode_attention call is not one device "
+            "kernel")
+    full = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    full_mask = torch.ones_like(mask)
+    t_full, by_full = bound(4.0 * h * d * b * s,
+                            2.0 * (2 * b * s * kv * d + 2 * b * h * d),
+                            BF16_PEAK_FLOPS)
+
+    def kernel_full():
+        return ops.decode_attention(q, *next(caches), full)
+
+    def library_full():
+        kc, vc = next(caches)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=full_mask, enable_gqa=True)
+
+    print(f"  decode_attention, every slot at {s}: kernel "
+          f"{time_ms(kernel_full, 200):.4f} ms (device "
+          f"{device_profile(kernel_full)[0]:.4f})  bound {t_full:.4f} ms "
+          f"({by_full})  SDPA {time_ms(library_full, 200):.4f} ms (device "
+          f"{device_profile(library_full)[0]:.4f})")
+
+
+def decode_plan(dtype, shape=DECODE_MAIN):
+    """The decode kernel's splits at ``shape`` (B, H, KV, S, D)."""
+    from repro_torch.kernels import decode_attention as da
+    b, _, kv, s, _ = shape
+    return da.plan(b * kv, s, da.KEY_TILE[dtype])
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels one call of ``fn`` runs (a torch.profiler
+    trace after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if str(e.device_type).endswith("CUDA")]
 
 
 def count_sass(build, name: str, opcode: str) -> int:
@@ -614,9 +787,11 @@ def reference_tokens(ops, lm, reqs, label: str):
     return out
 
 
-def print_profile(what: str, wall_ms: float, fn, iters: int) -> None:
+def print_profile(what: str, wall_ms: float, fn, iters: int,
+                  share_of: str = "") -> None:
     """Where one call's time goes: device time against its host-clock
-    wall time, the heaviest kernels, and the heaviest host ops."""
+    wall time, the heaviest kernels, the heaviest host ops, and the share of
+    the device time that kernels named ``share_of`` take."""
     dev_ms, kernels, host = device_profile(fn, iters)
     if dev_ms <= 0:
         print(f"  (b) {what}: the profiler saw no device time; device share "
@@ -626,8 +801,12 @@ def print_profile(what: str, wall_ms: float, fn, iters: int) -> None:
           f"{dev_ms / wall_ms:.1%} of its {wall_ms:.2f} ms wall time "
           f"(device idle {1 - dev_ms / wall_ms:.1%}); heaviest kernels, "
           f"ms per call:")
-    for name, ms in kernels:
+    for name, ms in kernels[:8]:
         print(f"      {ms:8.4f}  {name[:90]}")
+    if share_of:
+        mine = sum(ms for name, ms in kernels if share_of in name)
+        print(f"      {share_of}: {mine:.4f} ms per call, {mine / dev_ms:.1%}"
+              f" of the device time")
     print("      heaviest host ops by self CPU time under the profiler, ms "
           "per call:")
     for name, ms in host:
@@ -696,7 +875,8 @@ def run_serve(ops):
     print(f"  (b) decode step over {SERVE_SLOTS} slots: {step_ms:.2f} ms "
           f"(host clock, synchronised)")
     print_profile("decode step", step_ms,
-                  lambda: lm.decode_step(pool, toks, pos), 5)
+                  lambda: lm.decode_step(pool, toks, pos), 5,
+                  share_of="decode_kernel")
 
     want = reference_tokens(ops, lm, reqs, "b")
     agree = sum(int((out[r.rid] == want[r.rid]).sum()) for r in reqs)
@@ -731,6 +911,11 @@ def main() -> int:
         print(f"  flash_attention SASS: {n_hgmma} HGMMA (wgmma) instructions")
         require(n_hgmma > 0, "the flash_attention library has no HGMMA: its "
                 "bf16 kernel does not run on the tensor cores")
+        for name in ("matmul", "decode_attention"):
+            n_ldgsts = count_sass(_build, name, "LDGSTS")
+            print(f"  {name} SASS: {n_ldgsts} LDGSTS (cp.async) instructions")
+            require(n_ldgsts > 0, f"the {name} library has no LDGSTS: its "
+                    "copies are not asynchronous")
     with phase("3 check"):
         errs = check_kernels(ops, ref)
     with phase("4 time"):

@@ -1,6 +1,6 @@
-// Split-K decode attention on CUDA cores: one new query token per (slot,
-// head) attends over that slot's KV cache, read in place in the serving
-// pool's grouped layout [B, S, KV, D].  Query head h reads KV head
+// Split-K decode attention on CUDA cores, in one launch: one new query token
+// per (slot, head) attends over that slot's KV cache, read in place in the
+// serving pool's grouped layout [B, S, KV, D].  Query head h reads KV head
 // h / (H / KV); key s of slot b is valid iff s < cache_len[b].
 //
 // Replaces: src/repro/kernels/decode_attention.py, _decode_kernel /
@@ -14,37 +14,78 @@
 // V's type before the PV product, the denominator floored at 1e-20.
 //
 // Bound on the H100: bytes.  A decode step reads each valid cache entry once
-// and does 4 FLOP per byte-pair of it; at the serving path's shapes (4 slots
-// x 32 heads over a [4, 2112, 8, 64] bf16 cache) the valid K/V are a few MB,
-// microseconds at 3.35 TB/s.
+// and does 4 FLOP per (K, V) element pair; at the serving path's shapes
+// (4 slots x 32 heads over a [4, 2112, 8, 64] bf16 cache, lengths
+// 1/300/1000/2112) the valid K/V are 7.0 MB, 2.1 us at 3.35 TB/s.
 //
-// Design: pass 1 runs one 128-thread block per (split of CHUNK keys, slot,
-// KV head).  The block stages the group's rep = H / KV query rows once, so
-// every K/V tile it loads serves all of them (the cache is never repeated
-// per query head), and walks its split in 32-key tiles: stage K and V
-// (masked past cache_len), one thread per (query row, key) score, one warp
-// per query row for the online-softmax update, and each thread folds P V
-// into its share of the rep x D accumulator.  It writes the split's
-// unnormalised (m, l, acc) partial.  Splits that start at or past
-// cache_len[b] return at once, so the work follows each slot's own length.
-// Pass 2 (one block per (slot, head), one thread per channel) merges the
-// live splits with a logsumexp rescale and divides.  The split count is
-// fixed by CHUNK; tuning it to the 132 SMs is later work.
+// Design: one 256-thread block per (split of ``chunk`` keys, slot, KV head);
+// the host sizes ``chunk`` from the shape (kernels/decode_attention.py,
+// ``plan``) so the live blocks fill the card.
+// - Each of the 8 warps owns every eighth tile of TK keys of the split (16
+//   in bf16, 8 in fp32) and brings them in with 16-byte cp.async (LDGSTS)
+//   into its own ring of STAGES tiles, K and V together, so two tiles per
+//   warp are in flight while one is used; keys past the slot's length are
+//   zero-filled, never read.  No block barrier until the end.
+// - A lane owns one 16-byte chunk of D (8 bf16 or 4 fp32) for one query row
+//   of the group, and NP rows in NP passes where rep * D / chunk > 32.  The
+//   group's rep = H / KV query rows sit in registers as fp32, so every K/V
+//   byte serves all of them.  A score is the lanes' partial dot products
+//   reduced with xor shuffles over the row's lanes; the online softmax and
+//   the PV accumulator stay in registers, replicated over the row's lanes.
+// - Scores are kept in the log2 domain (scaled by scale * log2(e)), so each
+//   exponential is one exp2f.  D is a template parameter, so the lane and
+//   copy arithmetic compiles to shifts.
+// - The block merges its warps once through shared memory, in warp
+//   order.  A single live split writes ``out``; otherwise the block writes
+//   its unnormalised (m, l, acc) partial, fences, and counts itself in an
+//   int counter per (slot, KV head).  The block that arrives last merges
+//   the group's live splits in split order (so results are bitwise
+//   repeatable), writes ``out`` in the input type and resets the counter,
+//   so the next launch (or a graph replay) finds it at zero.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int CHUNK = 128;     // keys per split
-constexpr int TK = 32;         // keys per tile (one warp lane each)
-constexpr int THREADS = 128;
-constexpr int MAX_ACC = 16;    // accumulator entries per thread: rep*D <= 2048
+using hopper::allow_smem;
+using hopper::cp_async16;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+constexpr float NEG_INF = -1e30f;
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int STAGES = 3;
+constexpr int MERGE_BATCH = 8;  // splits whose partials one load batch reads
+
+template <typename T> struct Traits;
+template <> struct Traits<float> {
+  static constexpr int EPC = 4;   // elements per 16-byte chunk
+  static constexpr int TK = 8;    // keys per warp tile
+};
+template <> struct Traits<__nv_bfloat16> {
+  static constexpr int EPC = 8;
+  static constexpr int TK = 16;
+};
+
+__device__ __forceinline__ void unpack(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
 }
+__device__ __forceinline__ void unpack(const __nv_bfloat16* p,
+                                       float (&f)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) {
   return v;
@@ -53,193 +94,320 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
-template <typename T> __device__ __forceinline__ float round_to(float v) {
-  return to_float(from_float<T>(v));
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
 }
-
-__host__ __device__ inline size_t split_smem_floats(int rep, int d) {
-  return static_cast<size_t>(rep) * d  // qs: the group's query rows
-         + TK * (d + 1)                // ks: K tile (padded rows)
-         + TK * d                      // vs: V tile
-         + rep * TK                    // ss: scores, then p
-         + 3 * rep;                    // running max, denominator, correction
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 template <typename T, int D>
+size_t smem_bytes(int rep) {
+  const size_t ring =
+      (size_t)WARPS * STAGES * 2 * Traits<T>::TK * D * sizeof(T);
+  const size_t merge = (size_t)WARPS * rep * (D + 2) * sizeof(float);
+  return ring > merge ? ring : merge;
+}
+
+template <typename T, int D, int NP>
 __global__ void __launch_bounds__(THREADS)
-split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-             const T* __restrict__ vc, const int* __restrict__ cache_len,
-             float* __restrict__ part_m, float* __restrict__ part_l,
-             float* __restrict__ part_acc, int h, int kvh, int s_len,
-             int n_splits, float scale) {
-  extern __shared__ float smem[];
+decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+              const T* __restrict__ vc, const int* __restrict__ cache_len,
+              T* __restrict__ out, float* __restrict__ part,
+              int* __restrict__ counters, int h, int kvh, int s_len,
+              int chunk, int n_splits, float scale) {
+  constexpr int d = D;
+  constexpr int EPC = Traits<T>::EPC;
+  constexpr int TK = Traits<T>::TK;
+  constexpr int cpr = D / EPC;  // 16-byte chunks per row: 2..32
+  constexpr int rp = 32 / cpr;  // query rows per pass of the warp
+  static_assert(TK * cpr % 32 == 0, "a tile is whole chunks for every lane");
+  constexpr int SUB = 32 / NP < TK ? 32 / NP : TK;  // keys per softmax step
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+
   const int rep = h / kvh;
-  float* qs = smem;
-  float* ks = qs + rep * D;
-  float* vs = ks + TK * (D + 1);
-  float* ss = vs + TK * D;
-  float* m_s = ss + rep * TK;
-  float* l_s = m_s + rep;
-  float* corr_s = l_s + rep;
-
+  const float scale2 = scale * 1.4426950408889634f;  // scores in log2 units
   const int split = blockIdx.x;
-  const int b = blockIdx.y / kvh;
-  const int g = blockIdx.y % kvh;
-  const int len = min(cache_len[b], s_len);
-  const int s_begin = split * CHUNK;
-  const int s_end = min(s_begin + CHUNK, len);
-  if (s_begin >= s_end) return;  // pass 2 reads only the live splits
-
+  const int bg = blockIdx.y;  // b * kvh + g
+  const int b = bg / kvh;
+  const int g = bg % kvh;
+  const int head0 = b * h + g * rep;  // first query row of the group
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int head0 = b * h + g * rep;  // first query row of the group
+  const int c = lane % cpr;   // this lane's chunk of D
+  const int rsub = lane / cpr;
 
-  for (int e = tid; e < rep * D; e += THREADS)
-    qs[e] = to_float(q[(size_t)head0 * D + e]);
-  for (int r = tid; r < rep; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
+  // the group's query rows (their loads overlap the length's)
+  float qr[NP][EPC], acc[NP][EPC], m[NP], l[NP];
+#pragma unroll
+  for (int r = 0; r < NP; ++r) {
+    const int row = rsub + rp * r;
+    if (row < rep) {
+      unpack(q + (size_t)(head0 + row) * d + c * EPC, qr[r]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) qr[r][e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < EPC; ++e) acc[r][e] = 0.f;
+    m[r] = NEG_INF;
+    l[r] = 0.f;
   }
-  float acc[MAX_ACC];
-#pragma unroll
-  for (int i = 0; i < MAX_ACC; ++i) acc[i] = 0.f;
-  __syncthreads();
 
-  for (int t0 = s_begin; t0 < s_end; t0 += TK) {
-    const int n = min(TK, s_end - t0);
-    for (int e = tid; e < TK * D; e += THREADS) {
-      const int j = e / D, d = e % D;
-      const bool ok = j < n;
-      const size_t at = (((size_t)b * s_len + t0 + j) * kvh + g) * D + d;
-      ks[j * (D + 1) + d] = ok ? to_float(kc[at]) : 0.f;
-      vs[j * D + d] = ok ? to_float(vc[at]) : 0.f;
+  const int len = min(cache_len[b], s_len);
+  if (len <= 0) {  // no valid key: zeros, as the merge of no split gives
+    if (split == 0)
+      for (int e = tid; e < rep * d; e += THREADS)
+        out[(size_t)head0 * d + e] = from_float<T>(0.f);
+    return;
+  }
+  const int s_begin = split * chunk;
+  const int s_end = min(s_begin + chunk, len);
+  if (s_begin >= s_end) return;  // a dead split: the merge skips it
+  const int n_live = (len + chunk - 1) / chunk;
+
+  // this warp's ring: stage st holds K then V of one tile, [TK][d] each
+  constexpr int tile_elems = TK * D;
+  T* ring =
+      reinterpret_cast<T*>(smem) + (size_t)warp * STAGES * 2 * tile_elems;
+  const size_t key_stride = (size_t)kvh * d;
+  const T* kbase = kc + ((size_t)b * s_len * kvh + g) * d;
+  const T* vbase = vc + ((size_t)b * s_len * kvh + g) * d;
+  const int n_tiles = (s_end - s_begin + TK - 1) / TK;
+  const int my_n = warp < n_tiles ? (n_tiles - warp + WARPS - 1) / WARPS : 0;
+
+  auto issue = [&](int i) {  // this warp's i-th tile into stage i % STAGES
+    const int t0 = s_begin + (warp + i * WARPS) * TK;
+    T* ks = ring + (i % STAGES) * 2 * tile_elems;
+    T* vs = ks + tile_elems;
+#pragma unroll
+    for (int it = 0; it < TK * cpr / 32; ++it) {
+      const int e = lane + 32 * it;
+      const int j = e / cpr, cc = e % cpr;
+      const bool ok = t0 + j < s_end;
+      const size_t off =
+          (size_t)(ok ? t0 + j : s_begin) * key_stride + cc * EPC;
+      cp_async16(ks + j * d + cc * EPC, kbase + off, ok ? 16 : 0);
+      cp_async16(vs + j * d + cc * EPC, vbase + off, ok ? 16 : 0);
     }
-    __syncthreads();
+  };
 
-    for (int e = tid; e < rep * TK; e += THREADS) {
-      const int r = e / TK, j = e % TK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s = fmaf(qs[r * D + d], ks[j * (D + 1) + d], s);
-      ss[r * TK + j] = j < n ? s * scale : NEG_INF;
-    }
-    __syncthreads();
-
-    for (int r = warp; r < rep; r += THREADS / 32) {
-      const float sv = ss[r * TK + lane];
-      float mx = sv;
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      const float p = lane < n ? expf(sv - m_new) : 0.f;
-      float sum = p;
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < my_n) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < my_n; ++i) {
+    cp_async_wait<STAGES - 2>();  // tile i has landed (this lane's part)
+    __syncwarp();  // ...every lane's; and tile i-1's stage is free again
+    if (i + STAGES - 1 < my_n) issue(i + STAGES - 1);
+    cp_async_commit();
+    const T* ks = ring + (i % STAGES) * 2 * tile_elems;
+    const T* vs = ks + tile_elems;
+    const int n_valid = min(TK, s_end - (s_begin + (warp + i * WARPS) * TK));
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      ss[r * TK + lane] = round_to<T>(p);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        corr_s[r] = corr;
+    for (int j0 = 0; j0 < TK; j0 += SUB) {
+      if (j0 >= n_valid) break;
+      float sc[NP][SUB];
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        float kf[EPC];
+        unpack(ks + (j0 + jj) * d + c * EPC, kf);
+#pragma unroll
+        for (int r = 0; r < NP; ++r) {
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) s = fmaf(qr[r][e], kf[e], s);
+          sc[r][jj] = s;
+        }
+      }
+#pragma unroll
+      for (int off = cpr / 2; off > 0; off /= 2)
+#pragma unroll
+        for (int r = 0; r < NP; ++r)
+#pragma unroll
+          for (int jj = 0; jj < SUB; ++jj)
+            sc[r][jj] += __shfl_xor_sync(0xffffffffu, sc[r][jj], off);
+#pragma unroll
+      for (int r = 0; r < NP; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int jj = 0; jj < SUB; ++jj) {
+          sc[r][jj] = j0 + jj < n_valid ? sc[r][jj] * scale2 : NEG_INF;
+          mx = fmaxf(mx, sc[r][jj]);
+        }
+        const float corr = exp2f(m[r] - mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < SUB; ++jj) {
+          const float p = j0 + jj < n_valid ? exp2f(sc[r][jj] - mx) : 0.f;
+          sum += p;
+          sc[r][jj] = round_to<T>(p);
+        }
+        l[r] = l[r] * corr + sum;
+        m[r] = mx;
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) acc[r][e] *= corr;
+      }
+#pragma unroll
+      for (int jj = 0; jj < SUB; ++jj) {
+        float vf[EPC];
+        unpack(vs + (j0 + jj) * d + c * EPC, vf);
+#pragma unroll
+        for (int r = 0; r < NP; ++r)
+#pragma unroll
+          for (int e = 0; e < EPC; ++e)
+            acc[r][e] = fmaf(sc[r][jj], vf[e], acc[r][e]);
       }
     }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: reuse it
 
+  // merge the warps in warp order: wm, wl [WARPS][rep], wacc [WARPS][rep][d]
+  float* wm = reinterpret_cast<float*>(smem);
+  float* wl = wm + WARPS * rep;
+  float* wacc = wl + WARPS * rep;
 #pragma unroll
-    for (int i = 0; i < MAX_ACC; ++i) {
-      const int e = tid + i * THREADS;
-      if (e >= rep * D) break;
-      const int r = e / D, d = e % D;
-      float a = acc[i] * corr_s[r];
-      for (int j = 0; j < n; ++j) a = fmaf(ss[r * TK + j], vs[j * D + d], a);
-      acc[i] = a;
+  for (int r = 0; r < NP; ++r) {
+    const int row = rsub + rp * r;
+    if (row >= rep) continue;
+    if (c == 0) {
+      wm[warp * rep + row] = m[r];
+      wl[warp * rep + row] = l[r];
     }
-    __syncthreads();  // the next tile overwrites ks, vs and ss
-  }
-
 #pragma unroll
-  for (int i = 0; i < MAX_ACC; ++i) {
-    const int e = tid + i * THREADS;
-    if (e >= rep * D) break;
-    const int r = e / D, d = e % D;
-    part_acc[((size_t)(head0 + r) * n_splits + split) * D + d] = acc[i];
+    for (int e = 0; e < EPC; ++e)
+      wacc[(warp * rep + row) * d + c * EPC + e] = acc[r][e];
   }
-  for (int r = tid; r < rep; r += THREADS) {
-    part_m[(size_t)(head0 + r) * n_splits + split] = m_s[r];
-    part_l[(size_t)(head0 + r) * n_splits + split] = l_s[r];
+  __syncthreads();
+  const size_t part_row = (size_t)d + 2;  // m, l, acc[d] per query row
+  float* mine = part + ((size_t)bg * n_splits + split) * rep * part_row;
+  for (int e = tid; e < rep * d; e += THREADS) {
+    const int r = e / d, dd = e % d;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, wm[w * rep + r]);
+    float ls = 0.f, a = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float wt = exp2f(wm[w * rep + r] - mx);
+      ls = fmaf(wl[w * rep + r], wt, ls);
+      a = fmaf(wacc[(w * rep + r) * d + dd], wt, a);
+    }
+    if (n_live == 1) {
+      out[(size_t)(head0 + r) * d + dd] = from_float<T>(a / fmaxf(ls, 1e-20f));
+      continue;
+    }
+    mine[r * part_row + 2 + dd] = a;
+    if (dd == 0) {
+      mine[r * part_row] = mx;
+      mine[r * part_row + 1] = ls;
+    }
   }
+  if (n_live == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) is_last = atomicAdd(&counters[bg], 1) == n_live - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // fold the live splits in split order with a running max (one pass,
+  // so the loads of a batch of splits go out together)
+  const float* group = part + (size_t)bg * n_splits * rep * part_row;
+  for (int e = tid; e < rep * d; e += THREADS) {
+    const int r = e / d, dd = e % d;
+    float mx = NEG_INF, ls = 0.f, a = 0.f;
+    for (int sp0 = 0; sp0 < n_live; sp0 += MERGE_BATCH) {
+      float pm[MERGE_BATCH], pl[MERGE_BATCH], pa[MERGE_BATCH];
+#pragma unroll
+      for (int u = 0; u < MERGE_BATCH; ++u) {
+        if (sp0 + u >= n_live) break;
+        const float* ps = group + ((size_t)(sp0 + u) * rep + r) * part_row;
+        pm[u] = __ldcg(ps);
+        pl[u] = __ldcg(ps + 1);
+        pa[u] = __ldcg(ps + 2 + dd);
+      }
+#pragma unroll
+      for (int u = 0; u < MERGE_BATCH; ++u) {
+        if (sp0 + u >= n_live) break;
+        const float m_new = fmaxf(mx, pm[u]);
+        const float c_old = exp2f(mx - m_new), c_new = exp2f(pm[u] - m_new);
+        ls = ls * c_old + pl[u] * c_new;
+        a = a * c_old + pa[u] * c_new;
+        mx = m_new;
+      }
+    }
+    out[(size_t)(head0 + r) * d + dd] = from_float<T>(a / fmaxf(ls, 1e-20f));
+  }
+  if (tid == 0) counters[bg] = 0;  // ready for the next launch
 }
 
-template <typename T, int D>
-__global__ void combine_kernel(const int* __restrict__ cache_len,
-                               const float* __restrict__ part_m,
-                               const float* __restrict__ part_l,
-                               const float* __restrict__ part_acc,
-                               T* __restrict__ out, int h, int s_len,
-                               int n_splits) {
-  const int row = blockIdx.x;  // b * h + head
-  const int d = threadIdx.x;
-  const int len = min(cache_len[row / h], s_len);
-  const int live = len > 0 ? (len + CHUNK - 1) / CHUNK : 0;
-  const float* pm = part_m + (size_t)row * n_splits;
-  const float* pl = part_l + (size_t)row * n_splits;
-  float m = NEG_INF;
-  for (int sp = 0; sp < live; ++sp) m = fmaxf(m, pm[sp]);
-  float l = 0.f, a = 0.f;
-  for (int sp = 0; sp < live; ++sp) {
-    const float w = expf(pm[sp] - m);
-    l = fmaf(pl[sp], w, l);
-    a = fmaf(part_acc[((size_t)row * n_splits + sp) * D + d], w, a);
-  }
-  out[(size_t)row * D + d] = from_float<T>(a / fmaxf(l, 1e-20f));
-}
-
-template <typename T, int D>
+template <typename T, int D, int NP>
 int launch(const void* q, const void* k, const void* v, const int* lens,
-           void* out, float* part_m, float* part_l, float* part_acc, int b,
-           int h, int kvh, int s_len, int n_splits, float scale,
+           void* out, float* part, int* counters, int b, int h, int kvh,
+           int s_len, int chunk, int n_splits, float scale,
            cudaStream_t stream) {
-  const int rep = h / kvh;
-  if (rep * D > MAX_ACC * THREADS) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = split_smem_floats(rep, D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const size_t smem = smem_bytes<T, D>(h / kvh);
+  // the largest group this instantiation takes: rep * D <= 2048
+  cudaError_t err =
+      allow_smem<decode_kernel<T, D, NP>>(smem_bytes<T, D>(2048 / D));
   if (err != cudaSuccess) return static_cast<int>(err);
-  split_kernel<T, D><<<dim3(n_splits, b * kvh), THREADS, smem, stream>>>(
+  decode_kernel<T, D, NP><<<dim3(n_splits, b * kvh), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lens, part_m, part_l, part_acc, h, kvh, s_len,
-      n_splits, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  combine_kernel<T, D><<<b * h, D, 0, stream>>>(
-      lens, part_m, part_l, part_acc, static_cast<T*>(out), h, s_len,
-      n_splits);
+      static_cast<const T*>(v), lens, static_cast<T*>(out), part, counters,
+      h, kvh, s_len, chunk, n_splits, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the smallest instantiated row-pass count NP >= the group's passes
+template <typename T, int D>
+int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
+                void* out, float* part, int* counters, int b, int h, int kvh,
+                int s_len, int chunk, int n_splits, float scale,
+                cudaStream_t s) {
+  constexpr int rows_per_pass = 32 / (D / Traits<T>::EPC);
+  const int passes = (h / kvh + rows_per_pass - 1) / rows_per_pass;
+#define REPRO_DECODE_NP(NP)                                                  \
+  if (passes <= NP)                                                          \
+    return launch<T, D, NP>(q, k, v, lens, out, part, counters, b, h, kvh,   \
+                            s_len, chunk, n_splits, scale, s);
+  REPRO_DECODE_NP(1)
+  REPRO_DECODE_NP(2)
+  REPRO_DECODE_NP(4)
+  REPRO_DECODE_NP(8)
+  if constexpr (sizeof(T) == 4) {  // rep * D <= 2048: up to 16 in fp32
+    REPRO_DECODE_NP(16)
+  }
+#undef REPRO_DECODE_NP
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T>
-int dispatch(int d, const void* q, const void* k, const void* v,
-             const int* lens, void* out, float* pm, float* pl, float* pa,
-             int b, int h, int kvh, int s_len, int n_splits, float scale,
+int dispatch(const void* q, const void* k, const void* v, const int* lens,
+             void* out, float* part, int* counters, int b, int h, int kvh,
+             int s_len, int d, int chunk, int n_splits, float scale,
              cudaStream_t s) {
+  if (chunk < 1 || chunk % Traits<T>::TK != 0 ||
+      (long long)chunk * n_splits < s_len)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, lens, out, pm, pl, pa, b, h, kvh, s_len,
-                           n_splits, scale, s);
+      return dispatch_np<T, 16>(q, k, v, lens, out, part, counters, b, h, kvh,
+                                s_len, chunk, n_splits, scale, s);
     case 32:
-      return launch<T, 32>(q, k, v, lens, out, pm, pl, pa, b, h, kvh, s_len,
-                           n_splits, scale, s);
+      return dispatch_np<T, 32>(q, k, v, lens, out, part, counters, b, h, kvh,
+                                s_len, chunk, n_splits, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, lens, out, pm, pl, pa, b, h, kvh, s_len,
-                           n_splits, scale, s);
+      return dispatch_np<T, 64>(q, k, v, lens, out, part, counters, b, h, kvh,
+                                s_len, chunk, n_splits, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, lens, out, pm, pl, pa, b, h, kvh, s_len,
-                            n_splits, scale, s);
+      return dispatch_np<T, 128>(q, k, v, lens, out, part, counters, b, h,
+                                 kvh, s_len, chunk, n_splits, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -247,31 +415,34 @@ int dispatch(int d, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Keys per split: the wrapper sizes the partials [b * h, n_splits(, d)] with
-// n_splits = ceil(s_len / chunk).
-extern "C" int repro_decode_attention_chunk() { return CHUNK; }
+// Keys per warp tile: ``chunk`` must be a multiple of it (the host's plan,
+// kernels/decode_attention.py, checks it).  dtype: 0 = float32, 1 = bfloat16.
+extern "C" int repro_decode_attention_key_tile(int dtype) {
+  return dtype == 0 ? Traits<float>::TK : Traits<__nv_bfloat16>::TK;
+}
 
-// q [b, h, d] and caches [b, s_len, kvh, d], contiguous; lens int32 [b] on
-// the device; out [b, h, d]; part_m / part_l fp32 [b * h * n_splits],
-// part_acc fp32 [b * h * n_splits * d] (scratch).  dtype: 0 = float32,
-// 1 = bfloat16 (q, caches and out share it).  d in {16, 32, 64, 128},
-// (h / kvh) * d <= 2048.  Returns the CUDA error of the two launches (0 on
+// q [b, h, d] and caches [b, s_len, kvh, d], contiguous, 16-byte aligned;
+// lens int32 [b] on the device; out [b, h, d].  The keys are split into
+// n_splits splits of ``chunk`` (chunk * n_splits >= s_len).  Scratch:
+// ``part`` fp32 [b * h * n_splits * (d + 2)], ``counters`` int32 [b * kvh],
+// zero on entry and left zero on exit.  dtype: 0 = float32, 1 = bfloat16
+// (q, caches and out share it).  d in {16, 32, 64, 128},
+// (h / kvh) * d <= 2048.  Returns the CUDA error of the launch (0 on
 // success); nothing here synchronises.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lens, void* out,
-    void* part_m, void* part_l, void* part_acc, int b, int h, int kvh,
-    int s_len, int d, int n_splits, float scale, int dtype, void* stream) {
+    void* part, void* counters, int b, int h, int kvh, int s_len, int d,
+    int chunk, int n_splits, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
-  float* pm = static_cast<float*>(part_m);
-  float* pl = static_cast<float*>(part_l);
-  float* pa = static_cast<float*>(part_acc);
+  float* pa = static_cast<float*>(part);
+  int* cnt = static_cast<int*>(counters);
   if (dtype == 0)
-    return dispatch<float>(d, q, k, v, ln, out, pm, pl, pa, b, h, kvh, s_len,
-                           n_splits, scale, s);
+    return dispatch<float>(q, k, v, ln, out, pa, cnt, b, h, kvh, s_len, d,
+                           chunk, n_splits, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(d, q, k, v, ln, out, pm, pl, pa, b, h,
-                                   kvh, s_len, n_splits, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, ln, out, pa, cnt, b, h, kvh,
+                                   s_len, d, chunk, n_splits, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

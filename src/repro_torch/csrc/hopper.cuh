@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the port's tensor-core kernels, in
-// inline PTX: mbarriers, TMA tile loads through a host-encoded CUtensorMap,
-// and warpgroup matrix multiplies (wgmma) with shared-memory descriptors.
-// Header-only; csrc/flash_attention.cu includes it.  The build hashes every
-// csrc/*.cuh with each source, so an edited header rebuilds its users.
+// Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
+// mbarriers, TMA tile loads through a host-encoded CUtensorMap, warpgroup
+// matrix multiplies (wgmma) with shared-memory descriptors, and cp.async
+// copies with their group waits.  Header-only; csrc/flash_attention.cu,
+// csrc/matmul.cu and csrc/decode_attention.cu include it.  The build hashes
+// every csrc/*.cuh with each source, so an edited header rebuilds its users.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links -lcuda
@@ -207,5 +208,54 @@ template <> struct WgmmaRS<64> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// ---- cp.async (LDGSTS) ----------------------------------------------------
+
+// 16-byte copy global -> shared; src_bytes 0 zero-fills the destination
+// (and reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's newest copy groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- launch ----------------------------------------------------------------
+
+// Let kernel ``Kernel`` take ``bytes`` of dynamic shared memory, once per
+// device (the attribute is kept per kernel and device; later launches skip
+// the call).  The kernel is a template argument so that each kernel has its
+// own flags, also where several share one signature.
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
+}
 
 }  // namespace hopper

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -100,3 +101,12 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
                            f"({msg})")
+
+
+def on_device(dev):
+    """A context that makes CUDA device ``dev`` current for a launch; a
+    no-op (no device switch on the host) when it already is."""
+    import torch
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return nullcontext()
+    return torch.cuda.device(dev)

@@ -7,12 +7,18 @@ in the serving pool's grouped layout ``[B, S, KV, D]`` (query head ``h``
 reads KV head ``h // (H // KV)``), and every row has its own valid length,
 because the continuous batcher's slots sit at different positions.  The
 TPU kernel's ``[BH, D]`` / ``[BH, S, D]`` form is the case ``H = KV = 1``.
-One call is one launch of the kernel pair (split pass + merge pass).
+One call is one kernel launch: the splits and their in-order merge.
+:func:`plan` sizes the splits from the shape (the lengths stay on the
+device); the partials and the merge counters are scratch kept per device
+and stream across calls, so calls in flight on different streams never
+share them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -24,22 +30,74 @@ launches = 0
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP_WIDTH = 2048          # (H // KV) * D the kernel's block can hold
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KEY_TILE = {torch.float32: 8, torch.bfloat16: 16}   # keys per warp tile
+SMS = 132                       # H100 SXM
 
 
+class DecodePlan(NamedTuple):
+    chunk: int           # keys per split, a multiple of the key tile
+    n_splits: int        # ceil(s_len / chunk): the grid is n_splits x B*KV
+
+
+@functools.lru_cache(maxsize=256)
+def plan(rows: int, s_len: int, key_tile: int = KEY_TILE[torch.bfloat16]
+         ) -> DecodePlan:
+    """Splits for ``rows`` = B * KV cache rows of ``s_len`` keys.  The
+    lengths live on the device, so the grid is sized for 2.5 waves of the
+    132 SMs over the whole cache: with the slots about half full, as in a
+    serving pool, the live blocks then fill a little over one wave
+    ([4, 2112, 8, 64] at lengths 1/300/1000/2112: chunk 192, 160 of 352
+    blocks live).  Splits past a row's length return at once."""
+    want = max(1, -(-5 * SMS // (2 * max(rows, 1))))
+    per = -(-max(s_len, 1) // want)
+    chunk = key_tile * -(-per // key_tile)
+    return DecodePlan(chunk, max(1, -(-s_len // chunk)))
+
+
+def live_blocks(p: DecodePlan, lens, kvh: int) -> int:
+    """Blocks that do work for these per-slot lengths (the rest return at
+    once)."""
+    return kvh * sum(-(-min(int(n), p.chunk * p.n_splits) // p.chunk)
+                     for n in lens)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     lib.repro_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_decode_attention.restype = ctypes.c_int
-    lib.repro_decode_attention_chunk.argtypes = []
-    lib.repro_decode_attention_chunk.restype = ctypes.c_int
+    lib.repro_decode_attention_key_tile.argtypes = [ctypes.c_int]
+    lib.repro_decode_attention_key_tile.restype = ctypes.c_int
+    for dtype, code in _DTYPE_CODES.items():
+        if lib.repro_decode_attention_key_tile(code) != KEY_TILE[dtype]:
+            raise RuntimeError("csrc/decode_attention.cu's key tile differs "
+                               "from KEY_TILE")
     return lib
+
+
+# per (device, stream): (fp32 partials, int32 merge counters kept at zero);
+# a kernel on one stream only ever meets its own stream's scratch
+_SCRATCH: dict = {}
+
+
+def _scratch(dev: torch.device, stream: int, floats: int, groups: int):
+    part, counters = _SCRATCH.get((dev, stream), (None, None))
+    if part is None or part.numel() < floats or counters.numel() < groups:
+        part = torch.empty((floats,), dtype=torch.float32, device=dev)
+        counters = torch.zeros((groups,), dtype=torch.int32, device=dev)
+        _SCRATCH[dev, stream] = (part, counters)
+    return part, counters
 
 
 def lens_tensor(cache_len, b: int, device: torch.device) -> torch.Tensor:
     """``cache_len`` (an int, or an int tensor of 1 or ``b`` entries) as a
     contiguous int32 [b] tensor on ``device``."""
+    if (isinstance(cache_len, torch.Tensor) and cache_len.dtype == torch.int32
+            and cache_len.device == device and cache_len.shape == (b,)
+            and cache_len.is_contiguous()):
+        return cache_len            # the serving path's lengths, as they are
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
     return lens.reshape(-1).expand(b).contiguous()
 
@@ -76,24 +134,24 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             and v_cache.is_contiguous()):
         raise ValueError("CUDA decode attention takes contiguous q and "
                          "caches")
+    if not all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)):
+        raise ValueError("CUDA decode attention needs 16-byte aligned q and "
+                         "caches (16-byte cp.async copies)")
     lens = lens_tensor(cache_len, b, dev)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     if b == 0 or h == 0:
         return out
     lib = _lib()
-    chunk = lib.repro_decode_attention_chunk()
-    n_splits = max(1, -(-s_len // chunk))
-    part_m = torch.empty((b * h * n_splits,), dtype=torch.float32, device=dev)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b * h * n_splits * d,), dtype=torch.float32,
-                           device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    p = plan(b * kvh, s_len, KEY_TILE[q.dtype])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part, counters = _scratch(dev, stream, b * h * p.n_splits * (d + 2),
+                              b * kvh)
+    with _build.on_device(dev):
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), b, h, kvh, s_len, d,
-            n_splits, 1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype], stream)
+            lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            counters.data_ptr(), b, h, kvh, s_len, d, p.chunk, p.n_splits,
+            1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, err, "decode_attention")
     launches += 1
     return out

@@ -1,5 +1,5 @@
-"""How the bf16 flash kernel is held against its plain version: shared by
-``chip_smoke.py`` (phase 3) and ``tests/test_torch_cuda.py``.
+"""How the bf16 attention kernels are held against their plain versions:
+shared by ``chip_smoke.py`` (phase 3) and ``tests/test_torch_cuda.py``.
 
 A flat absolute limit is blind to late causal rows: row i averages i+1
 values, so its entries are about (i+1)**-0.5 (0.02-0.05 at S=1000-2048
@@ -10,6 +10,11 @@ tile) shows as plainly as one in row 0.  ``BF16_ROW_TOL`` lies between the
 largest reading of sound kernel runs and the smallest reading of the
 simulated faults of ``fault_controls`` (both in PERF.md, from
 ``chip_smoke.py`` on the card); the 5e-2 absolute limit is kept beside it.
+
+Decode attention has the same blind spot: a row over L keys has entries of
+about (e / L)**0.5 (0.036 at L=2112), so the bf16 decode kernel is held to
+``row_err`` too, at ``DECODE_ROW_TOL``, beside simulated faults of its own
+design (``decode_fault_controls``).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from .ref import NEG_INF
 
 BF16_ABS_TOL = 5e-2
 BF16_ROW_TOL = 0.15
+DECODE_ROW_TOL = 0.04
 BKV = 128                                # the kernel's keys per tile
 SWEEP_D = (16, 32, 64, 128)
 SWEEP_S = (1, 63, 64, 65, 200, 1000)
@@ -99,3 +105,75 @@ def fault_controls(q, k, v, kv_group: int) -> dict:
         "P rounded to fp8": _attention(q, k, v, kv_group,
                                        torch.float8_e4m3fn),
     }
+
+
+
+# csrc/decode_attention.cu: 8 warps a block, warp w takes the split's key
+# tiles w, w + 8, ...; each warp's cp.async ring has 3 stages
+DECODE_WARPS = 8
+DECODE_STAGES = 3
+
+
+def decode_want32(q, kc, vc, lens) -> torch.Tensor:
+    """What the row-scaled decode limit compares with: the plain version
+    run in fp32 on the same (bf16) inputs.  The bf16 plain version rounds
+    its scores to bf16, which alone reads up to about 0.05 on ``row_err``
+    (three times a sound kernel); the kernel keeps them in fp32."""
+    from .ref import decode_attention_ref
+    return decode_attention_ref(q.float(), kc.float(), vc.float(), lens)
+
+
+def within_decode_limits(got, want, want32):
+    """(ok, max abs error, row error) of bf16 decode attention [B, H, D]:
+    at most ``BF16_ABS_TOL`` from the bf16 plain version ``want`` and
+    ``DECODE_ROW_TOL`` on ``row_err`` from its fp32 run ``want32``."""
+    err = (got.float() - want.float()).abs().max().item()
+    rerr = row_err(got, want32)
+    return err <= BF16_ABS_TOL and rerr <= DECODE_ROW_TOL, err, rerr
+
+
+def _decode(q, kc, vc, lens, p_dtype, drop=None):
+    """``ref.decode_attention_ref`` with fp32 scores, the keys in ``drop``
+    masked out, and the unnormalised p = exp(s - max), as the kernel forms
+    it, rounded to ``p_dtype`` before it returns to V's type."""
+    b, h, d = q.shape
+    s_len, kvh = kc.shape[1], kc.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).float()
+    s = torch.einsum("bgrd,bkgd->bgrk", qg, kc.float()) / math.sqrt(d)
+    pos = torch.arange(s_len, device=q.device)
+    keep = pos[None, :] < lens.reshape(-1, 1).to(q.device)
+    if drop is not None:
+        keep[:, drop] = False
+    s = torch.where(keep[:, None, None, :], s, NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * keep[:, None, None, :]
+    l = p.sum(-1, keepdim=True).clamp_min(1e-20)
+    pv = torch.einsum("bgrk,bkgd->bgrd", p.to(p_dtype).to(vc.dtype).float(),
+                      vc.float())
+    return (pv / l).to(q.dtype).reshape(b, h, d)
+
+
+def decode_fault_controls(q, kc, vc, lens, chunk: int, key_tile: int
+                          ) -> dict:
+    """Outputs of faults of the decode kernel, simulated on the plain
+    version: split 1 (keys chunk..2*chunk-1) left out of the merge, where
+    the cache has a second split; one warp tile (warp 1's first, keys
+    key_tile..2*key_tile-1) dropped; tile t = WARPS*STAGES + 1 read from
+    the stale ring stage, which held the same warp's tile 1 (what a missing
+    wait gives in a split long enough to wrap the ring); and p rounded to
+    fp8 e4m3 instead of V's type."""
+    tile = slice(key_tile, 2 * key_tile)
+    t = DECODE_WARPS * DECODE_STAGES + 1
+    late = slice(t * key_tile, (t + 1) * key_tile)
+    ks, vs = kc.clone(), vc.clone()
+    ks[:, late], vs[:, late] = kc[:, tile], vc[:, tile]
+    controls = {}
+    if chunk < kc.shape[1]:
+        controls["split 1 dropped"] = _decode(
+            q, kc, vc, lens, vc.dtype, drop=slice(chunk, 2 * chunk))
+    controls.update({
+        f"keys {key_tile}-{2 * key_tile - 1} (warp tile) dropped":
+            _decode(q, kc, vc, lens, vc.dtype, drop=tile),
+        f"tile {t} from stale stage": _decode(q, ks, vs, lens, vc.dtype),
+        "P rounded to fp8": _decode(q, kc, vc, lens, torch.float8_e4m3fn),
+    })
+    return controls

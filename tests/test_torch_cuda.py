@@ -175,3 +175,108 @@ def test_serving_on_the_card_matches_generate():
         want = generate(lm, {"tokens": torch.from_numpy(t[None])}, len(t),
                         6, 64)
         assert np.array_equal(out[f"r{i}"], want[0].cpu().numpy()), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n", [(512, 512, 512), (513, 1001, 511),
+                                   (64, 4, 64), (64, 3, 64), (64, 528, 64)])
+def test_cuda_matmul_main_and_ragged_shapes(m, k, n, dtype, tol):
+    """3mm's 512^3; M, N and K ragged with rows that are not 16-byte
+    aligned (4-byte copies); K of one or under one 16-byte vector; K slabs
+    shared unequally by a block's warps.  fp32 at 1e-4 (sums of up to 1001
+    products), bf16 at 2e-2."""
+    gen = _card()
+    a = torch.randn(m, k, generator=gen).to("cuda", dtype)
+    b = torch.randn(k, n, generator=gen).to("cuda", dtype)
+    ops.reset_launch_counts()
+    got = ops.matmul(a, b)
+    torch.testing.assert_close(got.float(), ref.matmul_ref(a, b).float(),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul"] == 1
+
+
+_WRAP_LENS = (1, 17, 300, 640, 1000, 2111, 2112, 2500) * 8
+
+
+def _decode_case(gen, dtype, b, h, kv, s, d, lens):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to("cuda", dtype)
+    return (randn(b, h, d), randn(b, s, kv, d), randn(b, s, kv, d),
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-4)])
+@pytest.mark.parametrize("case", ["around_split", "all_one", "clamped",
+                                  "wide_head", "ring_wrap"])
+def test_cuda_decode_split_boundaries(case, dtype, tol):
+    """The serving pool's [4, 2112, 8, 64] cache at lengths one below, at
+    and one above the plan's split size and at S, every slot at length 1,
+    a length past S (clamped to S); D=128 with 8 query heads a KV head;
+    and a 64-slot pool, one split a row, so each warp's cp.async ring wraps
+    many times.  bf16 is also held to the row-scaled limit against the
+    plain version in fp32 (``kernels/parity.py``)."""
+    from repro_torch.kernels import decode_attention as da
+    gen = _card()
+    b, h, kv, s, d = 4, 32, 8, 2112, 64
+    c = da.plan(b * kv, s, da.KEY_TILE[dtype]).chunk
+    shape, lens = {
+        "around_split": ((b, h, kv, s, d), (c - 1, c, c + 1, s)),
+        "all_one": ((b, h, kv, s, d), (1, 1, 1, 1)),
+        "clamped": ((b, h, kv, s, d), (s + 100, 1, 2 * c, 2 * c + 1)),
+        "wide_head": ((2, 64, 8, 700, 128), (1, 699)),
+        "ring_wrap": ((64, h, kv, s, d), _WRAP_LENS),
+    }[case]
+    q, kc, vc, ln = _decode_case(gen, dtype, *shape, lens)
+    if case == "ring_wrap":
+        p = da.plan(64 * kv, s, da.KEY_TILE[dtype])
+        # each warp's 3-stage ring wraps at least five times
+        assert p.chunk // da.KEY_TILE[dtype] >= 5 * 3 * 8
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, kc, vc, ln)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention_ref(q, kc, vc, ln).float(),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    if dtype == torch.bfloat16:
+        want32 = parity.decode_want32(q, kc, vc, ln)
+        assert parity.row_err(got, want32) <= parity.DECODE_ROW_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_decode_repeats_bit_for_bit(dtype):
+    """The splits merge in a fixed order and the kernel leaves its merge
+    counters at zero: the same call gives the same bits, also after a call
+    of another shape has used the same scratch; so does a 64-slot pool
+    whose warps wrap their rings."""
+    gen = _card()
+    q, kc, vc, ln = _decode_case(gen, dtype, 4, 32, 8, 2112, 64,
+                                 (1, 300, 1000, 2112))
+    first = ops.decode_attention(q, kc, vc, ln)
+    assert torch.equal(first, ops.decode_attention(q, kc, vc, ln))
+    other = _decode_case(gen, dtype, 2, 16, 4, 700, 128, (5, 699))
+    ops.decode_attention(*other)
+    assert torch.equal(first, ops.decode_attention(q, kc, vc, ln))
+    wrap = _decode_case(gen, dtype, 64, 32, 8, 2112, 64, _WRAP_LENS)
+    assert torch.equal(ops.decode_attention(*wrap),
+                       ops.decode_attention(*wrap))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_refuses_misaligned_caches():
+    """The kernel copies 16 bytes at a time: a cache whose base is not
+    16-byte aligned raises and launches nothing."""
+    gen = _card()
+    flat = torch.randn(1 + 64 * 2 * 32, generator=gen).cuda()
+    kc = flat[1:].view(1, 64, 2, 32)           # 4 bytes past an alignment
+    q = torch.randn(1, 4, 32, generator=gen).cuda()
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.decode_attention(q, kc, kc, 10)
+    assert ops.launch_counts()["decode_attention"] == 0
