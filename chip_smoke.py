@@ -13,7 +13,9 @@ each printing its seconds:
                with each kernel's ``-Xptxas -v`` report; the flash library's
                SASS (cuobjdump) must hold HGMMA (wgmma) instructions, and the
                matmul and decode-attention libraries' SASS LDGSTS (cp.async)
-               instructions; their counts are printed;
+               instructions; their counts are printed; the tdfir kernels must
+               not spill, and their 16-byte shared loads (LDS.128) are
+               counted;
   3. check     every kernel against its plain PyTorch version on the card: the
                JAX tests' shapes at their tolerances, the main-path shapes,
                and lengths that are not multiples of the tile (matmul ragged
@@ -28,13 +30,22 @@ each printing its seconds:
                kernel every head dim, lengths around its 128-row tiles,
                causal and not, kv_group 1 and 4, held to an absolute and a
                row-scaled limit that must also reject four simulated faults
-               at the main shapes;
+               at the main shapes; tdfir and its one-launch complex form at
+               the edges of the blocked tap loop (K not a multiple of 4, N
+               below one thread's outputs or not a multiple of 4, N < K,
+               F = 1, the largest K each form accepts, and a K past it,
+               which must raise), the complex form bitwise equal to four
+               real launches and their combine, and one device kernel per
+               complex call;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
                beside the least time the card could take; flash attention
                also at the ragged S=1000 and at D=128, decode attention also
-               with every slot at 2112; the matmul and decode launch plans;
+               with every slot at 2112, the complex tdFIR bank beside one
+               grouped ``F.conv1d`` and beside four real launches, the bf16
+               matmul beside ``torch.matmul``; the matmul, tdfir and decode
+               launch plans;
                a profile of one decode-attention call must hold exactly one
                device kernel;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
@@ -161,24 +172,55 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# A torch.profiler trace on the card can drop its first kernel records
+# (seen on the H100 machine once a process had taken a few traces: the
+# first 3 records of each, so 7 of 10 calls' kernels or 0 of 1).  Each
+# trace here opens with TRACE_PAD spin kernels, left out of every count;
+# a trace that lost all of them is taken again, at most TRACE_TRIES times.
+TRACE_PAD = 64
+TRACE_TRIES = 3
+PAD_KERNEL = "spin_kernel"
+
+
+def traced_kernels(run, activities) -> list:
+    """A torch.profiler trace of ``run()`` whose first records are the pad,
+    and (name, ms) of each kernel in it but the pad."""
+    from torch.profiler import profile
+    for _ in range(TRACE_TRIES):
+        with profile(activities=activities) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        kernels = [(e.name, e.time_range.elapsed_us() / 1e3)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")]
+        if any(PAD_KERNEL in name for name, _ in kernels):
+            return prof, [(name, ms) for name, ms in kernels
+                          if PAD_KERNEL not in name]
+    raise SmokeFailure(f"{TRACE_TRIES} profiler traces lost all {TRACE_PAD} "
+                       f"pad kernels: their kernel counts would be short")
+
+
 def device_profile(fn, iters: int = 10):
     """Device time per call of ``fn`` from a torch.profiler trace of
     ``iters`` calls after a warm-up: (ms, kernels as (name, ms) heaviest
     first, the 8 heaviest host ops by self CPU time as (name, ms)), all per
     call."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+
+    prof, traced = traced_kernels(run, [ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
     kernels = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            kernels[e.name] = kernels.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / iters
+    for name, ms in traced:
+        kernels[name] = kernels.get(name, 0.0) + ms / iters
     host = sorted(((a.key, a.self_cpu_time_total / 1e3 / iters)
                    for a in prof.key_averages()), key=lambda kv: -kv[1])
     top = sorted(kernels.items(), key=lambda kv: -kv[1])
@@ -268,8 +310,66 @@ def check_kernels(ops, ref):
     x, h = randn(gen, 4, 1000), randn(gen, 4, 200)
     check_close("tdfir F=4 N=1000 K=200 block_n=128 (ragged N)",
                 ops.tdfir(x, h, block_n=128), ref.tdfir_ref(x, h), 3e-4)
+    rr, ii = ops.tdfir(xr, hr), ops.tdfir(xi, hi)
+    ri, ir = ops.tdfir(xr, hi), ops.tdfir(xi, hr)
+    for part, got, want in zip(
+            ("re", "im"),
+            ops.tdfir_complex(xr, xi, hr, hi, block_n=TDFIR_MAIN_BLOCK_N),
+            (rr - ii, ri + ir)):
+        require_same_bits(f"tdfir_complex 64x4096x128 ({part}) against four "
+                          f"tdfir launches and the combine", got, want,
+                          "the complex kernel's sums or combine are not "
+                          "those of the real kernel")
+    launched = device_kernels(lambda: ops.tdfir_complex(
+        xr, xi, hr, hi, block_n=TDFIR_MAIN_BLOCK_N))
+    print(f"  tdfir_complex: one call runs {len(launched)} device kernel(s): "
+          f"{launched}")
+    require(len(launched) == 1, "a tdfir_complex call is not one device "
+            "kernel")
+    check_tdfir_edges(ops, ref, gen)
     errs.update(check_attention(ops, ref, gen))
     return errs
+
+
+def check_tdfir_edges(ops, ref, gen):
+    """Phase 3: tdfir and tdfir_complex at the edges of the kernel's blocked
+    tap loop (``kernels/parity.py`` ``tdfir_edges``), at 3e-4, and a K
+    past each form's limit, which must raise before any launch."""
+    from repro_torch.kernels import parity
+    from repro_torch.kernels import tdfir as fir
+    print(" tdfir and tdfir_complex (blocked-loop edges at 3e-4: K not a "
+          "multiple of 4, K' where the swizzle moves the window's last "
+          "quad, N below 8 or not a multiple of 4, N < K, F = 1, the "
+          "largest K each form accepts)")
+    for f, nn, kk in parity.tdfir_edges():
+        # taps scaled to unit gain: fp32 sums of thousands of unit-scale
+        # products differ between two summation orders by more than 3e-4
+        scale = kk ** -0.5 if kk > 256 else 1.0
+        x, xi = randn(gen, f, nn), randn(gen, f, nn)
+        h, hi = randn(gen, f, kk) * scale, randn(gen, f, kk) * scale
+        check_close(f"tdfir F={f} N={nn} K={kk}", ops.tdfir(x, h),
+                    ref.tdfir_ref(x, h), 3e-4)
+        if kk > fir.max_taps(2):
+            continue
+        for part, got, want in zip(("re", "im"),
+                                   ops.tdfir_complex(x, xi, h, hi),
+                                   ref.tdfir_complex_ref(x, xi, h, hi)):
+            check_close(f"tdfir_complex F={f} N={nn} K={kk} ({part})", got,
+                        want, 3e-4)
+    x, h = randn(gen, 2, 64), randn(gen, 2, fir.max_taps(1) + 4)
+    hc = h[:, :fir.max_taps(2) + 4].contiguous()
+    before = ops.launch_counts()["tdfir"]
+    for what, call in (("tdfir", lambda: ops.tdfir(x, h)),
+                       ("tdfir_complex",
+                        lambda: ops.tdfir_complex(x, x, hc, hc))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"  {what} past its tap limit raises: {e}")
+        else:
+            raise SmokeFailure(f"{what} took more taps than its limit")
+    require(ops.launch_counts()["tdfir"] == before,
+            "a tdfir call past the tap limit launched")
 
 
 def flash_inputs(gen, s, dtype, b=1, h=32, kv=8, d=64):
@@ -303,15 +403,17 @@ def check_flash_bf16(what: str, got, want) -> float:
     return err
 
 
-def require_same_bits(what: str, first, again) -> None:
-    """Two identical decode calls: the splits merge in a fixed order and
-    the kernel left its merge counters at zero."""
+def require_same_bits(what: str, first, again,
+                      why: str = "the split merge is not in a fixed order, "
+                                 "or a counter was not reset") -> None:
+    """``first`` and ``again`` must agree bit for bit: by default two
+    identical decode calls (the splits merge in a fixed order and the kernel
+    left its merge counters at zero); ``why`` names what a difference
+    means."""
     torch.cuda.synchronize()
     same = torch.equal(first, again)
-    print(f"  {what}, called twice: "
-          f"{'bitwise identical' if same else 'DIFFERENT'}")
-    require(same, f"{what}: two identical calls differ (the split merge is "
-            "not in a fixed order, or a counter was not reset)")
+    print(f"  {what}: {'bitwise identical' if same else 'DIFFERENT'}")
+    require(same, f"{what}: not bitwise identical ({why})")
 
 
 def check_decode_rows(what: str, got, q, kc, vc, lens, readings,
@@ -473,11 +575,11 @@ def check_attention(ops, ref, gen):
         if dtype == torch.bfloat16:
             check_decode_rows(what, first, q, kc, vc, ln, readings,
                               wrap.chunk)
-        require_same_bits(f"decode 64-slot pool {dtype}", first,
-                          ops.decode_attention(q, kc, vc, ln))
+        require_same_bits(f"decode 64-slot pool {dtype}, called twice",
+                          first, ops.decode_attention(q, kc, vc, ln))
         q, kc, vc, ln = decode_inputs(gen, dtype, *DECODE_MAIN,
                                       DECODE_MAIN_LENS)
-        require_same_bits(f"decode main shape {dtype}",
+        require_same_bits(f"decode main shape {dtype}, called twice",
                           ops.decode_attention(q, kc, vc, ln),
                           ops.decode_attention(q, kc, vc, ln))
     print(f"  decode bf16 row_err: largest sound reading "
@@ -503,10 +605,19 @@ def time_kernels(ops, ref):
           f"over {p.warps} warps of each block (no split across blocks)")
     require(p.blocks >= 128, "the matmul grid at 512^3 is under 128 blocks")
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    print(f"  matmul 512^3 bfloat16: kernel "
-          f"{time_ms(lambda: ops.matmul(a16, b16), 200):.4f} ms, "
-          f"torch.matmul {time_ms(lambda: torch.matmul(a16, b16), 200):.4f}"
-          f" ms")
+    t16, by16 = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + m * n),
+                      BF16_PEAK_FLOPS)
+
+    def kernel16():
+        return ops.matmul(a16, b16)
+
+    def library16():
+        return torch.matmul(a16, b16)
+
+    print(f"  matmul 512^3 bfloat16: kernel {time_ms(kernel16, 200):.4f} ms "
+          f"(device {device_profile(kernel16)[0]:.4f})  bound {t16:.5f} ms "
+          f"({by16})  torch.matmul {time_ms(library16, 200):.4f} ms (device "
+          f"{device_profile(library16)[0]:.4f})")
 
     f, nn, kk = TDFIR_MAIN
     x, h = randn(gen, f, nn), randn(gen, f, kk) * 0.1
@@ -517,13 +628,52 @@ def time_kernels(ops, ref):
         lambda: ref.tdfir_ref(x, h),
         lambda: F.conv1d(x[None], w, padding=kk - 1, groups=f), t_bound, by,
         plain_iters=20)
+    from repro_torch.kernels import tdfir as fir
+    p = fir.plan(f, nn, kk)
+    print(f"  tdfir plan at {f}x{nn}x{kk}: {fir.OUTPUTS_PER_THREAD} outputs "
+          f"a thread, {p.threads} threads a block ({p.tile}-output tiles, "
+          f"{p.window}-sample windows), grid {p.grid_n} x {p.grid_f} = "
+          f"{p.blocks} blocks, {p.blocks * p.threads / 32 / 132:.2f} warps "
+          f"a SM")
+    require(p.blocks >= 132, "the tdfir grid leaves SMs without a block")
     xi, hi = randn(gen, f, nn), randn(gen, f, kk) * 0.1
-    t_complex = time_ms(lambda: ops.tdfir_complex(
-        x, xi, h, hi, block_n=TDFIR_MAIN_BLOCK_N), 100)
-    print(f"  tdfir_complex 64x4096x128 (4 launches + combine): "
-          f"{t_complex:.4f} ms")
+    # one grouped convolution over the stacked (re, im) channels of each
+    # filter, weights [[h_re, -h_im], [h_im, h_re]] flipped
+    xs = F.pad(torch.stack([x, xi], 1).reshape(1, 2 * f, nn), (kk - 1, 0))
+    w2 = torch.stack([torch.stack([h, -hi], 1), torch.stack([hi, h], 1)],
+                     1).reshape(2 * f, 2, kk).flip(-1).contiguous()
+
+    def complex_kernel():
+        return ops.tdfir_complex(x, xi, h, hi, block_n=TDFIR_MAIN_BLOCK_N)
+
+    def complex_library():
+        return F.conv1d(xs, w2, groups=f)
+
+    def four_real():
+        return (ops.tdfir(x, h, block_n=TDFIR_MAIN_BLOCK_N)
+                - ops.tdfir(xi, hi, block_n=TDFIR_MAIN_BLOCK_N),
+                ops.tdfir(x, hi, block_n=TDFIR_MAIN_BLOCK_N)
+                + ops.tdfir(xi, h, block_n=TDFIR_MAIN_BLOCK_N))
+
+    want = torch.stack(ref.tdfir_complex_ref(x, xi, h, hi), 1)
+    lib_err = max_abs_err(complex_library()[0].reshape(f, 2, nn), want)
+    t_bound, by = bound(8.0 * f * nn * kk, 4.0 * (4 * f * nn + 2 * f * kk))
+    row, cdev = time_row(complex_kernel,
+                         lambda: ref.tdfir_complex_ref(x, xi, h, hi),
+                         complex_library, t_bound, by, plain_iters=10)
+    rows["tdfir"]["complex"] = row
+    dev["tdfir_complex"] = cdev
+    print(f"  tdfir_complex 64x4096x128: one launch {row['ms']:.4f} ms "
+          f"(device {cdev['kernel']:.4f})  bound {t_bound:.4f} ms ({by})  "
+          f"plain {row['plain_ms']:.4f} ms  grouped F.conv1d "
+          f"{row['library_ms']:.4f} ms (device {cdev['library']:.4f}, "
+          f"max_abs_err {lib_err:.1e} against the plain version)")
+    print(f"  tdfir_complex as four real launches and the combine: "
+          f"{time_ms(four_real, 100):.4f} ms (device "
+          f"{device_profile(four_real)[0]:.4f})")
     time_attention(ops, ref, gen, rows, dev)
-    for name, r in rows.items():
+    listed = dict(rows, tdfir_complex=rows["tdfir"]["complex"])
+    for name, r in listed.items():
         print(f"  {name:16s} kernel {r['ms']:.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  plain "
               f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms")
@@ -640,14 +790,11 @@ def decode_plan(dtype, shape=DECODE_MAIN):
 def device_kernels(fn) -> list:
     """Names of the device kernels one call of ``fn`` runs (a torch.profiler
     trace after a warm-up)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if str(e.device_type).endswith("CUDA")]
+    _, traced = traced_kernels(fn, [ProfilerActivity.CUDA])
+    return [name for name, _ in traced]
 
 
 def count_sass(build, name: str, opcode: str) -> int:
@@ -657,7 +804,7 @@ def count_sass(build, name: str, opcode: str) -> int:
     sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
-    return len(re.findall(rf"\b{opcode}\.", sass))
+    return len(re.findall(rf"\b{re.escape(opcode)}[.\s]", sass))
 
 
 def run_planner(ops):
@@ -905,7 +1052,8 @@ def main() -> int:
         require(not torch.backends.cuda.matmul.allow_tf32
                 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
     with phase("2 build"):
-        for name, log in _build.build_all().items():
+        logs = _build.build_all()
+        for name, log in logs.items():
             print(f"  [{name}] {_build.library_path(name).name}\n{log}")
         n_hgmma = count_sass(_build, "flash_attention", "HGMMA")
         print(f"  flash_attention SASS: {n_hgmma} HGMMA (wgmma) instructions")
@@ -916,6 +1064,12 @@ def main() -> int:
             print(f"  {name} SASS: {n_ldgsts} LDGSTS (cp.async) instructions")
             require(n_ldgsts > 0, f"the {name} library has no LDGSTS: its "
                     "copies are not asynchronous")
+        spills = [int(v) for v in
+                  re.findall(r"(\d+) bytes spill stores", logs["tdfir"])]
+        n_lds128 = count_sass(_build, "tdfir", "LDS.128")
+        print(f"  tdfir: spill stores {spills} bytes (one per kernel); SASS: "
+              f"{n_lds128} LDS.128 (16-byte shared loads)")
+        require(spills and not any(spills), "a tdfir kernel spills registers")
     with phase("3 check"):
         errs = check_kernels(ops, ref)
     with phase("4 time"):

@@ -31,7 +31,7 @@ TDFIR_ENTRY = REGISTRY.register(FunctionBlockEntry(
     impls={
         "dp": tdfir_app._complex_fir(tdfir_app._fir_conv),
         "tp": tdfir_app._complex_fir(tdfir_app._fir_conv),
-        "pallas": tdfir_app._complex_fir(tdfir_app._fir_pallas),
+        "pallas": tdfir_app._fir_bank_pallas,
     },
     doc="HPEC time-domain FIR bank (paper's single FB target)",
 ))

@@ -70,8 +70,13 @@ def _fir_conv(x, h):
     return F.conv1d(xp, w, groups=x.shape[0])[0]
 
 
-def _fir_pallas(x, h):
-    return ops.tdfir(x, h, block_n=max(128, h.shape[1]))
+def _fir_bank_pallas(state):
+    """The complex bank on the CUDA kernel, one launch for all four real
+    FIRs and their combine."""
+    y_re, y_im = ops.tdfir_complex(state["x_re"], state["x_im"],
+                                   state["h_re"], state["h_im"],
+                                   block_n=max(128, state["h_re"].shape[1]))
+    return dict(state, y_re=y_re, y_im=y_im)
 
 
 def _fir_nest():
@@ -80,7 +85,7 @@ def _fir_nest():
         impls={"seq": _complex_fir(_fir_seq),
                "dp": _complex_fir(_fir_conv),
                "tp": _complex_fir(_fir_conv),
-               "pallas": _complex_fir(_fir_pallas)},
+               "pallas": _fir_bank_pallas},
         trip_count=2, doc="time-domain FIR: the FB offload target")
 
 

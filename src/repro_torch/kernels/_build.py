@@ -110,3 +110,11 @@ def on_device(dev):
     if dev.index is None or dev.index == torch.cuda.current_device():
         return nullcontext()
     return torch.cuda.device(dev)
+
+
+def raw_stream(dev) -> int:
+    """The handle of the current CUDA stream on ``dev``, read without
+    building a ``torch.cuda.Stream`` object (which costs a launch more host
+    time than the handle alone)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(dev.index)

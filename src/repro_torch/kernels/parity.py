@@ -15,6 +15,11 @@ Decode attention has the same blind spot: a row over L keys has entries of
 about (e / L)**0.5 (0.036 at L=2112), so the bf16 decode kernel is held to
 ``row_err`` too, at ``DECODE_ROW_TOL``, beside simulated faults of its own
 design (``decode_fault_controls``).
+
+The fp32 tdfir kernels are held at a flat 3e-4 (the reference's own limit)
+at the shapes of ``tdfir_edges``: the edges of their blocked tap loop, kept
+here once for ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and the plan
+checks of ``tests/test_torch_kernel_plans.py``.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 
 import torch
 
+from . import tdfir as _fir
 from .ref import NEG_INF
 
 BF16_ABS_TOL = 5e-2
@@ -177,3 +183,22 @@ def decode_fault_controls(q, kc, vc, lens, chunk: int, key_tile: int
         "P rounded to fp8": _decode(q, kc, vc, lens, torch.float8_e4m3fn),
     })
     return controls
+
+
+# (F, N, K) at the edges of the tdfir kernel's blocked loop (8 outputs a
+# thread, taps in groups of 4, each plane's window swizzled in 8-float
+# blocks): K not a multiple of 4; K' = 36, 44 or 100 mod 64, where the
+# window's last quad is swizzled past the window (N of several tiles);
+# N below one thread's outputs, and N not a multiple of 4 (rows not
+# 16-byte aligned: 4-byte copies); N < K; F = 1; K past the block tile
+TDFIR_EDGES = ((3, 1000, 1), (3, 1000, 3), (3, 1000, 4), (3, 1000, 5),
+               (3, 1000, 127), (3, 1000, 129), (3, 1000, 36), (3, 1000, 44),
+               (3, 1000, 100), (2, 1001, 36), (2, 1, 16), (2, 7, 16),
+               (2, 4093, 128), (2, 100, 128), (1, 4096, 128), (4, 1000, 200))
+
+
+def tdfir_edges() -> tuple:
+    """``TDFIR_EDGES`` and the largest K each form takes, complex then
+    real."""
+    return TDFIR_EDGES + ((2, 3000, _fir.max_taps(2)),
+                          (2, 3000, _fir.max_taps(1)))

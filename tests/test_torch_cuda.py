@@ -39,8 +39,13 @@ def test_cuda_kernels_match_plain_versions():
         x, h = randn(f, n), randn(f, k)
         torch.testing.assert_close(ops.tdfir(x, h, block_n=bn),
                                    ref.tdfir_ref(x, h), rtol=3e-4, atol=3e-4)
+    xr, xi, hr, hi = randn(2, 128), randn(2, 128), randn(2, 8), randn(2, 8)
+    for got, want in zip(ops.tdfir_complex(xr, xi, hr, hi, block_n=64),
+                         ref.tdfir_complex_ref(xr, xi, hr, hi)):
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"matmul": 8, "tdfir": 5,
+    # one launch per tdfir_complex call
+    assert ops.launch_counts() == {"matmul": 8, "tdfir": 6,
                                    "flash_attention": 0,
                                    "decode_attention": 0}
 
@@ -280,3 +285,67 @@ def test_cuda_decode_refuses_misaligned_caches():
     with pytest.raises(ValueError, match="16-byte aligned"):
         ops.decode_attention(q, kc, kc, 10)
     assert ops.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,n,k", parity.tdfir_edges())
+def test_cuda_tdfir_blocked_loop_edges(f, n, k):
+    """tdfir and its one-launch complex form against their plain versions
+    at 3e-4, at the edges of the blocked tap loop and at the most taps each
+    form takes (taps scaled to unit gain there: sums of thousands of
+    unit-scale fp32 products differ between two orders by more than
+    3e-4)."""
+    from repro_torch.kernels import tdfir as fir
+    gen = _card()
+    scale = k ** -0.5 if k > 256 else 1.0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).cuda()
+
+    x, xi = randn(f, n), randn(f, n)
+    h, hi = randn(f, k) * scale, randn(f, k) * scale
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.tdfir(x, h), ref.tdfir_ref(x, h),
+                               rtol=3e-4, atol=3e-4)
+    launched = 1
+    if k <= fir.max_taps(2):
+        for got, want in zip(ops.tdfir_complex(x, xi, h, hi),
+                             ref.tdfir_complex_ref(x, xi, h, hi)):
+            torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+        launched = 2
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tdfir"] == launched
+
+
+@pytest.mark.gpu
+def test_cuda_tdfir_complex_is_four_real_launches_bitwise():
+    """At the planner's F=64, N=4096, K=128 the one complex launch gives the
+    bits of four real launches and torch's fp32 combine: each output sums
+    its taps in ascending order with fmaf in both kernels."""
+    gen = _card()
+    xr, xi = (torch.randn(64, 4096, generator=gen).cuda() for _ in range(2))
+    hr, hi = (torch.randn(64, 128, generator=gen).cuda() * 0.1
+              for _ in range(2))
+    ops.reset_launch_counts()
+    y_re, y_im = ops.tdfir_complex(xr, xi, hr, hi, block_n=128)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tdfir"] == 1
+    assert torch.equal(y_re, ops.tdfir(xr, hr) - ops.tdfir(xi, hi))
+    assert torch.equal(y_im, ops.tdfir(xr, hi) + ops.tdfir(xi, hr))
+
+
+@pytest.mark.gpu
+def test_cuda_tdfir_refuses_taps_past_its_limit():
+    """Taps and windows past 227 KB of shared memory raise before a
+    launch."""
+    from repro_torch.kernels import tdfir as fir
+    gen = _card()
+    x = torch.randn(2, 64, generator=gen).cuda()
+    h = torch.randn(2, fir.max_taps(1) + 4, generator=gen).cuda()
+    hc = h[:, :fir.max_taps(2) + 4].contiguous()
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="taps"):
+        ops.tdfir(x, h)
+    with pytest.raises(ValueError, match="taps"):
+        ops.tdfir_complex(x, x, hc, hc)
+    assert ops.launch_counts()["tdfir"] == 0

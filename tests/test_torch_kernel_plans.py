@@ -1,25 +1,32 @@
-"""The host-side plans of the matmul and decode-attention kernels: the
-matmul's tile grid and warp split cover every product term exactly once
+"""The host-side plans of the matmul, decode-attention and tdfir kernels:
+the matmul's tile grid and warp split cover every product term exactly once
 and fill the card at 512^3; the decode split sizes are whole key tiles, cover
 the cache and give about one wave of live blocks at the serving lengths;
 a plain simulation of the decode kernel's splits, warp tiles and
 in-order logsumexp merges at the plan's chunk sizes matches the Pallas
 decode kernel (interpret mode); and the card's bf16 decode limits pass
-both and reject simulated kernel faults.  The kernels themselves run on the card
-(tests/test_torch_cuda.py)."""
+both and reject simulated kernel faults.  For tdfir: the plan and the
+kernel's index arithmetic cover every output and every (output, tap) pair
+once and read inside the staged window, the window swizzle is free of bank
+conflicts, a plain simulation of the blocked tap loop matches the Pallas
+tdfir, and the card's 3e-4 limit rejects simulated faults of that loop.
+The kernels themselves run on the card (tests/test_torch_cuda.py)."""
 import math
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels import decode_attention as jax_da
+from repro.kernels import tdfir as jax_fir
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import parity, ref
+from repro_torch.kernels import tdfir as fir
 
 NEG_INF = -1e30
 KERNEL_WARPS = 8    # csrc/decode_attention.cu: warp w takes tiles w, w + 8..
@@ -220,3 +227,187 @@ def test_decode_bf16_limits_pass_tiled_kernels_and_reject_faults(d):
     assert len(controls) == 4
     for fault, bad in controls.items():
         assert parity.row_err(bad, want32) > 2 * parity.DECODE_ROW_TOL, fault
+
+
+# ---- tdfir: csrc/tdfir.cu's blocked loop ---------------------------------
+
+# (F, N, K): the main path and the card's phase-3 edges of the blocked loop
+TDFIR_SHAPES = [(64, 4096, 128), *parity.tdfir_edges()]
+R, GROUP = fir.OUTPUTS_PER_THREAD, fir.TAP_GROUP
+CHUNK = 256         # tap groups a check takes at once (bounded memory)
+
+
+def _swz(s):
+    """csrc/tdfir.cu's window slot of sample s (bit 2 flipped in odd
+    32-float blocks)."""
+    return s ^ ((s >> 3) & 4)
+
+
+def _block_reads(p, g0, g1):
+    """csrc/tdfir.cu's index arithmetic for one block, over (thread t,
+    group g in [g0, g1), tap i of the group, output j of the thread): the
+    block-local output 8t + j, its tap 4g + i and the window sample it
+    reads, w[4 + j - i] of the quad at s = 8t + K' - 4 - 4g."""
+    t, g, i, j = np.ix_(np.arange(p.threads), np.arange(g0, g1),
+                        np.arange(GROUP), np.arange(R))
+    s = R * t + p.taps - 4 - 4 * g
+    return np.broadcast_arrays(R * t + j, GROUP * g + i, s + 4 + j - i)
+
+
+def _check_tdfir_plan(f, n, k):
+    p = fir.plan(f, n, k)
+    assert p.threads % 32 == 0 and 32 <= p.threads <= fir.MAX_THREADS
+    assert p.taps % GROUP == 0 and k <= p.taps < k + GROUP
+    assert (p.grid_n, p.grid_f) == (-(-n // p.tile), f)
+    # every output sample in exactly one block's tile, one thread's 8
+    owners = np.zeros(p.grid_n * p.tile, np.int64)
+    for b in range(p.grid_n):
+        np.add.at(owners, b * p.tile + _block_reads(p, 0, 1)[0][:, 0, 0, :]
+                  .ravel(), 1)
+    assert (owners == 1).all() and p.grid_n * p.tile - p.tile < n
+    # every (output, tap) pair of a block once through the tap groups and
+    # the zero padding to K' (chunks of groups cover disjoint tap ranges);
+    # the sample read is x[n0 + out - tap]
+    groups = p.taps // GROUP
+    for g0 in range(0, groups, CHUNK):
+        g1 = min(groups, g0 + CHUNK)
+        out, tap, sample = _block_reads(p, g0, g1)
+        span = GROUP * (g1 - g0)
+        pairs = np.bincount((out * span + tap - GROUP * g0).ravel(),
+                            minlength=p.tile * span)
+        assert len(pairs) == p.tile * span and (pairs == 1).all()
+        assert (sample == out - tap + p.taps).all()  # sample 0 = n0 - K'
+        assert sample.min() >= 0 and sample.max() < p.window
+    # the quads loaded (three at the start, one a group after) stay in the
+    # staged window x[n0 - K', n0 + tile)
+    first = R * np.arange(p.threads)[:, None] + p.taps - 4 \
+        - 4 * np.arange(groups)[None, :]
+    quads = np.concatenate([first.ravel(), first[:, 0] + 4, first[:, 0] + 8])
+    assert quads.min() >= 0 and quads.max() + 4 <= p.window
+    # every quad staged or loaded keeps its 4 slots, after the swizzle,
+    # inside its plane's stride (the next plane starts there)
+    slots = _swz(np.concatenate([np.arange(0, p.window, 4), quads]))
+    assert slots.min() >= 0 and (slots + 4).max() <= p.stride
+    # csrc/tdfir.cu's shared memory: per plane K' taps and the stride
+    planes = 1 if k > fir.max_taps(2) else 2
+    assert p.smem_bytes(planes) == 4 * planes * (p.taps + p.stride) \
+        <= fir.SMEM_LIMIT_BYTES
+
+
+@pytest.mark.parametrize("f,n,k", TDFIR_SHAPES)
+def test_tdfir_plan_covers_each_output_and_tap_once(f, n, k):
+    _check_tdfir_plan(f, n, k)
+
+
+@settings(max_examples=25, deadline=None)
+@given(f=st.integers(1, 64), n=st.integers(1, 8192),
+       k=st.integers(1, fir.max_taps(1)))
+def test_tdfir_plan_sweep(f, n, k):
+    _check_tdfir_plan(f, n, k)
+
+
+def test_tdfir_plan_fills_the_card_at_the_main_shape():
+    p = fir.plan(64, 4096, 128)
+    assert p.blocks >= fir.SMS
+    assert p.blocks * p.threads // 32 >= 4 * fir.SMS   # a warp a scheduler
+
+
+def test_tdfir_window_swizzle_is_conflict_free():
+    """Eight lanes reading 16 bytes at s0 + 8 lane (a quarter-warp of the
+    x loads) hit 32 distinct banks for every 4-aligned s0, and the swizzle
+    keeps each aligned quad one aligned quad (cp.async stages quads)."""
+    for s0 in range(0, 512, 4):
+        banks = [(_swz(s0 + 8 * lane) + e) % 32 for lane in range(8)
+                 for e in range(4)]
+        assert sorted(banks) == list(range(32)), s0
+    slots = [_swz(s) for s in range(1024)]
+    assert sorted(slots) == list(range(1024))
+    assert all(_swz(q) % 4 == 0 and [_swz(q + e) for e in range(4)]
+               == list(range(_swz(q), _swz(q) + 4)) for q in range(0, 1024, 4))
+
+
+def _simulate_fir(x, h, fault=None):
+    """csrc/tdfir.cu's blocked loop in plain torch (fp32): each block's
+    staged window (zeros before n = 0 and past N), each thread's 12-sample
+    register window slid by 4 a group, taps in groups of 4 (zero past K),
+    each output's sums in ascending tap order.  ``fault`` simulates a
+    kernel fault: "group_dropped" (group G/2 skipped), "window_off_by_one"
+    (every read one sample late), "no_history" (the first tile's samples
+    before n = 0 taken from the previous filter's row, not zeros)."""
+    f, n = x.shape
+    k = h.shape[1]
+    p = fir.plan(f, n, k)
+    hp = F.pad(h, (0, p.taps - k))
+    xp = F.pad(x, (p.taps, p.grid_n * p.tile - n))
+    if fault == "no_history":
+        xp[:, :p.taps] = torch.roll(x, 1, 0)[:, -p.taps:] if n >= p.taps \
+            else 1.0
+    windows = xp.unfold(1, p.window, p.tile)      # [F, tiles, window]
+    base = (R * torch.arange(p.threads)[:, None] + p.taps - 4
+            + torch.arange(12)[None, :])           # [threads, 12]
+    if fault == "window_off_by_one":
+        base = torch.clamp(base + 1, max=p.window - 1)
+    acc = torch.zeros(f, p.grid_n, p.threads, R)
+    for g in range(p.taps // GROUP):
+        if fault == "group_dropped" and g == p.taps // GROUP // 2:
+            continue
+        w = windows[:, :, base - 4 * g]            # [F, tiles, threads, 12]
+        for i in range(GROUP):
+            acc = acc + hp[:, GROUP * g + i, None, None, None] \
+                * w[..., 4 - i:12 - i]
+    return acc.reshape(f, -1)[:, :n]
+
+
+def _jax_fir(x, h):
+    """The Pallas tdfir (interpret mode) at the app's block_n = max(128, K);
+    x is zero-extended to K samples first where N < K (the Pallas kernel
+    needs its block to cover the taps; causal outputs do not see the
+    extension)."""
+    n, k = x.shape[1], h.shape[1]
+    xe = np.pad(x, ((0, 0), (0, max(0, k - n))))
+    return np.asarray(jax_fir.tdfir(jnp.asarray(xe), jnp.asarray(h),
+                                    block_n=max(128, k),
+                                    interpret=True))[:, :n]
+
+
+SIM_SHAPES = [(3, 1000, 5), (2, 300, 129), (2, 100, 128), (1, 2048, 128),
+              (2, 7, 16), (2, 1030, 3)]
+
+
+@pytest.mark.parametrize("f,n,k", SIM_SHAPES)
+def test_tdfir_blocked_loop_matches_pallas(f, n, k):
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal((f, n), np.float32)
+    h = rng.standard_normal((f, k), np.float32)
+    got = _simulate_fir(torch.from_numpy(x), torch.from_numpy(h)).numpy()
+    np.testing.assert_allclose(got, _jax_fir(x, h), rtol=3e-4, atol=3e-4)
+
+
+def test_tdfir_complex_blocked_loop_matches_pallas():
+    """The one-launch complex form: four sums over the two staged windows
+    (rr, ii, ri, ir), then rr - ii and ri + ir."""
+    rng = np.random.default_rng(22)
+    xr, xi = (rng.standard_normal((3, 700), np.float32) for _ in range(2))
+    hr, hi = (rng.standard_normal((3, 130), np.float32) for _ in range(2))
+    t = [torch.from_numpy(a) for a in (xr, xi, hr, hi)]
+    got = (_simulate_fir(t[0], t[2]) - _simulate_fir(t[1], t[3]),
+           _simulate_fir(t[0], t[3]) + _simulate_fir(t[1], t[2]))
+    want = jax_fir.tdfir_complex(*map(jnp.asarray, (xr, xi, hr, hi)),
+                                 block_n=max(128, 130), interpret=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=3e-4,
+                                   atol=3e-4)
+
+
+@pytest.mark.parametrize("fault", ["group_dropped", "window_off_by_one",
+                                   "no_history"])
+def test_tdfir_limit_rejects_simulated_faults(fault):
+    """The card's 3e-4 limit rejects each simulated fault of the blocked
+    loop by far (at the planner's K=128, over two tiles)."""
+    rng = np.random.default_rng(23)
+    x = torch.from_numpy(rng.standard_normal((4, 2048), np.float32))
+    h = torch.from_numpy(rng.standard_normal((4, 128), np.float32)) * 0.1
+    want = ref.tdfir_ref(x, h)
+    assert (_simulate_fir(x, h) - want).abs().max() <= 3e-4
+    err = (_simulate_fir(x, h, fault) - want).abs().max().item()
+    assert err > 100 * 3e-4, err

@@ -60,6 +60,63 @@ def test_tdfir_complex_plain_matches_pallas():
                                    rtol=3e-4, atol=3e-4)
 
 
+@pytest.mark.parametrize("f,n,k", [(2, 100, 128), (3, 300, 13),
+                                   (2, 600, 200), (2, 512, 128)])
+def test_tdfir_complex_plain_matches_pallas_at_the_app_block(f, n, k):
+    """The planner's call, ``block_n=max(128, K)``: K above N (the Pallas
+    input zero-extended to K samples, which causal outputs do not see), K
+    not a multiple of 4, K above 128."""
+    rng = np.random.default_rng(3)
+    xr, xi = _normal(rng, (f, n)), _normal(rng, (f, n))
+    hr, hi = _normal(rng, (f, k)), _normal(rng, (f, k))
+    ext = ((0, 0), (0, max(0, k - n)))
+    want = jax_fir.tdfir_complex(
+        *(jnp.asarray(np.pad(a, ext)) for a in (xr, xi)),
+        jnp.asarray(hr), jnp.asarray(hi), block_n=max(128, k),
+        interpret=True)
+    got = ops.tdfir_complex(*map(torch.from_numpy, (xr, xi, hr, hi)),
+                            block_n=max(128, k))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w)[:, :n],
+                                   rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("where", ["nest", "registry"])
+def test_tdfir_pallas_impl_is_one_complex_call(monkeypatch, where):
+    """The tdFIR FPGA-analogue impl (loop nest and function-block
+    replacement) makes one ``ops.tdfir_complex`` call, launches nothing on
+    the CPU, and equals the JAX package's impl at 1e-4."""
+    import jax
+
+    from repro.apps import registry as jax_registry
+    from repro.apps import tdfir_app as jax_app
+    from repro_torch.apps import registry, state_from_numpy, tdfir_app
+    calls = []
+    real = ops.tdfir_complex
+
+    def counted(*args, **kw):
+        calls.append(kw.get("block_n"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(ops, "tdfir_complex", counted)
+    state = {k: np.asarray(v) for k, v in
+             jax_app.make_inputs(seed=0, small=True).items()}
+    if where == "nest":
+        impl = tdfir_app.build_app().nests[0].impls["pallas"]
+        jax_impl = jax_app.build_app().nests[0].impls["pallas"]
+    else:
+        impl = registry.TDFIR_ENTRY.impls["pallas"]
+        jax_impl = jax_registry.TDFIR_ENTRY.impls["pallas"]
+    ops.reset_launch_counts()
+    got = impl(state_from_numpy(state, "cpu"))
+    want = jax_impl({k: jax.numpy.asarray(v) for k, v in state.items()})
+    assert calls == [max(128, state["h_re"].shape[1])]
+    assert ops.launch_counts()["tdfir"] == 0
+    for key in ("y_re", "y_im"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=1e-4, atol=1e-4, err_msg=key)
+
+
 def test_cpu_dispatch_launches_no_kernel():
     """CPU tensors take the plain version; the CUDA wrappers refuse them."""
     from repro_torch.kernels import matmul as cuda_mm
