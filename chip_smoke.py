@@ -2,9 +2,15 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --digests
 
-Run from the root of a checkout; it builds the CUDA kernels itself.  Phases,
-each printing its seconds:
+Run from the root of a checkout; it builds the CUDA kernels itself.
+``--digests`` runs only the attention kernels, without a window, on seeded
+inputs at the serving shapes and prints a SHA-256 of each output and its
+device ms: run in two checkouts (this script copied into the other one's
+root, where it imports that checkout's kernels), the lines say whether
+their kernels agree bit for bit and how their times compare.  With no
+argument it runs these phases, each printing its seconds:
 
   1. card      the card's name and power limit (nvidia-smi) and the two TF32
                flags, both off;
@@ -36,7 +42,17 @@ each printing its seconds:
                F = 1, the largest K each form accepts, and a K past it,
                which must raise), the complex form bitwise equal to four
                real launches and their combine, and one device kernel per
-               complex call;
+               complex call; flash at D=80 (h2o-danube) under its 4096
+               window at S=5000 and 1000 and without it at S=5000, and
+               under ragged windows (under one tile, past S, straddling
+               tiles), a window of S or more bitwise equal to none; decode over h2o-danube's
+               [4,4096,8,80] pool; flash and decode at D=128 with 6 and 12
+               query heads a KV head (nemotron-4-15b, command-r-plus-104b):
+               flash at S=2048 and 1000 in bf16 at both limits, beside the
+               simulated faults at 2048, decode over their [4,2112,8,128]
+               pool in bf16 at 5e-2 and the row limit beside simulated
+               faults and in fp32 at 2e-4, each call made twice for the
+               same bits;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
@@ -47,21 +63,47 @@ each printing its seconds:
                matmul beside ``torch.matmul``; the matmul, tdfir and decode
                launch plans;
                a profile of one decode-attention call must hold exactly one
-               device kernel;
+               device kernel; h2o-danube's windowed and unwindowed S=5000,
+               D=80 prefill beside SDPA (with the boolean causal-and-window
+               mask) and its decode pool beside masked SDPA, the same
+               S=1000 prefill under the window, and flash and decode at
+               the head groups of nemotron-4-15b and command-r-plus-104b
+               (H=48 and 96 over KV=8, D=128; the prefill at S=2048 and
+               1000 beside causal SDPA, decode over [4,2112,8,128] beside
+               masked SDPA);
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
-  6. serve     the port's continuous batcher on granite-3-2b at full width:
-               (a) 2 layers in fp32, eight staggered requests whose greedy
-               tokens must equal batch-1 ``generate``'s; (b) all 40 layers in
-               bf16, the same trace, every request complete and no NaN
-               logit, with wall and tick-clock metrics, the share of tokens
-               that agree with ``generate``, and profiles of a prefill and
-               a decode step (device time against wall time, the heaviest
-               kernels and host ops, decode attention's share).  Each engine
-               run sets the launch counters to 0 before and requires one
-               flash-attention launch per layer and prefill and one
-               decode-attention launch per layer and decode step.
+  6. serve     the port's continuous batcher on granite-3-2b at full width,
+               its decode step captured in a CUDA graph and replayed each
+               tick (no step may run from Python), beside an engine that
+               runs the step eagerly: (a) 2 layers in fp32, eight staggered
+               requests whose greedy tokens must equal batch-1
+               ``generate``'s and whose logits must lie within 1e-5 of the
+               eager engine's; (b) all 40 layers in bf16, the same trace,
+               every request complete and no NaN logit, with wall and
+               tick-clock metrics, tokens per wall second and the device's
+               idle share over a whole engine run (graph and eager: the
+               kernel time of a profiled run over the wall time of the
+               unprofiled one, beside the profiled run's own wall, which
+               the profiler lengthens), the
+               share of tokens that agree with ``generate``, and profiles
+               of a prefill and a decode step (graph and eager: wall and
+               device ms, the heaviest kernels and host ops, decode
+               attention's share);
+  7. family    the rest of the dense family in bf16 through the same engine,
+               8 requests a cell: (c) h2o-danube-1.8b at full width and depth
+               (prompts 1000 and 5000 past its 4096 window, a wrapped ring),
+               (d) nemotron-4-15b at full width and depth, (e)
+               command-r-plus-104b at full width, 8 of its 64 layers, (f)
+               granite-3-2b with the int8 KV cache, whose first decode step
+               must lie within 0.05 of the exact cache's in probability.
+               Every engine run of phases 6 and 7 sets the launch counters
+               to 0 before and requires one flash-attention launch per layer
+               and prefill and one decode-attention launch per layer and
+               decode step, counted across graph replays (none under the
+               int8 cache: its decode attention is plain torch, as the JAX
+               one is jnp).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -71,6 +113,8 @@ CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import gc
 import itertools
 import json
 import os
@@ -111,6 +155,24 @@ SERVE_GENS = (16, 64, 32, 48, 24, 56, 40, 64)  # (a): mixed max_gen
 SERVE_MAX_GEN = 64                         # (b)
 SERVE_SLOTS = 4
 SERVE_CACHE_LEN = 2112                     # 2048 + 64
+# h2o-danube-1.8b (phase 4 rows, phase 7 (c)): B, H, KV, S, D of its
+# 5000-token prefill under its 4096-token window, and its 4-slot decode
+# pool (W = 4096 slots) at one short, one mid and two wrapped rings
+H2O_FLASH = (1, 32, 8, 5000, 80)
+H2O_WINDOW = 4096
+H2O_DECODE = (4, 32, 8, 4096, 80)
+H2O_DECODE_LENS = (1, 1000, 4096, 4096)
+# nemotron-4-15b and command-r-plus-104b (phase 7 (d), (e)): query heads
+# over 8 KV heads at D=128, 6 and 12 a KV head
+WIDE_GROUP_HEADS = (48, 96)
+# phase 7: (label, arch, layers kept (None: all), prompts, cache_len,
+# int8 KV cache); 8 requests, one arrival a tick, 4 slots, max_gen 64
+FAMILY_CELLS = (
+    ("c", "h2o-danube-1.8b", None, (1000, 5000), 5120, False),
+    ("d", "nemotron-4-15b", None, (1000, 2048), 2112, False),
+    ("e", "command-r-plus-104b", 8, (1000, 2048), 2112, False),
+    ("f", "granite-3-2b", None, SERVE_PROMPTS, SERVE_CACHE_LEN, True),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -331,6 +393,38 @@ def check_kernels(ops, ref):
     return errs
 
 
+def check_flash_windows(ops, ref, gen):
+    """Phase 3: flash attention under a sliding window and at D=80 (H=32
+    over KV=8 as strided views, causal): h2o-danube's S=5000 under its
+    4096 window and without it, then ragged windows (under one 128-key
+    tile, past S, straddling tiles at an S off the tile grid); bf16 at both
+    limits, fp32 at 2e-4; a window of S or more must give window 0's
+    bits."""
+    s_main, d = H2O_FLASH[3], H2O_FLASH[4]
+    print(f" flash_attention (h2o-danube: D={d}, S={s_main} with window "
+          f"{H2O_WINDOW} and without, S=1000 with it; windows 50, 1000 at "
+          f"S=300 and 200 at S=777; bf16 at both limits, fp32 at 2e-4)")
+    for dtype in (torch.bfloat16, torch.float32):
+        for s, w in ((s_main, H2O_WINDOW), (s_main, 0), (1000, H2O_WINDOW),
+                     (300, 50), (300, 1000), (777, 200)):
+            q, k, v, rep = flash_inputs(gen, s, dtype, d=d)
+            what = f"flash S={s} D={d} window {w} {dtype}"
+            got = ops.flash_attention(q, k, v, kv_group=rep, window=w)
+            want = ref.mha_ref(q, k, v, kv_group=rep, window=w)
+            if dtype == torch.bfloat16:
+                check_flash_bf16(what, got, want)
+            else:
+                check_close(what, got, want, 2e-4)
+            del want
+        q, k, v, rep = flash_inputs(gen, 777, dtype, d=d)
+        none = ops.flash_attention(q, k, v, kv_group=rep)
+        for w in (777, 7770):
+            require_same_bits(
+                f"flash S=777 D={d} {dtype}, window {w} against none",
+                ops.flash_attention(q, k, v, kv_group=rep, window=w), none,
+                "a window of S or more changed the result")
+
+
 def check_tdfir_edges(ops, ref, gen):
     """Phase 3: tdfir and tdfir_complex at the edges of the kernel's blocked
     tap loop (``kernels/parity.py`` ``tdfir_edges``), at 3e-4, and a K
@@ -401,6 +495,18 @@ def check_flash_bf16(what: str, got, want) -> float:
             f"(abs {err:.3e} > {parity.BF16_ABS_TOL} or row {rerr:.3e} > "
             f"{parity.BF16_ROW_TOL})")
     return err
+
+
+def check_flash_faults(what: str, q, k, v, rep: int, want) -> None:
+    """The bf16 flash limits must reject kernel faults that only late rows
+    show, simulated on the plain version (``kernels/parity.py``)."""
+    from repro_torch.kernels import parity
+    for fault, bad in parity.fault_controls(q, k, v, rep).items():
+        ok, ferr, frerr = parity.within_limits(bad, want)
+        print(f"    control, {fault:26s} max_abs_err {ferr:.3e}  "
+              f"row_err {frerr:.3e}  {'PASSES' if ok else 'rejected'}")
+        require(not ok, f"{what}: the bf16 limits pass a simulated fault "
+                f"({fault})")
 
 
 def require_same_bits(what: str, first, again,
@@ -479,13 +585,7 @@ def check_attention(ops, ref, gen):
             err = check_flash_bf16(what, got, want)
             if s == FLASH_MAIN[3] and d == FLASH_MAIN[4]:
                 errs["flash_attention"] = err
-            # the limits must reject kernel faults that only late rows show
-            for fault, bad in parity.fault_controls(q, k, v, rep).items():
-                ok, ferr, frerr = parity.within_limits(bad, want)
-                print(f"    control, {fault:26s} max_abs_err {ferr:.3e}  "
-                      f"row_err {frerr:.3e}  {'PASSES' if ok else 'rejected'}")
-                require(not ok, f"{what}: the bf16 limits pass a simulated "
-                        f"fault ({fault})")
+            check_flash_faults(what, q, k, v, rep, want)
     q, k, v, rep = flash_inputs(gen, 300, torch.float32, b=2, h=8, kv=2,
                                 d=128)
     check_close("flash B=2 H=8 KV=2 S=300 D=128 float32",
@@ -509,6 +609,7 @@ def check_attention(ops, ref, gen):
                 worst, worst_row = max(worst, err), max(worst_row, rerr)
         print(f"  flash bf16 D={d:<3d} 24 shapes {'':23s} max_abs_err "
               f"{worst:.3e}  row_err {worst_row:.3e}  ok")
+    check_flash_windows(ops, ref, gen)
 
     print(" decode_attention (JAX test shapes at 2e-4, one head per row)")
     for bh, s, d, clen in ((4, 256, 64, 256), (2, 512, 32, 300),
@@ -582,10 +683,67 @@ def check_attention(ops, ref, gen):
         require_same_bits(f"decode main shape {dtype}, called twice",
                           ops.decode_attention(q, kc, vc, ln),
                           ops.decode_attention(q, kc, vc, ln))
+    b, h, kv, s, d = H2O_DECODE
+    print(f" decode_attention (h2o-danube's [{b},{s},{kv},{d}] pool, lens "
+          f"{H2O_DECODE_LENS}: D=80 on padded lanes; bf16 at 5e-2 and the "
+          f"row limit beside simulated faults, fp32 at 2e-4; called twice)")
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+        q, kc, vc, ln = decode_inputs(gen, dtype, *H2O_DECODE,
+                                      H2O_DECODE_LENS)
+        what = f"decode [{b},{s},{kv},{d}] {dtype}"
+        got = ops.decode_attention(q, kc, vc, ln)
+        check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln), tol)
+        if dtype == torch.bfloat16:
+            check_decode_rows(what, got, q, kc, vc, ln, readings,
+                              decode_plan(dtype, H2O_DECODE).chunk)
+        require_same_bits(f"{what}, called twice", got,
+                          ops.decode_attention(q, kc, vc, ln))
+    check_wide_groups(ops, ref, gen, readings)
     print(f"  decode bf16 row_err: largest sound reading "
           f"{readings['sound']:.3e}, limit {parity.DECODE_ROW_TOL}, smallest "
           f"fault reading {readings['fault']:.3e}")
     return errs
+
+
+def check_wide_groups(ops, ref, gen, readings):
+    """Phase 3: flash and decode at the head groups of phase 7 (d) and (e),
+    D=128 with 6 and 12 query heads a KV head (a decode row pass that stops
+    partway, and 6 or 12 passes).  Flash at B=1 over KV=8 at the trace's
+    prompt lengths, bf16 at both limits, beside the simulated faults at
+    S=2048; decode over the [4,2112,8,128] pool at the serving lengths,
+    bf16 at 5e-2 and the row limit beside simulated faults, fp32 at 2e-4,
+    each call made twice for the same bits."""
+    b, _, kv, s_pool, _ = DECODE_MAIN
+    d = FLASH_WIDE_D
+    print(f" flash and decode attention at D={d}, H in {WIDE_GROUP_HEADS} "
+          f"over KV={kv} (nemotron-4-15b, command-r-plus-104b): flash at "
+          f"S={FLASH_MAIN[3]} and {FLASH_RAGGED_S} bf16 at both limits; "
+          f"decode over [{b},{s_pool},{kv},{d}] at lens {DECODE_MAIN_LENS}, "
+          f"bf16 at 5e-2 and the row limit, fp32 at 2e-4, called twice")
+    for h in WIDE_GROUP_HEADS:
+        for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
+            q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, h=h, kv=kv,
+                                        d=d)
+            what = f"flash H={h} KV={kv} S={s} D={d} bfloat16 causal"
+            want = ref.mha_ref(q, k, v, kv_group=rep)
+            check_flash_bf16(what, ops.flash_attention(q, k, v,
+                                                       kv_group=rep), want)
+            if s == FLASH_MAIN[3]:
+                check_flash_faults(what, q, k, v, rep, want)
+            del want
+        shape = (b, h, kv, s_pool, d)
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+            q, kc, vc, ln = decode_inputs(gen, dtype, *shape,
+                                          DECODE_MAIN_LENS)
+            what = f"decode {b}x{h} over [{b},{s_pool},{kv},{d}] {dtype}"
+            got = ops.decode_attention(q, kc, vc, ln)
+            check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln),
+                        tol)
+            if dtype == torch.bfloat16:
+                check_decode_rows(what, got, q, kc, vc, ln, readings,
+                                  decode_plan(dtype, shape).chunk)
+            require_same_bits(f"{what}, called twice", got,
+                              ops.decode_attention(q, kc, vc, ln))
 
 
 def time_kernels(ops, ref):
@@ -684,21 +842,42 @@ def time_kernels(ops, ref):
     return rows
 
 
-def flash_case(ops, ref, gen, s, d):
-    """Causal bf16 prefill at B=1, H=32, KV=8: (kernel, plain, SDPA) calls
-    and the bound (half of the full 4*B*H*S^2*D FLOP; q, k, v read and o
-    written once), held to the bf16 tensor-core peak."""
-    b, h, kv = FLASH_MAIN[:3]
-    q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, d=d)
+def attended_pairs(s: int, window: int = 0) -> int:
+    """(query, key) pairs a causal prefill of ``s`` tokens attends, under
+    a window (0: none): sum over q of min(q + 1, window)."""
+    w = min(window or s, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def flash_case(ops, ref, gen, s, d, window=0, h=FLASH_MAIN[1]):
+    """Causal bf16 prefill at B=1, KV=8 (H=32 unless given): (kernel, plain,
+    SDPA) calls and the bound (4 FLOP per attended (query, key) pair and
+    head dim; q, k, v read and o written once), held to the bf16
+    tensor-core peak.  Under a window SDPA takes the boolean
+    causal-and-window mask."""
+    b, _, kv = FLASH_MAIN[:3]
+    q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, h=h, kv=kv, d=d)
     q4, k4, v4 = q.reshape(b, h, s, d), k.reshape(b, kv, s, d), \
         v.reshape(b, kv, s, d)
-    t_bound, by = bound(2.0 * b * h * s * s * d,
+    t_bound, by = bound(4.0 * b * h * d * attended_pairs(s, window),
                         2.0 * (2 * b * h * s * d + 2 * b * kv * s * d),
                         BF16_PEAK_FLOPS)
-    return (lambda: ops.flash_attention(q, k, v, kv_group=rep),
-            lambda: ref.mha_ref(q, k, v, kv_group=rep),
-            lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True, enable_gqa=True), t_bound, by)
+    if window:
+        pos = torch.arange(s, device="cuda")
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask, enable_gqa=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True)
+    return (lambda: ops.flash_attention(q, k, v, kv_group=rep,
+                                        window=window),
+            lambda: ref.mha_ref(q, k, v, kv_group=rep, window=window),
+            library, t_bound, by)
 
 
 def time_attention(ops, ref, gen, rows, dev):
@@ -778,6 +957,80 @@ def time_attention(ops, ref, gen, rows, dev):
           f"{device_profile(kernel_full)[0]:.4f})  bound {t_full:.4f} ms "
           f"({by_full})  SDPA {time_ms(library_full, 200):.4f} ms (device "
           f"{device_profile(library_full)[0]:.4f})")
+    time_family_rows(ops, ref, gen)
+
+
+def print_row(what: str, row: dict, dev: dict) -> None:
+    print(f"  {what}: kernel {row['ms']:.4f} ms (device {dev['kernel']:.4f})"
+          f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
+          f"{row['plain_ms']:.4f} ms (device {dev['plain']:.4f})  library "
+          f"{row['library_ms']:.4f} ms (device {dev['library']:.4f})")
+
+
+def decode_case(ops, ref, gen, shape, lens):
+    """bf16 decode of H query heads over a [B, S, KV, D] pool at per-slot
+    ``lens``, four cache pairs in turn so that each call finds its cache
+    cold: (kernel, plain, masked SDPA) calls and the bound (the valid cache
+    rows' bytes, q read and o written once)."""
+    b, h, kv, s, d = shape
+    q, _, _, ln = decode_inputs(gen, torch.bfloat16, *shape, lens)
+    caches = itertools.cycle([
+        decode_inputs(gen, torch.bfloat16, *shape, lens)[1:3]
+        for _ in range(4)])
+    mask = (torch.arange(s, device="cuda")[None, :]
+            < ln[:, None])[:, None, None, :]
+
+    def library():
+        kc, vc = next(caches)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+
+    valid = sum(lens)
+    t_bound, by = bound(4.0 * h * d * valid,
+                        2.0 * (2 * valid * kv * d + 2 * b * h * d),
+                        BF16_PEAK_FLOPS)
+    return (lambda: ops.decode_attention(q, *next(caches), ln),
+            lambda: ref.decode_attention_ref(q, *next(caches), ln),
+            library, t_bound, by)
+
+
+def time_family_rows(ops, ref, gen):
+    """Phase 4, the kernel shapes that phase 7 adds, each beside its bound,
+    its plain version and SDPA: h2o-danube's bf16 prefill at D=80, S=5000
+    under its 4096 window (SDPA with the boolean causal-and-window mask)
+    and without it (causal SDPA), and S=1000 under the window; its decode
+    pool [4,4096,8,80] at lengths 1/1000/4096/4096 (masked SDPA); and at
+    D=128 with 6 and 12 query heads a KV head (nemotron-4-15b,
+    command-r-plus-104b), the prefill at S=2048 and 1000 and the decode
+    pool [4,2112,8,128] at the serving lengths."""
+    d = H2O_FLASH[4]
+    cases = [(f"flash_attention S={s} D={d} window {w} "
+              f"({attended_pairs(s, w) / 1e6:.2f} M pairs a head)",
+              flash_case(ops, ref, gen, s, d, w), 50, 3)
+             for s, w in ((H2O_FLASH[3], H2O_WINDOW), (H2O_FLASH[3], 0),
+                          (FLASH_RAGGED_S, H2O_WINDOW))]
+    cases.append((f"decode_attention over {list(H2O_DECODE)} lens "
+                   f"{H2O_DECODE_LENS}",
+                   decode_case(ops, ref, gen, H2O_DECODE, H2O_DECODE_LENS),
+                   200, 50))
+    b, _, kv, s_pool, _ = DECODE_MAIN
+    for h in WIDE_GROUP_HEADS:
+        for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
+            cases.append((f"flash_attention H={h} KV={kv} S={s} "
+                          f"D={FLASH_WIDE_D}",
+                          flash_case(ops, ref, gen, s, FLASH_WIDE_D, h=h),
+                          50, 3))
+        shape = (b, h, kv, s_pool, FLASH_WIDE_D)
+        cases.append((f"decode_attention over {list(shape)} lens "
+                      f"{DECODE_MAIN_LENS}",
+                      decode_case(ops, ref, gen, shape, DECODE_MAIN_LENS),
+                      200, 50))
+    for what, (kernel, plain, library, t_bound, by), iters, plain_iters \
+            in cases:
+        row, dev = time_row(kernel, plain, library, t_bound, by,
+                            iters=iters, plain_iters=plain_iters)
+        print_row(what, row, dev)
 
 
 def decode_plan(dtype, shape=DECODE_MAIN):
@@ -843,9 +1096,11 @@ def run_planner(ops):
     return ops.launch_counts()
 
 
-def watched_lm(cfg, seed: int):
-    """The port's LM on the card from seeded random weights, noting on the
-    card whether any logit it returns is NaN (``lm.nan``)."""
+def watched_lm(cfg, seed: int, plan=None, params=None):
+    """The port's LM on the card from seeded random weights (or from
+    ``params``), noting on the card whether any logit it returns is NaN
+    (``lm.nan``) and counting the decode steps it runs from Python
+    (``lm.eager_steps``: a replayed graph runs its step without Python)."""
     from repro_torch.models.lm import LM, init_params
 
     class WatchedLM(LM):
@@ -855,25 +1110,29 @@ def watched_lm(cfg, seed: int):
             return logits, cache
 
         def decode_step(self, cache, tokens, pos):
+            self.eager_steps += 1
             logits, cache = super().decode_step(cache, tokens, pos)
             self.nan |= torch.isnan(logits).any()
             return logits, cache
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    lm = WatchedLM(cfg, init_params(cfg, gen, "cuda"))
+    if params is None:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        params = init_params(cfg, gen, "cuda")
+    lm = WatchedLM(cfg, params, plan)
     lm.nan = torch.zeros((), dtype=torch.bool, device="cuda")
+    lm.eager_steps = 0
     return lm
 
 
-def serve_trace(cfg, gens, seed: int):
-    """Staggered requests, one arrival per tick, prompts alternating 1000
-    and 2048 tokens drawn from ``seed``."""
+def serve_trace(cfg, gens, seed: int, prompts=SERVE_PROMPTS):
+    """Staggered requests, one arrival per tick, prompt lengths taken in
+    turn from ``prompts``, tokens drawn from ``seed``."""
     from repro_torch.serve import Request
     from repro_torch.serve.batching import DEFAULT_TICK_S
     rng = np.random.default_rng(seed)
     reqs = []
     for i, g in enumerate(gens):
-        n = SERVE_PROMPTS[i % len(SERVE_PROMPTS)]
+        n = prompts[i % len(prompts)]
         reqs.append(Request(
             rid=f"r{i}", arch=cfg.name, prompt_len=n, max_gen=g,
             tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
@@ -881,38 +1140,144 @@ def serve_trace(cfg, gens, seed: int):
     return reqs
 
 
-def serve_engine(ops, lm, reqs, label: str):
-    """One engine run with the launch counters set to 0 just before and
-    read just after; returns (engine, tokens, wall seconds, launches)."""
+def smoke_batcher(lm, cache_len: int, *, eager: bool = False,
+                  record: bool = False):
+    """The port's ContinuousBatcher over ``lm`` (its decode step captured
+    in a CUDA graph and replayed each tick); ``eager`` skips the capture,
+    so the step runs from Python as before the graph (the comparison this
+    script makes; the port has no such switch); ``record`` keeps each
+    step's logits (``engine.logits``)."""
     from repro_torch.power import envelope_for
     from repro_torch.serve import ContinuousBatcher
-    engine = ContinuousBatcher(lm, n_slots=SERVE_SLOTS,
-                               cache_len=SERVE_CACHE_LEN,
-                               envelope=envelope_for(None))
+
+    class SmokeBatcher(ContinuousBatcher):
+        def _capture_step(self):
+            if not eager:
+                super()._capture_step()
+
+        def _step(self):
+            logits = super()._step()
+            if record:
+                self.logits.append(logits.clone())
+            return logits
+
+    engine = SmokeBatcher(lm, n_slots=SERVE_SLOTS, cache_len=cache_len,
+                          envelope=envelope_for(None))
+    engine.logits = []
+    require((engine.graph is None) == eager,
+            "the engine on the card did not capture its decode step")
+    return engine
+
+
+def check_engine_run(engine, lm, reqs, out, launches, label: str):
+    """Every request complete, no NaN logit, flash once per layer and
+    prefill, decode once per layer and step (none under the int8 cache,
+    whose decode attention is plain torch), no planner kernel, and no step
+    run from Python where the graph replays."""
+    n_layers = lm.cfg.n_layers
+    quant = lm.plan.kv_cache_quant
+    print(f"  ({label}) engine calls {engine.calls}, kernel launches "
+          f"{launches}, decode steps run from Python {lm.eager_steps}")
+    require(engine.calls["prefill"] == len(reqs), f"({label}) prefills")
+    require(launches["flash_attention"] == n_layers * len(reqs),
+            f"({label}) flash_attention launches != layers x prefills")
+    require(launches["decode_attention"]
+            == (0 if quant else n_layers * engine.calls["decode_step"]),
+            f"({label}) decode_attention launches != layers x decode steps")
+    require(launches["matmul"] == launches["tdfir"] == 0,
+            f"({label}) the serve path launched a planner kernel")
+    if engine.graph is not None:
+        require(lm.eager_steps == 0, f"({label}) the engine ran a decode "
+                f"step from Python instead of replaying its graph")
+    for r in reqs:
+        require(len(out[r.rid]) == r.max_gen,
+                f"({label}) {r.rid}: {len(out[r.rid])} of {r.max_gen} "
+                f"tokens")
+    require(not bool(lm.nan), f"({label}) a logit was NaN")
+
+
+def serve_engine(ops, lm, reqs, label: str, *, eager: bool = False,
+                 record: bool = False, cache_len: int = SERVE_CACHE_LEN):
+    """One engine run with the launch counters set to 0 just before and
+    read just after; returns (engine, tokens, wall seconds, launches)."""
+    engine = smoke_batcher(lm, cache_len, eager=eager, record=record)
     torch.cuda.synchronize()
+    lm.eager_steps = 0
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = engine.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    n_layers = lm.cfg.n_layers
-    print(f"  ({label}) engine calls {engine.calls}, kernel launches "
-          f"{launches}")
-    require(engine.calls["prefill"] == len(reqs), f"({label}) prefills")
-    require(launches["flash_attention"] == n_layers * len(reqs),
-            f"({label}) flash_attention launches != layers x prefills")
-    require(launches["decode_attention"]
-            == n_layers * engine.calls["decode_step"],
-            f"({label}) decode_attention launches != layers x decode steps")
-    require(launches["matmul"] == launches["tdfir"] == 0,
-            f"({label}) the serve path launched a planner kernel")
-    for r in reqs:
-        require(len(out[r.rid]) == r.max_gen,
-                f"({label}) {r.rid}: {len(out[r.rid])} of {r.max_gen} "
-                f"tokens")
-    require(not bool(lm.nan), f"({label}) a logit was NaN")
+    check_engine_run(engine, lm, reqs, out, launches, label)
     return engine, out, wall, launches
+
+
+def engine_idle_share(lm, reqs, cache_len: int, eager: bool):
+    """The device's busy time over an engine run: a fresh engine's run
+    without the profiler, then another's under torch.profiler (device
+    activity only); returns (wall s of the unprofiled run, wall s of the
+    traced one, which the profiler lengthens, device busy ms: the sum of the
+    traced run's kernels, which run one at a time on one stream, and their
+    count).  The pad of ``traced_kernels`` opens each trace; a trace that
+    lost it is taken again with another fresh engine."""
+    from torch.profiler import ProfilerActivity, profile
+    engine = smoke_batcher(lm, cache_len, eager=eager)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    for _ in range(TRACE_TRIES):
+        engine = smoke_batcher(lm, cache_len, eager=eager)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(TRACE_PAD):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            engine.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [(e.name, e.time_range.elapsed_us() / 1e3)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")]
+        kept = [ms for name, ms in kernels if PAD_KERNEL not in name]
+        if len(kept) < len(kernels):
+            return plain_wall, wall, sum(kept), len(kept)
+    raise SmokeFailure(f"{TRACE_TRIES} traces of an engine run lost their "
+                       f"pad kernels")
+
+
+def step_times(engine, lm, prompts, label: str, eager_too: bool = True):
+    """A decode step over the engine's pool (each slot 32 tokens past a
+    prompt), replayed from the graph and, where ``eager_too``, run eagerly:
+    host-clock ms per step (20 steps, synchronised) and device ms per step
+    from a profile; returns the replay's (wall, device) ms."""
+    engine._last_tok[:] = 0
+    engine._pos[:] = [prompts[i % len(prompts)] + 32
+                      for i in range(SERVE_SLOTS)]
+    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.from_numpy(engine._pos.copy()).cuda()
+    runs = [("graph replay", engine._step)]
+    if eager_too:
+        runs.append(("eager", lambda: lm.decode_step(engine.pool, toks,
+                                                     pos)))
+    got = {}
+    for what, fn in runs:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+        dev_ms = device_profile(fn, 5)[0]
+        got[what] = (wall_ms, dev_ms)
+        print(f"  ({label}) decode step over {SERVE_SLOTS} slots, {what}: "
+              f"{wall_ms:.3f} ms wall (host clock, synchronised), "
+              f"{dev_ms:.3f} ms device")
+    return got["graph replay"]
 
 
 def reference_tokens(ops, lm, reqs, label: str):
@@ -960,40 +1325,68 @@ def print_profile(what: str, wall_ms: float, fn, iters: int,
         print(f"      {ms:8.4f}  {name[:90]}")
 
 
+def pool_bytes(engine) -> int:
+    return sum(t.nbytes for t in engine.pool["attn"].values())
+
+
 def run_serve(ops):
     """Phase 6: the port's serving path on granite-3-2b at full width;
-    returns the launches of (b), the slice's main path."""
+    returns (the launches of (b), (b)'s pool bytes)."""
     from repro_torch.configs import get_config
     cfg = get_config(SERVE_ARCH)
 
     print(f" (a) {SERVE_ARCH} full width, 2 layers, float32: 8 staggered "
           f"requests, prompts {SERVE_PROMPTS}, max_gen {SERVE_GENS}, "
-          f"{SERVE_SLOTS} slots, cache_len {SERVE_CACHE_LEN}")
+          f"{SERVE_SLOTS} slots, cache_len {SERVE_CACHE_LEN}; the decode "
+          f"step replayed from a CUDA graph, beside an eager engine")
     cfg_a = dataclasses.replace(cfg, n_layers=2, dtype="float32",
                                 param_dtype="float32")
     lm = watched_lm(cfg_a, seed=0)
     reqs = serve_trace(cfg_a, SERVE_GENS, seed=0)
-    _, out, wall, _ = serve_engine(ops, lm, reqs, "a")
+    graph_engine, out, wall, _ = serve_engine(ops, lm, reqs, "a",
+                                              record=True)
+    eager_engine, out_e, wall_e, _ = serve_engine(
+        ops, lm, reqs, "a, eager", eager=True, record=True)
+    require(len(graph_engine.logits) == len(eager_engine.logits),
+            "(a) the graph and eager engines ran different step counts")
+    step_err = max(max_abs_err(g, e) for g, e in zip(graph_engine.logits,
+                                                     eager_engine.logits))
+    print(f"  (a) {len(graph_engine.logits)} steps: graph-replayed logits "
+          f"within {step_err:.3e} of the eager engine's (limit 1e-5); wall "
+          f"{wall:.2f} s (graph) against {wall_e:.2f} s (eager)")
+    require(step_err <= 1e-5, "(a) graph-replayed logits differ from the "
+            "eager engine's by more than 1e-5")
     want = reference_tokens(ops, lm, reqs, "a")
     same = [np.array_equal(out[r.rid], want[r.rid]) for r in reqs]
-    print(f"  (a) engine {wall:.2f} s wall; tokens identical to batch-1 "
-          f"generate for {sum(same)}/{len(reqs)} requests")
+    print(f"  (a) tokens identical to batch-1 generate for {sum(same)}/"
+          f"{len(reqs)} requests (graph engine)")
     require(all(same), "(a) engine tokens differ from batch-1 generate")
-    del lm
-    torch.cuda.empty_cache()
+    del lm, graph_engine, eager_engine
+    free_card()
 
     print(f" (b) {SERVE_ARCH} full width and depth ({cfg.n_layers} layers), "
-          f"bfloat16: the same trace shape, max_gen {SERVE_MAX_GEN}")
+          f"bfloat16: the same trace shape, max_gen {SERVE_MAX_GEN}; the "
+          f"graph-replayed engine beside an eager one")
     lm = watched_lm(cfg, seed=1)
     reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1)
     engine, out, wall, launches = serve_engine(ops, lm, reqs, "b")
+    _, out_e, wall_e, _ = serve_engine(ops, lm, reqs, "b, eager",
+                                       eager=True)
     summary = engine.metrics.summary()
     n_tok = sum(len(t) for t in out.values())
-    print(f"  (b) wall {wall:.2f} s, {n_tok} tokens, {n_tok / wall:.1f} "
-          f"generated tokens per wall second; {engine.calls['decode_step']}"
-          f" decode steps; tick clock: ttft p50 {summary['ttft_p50_s']} s, "
-          f"p95 {summary['ttft_p95_s']} s, tpot mean "
-          f"{summary['tpot_mean_s']} s")
+    for what, w in (("graph", wall), ("eager", wall_e)):
+        print(f"  (b) {what}: wall {w:.2f} s, {n_tok} tokens, "
+              f"{n_tok / w:.1f} generated tokens per wall second")
+    print(f"  (b) {engine.calls['decode_step']} decode steps; tick clock: "
+          f"ttft p50 {summary['ttft_p50_s']} s, p95 {summary['ttft_p95_s']} "
+          f"s, tpot mean {summary['tpot_mean_s']} s")
+    for what, eager in (("graph", False), ("eager", True)):
+        w, t, busy, n = engine_idle_share(lm, reqs, SERVE_CACHE_LEN, eager)
+        print(f"  (b) {what} engine: {busy / 1e3:.3f} s of device time in "
+              f"{n} kernels (a profiled run); device idle "
+              f"{1 - busy / (w * 1e3):.1%} of an unprofiled run's {w:.2f} s "
+              f"wall ({1 - busy / (t * 1e3):.1%} of the profiled run's "
+              f"{t:.2f} s)")
 
     for r in reqs[:len(SERVE_PROMPTS)]:
         batch = {"tokens": torch.from_numpy(r.tokens[None])}
@@ -1008,34 +1401,151 @@ def run_serve(ops):
               f"(host clock, synchronised)")
         print_profile(f"prefill of {r.prompt_len} tokens", prefill_ms,
                       lambda: lm.prefill(batch, SERVE_CACHE_LEN), 3)
-    pool = engine.pool
-    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
-    pos = torch.tensor([SERVE_PROMPTS[i % len(SERVE_PROMPTS)] + 32
-                        for i in range(SERVE_SLOTS)], device="cuda")
-    lm.decode_step(pool, toks, pos)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        lm.decode_step(pool, toks, pos)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) / 20 * 1e3
-    print(f"  (b) decode step over {SERVE_SLOTS} slots: {step_ms:.2f} ms "
-          f"(host clock, synchronised)")
-    print_profile("decode step", step_ms,
-                  lambda: lm.decode_step(pool, toks, pos), 5,
+    step_wall, _ = step_times(engine, lm, SERVE_PROMPTS, "b")
+    print_profile("decode step (graph replay)", step_wall, engine._step, 5,
                   share_of="decode_kernel")
 
     want = reference_tokens(ops, lm, reqs, "b")
     agree = sum(int((out[r.rid] == want[r.rid]).sum()) for r in reqs)
+    same_e = sum(int((out[r.rid] == out_e[r.rid]).sum()) for r in reqs)
     print(f"  (b) tokens that agree with batch-1 generate: {agree}/{n_tok} "
-          f"({agree / n_tok:.1%}; bf16, reported only)")
-    return launches
+          f"({agree / n_tok:.1%}; bf16, reported only); with the eager "
+          f"engine: {same_e}/{n_tok}")
+    b_pool = pool_bytes(engine)
+    del lm, engine
+    free_card()
+    return launches, b_pool
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def run_family(ops, b_pool: int):
+    """Phase 7: the rest of the dense family in bf16 through the captured
+    engine, 8 requests a cell (one arrival a tick, 4 slots, max_gen 64),
+    each model freed before the next; returns the flash and decode
+    launches summed over the cells."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.plan import Plan
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for label, arch, n_layers, prompts, cache_len, quant in FAMILY_CELLS:
+        cfg = get_config(arch)
+        full_layers = cfg.n_layers
+        if n_layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        n_params = (cfg.padded_vocab * cfg.d_model
+                    * (1 if cfg.tie_embeddings else 2)
+                    + cfg.n_layers * (
+                        cfg.d_model * cfg.head_dim
+                        * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                        + cfg.d_model * cfg.d_ff
+                        * (3 if cfg.ffn_act in ("swiglu", "geglu") else 2)))
+        cut = (f"depth cut to {cfg.n_layers} of {full_layers} layers (all "
+               f"{full_layers} would not fit one card)"
+               if n_layers is not None else f"all {cfg.n_layers} layers")
+        print(f" ({label}) {arch}: full width (d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
+              f"d_ff {cfg.d_ff} {cfg.ffn_act}, {cfg.norm}, window "
+              f"{cfg.window if cfg.attn_kind == 'swa' else 0}), {cut}, "
+              f"bfloat16, {n_params / 1e9:.2f} B parameters "
+              f"({2 * n_params / 1e9:.1f} GB){', int8 KV cache' if quant else ''}"
+              f"; prompts {prompts}, cache_len {cache_len}")
+        seed = 1 if arch == SERVE_ARCH else 2
+        lm = watched_lm(cfg, seed, Plan(kv_cache_quant=quant))
+        reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1,
+                           prompts=prompts)
+        engine, out, wall, launches = serve_engine(ops, lm, reqs, label,
+                                                   cache_len=cache_len)
+        for k in total:
+            total[k] += launches[k]
+        n_tok = sum(len(t) for t in out.values())
+        w = engine.pool["attn"]["k"].shape[2]
+        print(f"  ({label}) wall {wall:.2f} s, {n_tok} tokens, "
+              f"{n_tok / wall:.1f} generated tokens per wall second; pool "
+              f"{pool_bytes(engine) / 1e9:.3f} GB, {w} slots a row")
+        if cfg.attn_kind == "swa":
+            require(w == min(cache_len, cfg.window) < max(prompts),
+                    f"({label}) the pool is not a ring shorter than the "
+                    f"longest prompt")
+        step_times(engine, lm, prompts, label, eager_too=False)
+        if quant:
+            check_int8_cell(lm, reqs[0], cache_len, label)
+            print(f"  ({label}) pool {pool_bytes(engine) / 1e6:.1f} MB "
+                  f"against {b_pool / 1e6:.1f} MB for (b)'s bf16 cache "
+                  f"({pool_bytes(engine) / b_pool:.1%})")
+        del lm, engine
+        free_card()
+    return total
+
+
+def check_int8_cell(lm, req, cache_len: int, label: str) -> None:
+    """The int8 cache's first decode step against the exact cache's on the
+    same weights: probabilities within 0.05 (the JAX package's bound,
+    tests/test_lm_consistency.py:112)."""
+    from repro_torch.models.lm import LM
+    exact = LM(lm.cfg, dict(lm.state_dict()))
+    batch = {"tokens": torch.from_numpy(req.tokens[None])}
+    la, ca = exact.prefill(batch, cache_len)
+    lq, cq = lm.prefill(batch, cache_len)
+    tok = la.argmax(-1)[:, None]
+    pa = exact.decode_step(ca, tok, req.prompt_len)[0].softmax(-1)
+    pq = lm.decode_step(cq, tok, req.prompt_len)[0].softmax(-1)
+    err = max_abs_err(pa, pq)
+    print(f"  ({label}) first decode step, int8 against exact cache: "
+          f"probabilities within {err:.3e} (limit 0.05)")
+    require(err < 0.05, f"({label}) int8 probabilities differ from the "
+            f"exact cache's by {err:.3e}")
+
+
+def run_digests() -> int:
+    """``--digests``: flash (no window) and decode attention on seeded
+    inputs at the serving shapes, through the wrapper calls that every
+    checkout since the port's second slice takes; prints each output's
+    SHA-256 and its ms per call (CUDA events, and profiler device time)."""
+    import hashlib
+    from repro_torch.kernels import _build, ops
+    print(f"  {nvidia_smi_line()}")
+    _build.build_all(("flash_attention", "decode_attention"))
+    gen = torch.Generator().manual_seed(7)
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, s, d in ((32, FLASH_MAIN[3], FLASH_MAIN[4]),
+                        (32, FLASH_RAGGED_S, FLASH_MAIN[4]),
+                        (32, FLASH_MAIN[3], FLASH_WIDE_D),
+                        (WIDE_GROUP_HEADS[0], FLASH_MAIN[3], FLASH_WIDE_D)):
+            q, k, v, rep = flash_inputs(gen, s, dtype, h=h, d=d)
+            cases.append((f"flash H={h} KV=8 S={s} D={d} {dtype}",
+                          functools.partial(ops.flash_attention, q, k, v,
+                                            kv_group=rep)))
+        for shape in (DECODE_MAIN, (4, WIDE_GROUP_HEADS[1], 8, 2112, 128)):
+            q, kc, vc, ln = decode_inputs(gen, dtype, *shape,
+                                          DECODE_MAIN_LENS)
+            cases.append((f"decode {list(shape)} {dtype}",
+                          functools.partial(ops.decode_attention, q, kc, vc,
+                                            ln)))
+    for what, fn in cases:
+        out = fn().contiguous()
+        digest = hashlib.sha256(out.view(torch.uint8).cpu().numpy()
+                                .tobytes()).hexdigest()[:16]
+        events = time_ms(fn, 100)
+        dev = device_profile(fn, 10)[0]
+        print(f"  digest {what:42s} {digest}  {events:.4f} ms events  "
+              f"{dev:.4f} ms device")
+    return 0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--digests"]:
+        return run_digests()
+    if sys.argv[1:]:
+        print(f"usage: {sys.argv[0]} [--digests]", file=sys.stderr)
+        return 2
     from repro_torch import device as port_device
     from repro_torch.kernels import _build, ops, ref
 
@@ -1077,9 +1587,12 @@ def main() -> int:
     with phase("5 plan"):
         launches = run_planner(ops)
     with phase("6 serve"):
-        served = run_serve(ops)
-    launches.update({k: served[k] for k in ("flash_attention",
-                                            "decode_attention")})
+        served, b_pool = run_serve(ops)
+    with phase("7 family"):
+        family = run_family(ops, b_pool)
+    # flash and decode: the serving cells' launches, each cell counted
+    # from 0 on its own (6 b and 7 c-f)
+    launches.update({k: served[k] + family[k] for k in family})
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

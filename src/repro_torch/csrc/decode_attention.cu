@@ -27,7 +27,11 @@
 //   warp are in flight while one is used; keys past the slot's length are
 //   zero-filled, never read.  No block barrier until the end.
 // - A lane owns one 16-byte chunk of D (8 bf16 or 4 fp32) for one query row
-//   of the group, and NP rows in NP passes where rep * D / chunk > 32.  The
+//   of the group, and NP rows in NP passes where a warp's 32 lanes hold
+//   fewer than rep rows.  A row takes LPR lanes, its chunk count rounded up
+//   to a power of two (D = 80: 10 chunks in bf16 on 16 lanes, 20 in fp32 on
+//   32), so that the xor shuffles stay inside a row; the lanes past the
+//   row's chunks hold zero queries, load nothing and store nothing.  The
 //   group's rep = H / KV query rows sit in registers as fp32, so every K/V
 //   byte serves all of them.  A score is the lanes' partial dot products
 //   reduced with xor shuffles over the row's lanes; the online softmax and
@@ -102,6 +106,13 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// lanes a query row of ``chunks`` 16-byte chunks takes: the next power of 2
+__host__ __device__ constexpr int lanes_per_row(int chunks) {
+  int l = 1;
+  while (l < chunks) l *= 2;
+  return l;
+}
+
 template <typename T, int D>
 size_t smem_bytes(int rep) {
   const size_t ring =
@@ -120,8 +131,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   constexpr int d = D;
   constexpr int EPC = Traits<T>::EPC;
   constexpr int TK = Traits<T>::TK;
-  constexpr int cpr = D / EPC;  // 16-byte chunks per row: 2..32
-  constexpr int rp = 32 / cpr;  // query rows per pass of the warp
+  constexpr int cpr = D / EPC;      // 16-byte chunks per row: 2..32
+  constexpr int lpr = lanes_per_row(cpr);  // lanes per row: a power of two
+  constexpr int rp = 32 / lpr;      // query rows per pass of the warp
   static_assert(TK * cpr % 32 == 0, "a tile is whole chunks for every lane");
   constexpr int SUB = 32 / NP < TK ? 32 / NP : TK;  // keys per softmax step
   extern __shared__ __align__(16) unsigned char smem[];
@@ -137,15 +149,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int c = lane % cpr;   // this lane's chunk of D
-  const int rsub = lane / cpr;
+  const int c = lane % lpr;   // this lane's chunk of D (none if c >= cpr)
+  const int rsub = lane / lpr;
+  const bool has_chunk = c < cpr;
 
   // the group's query rows (their loads overlap the length's)
   float qr[NP][EPC], acc[NP][EPC], m[NP], l[NP];
 #pragma unroll
   for (int r = 0; r < NP; ++r) {
     const int row = rsub + rp * r;
-    if (row < rep) {
+    if (row < rep && has_chunk) {
       unpack(q + (size_t)(head0 + row) * d + c * EPC, qr[r]);
     } else {
 #pragma unroll
@@ -215,7 +228,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
         float kf[EPC];
-        unpack(ks + (j0 + jj) * d + c * EPC, kf);
+        if (has_chunk) {
+          unpack(ks + (j0 + jj) * d + c * EPC, kf);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) kf[e] = 0.f;
+        }
 #pragma unroll
         for (int r = 0; r < NP; ++r) {
           float s = 0.f;
@@ -225,7 +243,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         }
       }
 #pragma unroll
-      for (int off = cpr / 2; off > 0; off /= 2)
+      for (int off = lpr / 2; off > 0; off /= 2)
 #pragma unroll
         for (int r = 0; r < NP; ++r)
 #pragma unroll
@@ -255,7 +273,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
         float vf[EPC];
-        unpack(vs + (j0 + jj) * d + c * EPC, vf);
+        if (has_chunk) {
+          unpack(vs + (j0 + jj) * d + c * EPC, vf);
+        } else {
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) vf[e] = 0.f;
+        }
 #pragma unroll
         for (int r = 0; r < NP; ++r)
 #pragma unroll
@@ -274,7 +297,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int r = 0; r < NP; ++r) {
     const int row = rsub + rp * r;
-    if (row >= rep) continue;
+    if (row >= rep || !has_chunk) continue;
     if (c == 0) {
       wm[warp * rep + row] = m[r];
       wl[warp * rep + row] = l[r];
@@ -353,9 +376,10 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
            int s_len, int chunk, int n_splits, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>(h / kvh);
-  // the largest group this instantiation takes: rep * D <= 2048
+  // the largest group this instantiation takes: rep * padded D <= 2048
+  constexpr int padded = lanes_per_row(D / Traits<T>::EPC) * Traits<T>::EPC;
   cudaError_t err =
-      allow_smem<decode_kernel<T, D, NP>>(smem_bytes<T, D>(2048 / D));
+      allow_smem<decode_kernel<T, D, NP>>(smem_bytes<T, D>(2048 / padded));
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_kernel<T, D, NP><<<dim3(n_splits, b * kvh), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -370,7 +394,7 @@ int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
                 void* out, float* part, int* counters, int b, int h, int kvh,
                 int s_len, int chunk, int n_splits, float scale,
                 cudaStream_t s) {
-  constexpr int rows_per_pass = 32 / (D / Traits<T>::EPC);
+  constexpr int rows_per_pass = 32 / lanes_per_row(D / Traits<T>::EPC);
   const int passes = (h / kvh + rows_per_pass - 1) / rows_per_pass;
 #define REPRO_DECODE_NP(NP)                                                  \
   if (passes <= NP)                                                          \
@@ -380,7 +404,7 @@ int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
   REPRO_DECODE_NP(2)
   REPRO_DECODE_NP(4)
   REPRO_DECODE_NP(8)
-  if constexpr (sizeof(T) == 4) {  // rep * D <= 2048: up to 16 in fp32
+  if constexpr (sizeof(T) == 4) {  // rep * padded D <= 2048: 16 in fp32
     REPRO_DECODE_NP(16)
   }
 #undef REPRO_DECODE_NP
@@ -405,6 +429,9 @@ int dispatch(const void* q, const void* k, const void* v, const int* lens,
     case 64:
       return dispatch_np<T, 64>(q, k, v, lens, out, part, counters, b, h, kvh,
                                 s_len, chunk, n_splits, scale, s);
+    case 80:  // h2o-danube: 10 (bf16) or 20 (fp32) chunks on 16 or 32 lanes
+      return dispatch_np<T, 80>(q, k, v, lens, out, part, counters, b, h, kvh,
+                                s_len, chunk, n_splits, scale, s);
     case 128:
       return dispatch_np<T, 128>(q, k, v, lens, out, part, counters, b, h,
                                  kvh, s_len, chunk, n_splits, scale, s);
@@ -426,8 +453,9 @@ extern "C" int repro_decode_attention_key_tile(int dtype) {
 // n_splits splits of ``chunk`` (chunk * n_splits >= s_len).  Scratch:
 // ``part`` fp32 [b * h * n_splits * (d + 2)], ``counters`` int32 [b * kvh],
 // zero on entry and left zero on exit.  dtype: 0 = float32, 1 = bfloat16
-// (q, caches and out share it).  d in {16, 32, 64, 128},
-// (h / kvh) * d <= 2048.  Returns the CUDA error of the launch (0 on
+// (q, caches and out share it).  d in {16, 32, 64, 80, 128},
+// (h / kvh) * padded d <= 2048 (d rounded up to a power-of-two count of
+// 16-byte chunks).  Returns the CUDA error of the launch (0 on
 // success); nothing here synchronises.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lens, void* out,

@@ -1,6 +1,8 @@
 // Flash (online-softmax) attention, the prefill attention of the LM:
-// O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal mask) V[g] with
-// g = bh / kv_group (grouped-query attention reads its KV head in place).
+// O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal and window masks) V[g]
+// with g = bh / kv_group (grouped-query attention reads its KV head in
+// place).  A window W > 0 keeps key k for query q only where q - k < W (the
+// JAX layers' sliding-window rule); W = 0 is no window.
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention (the Pallas online-softmax kernel; grid (BH, Sq/bq,
@@ -59,9 +61,24 @@
 //
 // Both stop a causal walk after the tile holding the block's last query
 // row, which skips exactly the tiles the TPU grid ran fully masked (they
-// left every carry unchanged).  Ragged Sq and Skv are masked, so any length
-// works; row and sequence strides are arguments, so q/k/v may be views of
-// the model's [B, S, H, D] projections.
+// left every carry unchanged).  Under a window W both also start the walk at
+// the tile holding key q0 - W + 1 (q0 the block's first query row), so tiles
+// wholly left of every row's window are never loaded; the window compare
+// runs only on tiles that reach past some row's left edge.  A row whose
+// keys in a tile are all masked keeps a running max of NEG_INF; its
+// exponentials are then taken against 0, so they come out 0 (not 1) and
+// the first tile with a valid key resets the carries.  The window is a
+// template flag (a kernel with and one without): without a window the
+// kernels compile to what they were before it, at the same speed.  Ragged Sq and Skv
+// are masked, so any length works; row and sequence strides are arguments,
+// so q/k/v may be views of the model's [B, S, H, D] projections.
+//
+// D = 80 (h2o-danube) runs the bf16 kernel's D = 128 tile over tensor maps
+// whose inner dimension is 80: TMA zero-fills columns 80-127 of every Q, K
+// and V box (and still counts the whole box in the mbarrier's transaction
+// bytes), the zero columns add nothing to Q K^T and give output columns
+// that are never stored.  The fp32 kernel takes D = 80 as it is (five
+// accumulator columns a thread).
 #include "hopper.cuh"
 
 namespace {
@@ -102,13 +119,16 @@ __device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
                       heads_inner ? row : head, bar);
 }
 
-template <int D>
+// D: the tile's width; DV <= D: the rows' (D = 128 tile, DV = 80: TMA
+// zero-fills the columns past DV, which are never stored)
+template <int D, int DV, bool WINDOW>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   __nv_bfloat16* __restrict__ o, int n_bh, int sq, int skv,
-                  int kv_group, int causal, float scale, int heads_inner) {
+                  int kv_group, int causal, int window, float scale,
+                  int heads_inner) {
   using T = Tile<D>;
   constexpr int SW = T::SW, NSUB = T::NSUB, NO = T::NO, STAGES = T::STAGES;
   extern __shared__ uint8_t smem[];
@@ -127,7 +147,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.x % n_bh;
   const int kvh = bh / kv_group;
   const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  const int n_kv = (kv_end + BKV - 1) / BKV;
+  // first tile: the one holding key q0 - window + 1, the block's leftmost
+  // key in any row's window
+  const int j0 = WINDOW ? max(0, q0 - window + 1) / BKV : 0;
+  const int n_kv = (kv_end + BKV - 1) / BKV - j0;  // tiles walked
 
   const CUtensorMap* map_k = &tm_k;
   const CUtensorMap* map_v = &tm_v;
@@ -159,7 +182,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int c = 0; c < NSUB; ++c)
       load_box(s_q + c * BQ * SW, &tm_q, c * T::ACOLS, q0, bh,
                heads_inner & 1, q_bar);
-    for (int j = 0; j < STAGES && j < n_kv; ++j) load_kv(j, j);
+    for (int t = 0; t < STAGES && t < n_kv; ++t) load_kv(j0 + t, t);
   }
 
   // this thread's two query rows: r0 holds fragment entries 4i, 4i+1 and
@@ -175,11 +198,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
   hopper::mbar_wait(q_bar, 0);
-  for (int j = 0; j < n_kv; ++j) {
-    const int s = j % STAGES;
+  const int row_last = q0 + 64 * wg + 63;  // this warpgroup's last row
+  for (int t = 0; t < n_kv; ++t) {  // t-th tile walked: key tile j0 + t
+    const int j = j0 + t;
+    const int s = t % STAGES;
     const uint32_t k_tile = s_kv + s * 2 * T::KV_BYTES;
     const uint32_t v_tile = k_tile + T::KV_BYTES;
-    hopper::mbar_wait(s_bar + 8 * s, (j / STAGES) & 1);
+    hopper::mbar_wait(s_bar + 8 * s, (t / STAGES) & 1);
 
     // S = Q K^T: D / 16 k-steps, each 32 bytes into a swizzle atom
     float sacc[BKV / 2];
@@ -194,24 +219,28 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
       hopper::wgmma_ss_n128(sacc, da, db, kk > 0);
     }
     hopper::wgmma_commit();
-    // refill the stage tile j-1 used while this tile's products run
-    if (tid == 0 && j >= 1 && j - 1 + STAGES < n_kv) {
-      const int sp = (j - 1) % STAGES;
-      hopper::mbar_wait(s_bar + 8 * (STAGES + sp), ((j - 1) / STAGES) & 1);
-      load_kv(j - 1 + STAGES, sp);
+    // refill the stage tile t-1 used while this tile's products run
+    if (tid == 0 && t >= 1 && t - 1 + STAGES < n_kv) {
+      const int sp = (t - 1) % STAGES;
+      hopper::mbar_wait(s_bar + 8 * (STAGES + sp), ((t - 1) / STAGES) & 1);
+      load_kv(j0 + t - 1 + STAGES, sp);
     }
     __syncwarp();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sacc);
 
-    // masks: only the diagonal tile and the ragged last tile need them
+    // masks: only the diagonal tile, the ragged last tile and the tiles
+    // that reach past a row's window edge need them
     const int k0 = j * BKV;
-    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > q0 + 64 * wg)) {
+    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > q0 + 64 * wg) ||
+        (WINDOW && row_last - k0 >= window)) {
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) {
         const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
         const int row = r0 + 8 * ((i / 2) & 1);
-        if (kpos >= skv || (causal && row < kpos)) sacc[i] = NEG_INF;
+        if (kpos >= skv || (causal && row < kpos) ||
+            (WINDOW && row - kpos >= window))
+          sacc[i] = NEG_INF;
       }
     }
 
@@ -230,7 +259,10 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float corr1 = exp2f((m1 - mx1) * c2);
     m0 = mx0;
     m1 = mx1;
-    const float mc0 = mx0 * c2, mc1 = mx1 * c2;
+    // under a window, a row with no valid key yet: exponentials against 0
+    // give p = 0 (without one every row's first tile holds key 0)
+    const float mc0 = (WINDOW && mx0 == NEG_INF ? 0.f : mx0) * c2;
+    const float mc1 = (WINDOW && mx1 == NEG_INF ? 0.f : mx1) * c2;
     float sum0 = 0.f, sum1 = 0.f;
     uint32_t pa[BKV / 4];  // P in bf16: the A fragments of P V
 #pragma unroll
@@ -278,13 +310,14 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float den0 = fmaxf(l0, 1e-20f), den1 = fmaxf(l1, 1e-20f);
-  __nv_bfloat16* orow0 = o + (static_cast<size_t>(bh) * sq + r0) * D;
-  __nv_bfloat16* orow1 = orow0 + 8 * D;
+  __nv_bfloat16* orow0 = o + (static_cast<size_t>(bh) * sq + r0) * DV;
+  __nv_bfloat16* orow1 = orow0 + 8 * DV;
 #pragma unroll
   for (int c = 0; c < NSUB; ++c)
 #pragma unroll
     for (int i = 0; i < NO; i += 4) {
       const int col = c * T::ACOLS + 2 * i + 2 * (lane % 4);
+      if (DV < D && col >= DV) continue;
       if (r0 < sq)
         *reinterpret_cast<uint32_t*>(orow0 + col) = hopper::pack_bf16x2(
             o_acc[c][i] / den0, o_acc[c][i + 1] / den0);
@@ -346,10 +379,10 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int n, int s,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int skv, int kv_group, int causal, float scale,
-                long long q_sb, long long q_ss, long long k_sb,
+                int sq, int skv, int kv_group, int causal, int window,
+                float scale, long long q_sb, long long q_ss, long long k_sb,
                 long long k_ss, long long v_sb, long long v_ss,
                 cudaStream_t stream) {
   using T = Tile<D>;
@@ -361,22 +394,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
   CUtensorMap tq, tk, tv;
   bool inner_q, inner_k, inner_v;
   const int n_kv = bh / kv_group;
-  if (!encode(fn, &tq, q, bh, sq, D, q_sb, q_ss, BQ, T::ACOLS, swizzle,
+  if (!encode(fn, &tq, q, bh, sq, DV, q_sb, q_ss, BQ, T::ACOLS, swizzle,
               &inner_q) ||
-      !encode(fn, &tk, k, n_kv, skv, D, k_sb, k_ss, BKV, T::ACOLS, swizzle,
+      !encode(fn, &tk, k, n_kv, skv, DV, k_sb, k_ss, BKV, T::ACOLS, swizzle,
               &inner_k) ||
-      !encode(fn, &tv, v, n_kv, skv, D, v_sb, v_ss, BKV, T::ACOLS, swizzle,
+      !encode(fn, &tv, v, n_kv, skv, DV, v_sb, v_ss, BKV, T::ACOLS, swizzle,
               &inner_v))
     return ERR_ENCODE;
   const int heads_inner = inner_q | inner_k << 1 | inner_v << 2;
+  auto kernel = window > 0 ? flash_bf16_kernel<D, DV, true>
+                           : flash_bf16_kernel<D, DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = ((sq + BQ - 1) / BQ) * bh;
-  flash_bf16_kernel<D><<<grid, BF16_THREADS, T::SMEM, stream>>>(
+  kernel<<<grid, BF16_THREADS, T::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), bh, sq, skv, kv_group,
-      causal, scale, heads_inner);
+      causal, window, scale, heads_inner);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,11 +430,11 @@ template <int D> constexpr size_t f32_smem_floats() {
          + 3 * F32_BQ;             // running max, denominator, correction
 }
 
-template <int D>
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int sq,
-                 int skv, int kv_group, int causal, float scale,
+                 int skv, int kv_group, int causal, int window, float scale,
                  long long q_sb, long long q_ss, long long k_sb,
                  long long k_ss, long long v_sb, long long v_ss) {
   constexpr int BQ = F32_BQ, BKV = F32_BKV, THREADS = F32_THREADS;
@@ -438,11 +472,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
 
-  // keys past the tile's last query row are masked for all of its rows
+  // keys past the tile's last query row are masked for all of its rows,
+  // and keys left of q0 - window + 1 for all of them under a window
   const int kv_end = causal ? min(skv, q0 + BQ) : skv;
+  const int kv_begin = WINDOW ? max(0, q0 - window + 1) / BKV * BKV : 0;
   __syncthreads();
 
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
     for (int e = tid; e < BKV * D; e += THREADS) {
       const int r = e / D, d = e % D;
       const int gk = k0 + r;
@@ -475,7 +511,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int col = tx + 16 * j;
         const int kpos = k0 + col;
-        const bool valid = kpos < skv && (!causal || q0 + row >= kpos);
+        const bool valid = kpos < skv && (!causal || q0 + row >= kpos) &&
+                           (!WINDOW || q0 + row - kpos < window);
         ss[row * (BKV + 1) + col] = valid ? sacc[i][j] * scale : NEG_INF;
       }
     }
@@ -496,7 +533,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kpos = k0 + part * 8 + c;
-        const bool valid = kpos < skv && (!causal || q0 + r >= kpos);
+        const bool valid = kpos < skv && (!causal || q0 + r >= kpos) &&
+                           (!WINDOW || q0 + r - kpos < window);
         const float p = valid ? expf(srow[c] - m_new) : 0.f;
         sum += p;
         srow[c] = p;
@@ -548,36 +586,41 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int sq, int skv, int kv_group, int causal, float scale,
-               long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-               long long v_sb, long long v_ss, cudaStream_t stream) {
+               int sq, int skv, int kv_group, int causal, int window,
+               float scale, long long q_sb, long long q_ss, long long k_sb,
+               long long k_ss, long long v_sb, long long v_ss,
+               cudaStream_t stream) {
   const size_t smem = f32_smem_floats<D>() * sizeof(float);
-  // above 48 KB (D = 128) only as opted-in dynamic shared memory
+  auto kernel = window > 0 ? flash_f32_kernel<D, true>
+                           : flash_f32_kernel<D, false>;
+  // above 48 KB (D = 80, 128) only as opted-in dynamic shared memory
   cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + F32_BQ - 1) / F32_BQ, bh);
-  flash_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+  kernel<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), sq, skv, kv_group,
-      causal, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
+      causal, window, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
-                      int, int, int, float, long long, long long, long long,
-                      long long, long long, long long, cudaStream_t);
+                      int, int, int, int, float, long long, long long,
+                      long long, long long, long long, long long,
+                      cudaStream_t);
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
 Launch pick_launch(int d, int dtype) {
   if (dtype != 0 && dtype != 1) return nullptr;
   const bool bf16 = dtype == 1;
   switch (d) {
-    case 16: return bf16 ? launch_bf16<16> : launch_f32<16>;
-    case 32: return bf16 ? launch_bf16<32> : launch_f32<32>;
-    case 64: return bf16 ? launch_bf16<64> : launch_f32<64>;
-    case 128: return bf16 ? launch_bf16<128> : launch_f32<128>;
+    case 16: return bf16 ? launch_bf16<16, 16> : launch_f32<16>;
+    case 32: return bf16 ? launch_bf16<32, 32> : launch_f32<32>;
+    case 64: return bf16 ? launch_bf16<64, 64> : launch_f32<64>;
+    case 80: return bf16 ? launch_bf16<128, 80> : launch_f32<80>;  // padded
+    case 128: return bf16 ? launch_bf16<128, 128> : launch_f32<128>;
     default: return nullptr;
   }
 }
@@ -587,18 +630,21 @@ Launch pick_launch(int d, int dtype) {
 // q [bh, sq, d] with strides (q_sb, q_ss, 1); k, v [bh / kv_group, skv, d]
 // with their own strides; o [bh, sq, d] contiguous.  dtype: 0 = float32
 // (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel; bases and strides
-// 16-byte aligned), shared by all four.  d in {16, 32, 64, 128}.  Returns
-// the CUDA error of the launch (0 on success; negative: a tensor-map
-// failure, see repro_cuda_error_string); nothing here synchronises.
+// 16-byte aligned), shared by all four.  d in {16, 32, 64, 80, 128};
+// window >= 0 (0: none).  Returns the CUDA error of the launch (0 on
+// success; negative: a tensor-map failure, see repro_cuda_error_string);
+// nothing here synchronises.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, int bh, int sq,
-    int skv, int d, int kv_group, int causal, float scale, long long q_sb,
-    long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-    long long v_ss, int dtype, void* stream) {
+    int skv, int d, int kv_group, int causal, int window, float scale,
+    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
+    long long v_sb, long long v_ss, int dtype, void* stream) {
   const Launch launch = pick_launch(d, dtype);
-  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, o, bh, sq, skv, kv_group, causal, scale, q_sb, q_ss,
-                k_sb, k_ss, v_sb, v_ss, static_cast<cudaStream_t>(stream));
+  if (launch == nullptr || window < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, k, v, o, bh, sq, skv, kv_group, causal, window, scale,
+                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -11,13 +11,24 @@ One call is one kernel launch: the splits and their in-order merge.
 :func:`plan` sizes the splits from the shape (the lengths stay on the
 device); the partials and the merge counters are scratch kept per device
 and stream across calls, so calls in flight on different streams never
-share them.
+share them.  A call may be captured into a CUDA graph only inside
+:func:`graph_scratch`, which gives it scratch of the graph's own: allocated
+in the capture (the counters' zeroing is captured too, so it runs at the
+start of every replay), held as long as the graph, and shared with no
+other graph or stream.  The kernel leaves the counters at zero after every
+launch.
+
+A lane of the kernel owns one 16-byte chunk of a query row; a row takes
+:func:`lanes_per_row` lanes, the chunk count rounded up to a power of two
+(D = 80 is 10 chunks in bf16 and 20 in fp32, so 16 and 32 lanes), and the
+lanes past the row's chunks hold zeros.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
@@ -27,11 +38,24 @@ from repro_torch.kernels import _build
 # kernel launches since the last reset (repro_torch.kernels.ops)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_GROUP_WIDTH = 2048          # (H // KV) * D the kernel's block can hold
+HEAD_DIMS = (16, 32, 64, 80, 128)
+MAX_GROUP_WIDTH = 2048          # (H // KV) * padded D the block can hold
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KEY_TILE = {torch.float32: 8, torch.bfloat16: 16}   # keys per warp tile
 SMS = 132                       # H100 SXM
+
+
+def lanes_per_row(d: int, dtype: torch.dtype) -> int:
+    """Lanes a query row takes: its 16-byte chunks rounded up to a power
+    of two, so the xor-shuffle sum over a row's lanes stays in the row."""
+    chunks = d * dtype.itemsize // 16
+    return 1 << (chunks - 1).bit_length()
+
+
+def max_group(d: int, dtype: torch.dtype) -> int:
+    """The most query heads a KV head (H // KV) the kernel takes at ``d``:
+    the group's padded width, rep * lanes * 16 bytes' elements, <= 2048."""
+    return MAX_GROUP_WIDTH // (lanes_per_row(d, dtype) * 16 // dtype.itemsize)
 
 
 class DecodePlan(NamedTuple):
@@ -80,14 +104,34 @@ def _lib() -> ctypes.CDLL:
 # per (device, stream): (fp32 partials, int32 merge counters kept at zero);
 # a kernel on one stream only ever meets its own stream's scratch
 _SCRATCH: dict = {}
+# while a CUDA graph captures: that graph's own scratch, per device
+_graph_store = None
+
+
+@contextmanager
+def graph_scratch(store: dict):
+    """Route the scratch of the calls in the block to ``store``, a dict that
+    the graph being captured holds (``ops.CountedGraph``)."""
+    global _graph_store
+    outer, _graph_store = _graph_store, store
+    try:
+        yield
+    finally:
+        _graph_store = outer
 
 
 def _scratch(dev: torch.device, stream: int, floats: int, groups: int):
-    part, counters = _SCRATCH.get((dev, stream), (None, None))
+    if torch.cuda.is_current_stream_capturing() and _graph_store is None:
+        raise RuntimeError("decode attention is captured into a CUDA graph "
+                           "only inside graph_scratch (ops.CountedGraph), "
+                           "so that the graph holds its own scratch")
+    store, key = ((_SCRATCH, (dev, stream)) if _graph_store is None
+                  else (_graph_store, dev))
+    part, counters = store.get(key, (None, None))
     if part is None or part.numel() < floats or counters.numel() < groups:
         part = torch.empty((floats,), dtype=torch.float32, device=dev)
         counters = torch.zeros((groups,), dtype=torch.int32, device=dev)
-        _SCRATCH[dev, stream] = (part, counters)
+        store[key] = (part, counters)
     return part, counters
 
 
@@ -121,10 +165,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if k_cache.shape[0] != b or dk != d or h % kvh:
         raise ValueError(f"q {tuple(q.shape)} does not group over the cache "
                          f"{tuple(k_cache.shape)}")
-    if d not in HEAD_DIMS or (h // kvh) * d > MAX_GROUP_WIDTH:
+    if d not in HEAD_DIMS or h // kvh > max_group(d, q.dtype):
         raise ValueError(f"CUDA decode attention takes head dim D in "
-                         f"{HEAD_DIMS} with (H/KV)*D <= {MAX_GROUP_WIDTH}, "
-                         f"got D={d}, H/KV={h // kvh}")
+                         f"{HEAD_DIMS} with H/KV <= {MAX_GROUP_WIDTH} over "
+                         f"the padded D, got D={d}, H/KV={h // kvh}")
     if not (q.dtype == k_cache.dtype == v_cache.dtype) \
             or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA decode attention takes float32 or bfloat16 "

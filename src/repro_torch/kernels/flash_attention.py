@@ -7,12 +7,16 @@ Only CUDA tensors are taken; :func:`repro_torch.kernels.ops.flash_attention`
 sends CPU tensors to the plain version instead.  The TPU signature is kept
 (``q, k, v [BH, S, D]``), with ``kv_group`` added for grouped-query
 attention: row ``bh`` of ``q`` reads K/V row ``bh // kv_group``, so the
-model's KV heads are never repeated per query head.  Ragged ``S`` is masked
-in the kernel (the TPU wrapper asserted ``S % block == 0``), and q/k/v may be
-strided views as long as their last dimension is contiguous.  The bf16
-kernel reads them through TMA tensor maps, which need 16-byte aligned base
-addresses and row/head strides; a view that breaks that raises, it never
-takes another path.
+model's KV heads are never repeated per query head.  ``window`` > 0 keeps
+only keys with ``qpos - kpos < window`` (h2o-danube's sliding window; the
+TPU kernel had none, the JAX layers mask it in jnp), and the walk skips the
+key tiles left of every row's window.  Ragged ``S`` is masked in the kernel
+(the TPU wrapper asserted ``S % block == 0``), and q/k/v may be strided
+views as long as their last dimension is contiguous.  The bf16 kernel reads
+them through TMA tensor maps, which need 16-byte aligned base addresses and
+row/head strides; a view that breaks that raises, it never takes another
+path.  D = 80 runs the bf16 kernel's D = 128 tile, with TMA zero-filling the
+columns past 80.
 """
 from __future__ import annotations
 
@@ -26,14 +30,14 @@ from repro_torch.kernels import _build
 # kernel launches since the last reset (repro_torch.kernels.ops)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention.restype = ctypes.c_int
     return lib
@@ -55,9 +59,11 @@ def _tma_strides(t: torch.Tensor):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_group: int = 1) -> torch.Tensor:
+                    causal: bool = True, kv_group: int = 1,
+                    window: int = 0) -> torch.Tensor:
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D] in
-    ``q.dtype``; scale ``1/sqrt(D)``, fp32 softmax carries."""
+    ``q.dtype``; scale ``1/sqrt(D)``, fp32 softmax carries; ``window`` 0 is
+    no window."""
     global launches
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
@@ -74,6 +80,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"CUDA flash attention takes head dim D in "
                          f"{HEAD_DIMS}, got {d}")
+    if not 0 <= window < 2 ** 31:
+        raise ValueError(f"flash attention takes a window in [0, 2^31), got "
+                         f"{window}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA flash attention takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -94,7 +103,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            k.shape[1], d, kv_group, int(causal), 1.0 / math.sqrt(d),
+            k.shape[1], d, kv_group, int(causal), int(window),
+            1.0 / math.sqrt(d),
             *strides, _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, err, "flash_attention")
     launches += 1

@@ -34,7 +34,7 @@ BF16_ABS_TOL = 5e-2
 BF16_ROW_TOL = 0.15
 DECODE_ROW_TOL = 0.04
 BKV = 128                                # the kernel's keys per tile
-SWEEP_D = (16, 32, 64, 128)
+SWEEP_D = (16, 32, 64, 80, 128)
 SWEEP_S = (1, 63, 64, 65, 200, 1000)
 
 

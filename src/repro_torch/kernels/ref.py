@@ -43,18 +43,26 @@ NEG_INF = -1e30
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, kv_group: int = 1) -> torch.Tensor:
+            causal: bool = True, kv_group: int = 1,
+            window: int = 0) -> torch.Tensor:
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D]: row ``bh`` of q attends
-    over K/V row ``bh // kv_group`` (the GQA layout)."""
+    over K/V row ``bh // kv_group`` (the GQA layout).  ``window`` > 0 keeps
+    only keys with ``qpos - kpos < window`` (the JAX layers' sliding-window
+    rule); 0 is no window."""
     if kv_group != 1:
         k = k.repeat_interleave(kv_group, dim=0)
         v = v.repeat_interleave(kv_group, dim=0)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
-    if causal:
+    if causal or window:
         sq, sk = q.shape[1], k.shape[1]
-        mask = (torch.arange(sq, device=q.device)[:, None]
-                >= torch.arange(sk, device=q.device)[None, :])
+        diff = (torch.arange(sq, device=q.device)[:, None]
+                - torch.arange(sk, device=q.device)[None, :])
+        mask = torch.ones_like(diff, dtype=torch.bool)
+        if causal:
+            mask &= diff >= 0
+        if window:
+            mask &= diff < window
         s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)

@@ -6,13 +6,18 @@ lock-step); the CLI routes through
 :class:`repro_torch.serve.ContinuousBatcher`, where requests join and leave
 the running batch at decode-step granularity and the KV slot pool persists
 across requests.  The weights are random, drawn from a seeded generator.
-Runs on the card unless ``--device`` names another:
+``--arch`` takes any dense config (granite-3-2b, h2o-danube-1.8b,
+nemotron-4-15b, command-r-plus-104b; the last is 208 GB of bf16 at
+``--full``, past one 80 GB card).  Runs on the card unless ``--device``
+names another:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --batch 4 --prompt-len 32 --gen 16
   # full width on the card, open-loop synthetic trace with staggered
   # arrivals:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
+      --arch h2o-danube-1.8b --prompt-len 5000 --gen 64
 """
 from __future__ import annotations
 

@@ -12,7 +12,12 @@ Attention goes through :mod:`repro_torch.kernels.ops` — the hand-written
 flash-attention kernel for prefill and the split-K decode kernel for decode
 on the card, their plain versions on the CPU.  The projections and the FFN
 are plain ``torch.matmul``: the JAX package leaves them to XLA, outside any
-Pallas kernel.
+Pallas kernel.  So are the int8 KV cache's :func:`quantize_kv` and
+:func:`decode_attention_quant`: the JAX package computes them in jnp, not in
+a Pallas kernel.
+
+The RoPE angles are built once per model call (:func:`rope_table`) and
+handed to every layer's :func:`apply_rope`.
 """
 from __future__ import annotations
 
@@ -77,16 +82,23 @@ def rope_freqs(head_dim: int, theta: float, device=None):
                                          device=device) / half))
 
 
-def apply_rope(x, positions, theta):
-    """x [B, S, H, Dh]; positions [S] or [B, S] (int)."""
-    half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)              # [half]
+def rope_table(positions, head_dim: int, theta: float):
+    """(cos, sin) of the RoPE angles, fp32 ``[B?, S, 1, head_dim // 2]``,
+    for positions [S] or [B, S] (int): built once per model call and shared
+    by every layer's queries and keys."""
+    freqs = rope_freqs(head_dim, theta, positions.device)         # [half]
     pos = positions.to(torch.float32)
     if pos.dim() == 1:
         pos = pos[None, :]
     angles = pos[..., :, None] * freqs                            # [B?,S,half]
-    cos = torch.cos(angles)[..., :, None, :]                  # [B?,S,1,half]
-    sin = torch.sin(angles)[..., :, None, :]
+    return (torch.cos(angles)[..., :, None, :],               # [B?,S,1,half]
+            torch.sin(angles)[..., :, None, :])
+
+
+def apply_rope(x, rope):
+    """x [B, S, H, Dh]; ``rope`` = :func:`rope_table` at x's positions."""
+    half = x.shape[-1] // 2
+    cos, sin = rope
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
@@ -134,12 +146,13 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
     ``plan.blockwise_attn_threshold``; both compute this one function, and
     the port computes it with the flash-attention kernel at every length
     (the kernel is the blockwise algorithm).  ``plan.gqa_grouped`` only
-    changes the JAX layout, not the result.  Windows, soft caps and query
-    offsets belong to other families (ROADMAP item 8).
+    changes the JAX layout, not the result.  ``window`` > 0 keeps keys with
+    ``qpos - kpos < window`` (h2o-danube's sliding window).  Logit soft caps
+    wait: no config sets one, and the JAX blockwise path ignores them;
+    query offsets belong to other families (ROADMAP item 8).
     """
-    if window or q_offset or softcap > 0:
-        raise not_ported("attention with a window, soft cap or query "
-                         "offset", 8)
+    if q_offset or softcap > 0:
+        raise not_ported("attention with a soft cap or query offset", 8)
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     # [B, S, H, Dh] -> [B*H, S, Dh]: a view when B == 1 (the serving
@@ -147,7 +160,8 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
     qh = q.transpose(1, 2).reshape(b * h, sq, dh)
     kh = k.transpose(1, 2).reshape(b * kvh, skv, dh)
     vh = v.transpose(1, 2).reshape(b * kvh, skv, dh)
-    out = ops.flash_attention(qh, kh, vh, causal=causal, kv_group=h // kvh)
+    out = ops.flash_attention(qh, kh, vh, causal=causal, kv_group=h // kvh,
+                              window=window)
     return out.reshape(b, h, sq, dh).transpose(1, 2)
 
 
@@ -155,11 +169,58 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      softcap: float = 0.0):
     """q [B, 1, H, Dh]; caches [B, S, KV, Dh]; ``cache_len`` = valid entries,
     an int or an int tensor [B] (one per row: the batcher's slots sit at
-    different positions) -> [B, 1, H, Dh]."""
-    if window or softcap > 0:
-        raise not_ported("decode attention with a window or soft cap", 8)
+    different positions) -> [B, 1, H, Dh].
+
+    ``window`` is accepted and ignored, as in the JAX layer: a windowed
+    cache is a ring of ``min(cache_len, window)`` slots that holds exactly
+    the window, so validity stays ``kpos < cache_len``."""
+    del window
+    if softcap > 0:
+        raise not_ported("decode attention with a soft cap", 8)
     return ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                                 cache_len)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache (per-token, per-head scales): plain torch, as the JAX
+# package computes them in jnp; no Pallas kernel, so no CUDA kernel either
+# ---------------------------------------------------------------------------
+
+def quantize_kv(x):
+    """x [..., D] -> (int8 [..., D], fp32 scale [..., 1]): symmetric
+    per-vector scales ``max|x| / 127 + 1e-8``, values rounded half to
+    even."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + 1e-8
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def decode_attention_quant(q, k_q, k_scale, v_q, v_scale, cache_len, *,
+                           softcap: float = 0.0):
+    """Decode attention over an int8 cache: q [B, 1, H, Dh]; ``k_q``/``v_q``
+    int8 [B, S, KV, Dh]; scales fp32 [B, S, KV, 1]; ``cache_len`` an int or
+    an int tensor [B] -> [B, 1, H, Dh].  The K scales fold into the scores
+    and the V scales into the probabilities, so the cache is never
+    dequantized whole.  A windowed cache needs no mask here either (see
+    :func:`decode_attention`)."""
+    if softcap > 0:
+        raise not_ported("decode attention with a soft cap", 8)
+    b, _, h, d = q.shape
+    s_len, kvh = k_q.shape[1], k_q.shape[2]
+    qg = q[:, 0].reshape(b, kvh, h // kvh, d)
+    scores = torch.einsum("bgrd,bkgd->bgrk", qg,
+                          k_q.to(q.dtype)).to(torch.float32)
+    scores = scores * k_scale[..., 0].transpose(1, 2)[:, :, None, :]
+    scores = scores * (1.0 / math.sqrt(d))
+    lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = torch.arange(s_len, device=q.device)[None, :] < lens   # [B?, S]
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = probs * v_scale[..., 0].transpose(1, 2)[:, :, None, :]
+    out = torch.einsum("bgrk,bkgd->bgrd", probs.to(q.dtype),
+                       v_q.to(q.dtype))
+    return out.reshape(b, 1, h, d)
 
 
 # ---------------------------------------------------------------------------

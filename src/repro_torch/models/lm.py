@@ -12,16 +12,26 @@ the layers on a leading axis where the port keeps one :class:`DenseBlock`
 per layer (``blocks.{i}.…``).  :mod:`repro_torch.models.convert` carries
 weights across.
 
+The cache is the JAX one: ``{"attn": {"k", "v"}}`` of ``[L, B, W, KV, Dh]``
+with ``W = min(cache_len, window)`` under a sliding window (a ring: token
+``t`` at slot ``t % W``) and ``W = cache_len`` without one; under
+``plan.kv_cache_quant`` ``k``/``v`` are int8 with fp32 ``k_scale`` /
+``v_scale`` ``[L, B, W, KV, 1]``.
+
 Differences from the JAX model, none of which changes a result:
 
   * ``decode_step`` writes the new token's K/V into ``cache`` in place (JAX
-    returns a new cache), so the serving pool is allocated once.
+    returns a new cache), so the serving pool is allocated once.  It makes
+    no tensor from host data when ``tokens`` and ``pos`` are device tensors
+    and never synchronises, so the serving engine can capture it in a CUDA
+    graph.
   * ``pos`` may be one position per row (an int tensor ``[B]``): the
     continuous batcher's slots sit at different positions, where the JAX
     engine ``vmap``s a scalar-``pos`` step over the slots.
   * Attention always runs the flash-attention kernel (prefill) and the
     split-K decode kernel (decode) through :mod:`repro_torch.kernels.ops`;
-    the JAX model's dense/blockwise switch computes the same function.
+    the JAX model's dense/blockwise switch computes the same function.  The
+    int8 cache's decode attention is plain torch, as the JAX one is jnp.
 """
 from __future__ import annotations
 
@@ -46,15 +56,25 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig, plan: Optional[Plan] = None) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
+    """Raise ``NotImplementedError`` for what the port does not run yet:
+    other families, and logit soft caps (no config sets one, and the JAX
+    blockwise path ignores them)."""
+    del plan            # every dense-family plan runs, kv_cache_quant too
     if cfg.family != "dense":
         raise not_ported(f"the {cfg.family!r} family", 8)
-    if cfg.attn_kind == "swa" or cfg.logit_softcap > 0:
-        raise not_ported("sliding-window attention and logit soft caps", 8)
-    if plan is not None and plan.kv_cache_quant:
-        raise NotImplementedError(
-            "the int8 KV cache (plan.kv_cache_quant, the JAX "
-            "decode_attention_quant) is not ported to repro_torch yet")
+    if cfg.logit_softcap > 0:
+        raise not_ported("logit soft caps", 8)
+
+
+def _window_of(cfg: ModelConfig) -> int:
+    return cfg.window if cfg.attn_kind == "swa" else 0
+
+
+def _kv_cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Slots a layer's K/V buffer holds for ``seq_len`` positions: the
+    window's ring under a sliding window, all of them otherwise."""
+    w = _window_of(cfg)
+    return min(seq_len, w) if w else seq_len
 
 
 # ===========================================================================
@@ -130,6 +150,7 @@ class DenseBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str):
         super().__init__()
         self.cfg = cfg
+        self.window = _window_of(cfg)
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
         self.attn = _group(params, f"{prefix}.attn.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
@@ -140,34 +161,48 @@ class DenseBlock(nn.Module):
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
         return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act, cfg.use_bias)
 
-    def _qkv(self, h, positions):
+    def _qkv(self, h, rope):
         cfg = self.cfg
         x = layers.apply_norm(self.attn_norm, h, cfg.norm)
         q = layers.q_project(self.attn, cfg, x)
         k, v = layers.kv_project(self.attn, cfg, x)
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
-        return q, k, v
+        return layers.apply_rope(q, rope), layers.apply_rope(k, rope), v
 
-    def prefill(self, h, positions, plan):
+    def prefill(self, h, rope, plan):
         """h [B, S, d] -> (h, (k, v)) with the layer's post-RoPE K/V."""
-        q, k, v = self._qkv(h, positions)
-        attn_out = layers.attention(q, k, v, causal=True,
+        q, k, v = self._qkv(h, rope)
+        attn_out = layers.attention(q, k, v, causal=True, window=self.window,
                                     softcap=self.cfg.logit_softcap, plan=plan)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
         return self._ffn(h), (k, v)
 
-    def decode(self, h, k_cache, v_cache, pos, cache_len):
-        """h [B, 1, d]; caches [B, W, KV, Dh] (written in place at each
+    def decode(self, h, cache, pos, cache_len, rope):
+        """h [B, 1, d]; ``cache`` this layer's buffers ``{"k", "v"[,
+        "k_scale", "v_scale"]}`` [B, W, KV, ·] (written in place at each
         row's slot); pos, cache_len int tensors [B]."""
-        q, k, v = self._qkv(h, pos[:, None])
-        # the JAX rule without a window: slot min(pos, w - 1)
-        slot = torch.clamp(pos, max=k_cache.shape[1] - 1)
+        q, k, v = self._qkv(h, rope)
+        k_cache, v_cache = cache["k"], cache["v"]
+        w = k_cache.shape[1]
+        # the JAX rule: the ring slot pos % w under a window, else
+        # min(pos, w - 1)
+        slot = pos % w if self.window else torch.clamp(pos, max=w - 1)
         rows = torch.arange(h.shape[0], device=h.device)
+        quant = "k_scale" in cache
+        if quant:
+            k, k_s = layers.quantize_kv(k)
+            v, v_s = layers.quantize_kv(v)
+            cache["k_scale"][rows, slot] = k_s[:, 0]
+            cache["v_scale"][rows, slot] = v_s[:, 0]
         k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-        attn_out = layers.decode_attention(q, k_cache, v_cache, cache_len,
-                                           softcap=self.cfg.logit_softcap)
+        if quant:
+            attn_out = layers.decode_attention_quant(
+                q, k_cache, cache["k_scale"], v_cache, cache["v_scale"],
+                cache_len, softcap=self.cfg.logit_softcap)
+        else:
+            attn_out = layers.decode_attention(
+                q, k_cache, v_cache, cache_len, window=self.window,
+                softcap=self.cfg.logit_softcap)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
         return self._ffn(h)
 
@@ -183,6 +218,10 @@ class LM(nn.Module):
         self.plan = plan or Plan()
         check_supported(cfg, self.plan)
         self.cfg = cfg
+        # sqrt(d_model) rounded to the activation type once, as the JAX
+        # _embed rounds it: a Python float multiplies with no host copy
+        self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
+                                               dtype=torch_dtype(cfg.dtype)))
         self.embed = nn.Parameter(params["embed"], requires_grad=False)
         self.final_norm = _group(params, "final_norm.")
         if not cfg.tie_embeddings:
@@ -206,10 +245,11 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- pieces
     def _embed(self, tokens):
-        h = self.embed[tokens.long()].to(self.dtype)
-        scale = torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype,
-                             device=h.device)
-        return h * scale
+        return self.embed[tokens.long()].to(self.dtype) * self._embed_scale
+
+    def _rope(self, positions):
+        return layers.rope_table(positions, self.cfg.head_dim,
+                                 self.cfg.rope_theta)
 
     def logits_for(self, hidden):
         """Full fp32 logits for a short hidden slice, padded vocab masked."""
@@ -221,7 +261,8 @@ class LM(nn.Module):
         return logits
 
     def init_cache(self, batch: int, seq_len: int) -> Cache:
-        return init_cache(self.cfg, batch, seq_len, device=self.device)
+        return init_cache(self.cfg, batch, seq_len, device=self.device,
+                          quant=self.plan.kv_cache_quant)
 
     # --------------------------------------------------------- entry points
     def prefill(self, batch, cache_len: int) -> Tuple[torch.Tensor, Cache]:
@@ -230,13 +271,14 @@ class LM(nn.Module):
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         b, s = tokens.shape
         h = self._embed(tokens)
-        positions = torch.arange(s, device=self.device)
+        rope = self._rope(torch.arange(s, device=self.device))
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for blk in self.blocks:
-            h, kv = blk.prefill(h, positions, self.plan)
+            h, kv = blk.prefill(h, rope, self.plan)
             collected.append(kv)
         last = layers.apply_norm(self.final_norm, h[:, -1:], self.cfg.norm)
-        cache = assemble_cache(self.cfg, collected, cache_len)
+        cache = assemble_cache(self.cfg, collected, cache_len,
+                               quant=self.plan.kv_cache_quant)
         return self.logits_for(last)[:, 0], cache
 
     def decode_step(self, cache: Cache, tokens, pos
@@ -251,9 +293,11 @@ class LM(nn.Module):
         w = cache["attn"]["k"].shape[2]
         cache_len = torch.clamp(pos + 1, max=w).to(torch.int32)
         h = self._embed(tokens)
+        rope = self._rope(pos[:, None])
         for i, blk in enumerate(self.blocks):
-            h = blk.decode(h, cache["attn"]["k"][i], cache["attn"]["v"][i],
-                           pos, cache_len)
+            h = blk.decode(h, {name: buf[i] for name, buf
+                               in cache["attn"].items()}, pos, cache_len,
+                           rope)
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
         return self.logits_for(h)[:, 0], cache
 
@@ -266,12 +310,22 @@ class LM(nn.Module):
 # ===========================================================================
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = None) -> Cache:
-    """Zeroed K/V buffers ``{"attn": {"k", "v": [L, B, W, KV, Dh]}}`` in
-    ``cfg.dtype``; the dense family keeps ``W = seq_len`` (no window)."""
+               device: DeviceLike = None, quant: bool = False) -> Cache:
+    """Zeroed K/V buffers ``{"attn": {"k", "v": [L, B, W, KV, Dh]}}`` with
+    ``W = min(seq_len, window)`` (``seq_len`` without a window), in
+    ``cfg.dtype``; with ``quant`` int8 ``k``/``v`` and fp32 ``k_scale`` /
+    ``v_scale`` ``[L, B, W, KV, 1]``."""
     check_supported(cfg)
     dev = resolve(device)
-    shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, _kv_cache_len(cfg, seq_len),
+             cfg.n_kv_heads, cfg.head_dim)
+    if quant:
+        scales = shape[:-1] + (1,)
+        return {"attn": {
+            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scale": torch.zeros(scales, dtype=torch.float32, device=dev),
+            "v_scale": torch.zeros(scales, dtype=torch.float32, device=dev)}}
     dt = torch_dtype(cfg.dtype)
     return {"attn": {"k": torch.zeros(shape, dtype=dt, device=dev),
                      "v": torch.zeros(shape, dtype=dt, device=dev)}}
@@ -294,12 +348,21 @@ def _ring_place(k_seq, buf_len: int, dtype):
     return kept.index_select(-3, inv).to(dtype)
 
 
-def assemble_cache(cfg: ModelConfig, collected, cache_len: int) -> Cache:
+def assemble_cache(cfg: ModelConfig, collected, cache_len: int,
+                   quant: bool = False) -> Cache:
     """Turn the prefill's per-layer (k, v) [B, S, KV, Dh] into a decode
-    cache at position S with buffer size ``cache_len``, in
-    ``cfg.dtype``."""
-    dt = torch_dtype(cfg.dtype)
+    cache at position S for ``cache_len`` positions (the window's ring
+    under a sliding window), in ``cfg.dtype``; with ``quant`` the K/V are
+    quantized first (int8 and fp32 scales), as the JAX cache is."""
+    kvl = _kv_cache_len(cfg, cache_len)
     ks = torch.stack([k for k, _ in collected])
     vs = torch.stack([v for _, v in collected])
-    return {"attn": {"k": _ring_place(ks, cache_len, dt),
-                     "v": _ring_place(vs, cache_len, dt)}}
+    if quant:
+        (kq, k_s), (vq, v_s) = layers.quantize_kv(ks), layers.quantize_kv(vs)
+        return {"attn": {"k": _ring_place(kq, kvl, torch.int8),
+                         "v": _ring_place(vq, kvl, torch.int8),
+                         "k_scale": _ring_place(k_s, kvl, torch.float32),
+                         "v_scale": _ring_place(v_s, kvl, torch.float32)}}
+    dt = torch_dtype(cfg.dtype)
+    return {"attn": {"k": _ring_place(ks, kvl, dt),
+                     "v": _ring_place(vs, kvl, dt)}}

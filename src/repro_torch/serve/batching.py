@@ -2,8 +2,10 @@
 of ``repro.serve.batching``.
 
 The engine holds one decode cache for ``n_slots`` requests — K/V tensors
-``[L, n_slots, cache_len, KV, Dh]`` allocated once on the model's device —
-and advances every slot with **one** batched ``LM.decode_step`` per tick,
+``[L, n_slots, W, KV, Dh]`` allocated once on the model's device (``W`` is
+``cache_len``, or the window's ring under a sliding window; int8 K/V with
+their scales under ``plan.kv_cache_quant``) — and advances every slot with
+**one** batched ``LM.decode_step`` per tick,
 each slot at its own position (its own RoPE angle, cache write index and
 ``cache_len`` into the decode-attention kernel).  Requests join and leave at
 decode-step granularity without ever changing a shape.
@@ -21,10 +23,22 @@ Slot-pool invariants (the JAX engine's contract):
   * at most one prefill is interleaved per tick, so admissions never starve
     running decodes.
 
+The decode step is one program, as the JAX engine's ``jit(vmap(step))``
+is: on a CUDA device the engine captures ``LM.decode_step`` over the pool
+once, at construction, into a CUDA graph
+(:class:`repro_torch.kernels.ops.CountedGraph`), with the step's inputs in
+static device buffers (tokens ``[n_slots, 1]``, positions ``[n_slots]``).
+Each tick copies the host's slot state into them and replays the graph; the
+argmax's copy to the host is the tick's one synchronisation.  Capturing
+before any admission is safe: it writes only into slots that admission
+replaces wholesale.  A failed capture or replay raises; the engine never
+runs the step eagerly on the card.  On the CPU the step runs eagerly (the
+same dispatch by device as the kernels').
+
 Time is a virtual tick clock (``tick_s`` per engine tick): arrivals,
 TTFT/TPOT and energy all live on one deterministic timeline, independent of
-host load.  The port runs eagerly, so there is nothing to trace; ``calls``
-counts the engine's prefills, decode steps and slot inserts instead.
+host load.  ``calls`` counts the engine's prefills, decode steps and slot
+inserts (a replay is one decode step).
 """
 from __future__ import annotations
 
@@ -34,6 +48,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels.ops import CountedGraph
 from repro_torch.obs import get_tracer
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import Request
@@ -78,6 +93,9 @@ class ContinuousBatcher:
 
         self.calls = {"decode_step": 0, "insert": 0, "prefill": 0}
         self._pool = model.init_cache(self.n_slots, self.cache_len)
+        self._graph: Optional[CountedGraph] = None
+        if model.device.type == "cuda":
+            self._capture_step()
 
         # host-side slot state (numpy: mutated at tick granularity)
         self._active = np.zeros(self.n_slots, dtype=bool)
@@ -107,6 +125,12 @@ class ContinuousBatcher:
     def pool(self):
         """The slot pool's cache ``{"attn": {"k", "v"}}`` (read-only use)."""
         return self._pool
+
+    @property
+    def graph(self) -> Optional[CountedGraph]:
+        """The captured decode step (None on the CPU, where it runs
+        eagerly)."""
+        return self._graph
 
     def submit(self, req: Request):
         if req.arch and req.arch != self.cfg.name:
@@ -162,6 +186,48 @@ class ContinuousBatcher:
         if req is not None:
             self.metrics.on_finish(req.rid, t)
 
+    # ---------------------------------------------------------- the step
+    def _capture_step(self):
+        """Capture one decode step over the pool into a CUDA graph: the
+        step's inputs (tokens and positions, one row each in a [2,
+        n_slots] device buffer filled from a pinned host buffer) and its
+        logits become static tensors that every replay reuses."""
+        dev = self.model.device
+        self._host_in = torch.zeros((2, self.n_slots),
+                                    dtype=torch.long).pin_memory()
+        self._dev_in = torch.zeros((2, self.n_slots), dtype=torch.long,
+                                   device=dev)
+        toks, poss = self._dev_in[0][:, None], self._dev_in[1]
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        # one eager step on the capture stream first: kernel builds and the
+        # GEMM workspaces are made there, outside the capture
+        with torch.cuda.stream(stream):
+            self.model.decode_step(self._pool, toks, poss)
+        stream.synchronize()
+        graph = CountedGraph()
+        with graph.capture(stream):
+            self._logits_out, _ = self.model.decode_step(self._pool, toks,
+                                                         poss)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self._graph = graph
+
+    def _step(self) -> torch.Tensor:
+        """One decode step over every slot at the host's tokens and
+        positions; the logits [n_slots, V] on the model's device (on the
+        card, the graph's static output: valid until the next step)."""
+        self.calls["decode_step"] += 1
+        if self._graph is None:
+            dev = self.model.device
+            toks = torch.from_numpy(self._last_tok).to(dev)[:, None]
+            poss = torch.from_numpy(self._pos).to(dev)
+            return self.model.decode_step(self._pool, toks, poss)[0]
+        self._host_in[0].copy_(torch.from_numpy(self._last_tok))
+        self._host_in[1].copy_(torch.from_numpy(self._pos))
+        self._dev_in.copy_(self._host_in, non_blocking=True)
+        self._graph.replay()
+        return self._logits_out
+
     # --------------------------------------------------------------- tick
     def tick(self) -> bool:
         """One engine tick: admit due arrivals (≤1 prefill), advance every
@@ -181,12 +247,7 @@ class ContinuousBatcher:
 
         live_before = [r.rid for r in self._slot_req if r is not None]
         if self._active.any():
-            dev = self.model.device
-            toks = torch.from_numpy(self._last_tok).to(dev)[:, None]
-            poss = torch.from_numpy(self._pos).to(dev)
-            self.calls["decode_step"] += 1
-            logits, _ = self.model.decode_step(self._pool, toks, poss)
-            nxt = logits.argmax(dim=-1).cpu().numpy()
+            nxt = self._step().argmax(dim=-1).cpu().numpy()
             for slot in np.flatnonzero(self._active):
                 req = self._slot_req[slot]
                 tok = int(nxt[slot])

@@ -75,7 +75,7 @@ def test_flash_plain_matches_pallas_bf16_d128_grouped_ragged():
                                rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 80, 128])
 def test_bf16_limits_pass_a_tiled_kernel_and_reject_faults(d):
     """The card's bf16 limits (absolute and row-scaled) pass the Pallas
     kernel, a sound tiled online softmax with 128-key tiles like the CUDA
@@ -182,12 +182,21 @@ def test_decode_cache_len_scalar_broadcasts():
 
 
 def test_attention_layers_refuse_other_families():
+    """Soft caps and query offsets are refused (ROADMAP item 8); a window
+    is computed in prefill and, as in the JAX layer, ignored in decode
+    (the ring holds the window)."""
     x = torch.zeros(1, 4, 2, 16)
-    for kw in ({"window": 8}, {"softcap": 30.0}, {"q_offset": 2}):
+    for kw in ({"softcap": 30.0}, {"q_offset": 2}):
         with pytest.raises(NotImplementedError, match="item 8"):
             layers.attention(x, x, x, causal=True, **kw)
     with pytest.raises(NotImplementedError, match="item 8"):
-        layers.decode_attention(x[:, :1], x, x, 4, window=8)
+        layers.decode_attention(x[:, :1], x, x, 4, softcap=30.0)
+    g = torch.Generator().manual_seed(0)
+    q, k = (torch.randn(1, 4, 2, 16, generator=g) for _ in range(2))
+    assert not torch.equal(layers.attention(q, k, k, causal=True, window=2),
+                           layers.attention(q, k, k, causal=True))
+    assert torch.equal(layers.decode_attention(q[:, :1], k, k, 4, window=2),
+                       layers.decode_attention(q[:, :1], k, k, 4))
 
 
 def test_cpu_attention_launches_no_kernel():

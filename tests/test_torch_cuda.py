@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain versions on the card, at the shapes
-and tolerances of tests/test_kernels.py plus ragged lengths, grouped heads
-and per-slot cache lengths, and the serving path on the card at a small
-size.  Imports no jax: run it on the card with
+and tolerances of tests/test_kernels.py plus ragged lengths, grouped heads,
+per-slot cache lengths, sliding windows and head dim 80, and the serving
+path on the card at a small size: the engine's captured decode step
+against the eager step, launch counts across graph replays, and windowed
+serving against ``generate``.  Imports no jax: run it on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``."""
 import dataclasses
 
@@ -349,3 +351,222 @@ def test_cuda_tdfir_refuses_taps_past_its_limit():
     with pytest.raises(ValueError, match="taps"):
         ops.tdfir_complex(x, x, hc, hc)
     assert ops.launch_counts()["tdfir"] == 0
+
+
+# ---- the dense family: sliding windows, D = 80, the captured decode step --
+
+# (D, S, window): h2o-danube's prefill (S=5000 past its 4096 window, and
+# the same without one), a window under one 128-key tile, a window past S,
+# S off the tile grid with a window that straddles tiles, D=64 and D=128
+_WINDOW_CASES = [(80, 5000, 4096), (80, 5000, 0), (80, 300, 50),
+                 (80, 300, 1000), (80, 777, 200), (64, 1000, 130),
+                 (128, 450, 129), (80, 1, 7)]
+
+
+def _flash_views(gen, dtype, s, d, h=32, kv=8):
+    """q/k/v as ``layers.attention`` hands them over: [B*H, S, D] strided
+    views of [1, S, H, D] projections."""
+    def heads(n):
+        return torch.randn(1, s, n, d, generator=gen).to(
+            "cuda", dtype).transpose(1, 2).reshape(n, s, d)
+    return heads(h), heads(kv), heads(kv), h // kv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,s,window", _WINDOW_CASES)
+def test_cuda_flash_window_and_d80_match_plain_version(d, s, window, dtype):
+    """Windowed and D=80 causal flash attention (H=32 over KV=8) against
+    the plain version with the same window: bf16 at the absolute and
+    row-scaled limits, fp32 at 2e-4; one launch a call."""
+    gen = _card()
+    q, k, v, rep = _flash_views(gen, dtype, s, d)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, kv_group=rep, window=window)
+    want = ref.mha_ref(q, k, v, kv_group=rep, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.shape == (32, s, d) and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        ok, err, rerr = parity.within_limits(got, want)
+        assert ok, (err, rerr)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,s", [(64, 1000), (80, 777), (128, 300)])
+def test_cuda_flash_window_past_s_is_no_window_bitwise(d, s, dtype):
+    """A window of S or more masks nothing, and the kernel then gives
+    window=0's bits: the walk starts at key 0 and the window compare only
+    touches padding rows."""
+    gen = _card()
+    q, k, v, rep = _flash_views(gen, dtype, s, d)
+    none = ops.flash_attention(q, k, v, kv_group=rep)
+    for w in (s, s + 1, 10 * s):
+        assert torch.equal(none, ops.flash_attention(q, k, v, kv_group=rep,
+                                                     window=w)), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-4)])
+@pytest.mark.parametrize("shape,lens", [
+    ((4, 32, 8, 4096, 80), (1, 1000, 4096, 4096)),   # h2o-danube's pool
+    ((3, 32, 8, 300, 80), (1, 17, 300)),
+    ((2, 96, 8, 700, 128), (5, 699)),                 # command-r+'s group
+])
+def test_cuda_decode_d80_and_wide_groups_match_plain_version(shape, lens,
+                                                             dtype, tol):
+    """Decode at D=80 (10 or 20 16-byte chunks a row on 16 or 32 lanes, the
+    rest zeros) and at 12 query heads a KV head, against the plain version;
+    bf16 also at the row-scaled limit; two calls bitwise equal."""
+    gen = _card()
+    q, kc, vc, ln = _decode_case(gen, dtype, *shape, lens)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, kc, vc, ln)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention_ref(q, kc, vc, ln).float(),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    if dtype == torch.bfloat16:
+        want32 = parity.decode_want32(q, kc, vc, ln)
+        assert parity.row_err(got, want32) <= parity.DECODE_ROW_TOL
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, ln))
+
+
+def _small_lm(arch, **over):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM, init_params
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    return LM(cfg, init_params(cfg, torch.Generator("cuda").manual_seed(0)))
+
+
+@pytest.mark.gpu
+def test_cuda_graph_step_matches_eager_step():
+    """The engine's captured decode step, replayed over its pool, against
+    the eager step over a copy of the same pool (fp32): logits within
+    1e-5, the same cache writes."""
+    _card()
+    from repro_torch.serve import ContinuousBatcher
+    lm = _small_lm("granite-3-2b", n_layers=3)
+    engine = ContinuousBatcher(lm, n_slots=3, cache_len=64)
+    assert engine.graph is not None
+    gen = torch.Generator("cuda").manual_seed(5)
+    for buf in engine.pool["attn"].values():
+        buf.copy_(torch.randn(buf.shape, generator=gen, device="cuda"))
+    eager_pool = {"attn": {k: v.clone() for k, v in
+                           engine.pool["attn"].items()}}
+    engine._last_tok[:] = [3, 17, 250]
+    engine._pos[:] = [5, 40, 63]
+    logits = engine._step().clone()
+    want, _ = lm.decode_step(eager_pool, torch.tensor([[3], [17], [250]],
+                                                      device="cuda"),
+                             torch.tensor([5, 40, 63], device="cuda"))
+    torch.testing.assert_close(logits, want, rtol=1e-5, atol=1e-5)
+    for name in ("k", "v"):
+        torch.testing.assert_close(engine.pool["attn"][name],
+                                   eager_pool["attn"][name], rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_replays_count_launches():
+    """A capture takes back the launches it recorded and every replay adds
+    them: decode once per layer and step across replays, as eager steps
+    count."""
+    _card()
+    from repro_torch.serve import ContinuousBatcher
+    lm = _small_lm("granite-3-2b", n_layers=3)
+    engine = ContinuousBatcher(lm, n_slots=2, cache_len=32)
+    assert engine.graph.launches == {"matmul": 0, "tdfir": 0,
+                                     "flash_attention": 0,
+                                     "decode_attention": 3}
+    ops.reset_launch_counts()
+    engine._active[:] = True
+    for _ in range(5):
+        engine._step()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 3 * 5
+    assert engine.calls["decode_step"] == 5
+
+
+@pytest.mark.gpu
+def test_cuda_graphs_hold_their_own_decode_scratch():
+    """Two engines' graphs each hold decode scratch of their own, so
+    replays of one between replays of the other give the eager step's
+    logits; a capture of decode attention outside ``CountedGraph`` raises
+    before it launches."""
+    _card()
+    from repro_torch.serve import ContinuousBatcher
+    lm = _small_lm("granite-3-2b", n_layers=2)
+    engines = [ContinuousBatcher(lm, n_slots=2, cache_len=48)
+               for _ in range(2)]
+    (part_a, _), = engines[0].graph.scratch.values()
+    (part_b, _), = engines[1].graph.scratch.values()
+    assert part_a.data_ptr() != part_b.data_ptr()
+    gen = torch.Generator("cuda").manual_seed(6)
+    for engine, pos in zip(engines, ([9, 40], [47, 2])):
+        for buf in engine.pool["attn"].values():
+            buf.copy_(torch.randn(buf.shape, generator=gen, device="cuda"))
+        engine._last_tok[:] = [7, 11]
+        engine._pos[:] = pos
+    wants = []
+    for engine in engines:
+        pool = {"attn": {k: v.clone() for k, v in
+                         engine.pool["attn"].items()}}
+        wants.append(lm.decode_step(
+            pool, torch.tensor([[7], [11]], device="cuda"),
+            torch.from_numpy(engine._pos.copy()).cuda())[0])
+    got_a = engines[0]._step().clone()
+    got_b = engines[1]._step().clone()
+    torch.testing.assert_close(got_a, wants[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_b, wants[1], rtol=1e-5, atol=1e-5)
+
+    q = torch.randn(2, 4, 64, device="cuda")
+    kc = torch.randn(2, 32, 2, 64, device="cuda")
+    lens = torch.full((2,), 32, dtype=torch.int32, device="cuda")
+    ops.decode_attention(q, kc, kc, lens)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="graph_scratch"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            ops.decode_attention(q, kc, kc, lens)
+    assert ops.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_windowed_d80_serving_matches_generate(quant):
+    """Reduced h2o-danube at D=80 (window 64) in fp32 on the card: prompts
+    past the window, decodes that wrap the ring, mid-flight joins; the
+    captured engine's tokens equal batch-1 generate's (also with the int8
+    cache)."""
+    _card()
+    from repro_torch.dist.plan import Plan
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import ContinuousBatcher, Request
+    base = _small_lm("h2o-danube-1.8b", d_head=80)
+    lm = LM(base.cfg, dict(base.state_dict()), Plan(kv_cache_quant=quant))
+    assert lm.cfg.window == 64
+    rng = np.random.default_rng(1)
+    toks = [rng.integers(0, lm.cfg.vocab_size, n).astype(np.int32)
+            for n in (90, 30, 70)]
+    engine = ContinuousBatcher(lm, n_slots=2, cache_len=128)
+    ops.reset_launch_counts()
+    out = engine.run([Request(rid=f"r{i}", arch=lm.cfg.name,
+                              prompt_len=len(t), max_gen=40, tokens=t,
+                              arrival_s=i * engine.tick_s)
+                      for i, t in enumerate(toks)])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * 3
+    # the int8 cache's decode attention is plain torch (jnp in JAX)
+    assert counts["decode_attention"] == \
+        (0 if quant else 2 * engine.calls["decode_step"])
+    for i, t in enumerate(toks):
+        want = generate(lm, {"tokens": torch.from_numpy(t[None])}, len(t),
+                        40, 128)
+        assert np.array_equal(out[f"r{i}"], want[0].cpu().numpy()), i

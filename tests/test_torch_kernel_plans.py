@@ -4,7 +4,8 @@ and fill the card at 512^3; the decode split sizes are whole key tiles, cover
 the cache and give about one wave of live blocks at the serving lengths;
 a plain simulation of the decode kernel's splits, warp tiles and
 in-order logsumexp merges at the plan's chunk sizes matches the Pallas
-decode kernel (interpret mode); and the card's bf16 decode limits pass
+decode kernel (interpret mode), also at D = 80 with the scores summed as
+the kernel's padded lanes sum them; and the card's bf16 decode limits pass
 both and reject simulated kernel faults.  For tdfir: the plan and the
 kernel's index arithmetic cover every output and every (output, tap) pair
 once and read inside the staged window, the window swizzle is free of bank
@@ -77,12 +78,16 @@ def test_decode_plan_splits_whole_tiles_over_the_cache(b, kv, s_len, d,
     assert da.live_blocks(p, lens, kv) <= b * kv * p.n_splits
     if s_len:       # a full cache makes every split live
         assert da.live_blocks(p, [s_len] * b, kv) == b * kv * p.n_splits
-    # every group the wrapper admits (rep * D <= 2048) takes one of the
-    # kernel's row-pass counts: 1..8 in bf16, 1..16 in fp32, a lane per
-    # 16-byte chunk of D and query row
-    rep = data.draw(st.integers(1, da.MAX_GROUP_WIDTH // d))
+    # every group the wrapper admits (rep * padded D <= 2048) takes one of
+    # the kernel's row-pass counts: 1..8 in bf16, 1..16 in fp32, a lane per
+    # 16-byte chunk of D and query row, a row's chunks rounded up to a
+    # power-of-two count of lanes (D = 80: 10 or 20 chunks on 16 or 32)
+    rep = data.draw(st.integers(1, da.max_group(d, dtype)))
     chunks_per_row = d * dtype.itemsize // 16
-    passes = math.ceil(rep / (32 // chunks_per_row))
+    lanes = da.lanes_per_row(d, dtype)
+    assert lanes >= chunks_per_row and 32 % lanes == 0
+    assert lanes == chunks_per_row or d == 80
+    passes = math.ceil(rep / (32 // lanes))
     assert passes <= (16 if dtype == torch.float32 else 8)
 
 
@@ -103,16 +108,17 @@ def test_decode_plan_wraps_the_rings_of_a_64_slot_pool(dtype):
     assert p.chunk // tile >= 5 * parity.DECODE_STAGES * KERNEL_WARPS
 
 
-def _online(q, k, v, tiles, scale, dtype):
+def _online(q, k, v, tiles, scale, dtype, dot=torch.matmul):
     """One warp's online softmax over its key tiles (as the kernel runs it):
     q [R, D]; k, v [S, D] of this split; returns (m [R], l [R], acc [R, D]),
-    unnormalised, p rounded to ``dtype`` before P V."""
+    unnormalised, p rounded to ``dtype`` before P V.  ``dot(q, k^T)`` gives
+    the raw scores."""
     r = q.shape[0]
     m = torch.full((r,), NEG_INF, dtype=torch.float32)
     l = torch.zeros(r)
     acc = torch.zeros(r, q.shape[1])
     for lo, hi in tiles:
-        s = (q @ k[lo:hi].T) * scale
+        s = dot(q, k[lo:hi].T) * scale
         mx = torch.maximum(m, s.max(dim=1).values)
         p = torch.exp(s - mx[:, None])
         corr = torch.exp(m - mx)
@@ -136,7 +142,7 @@ def _merge(parts):
     return mx, l, acc
 
 
-def _simulate(q, kc, vc, lens, dtype):
+def _simulate(q, kc, vc, lens, dtype, dot=torch.matmul):
     """The kernel's split + warp-tile + in-order merge structure in plain
     torch (fp32): q [B, H, D], caches [B, S, KV, D]."""
     b, h, d = q.shape
@@ -160,7 +166,7 @@ def _simulate(q, kc, vc, lens, dtype):
                 warps = [_online(qg, ks, vs,
                                  [(t * tile, min((t + 1) * tile, hi - lo))
                                   for t in range(w, n_tiles, KERNEL_WARPS)],
-                                 scale, dtype)
+                                 scale, dtype, dot)
                          for w in range(KERNEL_WARPS)]
                 splits.append(_merge(warps))
             _, l, acc = _merge(splits)
@@ -191,6 +197,72 @@ def test_decode_split_merge_matches_pallas():
             jnp.int32(n), block_kv=96, interpret=True)
         np.testing.assert_allclose(got[bi], np.asarray(want), rtol=2e-4,
                                    atol=2e-4, err_msg=f"len {n}")
+
+
+def _lane_dot(dtype):
+    """Scores as csrc/decode_attention.cu sums them: a lane holds one
+    16-byte chunk of the row (EPC elements, fmaf in order), a row takes
+    ``lanes_per_row`` lanes, the lanes past its chunks hold zeros, and the
+    lanes' partials meet in an xor butterfly over the row's lanes."""
+    epc = 16 // dtype.itemsize
+
+    def dot(q, kt):
+        d = q.shape[1]
+        lanes = da.lanes_per_row(d, dtype)
+        pad = lanes * epc - d
+        qp = F.pad(q, (0, pad)).reshape(q.shape[0], lanes, epc)
+        kp = F.pad(kt.T, (0, pad)).reshape(kt.shape[1], lanes, epc)
+        part = torch.zeros(q.shape[0], kt.shape[1], lanes)
+        for e in range(epc):
+            part = part + qp[:, None, :, e] * kp[None, :, :, e]
+        assert not part[..., d // epc:].any()     # the padded lanes add 0
+        off = lanes // 2
+        while off:
+            part = part + part[..., torch.arange(lanes) ^ off]
+            off //= 2
+        return part[..., 0]
+    return dot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_d80_padded_lanes_match_pallas(dtype):
+    """D = 80 (h2o-danube): 10 chunks a row on 16 lanes in bf16, 20 on 32
+    in fp32.  The simulation of the kernel's splits with its lane sums
+    against the Pallas kernel (interpret mode) on the same values, per slot
+    with K/V repeated per query head: 2e-4 in fp32, the bf16 limits against
+    the fp32 plain version in bf16."""
+    b, h, kvh, s_len, d = 3, 8, 2, 700, 80
+    assert da.lanes_per_row(d, dtype) == (16 if dtype == torch.bfloat16
+                                          else 32)
+    assert da.max_group(d, dtype) >= 4            # h2o: 32 over 8 heads
+    lens = [1, 333, s_len]
+    rng = np.random.default_rng(13)
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 .to(dtype).float()
+                 for shape in ((b, h, d), (b, s_len, kvh, d),
+                               (b, s_len, kvh, d)))
+    got = _simulate(q, kc, vc, lens, dtype, _lane_dot(dtype))
+    rep = h // kvh
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
+        jnp.asarray(q[bi].numpy(), jdt),
+        jnp.asarray(kc[bi].repeat_interleave(rep, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.asarray(vc[bi].repeat_interleave(rep, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.int32(lens[bi]), block_kv=100, interpret=True), np.float32))
+        for bi in range(b)])
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    else:
+        lens_t = torch.tensor(lens, dtype=torch.int32)
+        qb, kb, vb = (t.to(dtype) for t in (q, kc, vc))
+        plain = ref.decode_attention_ref(qb, kb, vb, lens_t)
+        want32 = parity.decode_want32(qb, kb, vb, lens_t)
+        for out in (got, want):
+            assert parity.within_decode_limits(out.to(dtype), plain,
+                                               want32)[0]
 
 
 @pytest.mark.parametrize("d", [64, 128])
