@@ -46,13 +46,15 @@ argument it runs these phases, each printing its seconds:
                window at S=5000 and 1000 and without it at S=5000, and
                under ragged windows (under one tile, past S, straddling
                tiles), a window of S or more bitwise equal to none; decode over h2o-danube's
-               [4,4096,8,80] pool; flash and decode at D=128 with 6 and 12
-               query heads a KV head (nemotron-4-15b, command-r-plus-104b):
-               flash at S=2048 and 1000 in bf16 at both limits, beside the
-               simulated faults at 2048, decode over their [4,2112,8,128]
-               pool in bf16 at 5e-2 and the row limit beside simulated
-               faults and in fp32 at 2e-4, each call made twice for the
-               same bits;
+               [4,4096,8,80] pool; flash and decode at D=128 with 6, 12
+               and 7 query heads over 8 KV heads and 16 over 16
+               (nemotron-4-15b, command-r-plus-104b, arctic-480b,
+               moonshot-v1-16b-a3b): flash at S=2048 and 1000 in bf16 at
+               both limits, beside the simulated faults at 2048 (and in
+               fp32 at 2e-4 at the MoE layouts), decode over their
+               [4,2112,KV,128] pool in bf16 at 5e-2 and the row limit
+               beside simulated faults and in fp32 at 2e-4, each call made
+               twice for the same bits;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
@@ -70,7 +72,8 @@ argument it runs these phases, each printing its seconds:
                the head groups of nemotron-4-15b and command-r-plus-104b
                (H=48 and 96 over KV=8, D=128; the prefill at S=2048 and
                1000 beside causal SDPA, decode over [4,2112,8,128] beside
-               masked SDPA);
+               masked SDPA), and the same at arctic-480b's 56 over 8 and
+               moonshot-v1-16b-a3b's 16 over 16 heads;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
@@ -103,7 +106,25 @@ argument it runs these phases, each printing its seconds:
                and prefill and one decode-attention launch per layer and
                decode step, counted across graph replays (none under the
                int8 cache: its decode attention is plain torch, as the JAX
-               one is jnp).
+               one is jnp);
+  8. moe       the MoE family through the same engine, phase 7's trace:
+               (g') moonshot-v1-16b-a3b at full width, 2 layers in fp32,
+               whose greedy tokens must equal batch-1 ``generate``'s, whose
+               graph-replayed logits must equal an eager engine's bit for
+               bit, and one state's step replayed twice for the same bits;
+               (g) moonshot-v1-16b-a3b whole and (h) arctic-480b at full
+               width, 2 of its 35 layers, in bf16, with phase 7's metrics,
+               the device idle share of an unprofiled run, the step's
+               bound (every weight read once: the dispatch runs all
+               experts), and the step's device time split into attention,
+               GEMMs and the rest (a graph replay, by kernel name) and into
+               the expert GEMMs, the shared or dense FFN, routing with
+               dispatch and combine, and decode attention (an eager step,
+               by ``record_function`` ranges).  Every cell prints the
+               dropped share of (token, k) pairs at each prefill length
+               and requires every decode step's pairs routed with none
+               dropped (each slot routed as its own group); the launch
+               counts are those of phases 6 and 7.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -165,6 +186,11 @@ H2O_DECODE_LENS = (1, 1000, 4096, 4096)
 # nemotron-4-15b and command-r-plus-104b (phase 7 (d), (e)): query heads
 # over 8 KV heads at D=128, 6 and 12 a KV head
 WIDE_GROUP_HEADS = (48, 96)
+# arctic-480b and moonshot-v1-16b-a3b (phase 8 (h), (g)): (H, KV) at D=128,
+# 7 query heads a KV head and 16 over 16
+MOE_LAYOUTS = ((56, 8), (16, 16))
+# every (H, KV) at D=128 that phases 7 and 8 serve
+WIDE_LAYOUTS = tuple((h, 8) for h in WIDE_GROUP_HEADS) + MOE_LAYOUTS
 # phase 7: (label, arch, layers kept (None: all), prompts, cache_len,
 # int8 KV cache); 8 requests, one arrival a tick, 4 slots, max_gen 64
 FAMILY_CELLS = (
@@ -173,6 +199,10 @@ FAMILY_CELLS = (
     ("e", "command-r-plus-104b", 8, (1000, 2048), 2112, False),
     ("f", "granite-3-2b", None, SERVE_PROMPTS, SERVE_CACHE_LEN, True),
 )
+# phase 8: (label, arch, layers kept (None: all)); phase 7's trace, prompts
+# and cache_len; (g') is moonshot at 2 layers in fp32, the parity cell
+MOE_CELLS = (("g", "moonshot-v1-16b-a3b", None), ("h", "arctic-480b", 2))
+MOE_PARITY_ARCH = "moonshot-v1-16b-a3b"
 
 
 class SmokeFailure(RuntimeError):
@@ -236,23 +266,33 @@ def time_ms(fn, iters: int) -> float:
 
 # A torch.profiler trace on the card can drop its first kernel records
 # (seen on the H100 machine once a process had taken a few traces: the
-# first 3 records of each, so 7 of 10 calls' kernels or 0 of 1).  Each
-# trace here opens with TRACE_PAD spin kernels, left out of every count;
-# a trace that lost all of them is taken again, at most TRACE_TRIES times.
+# first 3 records of each, so 7 of 10 calls' kernels or 0 of 1; and, once
+# phase 4 had taken about 60 traces, every record of a trace's first
+# millisecond or so).  Each trace here opens with TRACE_PAD spin kernels,
+# left out of every count, of PAD_CYCLES each (about 10 us, so the pad
+# spans about 0.65 ms of device time); a trace that lost all of them is
+# taken again with a pad ten times longer, at most TRACE_TRIES times.
 TRACE_PAD = 64
-TRACE_TRIES = 3
+PAD_CYCLES = 20_000
+TRACE_TRIES = 4
 PAD_KERNEL = "spin_kernel"
+
+
+def pad_trace(attempt: int) -> None:
+    """The pad that opens a trace: TRACE_PAD spins of PAD_CYCLES x
+    10^attempt cycles, then a sync."""
+    for _ in range(TRACE_PAD):
+        torch.cuda._sleep(PAD_CYCLES * 10 ** attempt)
+    torch.cuda.synchronize()
 
 
 def traced_kernels(run, activities) -> list:
     """A torch.profiler trace of ``run()`` whose first records are the pad,
     and (name, ms) of each kernel in it but the pad."""
     from torch.profiler import profile
-    for _ in range(TRACE_TRIES):
+    for attempt in range(TRACE_TRIES):
         with profile(activities=activities) as prof:
-            for _ in range(TRACE_PAD):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize()
+            pad_trace(attempt)
             run()
             torch.cuda.synchronize()
         kernels = [(e.name, e.time_range.elapsed_us() / 1e3)
@@ -261,6 +301,9 @@ def traced_kernels(run, activities) -> list:
         if any(PAD_KERNEL in name for name, _ in kernels):
             return prof, [(name, ms) for name, ms in kernels
                           if PAD_KERNEL not in name]
+        print(f"  (a profiler trace lost its {TRACE_PAD} pad kernels; it "
+              f"kept {len(kernels)} kernel records; taking it again with a "
+              f"pad ten times longer)", flush=True)
     raise SmokeFailure(f"{TRACE_TRIES} profiler traces lost all {TRACE_PAD} "
                        f"pad kernels: their kernel counts would be short")
 
@@ -294,13 +337,16 @@ def time_row(kernel, plain, library, t_bound, by, iters=200,
     """CUDA-event ms per call of a kernel, its plain version and the
     library call beside the bound, and the device ms of each from a
     profiler trace (where a call is shorter than its host launch cost, the
-    event time measures the host's launch rate)."""
+    event time measures the host's launch rate).  A slow plain version
+    (``plain_iters`` given) is traced over 3 calls, not 10: its hundreds of
+    kernels a call would fill the trace."""
     row = {"ms": time_ms(kernel, iters),
            "plain_ms": time_ms(plain, plain_iters or iters),
            "library_ms": time_ms(library, iters),
            "bound_ms": t_bound, "bound_by": by}
-    dev = {k: device_profile(f)[0] for k, f in
-           (("kernel", kernel), ("plain", plain), ("library", library))}
+    dev = {"kernel": device_profile(kernel)[0],
+           "plain": device_profile(plain, 3 if plain_iters else 10)[0],
+           "library": device_profile(library)[0]}
     return row, dev
 
 
@@ -706,36 +752,51 @@ def check_attention(ops, ref, gen):
 
 
 def check_wide_groups(ops, ref, gen, readings):
-    """Phase 3: flash and decode at the head groups of phase 7 (d) and (e),
-    D=128 with 6 and 12 query heads a KV head (a decode row pass that stops
-    partway, and 6 or 12 passes).  Flash at B=1 over KV=8 at the trace's
-    prompt lengths, bf16 at both limits, beside the simulated faults at
-    S=2048; decode over the [4,2112,8,128] pool at the serving lengths,
-    bf16 at 5e-2 and the row limit beside simulated faults, fp32 at 2e-4,
-    each call made twice for the same bits."""
-    b, _, kv, s_pool, _ = DECODE_MAIN
+    """Phase 3: flash and decode at the head layouts of phases 7 and 8, D=128
+    with 6 and 12 query heads over 8 KV heads (nemotron-4-15b,
+    command-r-plus-104b: a decode row pass that stops partway, and 6 or 12
+    passes), 7 over 8 (arctic-480b: 4 passes of 2 rows in bf16, the last
+    half empty, and the 8-pass instantiation in fp32) and 16 over 16
+    (moonshot-v1-16b-a3b: one row a KV head, 16 KV rows a slot).  Flash at
+    B=1 at the trace's prompt lengths, bf16 at both limits beside the
+    simulated faults at S=2048, and fp32 at 2e-4 for the MoE layouts;
+    decode over the [4,2112,KV,128] pool at the serving lengths, bf16 at
+    5e-2 and the row limit beside simulated faults, fp32 at 2e-4, each call
+    made twice for the same bits."""
+    from repro_torch.kernels import decode_attention as da
+    b, _, _, s_pool, _ = DECODE_MAIN
     d = FLASH_WIDE_D
-    print(f" flash and decode attention at D={d}, H in {WIDE_GROUP_HEADS} "
-          f"over KV={kv} (nemotron-4-15b, command-r-plus-104b): flash at "
-          f"S={FLASH_MAIN[3]} and {FLASH_RAGGED_S} bf16 at both limits; "
-          f"decode over [{b},{s_pool},{kv},{d}] at lens {DECODE_MAIN_LENS}, "
-          f"bf16 at 5e-2 and the row limit, fp32 at 2e-4, called twice")
-    for h in WIDE_GROUP_HEADS:
-        for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
-            q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, h=h, kv=kv,
-                                        d=d)
-            what = f"flash H={h} KV={kv} S={s} D={d} bfloat16 causal"
-            want = ref.mha_ref(q, k, v, kv_group=rep)
-            check_flash_bf16(what, ops.flash_attention(q, k, v,
-                                                       kv_group=rep), want)
-            if s == FLASH_MAIN[3]:
-                check_flash_faults(what, q, k, v, rep, want)
-            del want
+    print(f" flash and decode attention at D={d}, (H, KV) in {WIDE_LAYOUTS} "
+          f"(nemotron-4-15b, command-r-plus-104b, arctic-480b, "
+          f"moonshot-v1-16b-a3b): flash at S={FLASH_MAIN[3]} and "
+          f"{FLASH_RAGGED_S}, bf16 at both limits, fp32 at 2e-4 for "
+          f"{MOE_LAYOUTS}; decode over [{b},{s_pool},KV,{d}] at lens "
+          f"{DECODE_MAIN_LENS}, bf16 at 5e-2 and the row limit, fp32 at "
+          f"2e-4, called twice")
+    for h, kv in WIDE_LAYOUTS:
+        dtypes = ((torch.bfloat16, torch.float32) if (h, kv) in MOE_LAYOUTS
+                  else (torch.bfloat16,))
+        for dtype in dtypes:
+            for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
+                q, k, v, rep = flash_inputs(gen, s, dtype, h=h, kv=kv, d=d)
+                what = f"flash H={h} KV={kv} S={s} D={d} {dtype} causal"
+                want = ref.mha_ref(q, k, v, kv_group=rep)
+                got = ops.flash_attention(q, k, v, kv_group=rep)
+                if dtype == torch.float32:
+                    check_close(what, got, want, 2e-4)
+                else:
+                    check_flash_bf16(what, got, want)
+                    if s == FLASH_MAIN[3]:
+                        check_flash_faults(what, q, k, v, rep, want)
+                del want, got
         shape = (b, h, kv, s_pool, d)
         for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+            rows = 32 // da.lanes_per_row(d, dtype)
             q, kc, vc, ln = decode_inputs(gen, dtype, *shape,
                                           DECODE_MAIN_LENS)
             what = f"decode {b}x{h} over [{b},{s_pool},{kv},{d}] {dtype}"
+            print(f"    {what}: {h // kv} query rows a KV head, {rows} a "
+                  f"pass, {-(-(h // kv) // rows)} passes")
             got = ops.decode_attention(q, kc, vc, ln)
             check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln),
                         tol)
@@ -849,13 +910,14 @@ def attended_pairs(s: int, window: int = 0) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def flash_case(ops, ref, gen, s, d, window=0, h=FLASH_MAIN[1]):
-    """Causal bf16 prefill at B=1, KV=8 (H=32 unless given): (kernel, plain,
-    SDPA) calls and the bound (4 FLOP per attended (query, key) pair and
-    head dim; q, k, v read and o written once), held to the bf16
+def flash_case(ops, ref, gen, s, d, window=0, h=FLASH_MAIN[1],
+               kv=FLASH_MAIN[2]):
+    """Causal bf16 prefill at B=1 (H=32 over KV=8 unless given): (kernel,
+    plain, SDPA) calls and the bound (4 FLOP per attended (query, key) pair
+    and head dim; q, k, v read and o written once), held to the bf16
     tensor-core peak.  Under a window SDPA takes the boolean
     causal-and-window mask."""
-    b, _, kv = FLASH_MAIN[:3]
+    b = FLASH_MAIN[0]
     q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, h=h, kv=kv, d=d)
     q4, k4, v4 = q.reshape(b, h, s, d), k.reshape(b, kv, s, d), \
         v.reshape(b, kv, s, d)
@@ -1003,7 +1065,9 @@ def time_family_rows(ops, ref, gen):
     pool [4,4096,8,80] at lengths 1/1000/4096/4096 (masked SDPA); and at
     D=128 with 6 and 12 query heads a KV head (nemotron-4-15b,
     command-r-plus-104b), the prefill at S=2048 and 1000 and the decode
-    pool [4,2112,8,128] at the serving lengths."""
+    pool [4,2112,8,128] at the serving lengths; the same at arctic-480b's
+    56 over 8 and moonshot-v1-16b-a3b's 16 over 16 query heads (decode
+    over [4,2112,KV,128])."""
     d = H2O_FLASH[4]
     cases = [(f"flash_attention S={s} D={d} window {w} "
               f"({attended_pairs(s, w) / 1e6:.2f} M pairs a head)",
@@ -1014,12 +1078,13 @@ def time_family_rows(ops, ref, gen):
                    f"{H2O_DECODE_LENS}",
                    decode_case(ops, ref, gen, H2O_DECODE, H2O_DECODE_LENS),
                    200, 50))
-    b, _, kv, s_pool, _ = DECODE_MAIN
-    for h in WIDE_GROUP_HEADS:
+    b, _, _, s_pool, _ = DECODE_MAIN
+    for h, kv in WIDE_LAYOUTS:
         for s in (FLASH_MAIN[3], FLASH_RAGGED_S):
             cases.append((f"flash_attention H={h} KV={kv} S={s} "
                           f"D={FLASH_WIDE_D}",
-                          flash_case(ops, ref, gen, s, FLASH_WIDE_D, h=h),
+                          flash_case(ops, ref, gen, s, FLASH_WIDE_D, h=h,
+                                     kv=kv),
                           50, 3))
         shape = (b, h, kv, s_pool, FLASH_WIDE_D)
         cases.append((f"decode_attention over {list(shape)} lens "
@@ -1100,18 +1165,29 @@ def watched_lm(cfg, seed: int, plan=None, params=None):
     """The port's LM on the card from seeded random weights (or from
     ``params``), noting on the card whether any logit it returns is NaN
     (``lm.nan``) and counting the decode steps it runs from Python
-    (``lm.eager_steps``: a replayed graph runs its step without Python)."""
+    (``lm.eager_steps``: a replayed graph runs its step without Python).
+    Under an MoE it counts routed and dropped pairs (``lm.drops``,
+    ``LM.count_moe_drops``) and keeps each prefill length's
+    (``lm.prefill_drops``: length -> [pairs, dropped, experts
+    routed to])."""
     from repro_torch.models.lm import LM, init_params
 
     class WatchedLM(LM):
         def prefill(self, batch, cache_len):
+            before = None if self.drops is None else self.drops[0].tolist()
             logits, cache = super().prefill(batch, cache_len)
             self.nan |= torch.isnan(logits).any()
+            if before is not None:
+                got = self.prefill_drops.setdefault(
+                    torch.as_tensor(batch["tokens"]).shape[1], [0, 0, 0])
+                for i, (a, b) in enumerate(zip(before,
+                                               self.drops[0].tolist())):
+                    got[i] += b - a
             return logits, cache
 
-        def decode_step(self, cache, tokens, pos):
+        def decode_step(self, cache, tokens, pos, **kw):
             self.eager_steps += 1
-            logits, cache = super().decode_step(cache, tokens, pos)
+            logits, cache = super().decode_step(cache, tokens, pos, **kw)
             self.nan |= torch.isnan(logits).any()
             return logits, cache
 
@@ -1121,6 +1197,8 @@ def watched_lm(cfg, seed: int, plan=None, params=None):
     lm = WatchedLM(cfg, params, plan)
     lm.nan = torch.zeros((), dtype=torch.bool, device="cuda")
     lm.eager_steps = 0
+    lm.drops = lm.count_moe_drops() if cfg.moe is not None else None
+    lm.prefill_drops = {}
     return lm
 
 
@@ -1203,6 +1281,9 @@ def serve_engine(ops, lm, reqs, label: str, *, eager: bool = False,
     engine = smoke_batcher(lm, cache_len, eager=eager, record=record)
     torch.cuda.synchronize()
     lm.eager_steps = 0
+    if lm.drops is not None:      # the capture's warm-up step routed too
+        lm.drops.zero_()
+        lm.prefill_drops.clear()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = engine.run(reqs)
@@ -1228,13 +1309,11 @@ def engine_idle_share(lm, reqs, cache_len: int, eager: bool):
     engine.run(reqs)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    for _ in range(TRACE_TRIES):
+    for attempt in range(TRACE_TRIES):
         engine = smoke_batcher(lm, cache_len, eager=eager)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TRACE_PAD):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize()
+            pad_trace(attempt)
             t0 = time.perf_counter()
             engine.run(reqs)
             torch.cuda.synchronize()
@@ -1261,8 +1340,8 @@ def step_times(engine, lm, prompts, label: str, eager_too: bool = True):
     pos = torch.from_numpy(engine._pos.copy()).cuda()
     runs = [("graph replay", engine._step)]
     if eager_too:
-        runs.append(("eager", lambda: lm.decode_step(engine.pool, toks,
-                                                     pos)))
+        runs.append(("eager", lambda: lm.decode_step(
+            engine.pool, toks, pos, route_per_row=True)))
     got = {}
     for what, fn in runs:
         fn()
@@ -1432,29 +1511,16 @@ def run_family(ops, b_pool: int):
     from repro_torch.dist.plan import Plan
     total = {"flash_attention": 0, "decode_attention": 0}
     for label, arch, n_layers, prompts, cache_len, quant in FAMILY_CELLS:
-        cfg = get_config(arch)
-        full_layers = cfg.n_layers
-        if n_layers is not None:
-            cfg = dataclasses.replace(cfg, n_layers=n_layers)
-        n_params = (cfg.padded_vocab * cfg.d_model
-                    * (1 if cfg.tie_embeddings else 2)
-                    + cfg.n_layers * (
-                        cfg.d_model * cfg.head_dim
-                        * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-                        + cfg.d_model * cfg.d_ff
-                        * (3 if cfg.ffn_act in ("swiglu", "geglu") else 2)))
-        cut = (f"depth cut to {cfg.n_layers} of {full_layers} layers (all "
-               f"{full_layers} would not fit one card)"
-               if n_layers is not None else f"all {cfg.n_layers} layers")
+        cfg, cut = cut_depth(get_config(arch), n_layers)
+        seed = 1 if arch == SERVE_ARCH else 2
+        lm = watched_lm(cfg, seed, Plan(kv_cache_quant=quant))
         print(f" ({label}) {arch}: full width (d_model {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
               f"d_ff {cfg.d_ff} {cfg.ffn_act}, {cfg.norm}, window "
               f"{cfg.window if cfg.attn_kind == 'swa' else 0}), {cut}, "
-              f"bfloat16, {n_params / 1e9:.2f} B parameters "
-              f"({2 * n_params / 1e9:.1f} GB){', int8 KV cache' if quant else ''}"
-              f"; prompts {prompts}, cache_len {cache_len}")
-        seed = 1 if arch == SERVE_ARCH else 2
-        lm = watched_lm(cfg, seed, Plan(kv_cache_quant=quant))
+              f"bfloat16, {weights(lm)}"
+              f"{', int8 KV cache' if quant else ''}; prompts {prompts}, "
+              f"cache_len {cache_len}")
         reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1,
                            prompts=prompts)
         engine, out, wall, launches = serve_engine(ops, lm, reqs, label,
@@ -1481,6 +1547,25 @@ def run_family(ops, b_pool: int):
     return total
 
 
+def cut_depth(cfg, n_layers):
+    """``cfg`` with its first ``n_layers`` layers (None: all), and the cut
+    as printed."""
+    if n_layers is None:
+        return cfg, f"all {cfg.n_layers} layers"
+    return (dataclasses.replace(cfg, n_layers=n_layers),
+            f"depth cut to {n_layers} of {cfg.n_layers} layers (all "
+            f"{cfg.n_layers}, {cfg.n_params() * 2 / 1e9:.0f} GB of bf16, "
+            f"would not fit one card)")
+
+
+def weights(lm) -> str:
+    """The LM's parameters as allocated (routed and shared experts, the
+    router and the dense residual included), counted and in GB."""
+    n = sum(t.numel() for t in lm.state_dict().values())
+    nbytes = sum(t.nbytes for t in lm.state_dict().values())
+    return f"{n / 1e9:.2f} B parameters ({nbytes / 1e9:.1f} GB)"
+
+
 def check_int8_cell(lm, req, cache_len: int, label: str) -> None:
     """The int8 cache's first decode step against the exact cache's on the
     same weights: probabilities within 0.05 (the JAX package's bound,
@@ -1498,6 +1583,294 @@ def check_int8_cell(lm, req, cache_len: int, label: str) -> None:
           f"probabilities within {err:.3e} (limit 0.05)")
     require(err < 0.05, f"({label}) int8 probabilities differ from the "
             f"exact cache's by {err:.3e}")
+
+
+# cuBLAS kernel names (a graph replay's GEMMs, the experts' bmm among them)
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")
+
+
+def run_moe(ops):
+    """Phase 8: the MoE family through the captured engine, phase 7's trace
+    (8 requests, one arrival a tick, 4 slots, max_gen 64, prompts 1000 and
+    2048, cache_len 2112), each model freed before the next: (g') the
+    parity cell, then (g) and (h) in bf16; returns the flash and decode
+    launches summed over (g) and (h)."""
+    from repro_torch.configs import get_config
+    check_moe_parity(ops)
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for label, arch, n_layers in MOE_CELLS:
+        cfg, cut = cut_depth(get_config(arch), n_layers)
+        m = cfg.moe
+        lm = watched_lm(cfg, seed=2)
+        print(f" ({label}) {arch}: full width (d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
+              f"{m.n_experts} experts top-{m.top_k}, d_expert {m.d_expert} "
+              f"{cfg.ffn_act}, {m.shared_experts} shared experts, dense "
+              f"residual {m.dense_d_ff if m.dense_residual else 0}, capacity "
+              f"factor {m.capacity_factor}), {cut}, bfloat16, {weights(lm)}; "
+              f"prompts {SERVE_PROMPTS}, cache_len {SERVE_CACHE_LEN}")
+        reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1)
+        engine, out, wall, launches = serve_engine(ops, lm, reqs, label)
+        for k in total:
+            total[k] += launches[k]
+        run_routed = check_moe_drops(lm, engine, label)
+        n_tok = sum(len(t) for t in out.values())
+        print(f"  ({label}) wall {wall:.2f} s, {n_tok} tokens, "
+              f"{n_tok / wall:.1f} generated tokens per wall second; pool "
+              f"{pool_bytes(engine) / 1e9:.3f} GB")
+        _, step_dev = step_times(engine, lm, SERVE_PROMPTS, label,
+                                 eager_too=False)
+        moe_step_bounds(lm, engine, step_dev, run_routed, label)
+        w, t, busy, n = engine_idle_share(lm, reqs, SERVE_CACHE_LEN, False)
+        print(f"  ({label}) graph engine: {busy / 1e3:.3f} s of device time "
+              f"in {n} kernels (a profiled run); device idle "
+              f"{1 - busy / (w * 1e3):.1%} of an unprofiled run's {w:.2f} s "
+              f"wall ({1 - busy / (t * 1e3):.1%} of the profiled run's "
+              f"{t:.2f} s)")
+        moe_step_split(lm, engine, label)
+        moe_drop_layers(lm, reqs[0], label)
+        del lm, engine
+        free_card()
+    return total
+
+
+def check_moe_drops(lm, engine, label: str) -> float:
+    """Print the dropped share of (token, k) pairs at each prefill length;
+    require every decode step's pairs routed, none dropped; returns the
+    experts routed to in a mean decode step, summed over the layers."""
+    from repro_torch.models import moe
+    cfg = lm.cfg
+    for n, (pairs, dropped, _) in sorted(lm.prefill_drops.items()):
+        print(f"  ({label}) prefills of {n} tokens: {dropped} of {pairs} "
+              f"(token, k) pairs dropped ({dropped / pairs:.4%}; capacity "
+              f"{moe.capacity_of(cfg, n)} an expert)")
+    pairs, dropped, routed = lm.drops[1].tolist()
+    steps = engine.calls["decode_step"]
+    want = cfg.n_layers * steps * SERVE_SLOTS * cfg.moe.top_k
+    print(f"  ({label}) decode: {dropped} of {pairs} (token, k) pairs "
+          f"dropped over {steps} steps (each slot its own group, capacity "
+          f"{moe.capacity_of(cfg, 1)} an expert); "
+          f"{routed / (cfg.n_layers * steps):.2f} of {cfg.moe.n_experts} "
+          f"experts routed to a layer and step")
+    require(pairs == want, f"({label}) {pairs} decode pairs routed, not "
+            f"layers x steps x slots x k = {want}")
+    require(dropped == 0, f"({label}) a decode step dropped {dropped} pairs")
+    return routed / steps
+
+
+def check_moe_parity(ops) -> None:
+    """(g'): moonshot at full width, 2 layers in fp32, phase 6 (a)'s trace:
+    no decode drop, the graph-replayed logits bitwise equal to an eager
+    engine's, one state's step replayed twice for the same bits, and greedy
+    tokens equal to batch-1 ``generate``'s (per-row and batch-1 routing
+    coincide)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MOE_PARITY_ARCH), n_layers=2,
+                              dtype="float32", param_dtype="float32")
+    lm = watched_lm(cfg, seed=0)
+    print(f" (g') {MOE_PARITY_ARCH} full width, 2 layers, float32, "
+          f"{weights(lm)}: 8 staggered requests, prompts {SERVE_PROMPTS}, "
+          f"max_gen {SERVE_GENS}, {SERVE_SLOTS} slots, cache_len "
+          f"{SERVE_CACHE_LEN}; the graph engine beside an eager one")
+    reqs = serve_trace(cfg, SERVE_GENS, seed=0)
+    graph_engine, out, wall, _ = serve_engine(ops, lm, reqs, "g'",
+                                              record=True)
+    check_moe_drops(lm, graph_engine, "g'")
+    eager_engine, _, wall_e, _ = serve_engine(ops, lm, reqs, "g', eager",
+                                              eager=True, record=True)
+    require(len(graph_engine.logits) == len(eager_engine.logits),
+            "(g') the graph and eager engines ran different step counts")
+    same = sum(torch.equal(g, e) for g, e in zip(graph_engine.logits,
+                                                 eager_engine.logits))
+    print(f"  (g') {same}/{len(graph_engine.logits)} steps' graph-replayed "
+          f"logits bitwise equal to the eager engine's; wall {wall:.2f} s "
+          f"(graph) against {wall_e:.2f} s (eager)")
+    require(same == len(graph_engine.logits), "(g') graph-replayed logits "
+            "differ from the eager engine's")
+    start = {k: v.clone() for k, v in graph_engine.pool["attn"].items()}
+    graph_engine._last_tok[:] = np.arange(SERVE_SLOTS) * 7
+    graph_engine._pos[:] = [SERVE_PROMPTS[i % 2] + 32
+                            for i in range(SERVE_SLOTS)]
+    first = graph_engine._step().clone()
+    for k, v in start.items():
+        graph_engine.pool["attn"][k].copy_(v)
+    require_same_bits("(g') one state's decode step replayed twice", first,
+                      graph_engine._step(), "the MoE step is not "
+                      "deterministic")
+    want = reference_tokens(ops, lm, reqs, "g'")
+    same = [np.array_equal(out[r.rid], want[r.rid]) for r in reqs]
+    print(f"  (g') tokens identical to batch-1 generate for {sum(same)}/"
+          f"{len(reqs)} requests (graph engine)")
+    require(all(same), "(g') engine tokens differ from batch-1 generate")
+    del lm, graph_engine, eager_engine
+    free_card()
+
+
+def moe_step_split(lm, engine, label: str) -> None:
+    """Where a decode step's device time goes: a graph replay's kernels by
+    name (decode attention, cuBLAS GEMMs, the rest: elementwise, sorts,
+    gathers, scatters), and an eager step's kernels split by the
+    ``record_function`` ranges of ``models.moe.apply_moe`` (routing and
+    dispatch, the expert FFNs, the combine, the shared or dense FFN: the
+    device time of the aten ops in each) and by name (decode attention,
+    launched through ctypes, belongs to no aten op).  Fails where a range
+    of the MoE gets no device time."""
+    from torch.profiler import ProfilerActivity
+    dev_ms, kernels, _ = device_profile(engine._step, 5)
+    attn = sum(ms for n, ms in kernels if "decode_kernel" in n)
+    gemm = sum(ms for n, ms in kernels
+               if any(g in n for g in GEMM_NAMES) and "decode_kernel" not in n)
+    rest = dev_ms - attn - gemm
+    print(f"  ({label}) graph replay, {dev_ms:.3f} ms of device time: decode "
+          f"attention {attn:.3f} ms ({attn / dev_ms:.1%}), cuBLAS GEMMs "
+          f"{gemm:.3f} ({gemm / dev_ms:.1%}), the rest {rest:.3f} "
+          f"({rest / dev_ms:.1%}); heaviest kernels:")
+    for name, ms in kernels[:6]:
+        print(f"      {ms:8.4f}  {name[:90]}")
+
+    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.from_numpy(engine._pos.copy()).cuda()
+
+    def step():
+        lm.decode_step(engine.pool, toks, pos, route_per_row=True)
+    step()
+    torch.cuda.synchronize()
+    prof, traced = traced_kernels(step, [ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+    m = lm.cfg.moe
+    names = {"moe.route": "routing and dispatch",
+             "moe.experts": "expert FFNs",
+             "moe.combine": "combine"}
+    if m.shared_experts:
+        names["moe.shared"] = "shared experts"
+    if m.dense_residual:
+        names["moe.dense"] = "dense residual"
+    # the ranges' own device-side spans are not kernels
+    traced = [(n, ms) for n, ms in traced if not n.startswith("moe.")]
+    total = sum(ms for _, ms in traced)
+    attn = sum(ms for n, ms in traced if "decode_kernel" in n)
+    ms = {tag: sum(e.device_time_total for e in prof.events()
+                   if e.name == tag
+                   and not str(e.device_type).endswith("CUDA")) / 1e3
+          for tag in names}
+    rest = total - sum(ms.values()) - attn
+    parts = ", ".join(f"{what} {ms[tag]:.3f} ({ms[tag] / total:.1%})"
+                      for tag, what in names.items())
+    print(f"  ({label}) eager step, {len(traced)} kernels, {total:.3f} ms "
+          f"of device time: {parts}, decode attention {attn:.3f} "
+          f"({attn / total:.1%}), the rest (projections, norms, RoPE, cache "
+          f"writes, unembedding) {rest:.3f} ({rest / total:.1%})")
+    for tag, what in names.items():
+        require(ms[tag] > 0, f"({label}) the profiler put no device time "
+                f"under the {tag} range: the step's MoE split is not "
+                f"measured")
+
+
+def moe_step_bounds(lm, engine, step_dev: float, run_routed: float,
+                    label: str) -> None:
+    """The graph-replayed step's device time against two bounds at the
+    state ``step_times`` timed: every weight read once (what the dispatch
+    reads: all E experts a layer, the whole embedding table), and the
+    bytes the step needs: the weights but the experts and the embedding
+    table (whose four rows are left out), the cache up to each slot's
+    position, and the experts routed to, ``run_routed`` a step (the serve
+    run's mean, counted on the device) and, beside it, those of the timed
+    state (every slot fed token 0), counted by one more replay."""
+    cfg, m = lm.cfg, lm.cfg.moe
+    state = lm.state_dict()
+    nbytes = sum(t.nbytes for t in state.values())
+    expert_bytes = sum(t.nbytes for k, t in state.items()
+                       if ".ffn.experts." in k)
+    embed = 0 if cfg.tie_embeddings else state["embed"].nbytes
+    per_expert = expert_bytes // (cfg.n_layers * m.n_experts)
+    lm.drops.zero_()
+    engine._step()
+    timed_routed = int(lm.drops[1, 2])
+    k = engine.pool["attn"]["k"]
+    keys = int(sum(int(p) + 1 for p in engine._pos))
+    cache = keys * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim \
+        * k.element_size()
+    other = nbytes - expert_bytes - embed + cache
+    t_all = nbytes / HBM_BYTES_PER_S * 1e3
+    t_run, t_timed = ((other + n * per_expert) / HBM_BYTES_PER_S * 1e3
+                      for n in (run_routed, timed_routed))
+    print(f"  ({label}) decode step bound, all experts: every weight read "
+          f"once (what the dispatch reads: all {m.n_experts} experts a "
+          f"layer), {nbytes / 1e9:.1f} GB at 3.35 TB/s = {t_all:.2f} ms; "
+          f"the step's device time is {step_dev / t_all:.2f}x that")
+    print(f"  ({label}) decode step bound, routed: the weights but the "
+          f"experts and the embedding table, and the cache up to each "
+          f"slot's position ({keys} keys and values a layer, "
+          f"{cache / 1e9:.2f} GB), {other / 1e9:.2f} GB, with the experts "
+          f"routed to, {run_routed / cfg.n_layers:.2f} a layer in the serve "
+          f"run's mean step ({run_routed * per_expert / 1e9:.2f} GB): "
+          f"{t_run:.2f} ms, the step's device time {step_dev / t_run:.2f}x "
+          f"that; at the timed state, {timed_routed / cfg.n_layers:.2f} a "
+          f"layer ({timed_routed * per_expert / 1e9:.2f} GB): "
+          f"{t_timed:.2f} ms, {step_dev / t_timed:.2f}x")
+    most = cfg.n_layers * min(m.n_experts, SERVE_SLOTS * m.top_k)
+    require(0 < timed_routed <= most and 0 < run_routed <= most,
+            f"({label}) {timed_routed} and {run_routed} experts routed to in "
+            f"one step")
+
+
+def moe_drop_layers(lm, req, label: str) -> None:
+    """Why a prefill drops: one prefill of ``req`` with each layer's router
+    input kept (a ``TorchFunctionMode`` that notes the matmuls whose second
+    operand is a router), then per layer the dropped share of its pairs as
+    the model routes them (logits in the activation dtype), the share with
+    the same inputs routed on fp32 logits, the share of tokens whose k-th
+    and (k+1)-th logits tie (the stable sort gives such ties to the lower
+    expert id), and the tokens' mean cosine to their mean (how alike the
+    layer's inputs are)."""
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.models import moe
+    routers = {id(blk.ffn.router): i for i, blk in enumerate(lm.blocks)}
+    seen = {}
+
+    class KeepRouterInputs(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.matmul and id(args[1]) in routers:
+                seen[routers[id(args[1])]] = (args[0], args[1])
+            return func(*args, **(kwargs or {}))
+
+    with KeepRouterInputs():
+        lm.prefill({"tokens": torch.from_numpy(req.tokens[None])},
+                   SERVE_CACHE_LEN)
+    require(len(seen) == lm.cfg.n_layers, f"({label}) {len(seen)} router "
+            f"inputs kept of {lm.cfg.n_layers} layers")
+    cfg, k = lm.cfg, lm.cfg.moe.top_k
+    cap = moe.capacity_of(cfg, req.prompt_len)
+    print(f"  ({label}) one prefill of {req.prompt_len} tokens, per layer: "
+          f"dropped share as routed (bf16 logits) / on fp32 logits of the "
+          f"same inputs, tokens with a tie at the k-th logit (bf16 / fp32), "
+          f"the inputs' mean cosine to their mean")
+    rows = []
+    for i in range(cfg.n_layers):
+        tokens, router = seen[i]
+        r16 = moe.route(router, cfg, tokens, cap)
+        r32 = moe.route(router.float(), cfg, tokens.float(), cap)
+        ties = []
+        for r in (r16, r32):
+            top = torch.sort(r.logits, dim=-1, descending=True).values
+            ties.append(float((top[..., k - 1] == top[..., k]).float()
+                              .mean()))
+        x = tokens.float().reshape(-1, cfg.d_model)
+        cos = float(torch.nn.functional.cosine_similarity(
+            x, x.mean(0, keepdim=True)).mean())
+        rows.append((float((~r16.keep).float().mean()),
+                     float((~r32.keep).float().mean()), *ties, cos))
+        print(f"    layer {i:2d}: dropped {rows[-1][0]:7.2%} / "
+              f"{rows[-1][1]:7.2%}; ties {ties[0]:6.2%} / {ties[1]:6.2%}; "
+              f"cosine {cos:.3f}")
+    n = max(1, cfg.n_layers // 4)
+    first = [sum(col) / n for col in zip(*rows[:n])]
+    last = [sum(col) / n for col in zip(*rows[-n:])]
+    print(f"  ({label}) first {n} layers against the last {n}: dropped "
+          f"{first[0]:.2%} / {last[0]:.2%} (fp32 logits {first[1]:.2%} / "
+          f"{last[1]:.2%}), ties {first[2]:.2%} / {last[2]:.2%}, cosine "
+          f"{first[4]:.3f} / {last[4]:.3f}")
 
 
 def run_digests() -> int:
@@ -1590,9 +1963,12 @@ def main() -> int:
         served, b_pool = run_serve(ops)
     with phase("7 family"):
         family = run_family(ops, b_pool)
+    with phase("8 moe"):
+        moe_cells = run_moe(ops)
     # flash and decode: the serving cells' launches, each cell counted
-    # from 0 on its own (6 b and 7 c-f)
-    launches.update({k: served[k] + family[k] for k in family})
+    # from 0 on its own (6 b, 7 c-f and 8 g-h)
+    launches.update({k: served[k] + family[k] + moe_cells[k]
+                     for k in family})
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

@@ -6,10 +6,13 @@ lock-step); the CLI routes through
 :class:`repro_torch.serve.ContinuousBatcher`, where requests join and leave
 the running batch at decode-step granularity and the KV slot pool persists
 across requests.  The weights are random, drawn from a seeded generator.
-``--arch`` takes any dense config (granite-3-2b, h2o-danube-1.8b,
-nemotron-4-15b, command-r-plus-104b; the last is 208 GB of bf16 at
-``--full``, past one 80 GB card).  Runs on the card unless ``--device``
-names another:
+``--arch`` takes any dense or MoE config (granite-3-2b, h2o-danube-1.8b,
+nemotron-4-15b, command-r-plus-104b, moonshot-v1-16b-a3b, arctic-480b; at
+``--full`` command-r-plus-104b's 208 GB and arctic-480b's 952 GB of bf16
+are past one 80 GB card, moonshot-v1-16b-a3b's 58 GB fit).  The engine
+routes each slot through the MoE on its own, as the JAX engine does;
+``generate`` routes its batch jointly, as the JAX ``generate`` does.  Runs
+on the card unless ``--device`` names another:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --batch 4 --prompt-len 32 --gen 16
@@ -18,6 +21,8 @@ names another:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8
   PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
       --arch h2o-danube-1.8b --prompt-len 5000 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
+      --arch moonshot-v1-16b-a3b --prompt-len 1000 --gen 64
 """
 from __future__ import annotations
 

@@ -48,6 +48,28 @@ def dense_init(shape, in_axis_size, dtype, generator, device):
     return (w * scale).to(dtype)
 
 
+def init_ffn(d: int, hidden: int, act: str, use_bias: bool, dtype,
+             generator, device, n: int = 0) -> dict:
+    """An FFN's weights (``repro.models.layers.init_ffn``), or ``n`` of them
+    stacked on a leading axis (an MoE's experts), drawn one at a time so
+    that a float32 draw never holds more than one."""
+    def dense(shape, fan_in):
+        if not n:
+            return dense_init(shape, fan_in, dtype, generator, device)
+        out = torch.empty((n, *shape), dtype=dtype, device=device)
+        for e in range(n):
+            out[e] = dense_init(shape, fan_in, dtype, generator, device)
+        return out
+
+    p = {"w_in": dense((d, hidden), d), "w_out": dense((hidden, d), hidden)}
+    if act in ("swiglu", "geglu"):
+        p["w_gate"] = dense((d, hidden), d)
+    if use_bias:
+        p["b_in"] = torch.zeros(hidden, dtype=dtype, device=device)
+        p["b_out"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
+
+
 def embed_init(shape, dtype, generator, device):
     w = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
@@ -231,6 +253,10 @@ _ACTS = {"swiglu": F.silu, "geglu": lambda g: F.gelu(g, approximate="tanh")}
 
 
 def apply_ffn(p, x, act, use_bias=False):
+    """x [..., d] through ``p``'s FFN.  Weights stacked on a leading axis
+    (an MoE's experts, ``w_in [E, d, f]``) take x ``[E, C, d]`` or ``[G, E,
+    C, d]``: ``torch.matmul`` batches over the expert axis, as the JAX
+    ``moe._expert_ffn`` / ``_expert_ffn_grouped`` einsums do."""
     h = torch.matmul(x, p["w_in"])
     if use_bias:
         h = h + p["b_in"]

@@ -1,16 +1,24 @@
-"""The language model, dense family: the port of ``repro.models.lm``.
+"""The language model, dense and MoE families: the port of
+``repro.models.lm``.
 
 Serving entry points, as in the JAX ``Model``:
 
   * ``LM.prefill(batch, cache_len)``          -> (last_logits, cache)
   * ``LM.decode_step(cache, tokens, pos)``    -> (logits, cache)
 
+The port runs the dense family (granite-3-2b, h2o-danube-1.8b,
+nemotron-4-15b, command-r-plus-104b) and the MoE family (moonshot-v1-16b-a3b,
+arctic-480b: the dense block with :mod:`repro_torch.models.moe` as its FFN);
+the hybrid, SSM, VLM and audio families wait (ROADMAP queue 1 item 8).
+
 Parameters keep the JAX tree's names and layouts (``embed [V, d]``,
 ``final_norm.scale``, and per layer ``attn_norm.scale``, ``attn.{wq,wk,wv,
-wo}``, ``ffn_norm.scale``, ``ffn.{w_in,w_gate,w_out}``); the JAX tree stacks
-the layers on a leading axis where the port keeps one :class:`DenseBlock`
-per layer (``blocks.{i}.…``).  :mod:`repro_torch.models.convert` carries
-weights across.
+wo}``, ``ffn_norm.scale``, ``ffn.{w_in,w_gate,w_out}``, or under MoE
+``ffn.router``, ``ffn.experts.{w_in,w_gate,w_out}`` ``[E, ...]``,
+``ffn.shared.*``, ``ffn.dense.*``); the JAX tree stacks the layers on a
+leading axis where the port keeps one :class:`DenseBlock` per layer
+(``blocks.{i}.…``).  :mod:`repro_torch.models.convert` carries weights
+across.
 
 The cache is the JAX one: ``{"attn": {"k", "v"}}`` of ``[L, B, W, KV, Dh]``
 with ``W = min(cache_len, window)`` under a sliding window (a ring: token
@@ -27,7 +35,11 @@ Differences from the JAX model, none of which changes a result:
     graph.
   * ``pos`` may be one position per row (an int tensor ``[B]``): the
     continuous batcher's slots sit at different positions, where the JAX
-    engine ``vmap``s a scalar-``pos`` step over the slots.
+    engine ``vmap``s a scalar-``pos`` step over the slots.  For the same
+    reason ``decode_step(..., route_per_row=True)`` routes each row's token
+    through the MoE as a group of its own (capacity ``k``, so no drops and
+    no row sways another's routing), as the ``vmap``ped JAX step does;
+    ``generate`` routes its batch jointly in both packages.
   * Attention always runs the flash-attention kernel (prefill) and the
     split-K decode kernel (decode) through :mod:`repro_torch.kernels.ops`;
     the JAX model's dense/blockwise switch computes the same function.  The
@@ -44,7 +56,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.dist.plan import Plan
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.layers import not_ported
 
 Params = Dict[str, torch.Tensor]
@@ -57,10 +69,10 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig, plan: Optional[Plan] = None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    other families, and logit soft caps (no config sets one, and the JAX
-    blockwise path ignores them)."""
-    del plan            # every dense-family plan runs, kv_cache_quant too
-    if cfg.family != "dense":
+    the families past dense and MoE, and logit soft caps (no config sets
+    one, and the JAX blockwise path ignores them)."""
+    del plan     # every plan runs: kv_cache_quant, both moe_impl values
+    if cfg.family not in ("dense", "moe"):
         raise not_ported(f"the {cfg.family!r} family", 8)
     if cfg.logit_softcap > 0:
         raise not_ported("logit soft caps", 8)
@@ -85,8 +97,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Params:
     """Random weights for ``cfg`` as the LM's state dict, drawn on ``device``
     (default ``cuda``) from ``generator`` (default seed 0): ``N(0, 1/fan_in)``
-    for projections, ``N(0, 0.02²)`` for the embedding, ones for norm
-    scales, zeros for biases.  Values differ from ``jax.random``'s."""
+    for projections (each expert's too), ``N(0, 0.02²)`` for the embedding,
+    ones for norm scales, zeros for biases.  Values differ from
+    ``jax.random``'s."""
     check_supported(cfg)
     dev = resolve(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
@@ -110,7 +123,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     p.update(norm("final_norm"))
     if not cfg.tie_embeddings:
         p["unembed"] = dense((d, cfg.padded_vocab), d)
-    gated = cfg.ffn_act in ("swiglu", "geglu")
     for i in range(cfg.n_layers):
         b = f"blocks.{i}"
         p.update(norm(f"{b}.attn_norm"))
@@ -124,13 +136,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             p[f"{b}.attn.bv"] = zeros(kv, hd)
             p[f"{b}.attn.bo"] = zeros(d)
         p.update(norm(f"{b}.ffn_norm"))
-        p[f"{b}.ffn.w_in"] = dense((d, cfg.d_ff), d)
-        p[f"{b}.ffn.w_out"] = dense((cfg.d_ff, d), cfg.d_ff)
-        if gated:
-            p[f"{b}.ffn.w_gate"] = dense((d, cfg.d_ff), d)
-        if cfg.use_bias:
-            p[f"{b}.ffn.b_in"] = zeros(cfg.d_ff)
-            p[f"{b}.ffn.b_out"] = zeros(d)
+        ffn = (moe.init_moe(cfg, gen, dev, dt) if cfg.moe is not None
+               else layers.init_ffn(d, cfg.d_ff, cfg.ffn_act, cfg.use_bias,
+                                    dt, gen, dev))
+        for name, leaf in ffn.items():
+            if isinstance(leaf, dict):
+                p.update({f"{b}.ffn.{name}.{k}": t for k, t in leaf.items()})
+            else:
+                p[f"{b}.ffn.{name}"] = leaf
     return p
 
 
@@ -145,21 +158,43 @@ def _group(params: Params, prefix: str) -> nn.ParameterDict:
 # ===========================================================================
 
 class DenseBlock(nn.Module):
-    """One pre-norm decoder layer: GQA attention + FFN, residual each."""
+    """One pre-norm decoder layer: GQA attention + FFN (dense, or the MoE
+    under ``cfg.moe``), residual each."""
 
-    def __init__(self, cfg: ModelConfig, params: Params, prefix: str):
+    def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
+                 plan: Plan):
         super().__init__()
         self.cfg = cfg
+        self.plan = plan
         self.window = _window_of(cfg)
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
         self.attn = _group(params, f"{prefix}.attn.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
-        self.ffn = _group(params, f"{prefix}.ffn.")
+        self.ffn = (moe.MoEWeights(params, f"{prefix}.ffn.")
+                    if cfg.moe is not None
+                    else _group(params, f"{prefix}.ffn."))
+        # LM.count_moe_drops: int64 [2, 3], rows prefill and decode
+        self.moe_drops: Optional[torch.Tensor] = None
 
-    def _ffn(self, h):
-        cfg = self.cfg
+    def _ffn(self, h, step: int, route_per_row: bool = False):
+        """``step`` 0 in prefill, 1 in decode (the row of ``moe_drops``)."""
+        cfg, plan = self.cfg, self.plan
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
-        return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act, cfg.use_bias)
+        if cfg.moe is None:
+            return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act,
+                                        cfg.use_bias)
+        kw = dict(drops=None if self.moe_drops is None
+                  else self.moe_drops[step])
+        if route_per_row:       # one group a row: the JAX engine's vmap
+            y, _ = moe.apply_moe(self.ffn, cfg, x, plan.moe_capacity_factor,
+                                 groups=x.shape[0] * x.shape[1], **kw)
+        elif plan.moe_impl == "shardmap_ep":
+            y, _ = moe.apply_moe_ep(self.ffn, cfg, x,
+                                    plan.moe_capacity_factor, **kw)
+        else:
+            y, _ = moe.apply_moe(self.ffn, cfg, x, plan.moe_capacity_factor,
+                                 groups=plan.moe_groups, **kw)
+        return h + y
 
     def _qkv(self, h, rope):
         cfg = self.cfg
@@ -168,18 +203,21 @@ class DenseBlock(nn.Module):
         k, v = layers.kv_project(self.attn, cfg, x)
         return layers.apply_rope(q, rope), layers.apply_rope(k, rope), v
 
-    def prefill(self, h, rope, plan):
+    def prefill(self, h, rope):
         """h [B, S, d] -> (h, (k, v)) with the layer's post-RoPE K/V."""
         q, k, v = self._qkv(h, rope)
         attn_out = layers.attention(q, k, v, causal=True, window=self.window,
-                                    softcap=self.cfg.logit_softcap, plan=plan)
+                                    softcap=self.cfg.logit_softcap,
+                                    plan=self.plan)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
-        return self._ffn(h), (k, v)
+        return self._ffn(h, 0), (k, v)
 
-    def decode(self, h, cache, pos, cache_len, rope):
+    def decode(self, h, cache, pos, cache_len, rope,
+               route_per_row: bool = False):
         """h [B, 1, d]; ``cache`` this layer's buffers ``{"k", "v"[,
         "k_scale", "v_scale"]}`` [B, W, KV, ·] (written in place at each
-        row's slot); pos, cache_len int tensors [B]."""
+        row's slot); pos, cache_len int tensors [B]; ``route_per_row``
+        routes each row through the MoE on its own."""
         q, k, v = self._qkv(h, rope)
         k_cache, v_cache = cache["k"], cache["v"]
         w = k_cache.shape[1]
@@ -204,11 +242,11 @@ class DenseBlock(nn.Module):
                 q, k_cache, v_cache, cache_len, window=self.window,
                 softcap=self.cfg.logit_softcap)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
-        return self._ffn(h)
+        return self._ffn(h, 1, route_per_row)
 
 
 class LM(nn.Module):
-    """The dense LM over ``params`` (a state dict from :func:`init_params`
+    """The dense or MoE LM over ``params`` (a state dict from :func:`init_params`
     or :func:`repro_torch.models.convert.params_from_numpy`); it runs where
     its parameters lie, and its weights take no gradient."""
 
@@ -228,7 +266,7 @@ class LM(nn.Module):
             self.unembed = nn.Parameter(params["unembed"],
                                         requires_grad=False)
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, params, f"blocks.{i}")
+            DenseBlock(cfg, params, f"blocks.{i}", self.plan)
             for i in range(cfg.n_layers))
         if set(self.state_dict()) != set(params):
             raise ValueError(
@@ -260,6 +298,19 @@ class LM(nn.Module):
             logits[..., cfg.vocab_size:] = layers.NEG_INF
         return logits
 
+    def count_moe_drops(self) -> torch.Tensor:
+        """Count the MoE's routed and dropped (token, k) pairs from now on:
+        returns the int64 ``[2, 3]`` counter on the model's device (rows
+        prefill and decode; columns pairs routed, pairs dropped, and
+        experts routed to, per layer and call), which every MoE layer adds
+        to in place, inside a captured decode step too (an engine's graph
+        keeps the counter set when it was captured, so call this before
+        building the engine).  Zero it to start again."""
+        counts = torch.zeros((2, 3), dtype=torch.long, device=self.device)
+        for blk in self.blocks:
+            blk.moe_drops = counts
+        return counts
+
     def init_cache(self, batch: int, seq_len: int) -> Cache:
         return init_cache(self.cfg, batch, seq_len, device=self.device,
                           quant=self.plan.kv_cache_quant)
@@ -274,18 +325,22 @@ class LM(nn.Module):
         rope = self._rope(torch.arange(s, device=self.device))
         collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for blk in self.blocks:
-            h, kv = blk.prefill(h, rope, self.plan)
+            h, kv = blk.prefill(h, rope)
             collected.append(kv)
         last = layers.apply_norm(self.final_norm, h[:, -1:], self.cfg.norm)
         cache = assemble_cache(self.cfg, collected, cache_len,
                                quant=self.plan.kv_cache_quant)
         return self.logits_for(last)[:, 0], cache
 
-    def decode_step(self, cache: Cache, tokens, pos
+    def decode_step(self, cache: Cache, tokens, pos, *,
+                    route_per_row: bool = False
                     ) -> Tuple[torch.Tensor, Cache]:
         """One decode step. ``tokens`` [B, 1]; ``pos`` the absolute position,
         an int or an int tensor [B] (one per row).  Writes ``cache`` in
-        place and returns it with the logits [B, V]."""
+        place and returns it with the logits [B, V].  ``route_per_row``
+        routes each row through the MoE as its own group (the continuous
+        batcher's slots, as the JAX engine's ``vmap``); otherwise the rows
+        are routed together, as ``generate`` does."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, device=self.device).long().reshape(-1)
@@ -297,7 +352,7 @@ class LM(nn.Module):
         for i, blk in enumerate(self.blocks):
             h = blk.decode(h, {name: buf[i] for name, buf
                                in cache["attn"].items()}, pos, cache_len,
-                           rope)
+                           rope, route_per_row)
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
         return self.logits_for(h)[:, 0], cache
 

@@ -1,0 +1,229 @@
+"""Mixture-of-Experts FFN: top-k routing with sort-based capacity dispatch;
+the port of ``repro.models.moe``.
+
+Tokens are split into ``groups`` routing groups with a capacity each; within
+a group the (token, k) pairs are ordered by expert id (a stable sort), a
+pair's slot is its rank in its expert's run, and pairs at or past the
+capacity are dropped (GShard semantics).  The kept pairs run through their
+expert's FFN, and each token sums its gate-weighted contributions.  Moonlight
+adds always-on shared experts and Arctic a dense residual FFN.
+
+Weights keep the JAX tree's layout: ``router [d, E]``, ``experts.{w_in,
+w_gate} [E, d, f]`` and ``experts.w_out [E, f, d]`` stacked on the expert
+axis, ``shared`` and ``dense`` plain FFNs.  :func:`apply_moe` takes them as
+a nested mapping (a dict, or the LM's :class:`MoEWeights`).
+
+Everything here is plain torch, as the JAX module is jnp outside any Pallas
+kernel.  The JAX ``_expert_ffn`` / ``_expert_ffn_grouped`` einsums are
+:func:`repro_torch.models.layers.apply_ffn` on the stacked weights
+(``torch.matmul`` batches over the expert axis).  Differences from the JAX
+module, none of which changes a result:
+
+  * the dispatch buffer is expert-major, ``[E, G, C, D]`` (JAX's ``[G, E, C,
+    D]`` transposed), so the expert products are batched matmuls over
+    ``[E, G*C, D]`` with no copy;
+  * kept pairs are written into it by a plain indexed copy (their slots are
+    distinct) and dropped pairs into one spare row that is never read, where
+    JAX adds zeros into slot 0;
+  * a token's contributions are summed in ascending expert id, in the
+    activation dtype, as XLA's sequential scatter-add sums them, with no
+    float atomics, so repeated calls agree bit for bit;
+  * no step reads a value on the host or makes a tensor from host data, so
+    the serving engine can capture it in a CUDA graph;
+  * ``drops`` (optional) counts routed and dropped pairs, and the experts
+    routed to, in place.
+"""
+from __future__ import annotations
+
+from typing import Mapping, NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+from torch.autograd.profiler import record_function
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+# ---------------------------------------------------------------------------
+# init (the JAX distributions: repro.models.moe.init_moe)
+# ---------------------------------------------------------------------------
+
+def init_moe(cfg: ModelConfig, generator: torch.Generator, device,
+             dtype: torch.dtype) -> dict:
+    """One layer's MoE weights as the JAX tree nests them: ``router``,
+    ``experts`` and, where the config has them, ``shared`` (hidden
+    ``d_expert * shared_experts``) and ``dense`` (hidden ``dense_d_ff or
+    d_ff``); no biases."""
+    m, d, act = cfg.moe, cfg.d_model, cfg.ffn_act
+    p = {"router": layers.dense_init((d, m.n_experts), d, dtype, generator,
+                                     device),
+         "experts": layers.init_ffn(d, m.d_expert, act, False, dtype,
+                                    generator, device, n=m.n_experts)}
+    if m.shared_experts:
+        p["shared"] = layers.init_ffn(d, m.d_expert * m.shared_experts, act,
+                                      False, dtype, generator, device)
+    if m.dense_residual:
+        p["dense"] = layers.init_ffn(d, m.dense_d_ff or cfg.d_ff, act, False,
+                                     dtype, generator, device)
+    return p
+
+
+class MoEWeights(nn.Module):
+    """One layer's MoE weights held by the LM (state-dict names ``router``,
+    ``experts.*``, ``shared.*``, ``dense.*`` under ``prefix``), indexable
+    as the nested mapping :func:`apply_moe` takes."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], prefix: str):
+        super().__init__()
+        self.router = nn.Parameter(params[f"{prefix}router"],
+                                   requires_grad=False)
+        for part in ("experts", "shared", "dense"):
+            head = f"{prefix}{part}."
+            group = {k[len(head):]: nn.Parameter(v, requires_grad=False)
+                     for k, v in params.items() if k.startswith(head)}
+            if group:
+                setattr(self, part, nn.ParameterDict(group))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+# ---------------------------------------------------------------------------
+# routing, dispatch, combine
+# ---------------------------------------------------------------------------
+
+class Routing(NamedTuple):
+    """Where each (token, k) pair of ``[G, Tg]`` tokens goes, in top-k
+    order: ``expert`` ids, fp32 ``gate`` weights, ``slot`` (its rank in its
+    expert's run) and ``keep`` (slot < ``capacity``), all ``[G, Tg, k]``;
+    ``counts [G, E]`` pairs per expert, ``logits`` fp32 ``[G, Tg, E]``."""
+    expert: torch.Tensor
+    gate: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    counts: torch.Tensor
+    logits: torch.Tensor
+
+
+def top_k(logits: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest along the last dim, largest first,
+    ties going to the lower index (a stable descending sort; ``torch.topk``
+    promises no order among equals)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def capacity_of(cfg: ModelConfig, tokens_per_group: int,
+                capacity_factor: Optional[float] = None) -> int:
+    """Slots an expert has in one group: ``max(int(Tg * k * cf / E), k)``."""
+    m = cfg.moe
+    cf = capacity_factor or m.capacity_factor
+    return max(int(tokens_per_group * m.top_k * cf / m.n_experts), m.top_k)
+
+
+def route(router: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
+          capacity: int) -> Routing:
+    """Top-k routing of ``tokens [G, Tg, D]`` and each pair's slot: the
+    pairs of a group sorted stably by expert id (``jnp.argsort``), a pair's
+    slot its position minus its expert's start."""
+    m = cfg.moe
+    g, tg, _ = tokens.shape
+    k = m.top_k
+    logits = torch.matmul(tokens, router).float()              # [G, Tg, E]
+    gates, expert = top_k(logits, k)
+    gates = torch.softmax(gates, dim=-1)
+    fe = expert.reshape(g, tg * k)
+    order = torch.argsort(fe, dim=1, stable=True)
+    counts = torch.zeros((g, m.n_experts), dtype=torch.long,
+                         device=tokens.device).scatter_add_(
+        1, fe, torch.ones_like(fe))
+    starts = counts.cumsum(dim=1) - counts
+    se = fe.gather(1, order)
+    ranks = torch.arange(tg * k, device=tokens.device)[None, :] \
+        - starts.gather(1, se)
+    slot = torch.empty_like(ranks).scatter_(1, order, ranks)   # token order
+    slot = slot.reshape(g, tg, k)
+    return Routing(expert, gates, slot, slot < capacity, counts, logits)
+
+
+def apply_moe(p, cfg: ModelConfig, x: torch.Tensor,
+              capacity_factor: Optional[float] = None, groups: int = 1, *,
+              drops: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (y [B, S, D], aux).
+
+    GShard-style grouped dispatch: the B*S tokens split into ``groups``
+    groups (one group when they do not divide), each with its own capacity.
+    ``aux`` is the Switch load-balance term ``E * sum(mean softmax * share
+    of pairs)`` (serving discards it).  ``drops``, an int64 ``[3]`` tensor,
+    gains the pairs routed, the pairs dropped and the experts routed to
+    (those with a pair in any group: the experts whose weights the call
+    needs), in place.  Profiler ranges name the pieces: ``moe.route``
+    (routing and dispatch), ``moe.experts`` (the expert FFNs over all E),
+    ``moe.combine``, ``moe.shared`` and ``moe.dense``."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    g = max(int(groups), 1)
+    if t % g != 0:
+        g = 1
+    tg = t // g
+    k, n_exp = m.top_k, m.n_experts
+    cap = capacity_of(cfg, tg, capacity_factor)
+    tokens = x.reshape(g, tg, d)
+    with record_function("moe.route"):
+        r = route(p["router"], cfg, tokens, cap)
+        # dispatch into [E, G, C] rows (+ one spare row for the dropped
+        # pairs)
+        group = torch.arange(g, device=x.device)[:, None, None]
+        rows = (r.expert * g + group) * cap + r.slot             # [G, Tg, k]
+        spare = n_exp * g * cap
+        buf = x.new_zeros((spare + 1, d))
+        buf.index_copy_(0, torch.where(r.keep, rows, spare).reshape(-1),
+                        tokens[:, :, None, :].expand(g, tg, k, d)
+                        .reshape(-1, d))
+    with record_function("moe.experts"):
+        out = layers.apply_ffn(p["experts"],
+                               buf[:spare].view(n_exp, g * cap, d),
+                               cfg.ffn_act).reshape(spare, d)
+
+    # combine: each token's kept contributions, (out * gate) in fp32 cast to
+    # the activation dtype, summed in ascending expert id from zero
+    with record_function("moe.combine"):
+        by_id = torch.argsort(r.expert, dim=-1)
+        keep = r.keep.gather(-1, by_id)
+        rows = torch.where(keep, rows.gather(-1, by_id), 0)
+        gate = r.gate.gather(-1, by_id)
+        got = torch.where(keep[..., None], out[rows.reshape(-1)].reshape(
+            g, tg, k, d), 0)
+        contrib = (got.float() * gate[..., None]).to(x.dtype)
+        y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
+        for j in range(k):
+            y = y + contrib[:, :, j]
+        y = y.reshape(b, s, d)
+
+    if m.shared_experts:
+        with record_function("moe.shared"):
+            y = y + layers.apply_ffn(p["shared"], x, cfg.ffn_act)
+    if m.dense_residual:
+        with record_function("moe.dense"):
+            y = y + layers.apply_ffn(p["dense"], x, cfg.ffn_act)
+    per_expert = r.counts.sum(dim=0)                              # [E]
+    if drops is not None:
+        drops[0].add_(r.keep.numel())
+        drops[1].add_((~r.keep).sum())
+        # an expert with a pair has one in slot 0, which is always kept
+        drops[2].add_((per_expert > 0).sum())
+
+    me = torch.softmax(r.logits, dim=-1).mean(dim=(0, 1))        # [E]
+    aux = n_exp * torch.sum(me * per_expert.float() / (t * k))
+    return y, aux
+
+
+def apply_moe_ep(p, cfg: ModelConfig, x: torch.Tensor,
+                 capacity_factor: Optional[float] = None, **kw):
+    """The expert-parallel MoE as the JAX module runs it on one device (no
+    mesh): :func:`apply_moe` over one group.  Its ``shard_map`` body, each
+    model rank running its own experts, waits for the port's multi-card
+    slice (ROADMAP queue 1 item 11)."""
+    return apply_moe(p, cfg, x, capacity_factor, groups=1, **kw)

@@ -7,8 +7,11 @@ The engine holds one decode cache for ``n_slots`` requests — K/V tensors
 their scales under ``plan.kv_cache_quant``) — and advances every slot with
 **one** batched ``LM.decode_step`` per tick,
 each slot at its own position (its own RoPE angle, cache write index and
-``cache_len`` into the decode-attention kernel).  Requests join and leave at
-decode-step granularity without ever changing a shape.
+``cache_len`` into the decode-attention kernel) and, under an MoE, routed as
+a group of its own (``route_per_row``: the JAX engine ``vmap``s its step
+over the slots, so no slot's routing, drops included, depends on
+another's).  Requests join and leave at decode-step granularity without
+ever changing a shape.
 
 Slot-pool invariants (the JAX engine's contract):
 
@@ -203,12 +206,13 @@ class ContinuousBatcher:
         # one eager step on the capture stream first: kernel builds and the
         # GEMM workspaces are made there, outside the capture
         with torch.cuda.stream(stream):
-            self.model.decode_step(self._pool, toks, poss)
+            self.model.decode_step(self._pool, toks, poss,
+                                   route_per_row=True)
         stream.synchronize()
         graph = CountedGraph()
         with graph.capture(stream):
-            self._logits_out, _ = self.model.decode_step(self._pool, toks,
-                                                         poss)
+            self._logits_out, _ = self.model.decode_step(
+                self._pool, toks, poss, route_per_row=True)
         torch.cuda.current_stream(dev).wait_stream(stream)
         self._graph = graph
 
@@ -221,7 +225,8 @@ class ContinuousBatcher:
             dev = self.model.device
             toks = torch.from_numpy(self._last_tok).to(dev)[:, None]
             poss = torch.from_numpy(self._pos).to(dev)
-            return self.model.decode_step(self._pool, toks, poss)[0]
+            return self.model.decode_step(self._pool, toks, poss,
+                                          route_per_row=True)[0]
         self._host_in[0].copy_(torch.from_numpy(self._last_tok))
         self._host_in[1].copy_(torch.from_numpy(self._pos))
         self._dev_in.copy_(self._host_in, non_blocking=True)

@@ -570,3 +570,78 @@ def test_cuda_windowed_d80_serving_matches_generate(quant):
         want = generate(lm, {"tokens": torch.from_numpy(t[None])}, len(t),
                         40, 128)
         assert np.array_equal(out[f"r{i}"], want[0].cpu().numpy()), i
+
+
+# ---- the MoE family's head layouts and its captured engine ----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kv", [(56, 8), (16, 16)])
+def test_cuda_attention_at_the_moe_head_layouts(h, kv, dtype):
+    """D=128 at arctic's 7 query heads a KV head and moonshot's 16 over 16:
+    causal flash at S=1000 (bf16 at both limits, fp32 at 2e-4) and decode
+    over a [4,2112,KV,128] pool (bf16 at 5e-2 and the row limit, fp32 at
+    2e-4), each decode call made twice for the same bits."""
+    gen = _card()
+    q, k, v, rep = _flash_views(gen, dtype, 1000, 128, h=h, kv=kv)
+    got = ops.flash_attention(q, k, v, kv_group=rep)
+    want = ref.mha_ref(q, k, v, kv_group=rep)
+    if dtype == torch.bfloat16:
+        ok, err, rerr = parity.within_limits(got, want)
+        assert ok, (err, rerr)
+    else:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    tol = 5e-2 if dtype == torch.bfloat16 else 2e-4
+    q, kc, vc, ln = _decode_case(gen, dtype, 4, h, kv, 2112, 128,
+                                 (1, 300, 1000, 2112))
+    got = ops.decode_attention(q, kc, vc, ln)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention_ref(q, kc, vc, ln).float(),
+                               rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        want32 = parity.decode_want32(q, kc, vc, ln)
+        assert parity.row_err(got, want32) <= parity.DECODE_ROW_TOL
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, ln))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "arctic-480b"])
+def test_cuda_moe_graph_step_equals_eager_step_bitwise(arch):
+    """Reduced fp32 MoE at a capacity where routing the 4 slots jointly
+    drops: the engine's captured step, replayed over its pool, gives the
+    eager per-row step's logits and cache bit for bit, with no drop, and a
+    second replay from the same state gives the same bits again."""
+    _card()
+    from repro_torch.dist.plan import Plan
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import ContinuousBatcher
+    base = _small_lm(arch, n_layers=3)
+    lm = LM(base.cfg, dict(base.state_dict()), Plan(moe_capacity_factor=1.0))
+    drops = lm.count_moe_drops()      # before the capture, which keeps it
+    engine = ContinuousBatcher(lm, n_slots=4, cache_len=64)
+    gen = torch.Generator("cuda").manual_seed(5)
+    for buf in engine.pool["attn"].values():
+        buf.copy_(torch.randn(buf.shape, generator=gen, device="cuda"))
+    start = {k: v.clone() for k, v in engine.pool["attn"].items()}
+    engine._last_tok[:] = [3, 17, 250, 9]
+    engine._pos[:] = [5, 40, 63, 1]
+    drops.zero_()                     # the capture's warm-up step counted
+    first = engine._step().clone()
+    after = {k: v.clone() for k, v in engine.pool["attn"].items()}
+    for k, v in start.items():
+        engine.pool["attn"][k].copy_(v)
+    again = engine._step().clone()
+    torch.cuda.synchronize()
+    assert int(drops[1, 1]) == 0 and int(drops[1, 0]) == 2 * 3 * 4 * 2
+    assert torch.equal(first, again)
+    eager_pool = {"attn": {k: v.clone() for k, v in start.items()}}
+    toks = torch.tensor([[3], [17], [250], [9]], device="cuda")
+    pos = torch.tensor([5, 40, 63, 1], device="cuda")
+    want, _ = lm.decode_step(eager_pool, toks, pos, route_per_row=True)
+    assert torch.equal(first, want)
+    for k in after:
+        assert torch.equal(after[k], eager_pool["attn"][k])
+    drops.zero_()
+    lm.decode_step({"attn": {k: v.clone() for k, v in start.items()}},
+                   toks, pos)
+    assert int(drops[1, 1]) > 0

@@ -264,19 +264,21 @@ def test_init_cache_ring_and_int8_layout():
 
 
 def test_every_dense_config_is_supported():
-    """check_supported takes every dense config in configs/ and the int8
-    cache; it refuses logit soft caps and the other families, naming
-    ROADMAP item 8."""
+    """check_supported takes every dense and MoE config in configs/ and the
+    int8 cache; it refuses logit soft caps and the families still
+    unported, naming ROADMAP item 8."""
     dense = [c for c in ARCHS.values() if c.family == "dense"]
     assert {c.name for c in dense} >= {"granite-3-2b", "h2o-danube-1.8b",
                                        "nemotron-4-15b",
                                        "command-r-plus-104b"}
-    for c in dense:
+    served = dense + [c for c in ARCHS.values() if c.family == "moe"]
+    assert len(served) == len(dense) + 2
+    for c in served:
         check_supported(c, Plan(kv_cache_quant=True))
     with pytest.raises(NotImplementedError, match="item 8"):
         check_supported(dataclasses.replace(dense[0], logit_softcap=30.0))
     for c in ARCHS.values():
-        if c.family != "dense":
+        if c.family not in ("dense", "moe"):
             with pytest.raises(NotImplementedError, match="item 8"):
                 check_supported(c)
 

@@ -265,6 +265,68 @@ def test_decode_d80_padded_lanes_match_pallas(dtype):
                                                want32)[0]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kvh", [(14, 2), (16, 16)])
+def test_decode_row_passes_at_the_moe_groups_match_pallas(h, kvh, dtype):
+    """D = 128 at arctic's group of 7 query heads a KV head (bf16: 2 rows a
+    pass, 4 passes, the last half empty; fp32: 1 row a pass, 7 passes on
+    the 8-pass instantiation) and at moonshot's group of 1 over 16 KV rows
+    a slot (one pass).  Each row of the group is placed once and the rows
+    past it only in the last pass; the kernel's splits, lane sums and
+    passes, simulated with zero queries in the empty rows, against the
+    Pallas kernel (interpret mode) per slot on K/V repeated per query
+    head: 2e-4 in fp32, the bf16 limits in bf16."""
+    b, s_len, d = 2, 300, 128
+    rep = h // kvh
+    # a pass holds the rows whose lanes fill the warp; the kernel runs the
+    # passes on the smallest instantiation NP, a power of two, not below them
+    rows = 32 // da.lanes_per_row(d, dtype)
+    passes = -(-rep // rows)
+    n_pass = 1 << (passes - 1).bit_length()
+    want_plan = {(torch.bfloat16, 7): (2, 4, 4), (torch.float32, 7): (1, 7, 8),
+                 (torch.bfloat16, 1): (2, 1, 1), (torch.float32, 1): (1, 1, 1)}
+    assert (rows, passes, n_pass) == want_plan[(dtype, rep)]
+    assert rep <= da.max_group(d, dtype)
+    slots = [(i % rows, i // rows) for i in range(n_pass * rows)]
+    assert [lane + rows * p for lane, p in slots] == \
+        list(range(n_pass * rows))
+    assert all(p == passes - 1 or p >= passes
+               for i, (_, p) in enumerate(slots) if i >= rep)
+    lens = [1, 257]
+    rng = np.random.default_rng(17)
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 .to(dtype).float()
+                 for shape in ((b, h, d), (b, s_len, kvh, d),
+                               (b, s_len, kvh, d)))
+    # the warp's rows: the group's rep queries, then zeros to n_pass * rows
+    width = n_pass * rows
+    padded = torch.zeros(b, kvh, width, d)
+    padded[:, :, :rep] = q.reshape(b, kvh, rep, d)
+    sim = _simulate(padded.reshape(b, kvh * width, d), kc, vc, lens, dtype,
+                    _lane_dot(dtype))
+    got = sim.reshape(b, kvh, width, d)[:, :, :rep].reshape(b, h, d)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
+        jnp.asarray(q[bi].numpy(), jdt),
+        jnp.asarray(kc[bi].repeat_interleave(rep, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.asarray(vc[bi].repeat_interleave(rep, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.int32(lens[bi]), block_kv=100, interpret=True), np.float32))
+        for bi in range(b)])
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    else:
+        lens_t = torch.tensor(lens, dtype=torch.int32)
+        qb, kb, vb = (t.to(dtype) for t in (q, kc, vc))
+        plain = ref.decode_attention_ref(qb, kb, vb, lens_t)
+        want32 = parity.decode_want32(qb, kb, vb, lens_t)
+        for out in (got, want):
+            assert parity.within_decode_limits(out.to(dtype), plain,
+                                               want32)[0]
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_decode_bf16_limits_pass_tiled_kernels_and_reject_faults(d):
     """The card's bf16 decode limits (absolute, and row-scaled against the

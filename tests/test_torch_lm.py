@@ -152,20 +152,21 @@ def test_blockwise_plan_matches_port(pair):
 
 
 def test_refuses_what_the_slice_does_not_port(pair):
-    """Other families and logit soft caps are refused, naming ROADMAP item
-    8; every dense config (h2o-danube's window too) and the int8 KV cache
-    are not."""
+    """The families still unported and logit soft caps are refused, naming
+    ROADMAP item 8; every dense config (h2o-danube's window too), the MoE
+    family and the int8 KV cache are not."""
     cfg, _, _, _, lm = pair
     state = dict(lm.state_dict())
     for bad in (dataclasses.replace(cfg, logit_softcap=30.0),
                 get_config("mamba2-1.3b").reduced(),
-                get_config("moonshot-v1-16b-a3b").reduced()):
+                get_config("recurrentgemma-2b").reduced()):
         with pytest.raises(NotImplementedError, match="item 8"):
             init_params(bad, device="cpu")
         with pytest.raises(NotImplementedError, match="item 8"):
             LM(bad, state)
-    h2o = get_config("h2o-danube-1.8b").reduced()
-    LM(h2o, init_params(h2o, device="cpu"))
+    for ok in ("h2o-danube-1.8b", "moonshot-v1-16b-a3b", "arctic-480b"):
+        c = get_config(ok).reduced()
+        LM(c, init_params(c, device="cpu"))
     assert LM(cfg, state, Plan(kv_cache_quant=True)).plan.kv_cache_quant
     with pytest.raises(NotImplementedError, match="item 9"):
         lm.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.long)})
