@@ -54,7 +54,14 @@ argument it runs these phases, each printing its seconds:
                fp32 at 2e-4 at the MoE layouts), decode over their
                [4,2112,KV,128] pool in bf16 at 5e-2 and the row limit
                beside simulated faults and in fp32 at 2e-4, each call made
-               twice for the same bits;
+               twice for the same bits; recurrentgemma-2b's D=256 at 10
+               query heads over one KV head: flash under its 2048 window
+               at S=4096 and 1000 (bf16 at both limits beside simulated
+               faults, fp32 at 2e-4) and at windows straddling its 64-key
+               tiles (the bf16 sweep takes D=256 too), decode over its
+               [4,2048,1,256] ring at lens 1/1000/2048/2048 (bf16 at 5e-2
+               and the row limit beside simulated faults, fp32 at 2e-4,
+               each call twice for the same bits);
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
@@ -72,8 +79,11 @@ argument it runs these phases, each printing its seconds:
                the head groups of nemotron-4-15b and command-r-plus-104b
                (H=48 and 96 over KV=8, D=128; the prefill at S=2048 and
                1000 beside causal SDPA, decode over [4,2112,8,128] beside
-               masked SDPA), and the same at arctic-480b's 56 over 8 and
-               moonshot-v1-16b-a3b's 16 over 16 heads;
+               masked SDPA), the same at arctic-480b's 56 over 8 and
+               moonshot-v1-16b-a3b's 16 over 16 heads, and at
+               recurrentgemma-2b's D=256, 10 over 1 (the windowed S=4096
+               prefill beside SDPA with the boolean mask, S=1000 beside
+               causal GQA SDPA, the decode ring beside masked SDPA);
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
@@ -124,7 +134,28 @@ argument it runs these phases, each printing its seconds:
                dropped share of (token, k) pairs at each prefill length
                and requires every decode step's pairs routed with none
                dropped (each slot routed as its own group); the launch
-               counts are those of phases 6 and 7.
+               counts are those of phases 6 and 7;
+  9. recurrent the SSM and hybrid families through the same engine, 8
+               requests a cell: (i') mamba2-1.3b at full width, 2 of its 48
+               layers in fp32, prompts 1024 and 2048 (its SSD chunk of 256
+               must divide them), and (j') recurrentgemma-2b at full width,
+               5 of its 26 layers (one group of two recurrent blocks and a
+               local attention, and a tail of two) in fp32, prompts 1000
+               and 4096 (past its 2048 window), each with phase 6 (a)'s
+               checks (tokens equal to batch-1 ``generate``'s, graph logits
+               within 1e-5 of an eager engine's, one state's step replayed
+               twice for the same bits); then (i) mamba2-1.3b and (j)
+               recurrentgemma-2b whole in bf16 (cache_len 2112 and 4160)
+               with phase 8's metrics: the step beside its bytes bound
+               (the weights and the recurrent state read and written once,
+               the rings' valid rows), tokens per wall second, the idle
+               share of an unprofiled run, the prefill ms at each prompt
+               length, and the step's device time split into attention,
+               GEMMs, the scan and state updates (the ``ssm.state`` and
+               ``rglru.state`` ranges of an eager step) and the rest; one
+               flash launch per attention layer and prefill and one decode
+               launch per attention layer and step (8 each for (j), none
+               for (i)).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -203,6 +234,23 @@ FAMILY_CELLS = (
 # and cache_len; (g') is moonshot at 2 layers in fp32, the parity cell
 MOE_CELLS = (("g", "moonshot-v1-16b-a3b", None), ("h", "arctic-480b", 2))
 MOE_PARITY_ARCH = "moonshot-v1-16b-a3b"
+# recurrentgemma-2b (phase 3, phase 4 rows, phase 9 (j)): B, H, KV, S, D of
+# its 4096-token prefill under its 2048-token local-attention window, and
+# its 4-slot decode ring (W = 2048 slots) at a short, a mid and two full
+# (wrapped) rings
+GRIFFIN_FLASH = (1, 10, 1, 4096, 256)
+GRIFFIN_WINDOW = 2048
+GRIFFIN_DECODE = (4, 10, 1, 2048, 256)
+GRIFFIN_DECODE_LENS = (1, 1000, 2048, 2048)
+# phase 9: (label, arch, prompts, cache_len); 8 requests, one arrival a
+# tick, 4 slots, max_gen 64.  mamba2's prompts divide its SSD chunk of 256
+# (the JAX model asserts it); recurrentgemma's 4096 is past its window
+RECURRENT_CELLS = (("i", "mamba2-1.3b", (1024, 2048), 2112),
+                   ("j", "recurrentgemma-2b", (1000, 4096), 4160))
+# the parity cells (i') and (j'): layers kept, in fp32 (recurrentgemma's 5
+# are one group of (recurrent, recurrent, local attention) and a tail of
+# two recurrent blocks, the whole model's 8 x 3 + 2 in small)
+RECURRENT_PARITY_LAYERS = {"i": 2, "j": 5}
 
 
 class SmokeFailure(RuntimeError):
@@ -543,11 +591,12 @@ def check_flash_bf16(what: str, got, want) -> float:
     return err
 
 
-def check_flash_faults(what: str, q, k, v, rep: int, want) -> None:
+def check_flash_faults(what: str, q, k, v, rep: int, want,
+                       window: int = 0) -> None:
     """The bf16 flash limits must reject kernel faults that only late rows
     show, simulated on the plain version (``kernels/parity.py``)."""
     from repro_torch.kernels import parity
-    for fault, bad in parity.fault_controls(q, k, v, rep).items():
+    for fault, bad in parity.fault_controls(q, k, v, rep, window).items():
         ok, ferr, frerr = parity.within_limits(bad, want)
         print(f"    control, {fault:26s} max_abs_err {ferr:.3e}  "
               f"row_err {frerr:.3e}  {'PASSES' if ok else 'rejected'}")
@@ -587,7 +636,8 @@ def check_decode_rows(what: str, got, q, kc, vc, lens, readings,
     if chunk is None:
         return
     for fault, bad in parity.decode_fault_controls(
-            q, kc, vc, lens, chunk, da.KEY_TILE[q.dtype]).items():
+            q, kc, vc, lens, chunk,
+            da.warp_tile(q.shape[-1], q.dtype)).items():
         frerr = parity.row_err(bad, want32)
         print(f"    control, {fault:34s} row_err {frerr:.3e}  "
               f"{'PASSES' if frerr <= parity.DECODE_ROW_TOL else 'rejected'}")
@@ -745,6 +795,7 @@ def check_attention(ops, ref, gen):
         require_same_bits(f"{what}, called twice", got,
                           ops.decode_attention(q, kc, vc, ln))
     check_wide_groups(ops, ref, gen, readings)
+    check_head_dim_256(ops, ref, gen, readings)
     print(f"  decode bf16 row_err: largest sound reading "
           f"{readings['sound']:.3e}, limit {parity.DECODE_ROW_TOL}, smallest "
           f"fault reading {readings['fault']:.3e}")
@@ -805,6 +856,59 @@ def check_wide_groups(ops, ref, gen, readings):
                                   decode_plan(dtype, shape).chunk)
             require_same_bits(f"{what}, called twice", got,
                               ops.decode_attention(q, kc, vc, ln))
+
+
+def check_head_dim_256(ops, ref, gen, readings):
+    """Phase 3: recurrentgemma-2b's local attention, D=256 with 10 query
+    heads over one KV head (the bf16 flash kernel's own 64-key tile; the
+    decode kernel's 10 row passes, fp32 two chunks a lane).  Flash at B=1
+    under the 2048 window at S=4096 (past it) and S=1000 (within it), bf16
+    at both limits beside the simulated faults (with the window), fp32 at
+    2e-4, and at windows that straddle the 64-key tiles (the sweep above
+    covers S around them without one); decode over the [4,2048,1,256] ring
+    at lens 1/1000/2048/2048, bf16 at 5e-2 and the row limit beside
+    simulated faults, fp32 at 2e-4, each call made twice for the same
+    bits."""
+    _, h, kv, s_main, d = GRIFFIN_FLASH
+    w_main = GRIFFIN_WINDOW
+    print(f" flash and decode attention at D={d}, H={h} over KV={kv} "
+          f"(recurrentgemma-2b): flash at S={s_main} and {FLASH_RAGGED_S} "
+          f"under window {w_main}, and S=300 under windows 63 and 129, "
+          f"bf16 at both limits beside simulated faults, fp32 at 2e-4; "
+          f"decode over {list(GRIFFIN_DECODE)} at lens "
+          f"{GRIFFIN_DECODE_LENS}, bf16 at 5e-2 and the row limit, fp32 at "
+          f"2e-4, called twice")
+    for dtype in (torch.bfloat16, torch.float32):
+        for s, w in ((s_main, w_main), (FLASH_RAGGED_S, w_main), (300, 63),
+                     (300, 129)):
+            q, k, v, rep = flash_inputs(gen, s, dtype, h=h, kv=kv, d=d)
+            what = f"flash H={h} KV={kv} S={s} D={d} window {w} {dtype}"
+            want = ref.mha_ref(q, k, v, kv_group=rep, window=w)
+            got = ops.flash_attention(q, k, v, kv_group=rep, window=w)
+            if dtype == torch.float32:
+                check_close(what, got, want, 2e-4)
+            else:
+                check_flash_bf16(what, got, want)
+                if s >= FLASH_RAGGED_S:
+                    check_flash_faults(what, q, k, v, rep, want, w)
+            del want, got
+    from repro_torch.kernels import decode_attention as da
+    b, _, _, s_pool, _ = GRIFFIN_DECODE
+    for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+        q, kc, vc, ln = decode_inputs(gen, dtype, *GRIFFIN_DECODE,
+                                      GRIFFIN_DECODE_LENS)
+        what = f"decode {b}x{h} over [{b},{s_pool},{kv},{d}] {dtype}"
+        print(f"    {what}: {da.lanes_per_row(d, dtype)} lanes a row, "
+              f"{da.chunks_per_lane(d, dtype)} chunk(s) a lane, "
+              f"{h // kv} passes, warp tiles of "
+              f"{da.warp_tile(d, dtype)} keys")
+        got = ops.decode_attention(q, kc, vc, ln)
+        check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln), tol)
+        if dtype == torch.bfloat16:
+            check_decode_rows(what, got, q, kc, vc, ln, readings,
+                              decode_plan(dtype, GRIFFIN_DECODE).chunk)
+        require_same_bits(f"{what}, called twice", got,
+                          ops.decode_attention(q, kc, vc, ln))
 
 
 def time_kernels(ops, ref):
@@ -910,13 +1014,21 @@ def attended_pairs(s: int, window: int = 0) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
+def sdpa_kind(s, window) -> str:
+    """The SDPA call that :func:`flash_case` times beside a prefill of S
+    keys under ``window`` (0: none)."""
+    return ("boolean causal-and-window mask" if window and window < s
+            else "causal")
+
+
 def flash_case(ops, ref, gen, s, d, window=0, h=FLASH_MAIN[1],
                kv=FLASH_MAIN[2]):
     """Causal bf16 prefill at B=1 (H=32 over KV=8 unless given): (kernel,
     plain, SDPA) calls and the bound (4 FLOP per attended (query, key) pair
     and head dim; q, k, v read and o written once), held to the bf16
-    tensor-core peak.  Under a window SDPA takes the boolean
-    causal-and-window mask."""
+    tensor-core peak.  Under a window shorter than S, SDPA takes the
+    boolean causal-and-window mask; a window of at least S masks nothing
+    the causal mask keeps, so SDPA is then causal."""
     b = FLASH_MAIN[0]
     q, k, v, rep = flash_inputs(gen, s, torch.bfloat16, h=h, kv=kv, d=d)
     q4, k4, v4 = q.reshape(b, h, s, d), k.reshape(b, kv, s, d), \
@@ -924,7 +1036,7 @@ def flash_case(ops, ref, gen, s, d, window=0, h=FLASH_MAIN[1],
     t_bound, by = bound(4.0 * b * h * d * attended_pairs(s, window),
                         2.0 * (2 * b * h * s * d + 2 * b * kv * s * d),
                         BF16_PEAK_FLOPS)
-    if window:
+    if window and window < s:
         pos = torch.arange(s, device="cuda")
         diff = pos[:, None] - pos[None, :]
         mask = (diff >= 0) & (diff < window)
@@ -1061,16 +1173,22 @@ def time_family_rows(ops, ref, gen):
     """Phase 4, the kernel shapes that phase 7 adds, each beside its bound,
     its plain version and SDPA: h2o-danube's bf16 prefill at D=80, S=5000
     under its 4096 window (SDPA with the boolean causal-and-window mask)
-    and without it (causal SDPA), and S=1000 under the window; its decode
+    and without it, and S=1000 under the window (causal SDPA both: the
+    window masks nothing at S=1000); its decode
     pool [4,4096,8,80] at lengths 1/1000/4096/4096 (masked SDPA); and at
     D=128 with 6 and 12 query heads a KV head (nemotron-4-15b,
     command-r-plus-104b), the prefill at S=2048 and 1000 and the decode
     pool [4,2112,8,128] at the serving lengths; the same at arctic-480b's
     56 over 8 and moonshot-v1-16b-a3b's 16 over 16 query heads (decode
-    over [4,2112,KV,128])."""
+    over [4,2112,KV,128]); and recurrentgemma-2b's D=256 at 10 query heads
+    over one KV head: the prefill under its 2048 window at S=4096 (SDPA
+    with the boolean causal-and-window mask) and S=1000 (causal GQA SDPA:
+    the window masks nothing there), the decode ring [4,2048,1,256] at
+    lengths 1/1000/2048/2048 (masked SDPA)."""
     d = H2O_FLASH[4]
     cases = [(f"flash_attention S={s} D={d} window {w} "
-              f"({attended_pairs(s, w) / 1e6:.2f} M pairs a head)",
+              f"({attended_pairs(s, w) / 1e6:.2f} M pairs a head; SDPA "
+              f"{sdpa_kind(s, w)})",
               flash_case(ops, ref, gen, s, d, w), 50, 3)
              for s, w in ((H2O_FLASH[3], H2O_WINDOW), (H2O_FLASH[3], 0),
                           (FLASH_RAGGED_S, H2O_WINDOW))]
@@ -1091,6 +1209,20 @@ def time_family_rows(ops, ref, gen):
                       f"{DECODE_MAIN_LENS}",
                       decode_case(ops, ref, gen, shape, DECODE_MAIN_LENS),
                       200, 50))
+    _, h, kv, s_main, d = GRIFFIN_FLASH
+    for s in (s_main, FLASH_RAGGED_S):
+        cases.append((f"flash_attention H={h} KV={kv} S={s} D={d} window "
+                      f"{GRIFFIN_WINDOW} "
+                      f"({attended_pairs(s, GRIFFIN_WINDOW) / 1e6:.2f} M "
+                      f"pairs a head; SDPA {sdpa_kind(s, GRIFFIN_WINDOW)})",
+                      flash_case(ops, ref, gen, s, d, GRIFFIN_WINDOW, h=h,
+                                 kv=kv),
+                      50, 3))
+    cases.append((f"decode_attention over {list(GRIFFIN_DECODE)} at {h} "
+                   f"query heads, lens {GRIFFIN_DECODE_LENS}",
+                   decode_case(ops, ref, gen, GRIFFIN_DECODE,
+                               GRIFFIN_DECODE_LENS),
+                   200, 50))
     for what, (kernel, plain, library, t_bound, by), iters, plain_iters \
             in cases:
         row, dev = time_row(kernel, plain, library, t_bound, by,
@@ -1101,8 +1233,8 @@ def time_family_rows(ops, ref, gen):
 def decode_plan(dtype, shape=DECODE_MAIN):
     """The decode kernel's splits at ``shape`` (B, H, KV, S, D)."""
     from repro_torch.kernels import decode_attention as da
-    b, _, kv, s, _ = shape
-    return da.plan(b * kv, s, da.KEY_TILE[dtype])
+    b, h, kv, s, d = shape
+    return da.plan(b, h, kv, s, d, dtype)
 
 
 def device_kernels(fn) -> list:
@@ -1247,12 +1379,19 @@ def smoke_batcher(lm, cache_len: int, *, eager: bool = False,
     return engine
 
 
+def attention_layers(lm) -> int:
+    """The LM's attention layers (the hybrid's local attention blocks; none
+    in the SSM)."""
+    from repro_torch.models.lm import DenseBlock
+    return sum(isinstance(blk, DenseBlock) for blk in lm.layers)
+
+
 def check_engine_run(engine, lm, reqs, out, launches, label: str):
-    """Every request complete, no NaN logit, flash once per layer and
-    prefill, decode once per layer and step (none under the int8 cache,
-    whose decode attention is plain torch), no planner kernel, and no step
-    run from Python where the graph replays."""
-    n_layers = lm.cfg.n_layers
+    """Every request complete, no NaN logit, flash once per attention layer
+    and prefill, decode once per attention layer and step (none under the
+    int8 cache, whose decode attention is plain torch), no planner kernel,
+    and no step run from Python where the graph replays."""
+    n_layers = attention_layers(lm)
     quant = lm.plan.kv_cache_quant
     print(f"  ({label}) engine calls {engine.calls}, kernel launches "
           f"{launches}, decode steps run from Python {lm.eager_steps}")
@@ -1359,7 +1498,8 @@ def step_times(engine, lm, prompts, label: str, eager_too: bool = True):
     return got["graph replay"]
 
 
-def reference_tokens(ops, lm, reqs, label: str):
+def reference_tokens(ops, lm, reqs, label: str,
+                     cache_len: int = SERVE_CACHE_LEN):
     """Batch-1 ``generate`` per request (the sequential reference), each
     with its launches counted."""
     from repro_torch.launch.serve import generate
@@ -1367,9 +1507,9 @@ def reference_tokens(ops, lm, reqs, label: str):
     for r in reqs:
         ops.reset_launch_counts()
         toks = generate(lm, {"tokens": torch.from_numpy(r.tokens[None])},
-                        r.prompt_len, r.max_gen, SERVE_CACHE_LEN)
+                        r.prompt_len, r.max_gen, cache_len)
         got = ops.launch_counts()
-        n_layers = lm.cfg.n_layers
+        n_layers = attention_layers(lm)
         require(got["flash_attention"] == n_layers
                 and got["decode_attention"] == n_layers * (r.max_gen - 1),
                 f"({label}) generate {r.rid}: launches {got}")
@@ -1405,7 +1545,8 @@ def print_profile(what: str, wall_ms: float, fn, iters: int,
 
 
 def pool_bytes(engine) -> int:
-    return sum(t.nbytes for t in engine.pool["attn"].values())
+    from repro_torch.models.lm import slot_leaves
+    return sum(t.nbytes for _, t, _ in slot_leaves(engine.pool))
 
 
 def run_serve(ops):
@@ -1873,6 +2014,209 @@ def moe_drop_layers(lm, req, label: str) -> None:
           f"{first[4]:.3f} / {last[4]:.3f}")
 
 
+def run_recurrent(ops):
+    """Phase 9: the recurrent families through the captured engine, 8
+    requests a cell (one arrival a tick, 4 slots, max_gen 64 in bf16,
+    phase 6 (a)'s mixed max_gen in fp32), each model freed before the next:
+    the parity cell of each family, then the whole model in bf16; returns
+    the flash and decode launches summed over (i) and (j)."""
+    from repro_torch.configs import get_config
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for label, arch, prompts, cache_len in RECURRENT_CELLS:
+        check_recurrent_parity(ops, label, arch, prompts, cache_len)
+        cfg = get_config(arch)
+        lm = watched_lm(cfg, seed=2)
+        print(f" ({label}) {arch}: full width and depth ({describe(cfg)}), "
+              f"all {cfg.n_layers} layers, bfloat16, {weights(lm)}; prompts "
+              f"{prompts}, cache_len {cache_len}")
+        reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1,
+                           prompts=prompts)
+        engine, out, wall, launches = serve_engine(ops, lm, reqs, label,
+                                                   cache_len=cache_len)
+        for k in total:
+            total[k] += launches[k]
+        want_attn = attention_layers(lm) * len(reqs)
+        print(f"  ({label}) {attention_layers(lm)} attention layers: "
+              f"{launches['flash_attention']} flash launches over "
+              f"{len(reqs)} prefills (want {want_attn}), "
+              f"{launches['decode_attention']} decode launches over "
+              f"{engine.calls['decode_step']} graph replays")
+        n_tok = sum(len(t) for t in out.values())
+        print(f"  ({label}) wall {wall:.2f} s, {n_tok} tokens, "
+              f"{n_tok / wall:.1f} generated tokens per wall second; pool "
+              f"{pool_bytes(engine) / 1e9:.3f} GB")
+        if cfg.family == "hybrid":
+            ring = engine.pool["groups"]["b2"]["k"].shape[2]
+            require(ring == min(cache_len, cfg.window) < max(prompts),
+                    f"({label}) the local attention's pool is not a ring "
+                    f"shorter than the longest prompt")
+        step_wall, step_dev = step_times(engine, lm, prompts, label,
+                                         eager_too=False)
+        recurrent_step_bound(lm, engine, step_dev, label)
+        w, t, busy, n = engine_idle_share(lm, reqs, cache_len, False)
+        print(f"  ({label}) graph engine: {busy / 1e3:.3f} s of device time "
+              f"in {n} kernels (a profiled run); device idle "
+              f"{1 - busy / (w * 1e3):.1%} of an unprofiled run's {w:.2f} s "
+              f"wall ({1 - busy / (t * 1e3):.1%} of the profiled run's "
+              f"{t:.2f} s)")
+        for r in reqs[:len(prompts)]:
+            batch = {"tokens": torch.from_numpy(r.tokens[None])}
+            lm.prefill(batch, cache_len)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                lm.prefill(batch, cache_len)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+            dev_ms = device_profile(lambda: lm.prefill(batch, cache_len),
+                                    2)[0]
+            print(f"  ({label}) prefill of {r.prompt_len} tokens: "
+                  f"{prefill_ms:.2f} ms wall (host clock, synchronised), "
+                  f"{dev_ms:.2f} ms device")
+        recurrent_step_split(lm, engine, label)
+        del lm, engine
+        free_card()
+    return total
+
+
+def describe(cfg) -> str:
+    """The widths of an SSM or hybrid config, as printed."""
+    if cfg.family == "ssm":
+        m = cfg.ssm
+        return (f"d_model {cfg.d_model}, d_inner {m.d_inner(cfg.d_model)}, "
+                f"{m.n_heads(cfg.d_model)} SSD heads of {m.headdim}, d_state "
+                f"{m.d_state}, chunk {m.chunk}")
+    return (f"d_model {cfg.d_model}, LRU width {cfg.hybrid.lru_width}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
+            f"window {cfg.window}, d_ff {cfg.d_ff} {cfg.ffn_act}, pattern "
+            f"{'/'.join(cfg.hybrid.pattern)}")
+
+
+def check_recurrent_parity(ops, label, arch, prompts, cache_len) -> None:
+    """(i') and (j'): the family at full width and a few layers in fp32,
+    phase 6 (a)'s mixed max_gen: the graph-replayed logits within 1e-5 of
+    an eager engine's, one state's step replayed twice for the same bits,
+    and greedy tokens equal to batch-1 ``generate``'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import slot_leaves
+    n_layers = RECURRENT_PARITY_LAYERS[label]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32", param_dtype="float32")
+    lm = watched_lm(cfg, seed=0)
+    tag = f"{label}'"
+    print(f" ({tag}) {arch} full width ({describe(cfg)}), {n_layers} of "
+          f"{get_config(arch).n_layers} layers, float32, {weights(lm)}: 8 "
+          f"staggered requests, prompts {prompts}, max_gen {SERVE_GENS}, "
+          f"{SERVE_SLOTS} slots, cache_len {cache_len}; the graph engine "
+          f"beside an eager one")
+    reqs = serve_trace(cfg, SERVE_GENS, seed=0, prompts=prompts)
+    graph_engine, out, wall, _ = serve_engine(ops, lm, reqs, tag,
+                                              record=True,
+                                              cache_len=cache_len)
+    eager_engine, _, wall_e, _ = serve_engine(
+        ops, lm, reqs, f"{tag}, eager", eager=True, record=True,
+        cache_len=cache_len)
+    require(len(graph_engine.logits) == len(eager_engine.logits),
+            f"({tag}) the graph and eager engines ran different step counts")
+    step_err = max(max_abs_err(g, e) for g, e in zip(graph_engine.logits,
+                                                     eager_engine.logits))
+    print(f"  ({tag}) {len(graph_engine.logits)} steps: graph-replayed "
+          f"logits within {step_err:.3e} of the eager engine's (limit 1e-5);"
+          f" wall {wall:.2f} s (graph) against {wall_e:.2f} s (eager)")
+    require(step_err <= 1e-5, f"({tag}) graph-replayed logits differ from "
+            f"the eager engine's by more than 1e-5")
+    start = [buf.clone() for _, buf, _ in slot_leaves(graph_engine.pool)]
+    graph_engine._last_tok[:] = np.arange(SERVE_SLOTS) * 7
+    graph_engine._pos[:] = [prompts[i % 2] + 32 for i in range(SERVE_SLOTS)]
+    first = graph_engine._step().clone()
+    for (_, buf, _), s0 in zip(slot_leaves(graph_engine.pool), start):
+        buf.copy_(s0)
+    require_same_bits(f"({tag}) one state's decode step replayed twice",
+                      first, graph_engine._step(), "the recurrent step is "
+                      "not deterministic")
+    want = reference_tokens(ops, lm, reqs, tag, cache_len)
+    same = [np.array_equal(out[r.rid], want[r.rid]) for r in reqs]
+    print(f"  ({tag}) tokens identical to batch-1 generate for {sum(same)}/"
+          f"{len(reqs)} requests (graph engine)")
+    require(all(same), f"({tag}) engine tokens differ from batch-1 generate")
+    del lm, graph_engine, eager_engine
+    free_card()
+
+
+def recurrent_step_bound(lm, engine, step_dev: float, label: str) -> None:
+    """The graph-replayed step's device time against the bytes it must
+    move at the state ``step_times`` timed: every weight read once (the
+    tied embedding table is read whole as the unembedding), the recurrent
+    state (conv windows, SSD states, RG-LRU h) read and written once, and
+    the local attention's rings read up to each slot's length."""
+    from repro_torch.models.lm import layer_caches
+    nbytes = sum(t.nbytes for t in lm.state_dict().values())
+    state = ring = 0
+    for layer in layer_caches(lm.cfg, engine.pool):
+        for name, buf in layer.items():
+            if name in ("k", "v"):      # a ring [B, W, KV, D]
+                w = buf.shape[1]
+                rows = sum(min(int(p) + 1, w) for p in engine._pos)
+                ring += buf[0, 0].nbytes * rows
+            else:
+                state += 2 * buf.nbytes
+    t_bound = (nbytes + state + ring) / HBM_BYTES_PER_S * 1e3
+    print(f"  ({label}) decode step bound: the weights read once "
+          f"({nbytes / 1e9:.2f} GB), the recurrent state read and written "
+          f"once ({state / 1e9:.3f} GB), the rings' valid rows read "
+          f"({ring / 1e9:.3f} GB) at 3.35 TB/s = {t_bound:.3f} ms; the "
+          f"step's device time is {step_dev / t_bound:.2f}x that")
+
+
+def recurrent_step_split(lm, engine, label: str) -> None:
+    """Where a decode step's device time goes: a graph replay's kernels by
+    name (decode attention, cuBLAS GEMMs, the rest), and an eager step's
+    split into decode attention and GEMMs (by kernel name), the scan and
+    state updates (the ``ssm.state`` / ``rglru.state`` ranges of
+    ``models/ssm.py`` and ``models/rglru.py``: the conv, the gates'
+    elementwise math, the state update and readout; no GEMM runs there) and
+    the rest (norms, RoPE, the FFNs' activations, cache writes, the
+    unembedding's mask).  Fails where the ranges get no device time."""
+    from torch.profiler import ProfilerActivity
+    dev_ms, kernels, _ = device_profile(engine._step, 5)
+    attn = sum(ms for n, ms in kernels if "decode_kernel" in n)
+    gemm = sum(ms for n, ms in kernels
+               if any(g in n for g in GEMM_NAMES) and "decode_kernel" not in n)
+    rest = dev_ms - attn - gemm
+    print(f"  ({label}) graph replay, {dev_ms:.3f} ms of device time: decode "
+          f"attention {attn:.3f} ms ({attn / dev_ms:.1%}), cuBLAS GEMMs "
+          f"{gemm:.3f} ({gemm / dev_ms:.1%}), the rest {rest:.3f} "
+          f"({rest / dev_ms:.1%}); heaviest kernels:")
+    for name, ms in kernels[:6]:
+        print(f"      {ms:8.4f}  {name[:90]}")
+    toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.from_numpy(engine._pos.copy()).cuda()
+
+    def step():
+        lm.decode_step(engine.pool, toks, pos)
+    step()
+    torch.cuda.synchronize()
+    prof, traced = traced_kernels(step, [ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+    tag = "ssm.state" if lm.cfg.family == "ssm" else "rglru.state"
+    traced = [(n, ms) for n, ms in traced if n != tag]
+    total = sum(ms for _, ms in traced)
+    attn = sum(ms for n, ms in traced if "decode_kernel" in n)
+    gemm = sum(ms for n, ms in traced
+               if any(g in n for g in GEMM_NAMES) and "decode_kernel" not in n)
+    state = sum(e.device_time_total for e in prof.events()
+                if e.name == tag
+                and not str(e.device_type).endswith("CUDA")) / 1e3
+    rest = total - attn - gemm - state
+    print(f"  ({label}) eager step, {len(traced)} kernels, {total:.3f} ms of "
+          f"device time: decode attention {attn:.3f} ({attn / total:.1%}), "
+          f"GEMMs {gemm:.3f} ({gemm / total:.1%}), scan and state updates "
+          f"({tag}) {state:.3f} ({state / total:.1%}), the rest {rest:.3f} "
+          f"({rest / total:.1%})")
+    require(state > 0, f"({label}) the profiler put no device time under "
+            f"the {tag} range: the step's split is not measured")
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, through the wrapper calls that every
@@ -1965,9 +2309,11 @@ def main() -> int:
         family = run_family(ops, b_pool)
     with phase("8 moe"):
         moe_cells = run_moe(ops)
+    with phase("9 recurrent"):
+        recurrent = run_recurrent(ops)
     # flash and decode: the serving cells' launches, each cell counted
-    # from 0 on its own (6 b, 7 c-f and 8 g-h)
-    launches.update({k: served[k] + family[k] + moe_cells[k]
+    # from 0 on its own (6 b, 7 c-f, 8 g-h and 9 i-j)
+    launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]
                      for k in family})
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",

@@ -22,20 +22,29 @@
 // the host sizes ``chunk`` from the shape (kernels/decode_attention.py,
 // ``plan``) so the live blocks fill the card.
 // - Each of the 8 warps owns every eighth tile of TK keys of the split (16
-//   in bf16, 8 in fp32) and brings them in with 16-byte cp.async (LDGSTS)
-//   into its own ring of STAGES tiles, K and V together, so two tiles per
-//   warp are in flight while one is used; keys past the slot's length are
-//   zero-filled, never read.  No block barrier until the end.
+//   in bf16, 8 in fp32; half that at D = 256, so that the 8 warps' rings
+//   stay within 192 KB of shared memory) and brings them in with 16-byte
+//   cp.async (LDGSTS) into its own ring of STAGES tiles, K and V together,
+//   so two tiles per warp are in flight while one is used; keys past the
+//   slot's length are zero-filled, never read.  No block barrier until the
+//   end.
 // - A lane owns one 16-byte chunk of D (8 bf16 or 4 fp32) for one query row
 //   of the group, and NP rows in NP passes where a warp's 32 lanes hold
 //   fewer than rep rows.  A row takes LPR lanes, its chunk count rounded up
 //   to a power of two (D = 80: 10 chunks in bf16 on 16 lanes, 20 in fp32 on
 //   32), so that the xor shuffles stay inside a row; the lanes past the
-//   row's chunks hold zero queries, load nothing and store nothing.  The
-//   group's rep = H / KV query rows sit in registers as fp32, so every K/V
-//   byte serves all of them.  A score is the lanes' partial dot products
-//   reduced with xor shuffles over the row's lanes; the online softmax and
-//   the PV accumulator stay in registers, replicated over the row's lanes.
+//   row's chunks hold zero queries, load nothing and store nothing.  A row
+//   of more than 32 chunks (fp32 at D = 256: 64) takes the whole warp, and
+//   each lane CPL chunks, c and c + 32, so that a warp's loads of one chunk
+//   column stay contiguous.  The group's rep = H / KV query rows sit in
+//   registers as fp32, so every K/V byte serves all of them; a lane holds
+//   at most 80 query elements (NP * CPL * 8 bf16 or 4 fp32 each) and as
+//   many accumulators.  The instantiated pass counts take rep * padded D
+//   <= 2048, and at D = 256 recurrentgemma's 10 query heads over one KV
+//   head in 10 passes.  A score is the
+//   lanes' partial dot products reduced with xor shuffles over the row's
+//   lanes; the online softmax and the PV accumulator stay in registers,
+//   replicated over the row's lanes.
 // - Scores are kept in the log2 domain (scaled by scale * log2(e)), so each
 //   exponential is one exp2f.  D is a template parameter, so the lane and
 //   copy arithmetic compiles to shifts.
@@ -64,11 +73,12 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int STAGES = 3;
 constexpr int MERGE_BATCH = 8;  // splits whose partials one load batch reads
+constexpr int MAX_LANE_ELEMS = 80;     // NP * CPL * EPC: a lane's q floats
 
 template <typename T> struct Traits;
 template <> struct Traits<float> {
   static constexpr int EPC = 4;   // elements per 16-byte chunk
-  static constexpr int TK = 8;    // keys per warp tile
+  static constexpr int TK = 8;    // keys per warp tile (the host's key tile)
 };
 template <> struct Traits<__nv_bfloat16> {
   static constexpr int EPC = 8;
@@ -106,17 +116,32 @@ template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// lanes a query row of ``chunks`` 16-byte chunks takes: the next power of 2
+// lanes a query row of ``chunks`` 16-byte chunks takes: the next power of
+// 2, at most the warp's 32
 __host__ __device__ constexpr int lanes_per_row(int chunks) {
   int l = 1;
-  while (l < chunks) l *= 2;
+  while (l < chunks && l < 32) l *= 2;
   return l;
+}
+
+// keys of one warp tile at head dim D: the host's key tile, halved at
+// D = 256 (a chunk of keys is always whole warp tiles)
+template <typename T, int D>
+__host__ __device__ constexpr int warp_tile() {
+  return D > 128 ? Traits<T>::TK / 2 : Traits<T>::TK;
+}
+
+// the largest power of two <= n (n >= 1)
+__host__ __device__ constexpr int floor_pow2(int n) {
+  int p = 1;
+  while (2 * p <= n) p *= 2;
+  return p;
 }
 
 template <typename T, int D>
 size_t smem_bytes(int rep) {
   const size_t ring =
-      (size_t)WARPS * STAGES * 2 * Traits<T>::TK * D * sizeof(T);
+      (size_t)WARPS * STAGES * 2 * warp_tile<T, D>() * D * sizeof(T);
   const size_t merge = (size_t)WARPS * rep * (D + 2) * sizeof(float);
   return ring > merge ? ring : merge;
 }
@@ -130,12 +155,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               int chunk, int n_splits, float scale) {
   constexpr int d = D;
   constexpr int EPC = Traits<T>::EPC;
-  constexpr int TK = Traits<T>::TK;
-  constexpr int cpr = D / EPC;      // 16-byte chunks per row: 2..32
+  constexpr int TK = warp_tile<T, D>();
+  constexpr int cpr = D / EPC;      // 16-byte chunks per row: 2..64
   constexpr int lpr = lanes_per_row(cpr);  // lanes per row: a power of two
+  constexpr int CPL = (cpr + lpr - 1) / lpr;  // chunks per lane: 1 or 2
+  constexpr int LE = CPL * EPC;     // a lane's elements of a row
   constexpr int rp = 32 / lpr;      // query rows per pass of the warp
   static_assert(TK * cpr % 32 == 0, "a tile is whole chunks for every lane");
-  constexpr int SUB = 32 / NP < TK ? 32 / NP : TK;  // keys per softmax step
+  static_assert(NP * LE <= MAX_LANE_ELEMS, "a lane's rows exceed its budget");
+  // keys per softmax step: a power of two, so that the steps tile TK
+  constexpr int SUB = floor_pow2(32 / NP < TK ? 32 / NP : TK);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
 
@@ -149,23 +178,39 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int c = lane % lpr;   // this lane's chunk of D (none if c >= cpr)
+  const int c = lane % lpr;   // this lane's first chunk of D
   const int rsub = lane / lpr;
-  const bool has_chunk = c < cpr;
+  // chunk u of this lane is c + lpr * u; none past the row's chunks
+  auto has_chunk = [&](int u) { return c + lpr * u < cpr; };
+  // a row's LE elements of this lane from ``row`` (zeros past its chunks)
+  auto load_lane = [&](const T* row, float (&f)[LE]) {
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      float tmp[EPC];
+      if (has_chunk(u)) {
+        unpack(row + (c + lpr * u) * EPC, tmp);
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPC; ++e) tmp[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) f[u * EPC + e] = tmp[e];
+    }
+  };
 
   // the group's query rows (their loads overlap the length's)
-  float qr[NP][EPC], acc[NP][EPC], m[NP], l[NP];
+  float qr[NP][LE], acc[NP][LE], m[NP], l[NP];
 #pragma unroll
   for (int r = 0; r < NP; ++r) {
     const int row = rsub + rp * r;
-    if (row < rep && has_chunk) {
-      unpack(q + (size_t)(head0 + row) * d + c * EPC, qr[r]);
+    if (row < rep) {
+      load_lane(q + (size_t)(head0 + row) * d, qr[r]);
     } else {
 #pragma unroll
-      for (int e = 0; e < EPC; ++e) qr[r][e] = 0.f;
+      for (int e = 0; e < LE; ++e) qr[r][e] = 0.f;
     }
 #pragma unroll
-    for (int e = 0; e < EPC; ++e) acc[r][e] = 0.f;
+    for (int e = 0; e < LE; ++e) acc[r][e] = 0.f;
     m[r] = NEG_INF;
     l[r] = 0.f;
   }
@@ -227,18 +272,13 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       float sc[NP][SUB];
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
-        float kf[EPC];
-        if (has_chunk) {
-          unpack(ks + (j0 + jj) * d + c * EPC, kf);
-        } else {
-#pragma unroll
-          for (int e = 0; e < EPC; ++e) kf[e] = 0.f;
-        }
+        float kf[LE];
+        load_lane(ks + (j0 + jj) * d, kf);
 #pragma unroll
         for (int r = 0; r < NP; ++r) {
           float s = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) s = fmaf(qr[r][e], kf[e], s);
+          for (int e = 0; e < LE; ++e) s = fmaf(qr[r][e], kf[e], s);
           sc[r][jj] = s;
         }
       }
@@ -268,21 +308,16 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         l[r] = l[r] * corr + sum;
         m[r] = mx;
 #pragma unroll
-        for (int e = 0; e < EPC; ++e) acc[r][e] *= corr;
+        for (int e = 0; e < LE; ++e) acc[r][e] *= corr;
       }
 #pragma unroll
       for (int jj = 0; jj < SUB; ++jj) {
-        float vf[EPC];
-        if (has_chunk) {
-          unpack(vs + (j0 + jj) * d + c * EPC, vf);
-        } else {
-#pragma unroll
-          for (int e = 0; e < EPC; ++e) vf[e] = 0.f;
-        }
+        float vf[LE];
+        load_lane(vs + (j0 + jj) * d, vf);
 #pragma unroll
         for (int r = 0; r < NP; ++r)
 #pragma unroll
-          for (int e = 0; e < EPC; ++e)
+          for (int e = 0; e < LE; ++e)
             acc[r][e] = fmaf(sc[r][jj], vf[e], acc[r][e]);
       }
     }
@@ -297,14 +332,19 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
   for (int r = 0; r < NP; ++r) {
     const int row = rsub + rp * r;
-    if (row >= rep || !has_chunk) continue;
+    if (row >= rep) continue;
     if (c == 0) {
       wm[warp * rep + row] = m[r];
       wl[warp * rep + row] = l[r];
     }
 #pragma unroll
-    for (int e = 0; e < EPC; ++e)
-      wacc[(warp * rep + row) * d + c * EPC + e] = acc[r][e];
+    for (int u = 0; u < CPL; ++u) {
+      if (!has_chunk(u)) continue;
+#pragma unroll
+      for (int e = 0; e < EPC; ++e)
+        wacc[(warp * rep + row) * d + (c + lpr * u) * EPC + e] =
+            acc[r][u * EPC + e];
+    }
   }
   __syncthreads();
   const size_t part_row = (size_t)d + 2;  // m, l, acc[d] per query row
@@ -376,10 +416,10 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
            int s_len, int chunk, int n_splits, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>(h / kvh);
-  // the largest group this instantiation takes: rep * padded D <= 2048
-  constexpr int padded = lanes_per_row(D / Traits<T>::EPC) * Traits<T>::EPC;
-  cudaError_t err =
-      allow_smem<decode_kernel<T, D, NP>>(smem_bytes<T, D>(2048 / padded));
+  // the largest group this instantiation takes: NP passes of its rows
+  constexpr int rows_per_pass = 32 / lanes_per_row(D / Traits<T>::EPC);
+  cudaError_t err = allow_smem<decode_kernel<T, D, NP>>(
+      smem_bytes<T, D>(NP * rows_per_pass));
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_kernel<T, D, NP><<<dim3(n_splits, b * kvh), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -388,7 +428,10 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the smallest instantiated row-pass count NP >= the group's passes
+// the smallest instantiated row-pass count NP >= the group's passes: up to
+// rep * padded D = 2048 (8 passes in bf16, 16 in fp32), and at D = 256 the
+// 10 passes of recurrentgemma's group (a whole warp a row, 8 elements a
+// lane in both dtypes)
 template <typename T, int D>
 int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
                 void* out, float* part, int* counters, int b, int h, int kvh,
@@ -404,7 +447,9 @@ int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
   REPRO_DECODE_NP(2)
   REPRO_DECODE_NP(4)
   REPRO_DECODE_NP(8)
-  if constexpr (sizeof(T) == 4) {  // rep * padded D <= 2048: 16 in fp32
+  if constexpr (D == 256) {
+    REPRO_DECODE_NP(10)
+  } else if constexpr (sizeof(T) == 4) {
     REPRO_DECODE_NP(16)
   }
 #undef REPRO_DECODE_NP
@@ -435,6 +480,9 @@ int dispatch(const void* q, const void* k, const void* v, const int* lens,
     case 128:
       return dispatch_np<T, 128>(q, k, v, lens, out, part, counters, b, h,
                                  kvh, s_len, chunk, n_splits, scale, s);
+    case 256:  // recurrentgemma: 32 chunks a row in bf16, 64 in fp32
+      return dispatch_np<T, 256>(q, k, v, lens, out, part, counters, b, h,
+                                 kvh, s_len, chunk, n_splits, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -453,9 +501,9 @@ extern "C" int repro_decode_attention_key_tile(int dtype) {
 // n_splits splits of ``chunk`` (chunk * n_splits >= s_len).  Scratch:
 // ``part`` fp32 [b * h * n_splits * (d + 2)], ``counters`` int32 [b * kvh],
 // zero on entry and left zero on exit.  dtype: 0 = float32, 1 = bfloat16
-// (q, caches and out share it).  d in {16, 32, 64, 80, 128},
+// (q, caches and out share it).  d in {16, 32, 64, 80, 128, 256},
 // (h / kvh) * padded d <= 2048 (d rounded up to a power-of-two count of
-// 16-byte chunks).  Returns the CUDA error of the launch (0 on
+// 16-byte chunks), or h / kvh <= 10 at d = 256.  Returns the CUDA error of the launch (0 on
 // success); nothing here synchronises.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lens, void* out,

@@ -27,20 +27,22 @@
 // so only one 256-thread block fits an SM's 64 K registers, and its two
 // warpgroups share every K/V tile and hide each other's softmax behind
 // their products.  K and V stream through a ring of shared-memory stages
-// (three, two at D = 128), each filled by TMA (cp.async.bulk.tensor, 3-D
-// tensor maps over [heads, S, D] with the 128/64/32-byte swizzle that a
-// D-wide row allows; D = 128 is two 64-column swizzle atoms) and guarded
-// by a "full" mbarrier (transaction bytes) and an "empty" mbarrier (one
-// arrival per consumer warp).  Thread 0 refills the
-// stage of tile j-1 with tile j-1+STAGES while tile j's products run, so
-// the next loads are always in flight.  S = Q K^T is wgmma.m64n128k16 with
-// both operands K-major in shared memory; the fp32 score fragments get the
-// online softmax in registers (row max and sum over the quad of threads
-// that share a row, __shfl_xor_sync 1 and 2), are rounded to bf16 in place,
-// and are then exactly the A fragments of O += P V (wgmma.m64nDk16, A from
-// registers, V MN-major through the transpose bit), so scores never go back
-// to shared memory.  The fp32 O accumulator stays in registers for the
-// whole walk.  exp(x * scale) is computed as exp2f(x * scale * log2 e): its
+// (three, two at D = 128 and 256), each filled by TMA
+// (cp.async.bulk.tensor, 3-D tensor maps over [heads, S, D] with the
+// 128/64/32-byte swizzle that a D-wide row allows; D = 128 is two and
+// D = 256 four 64-column swizzle atoms) and guarded by a "full" mbarrier
+// (transaction bytes) and an "empty" mbarrier (one arrival per consumer
+// warp).  Thread 0 refills the stage of tile j-1 with tile j-1+STAGES
+// while tile j's products run, so the next loads are always in flight.
+// S = Q K^T is wgmma.m64n128k16 (m64n64k16 at D = 256, whose tiles hold
+// 64 keys) with both operands K-major in shared memory; the fp32 score
+// fragments get the online softmax in registers (row max and sum over the
+// quad of threads that share a row, __shfl_xor_sync 1 and 2), are rounded
+// to bf16 in place, and are then exactly the A fragments of O += P V
+// (wgmma.m64nDk16, A from registers, V MN-major through the transpose bit),
+// so scores never go back to shared memory.  The fp32 O accumulator stays
+// in registers for the whole walk.  exp(x * scale) is computed as
+// exp2f(x * scale * log2 e): its
 // rounding differs from expf by a few fp32 ulp, far inside the bf16
 // output's tolerance.  The causal and ragged masks are applied only on the
 // diagonal tile and on the last (ragged) tile; full tiles skip the compare.
@@ -91,16 +93,20 @@ constexpr float NEG_INF = -1e30f;
 
 constexpr int NWG = 2;                 // consumer warpgroups per block
 constexpr int BQ = 64 * NWG;           // query rows per block
-constexpr int BKV = 128;               // keys per tile
 constexpr int BF16_THREADS = 128 * NWG;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// D = 256 (recurrentgemma) takes 64 keys a tile and a 2-stage ring: a
+// thread then holds 128 O, 32 score and 16 P registers (at 128 keys the
+// scores alone would be 64 more), and Q (64 KB) with two stages of K and V
+// (4 x 32 KB) is 193 KB of the 227 KB a block may opt into.
 template <int D> struct Tile {
   static constexpr int SW = D * 2 < 128 ? D * 2 : 128;  // swizzle bytes
   static constexpr int ACOLS = SW / 2;   // bf16 columns of one swizzle atom
   static constexpr int NSUB = D / ACOLS;            // atoms across D
   static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
-  static constexpr int STAGES = D == 128 ? 2 : 3;   // K/V ring depth
+  static constexpr int BKV = D == 256 ? 64 : 128;   // keys per tile
+  static constexpr int STAGES = D >= 128 ? 2 : 3;   // K/V ring depth
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BKV * D * 2;      // one K or V tile
   static constexpr int NO = ACOLS / 2;   // O fragment floats per atom
@@ -108,6 +114,7 @@ template <int D> struct Tile {
   // mbarriers
   static constexpr int SMEM =
       1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (2 * STAGES + 1);
+  static_assert(SMEM <= 227 * 1024, "a block opts into at most 227 KB");
 };
 
 // box (c0 = column, row, head) of a map whose outer dims are (S, heads), or
@@ -131,6 +138,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   int heads_inner) {
   using T = Tile<D>;
   constexpr int SW = T::SW, NSUB = T::NSUB, NO = T::NO, STAGES = T::STAGES;
+  constexpr int BKV = T::BKV;
   extern __shared__ uint8_t smem[];
   const uint32_t s_q = (hopper::smem_u32(smem) + 1023u) & ~1023u;
   const uint32_t s_kv = s_q + T::Q_BYTES;  // stage s: K, then V
@@ -216,7 +224,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
           s_q + atom * BQ * SW + wg * 64 * SW + off, 16, 8 * SW, T::LAYOUT);
       const uint64_t db = hopper::smem_desc(k_tile + atom * BKV * SW + off,
                                             16, 8 * SW, T::LAYOUT);
-      hopper::wgmma_ss_n128(sacc, da, db, kk > 0);
+      hopper::WgmmaSS<BKV>::run(sacc, da, db, kk > 0);
     }
     hopper::wgmma_commit();
     // refill the stage tile t-1 used while this tile's products run
@@ -396,10 +404,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
   const int n_kv = bh / kv_group;
   if (!encode(fn, &tq, q, bh, sq, DV, q_sb, q_ss, BQ, T::ACOLS, swizzle,
               &inner_q) ||
-      !encode(fn, &tk, k, n_kv, skv, DV, k_sb, k_ss, BKV, T::ACOLS, swizzle,
-              &inner_k) ||
-      !encode(fn, &tv, v, n_kv, skv, DV, v_sb, v_ss, BKV, T::ACOLS, swizzle,
-              &inner_v))
+      !encode(fn, &tk, k, n_kv, skv, DV, k_sb, k_ss, T::BKV, T::ACOLS,
+              swizzle, &inner_k) ||
+      !encode(fn, &tv, v, n_kv, skv, DV, v_sb, v_ss, T::BKV, T::ACOLS,
+              swizzle, &inner_v))
     return ERR_ENCODE;
   const int heads_inner = inner_q | inner_k << 1 | inner_v << 2;
   auto kernel = window > 0 ? flash_bf16_kernel<D, DV, true>
@@ -590,10 +598,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
                float scale, long long q_sb, long long q_ss, long long k_sb,
                long long k_ss, long long v_sb, long long v_ss,
                cudaStream_t stream) {
-  const size_t smem = f32_smem_floats<D>() * sizeof(float);
+  constexpr size_t smem = f32_smem_floats<D>() * sizeof(float);
+  static_assert(smem <= 227 * 1024, "a block opts into at most 227 KB");
   auto kernel = window > 0 ? flash_f32_kernel<D, true>
                            : flash_f32_kernel<D, false>;
-  // above 48 KB (D = 80, 128) only as opted-in dynamic shared memory
+  // above 48 KB (D = 80, 128, 256: 141 KB) only as opted-in dynamic
+  // shared memory
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -621,16 +631,36 @@ Launch pick_launch(int d, int dtype) {
     case 64: return bf16 ? launch_bf16<64, 64> : launch_f32<64>;
     case 80: return bf16 ? launch_bf16<128, 80> : launch_f32<80>;  // padded
     case 128: return bf16 ? launch_bf16<128, 128> : launch_f32<128>;
+    case 256: return bf16 ? launch_bf16<256, 256> : launch_f32<256>;
     default: return nullptr;
   }
 }
 
+// the bf16 kernel's K/V ring: keys a tile (what = 0) or its stages
+template <int D> int kv_ring(int what) {
+  return what == 0 ? Tile<D>::BKV : Tile<D>::STAGES;
+}
+
 }  // namespace
+
+// the bf16 kernel's K/V ring at head dim d: keys a tile (what = 0) or
+// stages (what = 1); 0 for a head dim it does not take
+extern "C" int repro_flash_attention_kv_ring(int d, int what) {
+  switch (d) {
+    case 16: return kv_ring<16>(what);
+    case 32: return kv_ring<32>(what);
+    case 64: return kv_ring<64>(what);
+    case 80:  // the D = 128 tile
+    case 128: return kv_ring<128>(what);
+    case 256: return kv_ring<256>(what);
+    default: return 0;
+  }
+}
 
 // q [bh, sq, d] with strides (q_sb, q_ss, 1); k, v [bh / kv_group, skv, d]
 // with their own strides; o [bh, sq, d] contiguous.  dtype: 0 = float32
 // (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel; bases and strides
-// 16-byte aligned), shared by all four.  d in {16, 32, 64, 80, 128};
+// 16-byte aligned), shared by all four.  d in {16, 32, 64, 80, 128, 256};
 // window >= 0 (0: none).  Returns the CUDA error of the launch (0 on
 // success; negative: a tensor-map failure, see repro_cuda_error_string);
 // nothing here synchronises.

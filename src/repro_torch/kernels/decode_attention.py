@@ -21,7 +21,11 @@ launch.
 A lane of the kernel owns one 16-byte chunk of a query row; a row takes
 :func:`lanes_per_row` lanes, the chunk count rounded up to a power of two
 (D = 80 is 10 chunks in bf16 and 20 in fp32, so 16 and 32 lanes), and the
-lanes past the row's chunks hold zeros.
+lanes past the row's chunks hold zeros.  A row of more than 32 chunks
+(fp32 at D = 256: 64) takes the whole warp, :func:`chunks_per_lane` chunks
+a lane.  The group's padded width, (H / KV) times the padded D, is at most
+2048, and at D = 256 the 10 query heads over one KV head of
+recurrentgemma, in 10 row passes (:func:`max_group`).
 """
 from __future__ import annotations
 
@@ -38,24 +42,48 @@ from repro_torch.kernels import _build
 # kernel launches since the last reset (repro_torch.kernels.ops)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 MAX_GROUP_WIDTH = 2048          # (H // KV) * padded D the block can hold
+GROUP_256 = 10                  # H // KV at D = 256: its own 10-pass kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KEY_TILE = {torch.float32: 8, torch.bfloat16: 16}   # keys per warp tile
+# keys a split is a multiple of: one warp tile (half of one at D = 256,
+# :func:`warp_tile`)
+KEY_TILE = {torch.float32: 8, torch.bfloat16: 16}
 SMS = 132                       # H100 SXM
+THREADS = 256                   # a block's threads (8 warps)
+MERGE_LOADS = 160               # partials a merging thread loads, at most
 
 
 def lanes_per_row(d: int, dtype: torch.dtype) -> int:
     """Lanes a query row takes: its 16-byte chunks rounded up to a power
-    of two, so the xor-shuffle sum over a row's lanes stays in the row."""
+    of two, at most the warp's 32, so the xor-shuffle sum over a row's
+    lanes stays in the row."""
     chunks = d * dtype.itemsize // 16
-    return 1 << (chunks - 1).bit_length()
+    return min(32, 1 << (chunks - 1).bit_length())
+
+
+def chunks_per_lane(d: int, dtype: torch.dtype) -> int:
+    """16-byte chunks of a row each lane holds: 1, or 2 where a row has
+    more chunks than a warp has lanes (fp32 at D = 256); lane ``c`` holds
+    chunks ``c`` and ``c + 32``."""
+    return -(-(d * dtype.itemsize // 16) // lanes_per_row(d, dtype))
+
+
+def warp_tile(d: int, dtype: torch.dtype) -> int:
+    """Keys a warp takes per stage of its ring: the key tile, halved at
+    D = 256 so that the 8 warps' 3-stage K/V rings stay within 192 KB."""
+    return KEY_TILE[dtype] // 2 if d > 128 else KEY_TILE[dtype]
 
 
 def max_group(d: int, dtype: torch.dtype) -> int:
     """The most query heads a KV head (H // KV) the kernel takes at ``d``:
-    the group's padded width, rep * lanes * 16 bytes' elements, <= 2048."""
-    return MAX_GROUP_WIDTH // (lanes_per_row(d, dtype) * 16 // dtype.itemsize)
+    the group's padded width, rep * lanes * chunks a lane * 16 bytes'
+    elements, <= 2048; at D = 256, the 10 of its own instantiation."""
+    if d == 256:
+        return GROUP_256
+    return MAX_GROUP_WIDTH // (lanes_per_row(d, dtype)
+                               * chunks_per_lane(d, dtype)
+                               * 16 // dtype.itemsize)
 
 
 class DecodePlan(NamedTuple):
@@ -64,15 +92,23 @@ class DecodePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def plan(rows: int, s_len: int, key_tile: int = KEY_TILE[torch.bfloat16]
-         ) -> DecodePlan:
-    """Splits for ``rows`` = B * KV cache rows of ``s_len`` keys.  The
-    lengths live on the device, so the grid is sized for 2.5 waves of the
-    132 SMs over the whole cache: with the slots about half full, as in a
-    serving pool, the live blocks then fill a little over one wave
-    ([4, 2112, 8, 64] at lengths 1/300/1000/2112: chunk 192, 160 of 352
-    blocks live).  Splits past a row's length return at once."""
+def plan(b: int, h: int, kvh: int, s_len: int, d: int,
+         dtype: torch.dtype) -> DecodePlan:
+    """Splits of q [B, H, D] over a [B, S, KV, D] cache of ``dtype``: its
+    B * KV rows of ``s_len`` keys.  The lengths live on the device, so the
+    grid is sized for 2.5 waves of the 132 SMs over the whole cache: with
+    the slots about half full, as in a serving pool, the live blocks then
+    fill a little over one wave ([4, 2112, 8, 64] at lengths
+    1/300/1000/2112: chunk 192, 160 of 352 blocks live).  Splits past a
+    row's length return at once.  The splits are capped so that each thread
+    of the block that merges them loads at most ``MERGE_LOADS`` of the
+    group's (H / KV) * D partial sums: the merge runs in split order in one
+    block, so its serial chain grows with splits times width
+    (recurrentgemma's [4, 2048, 1, 256] ring at 10 query heads: 16
+    splits, where 2.5 waves would ask for 83)."""
+    rows, key_tile = b * kvh, KEY_TILE[dtype]
     want = max(1, -(-5 * SMS // (2 * max(rows, 1))))
+    want = min(want, max(1, MERGE_LOADS * THREADS // max(1, h // kvh * d)))
     per = -(-max(s_len, 1) // want)
     chunk = key_tile * -(-per // key_tile)
     return DecodePlan(chunk, max(1, -(-s_len // chunk)))
@@ -168,7 +204,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if d not in HEAD_DIMS or h // kvh > max_group(d, q.dtype):
         raise ValueError(f"CUDA decode attention takes head dim D in "
                          f"{HEAD_DIMS} with H/KV <= {MAX_GROUP_WIDTH} over "
-                         f"the padded D, got D={d}, H/KV={h // kvh}")
+                         f"the padded D (<= {GROUP_256} at D = 256), got "
+                         f"D={d}, H/KV={h // kvh}")
     if not (q.dtype == k_cache.dtype == v_cache.dtype) \
             or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA decode attention takes float32 or bfloat16 "
@@ -186,7 +223,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if b == 0 or h == 0:
         return out
     lib = _lib()
-    p = plan(b * kvh, s_len, KEY_TILE[q.dtype])
+    p = plan(b, h, kvh, s_len, d, q.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
     part, counters = _scratch(dev, stream, b * h * p.n_splits * (d + 2),
                               b * kvh)

@@ -16,11 +16,13 @@ views as long as their last dimension is contiguous.  The bf16 kernel reads
 them through TMA tensor maps, which need 16-byte aligned base addresses and
 row/head strides; a view that breaks that raises, it never takes another
 path.  D = 80 runs the bf16 kernel's D = 128 tile, with TMA zero-filling the
-columns past 80.
+columns past 80.  D = 256 (recurrentgemma) runs a tile of its own: 64 keys a
+tile in a 2-stage ring (``csrc/flash_attention.cu`` ``Tile<256>``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,16 +32,34 @@ from repro_torch.kernels import _build
 # kernel launches since the last reset (repro_torch.kernels.ops)
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def kv_ring(d: int) -> tuple[int, int]:
+    """(keys a K/V tile, stages of the K/V ring) of the bf16 kernel at head
+    dim ``d``, as ``Tile<D>`` in ``csrc/flash_attention.cu`` sets them:
+    128-key tiles in 3 stages, 2 stages from D = 128 (D = 80 runs the
+    D = 128 tile), 64-key tiles at D = 256.  :func:`_lib` holds them to the
+    kernel's own when it loads."""
+    width = 128 if d == 80 else d
+    return (64 if width == 256 else 128), (2 if width >= 128 else 3)
+
+
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.repro_flash_attention.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention.restype = ctypes.c_int
+    lib.repro_flash_attention_kv_ring.argtypes = [ctypes.c_int] * 2
+    lib.repro_flash_attention_kv_ring.restype = ctypes.c_int
+    for d in HEAD_DIMS:
+        if tuple(lib.repro_flash_attention_kv_ring(d, what)
+                 for what in (0, 1)) != kv_ring(d):
+            raise RuntimeError(f"csrc/flash_attention.cu's K/V ring at "
+                               f"D={d} differs from kv_ring")
     return lib
 
 

@@ -27,20 +27,15 @@ import math
 
 import torch
 
+from . import flash_attention as _fa
 from . import tdfir as _fir
 from .ref import NEG_INF
 
 BF16_ABS_TOL = 5e-2
 BF16_ROW_TOL = 0.15
 DECODE_ROW_TOL = 0.04
-BKV = 128                                # the kernel's keys per tile
-SWEEP_D = (16, 32, 64, 80, 128)
+SWEEP_D = (16, 32, 64, 80, 128, 256)
 SWEEP_S = (1, 63, 64, 65, 200, 1000)
-
-
-def ring_stages(d: int) -> int:
-    """The depth of the kernel's K/V ring at head dim ``d``."""
-    return 2 if d == 128 else 3
 
 
 def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -72,14 +67,18 @@ def sweep_cases(gen: torch.Generator, d: int, s: int, device="cuda"):
             yield rep, causal, q, k, v
 
 
-def _attention(q, k, v, kv_group, p_dtype, drop=None):
-    """``ref.mha_ref`` (causal), with the keys in ``drop`` masked out and p
-    rounded to ``p_dtype`` before it returns to V's type."""
+def _attention(q, k, v, kv_group, p_dtype, drop=None, window=0):
+    """``ref.mha_ref`` (causal, under ``window`` if one is given), with the
+    keys in ``drop`` masked out and p rounded to ``p_dtype`` before it
+    returns to V's type."""
     k = k.repeat_interleave(kv_group, dim=0)
     v = v.repeat_interleave(kv_group, dim=0)
     s = torch.einsum("bqd,bkd->bqk", q, k).float() / math.sqrt(q.shape[-1])
     pos = torch.arange(q.shape[1], device=q.device)
-    keep = pos[:, None] >= torch.arange(k.shape[1], device=q.device)
+    diff = pos[:, None] - torch.arange(k.shape[1], device=q.device)
+    keep = diff >= 0
+    if window:
+        keep &= diff < window
     if drop is not None:
         keep[:, drop] = False
     s = torch.where(keep[None], s, NEG_INF)
@@ -87,29 +86,31 @@ def _attention(q, k, v, kv_group, p_dtype, drop=None):
     return torch.einsum("bqk,bkd->bqd", p, v)
 
 
-def fault_controls(q, k, v, kv_group: int) -> dict:
-    """Causal outputs of kernel faults that disturb late rows, simulated on
-    the plain version: key tile t = 2*STAGES + 1 skipped (past the ring's
-    first two fills), or only its first 16 keys (one k16 step of P V),
-    tile t's K/V read from the stale stage that held tile t - STAGES, and P
-    rounded to fp8 e4m3 instead of bf16."""
-    stages = ring_stages(q.shape[-1])
+def fault_controls(q, k, v, kv_group: int, window: int = 0) -> dict:
+    """Causal outputs (under ``window`` if one is given) of kernel faults
+    that disturb late rows, simulated on the plain version: key tile t =
+    2*STAGES + 1 skipped (past the ring's first two fills), or only its
+    first 16 keys (one k16 step of P V), tile t's K/V read from the stale
+    stage that held tile t - STAGES, and P rounded to fp8 e4m3 instead of
+    bf16."""
+    bkv, stages = _fa.kv_ring(q.shape[-1])
     t = 2 * stages + 1
-    tile = slice(t * BKV, (t + 1) * BKV)
-    step = slice(t * BKV, t * BKV + 16)
-    stale = slice((t - stages) * BKV, (t - stages + 1) * BKV)
+    tile = slice(t * bkv, (t + 1) * bkv)
+    step = slice(t * bkv, t * bkv + 16)
+    stale = slice((t - stages) * bkv, (t - stages + 1) * bkv)
     n = len(range(k.shape[1])[tile])
     ks, vs = k.clone(), v.clone()
     ks[:, tile], vs[:, tile] = k[:, stale][:, :n], v[:, stale][:, :n]
+    kw = dict(window=window)
     return {
         f"key tile {t} skipped": _attention(q, k, v, kv_group, v.dtype,
-                                            drop=tile),
-        f"keys {t * BKV}-{t * BKV + 15} skipped": _attention(
-            q, k, v, kv_group, v.dtype, drop=step),
+                                            drop=tile, **kw),
+        f"keys {t * bkv}-{t * bkv + 15} skipped": _attention(
+            q, k, v, kv_group, v.dtype, drop=step, **kw),
         f"tile {t} from stale stage": _attention(q, ks, vs, kv_group,
-                                                 v.dtype),
+                                                 v.dtype, **kw),
         "P rounded to fp8": _attention(q, k, v, kv_group,
-                                       torch.float8_e4m3fn),
+                                       torch.float8_e4m3fn, **kw),
     }
 
 

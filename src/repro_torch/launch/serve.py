@@ -6,13 +6,16 @@ lock-step); the CLI routes through
 :class:`repro_torch.serve.ContinuousBatcher`, where requests join and leave
 the running batch at decode-step granularity and the KV slot pool persists
 across requests.  The weights are random, drawn from a seeded generator.
-``--arch`` takes any dense or MoE config (granite-3-2b, h2o-danube-1.8b,
-nemotron-4-15b, command-r-plus-104b, moonshot-v1-16b-a3b, arctic-480b; at
-``--full`` command-r-plus-104b's 208 GB and arctic-480b's 952 GB of bf16
-are past one 80 GB card, moonshot-v1-16b-a3b's 58 GB fit).  The engine
-routes each slot through the MoE on its own, as the JAX engine does;
-``generate`` routes its batch jointly, as the JAX ``generate`` does.  Runs
-on the card unless ``--device`` names another:
+``--arch`` takes any dense, MoE, SSM or hybrid config (granite-3-2b,
+h2o-danube-1.8b, nemotron-4-15b, command-r-plus-104b, moonshot-v1-16b-a3b,
+arctic-480b, mamba2-1.3b, recurrentgemma-2b; at ``--full``
+command-r-plus-104b's 208 GB and arctic-480b's 952 GB of bf16 are past one
+80 GB card, moonshot-v1-16b-a3b's 58 GB, mamba2-1.3b's 2.7 GB and
+recurrentgemma-2b's 5.4 GB fit).  The engine routes each slot through the
+MoE on its own, as the JAX engine does; ``generate`` routes its batch
+jointly, as the JAX ``generate`` does.  mamba2-1.3b's prompt length must be
+a multiple of its SSD chunk (256 at ``--full``) or shorter than one, as the
+JAX model requires.  Runs on the card unless ``--device`` names another:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --reduced \\
       --batch 4 --prompt-len 32 --gen 16
@@ -23,6 +26,10 @@ on the card unless ``--device`` names another:
       --arch h2o-danube-1.8b --prompt-len 5000 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
       --arch moonshot-v1-16b-a3b --prompt-len 1000 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
+      --arch mamba2-1.3b --prompt-len 1024 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
+      --arch recurrentgemma-2b --prompt-len 4096 --gen 64
 """
 from __future__ import annotations
 
@@ -86,6 +93,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.ssm is not None and args.prompt_len % min(cfg.ssm.chunk,
+                                                     args.prompt_len):
+        ap.error(f"{cfg.name} takes a prompt length that is a multiple of "
+                 f"its SSD chunk {cfg.ssm.chunk} or shorter than it, got "
+                 f"{args.prompt_len}")
     gen = torch.Generator(device=dev).manual_seed(0)
     model = LM(cfg, init_params(cfg, gen, dev))
 

@@ -1,4 +1,4 @@
-"""The language model, dense and MoE families: the port of
+"""The language model, dense, MoE, SSM and hybrid families: the port of
 ``repro.models.lm``.
 
 Serving entry points, as in the JAX ``Model``:
@@ -7,32 +7,45 @@ Serving entry points, as in the JAX ``Model``:
   * ``LM.decode_step(cache, tokens, pos)``    -> (logits, cache)
 
 The port runs the dense family (granite-3-2b, h2o-danube-1.8b,
-nemotron-4-15b, command-r-plus-104b) and the MoE family (moonshot-v1-16b-a3b,
-arctic-480b: the dense block with :mod:`repro_torch.models.moe` as its FFN);
-the hybrid, SSM, VLM and audio families wait (ROADMAP queue 1 item 8).
+nemotron-4-15b, command-r-plus-104b), the MoE family (moonshot-v1-16b-a3b,
+arctic-480b: the dense block with :mod:`repro_torch.models.moe` as its FFN),
+the SSM family (mamba2-1.3b: :class:`SSMBlock` over
+:mod:`repro_torch.models.ssm`) and the hybrid (recurrentgemma-2b: groups of
+``cfg.hybrid.pattern`` blocks, :class:`RecurrentBlock` over
+:mod:`repro_torch.models.rglru` and the dense block as its local attention,
+then a tail); the VLM and audio families wait (ROADMAP queue 1 item 8).
 
 Parameters keep the JAX tree's names and layouts (``embed [V, d]``,
 ``final_norm.scale``, and per layer ``attn_norm.scale``, ``attn.{wq,wk,wv,
 wo}``, ``ffn_norm.scale``, ``ffn.{w_in,w_gate,w_out}``, or under MoE
 ``ffn.router``, ``ffn.experts.{w_in,w_gate,w_out}`` ``[E, ...]``,
-``ffn.shared.*``, ``ffn.dense.*``); the JAX tree stacks the layers on a
-leading axis where the port keeps one :class:`DenseBlock` per layer
-(``blocks.{i}.…``).  :mod:`repro_torch.models.convert` carries weights
-across.
+``ffn.shared.*``, ``ffn.dense.*``; an SSM layer's ``norm.scale``,
+``ssm.*``; a recurrent block's ``norm.scale``, ``lru.*``, ``ffn_norm.scale``,
+``ffn.*``); the JAX tree stacks the layers (the hybrid's groups) on a
+leading axis where the port keeps one module per layer: ``blocks.{i}.…``,
+and for the hybrid ``blocks.{g}.b{j}.…`` and ``tail.{i}.…``.
+:mod:`repro_torch.models.convert` carries weights across.
 
-The cache is the JAX one: ``{"attn": {"k", "v"}}`` of ``[L, B, W, KV, Dh]``
-with ``W = min(cache_len, window)`` under a sliding window (a ring: token
-``t`` at slot ``t % W``) and ``W = cache_len`` without one; under
-``plan.kv_cache_quant`` ``k``/``v`` are int8 with fp32 ``k_scale`` /
-``v_scale`` ``[L, B, W, KV, 1]``.
+The cache is the JAX one:
+
+  * dense and MoE: ``{"attn": {"k", "v"}}`` of ``[L, B, W, KV, Dh]`` with
+    ``W = min(cache_len, window)`` under a sliding window (a ring: token
+    ``t`` at slot ``t % W``) and ``W = cache_len`` without one; under
+    ``plan.kv_cache_quant`` ``k``/``v`` are int8 with fp32 ``k_scale`` /
+    ``v_scale`` ``[L, B, W, KV, 1]``;
+  * SSM: ``{"blocks": {"conv", "state"}}`` of ``[L, B, ...]``;
+  * hybrid: ``{"groups": {"b{j}": ...}, "tail": [...]}``, each group block's
+    leaves stacked over the groups: a recurrent block's ``{"conv", "h"}``,
+    the local attention's ring ``{"k", "v"}`` of ``min(cache_len,
+    window)`` slots (never quantized, as in JAX).
 
 Differences from the JAX model, none of which changes a result:
 
-  * ``decode_step`` writes the new token's K/V into ``cache`` in place (JAX
-    returns a new cache), so the serving pool is allocated once.  It makes
-    no tensor from host data when ``tokens`` and ``pos`` are device tensors
-    and never synchronises, so the serving engine can capture it in a CUDA
-    graph.
+  * ``decode_step`` writes the new token's K/V and recurrent state into
+    ``cache`` in place (JAX returns a new cache), so the serving pool is
+    allocated once.  It makes no tensor from host data when ``tokens`` and
+    ``pos`` are device tensors and never synchronises, so the serving
+    engine can capture it in a CUDA graph.
   * ``pos`` may be one position per row (an int tensor ``[B]``): the
     continuous batcher's slots sit at different positions, where the JAX
     engine ``vmap``s a scalar-``pos`` step over the slots.  For the same
@@ -43,12 +56,13 @@ Differences from the JAX model, none of which changes a result:
   * Attention always runs the flash-attention kernel (prefill) and the
     split-K decode kernel (decode) through :mod:`repro_torch.kernels.ops`;
     the JAX model's dense/blockwise switch computes the same function.  The
-    int8 cache's decode attention is plain torch, as the JAX one is jnp.
+    int8 cache's decode attention is plain torch, as the JAX one is jnp,
+    and so are the SSD and RG-LRU bodies.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -56,11 +70,13 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.dist.plan import Plan
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.layers import not_ported
 
 Params = Dict[str, torch.Tensor]
-Cache = Dict[str, Dict[str, torch.Tensor]]
+Cache = Dict[str, Any]
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -69,13 +85,20 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig, plan: Optional[Plan] = None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    the families past dense and MoE, and logit soft caps (no config sets
-    one, and the JAX blockwise path ignores them)."""
-    del plan     # every plan runs: kv_cache_quant, both moe_impl values
-    if cfg.family not in ("dense", "moe"):
+    the VLM and audio families, and logit soft caps (no config sets one,
+    and the JAX blockwise path ignores them)."""
+    del plan     # every plan runs: kv_cache_quant, moe_impl, ssd_*
+    if cfg.family not in FAMILIES:
         raise not_ported(f"the {cfg.family!r} family", 8)
     if cfg.logit_softcap > 0:
         raise not_ported("logit soft caps", 8)
+
+
+def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups of the whole pattern, blocks in the tail after them)."""
+    pat = cfg.hybrid.pattern
+    groups = cfg.n_layers // len(pat)
+    return groups, cfg.n_layers - groups * len(pat)
 
 
 def _window_of(cfg: ModelConfig) -> int:
@@ -84,9 +107,21 @@ def _window_of(cfg: ModelConfig) -> int:
 
 def _kv_cache_len(cfg: ModelConfig, seq_len: int) -> int:
     """Slots a layer's K/V buffer holds for ``seq_len`` positions: the
-    window's ring under a sliding window, all of them otherwise."""
-    w = _window_of(cfg)
+    window's ring under a sliding window and in the hybrid's local
+    attention, all of them otherwise."""
+    w = _window_of(cfg) or (cfg.window if cfg.family == "hybrid" else 0)
     return min(seq_len, w) if w else seq_len
+
+
+def flatten(tree: dict, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> one dict of dotted names (``prefix`` before each)."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 # ===========================================================================
@@ -98,8 +133,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     """Random weights for ``cfg`` as the LM's state dict, drawn on ``device``
     (default ``cuda``) from ``generator`` (default seed 0): ``N(0, 1/fan_in)``
     for projections (each expert's too), ``N(0, 0.02²)`` for the embedding,
-    ones for norm scales, zeros for biases.  Values differ from
-    ``jax.random``'s."""
+    ones for norm scales, zeros for biases, and the SSD and RG-LRU
+    constants of :func:`ssm.init_ssm` and :func:`rglru.init_rglru`.  Values
+    differ from ``jax.random``'s."""
     check_supported(cfg)
     dev = resolve(device)
     gen = generator or torch.Generator(device=dev).manual_seed(0)
@@ -112,39 +148,57 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    def norm(prefix):
-        out = {f"{prefix}.scale": torch.ones(d, dtype=dt, device=dev)}
+    def norm():
+        out = {"scale": torch.ones(d, dtype=dt, device=dev)}
         if cfg.norm == "layernorm":
-            out[f"{prefix}.bias"] = zeros(d)
+            out["bias"] = zeros(d)
         return out
+
+    def ffn():
+        return layers.init_ffn(d, cfg.d_ff, cfg.ffn_act, cfg.use_bias, dt,
+                               gen, dev)
+
+    def dense_block():
+        attn = {"wq": dense((d, h, hd), d), "wk": dense((d, kv, hd), d),
+                "wv": dense((d, kv, hd), d), "wo": dense((h, hd, d), h * hd)}
+        if cfg.use_bias:
+            attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd),
+                        bo=zeros(d))
+        return {"attn_norm": norm(), "attn": attn, "ffn_norm": norm(),
+                "ffn": (moe.init_moe(cfg, gen, dev, dt)
+                        if cfg.moe is not None else ffn())}
+
+    def block(kind):
+        if kind == "recurrent":
+            return {"norm": norm(), "lru": rglru.init_rglru(cfg, gen, dev, dt),
+                    "ffn_norm": norm(), "ffn": ffn()}
+        if kind == "ssm":
+            return {"norm": norm(), "ssm": ssm.init_ssm(cfg, gen, dev, dt)}
+        return dense_block()
 
     p: Params = {"embed": layers.embed_init((cfg.padded_vocab, d), dt, gen,
                                             dev)}
-    p.update(norm("final_norm"))
+    p.update(flatten(norm(), "final_norm."))
     if not cfg.tie_embeddings:
         p["unembed"] = dense((d, cfg.padded_vocab), d)
-    for i in range(cfg.n_layers):
-        b = f"blocks.{i}"
-        p.update(norm(f"{b}.attn_norm"))
-        p[f"{b}.attn.wq"] = dense((d, h, hd), d)
-        p[f"{b}.attn.wk"] = dense((d, kv, hd), d)
-        p[f"{b}.attn.wv"] = dense((d, kv, hd), d)
-        p[f"{b}.attn.wo"] = dense((h, hd, d), h * hd)
-        if cfg.use_bias:
-            p[f"{b}.attn.bq"] = zeros(h, hd)
-            p[f"{b}.attn.bk"] = zeros(kv, hd)
-            p[f"{b}.attn.bv"] = zeros(kv, hd)
-            p[f"{b}.attn.bo"] = zeros(d)
-        p.update(norm(f"{b}.ffn_norm"))
-        ffn = (moe.init_moe(cfg, gen, dev, dt) if cfg.moe is not None
-               else layers.init_ffn(d, cfg.d_ff, cfg.ffn_act, cfg.use_bias,
-                                    dt, gen, dev))
-        for name, leaf in ffn.items():
-            if isinstance(leaf, dict):
-                p.update({f"{b}.ffn.{name}.{k}": t for k, t in leaf.items()})
-            else:
-                p[f"{b}.ffn.{name}"] = leaf
+    for name, kind in _layer_names(cfg):
+        p.update(flatten(block(kind), f"{name}."))
     return p
+
+
+def _layer_names(cfg: ModelConfig) -> List[Tuple[str, str]]:
+    """(state-dict prefix, block kind) of every layer in execution order;
+    kinds ``dense`` (the MoE's too), ``ssm``, ``recurrent`` and
+    ``local_attn``."""
+    if cfg.family == "ssm":
+        return [(f"blocks.{i}", "ssm") for i in range(cfg.n_layers)]
+    if cfg.family != "hybrid":
+        return [(f"blocks.{i}", "dense") for i in range(cfg.n_layers)]
+    pat = cfg.hybrid.pattern
+    groups, tail = hybrid_groups(cfg)
+    return ([(f"blocks.{g}.b{j}", kind) for g in range(groups)
+             for j, kind in enumerate(pat)]
+            + [(f"tail.{i}", pat[i % len(pat)]) for i in range(tail)])
 
 
 def _group(params: Params, prefix: str) -> nn.ParameterDict:
@@ -159,14 +213,16 @@ def _group(params: Params, prefix: str) -> nn.ParameterDict:
 
 class DenseBlock(nn.Module):
     """One pre-norm decoder layer: GQA attention + FFN (dense, or the MoE
-    under ``cfg.moe``), residual each."""
+    under ``cfg.moe``), residual each; ``window`` > 0 is a sliding window
+    (h2o-danube's, the hybrid's local attention) whose decode cache is a
+    ring."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
-                 plan: Plan):
+                 plan: Plan, window: int = 0):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
-        self.window = _window_of(cfg)
+        self.window = window
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
         self.attn = _group(params, f"{prefix}.attn.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
@@ -245,9 +301,68 @@ class DenseBlock(nn.Module):
         return self._ffn(h, 1, route_per_row)
 
 
+class SSMBlock(nn.Module):
+    """One mamba2 layer: pre-norm SSD mixer, residual
+    (``repro.models.lm``'s ssm branch)."""
+
+    def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
+                 plan: Plan):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = plan
+        self.norm = _group(params, f"{prefix}.norm.")
+        self.ssm = _group(params, f"{prefix}.ssm.")
+
+    def prefill(self, h, rope=None):
+        """h [B, S, d] -> (h, the decode state ``{"conv", "state"}``)."""
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        y, st = ssm.apply_ssm(self.ssm, self.cfg, x, return_state=True,
+                              chunk=self.plan.ssd_chunk,
+                              bf16=self.plan.ssd_bf16)
+        return h + y, st
+
+    def decode(self, h, cache, *_, **__):
+        """h [B, 1, d]; ``cache`` this layer's ``{"conv", "state"}``,
+        written in place."""
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        return h + ssm.decode_ssm(self.ssm, self.cfg, x, cache)
+
+
+class RecurrentBlock(nn.Module):
+    """The hybrid's recurrent block: pre-norm RG-LRU, then the FFN,
+    residual each (``repro.models.lm._apply_recurrent_block``)."""
+
+    def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
+                 plan: Plan):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = _group(params, f"{prefix}.norm.")
+        self.lru = _group(params, f"{prefix}.lru.")
+        self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
+        self.ffn = _group(params, f"{prefix}.ffn.")
+
+    def _ffn(self, h):
+        cfg = self.cfg
+        x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
+        return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act, cfg.use_bias)
+
+    def prefill(self, h, rope=None):
+        """h [B, S, d] -> (h, the decode state ``{"conv", "h"}``)."""
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        y, st = rglru.apply_rglru(self.lru, self.cfg, x, return_state=True)
+        return self._ffn(h + y), st
+
+    def decode(self, h, cache, *_, **__):
+        """h [B, 1, d]; ``cache`` this block's ``{"conv", "h"}``, written
+        in place."""
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        return self._ffn(h + rglru.decode_rglru(self.lru, self.cfg, x,
+                                                cache))
+
+
 class LM(nn.Module):
-    """The dense or MoE LM over ``params`` (a state dict from :func:`init_params`
-    or :func:`repro_torch.models.convert.params_from_numpy`); it runs where
+    """The LM over ``params`` (a state dict from :func:`init_params` or
+    :func:`repro_torch.models.convert.params_from_numpy`); it runs where
     its parameters lie, and its weights take no gradient."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
@@ -265,13 +380,36 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(params["unembed"],
                                         requires_grad=False)
-        self.blocks = nn.ModuleList(
-            DenseBlock(cfg, params, f"blocks.{i}", self.plan)
-            for i in range(cfg.n_layers))
+        # every layer in execution order
+        self.layers: List[nn.Module] = [
+            self._block(params, name, kind)
+            for name, kind in _layer_names(cfg)]
+        if cfg.family == "hybrid":
+            n = len(cfg.hybrid.pattern)
+            groups, _ = hybrid_groups(cfg)
+            self.blocks = nn.ModuleList(
+                nn.ModuleDict({f"b{j}": self.layers[g * n + j]
+                               for j in range(n)})
+                for g in range(groups))
+            self.tail = nn.ModuleList(self.layers[groups * n:])
+        else:
+            self.blocks = nn.ModuleList(self.layers)
         if set(self.state_dict()) != set(params):
             raise ValueError(
                 f"params do not fit {cfg.name}: extra "
-                f"{sorted(set(params) - set(self.state_dict()))[:5]}")
+                f"{sorted(set(params) - set(self.state_dict()))[:5]}, "
+                f"missing {sorted(set(self.state_dict()) - set(params))[:5]}")
+
+    def _block(self, params: Params, prefix: str, kind: str) -> nn.Module:
+        cfg, plan = self.cfg, self.plan
+        if kind == "ssm":
+            return SSMBlock(cfg, params, prefix, plan)
+        if kind == "recurrent":
+            return RecurrentBlock(cfg, params, prefix, plan)
+        # the hybrid's local attention runs at cfg.window although its
+        # attn_kind is "local", as the JAX hybrid branch passes it
+        window = cfg.window if cfg.family == "hybrid" else _window_of(cfg)
+        return DenseBlock(cfg, params, prefix, plan, window)
 
     @property
     def device(self) -> torch.device:
@@ -307,8 +445,9 @@ class LM(nn.Module):
         keeps the counter set when it was captured, so call this before
         building the engine).  Zero it to start again."""
         counts = torch.zeros((2, 3), dtype=torch.long, device=self.device)
-        for blk in self.blocks:
-            blk.moe_drops = counts
+        for blk in self.layers:
+            if isinstance(blk, DenseBlock):
+                blk.moe_drops = counts
         return counts
 
     def init_cache(self, batch: int, seq_len: int) -> Cache:
@@ -322,11 +461,12 @@ class LM(nn.Module):
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         b, s = tokens.shape
         h = self._embed(tokens)
-        rope = self._rope(torch.arange(s, device=self.device))
-        collected: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        for blk in self.blocks:
-            h, kv = blk.prefill(h, rope)
-            collected.append(kv)
+        rope = (self._rope(torch.arange(s, device=self.device))
+                if self.cfg.family != "ssm" else None)
+        collected = []
+        for blk in self.layers:
+            h, st = blk.prefill(h, rope)
+            collected.append(st)
         last = layers.apply_norm(self.final_norm, h[:, -1:], self.cfg.norm)
         cache = assemble_cache(self.cfg, collected, cache_len,
                                quant=self.plan.kv_cache_quant)
@@ -345,14 +485,15 @@ class LM(nn.Module):
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, device=self.device).long().reshape(-1)
         pos = pos.expand(b).contiguous()
-        w = cache["attn"]["k"].shape[2]
-        cache_len = torch.clamp(pos + 1, max=w).to(torch.int32)
         h = self._embed(tokens)
-        rope = self._rope(pos[:, None])
-        for i, blk in enumerate(self.blocks):
-            h = blk.decode(h, {name: buf[i] for name, buf
-                               in cache["attn"].items()}, pos, cache_len,
-                           rope, route_per_row)
+        per_layer = layer_caches(self.cfg, cache)
+        rings = [c["k"].shape[1] for c in per_layer if "k" in c]
+        cache_len = rope = None
+        if rings:
+            cache_len = torch.clamp(pos + 1, max=rings[0]).to(torch.int32)
+            rope = self._rope(pos[:, None])
+        for blk, c in zip(self.layers, per_layer):
+            h = blk.decode(h, c, pos, cache_len, rope, route_per_row)
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
         return self.logits_for(h)[:, 0], cache
 
@@ -364,26 +505,85 @@ class LM(nn.Module):
 # decode caches
 # ===========================================================================
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = None, quant: bool = False) -> Cache:
-    """Zeroed K/V buffers ``{"attn": {"k", "v": [L, B, W, KV, Dh]}}`` with
-    ``W = min(seq_len, window)`` (``seq_len`` without a window), in
-    ``cfg.dtype``; with ``quant`` int8 ``k``/``v`` and fp32 ``k_scale`` /
-    ``v_scale`` ``[L, B, W, KV, 1]``."""
-    check_supported(cfg)
-    dev = resolve(device)
-    shape = (cfg.n_layers, batch, _kv_cache_len(cfg, seq_len),
-             cfg.n_kv_heads, cfg.head_dim)
+def _kv_buf(shape, dt, dev, quant: bool) -> Dict[str, torch.Tensor]:
     if quant:
         scales = shape[:-1] + (1,)
-        return {"attn": {
-            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-            "k_scale": torch.zeros(scales, dtype=torch.float32, device=dev),
-            "v_scale": torch.zeros(scales, dtype=torch.float32, device=dev)}}
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(scales, dtype=torch.float32,
+                                       device=dev),
+                "v_scale": torch.zeros(scales, dtype=torch.float32,
+                                       device=dev)}
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _stacked(n: int, state: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    return {k: v.new_zeros((n, *v.shape)) for k, v in state.items()}
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+               device: DeviceLike = None, quant: bool = False) -> Cache:
+    """Zeroed decode caches in the JAX layout (module docstring): K/V
+    buffers of ``W = min(seq_len, window)`` slots (``seq_len`` without a
+    window) in ``cfg.dtype``, int8 with fp32 scales under ``quant``
+    (dense and MoE only, as in JAX); recurrent and SSM state with their
+    conv state in ``cfg.dtype`` and the rest in float32."""
+    check_supported(cfg)
+    dev = resolve(device)
     dt = torch_dtype(cfg.dtype)
-    return {"attn": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                     "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    kv = (batch, _kv_cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family == "ssm":
+        return {"blocks": _stacked(cfg.n_layers,
+                                   ssm.init_ssm_cache(cfg, batch, dt, dev))}
+    if cfg.family != "hybrid":
+        return {"attn": _kv_buf((cfg.n_layers, *kv), dt, dev, quant)}
+
+    def block(kind, *lead):
+        if kind == "recurrent":
+            st = rglru.init_rglru_cache(cfg, batch, dt, dev)
+            return _stacked(lead[0], st) if lead else st
+        return _kv_buf((*lead, *kv), dt, dev, False)
+
+    pat = cfg.hybrid.pattern
+    groups, tail = hybrid_groups(cfg)
+    out: Cache = {"groups": {f"b{j}": block(kind, groups)
+                             for j, kind in enumerate(pat)}}
+    if tail:
+        out["tail"] = [block(pat[i % len(pat)]) for i in range(tail)]
+    return out
+
+
+def layer_caches(cfg: ModelConfig, cache: Cache
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """Each layer's cache in execution order, as views into ``cache`` (a
+    write into one is a write into the pool)."""
+    if cfg.family == "ssm":
+        return [{k: v[i] for k, v in cache["blocks"].items()}
+                for i in range(cfg.n_layers)]
+    if cfg.family != "hybrid":
+        return [{k: v[i] for k, v in cache["attn"].items()}
+                for i in range(cfg.n_layers)]
+    pat = cfg.hybrid.pattern
+    groups, _ = hybrid_groups(cfg)
+    return ([{k: v[g] for k, v in cache["groups"][f"b{j}"].items()}
+             for g in range(groups) for j in range(len(pat))]
+            + list(cache.get("tail", [])))
+
+
+def slot_leaves(cache: Cache) -> Iterator[Tuple[str, torch.Tensor, int]]:
+    """Every tensor of a decode cache as (dotted name, tensor, batch (slot)
+    axis): axis 1 where the leaves stack layers or groups, 0 in the
+    hybrid's tail (``tail.{i}.…``)."""
+    for top, sub in cache.items():
+        if isinstance(sub, list):
+            for i, part in enumerate(sub):
+                for name, leaf in flatten(part, f"{top}.{i}.").items():
+                    yield name, leaf, 0
+        else:
+            for name, leaf in flatten(sub, f"{top}.").items():
+                yield name, leaf, 1
 
 
 def _ring_place(k_seq, buf_len: int, dtype):
@@ -403,21 +603,57 @@ def _ring_place(k_seq, buf_len: int, dtype):
     return kept.index_select(-3, inv).to(dtype)
 
 
-def assemble_cache(cfg: ModelConfig, collected, cache_len: int,
-                   quant: bool = False) -> Cache:
-    """Turn the prefill's per-layer (k, v) [B, S, KV, Dh] into a decode
-    cache at position S for ``cache_len`` positions (the window's ring
-    under a sliding window), in ``cfg.dtype``; with ``quant`` the K/V are
-    quantized first (int8 and fp32 scales), as the JAX cache is."""
-    kvl = _kv_cache_len(cfg, cache_len)
-    ks = torch.stack([k for k, _ in collected])
-    vs = torch.stack([v for _, v in collected])
+def _place_kv(kvs, kvl: int, dt, quant: bool) -> Dict[str, torch.Tensor]:
+    """Stacked (k, v) [..., B, S, KV, Dh] into ring buffers of ``kvl``."""
+    ks = torch.stack([k for k, _ in kvs])
+    vs = torch.stack([v for _, v in kvs])
     if quant:
         (kq, k_s), (vq, v_s) = layers.quantize_kv(ks), layers.quantize_kv(vs)
-        return {"attn": {"k": _ring_place(kq, kvl, torch.int8),
-                         "v": _ring_place(vq, kvl, torch.int8),
-                         "k_scale": _ring_place(k_s, kvl, torch.float32),
-                         "v_scale": _ring_place(v_s, kvl, torch.float32)}}
+        return {"k": _ring_place(kq, kvl, torch.int8),
+                "v": _ring_place(vq, kvl, torch.int8),
+                "k_scale": _ring_place(k_s, kvl, torch.float32),
+                "v_scale": _ring_place(v_s, kvl, torch.float32)}
+    return {"k": _ring_place(ks, kvl, dt), "v": _ring_place(vs, kvl, dt)}
+
+
+def _stack_states(states) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([st[k] for st in states]) for k in states[0]}
+
+
+def assemble_cache(cfg: ModelConfig, collected, cache_len: int,
+                   quant: bool = False) -> Cache:
+    """Turn the prefill's per-layer outputs, in execution order (an
+    attention layer's post-RoPE (k, v) [B, S, KV, Dh], a recurrent or SSM
+    layer's state), into a decode cache at position S for ``cache_len``
+    positions (the window's ring under a window), K/V in ``cfg.dtype``;
+    with ``quant`` the dense and MoE K/V are quantized first (int8 and
+    fp32 scales), as the JAX cache is."""
     dt = torch_dtype(cfg.dtype)
-    return {"attn": {"k": _ring_place(ks, kvl, dt),
-                     "v": _ring_place(vs, kvl, dt)}}
+    kvl = _kv_cache_len(cfg, cache_len)
+    if cfg.family == "ssm":
+        return {"blocks": _stack_states(collected)}
+    if cfg.family != "hybrid":
+        return {"attn": _place_kv(collected, kvl, dt, quant)}
+
+    def place(kind, got):
+        if kind == "recurrent":
+            return _stack_states(got)
+        return _place_kv(got, kvl, dt, False)
+
+    pat = cfg.hybrid.pattern
+    groups, tail = hybrid_groups(cfg)
+    n = len(pat)
+    if groups:
+        out: Cache = {"groups": {f"b{j}": place(kind, collected[j::n][:groups])
+                                 for j, kind in enumerate(pat)}}
+    else:               # the JAX scan over no group: empty stacks
+        first = collected[0]
+        t = next(iter(first.values())) if isinstance(first, dict) \
+            else first[0]
+        out = {"groups": init_cache(cfg, t.shape[0], cache_len,
+                                    t.device)["groups"]}
+    if tail:
+        out["tail"] = [dict(st) if pat[i % n] == "recurrent" else
+                       {k: v[0] for k, v in place(pat[i % n], [st]).items()}
+                       for i, st in enumerate(collected[groups * n:])]
+    return out

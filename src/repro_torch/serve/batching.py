@@ -1,23 +1,26 @@
 """Continuous batching: slot-based decode over a fixed-shape pool; the port
 of ``repro.serve.batching``.
 
-The engine holds one decode cache for ``n_slots`` requests — K/V tensors
-``[L, n_slots, W, KV, Dh]`` allocated once on the model's device (``W`` is
-``cache_len``, or the window's ring under a sliding window; int8 K/V with
-their scales under ``plan.kv_cache_quant``) — and advances every slot with
-**one** batched ``LM.decode_step`` per tick,
+The engine holds one decode cache for ``n_slots`` requests, allocated once
+on the model's device in the LM's layout (:func:`repro_torch.models.lm.
+init_cache`): K/V tensors ``[L, n_slots, W, KV, Dh]`` (``W`` is
+``cache_len``, or the window's ring under a sliding window and in the
+hybrid's local attention; int8 K/V with their scales under
+``plan.kv_cache_quant``), and the recurrent state of the SSM and hybrid
+families (conv windows, SSD states, RG-LRU ``h``), each with a slot axis.
+It advances every slot with **one** batched ``LM.decode_step`` per tick,
 each slot at its own position (its own RoPE angle, cache write index and
-``cache_len`` into the decode-attention kernel) and, under an MoE, routed as
-a group of its own (``route_per_row``: the JAX engine ``vmap``s its step
-over the slots, so no slot's routing, drops included, depends on
-another's).  Requests join and leave at decode-step granularity without
-ever changing a shape.
+``cache_len`` into the decode-attention kernel; every state is written in
+place) and, under an MoE, routed as a group of its own
+(``route_per_row``: the JAX engine ``vmap``s its step over the slots, so no
+slot's routing, drops included, depends on another's).  Requests join and
+leave at decode-step granularity without ever changing a shape.
 
 Slot-pool invariants (the JAX engine's contract):
 
-  * a slot's cache is replaced wholesale at admission (the prefilled cache
-    is copied into the slot in place), so stale state from a previous
-    occupant can never leak;
+  * a slot's cache is replaced wholesale at admission (every leaf of the
+    prefilled cache, K/V and recurrent state alike, is copied into the slot
+    in place), so stale state from a previous occupant can never leak;
   * inactive slots still run the decode step (fixed shapes beat masked
     compute at this scale); their outputs are discarded host-side and their
     cache garbage is overwritten by the next admission;
@@ -33,10 +36,12 @@ once, at construction, into a CUDA graph
 static device buffers (tokens ``[n_slots, 1]``, positions ``[n_slots]``).
 Each tick copies the host's slot state into them and replays the graph; the
 argmax's copy to the host is the tick's one synchronisation.  Capturing
-before any admission is safe: it writes only into slots that admission
-replaces wholesale.  A failed capture or replay raises; the engine never
-runs the step eagerly on the card.  On the CPU the step runs eagerly (the
-same dispatch by device as the kernels').
+before any admission is safe: its warm-up step writes only into slots that
+admission replaces wholesale, and the pool is zeroed after it, so that the
+slots left empty carry the same state (a recurrent state evolves in every
+slot) as an engine that never captured.  A failed capture or replay
+raises; the engine never runs the step eagerly on the card.  On the CPU
+the step runs eagerly (the same dispatch by device as the kernels').
 
 Time is a virtual tick clock (``tick_s`` per engine tick): arrivals,
 TTFT/TPOT and energy all live on one deterministic timeline, independent of
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import CountedGraph
+from repro_torch.models.lm import slot_leaves
 from repro_torch.obs import get_tracer
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.request import Request
@@ -71,9 +77,10 @@ class ContinuousBatcher:
 
     ``model`` is a :class:`repro_torch.models.lm.LM` (it holds its weights,
     so no ``params`` argument); ``n_slots`` fixes the pool width and
-    ``cache_len`` the per-slot KV length.  ``envelope``
-    (:class:`repro_torch.power.PowerEnvelope`) prices each tick's energy
-    into the metrics; ``eos_id`` stops a request early on that token.
+    ``cache_len`` the per-slot KV length (the SSM's state has none).
+    ``envelope`` (:class:`repro_torch.power.PowerEnvelope`) prices each
+    tick's energy into the metrics; ``eos_id`` stops a request early on
+    that token.
     """
 
     def __init__(self, model, *, n_slots: int, cache_len: int,
@@ -126,7 +133,9 @@ class ContinuousBatcher:
 
     @property
     def pool(self):
-        """The slot pool's cache ``{"attn": {"k", "v"}}`` (read-only use)."""
+        """The slot pool's cache in the LM's layout (``{"attn": {"k",
+        "v"}}``, ``{"blocks": {"conv", "state"}}`` or ``{"groups": ...,
+        "tail": [...]}``; read-only use)."""
         return self._pool
 
     @property
@@ -146,10 +155,25 @@ class ContinuousBatcher:
 
     # ------------------------------------------------------------ prefill
     def _insert(self, cache, slot: int):
-        """Copy a batch-1 cache into ``slot`` of the pool, in place."""
+        """Copy every leaf of a batch-1 cache into ``slot`` of the pool, in
+        place, paired by name; a leaf missing on either side, or of another
+        shape, raises."""
         self.calls["insert"] += 1
-        for name, buf in self._pool["attn"].items():
-            buf[:, slot].copy_(cache["attn"][name][:, 0])
+        src = {name: t.select(axis, 0)
+               for name, t, axis in slot_leaves(cache)}
+        pool = list(slot_leaves(self._pool))
+        if src.keys() != {name for name, _, _ in pool}:
+            raise ValueError(f"a prefill cache of leaves {sorted(src)} does "
+                             f"not fit the pool's "
+                             f"{sorted(name for name, _, _ in pool)}")
+        rows = [(name, buf.select(axis, slot)) for name, buf, axis in pool]
+        for name, row in rows:
+            if row.shape != src[name].shape:
+                raise ValueError(f"cache leaf {name}: a slot of the pool is "
+                                 f"{tuple(row.shape)}, the prefill's "
+                                 f"{tuple(src[name].shape)}")
+        for name, row in rows:
+            row.copy_(src[name])
 
     def _admit(self, req: Request, slot: int, t_done: float):
         toks = req.tokens
@@ -214,6 +238,8 @@ class ContinuousBatcher:
             self._logits_out, _ = self.model.decode_step(
                 self._pool, toks, poss, route_per_row=True)
         torch.cuda.current_stream(dev).wait_stream(stream)
+        for _, buf, _ in slot_leaves(self._pool):   # undo the warm-up step
+            buf.zero_()
         self._graph = graph
 
     def _step(self) -> torch.Tensor:

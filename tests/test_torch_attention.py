@@ -75,7 +75,7 @@ def test_flash_plain_matches_pallas_bf16_d128_grouped_ragged():
                                rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_bf16_limits_pass_a_tiled_kernel_and_reject_faults(d):
     """The card's bf16 limits (absolute and row-scaled) pass the Pallas
     kernel, a sound tiled online softmax with 128-key tiles like the CUDA

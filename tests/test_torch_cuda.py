@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions on the card, at the shapes
 and tolerances of tests/test_kernels.py plus ragged lengths, grouped heads,
-per-slot cache lengths, sliding windows and head dim 80, and the serving
-path on the card at a small size: the engine's captured decode step
-against the eager step, launch counts across graph replays, and windowed
-serving against ``generate``.  Imports no jax: run it on the card with
+per-slot cache lengths, sliding windows, head dims 80 and 256 (10 query
+heads over one KV head), and the serving path on the card at a small
+size: the engine's captured decode step against the eager step (the
+recurrent families' too), launch counts across graph replays, and
+windowed serving against ``generate``.  Imports no jax: run it on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``."""
 import dataclasses
 
@@ -230,7 +231,7 @@ def test_cuda_decode_split_boundaries(case, dtype, tol):
     from repro_torch.kernels import decode_attention as da
     gen = _card()
     b, h, kv, s, d = 4, 32, 8, 2112, 64
-    c = da.plan(b * kv, s, da.KEY_TILE[dtype]).chunk
+    c = da.plan(b, h, kv, s, d, dtype).chunk
     shape, lens = {
         "around_split": ((b, h, kv, s, d), (c - 1, c, c + 1, s)),
         "all_one": ((b, h, kv, s, d), (1, 1, 1, 1)),
@@ -240,7 +241,7 @@ def test_cuda_decode_split_boundaries(case, dtype, tol):
     }[case]
     q, kc, vc, ln = _decode_case(gen, dtype, *shape, lens)
     if case == "ring_wrap":
-        p = da.plan(64 * kv, s, da.KEY_TILE[dtype])
+        p = da.plan(64, h, kv, s, d, dtype)
         # each warp's 3-stage ring wraps at least five times
         assert p.chunk // da.KEY_TILE[dtype] >= 5 * 3 * 8
     ops.reset_launch_counts()
@@ -645,3 +646,93 @@ def test_cuda_moe_graph_step_equals_eager_step_bitwise(arch):
     lm.decode_step({"attn": {k: v.clone() for k, v in start.items()}},
                    toks, pos)
     assert int(drops[1, 1]) > 0
+
+
+# ---- the recurrent families: head dim 256, the captured recurrent step ----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,window", [(4096, 2048), (1000, 2048), (65, 0),
+                                      (300, 129)])
+def test_cuda_flash_d256_matches_plain_version(s, window, dtype):
+    """recurrentgemma's local attention: D=256, 10 query heads over one KV
+    head, under its 2048 window past S (4096) and within it (1000), and
+    around the 64-key tile (65 keys, a window of 129): bf16 at both limits
+    beside the simulated faults, fp32 at 2e-4; one launch a call."""
+    gen = _card()
+    q, k, v, rep = _flash_views(gen, dtype, s, 256, h=10, kv=1)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, kv_group=rep, window=window)
+    want = ref.mha_ref(q, k, v, kv_group=rep, window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        return
+    ok, err, rerr = parity.within_limits(got, want)
+    assert ok, (err, rerr)
+    if s >= 1000:
+        for fault, bad in parity.fault_controls(q, k, v, rep,
+                                                window).items():
+            assert not parity.within_limits(bad, want)[0], fault
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-4)])
+@pytest.mark.parametrize("lens", [(1, 1000, 2048, 2048), (1, 1, 33, 2000)])
+def test_cuda_decode_d256_group10_matches_plain_version(lens, dtype, tol):
+    """recurrentgemma's decode over a [4, 2048, 1, 256] ring at 10 query
+    heads a KV head (10 row passes; fp32 two chunks a lane), against the
+    plain version; bf16 also at the row limit; two calls bitwise equal."""
+    gen = _card()
+    q, kc, vc, ln = _decode_case(gen, dtype, 4, 10, 1, 2048, 256, lens)
+    got = ops.decode_attention(q, kc, vc, ln)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention_ref(q, kc, vc, ln).float(),
+                               rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        want32 = parity.decode_want32(q, kc, vc, ln)
+        assert parity.row_err(got, want32) <= parity.DECODE_ROW_TOL
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, ln))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,over,prompt", [
+    ("mamba2-1.3b", {}, 16), ("recurrentgemma-2b", {"n_layers": 5}, 70)])
+def test_cuda_recurrent_graph_step_matches_eager_step(arch, over, prompt):
+    """Reduced fp32 SSM and hybrid (one group and a tail, prompts past the
+    64-token window): the engine's captured step replayed over its pool
+    gives the eager step's logits and every state leaf within 1e-5, and
+    the engine's tokens equal batch-1 ``generate``'s."""
+    gen = _card()
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.lm import slot_leaves
+    from repro_torch.serve import ContinuousBatcher, Request
+    lm = _small_lm(arch, **over)
+    engine = ContinuousBatcher(lm, n_slots=4, cache_len=80)
+    assert engine.graph is not None
+    for _, buf, _ in slot_leaves(engine.pool):
+        buf.copy_(torch.randn(buf.shape, generator=gen).to(buf))
+    start = [buf.clone() for _, buf, _ in slot_leaves(engine.pool)]
+    engine._last_tok[:] = [3, 17, 250, 9]
+    engine._pos[:] = [prompt, prompt + 5, prompt + 9, 79]
+    got = engine._step().clone()
+    after = [buf.clone() for _, buf, _ in slot_leaves(engine.pool)]
+    for (_, buf, _), s in zip(slot_leaves(engine.pool), start):
+        buf.copy_(s)
+    want, _ = lm.decode_step(engine.pool, torch.tensor(
+        [[3], [17], [250], [9]], device="cuda"), torch.tensor(
+        [prompt, prompt + 5, prompt + 9, 79], device="cuda"))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for a, (_, b, _) in zip(after, slot_leaves(engine.pool)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    toks = torch.randint(0, lm.cfg.vocab_size, (3, prompt), generator=gen)
+    engine = ContinuousBatcher(lm, n_slots=2, cache_len=80)
+    out = engine.run([Request(rid=f"r{i}", arch=lm.cfg.name,
+                              prompt_len=prompt, max_gen=g,
+                              tokens=toks[i].numpy(), arrival_s=i * 0.01)
+                      for i, g in enumerate((5, 3, 7))])
+    for i, g in enumerate((5, 3, 7)):
+        ref_toks = generate(lm, {"tokens": toks[i:i + 1]}, prompt, g, 80)
+        assert np.array_equal(out[f"r{i}"], ref_toks[0].cpu().numpy()), i

@@ -1,12 +1,15 @@
-"""The host-side plans of the matmul, decode-attention and tdfir kernels:
-the matmul's tile grid and warp split cover every product term exactly once
+"""The host-side plans of the matmul, decode-attention and tdfir kernels
+and the flash kernel's tiles (each within the 227 KB of shared memory a
+block may opt into): the matmul's tile grid and warp split cover every product term exactly once
 and fill the card at 512^3; the decode split sizes are whole key tiles, cover
 the cache and give about one wave of live blocks at the serving lengths;
 a plain simulation of the decode kernel's splits, warp tiles and
 in-order logsumexp merges at the plan's chunk sizes matches the Pallas
 decode kernel (interpret mode), also at D = 80 with the scores summed as
 the kernel's padded lanes sum them; and the card's bf16 decode limits pass
-both and reject simulated kernel faults.  For tdfir: the plan and the
+both and reject simulated kernel faults; at D = 256 with 10 query heads a
+KV head (recurrentgemma) the decode plan's lanes, passes, warp tiles and
+split cap, and the simulation against Pallas.  For tdfir: the plan and the
 kernel's index arithmetic cover every output and every (output, tap) pair
 once and read inside the staged window, the window swizzle is free of bank
 conflicts, a plain simulation of the blocked tap loop matches the Pallas
@@ -25,6 +28,7 @@ from hypothesis import strategies as st
 from repro.kernels import decode_attention as jax_da
 from repro.kernels import tdfir as jax_fir
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import matmul as mm
 from repro_torch.kernels import parity, ref
 from repro_torch.kernels import tdfir as fir
@@ -69,7 +73,14 @@ def test_matmul_plan_covers_each_product_once(m, k, n):
 def test_decode_plan_splits_whole_tiles_over_the_cache(b, kv, s_len, d,
                                                        dtype, data):
     tile = da.KEY_TILE[dtype]
-    p = da.plan(b * kv, s_len, tile)
+    # every group the wrapper admits takes one of the kernel's row-pass
+    # counts: 1, 2, 4, 8 (and 16 in fp32) up to rep * padded D = 2048, and
+    # 10 at D = 256; a lane per 16-byte chunk of D and query row (two past
+    # 32 chunks: fp32 at D = 256), a row's chunks rounded up to a
+    # power-of-two count of lanes (D = 80: 10 or 20 chunks on 16 or 32), a
+    # lane's rows holding at most 80 query elements
+    rep = data.draw(st.integers(1, da.max_group(d, dtype)))
+    p = da.plan(b, rep * kv, kv, s_len, d, dtype)
     assert p.chunk % tile == 0 and p.chunk >= tile
     assert p.n_splits * p.chunk >= s_len
     assert p.n_splits == 1 or (p.n_splits - 1) * p.chunk < s_len
@@ -78,21 +89,24 @@ def test_decode_plan_splits_whole_tiles_over_the_cache(b, kv, s_len, d,
     assert da.live_blocks(p, lens, kv) <= b * kv * p.n_splits
     if s_len:       # a full cache makes every split live
         assert da.live_blocks(p, [s_len] * b, kv) == b * kv * p.n_splits
-    # every group the wrapper admits (rep * padded D <= 2048) takes one of
-    # the kernel's row-pass counts: 1..8 in bf16, 1..16 in fp32, a lane per
-    # 16-byte chunk of D and query row, a row's chunks rounded up to a
-    # power-of-two count of lanes (D = 80: 10 or 20 chunks on 16 or 32)
-    rep = data.draw(st.integers(1, da.max_group(d, dtype)))
+    # the merging block's threads load at most MERGE_LOADS partials each
+    assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
     chunks_per_row = d * dtype.itemsize // 16
     lanes = da.lanes_per_row(d, dtype)
-    assert lanes >= chunks_per_row and 32 % lanes == 0
-    assert lanes == chunks_per_row or d == 80
+    per_lane = da.chunks_per_lane(d, dtype)
+    assert lanes * per_lane >= chunks_per_row and 32 % lanes == 0
+    assert lanes * per_lane == chunks_per_row or d == 80
+    assert per_lane == 1 or (lanes == 32 and d == 256)
     passes = math.ceil(rep / (32 // lanes))
-    assert passes <= (16 if dtype == torch.float32 else 8)
+    assert passes <= (10 if d == 256 else
+                      16 if dtype == torch.float32 else 8)
+    assert passes * per_lane * 16 // dtype.itemsize <= 80
+    # a split is whole warp tiles
+    assert p.chunk % da.warp_tile(d, dtype) == 0
 
 
 def test_decode_plan_fills_the_card_at_the_serving_shape():
-    p = da.plan(4 * 8, 2112, da.KEY_TILE[torch.bfloat16])
+    p = da.plan(4, 32, 8, 2112, 64, torch.bfloat16)
     assert 192 <= p.chunk <= 256
     assert da.live_blocks(p, (1, 300, 1000, 2112), 8) >= 120
 
@@ -103,7 +117,7 @@ def test_decode_plan_wraps_the_rings_of_a_64_slot_pool(dtype):
     cp.async ring through a 64-slot pool: one split a row, at least five
     wraps a warp."""
     tile = da.KEY_TILE[dtype]
-    p = da.plan(64 * 8, 2112, tile)
+    p = da.plan(64, 32, 8, 2112, 64, dtype)
     assert p.n_splits == 1
     assert p.chunk // tile >= 5 * parity.DECODE_STAGES * KERNEL_WARPS
 
@@ -148,8 +162,8 @@ def _simulate(q, kc, vc, lens, dtype, dot=torch.matmul):
     b, h, d = q.shape
     s_len, kvh = kc.shape[1], kc.shape[2]
     rep = h // kvh
-    tile = da.KEY_TILE[dtype]
-    p = da.plan(b * kvh, s_len, tile)
+    p = da.plan(b, h, kvh, s_len, d, dtype)
+    tile = da.warp_tile(d, dtype)
     scale = 1.0 / math.sqrt(d)
     out = torch.empty(b, h, d)
     for bi in range(b):
@@ -179,7 +193,7 @@ def test_decode_split_merge_matches_pallas():
     (H=8 over KV=2): the simulation against the Pallas kernel, run per slot
     on K/V repeated per query head, at 2e-4 in fp32."""
     b, h, kvh, s_len, d = 5, 8, 2, 864, 32
-    p = da.plan(b * kvh, s_len, da.KEY_TILE[torch.float32])
+    p = da.plan(b, h, kvh, s_len, d, torch.float32)
     assert p.chunk > da.KEY_TILE[torch.float32] and p.n_splits > 4
     lens = [1, p.chunk - 1, p.chunk, p.chunk + 1, s_len]
     rng = np.random.default_rng(11)
@@ -201,7 +215,8 @@ def test_decode_split_merge_matches_pallas():
 
 def _lane_dot(dtype):
     """Scores as csrc/decode_attention.cu sums them: a lane holds one
-    16-byte chunk of the row (EPC elements, fmaf in order), a row takes
+    16-byte chunk of the row (EPC elements, fmaf in order), or chunks c and
+    c + 32 where a row has 64 (fp32 at D = 256), a row takes
     ``lanes_per_row`` lanes, the lanes past its chunks hold zeros, and the
     lanes' partials meet in an xor butterfly over the row's lanes."""
     epc = 16 // dtype.itemsize
@@ -209,13 +224,15 @@ def _lane_dot(dtype):
     def dot(q, kt):
         d = q.shape[1]
         lanes = da.lanes_per_row(d, dtype)
-        pad = lanes * epc - d
-        qp = F.pad(q, (0, pad)).reshape(q.shape[0], lanes, epc)
-        kp = F.pad(kt.T, (0, pad)).reshape(kt.shape[1], lanes, epc)
+        cpl = da.chunks_per_lane(d, dtype)
+        pad = cpl * lanes * epc - d
+        qp = F.pad(q, (0, pad)).reshape(q.shape[0], cpl, lanes, epc)
+        kp = F.pad(kt.T, (0, pad)).reshape(kt.shape[1], cpl, lanes, epc)
         part = torch.zeros(q.shape[0], kt.shape[1], lanes)
-        for e in range(epc):
-            part = part + qp[:, None, :, e] * kp[None, :, :, e]
-        assert not part[..., d // epc:].any()     # the padded lanes add 0
+        for u in range(cpl):
+            for e in range(epc):
+                part = part + qp[:, None, u, :, e] * kp[None, :, u, :, e]
+        assert not part[..., -(-d // epc):].any()  # the padded lanes add 0
         off = lanes // 2
         while off:
             part = part + part[..., torch.arange(lanes) ^ off]
@@ -327,7 +344,7 @@ def test_decode_row_passes_at_the_moe_groups_match_pallas(h, kvh, dtype):
                                                want32)[0]
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_decode_bf16_limits_pass_tiled_kernels_and_reject_faults(d):
     """The card's bf16 decode limits (absolute, and row-scaled against the
     fp32 plain version) pass two sound tiled online softmaxes, the Pallas
@@ -357,10 +374,97 @@ def test_decode_bf16_limits_pass_tiled_kernels_and_reject_faults(d):
         assert parity.within_decode_limits(got, want, want32)[0]
     tile = da.KEY_TILE[torch.bfloat16]
     controls = parity.decode_fault_controls(
-        q, kc, vc, lens, da.plan(b * kvh, s_len, tile).chunk, tile)
+        q, kc, vc, lens, da.plan(b, h, kvh, s_len, d, torch.bfloat16).chunk,
+        da.warp_tile(d, torch.bfloat16))
     assert len(controls) == 4
     for fault, bad in controls.items():
         assert parity.row_err(bad, want32) > 2 * parity.DECODE_ROW_TOL, fault
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_flash_kv_ring_per_head_dim(d):
+    """The bf16 kernel's K/V ring that ``parity.fault_controls`` simulates
+    (held to ``Tile<D>`` when the library loads on the card): 128-key tiles
+    in 3 stages, 2 from D = 128 (D = 80 runs the D = 128 tile), and at
+    D = 256 (recurrentgemma) 64-key tiles in 2 stages; a tile is whole k16
+    steps of P V, and the faulted tile 2 * stages + 1 lies inside the
+    1024-key prompts that the fault checks use."""
+    bkv, stages = fa.kv_ring(d)
+    assert (bkv, stages) == {256: (64, 2), 128: (128, 2),
+                             80: (128, 2)}.get(d, (128, 3))
+    assert bkv % 16 == 0
+    assert (2 * stages + 2) * bkv <= 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_plan_at_head_dim_256_group_10(dtype):
+    """recurrentgemma's decode: 10 query heads over one KV head at D = 256.
+    A row takes the whole warp (32 chunks in bf16; 64 in fp32, two a lane,
+    so no lane past the warp), one row a pass, 10 passes on the 10-pass
+    instantiation, 80 query elements a lane; warp tiles of half the key
+    tile keep the 8 warps' 3-stage rings within 192 KB; the [4, 2048, 1,
+    256] pool splits into whole warp tiles and covers the cache."""
+    d, rep = 256, 10
+    epc = 16 // dtype.itemsize
+    lanes, cpl = da.lanes_per_row(d, dtype), da.chunks_per_lane(d, dtype)
+    assert lanes == 32
+    assert cpl == (2 if dtype == torch.float32 else 1)
+    assert lanes * cpl * epc == d
+    rows = 32 // lanes
+    passes = -(-rep // rows)
+    assert (rows, passes) == (1, 10)
+    assert passes * cpl * epc <= 80
+    assert da.max_group(d, dtype) == 10 >= rep
+    tile = da.warp_tile(d, dtype)
+    assert tile == da.KEY_TILE[dtype] // 2
+    ring = KERNEL_WARPS * parity.DECODE_STAGES * 2 * tile * d * dtype.itemsize
+    merge = KERNEL_WARPS * rep * (d + 2) * 4
+    assert max(ring, merge) <= 192 * 1024
+    # the splits are capped so that the block merging them loads at most
+    # MERGE_LOADS partials a thread: 16 splits, where 2.5 waves of 4 rows
+    # would ask for 83 (64 of 32 keys, whole key tiles)
+    p = da.plan(4, rep, 1, 2048, d, dtype)
+    assert p.chunk % tile == 0 and p.chunk * p.n_splits >= 2048
+    assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
+    assert (p.chunk, p.n_splits) == (128, 16)
+    assert p.n_splits < -(-5 * da.SMS // (2 * 4)) == 83
+    assert da.live_blocks(p, (1, 1000, 2048, 2048), 1) == 41
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_d256_group_10_matches_pallas(dtype):
+    """The simulation of the kernel at D = 256 with 10 query heads over one
+    KV head (its splits, half-size warp tiles, and lane sums: two chunks a
+    lane in fp32) against the Pallas kernel (interpret mode) per slot, on
+    K/V repeated per query head: 2e-4 in fp32, the bf16 limits in bf16."""
+    b, h, kvh, s_len, d = 2, 10, 1, 300, 256
+    lens = [1, 257]
+    rng = np.random.default_rng(19)
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 .to(dtype).float()
+                 for shape in ((b, h, d), (b, s_len, kvh, d),
+                               (b, s_len, kvh, d)))
+    got = _simulate(q, kc, vc, lens, dtype, _lane_dot(dtype))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
+        jnp.asarray(q[bi].numpy(), jdt),
+        jnp.asarray(kc[bi].repeat_interleave(h, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.asarray(vc[bi].repeat_interleave(h, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.int32(lens[bi]), block_kv=100, interpret=True), np.float32))
+        for bi in range(b)])
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    else:
+        lens_t = torch.tensor(lens, dtype=torch.int32)
+        qb, kb, vb = (t.to(dtype) for t in (q, kc, vc))
+        plain = ref.decode_attention_ref(qb, kb, vb, lens_t)
+        want32 = parity.decode_want32(qb, kb, vb, lens_t)
+        for out in (got, want):
+            assert parity.within_decode_limits(out.to(dtype), plain,
+                                               want32)[0]
 
 
 # ---- tdfir: csrc/tdfir.cu's blocked loop ---------------------------------

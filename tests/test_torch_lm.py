@@ -152,19 +152,21 @@ def test_blockwise_plan_matches_port(pair):
 
 
 def test_refuses_what_the_slice_does_not_port(pair):
-    """The families still unported and logit soft caps are refused, naming
-    ROADMAP item 8; every dense config (h2o-danube's window too), the MoE
-    family and the int8 KV cache are not."""
+    """The families still unported (VLM, audio) and logit soft caps are
+    refused, naming ROADMAP item 8; every dense config (h2o-danube's window
+    too), the MoE, SSM and hybrid families and the int8 KV cache are
+    not."""
     cfg, _, _, _, lm = pair
     state = dict(lm.state_dict())
     for bad in (dataclasses.replace(cfg, logit_softcap=30.0),
-                get_config("mamba2-1.3b").reduced(),
-                get_config("recurrentgemma-2b").reduced()):
+                get_config("llama-3.2-vision-90b").reduced(),
+                get_config("seamless-m4t-medium").reduced()):
         with pytest.raises(NotImplementedError, match="item 8"):
             init_params(bad, device="cpu")
         with pytest.raises(NotImplementedError, match="item 8"):
             LM(bad, state)
-    for ok in ("h2o-danube-1.8b", "moonshot-v1-16b-a3b", "arctic-480b"):
+    for ok in ("h2o-danube-1.8b", "moonshot-v1-16b-a3b", "arctic-480b",
+               "mamba2-1.3b", "recurrentgemma-2b"):
         c = get_config(ok).reduced()
         LM(c, init_params(c, device="cpu"))
     assert LM(cfg, state, Plan(kv_cache_quant=True)).plan.kv_cache_quant
