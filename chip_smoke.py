@@ -10,7 +10,8 @@ inputs at the serving shapes and prints a SHA-256 of each output and its
 device ms: run in two checkouts (this script copied into the other one's
 root, where it imports that checkout's kernels), the lines say whether
 their kernels agree bit for bit and how their times compare.  With no
-argument it runs these phases, each printing its seconds:
+argument it runs these phases, each printing its seconds (``--digests``
+also times the VLM's non-causal cross shape, Sq 2048 over 1024 keys):
 
   1. card      the card's name and power limit (nvidia-smi) and the two TF32
                flags, both off;
@@ -61,7 +62,20 @@ argument it runs these phases, each printing its seconds:
                tiles (the bf16 sweep takes D=256 too), decode over its
                [4,2048,1,256] ring at lens 1/1000/2048/2048 (bf16 at 5e-2
                and the row limit beside simulated faults, fp32 at 2e-4,
-               each call twice for the same bits);
+               each call twice for the same bits); the cross-attention
+               families: non-causal flash over a context of another
+               length (Sq below and above Skv, both ragged against the
+               tiles, kv_group 1 and 8, D 64, 128 and 256, bf16 at both
+               limits, fp32 at 2e-4), at phase 10's shapes (the VLM's
+               H=64 over KV=8 at D=128, causal at S=2048 and 1000 and over
+               its 1024 image tokens; the audio H=KV=16 at D=64, causal,
+               over 3072 frames and its non-causal S=3072 encoder; bf16
+               beside simulated faults, causal or non-causal as the walk
+               is, fp32 at 2e-4), and decode at 8 query heads a KV head
+               over [4,2112,8,128] and the full [4,1024,8,128] context, at
+               one over [4,2112,16,64] and the full [4,3072,16,64] frames
+               (bf16 at 5e-2 and the row limit beside simulated faults,
+               fp32 at 2e-4, each call twice for the same bits);
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
@@ -84,6 +98,12 @@ argument it runs these phases, each printing its seconds:
                recurrentgemma-2b's D=256, 10 over 1 (the windowed S=4096
                prefill beside SDPA with the boolean mask, S=1000 beside
                causal GQA SDPA, the decode ring beside masked SDPA);
+               phase 10's shapes: the VLM's cross attention (Sq 2048 and
+               1000 over 1024) and the audio cross attention (over 3072)
+               and encoder (S=3072) beside non-causal SDPA (GQA where KV <
+               H), both families' causal S=2048 self-attention beside
+               causal SDPA, and decode over their pools and whole contexts
+               beside masked SDPA;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
@@ -155,7 +175,29 @@ argument it runs these phases, each printing its seconds:
                ``rglru.state`` ranges of an eager step) and the rest; one
                flash launch per attention layer and prefill and one decode
                launch per attention layer and step (8 each for (j), none
-               for (i)).
+               for (i));
+ 10. cross     the cross-attention families through the same engine,
+               phase 7's trace, each request with its own seeded context
+               (``launch.serve.request_extras``: image embeddings or audio
+               frames, the reference's stub frontends): (k')
+               llama-3.2-vision-90b at full width, 1 of its 20 groups (4
+               self and 1 cross layer) in fp32, and (l')
+               seamless-m4t-medium whole in fp32, each with phase 6 (a)'s
+               checks (tokens equal to batch-1 ``generate``'s, graph
+               logits within 1e-5 of an eager engine's, one state's step
+               replayed twice for the same bits); then (k) the VLM at 4 of
+               its 20 groups (20 of 100 layers) and (l) seamless whole in
+               bf16 with phase 9's metrics: the step beside its bytes
+               bound (the decoder's weights, the self-attention pool's
+               valid rows, every slot's whole cross K/V), tokens per wall
+               second, the idle share of an unprofiled run, the prefill ms
+               at each prompt length, and a prefill's and an eager step's
+               device time split into self attention, cross attention
+               (the attention kernels labelled by their order on the
+               stream), the audio encoder, GEMMs and the rest; flash
+               launches 20 (k) and 36 (l) a prefill (self, cross and
+               encoder layers), decode launches 20 and 24 a step (self and
+               cross layers).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -247,10 +289,26 @@ GRIFFIN_DECODE_LENS = (1, 1000, 2048, 2048)
 # (the JAX model asserts it); recurrentgemma's 4096 is past its window
 RECURRENT_CELLS = (("i", "mamba2-1.3b", (1024, 2048), 2112),
                    ("j", "recurrentgemma-2b", (1000, 4096), 4160))
-# the parity cells (i') and (j'): layers kept, in fp32 (recurrentgemma's 5
-# are one group of (recurrent, recurrent, local attention) and a tail of
-# two recurrent blocks, the whole model's 8 x 3 + 2 in small)
-RECURRENT_PARITY_LAYERS = {"i": 2, "j": 5}
+# the parity cells (i'), (j'), (k'), (l'): layers kept (None: all), in
+# fp32 (recurrentgemma's 5 are one group of (recurrent, recurrent, local
+# attention) and a tail of two recurrent blocks, the whole model's 8 x 3 +
+# 2 in small; llama-3.2-vision-90b's 5 are one of its 20 groups of 4 self
+# and 1 cross layer)
+PARITY_LAYERS = {"i": 2, "j": 5, "k": 5, "l": None}
+# llama-3.2-vision-90b (phase 3, phase 4 rows, phase 10 (k)): H, KV, D and
+# its 1024 image tokens; seamless-m4t-medium (phase 10 (l)): H, KV, D and
+# its 3072 audio frames (the encoder's length)
+VLM_HEADS = (64, 8, 128)
+VLM_CTX = 1024
+AUDIO_HEADS = (16, 16, 64)
+AUDIO_CTX = 3072
+# phase 10: (label, arch, layers kept (None: all), flash launches a
+# prefill, decode launches a step); phase 7's trace, prompts and
+# cache_len, each request with its own context.  (k) keeps 4 of the VLM's
+# 20 groups (20 of its 100 layers: 16 self, 4 cross); (l) is seamless
+# whole (12 encoder, 12 self and 12 cross layers)
+CROSS_CELLS = (("k", "llama-3.2-vision-90b", 20, 20, 20),
+               ("l", "seamless-m4t-medium", None, 36, 24))
 
 
 class SmokeFailure(RuntimeError):
@@ -560,13 +618,14 @@ def check_tdfir_edges(ops, ref, gen):
             "a tdfir call past the tap limit launched")
 
 
-def flash_inputs(gen, s, dtype, b=1, h=32, kv=8, d=64):
+def flash_inputs(gen, s, dtype, b=1, h=32, kv=8, d=64, skv=None):
     """q/k/v as ``layers.attention`` hands them to the kernel: [B*H, S, D]
-    views of the [B, S, H, D] projections (strided when B == 1)."""
-    def heads(n):
-        return randn(gen, b, s, n, d, dtype=dtype).transpose(1, 2).reshape(
-            b * n, s, d)
-    return heads(h), heads(kv), heads(kv), h // kv
+    views of the [B, S, H, D] projections (strided when B == 1); k/v of
+    ``skv`` keys where given (a cross layer's context), else S."""
+    def heads(n, length):
+        return randn(gen, b, length, n, d, dtype=dtype).transpose(
+            1, 2).reshape(b * n, length, d)
+    return heads(h, s), heads(kv, skv or s), heads(kv, skv or s), h // kv
 
 
 def decode_inputs(gen, dtype, b, h, kv, s, d, lens):
@@ -592,11 +651,13 @@ def check_flash_bf16(what: str, got, want) -> float:
 
 
 def check_flash_faults(what: str, q, k, v, rep: int, want,
-                       window: int = 0) -> None:
+                       window: int = 0, causal: bool = True) -> None:
     """The bf16 flash limits must reject kernel faults that only late rows
-    show, simulated on the plain version (``kernels/parity.py``)."""
+    show (every row, in a non-causal walk), simulated on the plain version
+    (``kernels/parity.py``)."""
     from repro_torch.kernels import parity
-    for fault, bad in parity.fault_controls(q, k, v, rep, window).items():
+    for fault, bad in parity.fault_controls(q, k, v, rep, window,
+                                            causal).items():
         ok, ferr, frerr = parity.within_limits(bad, want)
         print(f"    control, {fault:26s} max_abs_err {ferr:.3e}  "
               f"row_err {frerr:.3e}  {'PASSES' if ok else 'rejected'}")
@@ -796,6 +857,7 @@ def check_attention(ops, ref, gen):
                           ops.decode_attention(q, kc, vc, ln))
     check_wide_groups(ops, ref, gen, readings)
     check_head_dim_256(ops, ref, gen, readings)
+    check_cross_attention(ops, ref, gen, readings)
     print(f"  decode bf16 row_err: largest sound reading "
           f"{readings['sound']:.3e}, limit {parity.DECODE_ROW_TOL}, smallest "
           f"fault reading {readings['fault']:.3e}")
@@ -909,6 +971,114 @@ def check_head_dim_256(ops, ref, gen, readings):
                               decode_plan(dtype, GRIFFIN_DECODE).chunk)
         require_same_bits(f"{what}, called twice", got,
                           ops.decode_attention(q, kc, vc, ln))
+
+
+def check_cross_attention(ops, ref, gen, readings):
+    """Phase 3: the cross-attention families' kernel shapes.  Non-causal
+    flash over a context of another length (``parity.CROSS_LENGTHS``: Sq
+    below and above Skv, both ragged against the 128-row and 128- or
+    64-key tiles; kv_group 1 and 8; D 64, 128 and 256; bf16 at both limits,
+    fp32 at 2e-4); then the serving shapes: llama-3.2-vision-90b's causal
+    self-attention (H=64 over KV=8, D=128, S 2048 and 1000) and its cross
+    attention (Sq 2048 and 1000 over its 1024 image tokens),
+    seamless-m4t-medium's causal self-attention (H=KV=16, D=64), its cross
+    attention (over 3072 frames) and its non-causal encoder (S=3072): bf16
+    at both limits beside the simulated faults (non-causal ones where the
+    walk is), fp32 at 2e-4.  Decode at 8 query heads a KV head, D=128,
+    over the VLM's [4,2112,8,128] pool at the serving lengths and over its
+    full [4,1024,8,128] image context, and at one a KV head, D=64, over the
+    audio [4,2112,16,64] pool and its full [4,3072,16,64] frames: bf16 at
+    5e-2 and the row limit beside simulated faults, fp32 at 2e-4, each
+    call made twice for the same bits."""
+    from repro_torch.kernels import parity
+    print(f" flash_attention non-causal over a context of another length: "
+          f"(Sq, Skv) in {parity.CROSS_LENGTHS}, kv_group 1 and 8 (H=8 over "
+          f"KV=8 or 1), bf16 at both limits, fp32 at 2e-4; max over each "
+          f"head dim and dtype")
+    for d in (64, 128, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            worst, worst_row = 0.0, 0.0
+            for sq, skv in parity.CROSS_LENGTHS:
+                for rep, q, k, v in parity.cross_cases(gen, d, sq, skv,
+                                                       dtype):
+                    got = ops.flash_attention(q, k, v, causal=False,
+                                              kv_group=rep)
+                    want = ref.mha_ref(q, k, v, causal=False, kv_group=rep)
+                    torch.cuda.synchronize()
+                    what = (f"flash non-causal D={d} Sq={sq} Skv={skv} "
+                            f"kv_group={rep} {dtype}")
+                    if dtype == torch.float32:
+                        err = max_abs_err(got, want)
+                        require(torch.allclose(got, want, rtol=2e-4,
+                                               atol=2e-4),
+                                f"{what}: kernel disagrees with its plain "
+                                f"version ({err:.3e} > 2e-4)")
+                        worst = max(worst, err)
+                        continue
+                    ok, err, rerr = parity.within_limits(got, want)
+                    require(ok, f"{what}: kernel disagrees with its plain "
+                            f"version (abs {err:.3e}, row {rerr:.3e})")
+                    worst, worst_row = max(worst, err), max(worst_row, rerr)
+            print(f"  flash non-causal D={d:<3d} {str(dtype):14s} "
+                  f"{2 * len(parity.CROSS_LENGTHS)} shapes  max_abs_err "
+                  f"{worst:.3e}  row_err {worst_row:.3e}  ok")
+    h, kv, d = VLM_HEADS
+    ah, akv, ad = AUDIO_HEADS
+    # (what, Sq, Skv, causal, H, KV, D, faults checked)
+    cases = [("VLM self", s, s, True, h, kv, d, s == FLASH_MAIN[3])
+             for s in SERVE_PROMPTS]
+    cases += [("VLM cross", s, VLM_CTX, False, h, kv, d, s == FLASH_MAIN[3])
+              for s in SERVE_PROMPTS]
+    cases += [("audio self", s, s, True, ah, akv, ad, s == FLASH_MAIN[3])
+              for s in SERVE_PROMPTS]
+    cases += [("audio cross", s, AUDIO_CTX, False, ah, akv, ad,
+               s == FLASH_MAIN[3]) for s in SERVE_PROMPTS]
+    cases.append(("audio encoder", AUDIO_CTX, AUDIO_CTX, False, ah, akv, ad,
+                  True))
+    print(f" flash_attention at the serving shapes of phase 10 "
+          f"(llama-3.2-vision-90b H={h} KV={kv} D={d}, context {VLM_CTX}; "
+          f"seamless-m4t-medium H={ah} KV={akv} D={ad}, {AUDIO_CTX} frames): "
+          f"bf16 at both limits beside simulated faults at Sq=2048 and the "
+          f"encoder, fp32 at 2e-4")
+    for what, sq, skv, causal, hh, kk, dd, faults in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, rep = flash_inputs(gen, sq, dtype, h=hh, kv=kk, d=dd,
+                                        skv=skv)
+            name = (f"flash {what} H={hh} KV={kk} Sq={sq} Skv={skv} D={dd} "
+                    f"{'causal' if causal else 'non-causal'} {dtype}")
+            want = ref.mha_ref(q, k, v, causal=causal, kv_group=rep)
+            got = ops.flash_attention(q, k, v, causal=causal, kv_group=rep)
+            if dtype == torch.float32:
+                check_close(name, got, want, 2e-4)
+            else:
+                check_flash_bf16(name, got, want)
+                if faults:
+                    check_flash_faults(name, q, k, v, rep, want,
+                                       causal=causal)
+            del want, got
+    b, _, _, s_pool, _ = DECODE_MAIN
+    shapes = ((b, h, kv, s_pool, d, DECODE_MAIN_LENS),
+              (b, h, kv, VLM_CTX, d, (VLM_CTX,) * b),
+              (b, ah, akv, s_pool, ad, DECODE_MAIN_LENS),
+              (b, ah, akv, AUDIO_CTX, ad, (AUDIO_CTX,) * b))
+    print(f" decode_attention at the pools and contexts of phase 10: "
+          f"{[list(sh[:5]) for sh in shapes]}, the contexts read whole; bf16 "
+          f"at 5e-2 and the row limit beside simulated faults, fp32 at 2e-4, "
+          f"called twice")
+    for *shape, lens in shapes:
+        shape = tuple(shape)
+        bb, hh, kk, ss, dd = shape
+        for dtype, tol in ((torch.bfloat16, 5e-2), (torch.float32, 2e-4)):
+            q, kc, vc, ln = decode_inputs(gen, dtype, *shape, lens)
+            what = f"decode {bb}x{hh} over [{bb},{ss},{kk},{dd}] {dtype}"
+            got = ops.decode_attention(q, kc, vc, ln)
+            check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln),
+                        tol)
+            if dtype == torch.bfloat16:
+                check_decode_rows(what, got, q, kc, vc, ln, readings,
+                                  decode_plan(dtype, shape).chunk)
+            require_same_bits(f"{what}, called twice", got,
+                              ops.decode_attention(q, kc, vc, ln))
 
 
 def time_kernels(ops, ref):
@@ -1228,6 +1398,75 @@ def time_family_rows(ops, ref, gen):
         row, dev = time_row(kernel, plain, library, t_bound, by,
                             iters=iters, plain_iters=plain_iters)
         print_row(what, row, dev)
+    time_cross_rows(ops, ref, gen)
+
+
+def cross_case(ops, ref, gen, sq, skv, h, kv, d):
+    """Non-causal bf16 flash at B=1 from Sq queries over Skv keys: (kernel,
+    plain, non-causal SDPA) calls and the bound (4 FLOP per (query, key)
+    pair and head dim, every pair attended; q, k, v read and o written
+    once), held to the bf16 tensor-core peak."""
+    q, k, v, rep = flash_inputs(gen, sq, torch.bfloat16, h=h, kv=kv, d=d,
+                                skv=skv)
+    q4, k4, v4 = q[None], k[None], v[None]
+    t_bound, by = bound(4.0 * h * d * sq * skv,
+                        2.0 * (2 * h * sq * d + 2 * kv * skv * d),
+                        BF16_PEAK_FLOPS)
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4,
+                                              enable_gqa=kv < h)
+    return (lambda: ops.flash_attention(q, k, v, causal=False,
+                                        kv_group=rep),
+            lambda: ref.mha_ref(q, k, v, causal=False, kv_group=rep),
+            library, t_bound, by)
+
+
+def time_cross_rows(ops, ref, gen):
+    """Phase 4, the kernel shapes that phase 10 adds, each beside its
+    bound, its plain version and SDPA: llama-3.2-vision-90b's cross
+    attention (H=64 over KV=8, D=128, Sq 2048 and 1000 over its 1024 image
+    tokens; non-causal GQA SDPA) and causal self-attention at S=2048
+    (causal GQA SDPA); seamless-m4t-medium's non-causal encoder (H=16,
+    S=3072, D=64), its cross attention (Sq 2048 and 1000 over 3072 frames;
+    non-causal SDPA) and causal self-attention at S=2048; decode over the
+    VLM's [4,2112,8,128] pool at the serving lengths and its full
+    [4,1024,8,128] context, and over the audio [4,2112,16,64] pool and its
+    full [4,3072,16,64] frames (masked SDPA)."""
+    h, kv, d = VLM_HEADS
+    ah, akv, ad = AUDIO_HEADS
+    cases = [(f"flash_attention VLM cross H={h} KV={kv} Sq={s} "
+              f"Skv={VLM_CTX} D={d} (SDPA non-causal GQA)",
+              cross_case(ops, ref, gen, s, VLM_CTX, h, kv, d))
+             for s in SERVE_PROMPTS[::-1]]
+    cases.append((f"flash_attention VLM self H={h} KV={kv} "
+                  f"S={FLASH_MAIN[3]} D={d} (SDPA causal GQA)",
+                  flash_case(ops, ref, gen, FLASH_MAIN[3], d, h=h, kv=kv)))
+    cases.append((f"flash_attention audio encoder H={ah} S={AUDIO_CTX} "
+                  f"D={ad} non-causal (SDPA non-causal)",
+                  cross_case(ops, ref, gen, AUDIO_CTX, AUDIO_CTX, ah, akv,
+                             ad)))
+    cases += [(f"flash_attention audio cross H={ah} Sq={s} Skv={AUDIO_CTX} "
+               f"D={ad} (SDPA non-causal)",
+               cross_case(ops, ref, gen, s, AUDIO_CTX, ah, akv, ad))
+              for s in SERVE_PROMPTS[::-1]]
+    cases.append((f"flash_attention audio self H={ah} S={FLASH_MAIN[3]} "
+                  f"D={ad} (SDPA causal)",
+                  flash_case(ops, ref, gen, FLASH_MAIN[3], ad, h=ah,
+                             kv=akv)))
+    b, _, _, s_pool, _ = DECODE_MAIN
+    for hh, kk, ctx, dd in ((h, kv, VLM_CTX, d), (ah, akv, AUDIO_CTX, ad)):
+        for ss, lens in ((s_pool, DECODE_MAIN_LENS), (ctx, (ctx,) * b)):
+            shape = (b, hh, kk, ss, dd)
+            cases.append((f"decode_attention over {list(shape)} lens "
+                          f"{lens}", decode_case(ops, ref, gen, shape,
+                                                 lens)))
+    for what, (kernel, plain, library, t_bound, by) in cases:
+        decode = what.startswith("decode")
+        row, dev = time_row(kernel, plain, library, t_bound, by,
+                            iters=200 if decode else 50,
+                            plain_iters=50 if decode else 3)
+        print_row(what, row, dev)
 
 
 def decode_plan(dtype, shape=DECODE_MAIN):
@@ -1336,7 +1575,10 @@ def watched_lm(cfg, seed: int, plan=None, params=None):
 
 def serve_trace(cfg, gens, seed: int, prompts=SERVE_PROMPTS):
     """Staggered requests, one arrival per tick, prompt lengths taken in
-    turn from ``prompts``, tokens drawn from ``seed``."""
+    turn from ``prompts``, tokens drawn from ``seed``; a VLM or audio
+    request carries its own context, drawn from ``(seed, i)``
+    (``launch.serve.request_extras``)."""
+    from repro_torch.launch.serve import request_extras
     from repro_torch.serve import Request
     from repro_torch.serve.batching import DEFAULT_TICK_S
     rng = np.random.default_rng(seed)
@@ -1346,8 +1588,14 @@ def serve_trace(cfg, gens, seed: int, prompts=SERVE_PROMPTS):
         reqs.append(Request(
             rid=f"r{i}", arch=cfg.name, prompt_len=n, max_gen=g,
             tokens=rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-            arrival_s=i * DEFAULT_TICK_S))
+            arrival_s=i * DEFAULT_TICK_S,
+            extras=request_extras(cfg, seed, i)))
     return reqs
+
+
+def request_batch(r) -> dict:
+    """A request's batch-1 prefill input: its tokens and its context."""
+    return {"tokens": torch.from_numpy(r.tokens[None]), **r.extras}
 
 
 def smoke_batcher(lm, cache_len: int, *, eager: bool = False,
@@ -1379,27 +1627,34 @@ def smoke_batcher(lm, cache_len: int, *, eager: bool = False,
     return engine
 
 
-def attention_layers(lm) -> int:
-    """The LM's attention layers (the hybrid's local attention blocks; none
-    in the SSM)."""
-    from repro_torch.models.lm import DenseBlock
-    return sum(isinstance(blk, DenseBlock) for blk in lm.layers)
+def attention_launches(lm):
+    """(flash launches a prefill, decode launches a step) of the LM: one
+    each per self-attention layer (the hybrid's local attention blocks;
+    none in the SSM) and per cross layer, and a flash launch per audio
+    encoder layer; no decode launch of a self-attention layer under the
+    int8 cache, whose decode attention is plain torch."""
+    from repro_torch.models.lm import CrossBlock, DenseBlock
+    dense = sum(isinstance(blk, DenseBlock) for blk in lm.layers)
+    cross = sum(isinstance(blk, CrossBlock) for blk in lm.layers)
+    encoder = len(getattr(lm, "enc_blocks", ()))
+    return (dense + cross + encoder,
+            (0 if lm.plan.kv_cache_quant else dense) + cross)
 
 
 def check_engine_run(engine, lm, reqs, out, launches, label: str):
     """Every request complete, no NaN logit, flash once per attention layer
-    and prefill, decode once per attention layer and step (none under the
-    int8 cache, whose decode attention is plain torch), no planner kernel,
-    and no step run from Python where the graph replays."""
-    n_layers = attention_layers(lm)
-    quant = lm.plan.kv_cache_quant
+    (self, cross and encoder) and prefill, decode once per self and cross
+    layer and step (none for a self layer under the int8 cache, whose
+    decode attention is plain torch), no planner kernel, and no step run
+    from Python where the graph replays."""
+    per_prefill, per_step = attention_launches(lm)
     print(f"  ({label}) engine calls {engine.calls}, kernel launches "
           f"{launches}, decode steps run from Python {lm.eager_steps}")
     require(engine.calls["prefill"] == len(reqs), f"({label}) prefills")
-    require(launches["flash_attention"] == n_layers * len(reqs),
+    require(launches["flash_attention"] == per_prefill * len(reqs),
             f"({label}) flash_attention launches != layers x prefills")
     require(launches["decode_attention"]
-            == (0 if quant else n_layers * engine.calls["decode_step"]),
+            == per_step * engine.calls["decode_step"],
             f"({label}) decode_attention launches != layers x decode steps")
     require(launches["matmul"] == launches["tdfir"] == 0,
             f"({label}) the serve path launched a planner kernel")
@@ -1504,14 +1759,14 @@ def reference_tokens(ops, lm, reqs, label: str,
     with its launches counted."""
     from repro_torch.launch.serve import generate
     out = {}
+    per_prefill, per_step = attention_launches(lm)
     for r in reqs:
         ops.reset_launch_counts()
-        toks = generate(lm, {"tokens": torch.from_numpy(r.tokens[None])},
-                        r.prompt_len, r.max_gen, cache_len)
+        toks = generate(lm, request_batch(r), r.prompt_len, r.max_gen,
+                        cache_len)
         got = ops.launch_counts()
-        n_layers = attention_layers(lm)
-        require(got["flash_attention"] == n_layers
-                and got["decode_attention"] == n_layers * (r.max_gen - 1),
+        require(got["flash_attention"] == per_prefill
+                and got["decode_attention"] == per_step * (r.max_gen - 1),
                 f"({label}) generate {r.rid}: launches {got}")
         out[r.rid] = toks[0].cpu().numpy()
     require(not bool(lm.nan), f"({label}) a generate logit was NaN")
@@ -2023,7 +2278,7 @@ def run_recurrent(ops):
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "decode_attention": 0}
     for label, arch, prompts, cache_len in RECURRENT_CELLS:
-        check_recurrent_parity(ops, label, arch, prompts, cache_len)
+        check_parity(ops, label, arch, prompts, cache_len)
         cfg = get_config(arch)
         lm = watched_lm(cfg, seed=2)
         print(f" ({label}) {arch}: full width and depth ({describe(cfg)}), "
@@ -2035,8 +2290,9 @@ def run_recurrent(ops):
                                                    cache_len=cache_len)
         for k in total:
             total[k] += launches[k]
-        want_attn = attention_layers(lm) * len(reqs)
-        print(f"  ({label}) {attention_layers(lm)} attention layers: "
+        n_attn = attention_launches(lm)[0]
+        want_attn = n_attn * len(reqs)
+        print(f"  ({label}) {n_attn} attention layers: "
               f"{launches['flash_attention']} flash launches over "
               f"{len(reqs)} prefills (want {want_attn}), "
               f"{launches['decode_attention']} decode launches over "
@@ -2080,7 +2336,20 @@ def run_recurrent(ops):
 
 
 def describe(cfg) -> str:
-    """The widths of an SSM or hybrid config, as printed."""
+    """The widths of an SSM, hybrid, VLM or audio config, as printed."""
+    heads = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
+             f"d_ff {cfg.d_ff} {cfg.ffn_act}, {cfg.norm}")
+    if cfg.family == "vlm":
+        groups, per = cfg.n_layers // (cfg.cross_attn_every + 1), \
+            cfg.cross_attn_every
+        return (f"d_model {cfg.d_model}, {heads}; {groups} group(s) of "
+                f"{per} self and 1 cross layer over {cfg.n_img_tokens} image "
+                f"tokens")
+    if cfg.family == "audio":
+        return (f"d_model {cfg.d_model}, {heads}, biases; "
+                f"{cfg.encoder_layers} encoder layers over {cfg.n_frames} "
+                f"frames, {cfg.n_layers} decoder layers of self and cross "
+                f"attention")
     if cfg.family == "ssm":
         m = cfg.ssm
         return (f"d_model {cfg.d_model}, d_inner {m.d_inner(cfg.d_model)}, "
@@ -2092,20 +2361,22 @@ def describe(cfg) -> str:
             f"{'/'.join(cfg.hybrid.pattern)}")
 
 
-def check_recurrent_parity(ops, label, arch, prompts, cache_len) -> None:
-    """(i') and (j'): the family at full width and a few layers in fp32,
-    phase 6 (a)'s mixed max_gen: the graph-replayed logits within 1e-5 of
-    an eager engine's, one state's step replayed twice for the same bits,
-    and greedy tokens equal to batch-1 ``generate``'s."""
+def check_parity(ops, label, arch, prompts, cache_len) -> None:
+    """(i'), (j'), (k') and (l'): the family at full width and a few layers
+    (``PARITY_LAYERS``; None: all) in fp32, phase 6 (a)'s mixed max_gen:
+    the graph-replayed logits within 1e-5 of an eager engine's, one
+    state's step replayed twice for the same bits, and greedy tokens equal
+    to batch-1 ``generate``'s."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import slot_leaves
-    n_layers = RECURRENT_PARITY_LAYERS[label]
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
-                              dtype="float32", param_dtype="float32")
+    full = get_config(arch)
+    n_layers = PARITY_LAYERS[label] or full.n_layers
+    cfg = dataclasses.replace(full, n_layers=n_layers, dtype="float32",
+                              param_dtype="float32")
     lm = watched_lm(cfg, seed=0)
     tag = f"{label}'"
     print(f" ({tag}) {arch} full width ({describe(cfg)}), {n_layers} of "
-          f"{get_config(arch).n_layers} layers, float32, {weights(lm)}: 8 "
+          f"{full.n_layers} layers, float32, {weights(lm)}: 8 "
           f"staggered requests, prompts {prompts}, max_gen {SERVE_GENS}, "
           f"{SERVE_SLOTS} slots, cache_len {cache_len}; the graph engine "
           f"beside an eager one")
@@ -2132,7 +2403,7 @@ def check_recurrent_parity(ops, label, arch, prompts, cache_len) -> None:
     for (_, buf, _), s0 in zip(slot_leaves(graph_engine.pool), start):
         buf.copy_(s0)
     require_same_bits(f"({tag}) one state's decode step replayed twice",
-                      first, graph_engine._step(), "the recurrent step is "
+                      first, graph_engine._step(), "the captured step is "
                       "not deterministic")
     want = reference_tokens(ops, lm, reqs, tag, cache_len)
     same = [np.array_equal(out[r.rid], want[r.rid]) for r in reqs]
@@ -2217,6 +2488,154 @@ def recurrent_step_split(lm, engine, label: str) -> None:
             f"the {tag} range: the step's split is not measured")
 
 
+def run_cross(ops):
+    """Phase 10: the cross-attention families through the captured engine,
+    phase 7's trace (8 requests, one arrival a tick, 4 slots, prompts 1000
+    and 2048, cache_len 2112, max_gen 64; each request with its own
+    seeded context), each model freed before the next: the parity cell of
+    each family (phase 6 (a)'s checks), then the model in bf16 with phase
+    9's metrics; returns the flash and decode launches summed over (k) and
+    (l)."""
+    from repro_torch.configs import get_config
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for label, arch, n_layers, per_prefill, per_step in CROSS_CELLS:
+        check_parity(ops, label, arch, SERVE_PROMPTS, SERVE_CACHE_LEN)
+        cfg, cut = cut_depth(get_config(arch), n_layers)
+        lm = watched_lm(cfg, seed=2)
+        print(f" ({label}) {arch}: full width ({describe(cfg)}), {cut}, "
+              f"bfloat16, {weights(lm)}; prompts {SERVE_PROMPTS}, cache_len "
+              f"{SERVE_CACHE_LEN}")
+        require(attention_launches(lm) == (per_prefill, per_step),
+                f"({label}) the model has {attention_launches(lm)} attention "
+                f"launches a prefill and a step, not "
+                f"{(per_prefill, per_step)}")
+        reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1)
+        engine, out, wall, launches = serve_engine(ops, lm, reqs, label)
+        for k in total:
+            total[k] += launches[k]
+        print(f"  ({label}) {launches['flash_attention']} flash launches over "
+              f"{len(reqs)} prefills ({per_prefill} a prefill), "
+              f"{launches['decode_attention']} decode launches over "
+              f"{engine.calls['decode_step']} graph replays ({per_step} a "
+              f"step)")
+        n_tok = sum(len(t) for t in out.values())
+        cross_b = sum(t.nbytes for t in engine.pool["cross"].values())
+        print(f"  ({label}) wall {wall:.2f} s, {n_tok} tokens, "
+              f"{n_tok / wall:.1f} generated tokens per wall second; pool "
+              f"{pool_bytes(engine) / 1e9:.3f} GB (cross K/V "
+              f"{cross_b / 1e9:.3f} GB)")
+        _, step_dev = step_times(engine, lm, SERVE_PROMPTS, label,
+                                 eager_too=False)
+        cross_step_bound(lm, engine, step_dev, label)
+        w, t, busy, n = engine_idle_share(lm, reqs, SERVE_CACHE_LEN, False)
+        print(f"  ({label}) graph engine: {busy / 1e3:.3f} s of device time "
+              f"in {n} kernels (a profiled run); device idle "
+              f"{1 - busy / (w * 1e3):.1%} of an unprofiled run's {w:.2f} s "
+              f"wall ({1 - busy / (t * 1e3):.1%} of the profiled run's "
+              f"{t:.2f} s)")
+        for r in reqs[:len(SERVE_PROMPTS)]:
+            batch = request_batch(r)
+            lm.prefill(batch, SERVE_CACHE_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                lm.prefill(batch, SERVE_CACHE_LEN)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) / 3 * 1e3
+            print(f"  ({label}) prefill of {r.prompt_len} tokens: "
+                  f"{prefill_ms:.2f} ms wall (host clock, synchronised)")
+            range_split(lm, lambda: lm.prefill(batch, SERVE_CACHE_LEN),
+                        f"prefill of {r.prompt_len} tokens", label,
+                        per_prefill)
+        toks = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device="cuda")
+        pos = torch.from_numpy(engine._pos.copy()).cuda()
+        range_split(lm, lambda: lm.decode_step(engine.pool, toks, pos),
+                    "eager decode step", label, per_step)
+        del lm, engine
+        free_card()
+    return total
+
+
+def cross_step_bound(lm, engine, step_dev: float, label: str) -> None:
+    """The graph-replayed step's device time against the bytes it must
+    move at the state ``step_times`` timed: the decoder's weights read
+    once (its self and cross layers, the final norm and the unembedding;
+    not the embedding table, of which a step reads 4 rows, nor the audio
+    encoder, which only prefill runs), the self-attention pool's valid
+    rows and every slot's whole cross K/V read."""
+    from repro_torch.models.lm import CrossBlock, layer_caches
+    skip = ("embed",) if not lm.cfg.tie_embeddings else ()
+    weights_b = sum(t.nbytes for name, t in lm.state_dict().items()
+                    if name not in skip and not name.startswith("enc_"))
+    pool = cross = 0
+    for blk, layer in zip(lm.layers, layer_caches(lm.cfg, engine.pool)):
+        for buf in layer.values():
+            if isinstance(blk, CrossBlock):
+                cross += buf.nbytes
+            else:
+                w = buf.shape[1]
+                rows = sum(min(int(p) + 1, w) for p in engine._pos)
+                pool += buf[0, 0].nbytes * rows
+    t_bound = (weights_b + pool + cross) / HBM_BYTES_PER_S * 1e3
+    print(f"  ({label}) decode step bound: the decoder's weights read once "
+          f"({weights_b / 1e9:.2f} GB), the self-attention pool's valid rows "
+          f"({pool / 1e9:.3f} GB) and the cross K/V ({cross / 1e9:.3f} GB) "
+          f"read at 3.35 TB/s = {t_bound:.3f} ms; the step's device time is "
+          f"{step_dev:.3f} ms, {step_dev / t_bound:.2f}x that")
+
+
+def range_split(lm, fn, what: str, label: str, n_attn: int) -> None:
+    """Where one eager call's device time goes: self attention, cross
+    attention, the audio encoder (in prefill), cuBLAS GEMMs outside the
+    encoder, and the rest.  The flash and decode kernels launch through
+    ``ctypes``, outside any aten op, so torch.profiler gives a
+    ``record_function`` range around them none of their device time;
+    instead the call's ``n_attn`` attention kernels are labelled by their
+    order on the stream: the encoder's first (in prefill), then one per
+    decoder layer in ``lm.layers``' order, self or cross.  The encoder's
+    time is the kernel time of ``lm.encode`` traced alone (its GEMMs taken
+    out of the GEMMs)."""
+    from torch.profiler import ProfilerActivity
+    from repro_torch.models.lm import CrossBlock
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = traced_kernels(fn, [ProfilerActivity.CUDA])
+    kernels = [(n, ms) for _, n, ms in sorted(
+        (e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+        for e in prof.events()
+        if str(e.device_type).endswith("CUDA") and PAD_KERNEL not in e.name)]
+    total = sum(ms for _, ms in kernels)
+    attn = [ms for n, ms in kernels if any(
+        k in n for k in ("flash_bf16_kernel", "flash_f32_kernel",
+                         "decode_kernel"))]
+    require(len(attn) == n_attn, f"({label}) the {what} ran {len(attn)} "
+            f"attention kernels, not {n_attn}")
+    n_enc = n_attn - len(lm.layers)
+    kinds = ["cross" if isinstance(blk, CrossBlock) else "self"
+             for blk in lm.layers]
+    got = {kind: sum(ms for ms, k in zip(attn[n_enc:], kinds) if k == kind)
+           for kind in ("self", "cross")}
+
+    def gemms(ks):
+        return sum(ms for n, ms in ks if any(g in n for g in GEMM_NAMES))
+    gemm, encoder = gemms(kernels), 0.0
+    if n_enc:           # the encoder traced alone: its kernels and GEMMs
+        frames = torch.zeros((1, lm.cfg.n_frames, lm.cfg.d_model),
+                             dtype=lm.dtype, device="cuda")
+        _, enc = traced_kernels(lambda: lm.encode(frames),
+                                [ProfilerActivity.CUDA])
+        encoder = sum(ms for _, ms in enc)
+        gemm -= gemms(enc)
+    rest = total - gemm - encoder - got["self"] - got["cross"]
+    enc_part = (f"the encoder {encoder:.3f} ({encoder / total:.1%}), "
+                if n_enc else "")
+    print(f"  ({label}) {what}, {len(kernels)} kernels, {total:.3f} ms of "
+          f"device time: self attention {got['self']:.3f} "
+          f"({got['self'] / total:.1%}), cross attention {got['cross']:.3f} "
+          f"({got['cross'] / total:.1%}), {enc_part}GEMMs {gemm:.3f} "
+          f"({gemm / total:.1%}), the rest {rest:.3f} ({rest / total:.1%})")
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, through the wrapper calls that every
@@ -2243,6 +2662,15 @@ def run_digests() -> int:
             cases.append((f"decode {list(shape)} {dtype}",
                           functools.partial(ops.decode_attention, q, kc, vc,
                                             ln)))
+    # the non-causal cross shape, after the rest (their inputs unchanged)
+    h, kv, d = VLM_HEADS
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, rep = flash_inputs(gen, FLASH_MAIN[3], dtype, h=h, kv=kv,
+                                    d=d, skv=VLM_CTX)
+        cases.append((f"flash H={h} KV={kv} Sq={FLASH_MAIN[3]} "
+                      f"Skv={VLM_CTX} D={d} non-causal {dtype}",
+                      functools.partial(ops.flash_attention, q, k, v,
+                                        causal=False, kv_group=rep)))
     for what, fn in cases:
         out = fn().contiguous()
         digest = hashlib.sha256(out.view(torch.uint8).cpu().numpy()
@@ -2311,10 +2739,12 @@ def main() -> int:
         moe_cells = run_moe(ops)
     with phase("9 recurrent"):
         recurrent = run_recurrent(ops)
+    with phase("10 cross"):
+        cross = run_cross(ops)
     # flash and decode: the serving cells' launches, each cell counted
-    # from 0 on its own (6 b, 7 c-f, 8 g-h and 9 i-j)
+    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l)
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]
-                     for k in family})
+                     + cross[k] for k in family})
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

@@ -173,11 +173,21 @@ def _scratch(dev: torch.device, stream: int, floats: int, groups: int):
 
 def lens_tensor(cache_len, b: int, device: torch.device) -> torch.Tensor:
     """``cache_len`` (an int, or an int tensor of 1 or ``b`` entries) as a
-    contiguous int32 [b] tensor on ``device``."""
+    contiguous int32 [b] tensor on ``device``.  While a CUDA graph is
+    being captured only a tensor already on ``device`` is taken: an int or
+    a host tensor would be a host-to-device copy, which a capture forbids
+    (and a replay would not repeat), so it raises."""
     if (isinstance(cache_len, torch.Tensor) and cache_len.dtype == torch.int32
             and cache_len.device == device and cache_len.shape == (b,)
             and cache_len.is_contiguous()):
         return cache_len            # the serving path's lengths, as they are
+    if torch.cuda.is_current_stream_capturing() and not (
+            isinstance(cache_len, torch.Tensor)
+            and cache_len.device == device):
+        raise RuntimeError(
+            f"decode attention captured into a CUDA graph takes its lengths "
+            f"as a tensor on {device}, not {type(cache_len).__name__} "
+            f"{cache_len!r} from the host")
     lens = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
     return lens.reshape(-1).expand(b).contiguous()
 

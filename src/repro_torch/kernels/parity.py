@@ -53,6 +53,26 @@ def within_limits(got: torch.Tensor, want: torch.Tensor):
     return err <= BF16_ABS_TOL and rerr <= BF16_ROW_TOL, err, rerr
 
 
+# (Sq, Skv) of non-causal cross-attention: the VLM's prompts over its 1024
+# image tokens, the audio prompts over its 3072 frames, and lengths ragged
+# against the bf16 kernel's 128-row and 128- or 64-key tiles on both sides
+CROSS_LENGTHS = ((1000, 1024), (2048, 1024), (1000, 3072), (2048, 3072),
+                 (77, 200), (300, 65), (129, 1), (1, 129))
+
+
+def cross_cases(gen: torch.Generator, d: int, sq: int, skv: int, dtype,
+                device="cuda"):
+    """H=8 query heads over KV=8 or 1 (kv_group 1 and 8), each a strided
+    [H, S, D] view of [1, S, H, D] with its own length: yields
+    (kv_group, q [8, Sq, D], k, v [8 // kv_group, Skv, D])."""
+    def heads(n, s):
+        x = torch.randn(1, s, n, d, generator=gen).to(device, dtype)
+        return x.transpose(1, 2).reshape(n, s, d)
+
+    for rep in (1, 8):
+        yield rep, heads(8, sq), heads(8 // rep, skv), heads(8 // rep, skv)
+
+
 def sweep_cases(gen: torch.Generator, d: int, s: int, device="cuda"):
     """H=8 bf16 query heads over KV=8 or 2 heads (kv_group 1 and 4), each
     a strided [B*H, S, D] view of [1, S, H, D], causal and not: yields
@@ -67,16 +87,17 @@ def sweep_cases(gen: torch.Generator, d: int, s: int, device="cuda"):
             yield rep, causal, q, k, v
 
 
-def _attention(q, k, v, kv_group, p_dtype, drop=None, window=0):
-    """``ref.mha_ref`` (causal, under ``window`` if one is given), with the
-    keys in ``drop`` masked out and p rounded to ``p_dtype`` before it
-    returns to V's type."""
+def _attention(q, k, v, kv_group, p_dtype, drop=None, window=0,
+               causal=True):
+    """``ref.mha_ref`` (causal unless ``causal=False``, under ``window`` if
+    one is given), with the keys in ``drop`` masked out and p rounded to
+    ``p_dtype`` before it returns to V's type."""
     k = k.repeat_interleave(kv_group, dim=0)
     v = v.repeat_interleave(kv_group, dim=0)
     s = torch.einsum("bqd,bkd->bqk", q, k).float() / math.sqrt(q.shape[-1])
     pos = torch.arange(q.shape[1], device=q.device)
     diff = pos[:, None] - torch.arange(k.shape[1], device=q.device)
-    keep = diff >= 0
+    keep = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
     if window:
         keep &= diff < window
     if drop is not None:
@@ -86,13 +107,14 @@ def _attention(q, k, v, kv_group, p_dtype, drop=None, window=0):
     return torch.einsum("bqk,bkd->bqd", p, v)
 
 
-def fault_controls(q, k, v, kv_group: int, window: int = 0) -> dict:
-    """Causal outputs (under ``window`` if one is given) of kernel faults
-    that disturb late rows, simulated on the plain version: key tile t =
-    2*STAGES + 1 skipped (past the ring's first two fills), or only its
-    first 16 keys (one k16 step of P V), tile t's K/V read from the stale
-    stage that held tile t - STAGES, and P rounded to fp8 e4m3 instead of
-    bf16."""
+def fault_controls(q, k, v, kv_group: int, window: int = 0,
+                   causal: bool = True) -> dict:
+    """Outputs (causal unless ``causal=False``, under ``window`` if one is
+    given) of kernel faults that disturb late rows, or in a non-causal walk
+    every row, simulated on the plain version: key tile t = 2*STAGES + 1
+    skipped (past the ring's first two fills), or only its first 16 keys
+    (one k16 step of P V), tile t's K/V read from the stale stage that held
+    tile t - STAGES, and P rounded to fp8 e4m3 instead of bf16."""
     bkv, stages = _fa.kv_ring(q.shape[-1])
     t = 2 * stages + 1
     tile = slice(t * bkv, (t + 1) * bkv)
@@ -101,7 +123,7 @@ def fault_controls(q, k, v, kv_group: int, window: int = 0) -> dict:
     n = len(range(k.shape[1])[tile])
     ks, vs = k.clone(), v.clone()
     ks[:, tile], vs[:, tile] = k[:, stale][:, :n], v[:, stale][:, :n]
-    kw = dict(window=window)
+    kw = dict(window=window, causal=causal)
     return {
         f"key tile {t} skipped": _attention(q, k, v, kv_group, v.dtype,
                                             drop=tile, **kw),

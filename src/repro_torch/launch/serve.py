@@ -6,12 +6,17 @@ lock-step); the CLI routes through
 :class:`repro_torch.serve.ContinuousBatcher`, where requests join and leave
 the running batch at decode-step granularity and the KV slot pool persists
 across requests.  The weights are random, drawn from a seeded generator.
-``--arch`` takes any dense, MoE, SSM or hybrid config (granite-3-2b,
-h2o-danube-1.8b, nemotron-4-15b, command-r-plus-104b, moonshot-v1-16b-a3b,
-arctic-480b, mamba2-1.3b, recurrentgemma-2b; at ``--full``
-command-r-plus-104b's 208 GB and arctic-480b's 952 GB of bf16 are past one
-80 GB card, moonshot-v1-16b-a3b's 58 GB, mamba2-1.3b's 2.7 GB and
-recurrentgemma-2b's 5.4 GB fit).  The engine routes each slot through the
+``--arch`` takes any config (granite-3-2b, h2o-danube-1.8b,
+nemotron-4-15b, command-r-plus-104b, moonshot-v1-16b-a3b, arctic-480b,
+mamba2-1.3b, recurrentgemma-2b, llama-3.2-vision-90b, seamless-m4t-medium;
+at ``--full`` command-r-plus-104b's 208 GB, arctic-480b's 952 GB and
+llama-3.2-vision-90b's 175 GB of bf16 are past one 80 GB card,
+moonshot-v1-16b-a3b's 58 GB, mamba2-1.3b's 2.7 GB, recurrentgemma-2b's
+5.4 GB and seamless-m4t-medium's 2 GB fit).  A VLM or audio request
+carries its own context, as the JAX launcher's ``_request_extras`` makes
+it: seeded normal image embeddings ``[1, n_img_tokens, d_model]`` or
+audio frames ``[1, n_frames, d_model]`` (the reference's stub
+frontends).  The engine routes each slot through the
 MoE on its own, as the JAX engine does; ``generate`` routes its batch
 jointly, as the JAX ``generate`` does.  mamba2-1.3b's prompt length must be
 a multiple of its SSD chunk (256 at ``--full``) or shorter than one, as the
@@ -30,19 +35,22 @@ JAX model requires.  Runs on the card unless ``--device`` names another:
       --arch mamba2-1.3b --prompt-len 1024 --gen 64
   PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
       --arch recurrentgemma-2b --prompt-len 4096 --gen 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --full --trace 8 \\
+      --arch seamless-m4t-medium --prompt-len 1000 --gen 64
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 
 def generate(model, batch, prompt_len: int, gen: int, cache_len: int):
     """Greedy decode ``gen`` tokens after prefilling ``batch['tokens']``
-    [B, prompt_len]; returns the tokens [B, gen] (int64, on the model's
-    device).
+    [B, prompt_len] (with ``batch``'s context, for a VLM or audio model);
+    returns the tokens [B, gen] (int64, on the model's device).
 
     The sequential reference the continuous engine's parity test compares
     against: whole batch prefilled together, decoded in lock-step."""
@@ -56,13 +64,29 @@ def generate(model, batch, prompt_len: int, gen: int, cache_len: int):
     return torch.cat(toks, dim=1)
 
 
+def request_extras(cfg, seed: int, i: int) -> dict:
+    """The modality context of request ``i`` (VLM: ``img_embed``, audio:
+    ``frames``; nothing for the other families): float32 normal numpy
+    ``[1, S_ctx, d_model]`` drawn from ``(seed, i)``, the stub frontend of
+    the JAX launcher's ``_request_extras`` (whose values come from
+    ``jax.random`` and differ)."""
+    n = {"vlm": cfg.n_img_tokens, "audio": cfg.n_frames}.get(cfg.family)
+    if n is None:
+        return {}
+    ctx = np.random.default_rng([seed, i]).standard_normal(
+        (1, n, cfg.d_model), dtype=np.float32)
+    return {"img_embed" if cfg.family == "vlm" else "frames": ctx}
+
+
 def synthetic_trace(cfg, n: int, prompt_len: int, gen: int, *,
-                    gap_s: float = 0.02):
+                    gap_s: float = 0.02, seed: int = 1):
     """Open-loop arrival trace: ``n`` requests arriving ``gap_s`` apart
-    (staggered — the shape continuous batching wins on)."""
+    (staggered — the shape continuous batching wins on), each with its own
+    context (:func:`request_extras`) where the family takes one."""
     from repro_torch.serve import Request
     return [Request(rid=f"r{i}", arch=cfg.name, prompt_len=prompt_len,
-                    max_gen=gen, arrival_s=i * gap_s) for i in range(n)]
+                    max_gen=gen, arrival_s=i * gap_s,
+                    extras=request_extras(cfg, seed, i)) for i in range(n)]
 
 
 def main(argv=None):
@@ -109,7 +133,8 @@ def main(argv=None):
         reqs = synthetic_trace(cfg, args.trace, args.prompt_len, args.gen)
     else:
         reqs = [Request(rid=f"r{i}", arch=cfg.name,
-                        prompt_len=args.prompt_len, max_gen=args.gen)
+                        prompt_len=args.prompt_len, max_gen=args.gen,
+                        extras=request_extras(cfg, 1, i))
                 for i in range(args.batch)]
 
     t0 = time.perf_counter()

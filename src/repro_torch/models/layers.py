@@ -164,21 +164,24 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
               softcap: float = 0.0, plan=None):
     """q [B, Sq, H, Dh], k/v [B, Skv, KV, Dh] -> [B, Sq, H, Dh].
 
-    The JAX layer picks dense or blockwise attention by
+    ``Skv`` may differ from ``Sq`` under ``causal=False``: cross-attention
+    from a prompt over a context of its own length (the VLM's image
+    tokens, the audio encoder's frames); each of the B*H rows then walks
+    all Skv keys.  The JAX layer picks dense or blockwise attention by
     ``plan.blockwise_attn_threshold``; both compute this one function, and
     the port computes it with the flash-attention kernel at every length
     (the kernel is the blockwise algorithm).  ``plan.gqa_grouped`` only
     changes the JAX layout, not the result.  ``window`` > 0 keeps keys with
     ``qpos - kpos < window`` (h2o-danube's sliding window).  Logit soft caps
     wait: no config sets one, and the JAX blockwise path ignores them;
-    query offsets belong to other families (ROADMAP item 8).
+    no model of the JAX package passes a query offset (ROADMAP item 8).
     """
     if q_offset or softcap > 0:
         raise not_ported("attention with a soft cap or query offset", 8)
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    # [B, S, H, Dh] -> [B*H, S, Dh]: a view when B == 1 (the serving
-    # engine's prefill), a copy otherwise
+    # [B, S, H, Dh] -> [B*H, S, Dh] (each with its own S): a view when
+    # B == 1 (the serving engine's prefill), a copy otherwise
     qh = q.transpose(1, 2).reshape(b * h, sq, dh)
     kh = k.transpose(1, 2).reshape(b * kvh, skv, dh)
     vh = v.transpose(1, 2).reshape(b * kvh, skv, dh)
@@ -191,7 +194,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
                      softcap: float = 0.0):
     """q [B, 1, H, Dh]; caches [B, S, KV, Dh]; ``cache_len`` = valid entries,
     an int or an int tensor [B] (one per row: the batcher's slots sit at
-    different positions) -> [B, 1, H, Dh].
+    different positions; a cross layer's is S for every row, a device
+    tensor so that a captured step copies nothing from the host) ->
+    [B, 1, H, Dh].
 
     ``window`` is accepted and ignored, as in the JAX layer: a windowed
     cache is a ring of ``min(cache_len, window)`` slots that holds exactly

@@ -1,5 +1,5 @@
-"""The language model, dense, MoE, SSM and hybrid families: the port of
-``repro.models.lm``.
+"""The language model, every family of ``repro.models.lm``: the port of
+that module.
 
 Serving entry points, as in the JAX ``Model``:
 
@@ -13,7 +13,13 @@ the SSM family (mamba2-1.3b: :class:`SSMBlock` over
 :mod:`repro_torch.models.ssm`) and the hybrid (recurrentgemma-2b: groups of
 ``cfg.hybrid.pattern`` blocks, :class:`RecurrentBlock` over
 :mod:`repro_torch.models.rglru` and the dense block as its local attention,
-then a tail); the VLM and audio families wait (ROADMAP queue 1 item 8).
+then a tail), the VLM family (llama-3.2-vision-90b: groups of
+``cross_attn_every`` dense blocks and one :class:`CrossBlock` over the
+image embeddings) and the audio family (seamless-m4t-medium: a non-causal
+encoder over the frames, then decoder layers of a dense block and a
+:class:`CrossBlock` over the encoder output).  Both take their context
+(``batch["img_embed"]`` or ``batch["frames"]``, from the reference's stub
+frontends) in every prefill; a batch without it raises.
 
 Parameters keep the JAX tree's names and layouts (``embed [V, d]``,
 ``final_norm.scale``, and per layer ``attn_norm.scale``, ``attn.{wq,wk,wv,
@@ -21,9 +27,13 @@ wo}``, ``ffn_norm.scale``, ``ffn.{w_in,w_gate,w_out}``, or under MoE
 ``ffn.router``, ``ffn.experts.{w_in,w_gate,w_out}`` ``[E, ...]``,
 ``ffn.shared.*``, ``ffn.dense.*``; an SSM layer's ``norm.scale``,
 ``ssm.*``; a recurrent block's ``norm.scale``, ``lru.*``, ``ffn_norm.scale``,
-``ffn.*``); the JAX tree stacks the layers (the hybrid's groups) on a
+``ffn.*``; a cross block's ``attn_norm``, ``attn``, ``ffn_norm``,
+``ffn``); the JAX tree stacks the layers (the hybrid's groups) on a
 leading axis where the port keeps one module per layer: ``blocks.{i}.…``,
-and for the hybrid ``blocks.{g}.b{j}.…`` and ``tail.{i}.…``.
+for the hybrid ``blocks.{g}.b{j}.…`` and ``tail.{i}.…``, for the VLM
+``self_blocks.{g}.{j}.…`` and ``cross_blocks.{g}.…``, for the audio
+family ``enc_blocks.{i}.…``, ``enc_norm.…``, ``dec_blocks.{i}.self.…`` and
+``dec_blocks.{i}.cross.…``.
 :mod:`repro_torch.models.convert` carries weights across.
 
 The cache is the JAX one:
@@ -37,7 +47,13 @@ The cache is the JAX one:
   * hybrid: ``{"groups": {"b{j}": ...}, "tail": [...]}``, each group block's
     leaves stacked over the groups: a recurrent block's ``{"conv", "h"}``,
     the local attention's ring ``{"k", "v"}`` of ``min(cache_len,
-    window)`` slots (never quantized, as in JAX).
+    window)`` slots (never quantized, as in JAX);
+  * VLM: ``{"attn": [groups, per, B, W, KV, Dh], "cross": [groups, B,
+    n_img_tokens, KV, Dh]}``; audio: ``{"attn": [L, B, W, KV, Dh],
+    "cross": [L, B, n_frames, KV, Dh]}``.  The cross K/V are the context's,
+    written at prefill (or by :meth:`LM.init_context_cache`), read by
+    every decode step over the whole context and never written by it;
+    they are never quantized.
 
 Differences from the JAX model, none of which changes a result:
 
@@ -64,6 +80,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -76,7 +93,9 @@ from repro_torch.models.layers import not_ported
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, Any]
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# the batch key of each family's modality context
+CONTEXT_KEYS = {"vlm": "img_embed", "audio": "frames"}
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -85,13 +104,19 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig, plan: Optional[Plan] = None) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet:
-    the VLM and audio families, and logit soft caps (no config sets one,
-    and the JAX blockwise path ignores them)."""
+    logit soft caps (no config sets one, and the JAX blockwise path ignores
+    them), and a family the JAX package does not have either."""
     del plan     # every plan runs: kv_cache_quant, moe_impl, ssd_*
     if cfg.family not in FAMILIES:
         raise not_ported(f"the {cfg.family!r} family", 8)
     if cfg.logit_softcap > 0:
         raise not_ported("logit soft caps", 8)
+
+
+def vlm_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(groups, dense blocks a group): each group ends in a cross block."""
+    per = cfg.cross_attn_every
+    return cfg.n_layers // (per + 1), per
 
 
 def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -158,17 +183,23 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return layers.init_ffn(d, cfg.d_ff, cfg.ffn_act, cfg.use_bias, dt,
                                gen, dev)
 
-    def dense_block():
-        attn = {"wq": dense((d, h, hd), d), "wk": dense((d, kv, hd), d),
-                "wv": dense((d, kv, hd), d), "wo": dense((h, hd, d), h * hd)}
+    def attn():
+        out = {"wq": dense((d, h, hd), d), "wk": dense((d, kv, hd), d),
+               "wv": dense((d, kv, hd), d), "wo": dense((h, hd, d), h * hd)}
         if cfg.use_bias:
-            attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd),
-                        bo=zeros(d))
-        return {"attn_norm": norm(), "attn": attn, "ffn_norm": norm(),
+            out.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd),
+                       bo=zeros(d))
+        return out
+
+    def dense_block():
+        return {"attn_norm": norm(), "attn": attn(), "ffn_norm": norm(),
                 "ffn": (moe.init_moe(cfg, gen, dev, dt)
                         if cfg.moe is not None else ffn())}
 
     def block(kind):
+        if kind == "cross":
+            return {"attn_norm": norm(), "attn": attn(), "ffn_norm": norm(),
+                    "ffn": ffn()}
         if kind == "recurrent":
             return {"norm": norm(), "lru": rglru.init_rglru(cfg, gen, dev, dt),
                     "ffn_norm": norm(), "ffn": ffn()}
@@ -181,6 +212,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     p.update(flatten(norm(), "final_norm."))
     if not cfg.tie_embeddings:
         p["unembed"] = dense((d, cfg.padded_vocab), d)
+    if cfg.family == "audio":
+        p.update(flatten(norm(), "enc_norm."))
     for name, kind in _layer_names(cfg):
         p.update(flatten(block(kind), f"{name}."))
     return p
@@ -188,8 +221,21 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _layer_names(cfg: ModelConfig) -> List[Tuple[str, str]]:
     """(state-dict prefix, block kind) of every layer in execution order;
-    kinds ``dense`` (the MoE's too), ``ssm``, ``recurrent`` and
-    ``local_attn``."""
+    kinds ``dense`` (the MoE's too), ``ssm``, ``recurrent``,
+    ``local_attn``, ``cross`` (attention over the context) and
+    ``encoder`` (the audio encoder's non-causal layers, run in prefill
+    only, before the decoder's)."""
+    if cfg.family == "vlm":
+        groups, per = vlm_groups(cfg)
+        return [layer for g in range(groups) for layer in
+                [(f"self_blocks.{g}.{j}", "dense") for j in range(per)]
+                + [(f"cross_blocks.{g}", "cross")]]
+    if cfg.family == "audio":
+        return ([(f"enc_blocks.{i}", "encoder")
+                 for i in range(cfg.encoder_layers)]
+                + [(f"dec_blocks.{i}.{part}", kind)
+                   for i in range(cfg.n_layers)
+                   for part, kind in (("self", "dense"), ("cross", "cross"))])
     if cfg.family == "ssm":
         return [(f"blocks.{i}", "ssm") for i in range(cfg.n_layers)]
     if cfg.family != "hybrid":
@@ -215,14 +261,15 @@ class DenseBlock(nn.Module):
     """One pre-norm decoder layer: GQA attention + FFN (dense, or the MoE
     under ``cfg.moe``), residual each; ``window`` > 0 is a sliding window
     (h2o-danube's, the hybrid's local attention) whose decode cache is a
-    ring."""
+    ring; ``causal=False`` is the audio encoder's layer (prefill only)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
-                 plan: Plan, window: int = 0):
+                 plan: Plan, window: int = 0, causal: bool = True):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
         self.window = window
+        self.causal = causal
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
         self.attn = _group(params, f"{prefix}.attn.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
@@ -262,7 +309,8 @@ class DenseBlock(nn.Module):
     def prefill(self, h, rope):
         """h [B, S, d] -> (h, (k, v)) with the layer's post-RoPE K/V."""
         q, k, v = self._qkv(h, rope)
-        attn_out = layers.attention(q, k, v, causal=True, window=self.window,
+        attn_out = layers.attention(q, k, v, causal=self.causal,
+                                    window=self.window,
                                     softcap=self.cfg.logit_softcap,
                                     plan=self.plan)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
@@ -299,6 +347,56 @@ class DenseBlock(nn.Module):
                 softcap=self.cfg.logit_softcap)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
         return self._ffn(h, 1, route_per_row)
+
+
+class CrossBlock(nn.Module):
+    """Cross-attention over a context (the VLM's image embeddings, the
+    audio encoder's output): pre-norm attention whose K/V are projected
+    from the context (no RoPE, no norm on the context, never causal), then
+    the block's own FFN, residual each
+    (``repro.models.lm._apply_cross_block``)."""
+
+    def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
+                 plan: Plan):
+        super().__init__()
+        self.cfg = cfg
+        self.plan = plan
+        self.attn_norm = _group(params, f"{prefix}.attn_norm.")
+        self.attn = _group(params, f"{prefix}.attn.")
+        self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
+        self.ffn = _group(params, f"{prefix}.ffn.")
+
+    def _q(self, h):
+        return layers.q_project(
+            self.attn, self.cfg,
+            layers.apply_norm(self.attn_norm, h, self.cfg.norm))
+
+    def _out(self, h, attn_out):
+        cfg = self.cfg
+        h = h + layers.out_project(self.attn, cfg, attn_out)
+        x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
+        return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act, cfg.use_bias)
+
+    def context_kv(self, ctx):
+        """The context's K/V [B, S_ctx, KV, Dh]: what the cross cache
+        holds."""
+        return layers.kv_project(self.attn, self.cfg, ctx)
+
+    def prefill(self, h, ctx):
+        """h [B, S, d] over ctx [B, S_ctx, d] -> (h, (k, v)) with the
+        context's K/V."""
+        k, v = self.context_kv(ctx)
+        attn_out = layers.attention(self._q(h), k, v, causal=False,
+                                    plan=self.plan)
+        return self._out(h, attn_out), (k, v)
+
+    def decode(self, h, cache, ctx_len):
+        """h [B, 1, d]; ``cache`` this layer's ``{"k", "v"}`` [B, S_ctx,
+        KV, Dh] (read, never written); ``ctx_len`` an int32 device tensor
+        [B] of S_ctx (every row's whole context)."""
+        attn_out = layers.decode_attention(self._q(h), cache["k"],
+                                           cache["v"], ctx_len)
+        return self._out(h, attn_out)
 
 
 class SSMBlock(nn.Module):
@@ -380,11 +478,27 @@ class LM(nn.Module):
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(params["unembed"],
                                         requires_grad=False)
-        # every layer in execution order
-        self.layers: List[nn.Module] = [
-            self._block(params, name, kind)
-            for name, kind in _layer_names(cfg)]
-        if cfg.family == "hybrid":
+        built = [(kind, self._block(params, name, kind))
+                 for name, kind in _layer_names(cfg)]
+        # every decoder layer in execution order; the audio encoder's apart
+        self.layers: List[nn.Module] = [blk for kind, blk in built
+                                        if kind != "encoder"]
+        if cfg.family == "vlm":
+            groups, per = vlm_groups(cfg)
+            self.self_blocks = nn.ModuleList(
+                nn.ModuleList(self.layers[g * (per + 1):][:per])
+                for g in range(groups))
+            self.cross_blocks = nn.ModuleList(
+                self.layers[g * (per + 1) + per] for g in range(groups))
+        elif cfg.family == "audio":
+            self.enc_blocks = nn.ModuleList(blk for kind, blk in built
+                                            if kind == "encoder")
+            self.enc_norm = _group(params, "enc_norm.")
+            self.dec_blocks = nn.ModuleList(
+                nn.ModuleDict({"self": self.layers[2 * i],
+                               "cross": self.layers[2 * i + 1]})
+                for i in range(cfg.n_layers))
+        elif cfg.family == "hybrid":
             n = len(cfg.hybrid.pattern)
             groups, _ = hybrid_groups(cfg)
             self.blocks = nn.ModuleList(
@@ -406,6 +520,10 @@ class LM(nn.Module):
             return SSMBlock(cfg, params, prefix, plan)
         if kind == "recurrent":
             return RecurrentBlock(cfg, params, prefix, plan)
+        if kind == "cross":
+            return CrossBlock(cfg, params, prefix, plan)
+        if kind == "encoder":
+            return DenseBlock(cfg, params, prefix, plan, causal=False)
         # the hybrid's local attention runs at cfg.window although its
         # attn_kind is "local", as the JAX hybrid branch passes it
         window = cfg.window if cfg.family == "hybrid" else _window_of(cfg)
@@ -454,23 +572,79 @@ class LM(nn.Module):
         return init_cache(self.cfg, batch, seq_len, device=self.device,
                           quant=self.plan.kv_cache_quant)
 
+    def context(self, batch, b: int) -> Optional[torch.Tensor]:
+        """The modality context of a VLM or audio ``batch`` (None for the
+        other families) on the model's device in its activation type, [B,
+        S_ctx, d]: the image embeddings, or the audio encoder's output over
+        the frames.  Any dtype and device is taken (numpy too); a batch
+        without its context, or with one of another batch or width,
+        raises."""
+        key = CONTEXT_KEYS.get(self.cfg.family)
+        if key is None:
+            return None
+        if batch.get(key) is None:
+            raise ValueError(f"a {self.cfg.family} batch needs its context "
+                             f"{key!r} [B, S, d_model]")
+        ctx = batch[key]
+        if not isinstance(ctx, torch.Tensor):
+            arr = np.asarray(ctx)
+            if arr.dtype.kind not in "biuf":    # bfloat16 and the like
+                arr = arr.astype(np.float32)
+            ctx = torch.from_numpy(arr)
+        ctx = ctx.to(self.device, self.dtype)
+        if ctx.dim() != 3 or ctx.shape[0] != b \
+                or ctx.shape[2] != self.cfg.d_model:
+            raise ValueError(f"{key} of shape {tuple(ctx.shape)} does not "
+                             f"fit a batch of {b} at d_model "
+                             f"{self.cfg.d_model}")
+        return self.encode(ctx) if self.cfg.family == "audio" else ctx
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The audio encoder (``repro.models.lm.encode_audio``): frames [B,
+        S, d] through the non-causal layers, RoPE at positions 0..S-1, then
+        ``enc_norm``."""
+        rope = self._rope(torch.arange(frames.shape[1], device=self.device))
+        h = frames
+        for blk in self.enc_blocks:
+            h, _ = blk.prefill(h, rope)
+        return layers.apply_norm(self.enc_norm, h, self.cfg.norm)
+
     # --------------------------------------------------------- entry points
     def prefill(self, batch, cache_len: int) -> Tuple[torch.Tensor, Cache]:
-        """Full-prompt pass over ``batch["tokens"]`` [B, S]; returns the last
-        position's logits [B, V] and a decode cache of ``cache_len``."""
+        """Full-prompt pass over ``batch["tokens"]`` [B, S] (and, for the
+        VLM and audio families, its context: :meth:`context`); returns the
+        last position's logits [B, V] and a decode cache of
+        ``cache_len``."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         b, s = tokens.shape
+        ctx = self.context(batch, b)
         h = self._embed(tokens)
         rope = (self._rope(torch.arange(s, device=self.device))
                 if self.cfg.family != "ssm" else None)
         collected = []
         for blk in self.layers:
-            h, st = blk.prefill(h, rope)
+            h, st = blk.prefill(h, ctx if isinstance(blk, CrossBlock)
+                                else rope)
             collected.append(st)
         last = layers.apply_norm(self.final_norm, h[:, -1:], self.cfg.norm)
         cache = assemble_cache(self.cfg, collected, cache_len,
                                quant=self.plan.kv_cache_quant)
         return self.logits_for(last)[:, 0], cache
+
+    def init_context_cache(self, batch, batch_size: int,
+                           cache_len: int) -> Cache:
+        """A decode cache at position 0 whose cross K/V are already those
+        of ``batch``'s context (``Model.init_context_cache``): decoding
+        token by token from it equals a prefill.  Other families get
+        :meth:`init_cache`."""
+        cache = self.init_cache(batch_size, cache_len)
+        ctx = self.context(batch, batch_size)
+        if ctx is not None:
+            kvs = [blk.context_kv(ctx) for blk in self.layers
+                   if isinstance(blk, CrossBlock)]
+            cache["cross"] = {"k": torch.stack([k for k, _ in kvs]),
+                              "v": torch.stack([v for _, v in kvs])}
+        return cache
 
     def decode_step(self, cache: Cache, tokens, pos, *,
                     route_per_row: bool = False
@@ -480,20 +654,32 @@ class LM(nn.Module):
         place and returns it with the logits [B, V].  ``route_per_row``
         routes each row through the MoE as its own group (the continuous
         batcher's slots, as the JAX engine's ``vmap``); otherwise the rows
-        are routed together, as ``generate`` does."""
+        are routed together, as ``generate`` does.  Cross layers attend
+        over the whole context."""
         tokens = torch.as_tensor(tokens, device=self.device)
         b = tokens.shape[0]
         pos = torch.as_tensor(pos, device=self.device).long().reshape(-1)
         pos = pos.expand(b).contiguous()
         h = self._embed(tokens)
         per_layer = layer_caches(self.cfg, cache)
-        rings = [c["k"].shape[1] for c in per_layer if "k" in c]
-        cache_len = rope = None
+        # the self-attention buffers' length (a cross cache's is the
+        # context's)
+        rings = [c["k"].shape[1] for blk, c in zip(self.layers, per_layer)
+                 if isinstance(blk, DenseBlock)]
+        cross = [c for blk, c in zip(self.layers, per_layer)
+                 if isinstance(blk, CrossBlock)]
+        cache_len = rope = ctx_len = None
         if rings:
             cache_len = torch.clamp(pos + 1, max=rings[0]).to(torch.int32)
             rope = self._rope(pos[:, None])
+        if cross:       # a device fill: a captured step copies no host data
+            ctx_len = torch.full((b,), cross[0]["k"].shape[1],
+                                 dtype=torch.int32, device=self.device)
         for blk, c in zip(self.layers, per_layer):
-            h = blk.decode(h, c, pos, cache_len, rope, route_per_row)
+            if isinstance(blk, CrossBlock):
+                h = blk.decode(h, c, ctx_len)
+            else:
+                h = blk.decode(h, c, pos, cache_len, rope, route_per_row)
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
         return self.logits_for(h)[:, 0], cache
 
@@ -528,8 +714,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     """Zeroed decode caches in the JAX layout (module docstring): K/V
     buffers of ``W = min(seq_len, window)`` slots (``seq_len`` without a
     window) in ``cfg.dtype``, int8 with fp32 scales under ``quant``
-    (dense and MoE only, as in JAX); recurrent and SSM state with their
-    conv state in ``cfg.dtype`` and the rest in float32."""
+    (dense, MoE and the VLM and audio self-attention, as in JAX; never the
+    cross K/V, which hold the config's context length); recurrent and SSM
+    state with their conv state in ``cfg.dtype`` and the rest in
+    float32."""
     check_supported(cfg)
     dev = resolve(device)
     dt = torch_dtype(cfg.dtype)
@@ -537,6 +725,12 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     if cfg.family == "ssm":
         return {"blocks": _stacked(cfg.n_layers,
                                    ssm.init_ssm_cache(cfg, batch, dt, dev))}
+    if cfg.family in CONTEXT_KEYS:
+        ctx = (batch, cfg.n_img_tokens if cfg.family == "vlm"
+               else cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
+        lead = vlm_groups(cfg) if cfg.family == "vlm" else (cfg.n_layers,)
+        return {"attn": _kv_buf((*lead, *kv), dt, dev, quant),
+                "cross": _kv_buf((lead[0], *ctx), dt, dev, False)}
     if cfg.family != "hybrid":
         return {"attn": _kv_buf((cfg.n_layers, *kv), dt, dev, quant)}
 
@@ -562,6 +756,15 @@ def layer_caches(cfg: ModelConfig, cache: Cache
     if cfg.family == "ssm":
         return [{k: v[i] for k, v in cache["blocks"].items()}
                 for i in range(cfg.n_layers)]
+    if cfg.family == "vlm":
+        groups, per = vlm_groups(cfg)
+        return [c for g in range(groups) for c in
+                [{k: v[g, j] for k, v in cache["attn"].items()}
+                 for j in range(per)]
+                + [{k: v[g] for k, v in cache["cross"].items()}]]
+    if cfg.family == "audio":
+        return [{k: v[i] for k, v in cache[part].items()}
+                for i in range(cfg.n_layers) for part in ("attn", "cross")]
     if cfg.family != "hybrid":
         return [{k: v[i] for k, v in cache["attn"].items()}
                 for i in range(cfg.n_layers)]
@@ -574,8 +777,11 @@ def layer_caches(cfg: ModelConfig, cache: Cache
 
 def slot_leaves(cache: Cache) -> Iterator[Tuple[str, torch.Tensor, int]]:
     """Every tensor of a decode cache as (dotted name, tensor, batch (slot)
-    axis): axis 1 where the leaves stack layers or groups, 0 in the
-    hybrid's tail (``tail.{i}.…``)."""
+    axis): the K/V buffers of ``attn`` and ``cross`` end in [B, W, KV, Dh]
+    (or ``[..., 1]`` scales) after the layers they stack (the VLM's
+    ``attn``: groups and layers, axis 2); the SSM's and the hybrid's
+    groups stack one axis (axis 1); the hybrid's tail (``tail.{i}.…``)
+    none (axis 0)."""
     for top, sub in cache.items():
         if isinstance(sub, list):
             for i, part in enumerate(sub):
@@ -583,7 +789,8 @@ def slot_leaves(cache: Cache) -> Iterator[Tuple[str, torch.Tensor, int]]:
                     yield name, leaf, 0
         else:
             for name, leaf in flatten(sub, f"{top}.").items():
-                yield name, leaf, 1
+                yield name, leaf, (leaf.dim() - 4 if top in ("attn", "cross")
+                                   else 1)
 
 
 def _ring_place(k_seq, buf_len: int, dtype):
@@ -623,8 +830,9 @@ def _stack_states(states) -> Dict[str, torch.Tensor]:
 def assemble_cache(cfg: ModelConfig, collected, cache_len: int,
                    quant: bool = False) -> Cache:
     """Turn the prefill's per-layer outputs, in execution order (an
-    attention layer's post-RoPE (k, v) [B, S, KV, Dh], a recurrent or SSM
-    layer's state), into a decode cache at position S for ``cache_len``
+    attention layer's post-RoPE (k, v) [B, S, KV, Dh], a cross layer's
+    context (k, v) [B, S_ctx, KV, Dh], a recurrent or SSM layer's state),
+    into a decode cache at position S for ``cache_len``
     positions (the window's ring under a window), K/V in ``cfg.dtype``;
     with ``quant`` the dense and MoE K/V are quantized first (int8 and
     fp32 scales), as the JAX cache is."""
@@ -632,6 +840,17 @@ def assemble_cache(cfg: ModelConfig, collected, cache_len: int,
     kvl = _kv_cache_len(cfg, cache_len)
     if cfg.family == "ssm":
         return {"blocks": _stack_states(collected)}
+    if cfg.family in CONTEXT_KEYS:
+        kinds = [kind for _, kind in _layer_names(cfg) if kind != "encoder"]
+        attn = _place_kv([st for st, kind in zip(collected, kinds)
+                          if kind == "dense"], kvl, dt, quant)
+        if cfg.family == "vlm":
+            attn = {k: v.unflatten(0, vlm_groups(cfg))
+                    for k, v in attn.items()}
+        cross = [st for st, kind in zip(collected, kinds) if kind == "cross"]
+        return {"attn": attn,
+                "cross": {"k": torch.stack([k for k, _ in cross]).to(dt),
+                          "v": torch.stack([v for _, v in cross]).to(dt)}}
     if cfg.family != "hybrid":
         return {"attn": _place_kv(collected, kvl, dt, quant)}
 

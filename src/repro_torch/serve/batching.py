@@ -6,8 +6,10 @@ on the model's device in the LM's layout (:func:`repro_torch.models.lm.
 init_cache`): K/V tensors ``[L, n_slots, W, KV, Dh]`` (``W`` is
 ``cache_len``, or the window's ring under a sliding window and in the
 hybrid's local attention; int8 K/V with their scales under
-``plan.kv_cache_quant``), and the recurrent state of the SSM and hybrid
-families (conv windows, SSD states, RG-LRU ``h``), each with a slot axis.
+``plan.kv_cache_quant``), the recurrent state of the SSM and hybrid
+families (conv windows, SSD states, RG-LRU ``h``), and the VLM's and audio
+family's cross K/V over each request's context, each with a slot axis
+(:func:`repro_torch.models.lm.slot_leaves`).
 It advances every slot with **one** batched ``LM.decode_step`` per tick,
 each slot at its own position (its own RoPE angle, cache write index and
 ``cache_len`` into the decode-attention kernel; every state is written in
@@ -19,8 +21,11 @@ leave at decode-step granularity without ever changing a shape.
 Slot-pool invariants (the JAX engine's contract):
 
   * a slot's cache is replaced wholesale at admission (every leaf of the
-    prefilled cache, K/V and recurrent state alike, is copied into the slot
-    in place), so stale state from a previous occupant can never leak;
+    prefilled cache, K/V, cross K/V and recurrent state alike, is copied
+    into the slot in place), so stale state or context from a previous
+    occupant can never leak; a request's context (``req.extras``: numpy
+    or torch, on the host) goes into its prefill batch, and a VLM or audio
+    request without one raises there;
   * inactive slots still run the decode step (fixed shapes beat masked
     compute at this scale); their outputs are discarded host-side and their
     cache garbage is overwritten by the next admission;
@@ -39,9 +44,11 @@ argmax's copy to the host is the tick's one synchronisation.  Capturing
 before any admission is safe: its warm-up step writes only into slots that
 admission replaces wholesale, and the pool is zeroed after it, so that the
 slots left empty carry the same state (a recurrent state evolves in every
-slot) as an engine that never captured.  A failed capture or replay
-raises; the engine never runs the step eagerly on the card.  On the CPU
-the step runs eagerly (the same dispatch by device as the kernels').
+slot) as an engine that never captured; an empty slot's zero cross K/V
+give uniform attention over zero values, so finite logits.  A failed
+capture or replay raises; the engine never runs the step eagerly on the
+card.  On the CPU the step runs eagerly (the same dispatch by device as
+the kernels').
 
 Time is a virtual tick clock (``tick_s`` per engine tick): arrivals,
 TTFT/TPOT and energy all live on one deterministic timeline, independent of
@@ -134,8 +141,9 @@ class ContinuousBatcher:
     @property
     def pool(self):
         """The slot pool's cache in the LM's layout (``{"attn": {"k",
-        "v"}}``, ``{"blocks": {"conv", "state"}}`` or ``{"groups": ...,
-        "tail": [...]}``; read-only use)."""
+        "v"}}``, with ``"cross"`` beside it for the VLM and audio families,
+        ``{"blocks": {"conv", "state"}}`` or ``{"groups": ..., "tail":
+        [...]}``; read-only use)."""
         return self._pool
 
     @property

@@ -3,8 +3,10 @@ and tolerances of tests/test_kernels.py plus ragged lengths, grouped heads,
 per-slot cache lengths, sliding windows, head dims 80 and 256 (10 query
 heads over one KV head), and the serving path on the card at a small
 size: the engine's captured decode step against the eager step (the
-recurrent families' too), launch counts across graph replays, and
-windowed serving against ``generate``.  Imports no jax: run it on the card with
+recurrent and cross-attention families' too), launch counts across
+graph replays, and windowed serving against ``generate``; non-causal flash
+over a context of another length and decode over whole contexts at 8
+query heads a KV head.  Imports no jax: run it on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``."""
 import dataclasses
 
@@ -735,4 +737,143 @@ def test_cuda_recurrent_graph_step_matches_eager_step(arch, over, prompt):
                       for i, g in enumerate((5, 3, 7))])
     for i, g in enumerate((5, 3, 7)):
         ref_toks = generate(lm, {"tokens": toks[i:i + 1]}, prompt, g, 80)
+        assert np.array_equal(out[f"r{i}"], ref_toks[0].cpu().numpy()), i
+
+
+# ---- the cross-attention families: non-causal flash over another length,
+# ---- decode over a whole context, the captured cross step ----------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("sq,skv", parity.CROSS_LENGTHS)
+def test_cuda_noncausal_flash_over_another_length(sq, skv, d, dtype):
+    """Cross-attention: Sq queries over Skv keys of another length, no
+    causal mask (Sq below and above Skv, both ragged against the 128-row
+    and 128- or 64-key tiles), kv_group 1 and 8, against the plain
+    version: bf16 at both limits (beside the simulated faults at the
+    serving lengths), fp32 at 2e-4; one launch a call."""
+    gen = _card()
+    for rep, q, k, v in parity.cross_cases(gen, d, sq, skv, dtype):
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=False, kv_group=rep)
+        want = ref.mha_ref(q, k, v, causal=False, kv_group=rep)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == 1
+        assert got.shape == (8, sq, d)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+            continue
+        ok, err, rerr = parity.within_limits(got, want)
+        assert ok, (rep, err, rerr)
+        if sq >= 1000 and skv >= 1024:
+            for fault, bad in parity.fault_controls(q, k, v, rep,
+                                                    causal=False).items():
+                assert not parity.within_limits(bad, want)[0], fault
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 5e-2),
+                                       (torch.float32, 2e-4)])
+@pytest.mark.parametrize("shape,lens", [
+    ((4, 64, 8, 2112, 128), (1, 300, 1000, 2112)),   # the VLM's self pool
+    ((4, 64, 8, 1024, 128), (1024,) * 4),            # its image context
+    ((4, 16, 16, 3072, 64), (3072,) * 4),            # the audio frames
+])
+def test_cuda_decode_cross_layouts_match_plain_version(shape, lens, dtype,
+                                                       tol):
+    """Decode at 8 query heads a KV head at D=128 and over whole contexts
+    (every row full), against the plain version; bf16 also at the row
+    limit; two calls bitwise equal; one launch a call."""
+    gen = _card()
+    q, kc, vc, ln = _decode_case(gen, dtype, *shape, lens)
+    ops.reset_launch_counts()
+    got = ops.decode_attention(q, kc, vc, ln)
+    torch.testing.assert_close(got.float(),
+                               ref.decode_attention_ref(q, kc, vc, ln).float(),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == 1
+    if dtype == torch.bfloat16:
+        want32 = parity.decode_want32(q, kc, vc, ln)
+        assert parity.row_err(got, want32) <= parity.DECODE_ROW_TOL
+    assert torch.equal(got, ops.decode_attention(q, kc, vc, ln))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_refuses_host_lengths_in_a_capture():
+    """Captured into a CUDA graph, decode attention takes its lengths as a
+    device tensor (the cross layers' context length is a device fill); an
+    int raises instead of becoming a host copy, and a device tensor
+    captures and replays to the eager result."""
+    gen = _card()
+    q, kc, vc, ln = _decode_case(gen, torch.bfloat16, 2, 16, 2, 300, 128,
+                                 (300, 300))
+    want = ops.decode_attention(q, kc, vc, ln)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with pytest.raises(RuntimeError, match="captured into a CUDA graph"):
+        with ops.CountedGraph().capture(stream):
+            ops.decode_attention(q, kc, vc, 300)
+    graph = ops.CountedGraph()
+    with graph.capture(stream):
+        full = torch.full((2,), 300, dtype=torch.int32, device="cuda")
+        out = ops.decode_attention(q, kc, vc, full)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-medium"])
+def test_cuda_crossattn_graph_step_matches_eager_step(arch):
+    """Reduced fp32 VLM and audio models: the engine's captured step
+    replayed over a random pool gives the eager step's logits and cache
+    within 1e-5 (the cross K/V read, never written); one decode launch a
+    self and a cross layer and step across replays; and the engine's
+    tokens, each request with its own context, equal batch-1
+    ``generate``'s."""
+    _card()
+    from repro_torch.launch.serve import generate, request_extras
+    from repro_torch.models.lm import CrossBlock, slot_leaves
+    from repro_torch.serve import ContinuousBatcher, Request
+    lm = _small_lm(arch)
+    engine = ContinuousBatcher(lm, n_slots=4, cache_len=40)
+    assert engine.graph.launches["decode_attention"] == len(lm.layers)
+    gen = torch.Generator().manual_seed(7)
+    for _, buf, _ in slot_leaves(engine.pool):
+        buf.copy_(torch.randn(buf.shape, generator=gen).to(buf))
+    start = [buf.clone() for _, buf, _ in slot_leaves(engine.pool)]
+    engine._last_tok[:] = [3, 17, 250, 9]
+    engine._pos[:] = [10, 15, 20, 39]
+    ops.reset_launch_counts()
+    got = engine._step().clone()
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == len(lm.layers)
+    after = [buf.clone() for _, buf, _ in slot_leaves(engine.pool)]
+    for (_, buf, _), s in zip(slot_leaves(engine.pool), start):
+        buf.copy_(s)
+    want, _ = lm.decode_step(engine.pool, torch.tensor(
+        [[3], [17], [250], [9]], device="cuda"), torch.tensor(
+        [10, 15, 20, 39], device="cuda"))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    for a, (name, b, _) in zip(after, slot_leaves(engine.pool)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    assert torch.equal(engine.pool["cross"]["k"], start[2])
+    n_cross = sum(isinstance(blk, CrossBlock) for blk in lm.layers)
+    assert 0 < n_cross < len(lm.layers)
+    prompt, gens = 12, (5, 3, 7)
+    toks = torch.randint(0, lm.cfg.vocab_size, (3, prompt), generator=gen)
+    engine = ContinuousBatcher(lm, n_slots=2, cache_len=40)
+    out = engine.run([Request(rid=f"r{i}", arch=lm.cfg.name,
+                              prompt_len=prompt, max_gen=g,
+                              tokens=toks[i].numpy(), arrival_s=i * 0.01,
+                              extras=request_extras(lm.cfg, 1, i))
+                      for i, g in enumerate(gens)])
+    for i, g in enumerate(gens):
+        ref_toks = generate(lm, {"tokens": toks[i:i + 1],
+                                 **request_extras(lm.cfg, 1, i)},
+                            prompt, g, 40)
         assert np.array_equal(out[f"r{i}"], ref_toks[0].cpu().numpy()), i

@@ -28,7 +28,7 @@ from repro_torch.dist.plan import Plan
 from repro_torch.kernels import ref
 from repro_torch.models import layers
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.lm import LM, check_supported, init_cache
+from repro_torch.models.lm import LM, check_supported, init_cache, init_params
 from repro_torch.serve import ContinuousBatcher, Request
 
 TOL = 1e-4
@@ -265,9 +265,9 @@ def test_init_cache_ring_and_int8_layout():
 
 def test_every_dense_config_is_supported():
     """check_supported takes every dense and MoE config in configs/ and the
-    int8 cache; it refuses logit soft caps and the families still
-    unported (VLM, audio: the SSM and hybrid families run since the
-    recurrent slice), naming ROADMAP item 8."""
+    int8 cache, and since the cross-attention slice every config of every
+    family (the VLM and audio ones build and prefill); it refuses logit
+    soft caps, naming ROADMAP item 8."""
     dense = [c for c in ARCHS.values() if c.family == "dense"]
     assert {c.name for c in dense} >= {"granite-3-2b", "h2o-danube-1.8b",
                                        "nemotron-4-15b",
@@ -279,9 +279,18 @@ def test_every_dense_config_is_supported():
     with pytest.raises(NotImplementedError, match="item 8"):
         check_supported(dataclasses.replace(dense[0], logit_softcap=30.0))
     for c in ARCHS.values():
-        if c.family not in ("dense", "moe", "ssm", "hybrid"):
-            with pytest.raises(NotImplementedError, match="item 8"):
-                check_supported(c)
+        check_supported(c)
+    cross = [c for c in ARCHS.values() if c.family in ("vlm", "audio")]
+    assert {c.name for c in cross} == {"llama-3.2-vision-90b",
+                                       "seamless-m4t-medium"}
+    for c in cross:
+        r = c.reduced()
+        key, n = (("img_embed", r.n_img_tokens) if r.family == "vlm"
+                  else ("frames", r.n_frames))
+        logits, _ = LM(r, init_params(r, device="cpu")).prefill(
+            {"tokens": torch.zeros(1, 3, dtype=torch.long),
+             key: torch.randn(1, n, r.d_model)}, 4)
+        assert logits.shape == (1, r.padded_vocab)
 
 
 # ---- the continuous batcher over a wrapped ring ---------------------------

@@ -9,7 +9,11 @@ decode kernel (interpret mode), also at D = 80 with the scores summed as
 the kernel's padded lanes sum them; and the card's bf16 decode limits pass
 both and reject simulated kernel faults; at D = 256 with 10 query heads a
 KV head (recurrentgemma) the decode plan's lanes, passes, warp tiles and
-split cap, and the simulation against Pallas.  For tdfir: the plan and the
+split cap, and the simulation against Pallas; at the cross-attention
+families' layouts (8 query heads a KV head at D = 128, one at D = 64, every
+row's length the whole context) the plans, the simulation against Pallas,
+and the bf16 flash limits against simulated faults of a non-causal walk
+over a context of another length.  For tdfir: the plan and the
 kernel's index arithmetic cover every output and every (output, tap) pair
 once and read inside the staged window, the window swizzle is free of bank
 conflicts, a plain simulation of the blocked tap loop matches the Pallas
@@ -649,3 +653,102 @@ def test_tdfir_limit_rejects_simulated_faults(fault):
     assert (_simulate_fir(x, h) - want).abs().max() <= 3e-4
     err = (_simulate_fir(x, h, fault) - want).abs().max().item()
     assert err > 100 * 3e-4, err
+
+
+# ---- the cross-attention families: group 8 at D = 128, full contexts ------
+
+# (B, H, KV, S, D, lengths) of the decode calls phase 10 serves: the VLM's
+# self-attention pool and its 1024-token image context (8 query heads a KV
+# head at D = 128), the audio decoder's 3072-frame context (one a KV head
+# at D = 64); a context is read whole by every row
+CROSS_DECODE = [((4, 64, 8, 2112, 128), (1, 300, 1000, 2112)),
+                ((4, 64, 8, 1024, 128), (1024,) * 4),
+                ((4, 16, 16, 3072, 64), (3072,) * 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,lens", CROSS_DECODE)
+def test_decode_plans_of_the_cross_attention_families(shape, lens, dtype):
+    """Group 8 at D = 128 (bf16: 2 rows a pass on 16 lanes each, 4 passes;
+    fp32: one row on the whole warp, 8 passes) and group 1 at D = 64 (one
+    pass); whole warp tiles that cover the cache, the merge within its
+    cap, and, with every row full, every split live: 11 x 32 blocks over
+    either VLM pool, 6 x 64 over the audio context."""
+    b, h, kv, s, d = shape
+    rep = h // kv
+    assert rep <= da.max_group(d, dtype)
+    rows = 32 // da.lanes_per_row(d, dtype)
+    passes = -(-rep // rows)
+    want = {(8, torch.bfloat16): (2, 4), (8, torch.float32): (1, 8),
+            (1, torch.bfloat16): (4, 1), (1, torch.float32): (2, 1)}
+    assert (rows, passes) == want[(rep, dtype)]
+    p = da.plan(b, h, kv, s, d, dtype)
+    assert p.chunk % da.warp_tile(d, dtype) == 0
+    assert p.chunk * p.n_splits >= s > p.chunk * (p.n_splits - 1)
+    assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
+    assert (p.chunk, p.n_splits) == {2112: (192, 11), 1024: (96, 11),
+                                     3072: (512, 6)}[s]
+    live = da.live_blocks(p, lens, kv)
+    if set(lens) == {s}:
+        assert live == b * kv * p.n_splits
+    else:
+        assert live < b * kv * p.n_splits
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kvh,d", [(16, 2, 128), (4, 4, 64)])
+def test_decode_full_context_rows_match_pallas(h, kvh, d, dtype):
+    """The kernel's splits, lane sums and passes, simulated at the cross
+    layouts (8 query heads a KV head at D = 128, one at D = 64) with every
+    row's length the whole cache (a context), against the Pallas kernel
+    (interpret mode) per slot on K/V repeated per query head: 2e-4 in fp32,
+    the bf16 limits in bf16."""
+    b, s_len = 2, 300
+    rep = h // kvh
+    lens = [s_len] * b
+    rng = np.random.default_rng(23)
+    q, kc, vc = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                 .to(dtype).float()
+                 for shape in ((b, h, d), (b, s_len, kvh, d),
+                               (b, s_len, kvh, d)))
+    got = _simulate(q, kc, vc, lens, dtype, _lane_dot(dtype))
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
+        jnp.asarray(q[bi].numpy(), jdt),
+        jnp.asarray(kc[bi].repeat_interleave(rep, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.asarray(vc[bi].repeat_interleave(rep, 1).transpose(0, 1)
+                    .numpy(), jdt),
+        jnp.int32(lens[bi]), block_kv=100, interpret=True), np.float32))
+        for bi in range(b)])
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+    else:
+        lens_t = torch.tensor(lens, dtype=torch.int32)
+        qb, kb, vb = (t.to(dtype) for t in (q, kc, vc))
+        plain = ref.decode_attention_ref(qb, kb, vb, lens_t)
+        want32 = parity.decode_want32(qb, kb, vb, lens_t)
+        for out in (got, want):
+            assert parity.within_decode_limits(out.to(dtype), plain,
+                                               want32)[0]
+
+
+@pytest.mark.parametrize("sq,skv,h,kv,d", [(300, 1024, 8, 1, 128),
+                                           (200, 3072, 2, 2, 64)])
+def test_noncausal_bf16_limits_reject_simulated_faults(sq, skv, h, kv, d):
+    """Non-causal flash over a context of another length: the bf16 limits
+    pass the plain version run in fp32 and rounded once, and reject the
+    simulated faults (``parity.fault_controls(causal=False)``), which
+    disturb every row of a non-causal walk."""
+    gen = torch.Generator().manual_seed(29)
+    q, k, v = (torch.randn(n, s, d, generator=gen).to(torch.bfloat16)
+               for n, s in ((h, sq), (kv, skv), (kv, skv)))
+    want = ref.mha_ref(q, k, v, causal=False, kv_group=h // kv)
+    sound = ref.mha_ref(q.float(), k.float(), v.float(), causal=False,
+                        kv_group=h // kv).to(torch.bfloat16)
+    assert parity.within_limits(sound, want)[0]
+    faults = parity.fault_controls(q, k, v, h // kv, causal=False)
+    assert len(faults) == 4
+    for fault, bad in faults.items():
+        assert not parity.within_limits(bad, want)[0], fault

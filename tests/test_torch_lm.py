@@ -152,23 +152,31 @@ def test_blockwise_plan_matches_port(pair):
 
 
 def test_refuses_what_the_slice_does_not_port(pair):
-    """The families still unported (VLM, audio) and logit soft caps are
-    refused, naming ROADMAP item 8; every dense config (h2o-danube's window
-    too), the MoE, SSM and hybrid families and the int8 KV cache are
-    not."""
+    """Logit soft caps are refused, naming ROADMAP item 8; every dense
+    config (h2o-danube's window too), the MoE, SSM, hybrid, VLM and audio
+    families and the int8 KV cache are not, and the VLM and audio LMs
+    build and run a prefill and a decode step."""
     cfg, _, _, _, lm = pair
     state = dict(lm.state_dict())
-    for bad in (dataclasses.replace(cfg, logit_softcap=30.0),
-                get_config("llama-3.2-vision-90b").reduced(),
-                get_config("seamless-m4t-medium").reduced()):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            init_params(bad, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            LM(bad, state)
+    bad = dataclasses.replace(cfg, logit_softcap=30.0)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        init_params(bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        LM(bad, state)
     for ok in ("h2o-danube-1.8b", "moonshot-v1-16b-a3b", "arctic-480b",
-               "mamba2-1.3b", "recurrentgemma-2b"):
+               "mamba2-1.3b", "recurrentgemma-2b", "llama-3.2-vision-90b",
+               "seamless-m4t-medium"):
         c = get_config(ok).reduced()
-        LM(c, init_params(c, device="cpu"))
+        model = LM(c, init_params(c, device="cpu"))
+        if c.family in ("vlm", "audio"):
+            n = c.n_img_tokens if c.family == "vlm" else c.n_frames
+            key = "img_embed" if c.family == "vlm" else "frames"
+            logits, cache = model.prefill(
+                {"tokens": torch.zeros(1, 4, dtype=torch.long),
+                 key: torch.randn(1, n, c.d_model)}, 8)
+            logits, _ = model.decode_step(cache, logits.argmax(-1)[:, None],
+                                          4)
+            assert torch.isfinite(logits).all()
     assert LM(cfg, state, Plan(kv_cache_quant=True)).plan.kv_cache_quant
     with pytest.raises(NotImplementedError, match="item 9"):
         lm.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.long)})

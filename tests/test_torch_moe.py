@@ -313,17 +313,20 @@ def test_init_moe_uses_the_jax_distributions():
 
 
 def test_check_supported_takes_the_moe_family():
-    """Both MoE configs and the expert-parallel plan run, and so do the SSM
-    and hybrid families; the families still unported (VLM, audio) are
-    refused, naming ROADMAP item 8."""
+    """Both MoE configs and the expert-parallel plan run, and so do the
+    SSM, hybrid, VLM and audio families (each builds an LM); logit soft
+    caps are refused, naming ROADMAP item 8."""
     for arch in (MOONSHOT, ARCTIC):
         check_supported(get_config(arch))
         check_supported(get_config(arch), Plan(moe_impl="shardmap_ep"))
-    for arch in ("recurrentgemma-2b", "mamba2-1.3b"):
+    for arch in ("recurrentgemma-2b", "mamba2-1.3b", "llama-3.2-vision-90b",
+                 "seamless-m4t-medium"):
         check_supported(get_config(arch))
-    for arch in ("llama-3.2-vision-90b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            check_supported(get_config(arch))
+        cfg = get_config(arch).reduced()
+        LM(cfg, init_params(cfg, device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        check_supported(dataclasses.replace(get_config(MOONSHOT),
+                                            logit_softcap=30.0))
 
 
 # ---- the continuous batcher ------------------------------------------------

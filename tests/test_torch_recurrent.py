@@ -167,7 +167,10 @@ def test_decode_ssm_matches_jax():
     cache = ssm.init_ssm_cache(cfg, 2, torch.float32, "cpu")
     cache["conv"].copy_(_t(_normal(9, *cache["conv"].shape)))
     cache["state"].copy_(_t(_normal(10, *cache["state"].shape, scale=0.3)))
-    jcache = {k: jnp.asarray(v.numpy()) for k, v in cache.items()}
+    # copies: a JAX array made from a CPU tensor's numpy view shares its
+    # memory, and the port writes ``cache`` in place while JAX may still
+    # be reading it
+    jcache = {k: jnp.asarray(v.numpy().copy()) for k, v in cache.items()}
     conv_ptr = cache["conv"].data_ptr()
     for step in range(3):
         h = _normal(11 + step, 2, 1, cfg.d_model)
@@ -217,7 +220,10 @@ def test_decode_rglru_matches_jax():
     cache = rglru.init_rglru_cache(cfg, 2, torch.float32, "cpu")
     cache["conv"].copy_(_t(_normal(30, *cache["conv"].shape)))
     cache["h"].copy_(_t(_normal(31, *cache["h"].shape)))
-    jcache = {k: jnp.asarray(v.numpy()) for k, v in cache.items()}
+    # copies: a JAX array made from a CPU tensor's numpy view shares its
+    # memory, and the port writes ``cache`` in place while JAX may still
+    # be reading it
+    jcache = {k: jnp.asarray(v.numpy().copy()) for k, v in cache.items()}
     for step in range(3):
         h = _normal(32 + step, 2, 1, cfg.d_model)
         want, jcache = jax_rglru.decode_rglru(jp, jcfg, jnp.asarray(h),
