@@ -5,15 +5,18 @@
     python3 chip_smoke.py --digests
 
 Run from the root of a checkout; it builds the CUDA kernels itself.
-``--digests`` runs only the attention kernels, without a window, on seeded
-inputs at the serving shapes and prints a SHA-256 of each output and its
-device ms: run in two checkouts (this script copied into the other one's
-root, where it imports that checkout's kernels), the lines say whether
-their kernels agree bit for bit and how their times compare.  With no
-argument it runs these phases, each printing its seconds (``--digests``
-also times the VLM's non-causal cross shape, Sq 2048 over 1024 keys):
+``--digests`` runs only the kernels, on seeded inputs: the attention
+kernels without a window at the serving shapes (and the VLM's non-causal
+cross shape, Sq 2048 over 1024 keys), then the planner's fp32 matmul and
+tdFIR kernels (real and complex) at the paper's sizes, and prints a
+SHA-256 of each output and its ms (CUDA events and device time): run in
+two checkouts (this script copied into the other one's root, where it
+imports that checkout's kernels), the lines say whether their kernels
+agree bit for bit and how their times compare.  With no argument it runs
+these phases, each printing its seconds:
 
-  1. card      the card's name and power limit (nvidia-smi) and the two TF32
+  1. card      the card's name and power limit (nvidia-smi), its idle
+               power draw (the H100 envelope's idle watts) and the two TF32
                flags, both off;
   2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
                flash_attention, decode_attention), all started together,
@@ -197,7 +200,24 @@ also times the VLM's non-causal cross shape, Sq 2048 over 1024 keys):
                stream), the audio encoder, GEMMs and the rest; flash
                launches 20 (k) and 36 (l) a prefill (self, cross and
                encoder layers), decode launches 20 and 24 a step (self and
-               cross layers).
+               cross layers);
+ 11. modeled   the planner's modeled-cost path: each app of phase 5 at the
+               paper's sizes through ``plan_offload`` with a
+               ``CompiledCostRunner`` on the one-device mesh (every correct
+               dp / tp winner traced on fake tensors and scored by the H100
+               roofline) and ``publish=`` a ``PlanLookup`` over a
+               ``SearchCache`` on disk, under the host-time and the modeled
+               policy: phase 5's verdicts, a modeled time and a roofline on
+               every correct dp / tp record and none on the FPGA
+               analogue's, no kernel launch while a candidate is traced,
+               matmul and tdfir launched in the phase, a warm lookup key
+               for each destination with a correct record and a failure
+               for each with only wrong ones, and a second scoring pass
+               over those keys, with the tracer poisoned, that only looks
+               up; per record the measured and modeled ms, their ratio,
+               the dominant term, the FLOPs by dtype and the bytes, the
+               selection under each policy, the planner's wall beside
+               phase 5's and the seconds spent tracing.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -225,12 +245,18 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-# published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-FP32_PEAK_FLOPS = 67e12          # non-tensor fp32
-BF16_PEAK_FLOPS = 989e12         # dense bf16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+from repro_torch.core.cost_model import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.core.cost_model import PEAK_FLOPS_BY_DTYPE  # noqa: E402
+
+# published peaks of one H100 SXM (NVIDIA data sheet), the cost model's
+FP32_PEAK_FLOPS = PEAK_FLOPS_BY_DTYPE["fp32"]     # non-tensor fp32
+BF16_PEAK_FLOPS = PEAK_FLOPS_BY_DTYPE["bf16"]     # dense bf16, tensor cores
 
 MATMUL_MAIN = (512, 512, 512)              # 3mm at N=512, fp32
+# the planner's apps at the paper's sizes (phases 5 and 11), and the
+# policies phase 11 selects under
+PLANNER_APPS = ("3mm", "tdFIR", "NAS.BT")
+MODELED_POLICIES = ("host-time", "modeled")
 TDFIR_MAIN = (64, 4096, 128)               # F, N, K of the paper's tdFIR
 TDFIR_MAIN_BLOCK_N = 128                   # the app's max(128, K)
 # granite-3-2b serving (phase 6): B, H, KV, S, D of the longest prefill, and
@@ -331,6 +357,16 @@ def phase(name: str):
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def idle_draw() -> str:
+    """nvidia-smi's power.draw (the idle draw, read before any kernel runs:
+    the H100 envelope's idle watts, ``repro_torch.power.H100_SXM``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=power.draw,pstate",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
@@ -1085,21 +1121,21 @@ def time_kernels(ops, ref):
     """Phase 4: per-kernel times at the main-path shapes."""
     gen = torch.Generator().manual_seed(1)
     rows, dev = {}, {}
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import tdfir as fir
     m, k, n = MATMUL_MAIN
     a, b = randn(gen, m, k), randn(gen, k, n)
-    t_bound, by = bound(2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+    t_bound, by = bound(*mm.work(m, n, k))
     rows["matmul"], dev["matmul"] = time_row(
         lambda: ops.matmul(a, b), lambda: ref.matmul_ref(a, b),
         lambda: torch.matmul(a, b), t_bound, by)
-    from repro_torch.kernels import matmul as mm
     p = mm.plan(m, n, k)
     print(f"  matmul 512^3 float32 plan: grid {p.grid_m} x {p.grid_n} = "
           f"{p.blocks} blocks of {mm.BLOCK_M}x{mm.BLOCK_N} tiles, K split "
           f"over {p.warps} warps of each block (no split across blocks)")
     require(p.blocks >= 128, "the matmul grid at 512^3 is under 128 blocks")
     a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    t16, by16 = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + m * n),
-                      BF16_PEAK_FLOPS)
+    t16, by16 = bound(*mm.work(m, n, k, itemsize=2), BF16_PEAK_FLOPS)
 
     def kernel16():
         return ops.matmul(a16, b16)
@@ -1107,21 +1143,25 @@ def time_kernels(ops, ref):
     def library16():
         return torch.matmul(a16, b16)
 
+    def plain16():
+        return ref.matmul_ref(a16, b16)
+
     print(f"  matmul 512^3 bfloat16: kernel {time_ms(kernel16, 200):.4f} ms "
           f"(device {device_profile(kernel16)[0]:.4f})  bound {t16:.5f} ms "
-          f"({by16})  torch.matmul {time_ms(library16, 200):.4f} ms (device "
+          f"({by16})  plain {time_ms(plain16, 20):.4f} ms (device "
+          f"{device_profile(plain16, 3)[0]:.4f})  torch.matmul "
+          f"{time_ms(library16, 200):.4f} ms (device "
           f"{device_profile(library16)[0]:.4f})")
 
     f, nn, kk = TDFIR_MAIN
     x, h = randn(gen, f, nn), randn(gen, f, kk) * 0.1
     w = h.flip(-1)[:, None, :]
-    t_bound, by = bound(2.0 * f * nn * kk, 4.0 * (2 * f * nn + f * kk))
+    t_bound, by = bound(*fir.work(f, nn, kk))
     rows["tdfir"], dev["tdfir"] = time_row(
         lambda: ops.tdfir(x, h, block_n=TDFIR_MAIN_BLOCK_N),
         lambda: ref.tdfir_ref(x, h),
         lambda: F.conv1d(x[None], w, padding=kk - 1, groups=f), t_bound, by,
         plain_iters=20)
-    from repro_torch.kernels import tdfir as fir
     p = fir.plan(f, nn, kk)
     print(f"  tdfir plan at {f}x{nn}x{kk}: {fir.OUTPUTS_PER_THREAD} outputs "
           f"a thread, {p.threads} threads a block ({p.tile}-output tiles, "
@@ -1150,6 +1190,9 @@ def time_kernels(ops, ref):
 
     want = torch.stack(ref.tdfir_complex_ref(x, xi, h, hi), 1)
     lib_err = max_abs_err(complex_library()[0].reshape(f, 2, nn), want)
+    # the function's least work: 8 F N K (an output's combine can fold
+    # into its sums); the modeled cost, fir.complex_work, also charges
+    # the kernel's own 2 F N combine
     t_bound, by = bound(8.0 * f * nn * kk, 4.0 * (4 * f * nn + 2 * f * kk))
     row, cdev = time_row(complex_kernel,
                          lambda: ref.tdfir_complex_ref(x, xi, h, hi),
@@ -1233,11 +1276,13 @@ def time_attention(ops, ref, gen, rows, dev):
         kernel, plain, library, t_bound, by, iters=50, plain_iters=10)
     for s, d in ((FLASH_RAGGED_S, FLASH_MAIN[4]),
                  (FLASH_MAIN[3], FLASH_WIDE_D)):
-        kernel, _, library, t_bound, by = flash_case(ops, ref, gen, s, d)
+        kernel, plain, library, t_bound, by = flash_case(ops, ref, gen, s, d)
         ms, lib_ms = time_ms(kernel, 50), time_ms(library, 50)
         dev_ms, dev_lib = device_profile(kernel)[0], device_profile(library)[0]
         print(f"  flash_attention S={s} D={d}: kernel {ms:.4f} ms (device "
-              f"{dev_ms:.4f})  bound {t_bound:.4f} ms ({by})  SDPA "
+              f"{dev_ms:.4f})  bound {t_bound:.4f} ms ({by})  plain "
+              f"{time_ms(plain, 10):.4f} ms (device "
+              f"{device_profile(plain, 3)[0]:.4f})  SDPA "
               f"{lib_ms:.4f} ms (device {dev_lib:.4f})")
 
     # four cache pairs in turn (69 MB > the 50 MB L2): each call finds its
@@ -1296,10 +1341,15 @@ def time_attention(ops, ref, gen, rows, dev):
             q[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2),
             attn_mask=full_mask, enable_gqa=True)
 
+    def plain_full():
+        return ref.decode_attention_ref(q, *next(caches), full)
+
     print(f"  decode_attention, every slot at {s}: kernel "
           f"{time_ms(kernel_full, 200):.4f} ms (device "
           f"{device_profile(kernel_full)[0]:.4f})  bound {t_full:.4f} ms "
-          f"({by_full})  SDPA {time_ms(library_full, 200):.4f} ms (device "
+          f"({by_full})  plain {time_ms(plain_full, 50):.4f} ms (device "
+          f"{device_profile(plain_full, 3)[0]:.4f})  SDPA "
+          f"{time_ms(library_full, 200):.4f} ms (device "
           f"{device_profile(library_full)[0]:.4f})")
     time_family_rows(ops, ref, gen)
 
@@ -1496,40 +1546,183 @@ def count_sass(build, name: str, opcode: str) -> int:
     return len(re.findall(rf"\b{re.escape(opcode)}[.\s]", sass))
 
 
+def check_plan_report(name: str, report) -> None:
+    """Phase 5's verdicts on one planner report (phase 11 holds its own
+    reports to them too)."""
+    recs = report.records
+    require(len(recs) == 6, f"{name}: {len(recs)} verifications, not 6")
+    sel = report.selected
+    require(sel is not None and sel.correct
+            and sel.best_time_s < float("inf"),
+            f"{name}: no correct destination selected")
+    fpga_loop = [r for r in recs if r.paper_analogue == "FPGA"
+                 and r.method == "loop"]
+    require(len(fpga_loop) == 1 and fpga_loop[0].n_measurements <= 4,
+            f"{name}: FPGA loop verification measured more than 4")
+    if name == "NAS.BT":
+        require(sel.choice.get("seidel_relax", "seq") not in ("dp", "tp"),
+                "NAS.BT: the wrong Jacobi smoother was selected")
+
+
 def run_planner(ops):
-    """Phase 5: the port's main path; returns launches per kernel."""
+    """Phase 5: the port's main path; returns launches per kernel and the
+    planner's wall seconds per app."""
     from repro_torch.core.planner import UserTarget
     from repro_torch.quickstart import print_report, run_app
 
     ops.reset_launch_counts()
-    grew = {}
-    for name in ("3mm", "tdFIR", "NAS.BT"):
+    grew, walls = {}, {}
+    for name in PLANNER_APPS:
         before = ops.launch_counts()
         t0 = time.perf_counter()
         report = run_app(name, UserTarget(), full=True, policy="host-time",
                          device="cuda")
+        walls[name] = time.perf_counter() - t0
         after = ops.launch_counts()
         print_report(name, report)
-        print(f"  [{time.perf_counter() - t0:.1f} s, kernel launches "
+        print(f"  [{walls[name]:.1f} s, kernel launches "
               f"{ {k: after[k] - before[k] for k in after} }]", flush=True)
         grew[name] = {k: after[k] - before[k] for k in after}
-        recs = report.records
-        require(len(recs) == 6, f"{name}: {len(recs)} verifications, not 6")
-        sel = report.selected
-        require(sel is not None and sel.correct
-                and sel.best_time_s < float("inf"),
-                f"{name}: no correct destination selected")
-        fpga_loop = [r for r in recs if r.paper_analogue == "FPGA"
-                     and r.method == "loop"]
-        require(len(fpga_loop) == 1 and fpga_loop[0].n_measurements <= 4,
-                f"{name}: FPGA loop verification measured more than 4")
-        if name == "NAS.BT":
-            require(sel.choice.get("seidel_relax", "seq") not in ("dp", "tp"),
-                    "NAS.BT: the wrong Jacobi smoother was selected")
+        check_plan_report(name, report)
     require(grew["3mm"]["matmul"] > 0, "3mm never launched the matmul kernel")
     require(grew["tdFIR"]["tdfir"] > 0, "tdFIR never launched the tdfir "
             "kernel")
-    return ops.launch_counts()
+    return ops.launch_counts(), walls
+
+
+def run_modeled(ops, plan_walls):
+    """Phase 11: the modeled-cost path.  Each app at the paper's sizes
+    through ``plan_offload`` with a ``CompiledCostRunner`` on the one-device
+    mesh and a ``PlanLookup`` over a ``SearchCache`` on disk, under the
+    host-time and the modeled policy; every correct dp / tp record must
+    carry a modeled time and its roofline (the FPGA analogue's none), no
+    kernel may launch while a candidate is analysed, the lookup must hold
+    each destination's verdict, and a second scoring pass over it, with the
+    tracer poisoned, must trace nothing.  Its launches are printed on a
+    line of their own; the ``kernels`` line keeps phase 5's."""
+    import tempfile
+
+    from repro_torch.core import trace_analysis
+    from repro_torch.core.measure import CompiledCostRunner
+    from repro_torch.core.plan_lookup import PlanLookup, serve_key
+    from repro_torch.core.planner import UserTarget
+    from repro_torch.core.search_cache import SearchCache
+    from repro_torch.dist.bridge import LocalMesh
+    from repro_torch.quickstart import print_report, run_app
+
+    class WatchedCostRunner(CompiledCostRunner):
+        """Counts the traces and their seconds; no kernel may launch while
+        one runs."""
+        traces, trace_s = 0, 0.0
+
+        def measure(self, fn, inputs, **kw):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            ev = super().measure(fn, inputs, **kw)
+            self.trace_s += time.perf_counter() - t0
+            self.traces += 1
+            require(ops.launch_counts() == before, "a kernel launched while "
+                    "a candidate was analysed")
+            if not ev.correct:
+                print(f"  analysis failed: {ev.info.get('error')}")
+            return ev
+
+    runner = WatchedCostRunner(mesh=LocalMesh())
+    selected = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lookup = PlanLookup(SearchCache(os.path.join(tmp, "lookup.json")))
+        ops.reset_launch_counts()
+        by_app = {name: [] for name in PLANNER_APPS}
+        for name in PLANNER_APPS:
+            for policy in MODELED_POLICIES:
+                t0 = time.perf_counter()
+                report = run_app(name, UserTarget(), full=True,
+                                 policy=policy, device="cuda",
+                                 cost_runner=runner, publish=lookup)
+                wall = time.perf_counter() - t0
+                print_report(name, report)
+                print(f"  [{wall:.1f} s with the cost runner; phase 5 "
+                      f"without it {plan_walls[name]:.1f} s]", flush=True)
+                check_plan_report(name, report)
+                modeled_table(name, report)
+                by_app[name].extend(report.records)
+                sel = report.selected
+                selected[(name, policy)] = (
+                    f"{sel.paper_analogue} {sel.method} "
+                    f"{ {k: v for k, v in sel.choice.items() if v != 'seq'} }")
+        launches = ops.launch_counts()
+        print(f"  kernel launches in the phase {launches}; {runner.traces} "
+              f"traces, {runner.trace_s:.2f} s tracing")
+        require(launches["matmul"] > 0 and launches["tdfir"] > 0,
+                "phase 11 never launched the matmul or the tdfir kernel")
+        for (name, policy), what in selected.items():
+            print(f"  selected {name:6s} under {policy:9s}: {what}")
+        keys = check_lookup(lookup, by_app, serve_key)
+        # the second pass: lookups only, with the tracer poisoned
+        misses, lookups = lookup.stats.misses, lookup.stats.lookups
+        saved = trace_analysis.trace
+
+        def poisoned(*args, **kw):
+            raise SmokeFailure("a plan lookup traced a candidate")
+
+        trace_analysis.trace = poisoned
+        try:
+            scored = {k: lookup.score(k) for k in keys}
+        finally:
+            trace_analysis.trace = saved
+        require(lookup.stats.lookups == lookups + len(keys)
+                and lookup.stats.misses == misses,
+                "the second scoring pass did not stay on lookups")
+        for key, ev in scored.items():
+            print(f"  lookup {key[1]:13s} {key[2]:6s} "
+                  + ("failure" if ev is None else
+                     f"{ev.time_s * 1e6:10.2f} us modeled"))
+        print(f"  lookup stats {lookup.stats.to_dict()}")
+
+
+def modeled_table(name: str, report) -> None:
+    """Per record: measured and modeled ms, their ratio, the dominant term,
+    the FLOPs by dtype and the bytes; requires a modeled time and a
+    roofline on every correct dp / tp record and none on the FPGA's."""
+    print(f"  {'record':28s} {'measured ms':>11s} {'modeled ms':>11s} "
+          f"{'ratio':>9s} {'dominant':>9s}  flops by dtype, bytes")
+    for r in report.records:
+        usable = r.correct and r.best_time_s < float("inf")
+        what = f"{r.order}. {r.paper_analogue} {r.method}"
+        if r.paper_analogue == "FPGA" or not usable:
+            require(r.mesh_time_s is None and not r.mesh_info,
+                    f"{name}: {what} carries a modeled time")
+            continue
+        rl = r.mesh_info.get("roofline")
+        require(r.mesh_time_s is not None and r.mesh_time_s > 0 and rl,
+                f"{name}: {what} has no modeled time or roofline")
+        split = {d: f"{v:.4g}" for d, v in rl["flops_by_dtype"].items() if v}
+        print(f"  {what:28s} {r.best_time_s * 1e3:11.4f} "
+              f"{r.mesh_time_s * 1e3:11.6f} "
+              f"{r.mesh_time_s / r.best_time_s:9.5f} {rl['dominant']:>9s}  "
+              f"{split}, {rl['bytes_per_device']:.4g} B")
+
+
+def check_lookup(lookup, by_app, serve_key) -> list:
+    """Each (destination, app): a warm key where a record was correct, a
+    failure where every record was wrong; returns the keys."""
+    keys = []
+    for name, recs in by_app.items():
+        for dest in sorted({r.destination for r in recs}):
+            mine = [r for r in recs if r.destination == dest]
+            key = serve_key(dest, name)
+            payload = lookup.cache.lookup(key, count=False)
+            if any(r.correct and r.best_time_s < float("inf") for r in mine):
+                require(lookup.usable(payload), f"{name} on {dest}: no warm "
+                        f"lookup entry for a correct destination")
+            elif any(not r.correct for r in mine):
+                require(payload is not None and "error" in payload,
+                        f"{name} on {dest}: no failure for a destination "
+                        f"proven wrong")
+            else:
+                continue
+            keys.append(key)
+    return keys
 
 
 def watched_lm(cfg, seed: int, plan=None, params=None):
@@ -2638,13 +2831,15 @@ def range_split(lm, fn, what: str, label: str, n_attn: int) -> None:
 
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
-    inputs at the serving shapes, through the wrapper calls that every
-    checkout since the port's second slice takes; prints each output's
-    SHA-256 and its ms per call (CUDA events, and profiler device time)."""
+    inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
+    kernels (real and complex) at the paper's sizes, through the wrapper
+    calls that every checkout since the port's second slice takes; prints
+    each output's SHA-256 and its ms per call (CUDA events, and profiler
+    device time)."""
     import hashlib
     from repro_torch.kernels import _build, ops
     print(f"  {nvidia_smi_line()}")
-    _build.build_all(("flash_attention", "decode_attention"))
+    _build.build_all()
     gen = torch.Generator().manual_seed(7)
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -2671,8 +2866,25 @@ def run_digests() -> int:
                       f"Skv={VLM_CTX} D={d} non-causal {dtype}",
                       functools.partial(ops.flash_attention, q, k, v,
                                         causal=False, kv_group=rep)))
+    # the planner's kernels (their own generator: the inputs above stay)
+    gen = torch.Generator().manual_seed(11)
+    m, k, n = MATMUL_MAIN
+    a, b = randn(gen, m, k), randn(gen, k, n)
+    cases.append((f"matmul {m}x{k}x{n} fp32",
+                  functools.partial(ops.matmul, a, b)))
+    f, nn, kk = TDFIR_MAIN
+    x, xi = randn(gen, f, nn), randn(gen, f, nn)
+    h, hi = randn(gen, f, kk) * 0.1, randn(gen, f, kk) * 0.1
+    cases.append((f"tdfir {f}x{nn}x{kk}",
+                  functools.partial(ops.tdfir, x, h,
+                                    block_n=TDFIR_MAIN_BLOCK_N)))
+    cases.append((f"tdfir_complex {f}x{nn}x{kk}",
+                  functools.partial(ops.tdfir_complex, x, xi, h, hi,
+                                    block_n=TDFIR_MAIN_BLOCK_N)))
     for what, fn in cases:
-        out = fn().contiguous()
+        out = fn()
+        out = (torch.stack(out) if isinstance(out, tuple) else out
+               ).contiguous()
         digest = hashlib.sha256(out.view(torch.uint8).cpu().numpy()
                                 .tobytes()).hexdigest()[:16]
         events = time_ms(fn, 100)
@@ -2696,6 +2908,7 @@ def main() -> int:
 
     with phase("1 card"):
         smi = nvidia_smi_line()
+        print(f"  power.draw before the card is opened: {idle_draw()}")
         port_device.resolve("cuda")
         print(f"  {smi}")
         print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2730,7 +2943,7 @@ def main() -> int:
     with phase("4 time"):
         times = time_kernels(ops, ref)
     with phase("5 plan"):
-        launches = run_planner(ops)
+        launches, plan_walls = run_planner(ops)
     with phase("6 serve"):
         served, b_pool = run_serve(ops)
     with phase("7 family"):
@@ -2741,6 +2954,8 @@ def main() -> int:
         recurrent = run_recurrent(ops)
     with phase("10 cross"):
         cross = run_cross(ops)
+    with phase("11 modeled"):
+        run_modeled(ops, plan_walls)
     # flash and decode: the serving cells' launches, each cell counted
     # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l)
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]

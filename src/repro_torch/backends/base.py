@@ -8,16 +8,15 @@ destination:
   * identity — ``key`` (impl key inside ``LoopNest.impls``), ``name``,
     ``paper_analogue``, ``price`` and ``verify_time`` (the paper's relative
     price / verification-cost orderings), ``mesh_role`` (read by the
-    mesh bridge of the modeled-cost slice);
+    mesh bridge, :mod:`repro_torch.dist.bridge`);
   * ``search(app, ctx, method)`` — the verification strategy for this
     destination: a generic function-block apply+measure for
     ``method="function_block"`` and a destination-specific loop search
     (GA, intensity narrowing, …) for ``method="loop"``;
-  * ``mesh_verify(cost_runner, fn, inputs)`` — optional hook compiling the
-    winning candidate for a real mesh and returning a modeled
-    :class:`~repro_torch.core.ga.Evaluation`.  The default hook belongs to
-    the modeled-cost slice (ROADMAP queue 1 item 10) and raises
-    ``NotImplementedError`` until it lands.
+  * ``mesh_verify(cost_runner, fn, inputs)`` — optional hook tracing the
+    winning candidate for the cost runner's mesh and returning a modeled
+    :class:`~repro_torch.core.ga.Evaluation` (default:
+    :func:`repro_torch.dist.bridge.mesh_verify`).
 
 New destinations are *registered* (``BackendRegistry.register``), not added
 to a hardcoded enum — the planner iterates whatever order the registry
@@ -102,11 +101,9 @@ def generic_fb_search(backend: "Backend", app, ctx: SearchContext
 
 
 def bridge_mesh_verify(backend: "Backend", cost_runner, fn, inputs):
-    """Default mesh hook.  The planner<->mesh bridge (``repro.dist.bridge``
-    in the JAX package) comes with the modeled-cost path."""
-    raise NotImplementedError(
-        "mesh verification comes with the modeled-cost slice (ROADMAP "
-        "queue 1 item 10: CompiledCostRunner and dist/bridge.py)")
+    """Default mesh hook: the planner<->mesh bridge."""
+    from repro_torch.dist import bridge
+    return bridge.mesh_verify(cost_runner, backend, fn, inputs)
 
 
 @dataclass(frozen=True)
@@ -119,7 +116,7 @@ class Backend:
     verify_time: float    # relative verification cost (CPU < GPU < FPGA);
                           # the registry derives the paper's order from it
     # mesh analogue read by the mesh bridge: "data" verifications
-    # compile data-parallel, "model" tensor-parallel, "" has no mesh bridge
+    # trace data-parallel, "model" tensor-parallel, "" has no mesh bridge
     # (the FPGA analogue is a kernel substitution, not a sharding).
     mesh_role: str = ""
     # power envelope (repro_torch.power.PowerEnvelope) the planner charges

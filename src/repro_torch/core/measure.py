@@ -1,23 +1,34 @@
 """Verification environment: dynamic measurement of candidate patterns, the
-port of ``repro.core.measure`` (``TimedRunner`` and ``outputs_close``).
+port of ``repro.core.measure``.
 
-:class:`TimedRunner` actually executes the candidate on this machine, times
-it (best-of-k after a first call), and applies the paper's result-equality
-check: a result differing from the un-offloaded reference, or a timeout,
-sets processing time to 1000 s so the pattern dies out of the GA.  PyTorch
-runs eagerly, so each timed call is bracketed by ``torch.cuda.synchronize()``
-on the inputs' card: the time is the device's, not the enqueue's.
+Two runners:
+
+  * :class:`TimedRunner` actually executes the candidate on this machine,
+    times it (best-of-k after a first call), and applies the paper's
+    result-equality check: a result differing from the un-offloaded
+    reference, or a timeout, sets processing time to 1000 s so the pattern
+    dies out of the GA.  PyTorch runs eagerly, so each timed call is
+    bracketed by ``torch.cuda.synchronize()`` on the inputs' card: the time
+    is the device's, not the enqueue's.
+  * :class:`CompiledCostRunner` traces the candidate on fake tensors
+    (:mod:`repro_torch.core.trace_analysis`: shapes only, no launch, no
+    device memory) and scores the traced artifact with the H100 roofline
+    (:mod:`repro_torch.core.cost_model`).  It keeps the reference's name:
+    the traced artifact stands where the compiled one stood.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 from torch.utils._pytree import tree_leaves
 
+from repro_torch.core import cost_model
 from repro_torch.core.ga import Evaluation
+from repro_torch.core.search_cache import analyze_artifact
+from repro_torch.core.trace_analysis import Traceable
 
 
 def _host_array(x) -> np.ndarray:
@@ -117,3 +128,73 @@ class TimedRunner:
         except Exception as e:   # a failing candidate == "conversion fails"
             return Evaluation(time_s=float("inf"), correct=False,
                               info={"error": repr(e)[:500]})
+
+
+class CompiledCostRunner:
+    """Roofline scoring of traced candidates (``mesh`` and ``n_chips`` as in
+    the reference: the chips a step's per-device analysis is spread over)."""
+
+    def __init__(self, mesh=None, n_chips: Optional[int] = None,
+                 model_flops: float = 0.0):
+        self.mesh = mesh
+        self.n_chips = n_chips or (mesh.size if mesh is not None else 1)
+        self.model_flops = model_flops
+
+    def score_analysis(self, analyzed: dict, verify_s: float = 0.0, *,
+                       bubble_fraction: float = 0.0,
+                       cache_hit: Optional[bool] = None) -> Evaluation:
+        """Roofline-score an analysis dict — pure arithmetic.
+
+        This is the cache-hit scoring path (repro_torch.core.search_cache):
+        the analysis dict stands in for the traced artifact, so re-scoring
+        the same artifact under a different ``bubble_fraction`` or
+        selection policy never retraces.
+        """
+        try:
+            rl = cost_model.roofline_from_analysis(
+                analyzed, n_chips=self.n_chips,
+                model_flops=self.model_flops,
+                bubble_fraction=bubble_fraction)
+            info = {"roofline": rl.to_dict(), "verify_s": verify_s}
+            if cache_hit is not None:
+                info["cache_hit"] = cache_hit
+            return Evaluation(time_s=rl.step_time_s, correct=True,
+                              info=info)
+        except Exception as e:
+            return Evaluation(time_s=float("inf"), correct=False,
+                              info={"error": repr(e)[:500]})
+
+    def score_artifact(self, artifact, verify_s: float = 0.0, *,
+                       bubble_fraction: float = 0.0) -> Evaluation:
+        """Roofline-score an already traced artifact (the reference's
+        ``score_compiled``); the analysis is memoised per artifact
+        (``search_cache.analyze_artifact``)."""
+        try:
+            analyzed = analyze_artifact(artifact)
+        except Exception as e:
+            return Evaluation(time_s=float("inf"), correct=False,
+                              info={"error": repr(e)[:500]})
+        return self.score_analysis(analyzed, verify_s,
+                                   bubble_fraction=bubble_fraction)
+
+    def measure_traced(self, traceable: Traceable, *,
+                       bubble_fraction: float = 0.0) -> Evaluation:
+        """Trace and score (the reference's ``measure_lowered``)."""
+        try:
+            t0 = time.perf_counter()
+            artifact = traceable.trace()
+            verify_s = time.perf_counter() - t0
+        except Exception as e:
+            return Evaluation(time_s=float("inf"), correct=False,
+                              info={"error": repr(e)[:500]})
+        return self.score_artifact(artifact, verify_s,
+                                   bubble_fraction=bubble_fraction)
+
+    def measure(self, fn: Callable, inputs, *,
+                bubble_fraction: float = 0.0) -> Evaluation:
+        """Trace ``fn(inputs)`` and score it.  ``inputs`` may hold real
+        tensors or :class:`~repro_torch.core.trace_analysis.TensorSpec` s:
+        either way they become fake tensors on their own device (the card
+        for a spec without one), and no device memory is touched."""
+        return self.measure_traced(Traceable(fn, inputs),
+                                   bubble_fraction=bubble_fraction)

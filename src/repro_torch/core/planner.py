@@ -17,13 +17,16 @@ keeps:
 
 Final selection is a pluggable :class:`~repro_torch.backends.SelectionPolicy`
 (``policy=``): ``host-time`` reproduces the paper's fastest-correct-pattern
-rule; ``modeled`` ranks by a mesh-verified roofline time (host time until
-the modeled-cost slice records one); ``price-weighted`` weights by the
-destination's relative price; ``power`` / ``edp`` rank by the modeled
-energy the planner charges each correct record (repro_torch.power:
-envelope × host-time).  ``power_budget_w`` / ``max_slowdown`` constrain any
-policy's selection — the power follow-up's "fastest within the power budget" and
-"lowest energy within the allowed slowdown" evaluations.
+rule; ``modeled`` ranks by the mesh-verified roofline time a ``cost_runner``
+records (host time where none was recorded); ``price-weighted`` weights by
+the destination's relative price; ``power`` / ``edp`` rank by the modeled
+energy the planner charges each correct record (repro_torch.power: the
+roofline's utilization, or envelope × host-time).  ``power_budget_w`` /
+``max_slowdown`` constrain any policy's selection — the power follow-up's
+"fastest within the power budget" and "lowest energy within the allowed
+slowdown" evaluations.  ``publish`` writes every verdict into a
+:class:`~repro_torch.core.plan_lookup.PlanLookup` (the write half of the
+search/lookup split).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ from repro_torch.core import function_blocks
 from repro_torch.core.candidates import candidates_from_records, unwrap
 from repro_torch.core.ga import GAConfig
 from repro_torch.core.measure import TimedRunner
+from repro_torch.core.plan_lookup import publish_record
 from repro_torch.obs import get_tracer
 from repro_torch.power import energy_for_record, envelope_for
 
@@ -79,13 +83,16 @@ class VerificationRecord:
     # timeout — kept as evidence but never pinned, selected or early-stopped
     correct: bool = True
     # set when a mesh verification records the modeled step time under the
-    # destination's sharding (modeled-cost slice); None until then
+    # destination's sharding (plan_offload(cost_runner=...)); its roofline
+    # and trace details in mesh_info
     mesh_time_s: Optional[float] = None
+    mesh_info: Dict = field(default_factory=dict)
     # verification-cost counters from the search (e.g. the loop GA's
     # choice-keyed measurement memo: measured / reused)
     cache_stats: Dict = field(default_factory=dict)
-    # modeled energy of this destination's step (repro_torch.power):
-    # envelope × host-time; None on incorrect / infinite records
+    # modeled energy of this destination's step (repro_torch.power): from
+    # the mesh roofline, else envelope × host-time; None on incorrect /
+    # infinite records
     energy_j: Optional[float] = None
     avg_watts: Optional[float] = None
     energy_info: Dict = field(default_factory=dict)
@@ -135,14 +142,6 @@ def _pin_best_fb(records: List[VerificationRecord],
     return {}
 
 
-# arguments of the JAX planner whose layers come with later slices
-_LATER_SLICES = {
-    "cost_runner": "queue 1 item 10 (modeled-cost path)",
-    "publish": "queue 1 item 10 (plan lookup / search cache)",
-    "lint_choice": "queue 1 item 12 (static analysis)",
-}
-
-
 def plan_offload(app, targets: UserTarget, *, seed: int = 0,
                  runner: Optional[TimedRunner] = None,
                  ga_cfg: Optional[GAConfig] = None,
@@ -170,22 +169,36 @@ def plan_offload(app, targets: UserTarget, *, seed: int = 0,
     holds the paper's three.  ``registry`` stays the *function-block*
     registry (paper's DB).
 
+    ``cost_runner`` (a :class:`repro_torch.core.measure.CompiledCostRunner`)
+    additionally traces each correct dp / tp winner for the runner's mesh
+    (each backend's ``mesh_verify`` hook, :mod:`repro_torch.dist.bridge`)
+    and records the modeled step time on the VerificationRecord
+    (``mesh_time_s``, ``mesh_info["roofline"]``) — the mixed-destination
+    decision then sees the roofline beside the host time.
+
     ``policy`` names the :class:`~repro_torch.backends.SelectionPolicy`
     ranking the verified destinations (default ``host-time``, the paper's
-    rule).  ``power_budget_w`` restricts selection to destinations whose
-    modeled average draw fits the budget; ``max_slowdown`` restricts it to
+    rule; ``modeled`` consumes the recorded ``mesh_time_s``; ``power`` /
+    ``edp`` the modeled ``energy_j`` charged to every correct record).
+    ``power_budget_w`` restricts selection to destinations whose modeled
+    average draw fits the budget; ``max_slowdown`` restricts it to
     destinations within the factor of the fastest correct one.
 
-    ``cost_runner``, ``publish`` and ``lint_choice`` keep the JAX planner's
-    signature; their layers come with later slices, and passing one raises
-    ``NotImplementedError`` naming the ROADMAP item that brings it.
+    ``publish`` (a :class:`repro_torch.core.plan_lookup.PlanLookup`) is the
+    write half of the search/lookup split: every verification verdict is
+    registered under ``serve_key(backend, app)`` — a correct record's
+    roofline analysis (its host time where none was recorded), an
+    incorrect one as a failure — so a lookup scores destinations without
+    ever tracing.
+
+    ``lint_choice`` keeps the JAX planner's signature; its layer comes with
+    a later slice, and passing one raises ``NotImplementedError`` naming
+    the ROADMAP item that brings it.
     """
-    for name, value in (("cost_runner", cost_runner), ("publish", publish),
-                        ("lint_choice", lint_choice)):
-        if value is not None:
-            raise NotImplementedError(
-                f"plan_offload({name}=...) is not ported yet: ROADMAP "
-                f"{_LATER_SLICES[name]}")
+    if lint_choice is not None:
+        raise NotImplementedError(
+            "plan_offload(lint_choice=...) is not ported yet: ROADMAP "
+            "queue 1 item 12 (static analysis)")
     dev = _device.resolve(device)
     runner = runner or TimedRunner()
     backends = backends if backends is not None else default_registry()
@@ -262,15 +275,33 @@ def plan_offload(app, targets: UserTarget, *, seed: int = 0,
                 cache_stats=dict(getattr(res, "cache_stats", {}) or {}))
             records.append(rec)
 
+            # mesh bridge: trace the winner for the cost runner's mesh
+            # through the backend's hook and record the modeled (roofline)
+            # step time next to the host timing
+            if (cost_runner is not None and rec.correct
+                    and rec.best_time_s < float("inf")):
+                mesh_ev = backend.mesh_verify(
+                    cost_runner, app.build(dict(rec.choice)), inputs)
+                if mesh_ev is not None and mesh_ev.correct:
+                    rec.mesh_time_s = mesh_ev.time_s
+                    rec.mesh_info = dict(mesh_ev.info)
+
             # energy charge (repro_torch.power): every correct finite record
             # gets the modeled joules/watts the power/edp policies and the
-            # power_budget_w constraint consume
+            # power_budget_w constraint consume — from the mesh roofline
+            # when the bridge recorded one, envelope × host-time otherwise
             if rec.correct and rec.best_time_s < float("inf"):
                 e_rep = energy_for_record(rec, envelope_for(backend))
                 if e_rep is not None:
                     rec.energy_j = e_rep.energy_j
                     rec.avg_watts = e_rep.avg_watts
                     rec.energy_info = e_rep.to_dict()
+
+            # search/lookup split: publish this verification into the
+            # lookup (correct records warm it; incorrect ones are recorded
+            # failures a lookup refuses)
+            if publish is not None:
+                publish_record(publish, rec, backend, app.name)
 
             stats = rec.cache_stats
             vspan.set(best_time_s=rec.best_time_s, correct=rec.correct,

@@ -1,0 +1,326 @@
+"""Cost analysis of a traced candidate: the port's counterpart of
+``repro.core.hlo_analysis``, and its "compiled artifact".
+
+The JAX package lowers and compiles a candidate and walks the HLO text.
+PyTorch runs eagerly, so the port traces the candidate instead: ``fn``
+runs once under ``FakeTensorMode`` (shapes and dtypes only: no data, no
+launch, no device memory) with a dispatch mode that records every aten op
+it reaches.  The recorded ops are the :class:`TracedArtifact`; its
+:meth:`~TracedArtifact.as_text` listing stands where ``compiled.as_text()``
+stood.
+
+Heuristics (the reference's, restated for eager PyTorch):
+  * the matmul family (mm, addmm, bmm, baddbmm, convolution, attention):
+    ``torch.utils.flop_counter``'s formulas, priced at the result's dtype
+    (bf16 / fp16 products run on the tensor cores);
+  * every other op: prod(result shape) FLOPs, a reduction its operand's
+    elements; priced at fp32 (PyTorch's elementwise kernels compute half
+    types in fp32), fp64 at fp64;
+  * bytes: operands plus results of every op that allocates or writes.
+    Eager PyTorch does not fuse, so every op boundary crosses HBM (the
+    reference's "inside a fusion" rule has nothing to do); a Python loop
+    is traced op by op, so trip counts come for free (no while-loop
+    multipliers).  Views and aliasing ops count 0;
+  * a kernel wrapper of ``repro_torch.kernels.ops`` reached by a fake
+    tensor is not launched: it reports its own work from the formula kept
+    beside its plan (``kernels.ops.recording_work``);
+  * collectives: counted by ``torch.distributed.tensor.debug.CommDebugMode``,
+    their operand bytes by the recording mode; on one device all are 0,
+    under the reference's keys (``coll_*``, ``count_*``,
+    ``collective_bytes``).
+
+:func:`analyze_ops` returns the reference's keys plus the FLOPs by dtype
+(``flops_fp32``, ``flops_bf16``, ``flops_fp16``, ``flops_fp64``), which
+:func:`repro_torch.core.cost_model.roofline_from_analysis` prices each at
+its own peak.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor.debug import CommDebugMode
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch import device as _device
+from repro_torch.core.cost_model import FLOPS_KEY_PREFIX, PEAK_FLOPS_BY_DTYPE
+from repro_torch.kernels import ops as kernel_ops
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+_aten = torch.ops.aten
+# ops that allocate nothing and move no bytes (factories of uninitialised
+# memory, aliases)
+_FREE = {
+    _aten.empty.memory_format, _aten.empty_strided.default,
+    _aten.new_empty.default, _aten.new_empty_strided.default,
+    _aten.empty_like.default, _aten._unsafe_view.default,
+    _aten.alias.default, _aten.detach.default, _aten.lift_fresh.default,
+    _aten.resolve_conj.default, _aten.resolve_neg.default,
+}
+# ops that overwrite their first operand without reading it
+_OVERWRITE = {_aten.copy_.default, _aten.fill_.Scalar, _aten.fill_.Tensor,
+              _aten.zero_.default}
+_REDUCTIONS = {
+    "sum", "mean", "amax", "amin", "max", "min", "prod", "argmax", "argmin",
+    "any", "all", "norm", "linalg_vector_norm", "var", "std", "var_mean",
+    "std_mean", "logsumexp", "nansum", "count_nonzero", "aminmax",
+}
+# collective op names (c10d and its functional form) -> reference kind
+_COLLECTIVE_OF = {
+    "all_reduce": "all-reduce", "allreduce_": "all-reduce",
+    "all_gather_into_tensor": "all-gather", "all_gather_tensor": "all-gather",
+    "allgather_": "all-gather",
+    "_allgather_base_": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "alltoall_": "all-to-all",
+    "alltoall_base_": "all-to-all",
+    "send": "collective-permute", "recv_": "collective-permute",
+}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "c10d_functional", "c10d")
+_DTYPE_KEY = {torch.float32: "fp32", torch.bfloat16: "bf16",
+              torch.float16: "fp16", torch.float64: "fp64",
+              torch.complex128: "fp64"}
+_DTYPE_SHORT = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16", torch.float64: "f64",
+                torch.int64: "s64", torch.int32: "s32", torch.int16: "s16",
+                torch.int8: "s8", torch.uint8: "u8", torch.bool: "pred",
+                torch.complex64: "c64", torch.complex128: "c128"}
+
+
+@dataclass(frozen=True)
+class TensorSpec:
+    """Shape, dtype and device of an input (the port's
+    ``jax.ShapeDtypeStruct``); ``device`` None is the card, as for the
+    port's entry points."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    device: Optional[torch.device] = None
+
+
+@dataclass
+class TracedOp:
+    name: str                  # "aten.mm.default", "kernel.matmul", ...
+    flops: float
+    bytes: float
+    dtype: str                 # the peak its FLOPs are priced at
+    inputs: Tuple = ()         # (dtype, shape) of each tensor operand
+    outputs: Tuple = ()        # (dtype, shape) of each tensor result
+    collective: str = ""       # the reference's kind, for a collective
+    wire_bytes: float = 0.0    # a collective's operand bytes
+
+    def line(self, i: int) -> str:
+        def shapes(ts):
+            return ", ".join(f"{d}[{','.join(map(str, s))}]" for d, s in ts)
+        kind = f" {self.collective}" if self.collective else ""
+        return (f"%{i} = {self.name}({shapes(self.inputs)}) -> "
+                f"({shapes(self.outputs)}){kind}  flops={self.flops:.0f} "
+                f"{self.dtype}  bytes={self.bytes:.0f}")
+
+
+def _dtype_key(dtype: torch.dtype) -> str:
+    """The peak a product in this dtype runs at."""
+    return _DTYPE_KEY.get(dtype, "fp32")
+
+
+def _scalar_key(dtype: torch.dtype) -> str:
+    """The peak any other op runs at: fp32 math (half types included),
+    fp64 for double."""
+    return "fp64" if _dtype_key(dtype) == "fp64" else "fp32"
+
+
+def _distinct_bytes(t: torch.Tensor) -> int:
+    """Bytes of the elements a tensor holds (a broadcast dim counts once)."""
+    if t.numel() == 0:
+        return 0
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride != 0:
+            n *= size
+    return n * t.element_size()
+
+
+def _sig(ts) -> Tuple:
+    return tuple((_DTYPE_SHORT.get(t.dtype, str(t.dtype)), tuple(t.shape))
+                 for t in ts)
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def op_cost(func, args, kwargs, out) -> Optional[TracedOp]:
+    """The cost of one dispatched op, or None for ops that are no work at
+    all (size and stride queries, ``prim`` ops)."""
+    namespace = func.namespace
+    if namespace not in ("aten",) + _COLLECTIVE_NAMESPACES:
+        return None
+    ins, outs = _tensors((args, kwargs)), _tensors(out)
+    name = str(func)
+    if namespace != "aten":
+        kind = _COLLECTIVE_OF.get(func._opname, "")
+        if not kind:                            # wait_tensor, barriers, ...
+            return TracedOp(name, 0.0, 0.0, "fp32", _sig(ins), _sig(outs))
+        # the reference's rule: operand bytes (the result's when there
+        # are none) on the wire, operands plus results through HBM
+        moved = sum(_distinct_bytes(t) for t in ins) or \
+            sum(_distinct_bytes(t) for t in outs)
+        return TracedOp(name, 0.0,
+                        float(moved + sum(_distinct_bytes(t) for t in outs)),
+                        "fp32", _sig(ins), _sig(outs), collective=kind,
+                        wire_bytes=float(moved))
+    if (func in _FREE or func.is_view
+            or torch.Tag.inplace_view in func.tags):
+        return TracedOp(name, 0.0, 0.0, "fp32", _sig(ins), _sig(outs))
+    formula = flop_registry.get(func._overloadpacket)
+    result_dtype = outs[0].dtype if outs else torch.float32
+    if formula is not None:
+        flops = float(formula(*args, **kwargs, out_val=out))
+        dtype = _dtype_key(result_dtype)
+    elif func._opname in _REDUCTIONS and ins:
+        flops = float(ins[0].numel())
+        dtype = _scalar_key(ins[0].dtype)
+    else:
+        flops = float(sum(t.numel() for t in outs))
+        dtype = _scalar_key(result_dtype)
+    read = ins[1:] if func in _OVERWRITE else ins
+    nbytes = sum(_distinct_bytes(t) for t in read) + \
+        sum(_distinct_bytes(t) for t in outs)
+    return TracedOp(name, flops, float(nbytes), dtype, _sig(ins), _sig(outs))
+
+
+class _Recorder(TorchDispatchMode):
+    """Records the cost of every op that reaches the dispatcher, and the
+    work the kernel wrappers report for their fake calls."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: List[TracedOp] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        rec = op_cost(func, args, kwargs, out)
+        if rec is not None:
+            self.ops.append(rec)
+        return out
+
+    def kernel(self, name: str, flops: float, nbytes: float) -> None:
+        self.ops.append(TracedOp(f"kernel.{name}", float(flops),
+                                 float(nbytes), "fp32"))
+
+
+def analyze_ops(ops: Sequence[TracedOp],
+                comm_counts: Dict[str, float]) -> Dict[str, float]:
+    """Whole-trace cost (per device): the reference's keys plus the FLOPs
+    by dtype; ``comm_counts`` (kind -> count, from CommDebugMode) gives
+    the ``count_*`` keys."""
+    flops = 0.0
+    nbytes = 0.0
+    by_dtype = {d: 0.0 for d in PEAK_FLOPS_BY_DTYPE}
+    coll = {k: 0.0 for k in COLLECTIVES}
+    for op in ops:
+        flops += op.flops
+        nbytes += op.bytes
+        by_dtype[op.dtype] += op.flops
+        if op.collective:
+            coll[op.collective] += op.wire_bytes
+    counts = {k: float(comm_counts.get(k, 0.0)) for k in COLLECTIVES}
+    out = {"flops": flops, "bytes": nbytes}
+    out.update({f"coll_{k}": v for k, v in coll.items()})
+    out.update({f"count_{k}": v for k, v in counts.items()})
+    out["collective_bytes"] = sum(coll.values())
+    out.update({FLOPS_KEY_PREFIX + d: v for d, v in by_dtype.items()})
+    return out
+
+
+class TracedArtifact:
+    """The ops one trace of a candidate reached: the port's compiled
+    artifact.  :meth:`analyze` is the cost walk (memoised per artifact by
+    ``search_cache.analyze_artifact``); :meth:`as_text` lists the ops."""
+
+    def __init__(self, ops: List[TracedOp], device: torch.device,
+                 comm_counts: Dict[str, float]):
+        self.ops = ops
+        self.device = device
+        self.comm_counts = comm_counts
+
+    def analyze(self) -> Dict[str, float]:
+        return analyze_ops(self.ops, self.comm_counts)
+
+    def as_text(self) -> str:
+        head = f"// traced on {self.device}: {len(self.ops)} ops"
+        return "\n".join([head] + [op.line(i)
+                                   for i, op in enumerate(self.ops)])
+
+
+def _leaf_device(x) -> Optional[torch.device]:
+    """The device a tensor or spec leaf is faked on (None for others)."""
+    if isinstance(x, torch.Tensor):
+        dev = x.device
+    elif hasattr(x, "shape") and hasattr(x, "dtype"):
+        dev = _device.resolve(getattr(x, "device", None))
+    else:
+        return None
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def trace(fn: Callable, inputs) -> TracedArtifact:
+    """Run ``fn(inputs)`` once on fake tensors and record its ops.
+
+    ``inputs`` is a pytree whose tensor leaves are real tensors or
+    :class:`TensorSpec` s (or any object with ``shape`` and ``dtype``);
+    either way they become fake tensors on the leaf's own device (a spec
+    without one: the card), so no data is read and no device memory is
+    touched.  Leaves on more than one device raise ``ValueError``.  A
+    real tensor the function closes over becomes fake on first use.
+    """
+    devices = {d for d in map(_leaf_device, tree_leaves(inputs))
+               if d is not None}
+    if len(devices) > 1:
+        raise ValueError(f"inputs span devices {sorted(map(str, devices))}; "
+                         f"a trace runs on one")
+    dev = devices.pop() if devices else _device.resolve(None)
+    fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
+    recorder = _Recorder()
+    with fake_mode:
+        def fake(x):
+            if isinstance(x, torch.Tensor):
+                return torch.empty_strided(tuple(x.shape), x.stride(),
+                                           dtype=x.dtype, device=dev)
+            if hasattr(x, "shape") and hasattr(x, "dtype"):
+                return torch.empty(tuple(x.shape), dtype=x.dtype, device=dev)
+            return x
+
+        fake_inputs = tree_map(fake, inputs)
+        comm = CommDebugMode()
+        with comm, recorder, kernel_ops.recording_work(recorder.kernel):
+            fn(fake_inputs)
+    # CommDebugMode's keys are op packets or functional-collective functions
+    counts = {k: 0.0 for k in COLLECTIVES}
+    for op, n in comm.get_comm_counts().items():
+        kind = _COLLECTIVE_OF.get(getattr(op, "__name__", ""), "")
+        if kind:
+            counts[kind] += float(n)
+    return TracedArtifact(recorder.ops, dev, counts)
+
+
+class Traceable:
+    """A candidate and its inputs, not yet traced: the port's ``Lowered``.
+    :meth:`trace` is the expensive step (the reference's ``compile``)."""
+
+    def __init__(self, fn: Callable, inputs):
+        self.fn = fn
+        self.inputs = inputs
+
+    def trace(self) -> TracedArtifact:
+        return trace(self.fn, self.inputs)

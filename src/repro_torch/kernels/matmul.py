@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -48,6 +48,15 @@ def plan(m: int, n: int, k: int) -> MatmulPlan:
     while warps < MAX_WARPS and slabs >= 4 * warps:
         warps *= 2
     return MatmulPlan(-(-m // BLOCK_M), -(-n // BLOCK_N), warps)
+
+
+def work(m: int, n: int, k: int, itemsize: int = 4) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch for C[m, n] = A[m, k] B[k, n]: 2 m n k
+    fp32 FMA operations (the bf16 form also sums in fp32 on the CUDA
+    cores), each operand read once and C written once.  The bound in
+    PERF.md and the modeled cost (``repro_torch.core.trace_analysis``)
+    both take it."""
+    return 2.0 * m * n * k, float(itemsize * (m * k + k * n + m * n))
 
 
 @functools.lru_cache(maxsize=None)

@@ -7,13 +7,25 @@ launches; :func:`launch_counts` reads them and :func:`reset_launch_counts`
 sets them to 0.  A wrapper counts a launch when Python calls it, so a CUDA
 graph (:class:`CountedGraph`) takes back the launches its capture recorded
 (nothing ran) and adds them again on every replay (they all run).
+
+A fake tensor (``torch._subclasses.FakeTensor``: shape and dtype, no data)
+reaching the matmul or tdFIR wrapper, on either device, neither launches
+nor runs the plain version: the wrapper returns an empty result of the
+right shape and dtype and hands the kernel's work, from the formula kept
+beside its plan (``matmul.work``, ``tdfir.work``, ``tdfir.complex_work``),
+to the analysis that is tracing (:func:`recording_work`).  The check is
+an ``isinstance`` on each operand (any fake operand takes the fake path:
+a trace may close over a real tensor beside fake ones), so a real launch
+pays nothing measurable for it.
 """
 from __future__ import annotations
 
+import threading
 from contextlib import contextmanager
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -29,7 +41,58 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+# per thread, the work sink of the analysis tracing now
+_tls = threading.local()
+
+
+@contextmanager
+def recording_work(sink: Callable[[str, float, float], None]):
+    """Hand ``sink(kernel, flops, nbytes)`` the work of every fake-tensor
+    kernel call this thread makes inside the block (the trace analysis,
+    ``repro_torch.core.trace_analysis``); the FLOPs are fp32 operations."""
+    saved = getattr(_tls, "sink", None)
+    _tls.sink = sink
+    try:
+        yield
+    finally:
+        _tls.sink = saved
+
+
+def _fake_of(*tensors: torch.Tensor) -> Optional[FakeTensor]:
+    """The first fake operand, or None when every operand is real."""
+    for t in tensors:
+        if isinstance(t, FakeTensor):
+            return t
+    return None
+
+
+def _fake_call(name: str, work: Tuple[float, float]) -> None:
+    sink = getattr(_tls, "sink", None)
+    if sink is not None:
+        sink(name, *work)
+
+
+def _fir_shapes(xs, hs) -> Tuple[int, int, int]:
+    """(F, N, K) of fake FIR operands, refused as the kernel refuses them."""
+    x, h = xs[0], hs[0]
+    if (x.dim() != 2 or h.dim() != 2 or x.shape[0] != h.shape[0]
+            or any(t.shape != x.shape for t in xs)
+            or any(t.shape != h.shape for t in hs)
+            or any(t.dtype != torch.float32 for t in (*xs, *hs))):
+        raise ValueError(f"tdfir operands x {[tuple(t.shape) for t in xs]}, "
+                         f"h {[tuple(t.shape) for t in hs]}")
+    return x.shape[0], x.shape[1], h.shape[1]
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    fake = _fake_of(a, b)
+    if fake is not None:
+        if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+            raise ValueError(f"matmul shapes {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)}")
+        _fake_call("matmul", _mm.work(a.shape[0], b.shape[1], a.shape[1],
+                                      a.element_size()))
+        return fake.new_empty((a.shape[0], b.shape[1]), dtype=a.dtype)
     if _on_cpu(a, b):
         return ref.matmul_ref(a, b)
     return _mm.matmul(a, b)
@@ -37,12 +100,22 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def tdfir(x: torch.Tensor, h: torch.Tensor, block_n: int = 512
           ) -> torch.Tensor:
+    fake = _fake_of(x, h)
+    if fake is not None:
+        _fake_call("tdfir", _fir.work(*_fir_shapes((x,), (h,))))
+        return fake.new_empty(x.shape, dtype=x.dtype)
     if _on_cpu(x, h):
         return ref.tdfir_ref(x, h)
     return _fir.tdfir(x, h, block_n=block_n)
 
 
 def tdfir_complex(x_re, x_im, h_re, h_im, block_n: int = 512):
+    fake = _fake_of(x_re, x_im, h_re, h_im)
+    if fake is not None:
+        shape = _fir_shapes((x_re, x_im), (h_re, h_im))
+        _fake_call("tdfir_complex", _fir.complex_work(*shape))
+        return (fake.new_empty(x_re.shape, dtype=x_re.dtype),
+                fake.new_empty(x_re.shape, dtype=x_re.dtype))
     if _on_cpu(x_re, x_im, h_re, h_im):
         return ref.tdfir_complex_ref(x_re, x_im, h_re, h_im)
     return _fir.tdfir_complex(x_re, x_im, h_re, h_im, block_n=block_n)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -88,6 +88,20 @@ def plan(f: int, n: int, k: int) -> TdfirPlan:
         threads //= 2
     tile = threads * OUTPUTS_PER_THREAD
     return TdfirPlan(threads, -(-n // tile), f, padded_taps(k))
+
+
+def work(f: int, n: int, k: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one real launch: 2 F N K fp32 operations, x and h
+    read once and y written once.  The bound in PERF.md and the modeled
+    cost (``repro_torch.core.trace_analysis``) both take it."""
+    return 2.0 * f * n * k, 4.0 * (2 * f * n + f * k)
+
+
+def complex_work(f: int, n: int, k: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one :func:`tdfir_complex` launch: four real FIRs
+    and the two combines (2 F N), both planes of x and h read once and both
+    planes of y written once."""
+    return 4 * work(f, n, k)[0] + 2.0 * f * n, 4.0 * (4 * f * n + 2 * f * k)
 
 
 @functools.lru_cache(maxsize=None)

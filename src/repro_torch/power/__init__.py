@@ -3,19 +3,22 @@ verification against, the port of ``repro.power``.
 
   * :class:`PowerEnvelope` — idle/peak watts + memory-power fraction of one
     destination; built-ins :data:`MANY_CORE_XEON`, :data:`GPU_T4`,
-    :data:`FPGA_A10`, :data:`GENERIC`; ``envelope_for(backend)``.
-  * :class:`EnergyModel` / :class:`EnergyReport` — host time x envelope ->
-    joules, watts, EDP; ``tick_joules`` charges one serving tick.
-  * :func:`energy_for_record` — the planner's per-record charge rule.
+    :data:`FPGA_A10`, :data:`H100_SXM` (modeled mesh cells),
+    :data:`GENERIC`; ``envelope_for(backend)``.
+  * :class:`EnergyModel` / :class:`EnergyReport` — roofline utilization (or
+    host time) x envelope -> joules, watts, EDP; ``tick_joules`` charges
+    one serving tick.
+  * :func:`energy_for_record` — the planner's per-record charge rule;
+    :func:`cell_energy` — the charge of a modeled mesh cell.
 """
 from repro_torch.power.envelope import (BY_ANALOGUE, FPGA_A10, GENERIC,
-                                        GPU_T4, MANY_CORE_XEON,
+                                        GPU_T4, H100_SXM, MANY_CORE_XEON,
                                         PowerEnvelope, envelope_for)
-from repro_torch.power.model import (EnergyModel, EnergyReport,
+from repro_torch.power.model import (EnergyModel, EnergyReport, cell_energy,
                                      energy_for_record)
 
 __all__ = [
     "PowerEnvelope", "EnergyModel", "EnergyReport",
-    "MANY_CORE_XEON", "GPU_T4", "FPGA_A10", "GENERIC",
-    "BY_ANALOGUE", "envelope_for", "energy_for_record",
+    "MANY_CORE_XEON", "GPU_T4", "FPGA_A10", "H100_SXM", "GENERIC",
+    "BY_ANALOGUE", "envelope_for", "energy_for_record", "cell_energy",
 ]

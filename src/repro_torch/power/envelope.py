@@ -13,12 +13,14 @@ vendor TDP / idle figures for the evaluation hardware of Yamato's power
 follow-up (Xeon E5-2660 v4 many-core, Tesla T4 GPU, Intel PAC Arria 10
 FPGA).  Only their *relative* shape matters for selection; override per
 backend through its ``power`` field or per call by passing an envelope to
-:class:`~repro_torch.power.model.EnergyModel`.  The envelope of compiled
-mesh cells comes with the modeled-cost slice.
+:class:`~repro_torch.power.model.EnergyModel`.  Modeled mesh cells
+(:func:`repro_torch.power.model.cell_energy`) are charged on
+:data:`H100_SXM`, the card the port runs on, beside that calibration.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -46,6 +48,13 @@ class PowerEnvelope:
     def active_w(self) -> float:
         return self.peak_w - self.idle_w
 
+    def scaled(self, n: float, name: Optional[str] = None) -> "PowerEnvelope":
+        """The envelope of ``n`` such devices (a mesh slice draws n cards)."""
+        if n <= 0:
+            raise ValueError(f"cannot scale envelope by n={n}")
+        return replace(self, name=name or f"{self.name}x{n:g}",
+                       idle_w=self.idle_w * n, peak_w=self.peak_w * n)
+
 
 # Built-in calibration (vendor TDP/idle for the power follow-up's machines).
 MANY_CORE_XEON = PowerEnvelope("xeon-e5-2660v4", idle_w=55.0, peak_w=105.0,
@@ -54,6 +63,16 @@ GPU_T4 = PowerEnvelope("tesla-t4", idle_w=10.0, peak_w=70.0,
                        memory_w_fraction=0.25)
 FPGA_A10 = PowerEnvelope("intel-pac-arria10", idle_w=25.0, peak_w=66.0,
                          memory_w_fraction=0.20)
+# per-card envelope of modeled mesh cells (cell_energy), scaled by the
+# cell's card count.  peak_w: the power limit nvidia-smi reports for an
+# NVIDIA H100 80GB HBM3 (power.limit 700.00 W); idle_w: nvidia-smi
+# power.draw of that card idle, before any process opened it (71.32 W
+# in P0, printed by chip_smoke.py's phase 1 as the first program run on
+# a freshly started machine).  The memory fraction is the
+# reference's 0.30 for its chip envelope, a model parameter carried over,
+# not a measurement.
+H100_SXM = PowerEnvelope("nvidia-h100-80gb-hbm3", idle_w=71.32, peak_w=700.0,
+                         memory_w_fraction=0.30)
 # last-resort envelope for destinations that declare nothing
 GENERIC = PowerEnvelope("generic-accelerator", idle_w=50.0, peak_w=150.0,
                         memory_w_fraction=0.30)

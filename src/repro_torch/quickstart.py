@@ -23,14 +23,16 @@ APP_ORDER = ("3mm", "NAS.BT", "tdFIR")
 
 
 def run_app(name: str, target: UserTarget, *, full: bool, policy: str,
-            device=None) -> PlanReport:
-    """One app through the planner with the quickstart's settings."""
+            device=None, **planner_kw) -> PlanReport:
+    """One app through the planner with the quickstart's settings;
+    ``planner_kw`` go to ``plan_offload`` (``cost_runner=``,
+    ``publish=``)."""
     app = APPS[name]()
     inputs = app.make_inputs(seed=0, small=not full, device=device)
     return plan_offload(
         app, target, inputs=inputs, runner=TimedRunner(repeats=1),
         ga_cfg=GAConfig.for_gene_length(min(app.gene_length, 6), seed=0),
-        policy=policy, device=device)
+        policy=policy, device=device, **planner_kw)
 
 
 def print_report(name: str, report: PlanReport) -> None:
@@ -44,9 +46,11 @@ def print_report(name: str, report: PlanReport) -> None:
         measured = r.cache_stats.get("measured", r.n_measurements)
         reused = r.cache_stats.get("reused", 0)
         dedupe = f", reused {reused}" if reused else ""
+        modeled = ("" if r.mesh_time_s is None
+                   else f"  modeled {r.mesh_time_s*1e6:.2f} us")
         print(f"  {r.order}. {r.paper_analogue:14s} {r.method:15s} "
               f"{t}  x{r.improvement:6.2f}  "
-              f"(measured {measured} patterns{dedupe}){mark}")
+              f"(measured {measured} patterns{dedupe}){modeled}{mark}")
     sel = report.selected
     print(f"  offload pattern: "
           f"{ {k: v for k, v in sel.choice.items() if v != 'seq'} }")

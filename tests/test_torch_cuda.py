@@ -877,3 +877,40 @@ def test_cuda_crossattn_graph_step_matches_eager_step(arch):
                                  **request_extras(lm.cfg, 1, i)},
                             prompt, g, 40)
         assert np.array_equal(out[f"r{i}"], ref_toks[0].cpu().numpy()), i
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_bridge_traces_fake_tensors_on_the_card():
+    """The mesh bridge on the card: the tdFIR dp winner with the FPGA
+    analogue's bank pinned in (the residual rule) traces on fake CUDA
+    tensors — no launch, no device memory — and its analysis holds the
+    complex kernel's work formula; the FPGA analogue has no mesh role."""
+    from repro_torch.apps import APPS
+    from repro_torch.backends import FPGA, MANY_CORE
+    from repro_torch.core.measure import CompiledCostRunner
+    from repro_torch.dist import bridge
+    from repro_torch.kernels import tdfir as fir
+
+    _card()
+    app = APPS["tdFIR"]()
+    state = app.make_inputs(0, device="cuda")
+    fn = app.build({"tdfir_filter_bank": "pallas", "scale_output": "dp",
+                    "energy_check": "dp"})
+    runner = CompiledCostRunner(mesh=bridge.LocalMesh())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    before = torch.cuda.memory_allocated()
+    ev = bridge.mesh_verify(runner, MANY_CORE, fn, state)
+    assert torch.cuda.memory_allocated() == before
+    assert set(ops.launch_counts().values()) == {0}
+    assert ev is not None and ev.correct and ev.time_s > 0
+    rl = ev.info["roofline"]
+    f, n = state["x_re"].shape
+    k = state["h_re"].shape[1]
+    assert rl["flops_per_device"] >= fir.complex_work(f, n, k)[0]
+    assert rl["flops_by_dtype"]["fp32"] == rl["flops_per_device"]
+    assert bridge.mesh_verify(runner, FPGA, fn, state) is None
+    # the same pattern launched for real still runs its kernel once
+    fn(state)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tdfir"] == 1

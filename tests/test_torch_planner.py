@@ -16,8 +16,10 @@ from repro_torch.apps import APPS
 from repro_torch.backends import DEFAULT_REGISTRY
 from repro_torch.core import ga
 from repro_torch.core.ga import GAConfig
-from repro_torch.core.measure import TimedRunner
+from repro_torch.core.measure import CompiledCostRunner, TimedRunner
+from repro_torch.core.plan_lookup import PlanLookup, serve_key
 from repro_torch.core.planner import UserTarget, plan_offload
+from repro_torch.dist.bridge import LocalMesh
 from repro_torch.obs import Tracer, use_tracer
 
 APP_NAMES = ("3mm", "NAS.BT", "tdFIR")
@@ -112,13 +114,55 @@ def test_early_stop_on_met_target():
     assert report.early_stopped and len(report.records) < 6
 
 
-@pytest.mark.parametrize("kw", [{"cost_runner": object()},
-                                {"publish": object()},
-                                {"lint_choice": lambda c: []}])
+@pytest.mark.parametrize("kw", [{"lint_choice": lambda c: []}])
 def test_later_slice_arguments_raise(kw):
     app = APPS["3mm"]()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP .*item 12"):
         plan_offload(app, UserTarget(), device="cpu", **kw)
+
+
+def test_cost_runner_records_modeled_times_on_the_cpu():
+    """``cost_runner=`` traces every correct dp / tp winner on the CPU's
+    fake tensors and records its roofline; the FPGA analogue has none, and
+    the modeled policy selects a correct record."""
+    app = APPS["3mm"]()
+    report = plan_offload(
+        app, UserTarget(), inputs=app.make_inputs(0, small=True,
+                                                  device="cpu"),
+        runner=TimedRunner(repeats=1),
+        ga_cfg=GAConfig(population=3, generations=3, seed=0),
+        cost_runner=CompiledCostRunner(mesh=LocalMesh()), policy="modeled",
+        device="cpu")
+    assert len(report.records) == 6
+    for r in report.records:
+        usable = r.correct and r.best_time_s < float("inf")
+        if usable and r.paper_analogue in ("many-core CPU", "GPU"):
+            assert r.mesh_time_s > 0 and "roofline" in r.mesh_info
+        else:
+            assert r.mesh_time_s is None and not r.mesh_info
+    assert report.selected is not None and report.selected.correct
+
+
+def test_publish_warms_the_lookup_on_the_cpu():
+    """``publish=`` registers each destination's verdict: a warm key for a
+    destination with a correct record, a failure for one with none."""
+    app = APPS["NAS.BT"]()
+    lookup = PlanLookup()
+    report = plan_offload(
+        app, UserTarget(), inputs=app.make_inputs(0, small=True,
+                                                  device="cpu"),
+        runner=TimedRunner(repeats=1),
+        ga_cfg=GAConfig(population=3, generations=3, seed=0),
+        publish=lookup, device="cpu")
+    for backend, _ in DEFAULT_REGISTRY.verification_order():
+        recs = [r for r in report.records if r.destination == backend.name]
+        payload = lookup.lookup(serve_key(backend.name, app.name))
+        if any(r.correct and r.best_time_s < float("inf") for r in recs):
+            assert lookup.usable(payload)
+            assert payload["extra"]["source"] == "host-time"
+        elif any(not r.correct for r in recs):
+            assert "error" in payload
+    assert lookup.stats.misses > 0
 
 
 def test_planner_records_the_jax_span_names():
