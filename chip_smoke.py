@@ -217,7 +217,32 @@ these phases, each printing its seconds:
                up; per record the measured and modeled ms, their ratio,
                the dominant term, the FLOPs by dtype and the bytes, the
                selection under each policy, the planner's wall beside
-               phase 5's and the seconds spent tracing.
+               phase 5's and the seconds spent tracing;
+ 12. fleet     the router, health, fleet, control and observability layers
+               over phase 11's lookup (its H100 verdicts), with every
+               trace, graph capture and launch forbidden
+               (``kernels.ops.no_device_work``): each app's seeded
+               open-loop trace (120 requests) routed under the modeled
+               policy over one endpoint a destination, every request on a
+               destination with a correct verdict and the lookup's trace
+               counter flat, routes per second on the host; each bf16
+               serving cell of phases 6–10 as an endpoint (its config as
+               built, 4 slots, its cache_len, its decode step published
+               through ``analysis_from_time``), none of its requests
+               lint-pruned at the H100's 80 GiB, and command-r-plus-104b,
+               arctic-480b and llama-3.2-vision-90b whole P019 errors, the
+               lint's params + pool printed beside the bytes the card held
+               (``torch.cuda.memory_allocated`` before each model and once
+               its engine was built, read in phases 6–10); a
+               ``FleetPlanner`` placement of the three apps, then per app
+               the reference's chaos kill scenario (the selected endpoint
+               dead from tick 20 to 60) with 0 dropped, 0 double
+               completions, a recovered circuit, no replan onto a failure
+               verdict, a fleet draw never negative and two runs' JSONL
+               byte-identical; the JSONL and Chrome trace written to a
+               temporary directory and ``python -m repro_torch.obs.report``
+               run on the JSONL, which must exit 0; the recovery ticks and
+               the joules a request before the kill and after recovery.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -235,6 +260,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
@@ -1590,7 +1616,7 @@ def run_planner(ops):
     return ops.launch_counts(), walls
 
 
-def run_modeled(ops, plan_walls):
+def run_modeled(ops, plan_walls, tmp: str):
     """Phase 11: the modeled-cost path.  Each app at the paper's sizes
     through ``plan_offload`` with a ``CompiledCostRunner`` on the one-device
     mesh and a ``PlanLookup`` over a ``SearchCache`` on disk, under the
@@ -1599,9 +1625,8 @@ def run_modeled(ops, plan_walls):
     kernel may launch while a candidate is analysed, the lookup must hold
     each destination's verdict, and a second scoring pass over it, with the
     tracer poisoned, must trace nothing.  Its launches are printed on a
-    line of their own; the ``kernels`` line keeps phase 5's."""
-    import tempfile
-
+    line of their own; the ``kernels`` line keeps phase 5's.  Returns the
+    lookup (its disk layer in ``tmp``), which phase 12 routes over."""
     from repro_torch.core import trace_analysis
     from repro_torch.core.measure import CompiledCostRunner
     from repro_torch.core.plan_lookup import PlanLookup, serve_key
@@ -1629,55 +1654,55 @@ def run_modeled(ops, plan_walls):
 
     runner = WatchedCostRunner(mesh=LocalMesh())
     selected = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        lookup = PlanLookup(SearchCache(os.path.join(tmp, "lookup.json")))
-        ops.reset_launch_counts()
-        by_app = {name: [] for name in PLANNER_APPS}
-        for name in PLANNER_APPS:
-            for policy in MODELED_POLICIES:
-                t0 = time.perf_counter()
-                report = run_app(name, UserTarget(), full=True,
-                                 policy=policy, device="cuda",
-                                 cost_runner=runner, publish=lookup)
-                wall = time.perf_counter() - t0
-                print_report(name, report)
-                print(f"  [{wall:.1f} s with the cost runner; phase 5 "
-                      f"without it {plan_walls[name]:.1f} s]", flush=True)
-                check_plan_report(name, report)
-                modeled_table(name, report)
-                by_app[name].extend(report.records)
-                sel = report.selected
-                selected[(name, policy)] = (
-                    f"{sel.paper_analogue} {sel.method} "
-                    f"{ {k: v for k, v in sel.choice.items() if v != 'seq'} }")
-        launches = ops.launch_counts()
-        print(f"  kernel launches in the phase {launches}; {runner.traces} "
-              f"traces, {runner.trace_s:.2f} s tracing")
-        require(launches["matmul"] > 0 and launches["tdfir"] > 0,
-                "phase 11 never launched the matmul or the tdfir kernel")
-        for (name, policy), what in selected.items():
-            print(f"  selected {name:6s} under {policy:9s}: {what}")
-        keys = check_lookup(lookup, by_app, serve_key)
-        # the second pass: lookups only, with the tracer poisoned
-        misses, lookups = lookup.stats.misses, lookup.stats.lookups
-        saved = trace_analysis.trace
+    lookup = PlanLookup(SearchCache(os.path.join(tmp, "lookup.json")))
+    ops.reset_launch_counts()
+    by_app = {name: [] for name in PLANNER_APPS}
+    for name in PLANNER_APPS:
+        for policy in MODELED_POLICIES:
+            t0 = time.perf_counter()
+            report = run_app(name, UserTarget(), full=True,
+                             policy=policy, device="cuda",
+                             cost_runner=runner, publish=lookup)
+            wall = time.perf_counter() - t0
+            print_report(name, report)
+            print(f"  [{wall:.1f} s with the cost runner; phase 5 "
+                  f"without it {plan_walls[name]:.1f} s]", flush=True)
+            check_plan_report(name, report)
+            modeled_table(name, report)
+            by_app[name].extend(report.records)
+            sel = report.selected
+            selected[(name, policy)] = (
+                f"{sel.paper_analogue} {sel.method} "
+                f"{ {k: v for k, v in sel.choice.items() if v != 'seq'} }")
+    launches = ops.launch_counts()
+    print(f"  kernel launches in the phase {launches}; {runner.traces} "
+          f"traces, {runner.trace_s:.2f} s tracing")
+    require(launches["matmul"] > 0 and launches["tdfir"] > 0,
+            "phase 11 never launched the matmul or the tdfir kernel")
+    for (name, policy), what in selected.items():
+        print(f"  selected {name:6s} under {policy:9s}: {what}")
+    keys = check_lookup(lookup, by_app, serve_key)
+    # the second pass: lookups only, with the tracer poisoned
+    misses, lookups = lookup.stats.misses, lookup.stats.lookups
+    saved = trace_analysis.trace
 
-        def poisoned(*args, **kw):
-            raise SmokeFailure("a plan lookup traced a candidate")
+    def poisoned(*args, **kw):
+        raise SmokeFailure("a plan lookup traced a candidate")
 
-        trace_analysis.trace = poisoned
-        try:
-            scored = {k: lookup.score(k) for k in keys}
-        finally:
-            trace_analysis.trace = saved
-        require(lookup.stats.lookups == lookups + len(keys)
-                and lookup.stats.misses == misses,
-                "the second scoring pass did not stay on lookups")
-        for key, ev in scored.items():
-            print(f"  lookup {key[1]:13s} {key[2]:6s} "
-                  + ("failure" if ev is None else
-                     f"{ev.time_s * 1e6:10.2f} us modeled"))
-        print(f"  lookup stats {lookup.stats.to_dict()}")
+    trace_analysis.trace = poisoned
+    try:
+        scored = {k: lookup.score(k) for k in keys}
+    finally:
+        trace_analysis.trace = saved
+    require(lookup.stats.lookups == lookups + len(keys)
+            and lookup.stats.misses == misses,
+            "the second scoring pass did not stay on lookups")
+    for key, ev in scored.items():
+        print(f"  lookup {key[1]:13s} {key[2]:6s} "
+              + ("failure" if ev is None else
+                 f"{ev.time_s * 1e6:10.2f} us modeled"))
+    print(f"  lookup stats {lookup.stats.to_dict()}")
+    return lookup
 
 
 def modeled_table(name: str, report) -> None:
@@ -1723,6 +1748,303 @@ def check_lookup(lookup, by_app, serve_key) -> list:
                 continue
             keys.append(key)
     return keys
+
+
+# phase 12: a seeded open-loop trace a app of FLEET_REQUESTS requests, one
+# arrival a tick; the kill scenario of the reference's benchmarks/chaos.py
+# (the selected endpoint dead from FLEET_KILL to FLEET_REVIVE)
+FLEET_REQUESTS = 120
+FLEET_KILL, FLEET_REVIVE = 20, 60
+FLEET_TICK_S = 0.01
+# the three models no card holds whole (phase 7 (e), 8 (h), 10 (k) cut them)
+WHOLE_MODELS = ("command-r-plus-104b", "arctic-480b", "llama-3.2-vision-90b")
+
+
+class CardBackend:
+    """The serving cells' destination: the card running the captured
+    engine, charged at the H100 envelope (duck-typed ``Backend``)."""
+    name = "h100-engine"
+    price = 1.0
+    paper_analogue = ""
+
+    def __init__(self):
+        from repro_torch.power import H100_SXM
+        self.power = H100_SXM
+
+
+def copy_verdicts(lookup, backends, apps):
+    """A fresh ``PlanLookup`` holding ``lookup``'s verdict for each
+    (destination, app): its analysis, or its failure.  Each chaos run
+    starts from this copy, so the lookup counters its trace records start
+    at the same values run after run."""
+    from repro_torch.core.plan_lookup import PlanLookup, serve_key
+    out = PlanLookup()
+    for app in apps:
+        for b in backends:
+            key = serve_key(b.name, app)
+            payload = lookup.cache.lookup(key, count=False)
+            if payload is None:
+                continue
+            if "error" in payload:
+                out.register_failure(key, payload["error"])
+            else:
+                out.register(key, payload["analysis"])
+    return out
+
+
+def run_fleet(ops, lookup, cells: list, tmp: str) -> None:
+    """Phase 12: the router, health, fleet, control and observability
+    layers over phase 11's published H100 verdicts, all of it under
+    ``kernels.ops.no_device_work`` (a trace, a graph capture or a launch
+    fails the phase).  (1) Each app's open-loop trace routed through a
+    ``Router`` over one ``Endpoint`` a destination under the modeled
+    policy: every request completes, each on a destination with a correct
+    verdict, the lookup's trace counter stays flat; routes per second on
+    the host.  (2) Each bf16 serving cell of phases 6–10 as an endpoint
+    with its config as built, 4 slots, its cache_len and its measured
+    decode step published through ``analysis_from_time``: the lint at the
+    H100's 80 GiB prunes none of its requests, and rejects
+    command-r-plus-104b, arctic-480b and llama-3.2-vision-90b whole (P019);
+    the lint's params + pool beside what the card held.  (3) A
+    ``FleetPlanner`` placement of the three apps over the three
+    destinations, then per app the kill scenario: a ``ControlLoop`` whose
+    ``FaultInjector`` kills the endpoint the router selects mid-trace and
+    revives it, with 0 dropped, 0 double completions, a recovered circuit,
+    no replan onto a failure verdict, the fleet draw never negative and a
+    second run's JSONL byte-identical; the JSONL and Chrome trace go to
+    ``tmp`` and ``python -m repro_torch.obs.report`` must exit 0 on the
+    JSONL."""
+    from repro_torch import obs
+    from repro_torch.analysis import DEVICE_MEMORY_BYTES, lint_plan
+    from repro_torch.analysis.plan_lint import serve_kv_bytes
+    from repro_torch.backends import DEFAULT_REGISTRY
+    from repro_torch.configs import get_config
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.plan_lookup import (PlanLookup, analysis_from_time,
+                                              serve_key)
+    from repro_torch.dist.plan import Plan
+    from repro_torch.fleet import FleetApp, FleetPlanner, PoolBackend
+    from repro_torch.runtime.control import (ControlLoop, Fault,
+                                             FaultInjector, FleetController)
+    from repro_torch.serve import (HEALTHY, PROBING, QUARANTINED, Endpoint,
+                                   HealthConfig, Request, Router)
+
+    backends = list(DEFAULT_REGISTRY)
+
+    def usable(lk, dest, app):
+        return lk.usable(lk.cache.lookup(serve_key(dest, app), count=False))
+
+    def endpoints(app, n_slots):
+        return [Endpoint(name=f"{b.name}/{app}", backend=b, arch=app,
+                         n_slots=n_slots) for b in backends]
+
+    with ops.no_device_work():
+        # (1) routing over the published verdicts
+        for app in PLANNER_APPS:
+            verdicts = {b.name: usable(lookup, b.name, app)
+                        for b in backends}
+            rng = np.random.default_rng(12)
+            trace = [Request(rid=f"{app}-{i:04d}", arch=app,
+                             prompt_len=int(rng.integers(8, 65)),
+                             max_gen=int(rng.integers(1, 9)),
+                             arrival_s=i * FLEET_TICK_S)
+                     for i in range(FLEET_REQUESTS)]
+            router = Router(endpoints(app, SERVE_SLOTS), lookup,
+                            policy="modeled")
+            misses = lookup.stats.misses
+            loop = ControlLoop(router, trace, tick_s=FLEET_TICK_S,
+                               max_ticks=50 * FLEET_REQUESTS)
+            out = loop.run()
+            require(out["completed"] == FLEET_REQUESTS and not out["dropped"]
+                    and out["double_completed"] == 0,
+                    f"{app}: the routed trace did not complete whole: {out}")
+            wrong = [name for _, _, name in loop.dispatch_log
+                     if not verdicts[name.split("/")[0]]]
+            require(not wrong, f"{app}: requests went to destinations "
+                    f"without a correct verdict: {sorted(set(wrong))}")
+            timing = Router(endpoints(app, SERVE_SLOTS), lookup,
+                            policy="modeled")
+            t0 = time.perf_counter()
+            for r in trace:
+                timing.route(r)
+            rate = len(trace) / (time.perf_counter() - t0)
+            require(lookup.stats.misses == misses,
+                    f"{app}: routing added {lookup.stats.misses - misses} "
+                    f"entries to the lookup")
+            print(f"  {app}: verdicts {verdicts}; {out['completed']} "
+                  f"requests over {out['ticks']} ticks, dispatches "
+                  f"{out['dispatches']}; {rate:.0f} routes per second on "
+                  f"the host")
+
+        # (2) the serving cells as endpoints, linted at the H100's memory
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  lint capacity DEVICE_MEMORY_BYTES {DEVICE_MEMORY_BYTES} B "
+              f"({DEVICE_MEMORY_BYTES / 2**30:.0f} GiB); torch total_memory "
+              f"{total} B ({total / 2**30:.2f} GiB)")
+        card = CardBackend()
+        lk = PlanLookup()
+        for c in cells:
+            cfg, plan = c["cfg"], c["plan"]
+            ep = Endpoint(name=c["label"], backend=card, arch=cfg.name,
+                          n_slots=SERVE_SLOTS, cache_len=c["cache_len"],
+                          plan=plan, cfg=cfg)
+            lk.register(ep.lookup_key(), analysis_from_time(c["step_s"]))
+            router = Router([ep], lk, policy="modeled")
+            for i, n in enumerate(c["prompts"]):
+                d = router.route(Request(rid=f"{c['label']}{i}",
+                                         arch=cfg.name, prompt_len=n,
+                                         max_gen=SERVE_MAX_GEN))
+                require(d.accepted, f"({c['label']}) the router refused a "
+                        f"request the card served: {d.reason}")
+            quant = bool(plan is not None and plan.kv_cache_quant)
+            pool = SERVE_SLOTS * serve_kv_bytes(cfg, c["cache_len"],
+                                                quant=quant)
+            params = cfg.n_params() * 2          # bf16, as the cells ran
+            print(f"  ({c['label']}) {cfg.name}, {cfg.n_layers} layers: "
+                  f"lint params {params / 1e9:.3f} + pool {pool / 1e9:.3f} "
+                  f"= {(params + pool) / 1e9:.3f} GB against "
+                  f"{c['held'] / 1e9:.3f} GB held "
+                  f"(ratio {(params + pool) / c['held']:.3f}); step "
+                  f"{c['step_s'] * 1e3:.3f} ms published, modeled "
+                  f"{d.service_time_s * 1e3:.3f} ms a request")
+        require(lk.stats.static_pruned == 0,
+                f"the lint pruned {lk.stats.static_pruned} requests of "
+                f"cells the card held")
+        for arch in WHOLE_MODELS:
+            cfg = get_config(arch)
+            found = lint_plan(Plan(), cfg=cfg, serve={
+                "n_slots": SERVE_SLOTS, "cache_len": SERVE_CACHE_LEN,
+                "prompt_len": max(SERVE_PROMPTS), "max_gen": SERVE_MAX_GEN})
+            p019 = [f for f in found if f.rule_id == "P019"]
+            require(p019 and p019[0].severity == "error",
+                    f"{arch} whole is not a P019 error at 80 GiB")
+            ctx = p019[0].context
+            print(f"  {arch} whole: P019 error, params "
+                  f"{ctx['param_bytes'] / 1e9:.1f} + pool "
+                  f"{ctx['pool_bytes'] / 1e9:.2f} GB > "
+                  f"{ctx['capacity_bytes'] / 1e9:.1f} GB")
+
+        # (3) placement and the kill scenario
+        pool = [PoolBackend(name=b.name, backend=b, slots=16.0)
+                for b in backends]
+        apps = [FleetApp(name=app, arch=app, load_rps=1.0,
+                         tokens_per_request=2.0) for app in PLANNER_APPS]
+        planner = FleetPlanner(pool, lookup, ga_cfg=GAConfig(
+            population=4, generations=4, seed=0,
+            cardinalities=[len(pool)] * len(apps)))
+        placement = planner.plan(apps)
+        require(placement.feasible, f"no feasible placement: "
+                f"{placement.violations}")
+        require(all(usable(lookup, b, a)
+                    for a, b in placement.by_app.items()),
+                f"a placement on a failure verdict: {placement.by_app}")
+        print(f"  placement {placement.by_app}: fleet draw "
+              f"{placement.fleet_draw_w:.3f} W, "
+              f"{placement.joules_per_request:.6f} J a request")
+
+        def chaos(app, victim):
+            tracer = obs.Tracer()
+            with obs.use_tracer(tracer):
+                tracer.set_time(0.0)
+                lk = copy_verdicts(lookup, backends, [app])
+                router = Router(endpoints(app, 8), lk, policy="modeled",
+                                health_cfg=HealthConfig(
+                                    error_threshold=1, backoff_ticks=4,
+                                    backoff_mult=2.0, probe_quota=1,
+                                    probe_successes=1))
+                fleet = FleetPlanner(pool, lk, ga_cfg=GAConfig(
+                    population=4, generations=4, seed=0,
+                    cardinalities=[len(pool)]))
+                mine = [FleetApp(name=app, arch=app, load_rps=1.0,
+                                 tokens_per_request=2.0)]
+                controller = FleetController(
+                    router, fleet, mine, placement=fleet.plan(mine),
+                    tick_s=FLEET_TICK_S)
+                trace = [Request(rid=f"{app}-{i:04d}", arch=app,
+                                 prompt_len=8, max_gen=1,
+                                 arrival_s=i * FLEET_TICK_S)
+                         for i in range(FLEET_REQUESTS)]
+                loop = ControlLoop(
+                    router, trace, controller=controller,
+                    injector=FaultInjector([Fault(
+                        kind="kill", endpoint=victim, at_tick=FLEET_KILL,
+                        until_tick=FLEET_REVIVE)]),
+                    tick_s=FLEET_TICK_S, max_ticks=50 * FLEET_REQUESTS)
+                misses = lk.stats.misses
+                out = loop.run()
+                tracer.clear_time()
+            require(lk.stats.misses == misses, f"{app}: the control loop "
+                    f"added entries to the lookup")
+            return out, router, controller, trace, tracer
+
+        for app in PLANNER_APPS:
+            first = Router(endpoints(app, 8), copy_verdicts(
+                lookup, backends, [app]), policy="modeled").route(
+                Request(rid="probe", arch=app, prompt_len=8, max_gen=1))
+            require(first.accepted, f"{app}: no destination to kill")
+            victim = first.endpoint.name
+            out, router, controller, trace, tracer = chaos(app, victim)
+            again = chaos(app, victim)[4]
+            text = "".join(obs.jsonl_line(r) + "\n" for r in tracer.records)
+            require(text == "".join(obs.jsonl_line(r) + "\n"
+                                    for r in again.records),
+                    f"{app}: two runs of the kill scenario gave different "
+                    f"JSONL")
+            require(not out["dropped"] and out["double_completed"] == 0
+                    and out["completed"] == FLEET_REQUESTS
+                    and out["unrouted"] == 0,
+                    f"{app}: the kill scenario lost requests: {out}")
+            health = router.health[victim]
+            seq = [(t["from"], t["to"]) for t in health.transitions]
+            require(seq and seq[0] == (HEALTHY, QUARANTINED)
+                    and seq[-1] == (PROBING, HEALTHY)
+                    and health.recoveries >= 1,
+                    f"{app}: the circuit of {victim} did not open and "
+                    f"recover: {seq}")
+            replans = [e for e in controller.events
+                       if e["event"] == "replan"]
+            for e in replans:
+                require(all(usable(lookup, b, a)
+                            for a, b in e["by_app"].items()),
+                        f"{app}: a replan onto a failure verdict: {e}")
+                require(e["fleet_draw_w"] >= 0.0, f"{app}: negative draw")
+            require(out["fleet_draw_w_min"] >= 0.0,
+                    f"{app}: the fleet draw went negative")
+            opened = [t["tick"] for t in health.transitions
+                      if t["to"] == QUARANTINED]
+            recovered = [t["tick"] for t in health.transitions
+                         if t["to"] == HEALTHY]
+
+            def joules(rids) -> str:
+                ms = [router.metrics.requests[r] for r in rids]
+                ms = [m for m in ms if m.service_s is not None]
+                return f"{sum(m.energy_j for m in ms) / len(ms):.6g}" \
+                    if ms else "none"
+
+            j_pre = joules([r.rid for r in trace
+                            if r.arrival_s < FLEET_KILL * FLEET_TICK_S])
+            j_post = joules([r.rid for r in trace
+                             if r.arrival_s > recovered[-1] * FLEET_TICK_S])
+            events = os.path.join(tmp, f"chaos_{app}.jsonl")
+            obs.write_jsonl(tracer.records, events)
+            obs.write_chrome_trace(tracer.records,
+                                   os.path.join(tmp, f"chaos_{app}.json"))
+            report = subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs.report", events],
+                capture_output=True, text=True, timeout=120,
+                env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+            require(report.returncode == 0, f"{app}: the report CLI exited "
+                    f"{report.returncode}: {report.stderr[-2000:]}")
+            print(f"  {app}: killed {victim} at tick {FLEET_KILL}, revived "
+                  f"at {FLEET_REVIVE}: circuit opened at tick {opened[0]}, "
+                  f"recovered at {recovered[-1]} ({recovered[-1] - opened[0]} "
+                  f"ticks, {len(opened)} quarantines); {out['completed']} "
+                  f"completed, {out['failed']} failed attempts, 0 dropped, "
+                  f"{len(replans)} replans "
+                  f"{[e['by_app'][app] for e in replans]}; joules a request "
+                  f"{j_pre} before the kill, {j_post} after "
+                  f"recovery; {len(tracer.records)} trace records, report "
+                  f"{len(report.stdout.splitlines())} lines")
 
 
 def watched_lm(cfg, seed: int, plan=None, params=None):
@@ -1867,6 +2189,7 @@ def serve_engine(ops, lm, reqs, label: str, *, eager: bool = False,
     read just after; returns (engine, tokens, wall seconds, launches)."""
     engine = smoke_batcher(lm, cache_len, eager=eager, record=record)
     torch.cuda.synchronize()
+    engine.allocated = torch.cuda.memory_allocated()
     lm.eager_steps = 0
     if lm.drops is not None:      # the capture's warm-up step routed too
         lm.drops.zero_()
@@ -1997,9 +2320,27 @@ def pool_bytes(engine) -> int:
     return sum(t.nbytes for _, t, _ in slot_leaves(engine.pool))
 
 
-def run_serve(ops):
+def note_cell(cells: list, label: str, lm, plan, cache_len: int, prompts,
+              before: int, engine, step_ms: float) -> None:
+    """Note one bf16 serving cell for phase 12 (its config as built, plan,
+    cache_len, prompts, the graph replay's decode-step seconds) and print
+    what the card held for it: ``torch.cuda.memory_allocated`` before its
+    weights were made and once its engine was built (weights, slot pool
+    and the engine's buffers).  Reported only."""
+    held = engine.allocated - before
+    print(f"  ({label}) torch.cuda.memory_allocated: {before / 1e9:.3f} GB "
+          f"before the model, {engine.allocated / 1e9:.3f} GB once the "
+          f"engine was built: {held / 1e9:.3f} GB held (weights, pool, "
+          f"buffers)")
+    cells.append({"label": label, "cfg": lm.cfg, "plan": plan,
+                  "cache_len": cache_len, "prompts": tuple(prompts),
+                  "held": held, "step_s": step_ms / 1e3})
+
+
+def run_serve(ops, cells: list):
     """Phase 6: the port's serving path on granite-3-2b at full width;
-    returns (the launches of (b), (b)'s pool bytes)."""
+    returns (the launches of (b), (b)'s pool bytes) and notes (b) in
+    ``cells`` (``note_cell``)."""
     from repro_torch.configs import get_config
     cfg = get_config(SERVE_ARCH)
 
@@ -2035,6 +2376,7 @@ def run_serve(ops):
     print(f" (b) {SERVE_ARCH} full width and depth ({cfg.n_layers} layers), "
           f"bfloat16: the same trace shape, max_gen {SERVE_MAX_GEN}; the "
           f"graph-replayed engine beside an eager one")
+    before = torch.cuda.memory_allocated()
     lm = watched_lm(cfg, seed=1)
     reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1)
     engine, out, wall, launches = serve_engine(ops, lm, reqs, "b")
@@ -2070,6 +2412,8 @@ def run_serve(ops):
         print_profile(f"prefill of {r.prompt_len} tokens", prefill_ms,
                       lambda: lm.prefill(batch, SERVE_CACHE_LEN), 3)
     step_wall, _ = step_times(engine, lm, SERVE_PROMPTS, "b")
+    note_cell(cells, "b", lm, None, SERVE_CACHE_LEN, SERVE_PROMPTS, before,
+              engine, step_wall)
     print_profile("decode step (graph replay)", step_wall, engine._step, 5,
                   share_of="decode_kernel")
 
@@ -2091,17 +2435,18 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def run_family(ops, b_pool: int):
+def run_family(ops, b_pool: int, cells: list):
     """Phase 7: the rest of the dense family in bf16 through the captured
     engine, 8 requests a cell (one arrival a tick, 4 slots, max_gen 64),
     each model freed before the next; returns the flash and decode
-    launches summed over the cells."""
+    launches summed over the cells and notes each in ``cells``."""
     from repro_torch.configs import get_config
     from repro_torch.dist.plan import Plan
     total = {"flash_attention": 0, "decode_attention": 0}
     for label, arch, n_layers, prompts, cache_len, quant in FAMILY_CELLS:
         cfg, cut = cut_depth(get_config(arch), n_layers)
         seed = 1 if arch == SERVE_ARCH else 2
+        before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed, Plan(kv_cache_quant=quant))
         print(f" ({label}) {arch}: full width (d_model {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
@@ -2125,7 +2470,10 @@ def run_family(ops, b_pool: int):
             require(w == min(cache_len, cfg.window) < max(prompts),
                     f"({label}) the pool is not a ring shorter than the "
                     f"longest prompt")
-        step_times(engine, lm, prompts, label, eager_too=False)
+        step_wall, _ = step_times(engine, lm, prompts, label,
+                                  eager_too=False)
+        note_cell(cells, label, lm, Plan(kv_cache_quant=quant), cache_len,
+                  prompts, before, engine, step_wall)
         if quant:
             check_int8_cell(lm, reqs[0], cache_len, label)
             print(f"  ({label}) pool {pool_bytes(engine) / 1e6:.1f} MB "
@@ -2178,18 +2526,19 @@ def check_int8_cell(lm, req, cache_len: int, label: str) -> None:
 GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "splitK")
 
 
-def run_moe(ops):
+def run_moe(ops, cells: list):
     """Phase 8: the MoE family through the captured engine, phase 7's trace
     (8 requests, one arrival a tick, 4 slots, max_gen 64, prompts 1000 and
     2048, cache_len 2112), each model freed before the next: (g') the
     parity cell, then (g) and (h) in bf16; returns the flash and decode
-    launches summed over (g) and (h)."""
+    launches summed over (g) and (h) and notes each in ``cells``."""
     from repro_torch.configs import get_config
     check_moe_parity(ops)
     total = {"flash_attention": 0, "decode_attention": 0}
     for label, arch, n_layers in MOE_CELLS:
         cfg, cut = cut_depth(get_config(arch), n_layers)
         m = cfg.moe
+        before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed=2)
         print(f" ({label}) {arch}: full width (d_model {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads, D={cfg.head_dim}, "
@@ -2207,8 +2556,10 @@ def run_moe(ops):
         print(f"  ({label}) wall {wall:.2f} s, {n_tok} tokens, "
               f"{n_tok / wall:.1f} generated tokens per wall second; pool "
               f"{pool_bytes(engine) / 1e9:.3f} GB")
-        _, step_dev = step_times(engine, lm, SERVE_PROMPTS, label,
-                                 eager_too=False)
+        step_wall, step_dev = step_times(engine, lm, SERVE_PROMPTS, label,
+                                         eager_too=False)
+        note_cell(cells, label, lm, None, SERVE_CACHE_LEN, SERVE_PROMPTS,
+                  before, engine, step_wall)
         moe_step_bounds(lm, engine, step_dev, run_routed, label)
         w, t, busy, n = engine_idle_share(lm, reqs, SERVE_CACHE_LEN, False)
         print(f"  ({label}) graph engine: {busy / 1e3:.3f} s of device time "
@@ -2462,17 +2813,19 @@ def moe_drop_layers(lm, req, label: str) -> None:
           f"{first[4]:.3f} / {last[4]:.3f}")
 
 
-def run_recurrent(ops):
+def run_recurrent(ops, cells: list):
     """Phase 9: the recurrent families through the captured engine, 8
     requests a cell (one arrival a tick, 4 slots, max_gen 64 in bf16,
     phase 6 (a)'s mixed max_gen in fp32), each model freed before the next:
     the parity cell of each family, then the whole model in bf16; returns
-    the flash and decode launches summed over (i) and (j)."""
+    the flash and decode launches summed over (i) and (j) and notes each
+    in ``cells``."""
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "decode_attention": 0}
     for label, arch, prompts, cache_len in RECURRENT_CELLS:
         check_parity(ops, label, arch, prompts, cache_len)
         cfg = get_config(arch)
+        before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed=2)
         print(f" ({label}) {arch}: full width and depth ({describe(cfg)}), "
               f"all {cfg.n_layers} layers, bfloat16, {weights(lm)}; prompts "
@@ -2501,6 +2854,8 @@ def run_recurrent(ops):
                     f"shorter than the longest prompt")
         step_wall, step_dev = step_times(engine, lm, prompts, label,
                                          eager_too=False)
+        note_cell(cells, label, lm, None, cache_len, prompts, before,
+                  engine, step_wall)
         recurrent_step_bound(lm, engine, step_dev, label)
         w, t, busy, n = engine_idle_share(lm, reqs, cache_len, False)
         print(f"  ({label}) graph engine: {busy / 1e3:.3f} s of device time "
@@ -2681,19 +3036,20 @@ def recurrent_step_split(lm, engine, label: str) -> None:
             f"the {tag} range: the step's split is not measured")
 
 
-def run_cross(ops):
+def run_cross(ops, cells: list):
     """Phase 10: the cross-attention families through the captured engine,
     phase 7's trace (8 requests, one arrival a tick, 4 slots, prompts 1000
     and 2048, cache_len 2112, max_gen 64; each request with its own
     seeded context), each model freed before the next: the parity cell of
     each family (phase 6 (a)'s checks), then the model in bf16 with phase
     9's metrics; returns the flash and decode launches summed over (k) and
-    (l)."""
+    (l) and notes each in ``cells``."""
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "decode_attention": 0}
     for label, arch, n_layers, per_prefill, per_step in CROSS_CELLS:
         check_parity(ops, label, arch, SERVE_PROMPTS, SERVE_CACHE_LEN)
         cfg, cut = cut_depth(get_config(arch), n_layers)
+        before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed=2)
         print(f" ({label}) {arch}: full width ({describe(cfg)}), {cut}, "
               f"bfloat16, {weights(lm)}; prompts {SERVE_PROMPTS}, cache_len "
@@ -2717,8 +3073,10 @@ def run_cross(ops):
               f"{n_tok / wall:.1f} generated tokens per wall second; pool "
               f"{pool_bytes(engine) / 1e9:.3f} GB (cross K/V "
               f"{cross_b / 1e9:.3f} GB)")
-        _, step_dev = step_times(engine, lm, SERVE_PROMPTS, label,
-                                 eager_too=False)
+        step_wall, step_dev = step_times(engine, lm, SERVE_PROMPTS, label,
+                                         eager_too=False)
+        note_cell(cells, label, lm, None, SERVE_CACHE_LEN, SERVE_PROMPTS,
+                  before, engine, step_wall)
         cross_step_bound(lm, engine, step_dev, label)
         w, t, busy, n = engine_idle_share(lm, reqs, SERVE_CACHE_LEN, False)
         print(f"  ({label}) graph engine: {busy / 1e3:.3f} s of device time "
@@ -2944,18 +3302,22 @@ def main() -> int:
         times = time_kernels(ops, ref)
     with phase("5 plan"):
         launches, plan_walls = run_planner(ops)
+    cells = []          # the bf16 serving cells, for phase 12
     with phase("6 serve"):
-        served, b_pool = run_serve(ops)
+        served, b_pool = run_serve(ops, cells)
     with phase("7 family"):
-        family = run_family(ops, b_pool)
+        family = run_family(ops, b_pool, cells)
     with phase("8 moe"):
-        moe_cells = run_moe(ops)
+        moe_cells = run_moe(ops, cells)
     with phase("9 recurrent"):
-        recurrent = run_recurrent(ops)
+        recurrent = run_recurrent(ops, cells)
     with phase("10 cross"):
-        cross = run_cross(ops)
-    with phase("11 modeled"):
-        run_modeled(ops, plan_walls)
+        cross = run_cross(ops, cells)
+    with tempfile.TemporaryDirectory() as tmp:
+        with phase("11 modeled"):
+            lookup = run_modeled(ops, plan_walls, tmp)
+        with phase("12 fleet"):
+            run_fleet(ops, lookup, cells, tmp)
     # flash and decode: the serving cells' launches, each cell counted
     # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l)
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]

@@ -16,7 +16,8 @@ against it.
 """
 from __future__ import annotations
 
-from repro_torch.backends.base import Backend, SearchContext, SearchResult
+from repro_torch.backends.base import (Backend, METHOD_FUNCTION_BLOCK,
+                                       SearchContext, SearchResult)
 from repro_torch.backends.registry import BackendRegistry
 from repro_torch.power import envelope as power_envelope
 
@@ -55,8 +56,28 @@ FPGA = Backend(key="pallas", name="pallas_kernel",
                power=power_envelope.FPGA_A10,
                search_fn=intensity_loop_search)
 
+# Function-blocks-only destination of the "offloading to GPU libraries"
+# follow-up (arXiv 2004.09883): no loop GA — the verification IS the library
+# match, so verify_time sits below the GPU loop analogue's.  search_fn stays
+# None: the registry never schedules it for a loop verification, and
+# Backend.search raises if someone forces one.  It is not in
+# DEFAULT_REGISTRY (the paper's environment has three destinations).
+GPU_LIBRARY = Backend(key="fb_gpu_lib", name="gpu_fb_library",
+                      paper_analogue="GPU library",
+                      price=1.0, verify_time=1.2,
+                      methods=(METHOD_FUNCTION_BLOCK,),
+                      power=power_envelope.GPU_T4)
+
 DEFAULT_REGISTRY = BackendRegistry([MANY_CORE, GPU, FPGA])
 
 def default_registry() -> BackendRegistry:
     return DEFAULT_REGISTRY
 
+
+def registry_with_library_backend() -> BackendRegistry:
+    """Example registration: the paper's three destinations plus the
+    function-blocks-only GPU library backend (a fourth FB verification and
+    no new loop verification)."""
+    reg = DEFAULT_REGISTRY.copy()
+    reg.register(GPU_LIBRARY)
+    return reg

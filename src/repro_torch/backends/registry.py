@@ -29,8 +29,15 @@ class BackendRegistry:
         self._backends.append(backend)
         return backend
 
+    def copy(self) -> "BackendRegistry":
+        """A shallow copy callers can extend without mutating this one."""
+        return BackendRegistry(self._backends)
+
     def __iter__(self) -> Iterator[Backend]:
         return iter(self._backends)
+
+    def __len__(self) -> int:
+        return len(self._backends)
 
     # ---------------------------------------------------------------- order
     def verification_order(self) -> List[Tuple[Backend, str]]:

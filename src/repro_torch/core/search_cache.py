@@ -111,6 +111,9 @@ class CacheStats:
     # warm-up these grow while ``misses`` stays flat — the trace-free
     # scoring guarantee is exactly that invariant
     lookups: int = 0
+    # candidates rejected by the static lint before any trace (the router
+    # counts an endpoint it prunes for a request here)
+    static_pruned: int = 0
 
     @property
     def unique_compiles(self) -> int:
@@ -127,6 +130,7 @@ class CacheStats:
                 "unique_compiles": self.unique_compiles,
                 "hit_rate": round(self.hit_rate, 4),
                 "compile_s": round(self.compile_s, 3),
+                "static_pruned": self.static_pruned,
                 "lookups": self.lookups}
 
 

@@ -184,3 +184,32 @@ class CountedGraph:
         self.graph.replay()
         for name, n in self.launches.items():
             _KERNELS[name].launches += n
+
+
+@contextmanager
+def no_device_work():
+    """Forbid traces, graph captures and kernel launches inside the block.
+
+    The warm read paths (router, fleet planner, control loop) promise pure
+    arithmetic over published analyses.  Inside this block
+    ``trace_analysis.trace`` and ``CountedGraph`` raise ``AssertionError``
+    when reached, and on exit a launch that any kernel's counter recorded
+    raises too.  Tests and ``chip_smoke.py`` hold those paths to it."""
+    from repro_torch.core import trace_analysis
+
+    def poisoned(*args, **kw):
+        raise AssertionError("a warm read path attempted a trace or capture")
+
+    saved_trace, saved_init = trace_analysis.trace, CountedGraph.__init__
+    before = launch_counts()
+    trace_analysis.trace = poisoned
+    CountedGraph.__init__ = poisoned
+    try:
+        yield
+    finally:
+        trace_analysis.trace = saved_trace
+        CountedGraph.__init__ = saved_init
+    moved = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+    if moved:
+        raise AssertionError(f"a warm read path launched kernels: {moved}")

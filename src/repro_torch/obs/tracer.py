@@ -1,16 +1,29 @@
-"""Span tracer: the part of ``repro.obs.tracer`` the planner and the GA
-record through.
+"""Span tracer: one timeline for plan -> publish -> serve -> control, the
+port of ``repro.obs.tracer``.
 
-The planner opens a ``plan/offload`` span per app and a ``plan/verify`` span
-per verification, the GA records a ``ga/generation`` event per generation,
-and the continuous batcher records one ``engine/tick`` complete-span per
-tick on its virtual clock, under the same names as the JAX package, so one
-reader serves both.  The ambient tracer defaults to :data:`NULL_TRACER`:
-instrumented call sites write ``with get_tracer().span(...) as sp:
-sp.set(...)`` unconditionally and pay only a no-op context manager when
-tracing is off.
-:class:`Tracer` keeps its records in memory (``tracer.records``); the
-exporters and the report CLI come with the observability slice.
+Nested :class:`Span`s and instant events recorded by a :class:`Tracer`,
+exported as JSONL / Chrome trace / text summary
+(:mod:`repro_torch.obs.export`) and post-mortemed by ``python -m
+repro_torch.obs.report``.  The planner opens a ``plan/offload`` span per app
+and a ``plan/verify`` span per verification, the GA records a
+``ga/generation`` event per generation, the continuous batcher one
+``engine/tick`` complete-span per tick, the router a ``serve/route`` span
+per decision and the control loop its ``control/*`` events, under the same
+names as the JAX package, so one reader serves both.
+
+Design constraints, all load-bearing:
+
+  * **zero dependencies** — importing :mod:`repro_torch.obs` pulls in
+    neither torch nor numpy;
+  * **null-object disabled state** — the ambient tracer defaults to
+    :data:`NULL_TRACER`; every instrumented call site writes
+    ``with get_tracer().span(...) as sp: sp.set(...)`` unconditionally and
+    pays only a no-op context manager when tracing is off;
+  * **caller-supplied clocks** — offline search spans stamp wall time; the
+    serve/control loop pins the tracer to its virtual tick clock
+    (:meth:`Tracer.set_time`), so a :class:`~repro_torch.runtime.control
+    .ControlLoop` replay produces a **byte-identical** JSONL log (pinned in
+    tests/test_torch_control.py).
 """
 from __future__ import annotations
 
@@ -134,7 +147,8 @@ class Tracer:
     ``clock`` supplies timestamps (default ``time.perf_counter``);
     :meth:`set_time` overrides it with a pinned virtual time — the
     serve/control loop pins each tick, so replays are byte-identical.
-    Records accumulate in memory (``records``) in completion order.
+    Records accumulate in memory in completion order; export them with
+    :meth:`to_jsonl` / :meth:`to_chrome` / :meth:`summary`.
     """
 
     enabled = True
@@ -216,6 +230,19 @@ class Tracer:
             self.records.append(rec)
         return rec
 
+    # ------------------------------------------------------------- exports
+    def to_jsonl(self, path) -> str:
+        from repro_torch.obs.export import write_jsonl
+        return write_jsonl(self.records, path)
+
+    def to_chrome(self, path) -> str:
+        from repro_torch.obs.export import write_chrome_trace
+        return write_chrome_trace(self.records, path)
+
+    def summary(self) -> str:
+        from repro_torch.obs.export import text_summary
+        return text_summary(self.records)
+
 
 # ------------------------------------------------------- the ambient tracer
 _current: object = NULL_TRACER
@@ -223,15 +250,22 @@ _current: object = NULL_TRACER
 
 def get_tracer():
     """The ambient tracer every instrumented call site records through
-    (:data:`NULL_TRACER` unless :func:`use_tracer` installed a recording
-    one)."""
+    (:data:`NULL_TRACER` unless :func:`set_tracer`/:func:`use_tracer`
+    installed a recording one)."""
+    return _current
+
+
+def set_tracer(tracer) -> object:
+    """Install ``tracer`` as the ambient tracer (None restores the null
+    tracer).  Returns the installed tracer."""
+    global _current
+    _current = tracer if tracer is not None else NULL_TRACER
     return _current
 
 
 @contextmanager
 def use_tracer(tracer):
-    """Install ``tracer`` as the ambient tracer for the scope (None means
-    the null tracer); restores the previous tracer on exit."""
+    """Scoped :func:`set_tracer`: restores the previous tracer on exit."""
     global _current
     prev = _current
     _current = tracer if tracer is not None else NULL_TRACER

@@ -55,6 +55,29 @@ class PowerEnvelope:
         return replace(self, name=name or f"{self.name}x{n:g}",
                        idle_w=self.idle_w * n, peak_w=self.peak_w * n)
 
+    def __add__(self, other) -> "PowerEnvelope":
+        """The combined envelope of two co-located devices: draws sum, the
+        memory share of the combined active draw is the active-weighted mix
+        of each device's share.  This is the one definition of "summed
+        fleet draw" shared by Router admission headroom and the fleet
+        placement planner's power-cap check."""
+        if not isinstance(other, PowerEnvelope):
+            return NotImplemented
+        active = self.active_w + other.active_w
+        mem = ((self.active_w * self.memory_w_fraction
+                + other.active_w * other.memory_w_fraction) / active
+               if active > 0 else self.memory_w_fraction)
+        return PowerEnvelope(name=f"{self.name}+{other.name}",
+                             idle_w=self.idle_w + other.idle_w,
+                             peak_w=self.peak_w + other.peak_w,
+                             memory_w_fraction=mem)
+
+    def __radd__(self, other) -> "PowerEnvelope":
+        # lets sum(envelopes) work: 0 + envelope == envelope
+        if other == 0:
+            return self
+        return NotImplemented
+
 
 # Built-in calibration (vendor TDP/idle for the power follow-up's machines).
 MANY_CORE_XEON = PowerEnvelope("xeon-e5-2660v4", idle_w=55.0, peak_w=105.0,
@@ -96,3 +119,13 @@ def envelope_for(backend) -> PowerEnvelope:
         return declared
     return BY_ANALOGUE.get(getattr(backend, "paper_analogue", ""), GENERIC)
 
+
+def fleet_draw_w(draws) -> float:
+    """Aggregate modeled draw (watts) of a fleet — the one summation the
+    Router's admission headroom and the fleet planner's power-cap check
+    share.  ``draws`` is an iterable of per-endpoint/per-app watts; a None
+    entry (an app whose draw could not be modeled) is charged as if it
+    were not there — callers that must be conservative should have dropped
+    unmodeled candidates at ranking time (``rank(power_budget_w=...)``
+    already does)."""
+    return float(sum(d for d in draws if d is not None))

@@ -47,6 +47,41 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_the_check_walks_the_fleet_and_control_subpackages():
+    """The router, health, fleet, control and observability layers are
+    among the modules the no-jax import check above walks."""
+    walked = set(_port_modules())
+    for name in ("repro_torch.analysis", "repro_torch.analysis.findings",
+                 "repro_torch.analysis.plan_lint", "repro_torch.fleet",
+                 "repro_torch.fleet.placement", "repro_torch.runtime",
+                 "repro_torch.runtime.control",
+                 "repro_torch.runtime.elastic",
+                 "repro_torch.runtime.fault_tolerance",
+                 "repro_torch.dist.schedules", "repro_torch.obs.export",
+                 "repro_torch.obs.metrics", "repro_torch.obs.report",
+                 "repro_torch.serve.health", "repro_torch.serve.router"):
+        assert name in walked, name
+
+
+def test_pure_layers_import_without_torch_or_numpy():
+    """Like ``tests/test_obs.py``'s jax pin: the observability package and
+    the pure analysis, runtime and schedule modules pull in neither torch
+    nor numpy when imported."""
+    code = ("import sys\n"
+            "import repro_torch.obs, repro_torch.obs.report\n"
+            "import repro_torch.analysis, repro_torch.dist.schedules\n"
+            "import repro_torch.runtime, repro_torch.runtime.elastic\n"
+            "import repro_torch.runtime.fault_tolerance\n"
+            "leaked = [m for m in ('torch', 'numpy', 'jax') "
+            "if m in sys.modules]\n"
+            "assert not leaked, leaked\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
 def test_sources_name_neither_jax_nor_the_jax_package():
     assert len(PORT_SOURCES) > 20
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
