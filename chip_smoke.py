@@ -19,7 +19,8 @@ these phases, each printing its seconds:
                power draw (the H100 envelope's idle watts) and the two TF32
                flags, both off;
   2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
-               flash_attention, decode_attention), all started together,
+               flash_attention, decode_attention, flash_attention_bwd),
+               all started together,
                with each kernel's ``-Xptxas -v`` report; the flash library's
                SASS (cuobjdump) must hold HGMMA (wgmma) instructions, and the
                matmul and decode-attention libraries' SASS LDGSTS (cp.async)
@@ -78,7 +79,18 @@ these phases, each printing its seconds:
                over [4,2112,8,128] and the full [4,1024,8,128] context, at
                one over [4,2112,16,64] and the full [4,3072,16,64] frames
                (bf16 at 5e-2 and the row limit beside simulated faults,
-               fp32 at 2e-4, each call twice for the same bits);
+               fp32 at 2e-4, each call twice for the same bits); the flash
+               backward (``BWD_CASES``: granite's H=32 over KV=8 at D=64,
+               S 2048, 1000 and 50, h2o-danube's D=80 under its window at
+               S=5000, recurrentgemma's D=256 at 10 query heads a KV head
+               under its window, the VLM's non-causal 2048 over 1024 at
+               D=128 and seamless's non-causal MHA over 3072 frames) on
+               the forward kernel's output: fp32 at 2e-4, bf16 against the
+               plain backward in fp32 at 1e-2 of each gradient's largest
+               entry and a floored row limit (``kernels/parity.py``)
+               beside simulated faults (a dropped mask, a dK missing a
+               group member, Delta one row off, dQ scaled by sqrt(D)),
+               each call twice for the same bits;
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
@@ -87,7 +99,9 @@ these phases, each printing its seconds:
                with every slot at 2112, the complex tdFIR bank beside one
                grouped ``F.conv1d`` and beside four real launches, the bf16
                matmul beside ``torch.matmul``; the matmul, tdfir and decode
-               launch plans;
+               launch plans; the flash backward at granite's training
+               shape (B 4, S 2048, bf16) beside SDPA's backward, three
+               device kernels a call;
                a profile of one decode-attention call must hold exactly one
                device kernel; h2o-danube's windowed and unwindowed S=5000,
                D=80 prefill beside SDPA (with the boolean causal-and-window
@@ -242,7 +256,24 @@ these phases, each printing its seconds:
                byte-identical; the JSONL and Chrome trace written to a
                temporary directory and ``python -m repro_torch.obs.report``
                run on the JSONL, which must exit 0; the recovery ticks and
-               the joules a request before the kill and after recovery.
+               the joules a request before the kill and after recovery;
+ 13. train     granite-3-2b trained on the card: (a') 2 layers at full
+               width in fp32, B 2, S 256: the loss, every gradient and one
+               ``make_train_step``'s parameters against the same on the
+               CPU (1e-5 relative, 2e-4 of each leaf's max), flash
+               forward twice and backward once a layer; (b) the whole
+               model in bf16, B 4, S 2048, block remat, vocab_chunk 2048,
+               AdamW with fp32 moments: a warm-up and 8 timed steps
+               (losses finite and falling, no NaN, 80 forward and 40
+               backward launches a step), step wall and device ms,
+               tokens per second, the model-FLOPs share of the bf16 peak,
+               the idle share, the device time split into GEMMs, flash
+               forward, flash backward, the loss, the optimizer and the
+               rest, and peak memory; (c) ``launch.train.main`` on
+               reduced granite: 25 steps whose loss falls by more than
+               0.2, then 10 steps saving every 5 and 15 resuming at step
+               10 with the restored parameters bitwise equal to the
+               saved.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -361,6 +392,33 @@ AUDIO_CTX = 3072
 # whole (12 encoder, 12 self and 12 cross layers)
 CROSS_CELLS = (("k", "llama-3.2-vision-90b", 20, 20, 20),
                ("l", "seamless-m4t-medium", None, 36, 24))
+# the flash backward's shapes (phase 3): (what, H, KV, Sq, Skv, D, causal,
+# window); granite's first at S 2048 (its main path's heads), then ragged
+# S, S under one tile, h2o-danube's D 80 under its window, recurrentgemma's
+# D 256 at 10 query heads a KV head under its window, the VLM's cross
+# attention and seamless's non-causal MHA over its frames
+BWD_CASES = (
+    ("granite", 32, 8, 2048, 2048, 64, True, 0),
+    ("granite ragged", 32, 8, FLASH_RAGGED_S, FLASH_RAGGED_S, 64, True, 0),
+    ("granite under one tile", 32, 8, 50, 50, 64, True, 0),
+    ("h2o-danube", 32, 8, H2O_FLASH[3], H2O_FLASH[3], 80, True, H2O_WINDOW),
+    ("recurrentgemma", 10, 1, GRIFFIN_FLASH[3], GRIFFIN_FLASH[3], 256, True,
+     GRIFFIN_WINDOW),
+    ("llama-3.2-vision cross", VLM_HEADS[0], VLM_HEADS[1], 2048, VLM_CTX,
+     VLM_HEADS[2], False, 0),
+    ("seamless cross", AUDIO_HEADS[0], AUDIO_HEADS[1], 2048, AUDIO_CTX,
+     AUDIO_HEADS[2], False, 0),
+)
+# phase 13, training granite-3-2b: (a') 2 layers in fp32 at B 2, S 256 on
+# the card against the same step on the CPU; (b) the whole model in bf16 at
+# B 4, S 2048, block remat, vocab_chunk 2048: a warm-up step, TRAIN_STEPS
+# timed steps and a profiled one
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_PARITY = (2, 2, 256)          # layers, B, S
+TRAIN_SHAPE = (4, 2048)             # B, S
+TRAIN_VOCAB_CHUNK = 2048
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -604,6 +662,7 @@ def check_kernels(ops, ref):
             "kernel")
     check_tdfir_edges(ops, ref, gen)
     errs.update(check_attention(ops, ref, gen))
+    errs["flash_attention_bwd"] = check_flash_backward(ops, ref, gen)
     return errs
 
 
@@ -1234,6 +1293,7 @@ def time_kernels(ops, ref):
           f"{time_ms(four_real, 100):.4f} ms (device "
           f"{device_profile(four_real)[0]:.4f})")
     time_attention(ops, ref, gen, rows, dev)
+    time_backward(ops, ref, gen, rows, dev)
     listed = dict(rows, tdfir_complex=rows["tdfir"]["complex"])
     for name, r in listed.items():
         print(f"  {name:16s} kernel {r['ms']:.4f} ms  bound "
@@ -3187,6 +3247,377 @@ def range_split(lm, fn, what: str, label: str, n_attn: int) -> None:
           f"({gemm / total:.1%}), the rest {rest:.3f} ({rest / total:.1%})")
 
 
+def bwd_inputs(gen, h, kv, sq, skv, d, dtype, b=1):
+    """q, do [B*H, Sq, D] and k, v [B*KV, Skv, D] as strided views of [B, S,
+    heads, D] projections (copies when B > 1), as ``layers.attention`` and
+    its autograd hand them to the kernels."""
+    def heads(n, length):
+        return randn(gen, b, length, n, d, dtype=dtype).transpose(
+            1, 2).reshape(b * n, length, d)
+    return heads(h, sq), heads(kv, skv), heads(kv, skv), heads(h, sq)
+
+
+def check_flash_backward(ops, ref, gen) -> float:
+    """Phase 3, the flash-attention backward kernel against the plain
+    backward (``ref.mha_backward_ref``) at every shape of ``BWD_CASES``,
+    on the forward kernel's own output: fp32 at 2e-4, and bf16 against the
+    plain backward in fp32 at ``parity.BWD_ABS_TOL`` of each gradient's
+    largest entry and ``parity.BWD_ROW_TOL`` on ``row_err``, beside the
+    simulated faults (``parity.bwd_fault_controls``) that the limits must
+    reject; each call made twice for the same bits.  Returns the bf16
+    max_abs_err at granite's shape (over dq, dk and dv, against the plain
+    backward in fp32)."""
+    from repro_torch.kernels import parity
+    print(f" flash_attention_bwd (fp32 at 2e-4; bf16 against the plain "
+          f"backward in fp32 at {parity.BWD_ABS_TOL} of each gradient's "
+          f"largest entry and row_err {parity.BWD_ROW_TOL} (each row's rms "
+          f"floored at {parity.BWD_ROW_FLOOR} of the tensor's), beside "
+          f"simulated faults; every call twice for the same bits)")
+    main_err = None
+    sound = {"abs": 0.0, "row": 0.0}
+    faults = {"abs": float("inf"), "row": float("inf")}
+    for what, h, kv, sq, skv, d, causal, window in BWD_CASES:
+        kw = dict(causal=causal, kv_group=h // kv, window=window)
+        shape = (f"{what} H={h} KV={kv} Sq={sq} Skv={skv} D={d}"
+                 f"{' causal' if causal else ''}"
+                 f"{f' window {window}' if window else ''}")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = bwd_inputs(gen, h, kv, sq, skv, d, dtype)
+            o = ops.flash_attention(q, k, v, **kw)
+            got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+            again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+            for name, g, a in zip(("dq", "dk", "dv"), got, again):
+                require(torch.equal(g, a), f"flash_attention_bwd {shape} "
+                        f"{dtype}: {name} of two identical calls differ")
+            if dtype == torch.float32:
+                want = ref.mha_backward_ref(q, k, v, o, do, **kw)
+                err = max(max_abs_err(g, w) for g, w in zip(got, want))
+                ok = all(torch.allclose(g, w, rtol=2e-4, atol=2e-4)
+                         for g, w in zip(got, want))
+                print(f"  bwd {shape} fp32: max_abs_err {err:.3e}  "
+                      f"{'ok' if ok else 'MISMATCH'}  (twice: same bits)")
+                require(ok, f"flash_attention_bwd {shape} fp32: kernel "
+                        f"disagrees with its plain version")
+                continue
+            want32 = parity.bwd_want32(q, k, v, o, do, **kw)
+            ok, err, rerr = parity.bwd_within_limits(got, want32)
+            print("    row_err of dq, dk, dv: " + ", ".join(
+                f"{parity.bwd_row_err(g, w):.3e} (unfloored "
+                f"{parity.row_err(g, w):.3e})" for g, w in zip(got, want32)))
+            print(f"  bwd {shape} bf16: err {err:.3e} of max  row_err "
+                  f"{rerr:.3e}  {'ok' if ok else 'MISMATCH'}  (twice: same "
+                  f"bits)")
+            require(ok, f"flash_attention_bwd {shape} bf16: kernel "
+                    f"disagrees with its plain version (abs {err:.3e}, row "
+                    f"{rerr:.3e})")
+            sound["abs"], sound["row"] = (max(sound["abs"], err),
+                                          max(sound["row"], rerr))
+            if main_err is None:
+                main_err = max(max_abs_err(g, w) for g, w in zip(got, want32))
+                print(f"    max_abs_err {main_err:.3e} (the kernels line's)")
+            for fault, bad in parity.bwd_fault_controls(
+                    q, k, v, o, do, h // kv, causal, window).items():
+                fok, ferr, frerr = parity.bwd_within_limits(bad, want32)
+                print(f"    control, {fault:28s} err {ferr:.3e}  row_err "
+                      f"{frerr:.3e}  {'PASSES' if fok else 'rejected'}")
+                require(not fok, f"flash_attention_bwd {shape}: the bf16 "
+                        f"limits pass a simulated fault ({fault})")
+                faults["abs"], faults["row"] = (min(faults["abs"], ferr),
+                                                min(faults["row"], frerr))
+            free_card()
+    print(f"  bwd bf16: largest sound reading err {sound['abs']:.3e}, "
+          f"row_err {sound['row']:.3e}; smallest fault reading err "
+          f"{faults['abs']:.3e}, row_err {faults['row']:.3e}")
+    return main_err
+
+
+def time_backward(ops, ref, gen, rows, dev) -> None:
+    """Phase 4, the flash backward at granite-3-2b's training shape (B 4,
+    so 128 query rows over 32 KV rows, S 2048, D 64, causal, bf16) beside
+    its bound (10 FLOP per attended pair and head dim at the bf16
+    tensor-core peak; q, k, v, o, do read and dq, dk, dv written once),
+    the plain backward, and SDPA's backward at the same shape (autograd
+    through ``F.scaled_dot_product_attention``: a yardstick, never on the
+    path)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    b, s = TRAIN_SHAPE
+    _, h, kv, _, d = FLASH_MAIN
+    q, k, v, do = bwd_inputs(gen, h, kv, s, s, d, torch.bfloat16, b=b)
+    o = ops.flash_attention(q, k, v, kv_group=h // kv)
+    q4, k4, v4 = (x.detach().reshape(b, -1, s, d).requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                         enable_gqa=True)
+    do4 = do.reshape(b, h, s, d)
+    t_bound, by = bound(*fab.work(b * h, s, s, d, h // kv, True),
+                        BF16_PEAK_FLOPS)
+    rows["flash_attention_bwd"], dev["flash_attention_bwd"] = time_row(
+        lambda: ops.flash_attention_bwd(q, k, v, o, do, kv_group=h // kv),
+        lambda: ref.mha_backward_ref(q, k, v, o, do, kv_group=h // kv),
+        lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                    retain_graph=True),
+        t_bound, by, iters=20, plain_iters=5)
+    print_row(f"flash_attention_bwd B={b} H={h} KV={kv} S={s} D={d} causal "
+              f"bf16 (SDPA backward as the library call)",
+              rows["flash_attention_bwd"], dev["flash_attention_bwd"])
+    launched = device_kernels(lambda: ops.flash_attention_bwd(
+        q, k, v, o, do, kv_group=h // kv))
+    print(f"  flash_attention_bwd: one call runs {len(launched)} device "
+          f"kernels: {launched}")
+    require(len(launched) == 3, "a flash_attention_bwd call is not its "
+            "three kernels (prep, dK/dV, dQ)")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, b: int, s: int, step: int) -> dict:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticTokens, data_config_for
+    data = SyntheticTokens(data_config_for(
+        cfg, ShapeConfig("smoke", s, b, "train")), device="cuda")
+    return data.batch(step)
+
+
+def check_train_parity(ops) -> None:
+    """(a'): granite-3-2b at full width, 2 layers in fp32, B 2, S 256: the
+    loss and every gradient of ``LM.train_loss`` and one
+    ``make_train_step`` on the card (the flash forward and backward
+    kernels) against the same on the CPU (their plain versions), from the
+    same weights and batch: the loss within 1e-5 relative, every gradient
+    and updated parameter within 2e-4 of its leaf's largest entry; the
+    step launches flash forward twice a layer (block remat) and the
+    backward once.  AdamW's eps is 1e-4 here: a first Adam step is
+    g / (|g| + eps), which at the default 1e-8 turns the two devices'
+    fp32 rounding in a near-zero gradient into a sixth of a step (5e-4 of
+    a parameter's max, seen on the card), as tests/test_torch_train.py
+    notes for the JAX package's step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.models.lm import LM
+    from repro_torch.train import optimizer, train_step
+    layers, b, s = TRAIN_PARITY
+    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), layers)[0],
+                              dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                       eps=1e-4)
+    gpu = watched_lm(cfg, 5, Plan(remat="block"))
+    cpu = LM(cfg, {n: p.detach().cpu() for n, p in gpu.params().items()},
+             Plan(remat="block"))
+    batch = train_batch(cfg, b, s, 0)
+    out = {}
+    for where, lm in (("cuda", gpu), ("cpu", cpu)):
+        lm.requires_grad_(True)
+        mb = {k: x.to(where) for k, x in batch.items()}
+        total, _ = lm.train_loss(mb)
+        grads = torch.autograd.grad(total, list(lm.params().values()))
+        step = train_step.make_train_step(lm, tcfg)
+        ops.reset_launch_counts()
+        params, _, metrics = step(lm.params(), optimizer.init(
+            lm.params(), tcfg), mb, 0)
+        out[where] = (total.item(), [g.cpu() for g in grads],
+                      [p.detach().cpu() for p in params.values()],
+                      float(metrics["loss"]), ops.launch_counts())
+    names = list(gpu.params())
+    (l_gpu, g_gpu, p_gpu, m_gpu, n_gpu), (l_cpu, g_cpu, p_cpu, m_cpu, _) = \
+        out["cuda"], out["cpu"]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst_g = max((a - c).abs().max().item() / c.abs().max().clamp_min(
+        1e-30).item() for a, c in zip(g_gpu, g_cpu))
+    worst_p = max((a - c).abs().max().item() / c.abs().max().clamp_min(
+        1e-30).item() for a, c in zip(p_gpu, p_cpu))
+    print(f"  (a') {TRAIN_ARCH} {layers} layers fp32 B={b} S={s}: loss card "
+          f"{l_gpu:.7f} CPU {l_cpu:.7f} (rel {rel:.2e}); step loss card "
+          f"{m_gpu:.7f} CPU {m_cpu:.7f}; {len(names)} gradient leaves, "
+          f"largest error {worst_g:.2e} of the leaf's max; updated params "
+          f"{worst_p:.2e}; step launches {n_gpu}")
+    require(rel <= 1e-5 and abs(m_gpu - m_cpu) <= 1e-5 * abs(m_cpu),
+            f"(a') the card's loss is {rel:.2e} from the CPU's")
+    require(worst_g <= 2e-4, f"(a') a gradient is {worst_g:.2e} of its max "
+            f"from the CPU's")
+    require(worst_p <= 2e-4, f"(a') an updated parameter is {worst_p:.2e} "
+            f"of its max from the CPU's")
+    require(n_gpu["flash_attention"] == 2 * layers
+            and n_gpu["flash_attention_bwd"] == layers,
+            f"(a') the step launched {n_gpu}, not flash forward twice and "
+            f"backward once a layer")
+
+
+def train_split(lm, step, xent_ms: float, xent_gemm_ms: float) -> float:
+    """One profiled training step's device time split into GEMMs, flash
+    forward, flash backward, the loss (``xent_ms``: its forward, recompute
+    and backward traced alone, ``xent_gemm_ms`` of it GEMMs), the
+    optimizer (its ``train.optimizer`` profiler range) and the rest;
+    returns the step's device ms."""
+    from torch.profiler import ProfilerActivity
+    prof, traced = traced_kernels(step, [ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA])
+    traced = [(n, ms) for n, ms in traced if not n.startswith("train.")]
+    total = sum(ms for _, ms in traced)
+    fwd = sum(ms for n, ms in traced if "flash_bf16_kernel" in n)
+    bwd = sum(ms for n, ms in traced if any(
+        k in n for k in ("bwd_prep_kernel", "bwd_dkdv_kernel",
+                         "bwd_dq_kernel")))
+    gemm = sum(ms for n, ms in traced if any(g in n for g in GEMM_NAMES))
+    opt = sum(e.device_time_total for e in prof.events()
+              if e.name == "train.optimizer"
+              and not str(e.device_type).endswith("CUDA")) / 1e3
+    gemm -= xent_gemm_ms
+    rest = total - gemm - fwd - bwd - xent_ms - opt
+    parts = (("GEMMs", gemm), ("flash fwd", fwd), ("flash bwd", bwd),
+             ("xent", xent_ms), ("optimizer", opt), ("the rest", rest))
+    print(f"  (b) one step, {len(traced)} kernels, {total:.1f} ms of device "
+          f"time: " + ", ".join(f"{w} {ms:.1f} ({ms / total:.1%})"
+                                for w, ms in parts))
+    print("  (b) heaviest kernels of the step:")
+    by_name = {}
+    for n, ms in traced:
+        by_name[n] = by_name.get(n, 0.0) + ms
+    for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"      {ms:9.3f}  {n[:90]}")
+    require(fwd > 0 and bwd > 0 and opt > 0, "(b) the step's split found no "
+            "flash forward, flash backward or optimizer time")
+    return total
+
+
+def run_train(ops) -> dict:
+    """Phase 13: (a') the parity cell, (b) granite-3-2b whole in bf16 with
+    AdamW (fp32 moments, no master copy): a warm-up step, TRAIN_STEPS
+    timed steps (every loss finite, the last below the first, no NaN in
+    the parameters), step wall and device ms, tokens per second, the
+    model-FLOPs share of the bf16 peak, the idle share, the device split
+    and peak memory; (c) ``launch.train.main`` on reduced granite.
+    Returns (b)'s launches per step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.kernels import flash_attention_bwd as fab
+    check_train_parity(ops)
+    free_card()
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_SHAPE
+    plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=TRAIN_STEPS + 2)
+    lm = watched_lm(cfg, 6, plan)
+    n_params = sum(p.numel() for p in lm.params().values())
+    step_fn = train_step.make_train_step(lm, tcfg)
+    opt = optimizer.init(lm.params(), tcfg)
+    batches = [train_batch(cfg, b, s, i) for i in range(TRAIN_STEPS + 2)]
+    print(f"  (b) {TRAIN_ARCH} whole: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, D="
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
+          f"{n_params / 1e9:.3f} B parameters, "
+          f"B={b} S={s}, remat block, vocab_chunk {TRAIN_VOCAB_CHUNK}, "
+          f"AdamW fp32 moments; {torch.cuda.memory_allocated() / 2**30:.1f} "
+          f"GiB held before the first step")
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i, batch in enumerate(batches[:TRAIN_STEPS + 1]):
+        if i == 1:
+            ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt, metrics = step_fn(lm.params(), opt, batch, i)
+        losses.append(metrics["loss"].item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (b) losses {[round(x, 4) for x in losses]} (warm-up first)")
+    nan = any(torch.isnan(p).any().item() for p in lm.params().values())
+    require(all(np.isfinite(losses)), "(b) a training loss is not finite")
+    require(losses[-1] < losses[0], f"(b) the loss did not fall: "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    require(not nan, "(b) a parameter is NaN after training")
+    require(per_step.get("flash_attention") == 2 * cfg.n_layers
+            and per_step.get("flash_attention_bwd") == cfg.n_layers,
+            f"(b) launches per step {per_step}, not {2 * cfg.n_layers} "
+            f"flash forward (block remat) and {cfg.n_layers} backward")
+    wall = float(np.mean(walls[1:]))
+    tokens = b * s
+    # 6 N per token, and causal attention: 12 FLOP per attended pair, head
+    # dim, head and layer (2 + 2 forward, twice that backward)
+    model_flops = (6.0 * n_params * tokens + 12.0 * cfg.n_layers * b
+                   * cfg.n_heads * cfg.head_dim * fab.attended_pairs(
+                       s, s, True))
+
+    # the loss alone, traced: its forward, recompute and backward (the
+    # unembedding's weight gradient too)
+    from torch.profiler import ProfilerActivity
+    hid = randn(torch.Generator().manual_seed(9), b, s, cfg.d_model,
+                dtype=lm.dtype).requires_grad_()
+    w = lm.embed if cfg.tie_embeddings else lm.unembed
+
+    def xent():
+        torch.autograd.grad(lm.chunked_softmax_xent(
+            hid, batches[0]["labels"]), (hid, w))
+    xent()
+    _, xk = traced_kernels(xent, [ProfilerActivity.CUDA])
+    xent_ms = sum(ms for _, ms in xk)
+    xent_gemm = sum(ms for n, ms in xk if any(g in n for g in GEMM_NAMES))
+    del hid
+    batch = batches[-1]
+
+    def step():
+        step_fn(lm.params(), opt, batch, TRAIN_STEPS + 1)
+    dev_ms = train_split(lm, step, xent_ms, xent_gemm)
+    share = model_flops / (wall / 1e3) / BF16_PEAK_FLOPS
+    print(f"  (b) step wall {wall:.1f} ms (mean of {TRAIN_STEPS}; each "
+          f"{[round(w, 1) for w in walls[1:]]}), device {dev_ms:.1f} ms "
+          f"(profiled step), idle share {max(0.0, 1 - dev_ms / wall):.1%}; "
+          f"{tokens / (wall / 1e3):.0f} tokens/s; model FLOPs "
+          f"{model_flops:.3e} a step, {share:.1%} of the "
+          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16 peak; peak memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
+          f"launches a step {per_step}")
+    del lm, opt, step_fn, batches, batch
+    free_card()
+    run_train_cli()
+    return launches
+
+
+def run_train_cli() -> None:
+    """(c): ``repro_torch.launch.train.main`` on reduced granite-3-2b on
+    the card, as tests/test_system.py:40-60: 25 steps whose loss falls by
+    more than 0.2, then 10 steps saving every 5 and 15 that resume at step
+    10 from the checkpoint, whose parameters equal the saved ones bit for
+    bit."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.launch.train import main as train_main
+    with tempfile.TemporaryDirectory() as tmp:
+        res = train_main(["--arch", TRAIN_ARCH, "--reduced", "--steps", "25",
+                          "--batch", "4", "--seq", "64", "--save-every",
+                          "10", "--ckpt-dir", f"{tmp}/a", "--log-every",
+                          "100"])
+        losses = [h["loss"] for h in res.metrics_history]
+        print(f"  (c) launch.train --reduced, 25 steps: loss {losses[0]:.4f}"
+              f" -> {losses[-1]:.4f}")
+        require(losses[-1] < losses[0] - 0.2, "(c) the loss fell by 0.2 or "
+                "less")
+        args = ["--arch", TRAIN_ARCH, "--reduced", "--batch", "2", "--seq",
+                "32", "--save-every", "5", "--ckpt-dir", f"{tmp}/b",
+                "--log-every", "100"]
+        first = train_main(["--steps", "10", *args])
+        saved, extra = Checkpointer(f"{tmp}/b").restore(10, device="cuda")
+        same = all(torch.equal(saved["params"][n], p.detach())
+                   for n, p in first.state["params"].items())
+        res = train_main(["--steps", "15", *args])
+        steps = [h["step"] for h in res.metrics_history]
+        print(f"  (c) 10 steps saved every 5, then resumed at step "
+              f"{extra['next_step']}: steps {steps[0]}..{steps[-1]}, the "
+              f"restored parameters {'bitwise equal to' if same else 'DIFFER from'}"
+              f" the saved ones")
+        require(same, "(c) the restored parameters differ from the saved")
+        require(steps and min(steps) >= 10 and res.last_step == 15,
+                "(c) the second run did not resume at step 10")
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
@@ -3318,10 +3749,15 @@ def main() -> int:
             lookup = run_modeled(ops, plan_walls, tmp)
         with phase("12 fleet"):
             run_fleet(ops, lookup, cells, tmp)
+    with phase("13 train"):
+        trained = run_train(ops)
     # flash and decode: the serving cells' launches, each cell counted
-    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l)
+    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), and flash
+    # forward and backward in the training steps of 13 (b)
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]
                      + cross[k] for k in family})
+    launches["flash_attention"] += trained["flash_attention"]
+    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),
@@ -3331,7 +3767,12 @@ def main() -> int:
                                    "src/repro/kernels/flash_attention.py:22"),
                "decode_attention": (
                    "src/repro_torch/csrc/decode_attention.cu",
-                   "src/repro/kernels/decode_attention.py:26")}
+                   "src/repro/kernels/decode_attention.py:26"),
+               "flash_attention_bwd": (
+                   "src/repro_torch/csrc/flash_attention_bwd.cu",
+                   "gradient of src/repro/kernels/flash_attention.py:22 "
+                   "(the reference differentiates "
+                   "src/repro/models/layers.py:211)")}
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name], **times[name]}

@@ -8,6 +8,12 @@ sets them to 0.  A wrapper counts a launch when Python calls it, so a CUDA
 graph (:class:`CountedGraph`) takes back the launches its capture recorded
 (nothing ran) and adds them again on every replay (they all run).
 
+Training reaches flash attention through :class:`FlashAttention`, an
+autograd function whose backward is the hand-written backward kernel
+(``flash_attention_bwd``; on CPU tensors, ``ref.mha_backward_ref``);
+:func:`flash_attention` takes it only under grad mode with an input that
+requires grad, so serving launches exactly what it did before.
+
 A fake tensor (``torch._subclasses.FakeTensor``: shape and dtype, no data)
 reaching the matmul or tdFIR wrapper, on either device, neither launches
 nor runs the plain version: the wrapper returns an empty result of the
@@ -29,12 +35,13 @@ from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import flash_attention_bwd as _fab
 from repro_torch.kernels import matmul as _mm
 from repro_torch.kernels import ref
 from repro_torch.kernels import tdfir as _fir
 
 _KERNELS = {"matmul": _mm, "tdfir": _fir, "flash_attention": _fa,
-            "decode_attention": _da}
+            "decode_attention": _da, "flash_attention_bwd": _fab}
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -125,12 +132,57 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_group: int = 1,
                     window: int = 0) -> torch.Tensor:
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D];
-    ``window`` > 0 keeps keys with ``qpos - kpos < window``."""
+    ``window`` > 0 keeps keys with ``qpos - kpos < window``.  Under grad
+    mode with an input that requires grad it goes through
+    :class:`FlashAttention` (the backward kernel on the card); otherwise
+    (serving) it is the forward call alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, kv_group, window)
+    return _flash_forward(q, k, v, causal, kv_group, window)
+
+
+def _flash_forward(q, k, v, causal, kv_group, window):
     if _on_cpu(q, k, v):
         return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group,
                            window=window)
     return _fa.flash_attention(q, k, v, causal=causal, kv_group=kv_group,
                                window=window)
+
+
+def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+                        kv_group: int = 1, window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention` at q, k, v with output
+    ``o``, given the output's gradient ``do``."""
+    if _on_cpu(q, k, v, o, do):
+        return ref.mha_backward_ref(q, k, v, o, do, causal=causal,
+                                    kv_group=kv_group, window=window)
+    return _fab.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                    kv_group=kv_group, window=window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel, which saves
+    q, k, v and its output, and the backward kernel (on CPU tensors, the
+    plain versions of both).  Under ``torch.utils.checkpoint`` the forward
+    runs again in the backward pass and counts its launch again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_group, window):
+        out = _flash_forward(q, k, v, causal, kv_group, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, kv_group, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        causal, kv_group, window = ctx.mask
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
+                                         kv_group=kv_group, window=window)
+        return dq, dk, dv, None, None, None
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -16,6 +16,17 @@ about (e / L)**0.5 (0.036 at L=2112), so the bf16 decode kernel is held to
 ``row_err`` too, at ``DECODE_ROW_TOL``, beside simulated faults of its own
 design (``decode_fault_controls``).
 
+The bf16 flash-attention backward (``csrc/flash_attention_bwd.cu``) sums in
+fp32 and rounds only its outputs to bf16, so it is held to the plain
+backward run in fp32 on the same bf16 inputs: each of dq, dk and dv within
+``BWD_ABS_TOL`` of that tensor's largest entry and ``BWD_ROW_TOL`` on
+``bwd_row_err``, limits that must reject the simulated faults of
+``bwd_fault_controls``.  ``bwd_row_err`` is ``row_err`` with each row's
+rms floored at ``BWD_ROW_FLOOR`` of the whole tensor's: a causal dQ row
+with few keys is all cancellation (row 0's is P = 1 times dP - Delta = dO
+V - dO O with O = V, zero but for rounding), so its own rms measures fp32
+noise, not the gradient.
+
 The fp32 tdfir kernels are held at a flat 3e-4 (the reference's own limit)
 at the shapes of ``tdfir_edges``: the edges of their blocked tap loop, kept
 here once for ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and the plan
@@ -135,6 +146,107 @@ def fault_controls(q, k, v, kv_group: int, window: int = 0,
                                        torch.float8_e4m3fn, **kw),
     }
 
+
+
+# the bf16 flash backward against the plain backward in fp32 (both limits
+# from chip_smoke.py's readings on the card, PERF.md)
+BWD_ABS_TOL = 1e-2      # of each gradient's largest entry
+BWD_ROW_TOL = 0.05
+BWD_ROW_FLOOR = 0.05    # of the tensor's rms: the least row rms divided by
+# csrc/flash_attention_bwd.cu's query-row tile at D < 256 (32 at 256)
+BWD_TILE = 64
+
+
+def bwd_want32(q, k, v, o, do, **kw):
+    """What the bf16 backward is held to: the plain backward in fp32 on
+    the same inputs."""
+    from .ref import mha_backward_ref
+    return mha_backward_ref(q.float(), k.float(), v.float(), o.float(),
+                            do.float(), **kw)
+
+
+def bwd_row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of max|got - want| / max(rms(want row), BWD_ROW_FLOOR
+    rms(want))."""
+    want = want.float()
+    diff = (got.float() - want).abs().amax(-1)
+    rms = want.square().mean(-1).sqrt()
+    floor = BWD_ROW_FLOOR * want.square().mean().sqrt()
+    return (diff / torch.maximum(rms, floor).clamp_min(1e-30)).max().item()
+
+
+def bwd_within_limits(got, want32):
+    """(ok, largest error over each tensor's max, largest
+    :func:`bwd_row_err`) of a backward's (dq, dk, dv) against
+    :func:`bwd_want32`'s."""
+    errs = [((g.float() - w).abs().max() / w.abs().max().clamp_min(1e-30)
+             ).item() for g, w in zip(got, want32)]
+    rerrs = [bwd_row_err(g, w) for g, w in zip(got, want32)]
+    return (max(errs) <= BWD_ABS_TOL and max(rerrs) <= BWD_ROW_TOL,
+            max(errs), max(rerrs))
+
+
+def _backward(q, k, v, o, do, kv_group, keep, *, delta_shift=False,
+              drop_member=False, dq_scale=None):
+    """The plain backward in fp32 over an explicit [Sq, Skv] ``keep``
+    mask, with one kernel fault simulated: Delta read from the next row
+    (``delta_shift``), each KV head's dK summed without its last query
+    head (``drop_member``), dQ scaled by ``dq_scale`` in place of
+    1/sqrt(D)."""
+    n_kv, sk, d = k.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(kv_group, 0)
+    vf = v.float().repeat_interleave(kv_group, 0)
+    s = torch.where(keep[None], torch.einsum("bqd,bkd->bqk", qf, kf) * scale,
+                    NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    delta = (dof * of).sum(-1, keepdim=True)
+    if delta_shift:
+        delta = torch.cat([delta[:, 1:], delta[:, -1:]], 1)
+    ds = torch.where(keep[None], p * (dp - delta), 0.0)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * (dq_scale or scale)
+    dk = (torch.einsum("bqk,bqd->bkd", ds, qf) * scale).reshape(
+        n_kv, kv_group, sk, d)
+    if drop_member:
+        dk = dk[:, :-1]
+    return dq, dk.sum(1), dv.reshape(n_kv, kv_group, sk, d).sum(1)
+
+
+def bwd_fault_controls(q, k, v, o, do, kv_group: int, causal: bool = True,
+                       window: int = 0) -> dict:
+    """(dq, dk, dv) of backward faults, simulated on the plain version in
+    fp32: the causal mask dropped on the diagonal tile of query tile 1
+    (tile 0 where S has no two tiles: its rows attend to the tile's later
+    keys; under no causal mask the tile's rows attend to nothing from key
+    64, or half of Skv, on), each KV head's dK
+    missing one group member (where the group has more than one), Delta
+    read one row off, and dQ scaled by sqrt(D) in place of 1/sqrt(D)."""
+    sq, sk = q.shape[1], k.shape[1]
+    pos = torch.arange(sq, device=q.device)[:, None]
+    diff = pos - torch.arange(sk, device=q.device)[None, :]
+    keep = diff >= 0 if causal else torch.ones_like(diff, dtype=torch.bool)
+    if window:
+        keep &= diff < window
+    i = 1 if min(sq, sk) > 2 * BWD_TILE else 0
+    t = slice(i * BWD_TILE, (i + 1) * BWD_TILE)
+    bad = keep.clone()
+    if causal:
+        bad[t, t] = True
+    else:
+        bad[t, min(BWD_TILE, sk // 2):] = False
+    args = (q, k, v, o, do, kv_group)
+    controls = {f"mask dropped on tile {i}": _backward(*args, bad),
+                "Delta one row off": _backward(*args, keep,
+                                               delta_shift=True),
+                "dQ scaled by sqrt(D)": _backward(
+                    *args, keep, dq_scale=math.sqrt(q.shape[-1]))}
+    if kv_group > 1:
+        controls["dK missing a group member"] = _backward(
+            *args, keep, drop_member=True)
+    return controls
 
 
 # csrc/decode_attention.cu: 8 warps a block, warp w takes the split's key

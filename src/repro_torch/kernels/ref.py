@@ -55,17 +55,55 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
     if causal or window:
-        sq, sk = q.shape[1], k.shape[1]
-        diff = (torch.arange(sq, device=q.device)[:, None]
-                - torch.arange(sk, device=q.device)[None, :])
-        mask = torch.ones_like(diff, dtype=torch.bool)
-        if causal:
-            mask &= diff >= 0
-        if window:
-            mask &= diff < window
+        mask = _attention_mask(q.shape[1], k.shape[1], causal, window,
+                               q.device)
         s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
+
+
+def _attention_mask(sq: int, sk: int, causal: bool, window: int, device):
+    """[Sq, Sk] bool: key kept for query (all True without causal or
+    window)."""
+    diff = (torch.arange(sq, device=device)[:, None]
+            - torch.arange(sk, device=device)[None, :])
+    mask = torch.ones_like(diff, dtype=torch.bool)
+    if causal:
+        mask &= diff >= 0
+    if window:
+        mask &= diff < window
+    return mask
+
+
+def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, do: torch.Tensor, *,
+                     causal: bool = True, kv_group: int = 1,
+                     window: int = 0):
+    """The gradient of :func:`mha_ref` by its explicit formulas, in fp32:
+    P = softmax(scale Q K^T, masked), dV = P^T dO, dP = dO V^T,
+    Delta = rowsum(dO * O), dS = P * (dP - Delta) (0 where masked),
+    dQ = scale dS K, dK = scale dS^T Q.  Under GQA each KV head's dK and
+    dV sum over its ``kv_group`` query heads.  ``o`` is the forward's
+    output; returns (dq, dk, dv) in the inputs' dtypes."""
+    n_kv, sk, d = k.shape
+    bh, sq = q.shape[:2]
+    scale = 1.0 / math.sqrt(d)
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(kv_group, dim=0)
+    vf = v.float().repeat_interleave(kv_group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
+    mask = _attention_mask(sq, sk, causal, window, q.device)
+    s = torch.where(mask[None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = torch.where(mask[None], p * (dp - delta), 0.0)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dk = dk.reshape(n_kv, kv_group, sk, d).sum(1)
+    dv = dv.reshape(n_kv, kv_group, sk, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

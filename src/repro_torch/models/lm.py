@@ -1,10 +1,17 @@
 """The language model, every family of ``repro.models.lm``: the port of
 that module.
 
-Serving entry points, as in the JAX ``Model``:
+Entry points, as in the JAX ``Model``:
 
   * ``LM.prefill(batch, cache_len)``          -> (last_logits, cache)
   * ``LM.decode_step(cache, tokens, pos)``    -> (logits, cache)
+  * ``LM.train_loss(batch)``                  -> (total, {"loss",
+    "aux_loss"}), differentiable once the weights take gradients
+    (``requires_grad_(True)``; ``repro_torch.train.train_step``)
+
+Prefill and training share the layer walk (:meth:`LM.backbone`); in
+training each block runs under the plan's remat (:func:`remat`) and the
+loss is the chunked cross-entropy (:meth:`LM.chunked_softmax_xent`).
 
 The port runs the dense family (granite-3-2b, h2o-danube-1.8b,
 nemotron-4-15b, command-r-plus-104b), the MoE family (moonshot-v1-16b-a3b,
@@ -69,7 +76,8 @@ Differences from the JAX model, none of which changes a result:
     through the MoE as a group of its own (capacity ``k``, so no drops and
     no row sways another's routing), as the ``vmap``ped JAX step does;
     ``generate`` routes its batch jointly in both packages.
-  * Attention always runs the flash-attention kernel (prefill) and the
+  * Attention always runs the flash-attention kernel (prefill and
+    training, whose gradient is the flash backward kernel) and the
     split-K decode kernel (decode) through :mod:`repro_torch.kernels.ops`;
     the JAX model's dense/blockwise switch computes the same function.  The
     int8 cache's decode attention is plain torch, as the JAX one is jnp,
@@ -77,12 +85,14 @@ Differences from the JAX model, none of which changes a result:
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
@@ -254,6 +264,40 @@ def _group(params: Params, prefix: str) -> nn.ParameterDict:
 
 
 # ===========================================================================
+# remat (repro.models.lm._maybe_remat)
+# ===========================================================================
+
+# the matrix products a [B, S, d] x [d, n] projection dispatches to: what
+# the "block" policy keeps, as jax's dots_with_no_batch_dims_saveable keeps
+# the dots without a batch dim (attention's and the experts' batched
+# products are recomputed)
+_SAVED_PRODUCTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(plan: Plan, fn, *args):
+    """``fn(*args)`` under ``plan.remat`` when autograd records it:
+    ``none`` saves what autograd saves, ``block`` recomputes the block in
+    the backward pass but for its projections' products
+    (``torch.utils.checkpoint`` with a selective policy), ``full`` saves
+    nothing but the block's inputs."""
+    if plan.remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if plan.remat == "block":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_products))
+    if plan.remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    raise ValueError(f"unknown remat {plan.remat!r}")
+
+
+# ===========================================================================
 # modules
 # ===========================================================================
 
@@ -280,24 +324,28 @@ class DenseBlock(nn.Module):
         self.moe_drops: Optional[torch.Tensor] = None
 
     def _ffn(self, h, step: int, route_per_row: bool = False):
-        """``step`` 0 in prefill, 1 in decode (the row of ``moe_drops``)."""
+        """(h, aux): ``step`` 0 in prefill and training, 1 in decode (the
+        row of ``moe_drops``); ``aux`` the MoE's Switch load-balance term
+        (0.0 for a dense FFN)."""
         cfg, plan = self.cfg, self.plan
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
         if cfg.moe is None:
             return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act,
-                                        cfg.use_bias)
+                                        cfg.use_bias), 0.0
         kw = dict(drops=None if self.moe_drops is None
                   else self.moe_drops[step])
         if route_per_row:       # one group a row: the JAX engine's vmap
-            y, _ = moe.apply_moe(self.ffn, cfg, x, plan.moe_capacity_factor,
-                                 groups=x.shape[0] * x.shape[1], **kw)
+            y, aux = moe.apply_moe(self.ffn, cfg, x,
+                                   plan.moe_capacity_factor,
+                                   groups=x.shape[0] * x.shape[1], **kw)
         elif plan.moe_impl == "shardmap_ep":
-            y, _ = moe.apply_moe_ep(self.ffn, cfg, x,
-                                    plan.moe_capacity_factor, **kw)
+            y, aux = moe.apply_moe_ep(self.ffn, cfg, x,
+                                      plan.moe_capacity_factor, **kw)
         else:
-            y, _ = moe.apply_moe(self.ffn, cfg, x, plan.moe_capacity_factor,
-                                 groups=plan.moe_groups, **kw)
-        return h + y
+            y, aux = moe.apply_moe(self.ffn, cfg, x,
+                                   plan.moe_capacity_factor,
+                                   groups=plan.moe_groups, **kw)
+        return h + y, aux
 
     def _qkv(self, h, rope):
         cfg = self.cfg
@@ -306,15 +354,22 @@ class DenseBlock(nn.Module):
         k, v = layers.kv_project(self.attn, cfg, x)
         return layers.apply_rope(q, rope), layers.apply_rope(k, rope), v
 
-    def prefill(self, h, rope):
-        """h [B, S, d] -> (h, (k, v)) with the layer's post-RoPE K/V."""
+    def _attend(self, h, rope):
         q, k, v = self._qkv(h, rope)
         attn_out = layers.attention(q, k, v, causal=self.causal,
                                     window=self.window,
                                     softcap=self.cfg.logit_softcap,
                                     plan=self.plan)
-        h = h + layers.out_project(self.attn, self.cfg, attn_out)
-        return self._ffn(h, 0), (k, v)
+        return h + layers.out_project(self.attn, self.cfg, attn_out), (k, v)
+
+    def prefill(self, h, rope):
+        """h [B, S, d] -> (h, (k, v)) with the layer's post-RoPE K/V."""
+        h, kv = self._attend(h, rope)
+        return self._ffn(h, 0)[0], kv
+
+    def train_forward(self, h, rope):
+        """h [B, S, d] -> (h, the MoE's aux term or 0.0)."""
+        return self._ffn(self._attend(h, rope)[0], 0)
 
     def decode(self, h, cache, pos, cache_len, rope,
                route_per_row: bool = False):
@@ -346,7 +401,7 @@ class DenseBlock(nn.Module):
                 q, k_cache, v_cache, cache_len, window=self.window,
                 softcap=self.cfg.logit_softcap)
         h = h + layers.out_project(self.attn, self.cfg, attn_out)
-        return self._ffn(h, 1, route_per_row)
+        return self._ffn(h, 1, route_per_row)[0]
 
 
 class CrossBlock(nn.Module):
@@ -390,6 +445,9 @@ class CrossBlock(nn.Module):
                                     plan=self.plan)
         return self._out(h, attn_out), (k, v)
 
+    def train_forward(self, h, ctx):
+        return self.prefill(h, ctx)[0], 0.0
+
     def decode(self, h, cache, ctx_len):
         """h [B, 1, d]; ``cache`` this layer's ``{"k", "v"}`` [B, S_ctx,
         KV, Dh] (read, never written); ``ctx_len`` an int32 device tensor
@@ -418,6 +476,12 @@ class SSMBlock(nn.Module):
                               chunk=self.plan.ssd_chunk,
                               bf16=self.plan.ssd_bf16)
         return h + y, st
+
+    def train_forward(self, h, rope=None):
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        return h + ssm.apply_ssm(self.ssm, self.cfg, x,
+                                 chunk=self.plan.ssd_chunk,
+                                 bf16=self.plan.ssd_bf16), 0.0
 
     def decode(self, h, cache, *_, **__):
         """h [B, 1, d]; ``cache`` this layer's ``{"conv", "state"}``,
@@ -450,6 +514,10 @@ class RecurrentBlock(nn.Module):
         y, st = rglru.apply_rglru(self.lru, self.cfg, x, return_state=True)
         return self._ffn(h + y), st
 
+    def train_forward(self, h, rope=None):
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        return self._ffn(h + rglru.apply_rglru(self.lru, self.cfg, x)), 0.0
+
     def decode(self, h, cache, *_, **__):
         """h [B, 1, d]; ``cache`` this block's ``{"conv", "h"}``, written
         in place."""
@@ -461,7 +529,8 @@ class RecurrentBlock(nn.Module):
 class LM(nn.Module):
     """The LM over ``params`` (a state dict from :func:`init_params` or
     :func:`repro_torch.models.convert.params_from_numpy`); it runs where
-    its parameters lie, and its weights take no gradient."""
+    its parameters lie.  Its weights take no gradient (serving) until
+    ``requires_grad_(True)`` (``repro_torch.train.train_step``)."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  plan: Optional[Plan] = None):
@@ -601,13 +670,85 @@ class LM(nn.Module):
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """The audio encoder (``repro.models.lm.encode_audio``): frames [B,
-        S, d] through the non-causal layers, RoPE at positions 0..S-1, then
+        S, d] through the non-causal layers (each under the plan's remat
+        when autograd records it), RoPE at positions 0..S-1, then
         ``enc_norm``."""
         rope = self._rope(torch.arange(frames.shape[1], device=self.device))
         h = frames
         for blk in self.enc_blocks:
-            h, _ = blk.prefill(h, rope)
+            h, _ = remat(self.plan, blk.train_forward, h, rope)
         return layers.apply_norm(self.enc_norm, h, self.cfg.norm)
+
+    def backbone(self, h, rope, ctx, collect: bool = False):
+        """The layer walk that prefill and training share
+        (``repro.models.lm._backbone``): h [B, S, d] -> (h, aux, states).
+        With ``collect`` each layer's prefill state (K/V or recurrent
+        state) is kept in ``states``; otherwise (training) each layer runs
+        under the plan's remat, ``states`` is None and ``aux`` sums the
+        MoE layers' load-balance terms (fp32)."""
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        states = [] if collect else None
+        for blk in self.layers:
+            arg = ctx if isinstance(blk, CrossBlock) else rope
+            if collect:
+                h, st = blk.prefill(h, arg)
+                states.append(st)
+            else:
+                h, a = remat(self.plan, blk.train_forward, h, arg)
+                aux = aux + a
+        return h, aux, states
+
+    def chunked_softmax_xent(self, hidden, labels) -> torch.Tensor:
+        """Mean cross-entropy of ``hidden`` [B, S, d] (final-normed) against
+        ``labels`` [B, S] (``repro.models.lm.chunked_softmax_xent``): the
+        sequence in chunks of ``plan.vocab_chunk`` positions (0, or one that
+        does not divide S: one chunk), each chunk's fp32 logits [B, chunk,
+        V] recomputed in the backward pass (``torch.utils.checkpoint``, as
+        ``jax.checkpoint``), so the [B, S, V] logits never exist; the
+        padded vocabulary is masked."""
+        b, s, _ = hidden.shape
+        chunk = min(self.plan.vocab_chunk or s, s)
+        if s % chunk:
+            chunk = s
+        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, s, chunk):
+            part = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], w)
+            if torch.is_grad_enabled():
+                total = total + ckpt.checkpoint(self._xent_sum, *part,
+                                                use_reentrant=False)
+            else:
+                total = total + self._xent_sum(*part)
+        return total / (b * s)
+
+    def _xent_sum(self, hidden, labels, w):
+        logits = torch.matmul(hidden, w).float()
+        v = self.cfg.vocab_size
+        if self.cfg.padded_vocab != v:
+            pad = torch.arange(logits.shape[-1], device=logits.device) >= v
+            logits = torch.where(pad, layers.NEG_INF, logits)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+
+    def params(self) -> Dict[str, nn.Parameter]:
+        """The LM's parameters by state-dict name (what the optimizer
+        state and a checkpoint are keyed by)."""
+        return dict(self.named_parameters())
+
+    @torch.no_grad()
+    def load_params(self, params) -> Dict[str, nn.Parameter]:
+        """Copy ``params`` (name -> tensor or array, e.g. a restored
+        checkpoint) into the LM's parameters, but for those that already
+        are them; returns :meth:`params`."""
+        own = self.params()
+        if set(params) != set(own):
+            raise ValueError(f"params do not fit {self.cfg.name}: "
+                             f"{sorted(set(params) ^ set(own))[:5]}")
+        for name, p in own.items():
+            if params[name] is not p:
+                p.copy_(torch.as_tensor(params[name]))
+        return own
 
     # --------------------------------------------------------- entry points
     def prefill(self, batch, cache_len: int) -> Tuple[torch.Tensor, Cache]:
@@ -616,16 +757,8 @@ class LM(nn.Module):
         last position's logits [B, V] and a decode cache of
         ``cache_len``."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        b, s = tokens.shape
-        ctx = self.context(batch, b)
-        h = self._embed(tokens)
-        rope = (self._rope(torch.arange(s, device=self.device))
-                if self.cfg.family != "ssm" else None)
-        collected = []
-        for blk in self.layers:
-            h, st = blk.prefill(h, ctx if isinstance(blk, CrossBlock)
-                                else rope)
-            collected.append(st)
+        h, rope, ctx = self._inputs(batch, tokens)
+        h, _, collected = self.backbone(h, rope, ctx, collect=True)
         last = layers.apply_norm(self.final_norm, h[:, -1:], self.cfg.norm)
         cache = assemble_cache(self.cfg, collected, cache_len,
                                quant=self.plan.kv_cache_quant)
@@ -683,8 +816,27 @@ class LM(nn.Module):
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
         return self.logits_for(h)[:, 0], cache
 
-    def train_loss(self, batch):
-        raise not_ported("training (train_loss)", 9)
+    def _inputs(self, batch, tokens):
+        """(embedded tokens, the RoPE table of positions 0..S-1 (None for
+        the SSM), the modality context) of a prefill or training batch."""
+        b, s = tokens.shape
+        ctx = self.context(batch, b)
+        rope = (self._rope(torch.arange(s, device=self.device))
+                if self.cfg.family != "ssm" else None)
+        return self._embed(tokens), rope, ctx
+
+    def train_loss(self, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """(total, {"loss", "aux_loss"}) of ``batch["tokens"]`` against
+        ``batch["labels"]`` [B, S] (and the VLM's or audio family's
+        context), as ``Model.train_loss``: the chunked cross-entropy
+        ``loss`` plus 0.01 times the MoE layers' summed ``aux_loss``."""
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        h, rope, ctx = self._inputs(batch, tokens)
+        h, aux, _ = self.backbone(h, rope, ctx)
+        h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
+        loss = self.chunked_softmax_xent(h, labels)
+        return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 # ===========================================================================

@@ -2,7 +2,8 @@
 the port of ``repro.runtime``.
 
   * :mod:`repro_torch.runtime.fault_tolerance` — :class:`StragglerWatchdog`
-    (the reference's ``run_resilient`` joins with the training slice).
+    and :func:`run_resilient`, the checkpointed, self-restarting training
+    loop.
   * :mod:`repro_torch.runtime.elastic` — :class:`ResizeEvent` /
     :func:`detect_resize` signal capacity changes (``reshard_restore``
     joins with the training and mesh slices).
@@ -22,6 +23,8 @@ _EXPORTS = {
     "FleetController": "repro_torch.runtime.control",
     "ControlLoop": "repro_torch.runtime.control",
     "StragglerWatchdog": "repro_torch.runtime.fault_tolerance",
+    "ResilientLoopResult": "repro_torch.runtime.fault_tolerance",
+    "run_resilient": "repro_torch.runtime.fault_tolerance",
     "ResizeEvent": "repro_torch.runtime.elastic",
     "detect_resize": "repro_torch.runtime.elastic",
 }
@@ -34,7 +37,7 @@ if TYPE_CHECKING:                               # pragma: no cover
     from repro_torch.runtime.elastic import (  # noqa: F401
         ResizeEvent, detect_resize)
     from repro_torch.runtime.fault_tolerance import (  # noqa: F401
-        StragglerWatchdog)
+        ResilientLoopResult, StragglerWatchdog, run_resilient)
 
 
 def __getattr__(name):

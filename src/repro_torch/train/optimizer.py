@@ -1,0 +1,110 @@
+"""AdamW with warmup and cosine decay: the port of
+``repro.train.optimizer``.
+
+The state is a dict of tensors keyed by the LM's parameter names: ``m`` and
+``v`` in ``tcfg.master_dtype``, an int32 ``count`` and, under
+``tcfg.use_master_copy``, an fp32 ``master`` copy of the parameters.
+Where the reference returns new parameters and a new state, :func:`update`
+writes both in place under ``torch.no_grad()`` (one leaf at a time, so the
+fp32 temporaries never exceed one leaf), with the reference's arithmetic:
+gradients clipped by their global norm, moments and bias corrections in
+fp32, decoupled weight decay, the fp32 result cast to each parameter's
+dtype.  ``opt_state_axes`` (the moments' sharding) waits for the mesh
+slice (ROADMAP queue 1 item 11).
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping, Tuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.models.lm import torch_dtype
+
+State = Dict[str, object]
+
+
+def lr_schedule(tcfg: TrainConfig, step) -> torch.Tensor:
+    """Linear warmup to ``tcfg.lr``, then cosine decay to a tenth of it at
+    ``total_steps``; ``step`` an int or a tensor (fp32 result on its
+    device)."""
+    step = torch.as_tensor(step).float()
+    warm = torch.clamp(step / max(tcfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - tcfg.warmup_steps)
+                    / max(tcfg.total_steps - tcfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * t))
+    return tcfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def init(params: Mapping[str, torch.Tensor], tcfg: TrainConfig) -> State:
+    """Zero moments beside each parameter (on its device), a zero count,
+    and the fp32 master copy under ``tcfg.use_master_copy``."""
+    mdt = torch_dtype(tcfg.master_dtype)
+    first = next(iter(params.values()))
+    state: State = {
+        "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+              for n, p in params.items()},
+        "v": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+              for n, p in params.items()},
+        "count": torch.zeros((), dtype=torch.int32, device=first.device),
+    }
+    if tcfg.use_master_copy:
+        state["master"] = {n: p.detach().float().clone()
+                           for n, p in params.items()}
+    return state
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32."""
+    return torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(x, dtype=torch.float32)
+        for x in tree.values()]))
+
+
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when fp32 (updated in place), else an fp32 copy."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+@torch.no_grad()
+def update(grads: Mapping[str, torch.Tensor], state: State,
+           params: Mapping[str, torch.Tensor], tcfg: TrainConfig
+           ) -> Tuple[Mapping[str, torch.Tensor], State,
+                      Dict[str, torch.Tensor]]:
+    """One AdamW step: writes ``params`` and ``state`` in place and returns
+    them with ``{"lr", "grad_norm"}`` (fp32 tensors; nothing here waits for
+    the device).  A profiler range, ``train.optimizer``, names its work."""
+    with record_function("train.optimizer"):
+        return _update(grads, state, params, tcfg)
+
+
+def _update(grads, state, params, tcfg):
+    count = state["count"]
+    count.add_(1)
+    lr = lr_schedule(tcfg, count)
+    gnorm = global_norm(grads)
+    clip = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    b1, b2, eps = tcfg.beta1, tcfg.beta2, tcfg.eps
+    c = count.float()
+    bc1 = 1.0 - torch.pow(b1, c)
+    bc2 = 1.0 - torch.pow(b2, c)
+    master = state.get("master")
+    for name, p in params.items():
+        g = grads[name].float() * clip
+        m, v = state["m"][name], state["v"][name]
+        m32, v32 = _fp32(m), _fp32(v)
+        m32.mul_(b1).add_(g, alpha=1 - b1)
+        v32.mul_(b2).add_(g.square_(), alpha=1 - b2)
+        step = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(eps))
+        base = master[name] if master is not None else p
+        base32 = _fp32(base)
+        step.add_(base32, alpha=tcfg.weight_decay)
+        base32.sub_(step.mul_(lr))
+        for t, t32 in ((m, m32), (v, v32), (base, base32)):
+            if t is not t32:
+                t.copy_(t32)
+        if master is not None:
+            p.copy_(base32)
+    return params, state, {"lr": lr, "grad_norm": gnorm}

@@ -52,7 +52,8 @@ def test_cuda_kernels_match_plain_versions():
     # one launch per tdfir_complex call
     assert ops.launch_counts() == {"matmul": 8, "tdfir": 6,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0,
+                                   "flash_attention_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -101,7 +102,8 @@ def test_cuda_attention_kernels_match_plain_versions():
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"matmul": 0, "tdfir": 0,
                                    "flash_attention": 14,
-                                   "decode_attention": 4}
+                                   "decode_attention": 4,
+                                   "flash_attention_bwd": 0}
     # no keys: the plain version's zeros, without a launch (a tensor map
     # cannot describe an empty dim)
     q = randn(2, 8, 64, dtype=torch.bfloat16)

@@ -127,7 +127,8 @@ def test_cpu_dispatch_launches_no_kernel():
     assert torch.equal(ops.tdfir(a, a[:, :2]), ref.tdfir_ref(a, a[:, :2]))
     assert ops.launch_counts() == {"matmul": 0, "tdfir": 0,
                                    "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0,
+                                   "flash_attention_bwd": 0}
     with pytest.raises(ValueError):
         cuda_mm.matmul(a, a)
     with pytest.raises(ValueError):

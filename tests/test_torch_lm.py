@@ -154,8 +154,9 @@ def test_blockwise_plan_matches_port(pair):
 def test_refuses_what_the_slice_does_not_port(pair):
     """Logit soft caps are refused, naming ROADMAP item 8; every dense
     config (h2o-danube's window too), the MoE, SSM, hybrid, VLM and audio
-    families and the int8 KV cache are not, and the VLM and audio LMs
-    build and run a prefill and a decode step."""
+    families and the int8 KV cache are not, the VLM and audio LMs build
+    and run a prefill and a decode step, and ``train_loss`` (ROADMAP item
+    9, now ported) returns a finite loss."""
     cfg, _, _, _, lm = pair
     state = dict(lm.state_dict())
     bad = dataclasses.replace(cfg, logit_softcap=30.0)
@@ -178,8 +179,10 @@ def test_refuses_what_the_slice_does_not_port(pair):
                                           4)
             assert torch.isfinite(logits).all()
     assert LM(cfg, state, Plan(kv_cache_quant=True)).plan.kv_cache_quant
-    with pytest.raises(NotImplementedError, match="item 9"):
-        lm.train_loss({"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    total, metrics = lm.train_loss(
+        {"tokens": torch.zeros(1, 4, dtype=torch.long),
+         "labels": torch.ones(1, 4, dtype=torch.long)})
+    assert torch.isfinite(total) and float(metrics["loss"]) > 0
     with pytest.raises(ValueError, match="do not fit"):
         LM(cfg, {**state, "extra.w": torch.zeros(1)})
 
