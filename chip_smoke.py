@@ -21,12 +21,14 @@ these phases, each printing its seconds:
   2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
                flash_attention, decode_attention, flash_attention_bwd),
                all started together,
-               with each kernel's ``-Xptxas -v`` report; the flash library's
-               SASS (cuobjdump) must hold HGMMA (wgmma) instructions, and the
-               matmul and decode-attention libraries' SASS LDGSTS (cp.async)
-               instructions; their counts are printed; the tdfir kernels must
-               not spill, and their 16-byte shared loads (LDS.128) are
-               counted;
+               with each kernel's ``-Xptxas -v`` report; the flash and
+               flash backward libraries' SASS (cuobjdump) must hold HGMMA
+               (wgmma) instructions, and the matmul and decode-attention
+               libraries' SASS LDGSTS (cp.async) instructions; their counts
+               are printed; the tdfir kernels and the backward's
+               tensor-core kernels must not spill, and the tdfir kernels'
+               16-byte shared loads (LDS.128) are counted; the backward's
+               ``plan`` is held to the compiled one and printed;
   3. check     every kernel against its plain PyTorch version on the card: the
                JAX tests' shapes at their tolerances, the main-path shapes,
                and lengths that are not multiples of the tile (matmul ragged
@@ -85,8 +87,11 @@ these phases, each printing its seconds:
                S=5000, recurrentgemma's D=256 at 10 query heads a KV head
                under its window, the VLM's non-causal 2048 over 1024 at
                D=128 and seamless's non-causal MHA over 3072 frames) on
-               the forward kernel's output: fp32 at 2e-4, bf16 against the
-               plain backward in fp32 at 1e-2 of each gradient's largest
+               the forward kernel's output and saved log-sum-exp (held
+               first to the plain one: fp32 1e-5, bf16 1e-3 absolute
+               against the plain forward in fp32): fp32 at 2e-4, bf16
+               against the plain backward in fp32 at 1e-2 of each
+               gradient's largest
                entry and a floored row limit (``kernels/parity.py``)
                beside simulated faults (a dropped mask, a dK missing a
                group member, Delta one row off, dQ scaled by sqrt(D)),
@@ -100,8 +105,9 @@ these phases, each printing its seconds:
                grouped ``F.conv1d`` and beside four real launches, the bf16
                matmul beside ``torch.matmul``; the matmul, tdfir and decode
                launch plans; the flash backward at granite's training
-               shape (B 4, S 2048, bf16) beside SDPA's backward, three
-               device kernels a call;
+               shape (B 4, S 2048, bf16) and at nemotron-4-15b's heads (B
+               1, H 48 over KV 8, S 2048, D 128) beside SDPA's backward,
+               three device kernels a call, each kernel's device time;
                a profile of one decode-attention call must hold exactly one
                device kernel; h2o-danube's windowed and unwindowed S=5000,
                D=80 prefill beside SDPA (with the boolean causal-and-window
@@ -1630,6 +1636,36 @@ def count_sass(build, name: str, opcode: str) -> int:
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     return len(re.findall(rf"\b{re.escape(opcode)}[.\s]", sass))
+
+
+def ptxas_kernels(log: str) -> list:
+    """(mangled name, registers, spill-store bytes) of each kernel in an
+    ``-Xptxas -v`` report."""
+    found = []
+    for m in re.finditer(r"Function properties for (\S+)\s*\n\s*\d+ bytes "
+                         r"stack frame, (\d+) bytes spill stores.*?\n"
+                         r"ptxas info\s*: Used (\d+) registers", log):
+        found.append((m.group(1), int(m.group(3)), int(m.group(2))))
+    return found
+
+
+def check_bwd_build(log: str) -> None:
+    """Phase 2, the flash backward's build: its tensor-core kernels must
+    not spill, and ``kernels/flash_attention_bwd.plan`` must equal the
+    compiled plan (the wrapper checks when it loads)."""
+    from repro_torch.kernels import flash_attention_bwd as fab
+    wgmma = [k for k in ptxas_kernels(log) if "wgmma" in k[0]]
+    for name, regs, spill in wgmma:
+        print(f"  flash_attention_bwd {name[:70]}: {regs} registers, "
+              f"{spill} bytes spill stores")
+    require(wgmma and not any(spill for _, _, spill in wgmma),
+            "a tensor-core kernel of the flash backward spills registers "
+            "(or the report lists none)")
+    fab._lib()
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in fab.HEAD_DIMS:
+            print(f"  flash_attention_bwd plan D={d} {dtype}: "
+                  f"{fab.plan(d, dtype)}")
 
 
 def check_plan_report(name: str, report) -> None:
@@ -3257,25 +3293,51 @@ def bwd_inputs(gen, h, kv, sq, skv, d, dtype, b=1):
     return heads(h, sq), heads(kv, skv), heads(kv, skv), heads(h, sq)
 
 
+def check_lse(ref, shape: str, dtype, lse, q, k, v, **kw) -> tuple:
+    """The forward kernel's saved L2 against ``ref.mha_ref(...,
+    return_lse=True)`` in fp32 at ``parity.LSE_TOL``, beside the simulated
+    fault ``parity.lse_fault`` that the limit must reject: (the reading,
+    the fault's reading)."""
+    from repro_torch.kernels import parity
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = ref.mha_ref(qf, kf, vf, return_lse=True, **kw)[1]
+    err, tol = max_abs_err(lse, want), parity.LSE_TOL
+    ferr = max_abs_err(parity.lse_fault(qf, kf, vf, **kw), want)
+    print(f"  lse {shape} {dtype}: max_abs_err {err:.3e}  tol {tol:g}  "
+          f"{'ok' if err <= tol else 'MISMATCH'}  (control, l from bf16 P: "
+          f"{ferr:.3e} {'rejected' if ferr > tol else 'PASSES'})")
+    require(err <= tol, f"flash_attention {shape} {dtype}: the saved "
+            f"log-sum-exp disagrees with the plain one")
+    require(ferr > tol, f"flash_attention {shape}: the log-sum-exp limit "
+            f"passes a simulated fault (l summed from bf16 P)")
+    return err, ferr
+
+
 def check_flash_backward(ops, ref, gen) -> float:
     """Phase 3, the flash-attention backward kernel against the plain
     backward (``ref.mha_backward_ref``) at every shape of ``BWD_CASES``,
-    on the forward kernel's own output: fp32 at 2e-4, and bf16 against the
-    plain backward in fp32 at ``parity.BWD_ABS_TOL`` of each gradient's
-    largest entry and ``parity.BWD_ROW_TOL`` on ``row_err``, beside the
-    simulated faults (``parity.bwd_fault_controls``) that the limits must
-    reject; each call made twice for the same bits.  Returns the bf16
-    max_abs_err at granite's shape (over dq, dk and dv, against the plain
-    backward in fp32)."""
+    on the forward kernel's own output and log-sum-exp (which is held to
+    the plain one first: ``parity.LSE_TOL``, beside ``parity.lse_fault``;
+    granite's shape is ``FLASH_MAIN``'s):
+    fp32 at 2e-4, and bf16 against the plain backward in fp32 at
+    ``parity.BWD_ABS_TOL`` of each gradient's largest entry and
+    ``parity.BWD_ROW_TOL`` on ``row_err``, beside the simulated faults
+    (``parity.bwd_fault_controls``) that the limits must reject; each call
+    made twice for the same bits.  Returns the bf16 max_abs_err at
+    granite's shape (over dq, dk and dv, against the plain backward in
+    fp32)."""
     from repro_torch.kernels import parity
-    print(f" flash_attention_bwd (fp32 at 2e-4; bf16 against the plain "
-          f"backward in fp32 at {parity.BWD_ABS_TOL} of each gradient's "
-          f"largest entry and row_err {parity.BWD_ROW_TOL} (each row's rms "
-          f"floored at {parity.BWD_ROW_FLOOR} of the tensor's), beside "
-          f"simulated faults; every call twice for the same bits)")
+    print(f" flash_attention_bwd (the forward's lse at {parity.LSE_TOL} "
+          f"absolute, beside a simulated fault; fp32 at 2e-4; bf16 "
+          f"against the plain backward in fp32 at {parity.BWD_ABS_TOL} of "
+          f"each gradient's largest entry and row_err {parity.BWD_ROW_TOL} "
+          f"(each row's rms floored at {parity.BWD_ROW_FLOOR} of the "
+          f"tensor's), beside simulated faults; every call twice for the "
+          f"same bits)")
     main_err = None
     sound = {"abs": 0.0, "row": 0.0}
     faults = {"abs": float("inf"), "row": float("inf")}
+    lse_sound, lse_ctrl = 0.0, float("inf")
     for what, h, kv, sq, skv, d, causal, window in BWD_CASES:
         kw = dict(causal=causal, kv_group=h // kv, window=window)
         shape = (f"{what} H={h} KV={kv} Sq={sq} Skv={skv} D={d}"
@@ -3283,15 +3345,19 @@ def check_flash_backward(ops, ref, gen) -> float:
                  f"{f' window {window}' if window else ''}")
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = bwd_inputs(gen, h, kv, sq, skv, d, dtype)
-            o = ops.flash_attention(q, k, v, **kw)
-            got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
-            again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+            o, lse = ops.flash_attention_lse(q, k, v, **kw)
+            err, ferr = check_lse(ref, shape, dtype, lse, q, k, v, **kw)
+            lse_sound, lse_ctrl = max(lse_sound, err), min(lse_ctrl, ferr)
+            got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            again = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
             torch.cuda.synchronize()
             for name, g, a in zip(("dq", "dk", "dv"), got, again):
                 require(torch.equal(g, a), f"flash_attention_bwd {shape} "
                         f"{dtype}: {name} of two identical calls differ")
             if dtype == torch.float32:
-                want = ref.mha_backward_ref(q, k, v, o, do, **kw)
+                want = ref.mha_backward_ref(
+                    q, k, v, o, do,
+                    ref.mha_ref(q, k, v, return_lse=True, **kw)[1], **kw)
                 err = max(max_abs_err(g, w) for g, w in zip(got, want))
                 ok = all(torch.allclose(g, w, rtol=2e-4, atol=2e-4)
                          for g, w in zip(got, want))
@@ -3326,25 +3392,24 @@ def check_flash_backward(ops, ref, gen) -> float:
                 faults["abs"], faults["row"] = (min(faults["abs"], ferr),
                                                 min(faults["row"], frerr))
             free_card()
+    print(f"  lse: largest sound reading {lse_sound:.3e}, smallest fault "
+          f"reading {lse_ctrl:.3e}")
     print(f"  bwd bf16: largest sound reading err {sound['abs']:.3e}, "
           f"row_err {sound['row']:.3e}; smallest fault reading err "
           f"{faults['abs']:.3e}, row_err {faults['row']:.3e}")
     return main_err
 
 
-def time_backward(ops, ref, gen, rows, dev) -> None:
-    """Phase 4, the flash backward at granite-3-2b's training shape (B 4,
-    so 128 query rows over 32 KV rows, S 2048, D 64, causal, bf16) beside
-    its bound (10 FLOP per attended pair and head dim at the bf16
-    tensor-core peak; q, k, v, o, do read and dq, dk, dv written once),
-    the plain backward, and SDPA's backward at the same shape (autograd
+def backward_case(ops, ref, gen, b, h, kv, s, d):
+    """The flash backward at B, H over KV, S, D (causal, bf16): (kernel,
+    plain, library, bound ms, bound_by).  The bound: 10 FLOP per attended
+    pair and head dim at the bf16 tensor-core peak; q, k, v, o, do read and
+    dq, dk, dv written once.  The library call: SDPA's backward (autograd
     through ``F.scaled_dot_product_attention``: a yardstick, never on the
     path)."""
     from repro_torch.kernels import flash_attention_bwd as fab
-    b, s = TRAIN_SHAPE
-    _, h, kv, _, d = FLASH_MAIN
     q, k, v, do = bwd_inputs(gen, h, kv, s, s, d, torch.bfloat16, b=b)
-    o = ops.flash_attention(q, k, v, kv_group=h // kv)
+    o, lse = ops.flash_attention_lse(q, k, v, kv_group=h // kv)
     q4, k4, v4 = (x.detach().reshape(b, -1, s, d).requires_grad_()
                   for x in (q, k, v))
     out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
@@ -3352,21 +3417,52 @@ def time_backward(ops, ref, gen, rows, dev) -> None:
     do4 = do.reshape(b, h, s, d)
     t_bound, by = bound(*fab.work(b * h, s, s, d, h // kv, True),
                         BF16_PEAK_FLOPS)
+    return (lambda: ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                            kv_group=h // kv),
+            lambda: ref.mha_backward_ref(q, k, v, o, do, lse,
+                                         kv_group=h // kv),
+            lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                        retain_graph=True),
+            t_bound, by)
+
+
+def time_backward(ops, ref, gen, rows, dev) -> None:
+    """Phase 4, the flash backward at granite-3-2b's training shape (B 4,
+    so 128 query rows over 32 KV rows, S 2048, D 64, causal, bf16) and at
+    nemotron-4-15b's heads (B 1, H 48 over KV 8, S 2048, D 128), each beside
+    its bound, the plain backward and SDPA's backward (``backward_case``),
+    with the device time of each of a call's three kernels."""
+    b, s = TRAIN_SHAPE
+    _, h, kv, _, d = FLASH_MAIN
+    kernel, plain, library, t_bound, by = backward_case(ops, ref, gen, b, h,
+                                                        kv, s, d)
     rows["flash_attention_bwd"], dev["flash_attention_bwd"] = time_row(
-        lambda: ops.flash_attention_bwd(q, k, v, o, do, kv_group=h // kv),
-        lambda: ref.mha_backward_ref(q, k, v, o, do, kv_group=h // kv),
-        lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
-                                    retain_graph=True),
-        t_bound, by, iters=20, plain_iters=5)
+        kernel, plain, library, t_bound, by, iters=20, plain_iters=5)
     print_row(f"flash_attention_bwd B={b} H={h} KV={kv} S={s} D={d} causal "
               f"bf16 (SDPA backward as the library call)",
               rows["flash_attention_bwd"], dev["flash_attention_bwd"])
-    launched = device_kernels(lambda: ops.flash_attention_bwd(
-        q, k, v, o, do, kv_group=h // kv))
-    print(f"  flash_attention_bwd: one call runs {len(launched)} device "
-          f"kernels: {launched}")
-    require(len(launched) == 3, "a flash_attention_bwd call is not its "
-            "three kernels (prep, dK/dV, dQ)")
+    three_kernels(kernel, f"D={d}")
+    h, kv, d = WIDE_GROUP_HEADS[0], 8, FLASH_WIDE_D
+    kernel, plain, library, t_bound, by = backward_case(ops, ref, gen, 1, h,
+                                                        kv, s, d)
+    row, rdev = time_row(kernel, plain, library, t_bound, by, iters=20,
+                         plain_iters=5)
+    print_row(f"flash_attention_bwd B=1 H={h} KV={kv} S={s} D={d} causal "
+              f"bf16 (nemotron-4-15b's heads; SDPA backward as the library "
+              f"call)", row, rdev)
+    three_kernels(kernel, f"D={d}")
+    free_card()
+
+
+def three_kernels(kernel, shape: str) -> None:
+    """Phase 4: one flash_attention_bwd call is exactly three device
+    launches (prep, dK/dV, dQ), each printed with its device ms per call."""
+    launched = device_kernels(kernel)
+    print(f"  flash_attention_bwd {shape}: one call runs {len(launched)} "
+          f"device kernels: " + ", ".join(
+              f"{n[:60]} {ms:.4f} ms" for n, ms in device_profile(kernel)[1]))
+    require(len(launched) == 3, f"a flash_attention_bwd call at {shape} is "
+            f"not its three kernels (prep, dK/dV, dQ): {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -3459,8 +3555,7 @@ def train_split(lm, step, xent_ms: float, xent_gemm_ms: float) -> float:
     total = sum(ms for _, ms in traced)
     fwd = sum(ms for n, ms in traced if "flash_bf16_kernel" in n)
     bwd = sum(ms for n, ms in traced if any(
-        k in n for k in ("bwd_prep_kernel", "bwd_dkdv_kernel",
-                         "bwd_dq_kernel")))
+        k in n for k in ("bwd_prep_kernel", "bwd_dkdv_", "bwd_dq_")))
     gemm = sum(ms for n, ms in traced if any(g in n for g in GEMM_NAMES))
     opt = sum(e.device_time_total for e in prof.events()
               if e.name == "train.optimizer"
@@ -3712,10 +3807,12 @@ def main() -> int:
         logs = _build.build_all()
         for name, log in logs.items():
             print(f"  [{name}] {_build.library_path(name).name}\n{log}")
-        n_hgmma = count_sass(_build, "flash_attention", "HGMMA")
-        print(f"  flash_attention SASS: {n_hgmma} HGMMA (wgmma) instructions")
-        require(n_hgmma > 0, "the flash_attention library has no HGMMA: its "
-                "bf16 kernel does not run on the tensor cores")
+        for name in ("flash_attention", "flash_attention_bwd"):
+            n_hgmma = count_sass(_build, name, "HGMMA")
+            print(f"  {name} SASS: {n_hgmma} HGMMA (wgmma) instructions")
+            require(n_hgmma > 0, f"the {name} library has no HGMMA: its "
+                    "bf16 kernels do not run on the tensor cores")
+        check_bwd_build(logs["flash_attention_bwd"])
         for name in ("matmul", "decode_attention"):
             n_ldgsts = count_sass(_build, name, "LDGSTS")
             print(f"  {name} SASS: {n_ldgsts} LDGSTS (cp.async) instructions")

@@ -81,6 +81,14 @@
 // bytes), the zero columns add nothing to Q K^T and give output columns
 // that are never stored.  The fp32 kernel takes D = 80 as it is (five
 // accumulator columns a thread).
+//
+// Training asks for each row's log-sum-exp (``lse`` not null; serving
+// passes null and gets the same output bits as without it): both kernels
+// store, beside the row's output, L2 = m * scale * log2(e) + log2(l) from
+// the running max m of the raw scores and the denominator l they hold, so
+// that the backward (csrc/flash_attention_bwd.cu) recovers
+// P = exp2(s * scale * log2(e) - L2) without walking the keys again.  A row
+// that attends no key (l = 0) stores 0: its masked P stays 0.
 #include "hopper.cuh"
 
 namespace {
@@ -117,14 +125,7 @@ template <int D> struct Tile {
   static_assert(SMEM <= 227 * 1024, "a block opts into at most 227 KB");
 };
 
-// box (c0 = column, row, head) of a map whose outer dims are (S, heads), or
-// (heads, S) when ``heads_inner`` (the strides must grow outward)
-__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
-                                         int col, int row, int head,
-                                         bool heads_inner, uint32_t bar) {
-  hopper::tma_load_3d(dst, map, col, heads_inner ? head : row,
-                      heads_inner ? row : head, bar);
-}
+using hopper::load_box;
 
 // D: the tile's width; DV <= D: the rows' (D = 128 tile, DV = 80: TMA
 // zero-fills the columns past DV, which are never stored)
@@ -133,9 +134,9 @@ __global__ void __launch_bounds__(BF16_THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
-                  __nv_bfloat16* __restrict__ o, int n_bh, int sq, int skv,
-                  int kv_group, int causal, int window, float scale,
-                  int heads_inner) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int n_bh, int sq, int skv, int kv_group, int causal,
+                  int window, float scale, int heads_inner) {
   using T = Tile<D>;
   constexpr int SW = T::SW, NSUB = T::NSUB, NO = T::NO, STAGES = T::STAGES;
   constexpr int BKV = T::BKV;
@@ -333,82 +334,33 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
         *reinterpret_cast<uint32_t*>(orow1 + col) = hopper::pack_bf16x2(
             o_acc[c][i + 2] / den1, o_acc[c][i + 3] / den1);
     }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-constexpr int ERR_NO_ENCODER = -1;  // the driver has no cuTensorMapEncodeTiled
-constexpr int ERR_ENCODE = -2;      // it refused a q/k/v tensor map
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lrow = lse + static_cast<size_t>(bh) * sq;
+    if (r0 < sq) lrow[r0] = l0 > 0.f ? fmaf(m0, c2, log2f(l0)) : 0.f;
+    if (r0 + 8 < sq) lrow[r0 + 8] = l1 > 0.f ? fmaf(m1, c2, log2f(l1)) : 0.f;
   }
-  return fn;
-}
-
-// A [n, s, d] bf16 tensor with strides (sb, ss, 1) as a 3-D map whose boxes
-// are (acols columns, ``rows`` rows, one head).  The outer dims go in order
-// of growing stride; ``heads_inner`` says whether heads came first.
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int n, int s,
-            int d, long long sb, long long ss, int rows, int acols,
-            CUtensorMapSwizzle swizzle, bool* heads_inner) {
-  *heads_inner = sb < ss;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(*heads_inner ? n : s),
-                              static_cast<cuuint64_t>(*heads_inner ? s : n)};
-  const cuuint64_t strides[2] = {
-      static_cast<cuuint64_t>(*heads_inner ? sb : ss) * 2,
-      static_cast<cuuint64_t>(*heads_inner ? ss : sb) * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(acols),
-                             static_cast<cuuint32_t>(*heads_inner ? 1 : rows),
-                             static_cast<cuuint32_t>(*heads_inner ? rows : 1)};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D, int DV>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
-                int sq, int skv, int kv_group, int causal, int window,
-                float scale, long long q_sb, long long q_ss, long long k_sb,
-                long long k_ss, long long v_sb, long long v_ss,
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int bh, int sq, int skv, int kv_group, int causal,
+                int window, float scale, long long q_sb, long long q_ss,
+                long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                 cudaStream_t stream) {
   using T = Tile<D>;
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return ERR_NO_ENCODER;
-  const CUtensorMapSwizzle swizzle = T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : T::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                   : CU_TENSOR_MAP_SWIZZLE_32B;
+  const hopper::EncodeTiled fn = hopper::encoder();
+  if (fn == nullptr) return hopper::ERR_NO_ENCODER;
+  const CUtensorMapSwizzle swizzle = hopper::swizzle_of(T::SW);
   CUtensorMap tq, tk, tv;
   bool inner_q, inner_k, inner_v;
   const int n_kv = bh / kv_group;
-  if (!encode(fn, &tq, q, bh, sq, DV, q_sb, q_ss, BQ, T::ACOLS, swizzle,
-              &inner_q) ||
-      !encode(fn, &tk, k, n_kv, skv, DV, k_sb, k_ss, T::BKV, T::ACOLS,
-              swizzle, &inner_k) ||
-      !encode(fn, &tv, v, n_kv, skv, DV, v_sb, v_ss, T::BKV, T::ACOLS,
-              swizzle, &inner_v))
-    return ERR_ENCODE;
+  if (!hopper::encode(fn, &tq, q, bh, sq, DV, q_sb, q_ss, BQ, T::ACOLS,
+                      swizzle, &inner_q) ||
+      !hopper::encode(fn, &tk, k, n_kv, skv, DV, k_sb, k_ss, T::BKV,
+                      T::ACOLS, swizzle, &inner_k) ||
+      !hopper::encode(fn, &tv, v, n_kv, skv, DV, v_sb, v_ss, T::BKV,
+                      T::ACOLS, swizzle, &inner_v))
+    return hopper::ERR_ENCODE;
   const int heads_inner = inner_q | inner_k << 1 | inner_v << 2;
   auto kernel = window > 0 ? flash_bf16_kernel<D, DV, true>
                            : flash_bf16_kernel<D, DV, false>;
@@ -417,7 +369,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = ((sq + BQ - 1) / BQ) * bh;
   kernel<<<grid, BF16_THREADS, T::SMEM, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), bh, sq, skv, kv_group,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, bh, sq, skv, kv_group,
       causal, window, scale, heads_inner);
   return static_cast<int>(cudaGetLastError());
 }
@@ -441,10 +393,11 @@ template <int D> constexpr size_t f32_smem_floats() {
 template <int D, bool WINDOW>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int sq,
-                 int skv, int kv_group, int causal, int window, float scale,
-                 long long q_sb, long long q_ss, long long k_sb,
-                 long long k_ss, long long v_sb, long long v_ss) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int sq, int skv, int kv_group,
+                 int causal, int window, float scale, long long q_sb,
+                 long long q_ss, long long k_sb, long long k_ss,
+                 long long v_sb, long long v_ss) {
   constexpr int BQ = F32_BQ, BKV = F32_BKV, THREADS = F32_THREADS;
   constexpr int TJ = D / 16;  // accumulator columns per thread
   extern __shared__ float fsmem[];
@@ -589,14 +542,18 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + ((size_t)bh * sq + gr) * D;
 #pragma unroll
     for (int j = 0; j < TJ; ++j) orow[tx + 16 * j] = acc[i][j] / den;
+    // m_s holds scaled scores (natural units): L2 = m log2(e) + log2(l)
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * sq + gr] =
+          l_s[row] > 0.f ? fmaf(m_s[row], LOG2E, log2f(l_s[row])) : 0.f;
   }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
-               int sq, int skv, int kv_group, int causal, int window,
-               float scale, long long q_sb, long long q_ss, long long k_sb,
-               long long k_ss, long long v_sb, long long v_ss,
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int bh, int sq, int skv, int kv_group, int causal,
+               int window, float scale, long long q_sb, long long q_ss,
+               long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                cudaStream_t stream) {
   constexpr size_t smem = f32_smem_floats<D>() * sizeof(float);
   static_assert(smem <= 227 * 1024, "a block opts into at most 227 KB");
@@ -611,14 +568,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int bh,
   const dim3 grid((sq + F32_BQ - 1) / F32_BQ, bh);
   kernel<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, kv_group,
-      causal, window, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
+      kv_group, causal, window, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
-typedef int (*Launch)(const void*, const void*, const void*, void*, int, int,
-                      int, int, int, int, float, long long, long long,
-                      long long, long long, long long, long long,
+typedef int (*Launch)(const void*, const void*, const void*, void*, float*,
+                      int, int, int, int, int, int, float, long long,
+                      long long, long long, long long, long long, long long,
                       cudaStream_t);
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
@@ -658,30 +615,28 @@ extern "C" int repro_flash_attention_kv_ring(int d, int what) {
 }
 
 // q [bh, sq, d] with strides (q_sb, q_ss, 1); k, v [bh / kv_group, skv, d]
-// with their own strides; o [bh, sq, d] contiguous.  dtype: 0 = float32
+// with their own strides; o [bh, sq, d] contiguous; lse null or float32
+// [bh, sq] contiguous (each row's L2, see the header).  dtype: 0 = float32
 // (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel; bases and strides
 // 16-byte aligned), shared by all four.  d in {16, 32, 64, 80, 128, 256};
 // window >= 0 (0: none).  Returns the CUDA error of the launch (0 on
 // success; negative: a tensor-map failure, see repro_cuda_error_string);
 // nothing here synchronises.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int bh, int sq,
-    int skv, int d, int kv_group, int causal, int window, float scale,
+    const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+    int sq, int skv, int d, int kv_group, int causal, int window, float scale,
     long long q_sb, long long q_ss, long long k_sb, long long k_ss,
     long long v_sb, long long v_ss, int dtype, void* stream) {
   const Launch launch = pick_launch(d, dtype);
   if (launch == nullptr || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch(q, k, v, o, bh, sq, skv, kv_group, causal, window, scale,
-                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+  return launch(q, k, v, o, lse, bh, sq, skv, kv_group, causal, window,
+                scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
-  if (err == ERR_NO_ENCODER)
-    return "the driver offers no cuTensorMapEncodeTiled (TMA needs CUDA 12)";
-  if (err == ERR_ENCODE)
-    return "cuTensorMapEncodeTiled refused a q/k/v tensor map (bases and "
-           "strides must be 16-byte aligned)";
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return hopper::error_string(
+      err, "cuTensorMapEncodeTiled refused a q/k/v tensor map (bases and "
+           "strides must be 16-byte aligned)");
 }

@@ -1,59 +1,89 @@
 // Flash-attention backward: the gradient of csrc/flash_attention.cu's
 // O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal and window masks) V[g],
-// g = bh / kv_group, with respect to Q, K and V, given O and dO.
+// g = bh / kv_group, with respect to Q, K and V, given O, dO and the row
+// log-sum-exps the forward saved.
 //
 // Replaces: the gradient of src/repro/kernels/flash_attention.py,
 // flash_attention (the Pallas online-softmax kernel), which the reference
 // takes by autodiff of its jnp attention (src/repro/models/layers.py,
 // blockwise_attention); the Pallas kernel itself has no custom_vjp.
 //
-// With P = softmax(scale S masked), S = Q K^T, and Delta = rowsum(dO * O):
+// With S = Q K^T, P = exp2(S scale log2(e) - L2) (masked: 0), where L2 is
+// the forward's log-sum-exp in base 2 (csrc/flash_attention.cu's header),
+// and Delta = rowsum(dO * O):
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Delta),
 //   dQ = scale dS K,  dK = scale dS^T Q,
-// dK and dV of a KV head summed over its kv_group query heads.
+// dK and dV of a KV head summed over its kv_group query heads.  A row that
+// attends no key has L2 = 0 and every P of it masked: it adds nothing.
 //
-// Design (simple and right first; fp32 FMAs on the CUDA cores for fp32 and
-// bf16 inputs alike, bf16 loaded and stored as bf16 but summed in fp32):
+// One call is three kernels on the stream:
 //
-//  1. prep: one 256-thread block per (query tile, bh) computes Delta for
-//     its rows and recomputes each row's log-sum-exp L = m + log(l) over
-//     the keys it attends, walking the key tiles as the forward kernel
-//     does (causal walks end at the tile of the block's last row, windowed
-//     walks start at the tile of key q0 - W + 1).  The forward kernel and
-//     its library stay as they are: it saves no L.
-//  2. dK/dV: one block per (KV head, key tile) keeps its tile's K and V in
-//     shared memory and its dK and dV in registers, and loops over the
-//     group's query heads and their query tiles that can see the tile (a
-//     causal tile is seen from its first key's row on, a windowed one until
-//     its last key's row + W - 1).  So every dK/dV sum runs in one block in
-//     a fixed order: no atomics, and repeated calls agree bit for bit.
-//  3. dQ: one block per (query tile, bh) keeps its Q, dO, L and Delta and
-//     walks the key tiles as the prep pass does, heaviest tiles first.
+//  1. prep (bwd_prep_kernel): one block per (64-row tile, bh), a warp a row,
+//     writes Delta and a copy of L2 into a [bh][tile][L2, Delta][64] scratch,
+//     zero past Sq, so that a whole tile's statistics are one aligned
+//     512-byte copy.  A memory pass over O and dO.
+//  2. dK/dV: one block per (KV head, key tile) keeps its tile's K and V and
+//     its dK and dV (in registers), and walks its group's query heads and,
+//     for each, the query tiles that can see the tile (a causal tile is seen
+//     from its first key's row on, a windowed one until its last key's row
+//     + W - 1).  So every dK/dV sum runs in one block in a fixed order: no
+//     atomics, and repeated calls agree bit for bit.  The blocks of the
+//     longest causal walks (the first key tiles) start first.
+//  3. dQ: one block per (query tile, bh) keeps its Q, dO, L2 and Delta and
+//     walks the key tiles the forward walks (causal walks end at the
+//     diagonal tile, windowed walks start at the window's first tile),
+//     heaviest query tiles first.  It recomputes S and dP rather than
+//     sharing dS with the dK/dV pass, so that dQ needs no atomics either.
 //
-// Every operand tile is staged in shared memory in fp32 with padded rows
-// (D + 1 floats: the score loops read 16 rows at one column conflict-free);
-// a thread holds a 4 x 4 (2 x 2 at D = 256) block of each score tile and a
-// (tile / 16) x (D / 16) block of each accumulator.  Masked (query, key)
-// pairs give P = 0 and dS = 0; rows and keys past Sq and Skv are staged as
-// zeros and never stored.  A row with no key to attend keeps L = 0 and adds
-// nothing (the forward kernel gives it a zero output).
+// bf16 at D = 16, 32, 64, 80 and 128 runs both passes on the tensor cores
+// (bwd_dkdv_wgmma_kernel, bwd_dq_wgmma_kernel: wgmma with operands fed by
+// TMA, the forward kernel's building blocks in csrc/hopper.cuh).  Two
+// consumer warpgroups share a block, 64 keys (dK/dV) or 64 query rows (dQ)
+// each.  dK/dV: K and V (128 keys) are loaded once; the group's Q and dO
+// tiles of 64 rows stream through a ring of mbarrier-guarded stages (4, 3
+// from D = 128), each with its rows' L2 and Delta, which one bulk copy
+// brings beside the tiles; thread 0 refills the stage of tile t-1 while
+// tile t's products run, and the ring runs on across the group's heads.
+// Per tile: S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in
+// shared memory); P^T and dS^T in registers, indexed (key, query), so a
+// thread reads L2 and Delta of its columns 2 (lane % 4) + 8 j; then dV +=
+// P^T dO and dK += dS^T Q (wgmma with A from registers: P^T and dS^T
+// rounded to bf16 in place, exactly as the forward feeds P to P V; B = dO
+// and Q read MN-major through the transpose bit).  dQ: Q and dO (128 rows)
+// loaded once, K and V tiles (128 keys, 64 from D = 128) through a 3-stage
+// ring; S = Q K^T and dP = dO V^T, dS in registers, dQ += dS K (K
+// MN-major).  P and dS are kept in fp32 until they are rounded to bf16 as
+// wgmma operands; every sum is fp32.  The masks run only on the diagonal,
+// window-edge and ragged tiles.  D = 80 runs the D = 128 tile over tensor
+// maps whose inner dimension is 80 (TMA zero-fills columns 80-127, which
+// add nothing and are never stored), as the forward does.  The accumulators
+// stay in registers for the whole walk: at D = 128 dK and dV are 128 floats
+// a thread and S^T, dP^T 64 more, so a 256-thread block holds its SM
+// (__launch_bounds__(256, 1)).  14 FLOP per attended pair and head dim
+// (dK/dV 8, dQ 6) against the least 10.
+//
+// fp32 at every D, and bf16 at D = 256, stay on the CUDA cores
+// (bwd_dkdv_kernel, bwd_dq_kernel: fp32 FMAs, every operand staged in
+// shared memory as fp32 with padded rows, a thread holding a 4 x 4 (2 x 2
+// at D = 256) block of each score tile).  fp32 because TF32 tensor cores
+// would break the 2e-4 fp32 contract, as in the forward; bf16 at D = 256
+// because dK and dV of 64 keys by 256 columns are 256 fp32 registers a
+// thread, all that a thread may hold.  Both read the saved L2 and Delta
+// from the prep pass's scratch.
 //
 // Bound on the H100: operations.  At the training shape of granite-3-2b
-// (B 4 x 32 heads over 8 KV heads, S 2048, D 64, causal) the backward is
-// 10 FLOP per attended pair and head dim (Q K^T again, dO V^T, dV, dQ and
-// dK), 1.7e11 FLOP: 0.17 ms at the 989 TFLOP/s bf16 tensor-core peak
-// against 9.4 ms at the 67 TFLOP/s fp32 peak of the CUDA cores that this
-// design runs on, which also recomputes Q K^T twice and dO V^T once more
-// (16 FLOP a pair and head dim).  Its traffic, 8 [BH, S, D] operands, is
-// about 0.03 ms.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// (B 4 x 32 heads over 8 KV heads, S 2048, D 64, causal) the least work is
+// 10 FLOP per attended pair and head dim, 1.7e11 FLOP: 0.17 ms at the 989
+// TFLOP/s bf16 tensor-core peak (0.24 ms for this design's 14).  Its
+// traffic, 8 [BH, S, D] operands, is about 0.03 ms.
+#include "hopper.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 256;  // 16 x 16
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int THREADS = 256;
+constexpr int NWG = 2;        // consumer warpgroups of a tensor-core block
+constexpr int ST_ROWS = 64;   // rows of a statistics tile
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
@@ -66,12 +96,544 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float x) {
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
+  const float* lse;  // [bh, sq]: the forward's L2
   void *dq, *dk, *dv;
-  float *lse, *delta;  // [bh, sq] scratch
-  int bh, sq, skv, kv_group, causal, window;
+  float* stats;      // [bh, n_st, 2, ST_ROWS]: L2 and Delta, 0 past sq
+  int bh, sq, skv, kv_group, causal, window, n_st;
   float scale;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;
 };
+
+// L2 (which = 0) or Delta (which = 1) of row ``row`` of head ``bh``
+__device__ __forceinline__ float stat(const Args& a, int bh, int row,
+                                      int which) {
+  return a.stats[((static_cast<long long>(bh) * a.n_st + row / ST_ROWS) * 2 +
+                  which) * ST_ROWS + row % ST_ROWS];
+}
+
+template <bool WINDOW>
+__device__ __forceinline__ bool attends(const Args& a, int qpos, int kpos) {
+  return qpos < a.sq && kpos < a.skv && (!a.causal || qpos >= kpos) &&
+         (!WINDOW || qpos - kpos < a.window);
+}
+
+// ---------------------------------------------------------------------------
+// 1. prep: Delta = rowsum(dO * O) and a copy of L2, a tile of 64 rows
+// ---------------------------------------------------------------------------
+
+template <int D, typename T>
+__global__ void __launch_bounds__(THREADS) bwd_prep_kernel(Args a) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y, tile = blockIdx.x;
+  const T* ob = static_cast<const T*>(a.o) + bh * a.o_sb;
+  const T* db = static_cast<const T*>(a.dout) + bh * a.do_sb;
+  float* out =
+      a.stats + (static_cast<long long>(bh) * a.n_st + tile) * 2 * ST_ROWS;
+  for (int r = warp; r < ST_ROWS; r += THREADS / 32) {
+    const int row = tile * ST_ROWS + r;
+    float acc = 0.f;
+    if (row < a.sq)
+      for (int d = lane; d < D; d += 32)
+        acc += ld(ob + row * a.o_ss + d) * ld(db + row * a.do_ss + d);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0) {
+      out[r] = row < a.sq ? a.lse[static_cast<long long>(bh) * a.sq + row]
+                          : 0.f;
+      out[ST_ROWS + r] = acc;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+// DT: the tile's width (D, or 128 for D = 80)
+template <int DT> struct Wg {
+  static constexpr int SW = DT * 2 < 128 ? DT * 2 : 128;  // swizzle bytes
+  static constexpr int ACOLS = SW / 2;   // bf16 columns of one swizzle atom
+  static constexpr int NSUB = DT / ACOLS;            // atoms across DT
+  static constexpr int LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
+  static constexpr int NA = ACOLS / 2;   // accumulator floats an atom
+  // dK/dV: 128 keys a block, 64-row Q/dO tiles (with their statistics)
+  // through the ring
+  static constexpr int KB = 64 * NWG;
+  static constexpr int QT = ST_ROWS;
+  static constexpr int DKDV_STAGES = DT >= 128 ? 3 : 4;
+  static constexpr int K_BYTES = KB * DT * 2;
+  static constexpr int QT_BYTES = QT * DT * 2;
+  static constexpr int ST_BYTES = 2 * ST_ROWS * 4;  // L2 and Delta of a tile
+  // 1024 bytes of slack to align the tiles, then the 2 * STAGES + 1
+  // mbarriers
+  static constexpr int DKDV_SMEM = 1024 + 2 * K_BYTES +
+                                   DKDV_STAGES * (2 * QT_BYTES + ST_BYTES) +
+                                   8 * (2 * DKDV_STAGES + 1);
+  // dQ: 128 rows a block, K/V tiles through the ring
+  static constexpr int QB = 64 * NWG;
+  static constexpr int BKV = DT >= 128 ? 64 : 128;
+  static constexpr int DQ_STAGES = 3;
+  static constexpr int QB_BYTES = QB * DT * 2;
+  static constexpr int KV_BYTES = BKV * DT * 2;
+  static constexpr int DQ_SMEM =
+      1024 + 2 * QB_BYTES + DQ_STAGES * 2 * KV_BYTES + 8 * (2 * DQ_STAGES + 1);
+  static_assert(DKDV_SMEM <= 232448 && DQ_SMEM <= 232448,
+                "a block opts into at most 227 KB");
+};
+
+// 2. dK, dV: one block per (KV head, 128-key tile)
+template <int DT, int DV, bool WINDOW>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const Args a,
+                      int heads_inner) {
+  using W = Wg<DT>;
+  constexpr int SW = W::SW, NSUB = W::NSUB, NA = W::NA, QT = W::QT;
+  constexpr int ST = W::DKDV_STAGES, KB = W::KB;
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = hopper::smem_u32(smem);
+  const uint32_t s_k = (base + 1023u) & ~1023u;
+  const uint32_t s_v = s_k + W::K_BYTES;
+  const uint32_t s_ring = s_v + W::K_BYTES;  // stage s: Q, then dO
+  const uint32_t s_st = s_ring + ST * 2 * W::QT_BYTES;  // stage s: L2, Delta
+  const uint32_t s_bar = s_st + ST * W::ST_BYTES;
+  // full[s] at s_bar + 8 s, empty[s] at s_bar + 8 (ST + s), K/V's last
+  const uint32_t kv_bar = s_bar + 16 * ST;
+  const float* stats = reinterpret_cast<const float*>(smem + (s_st - base));
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int n_kv = a.bh / a.kv_group;
+  const int g = blockIdx.x % n_kv;
+  const int k0 = static_cast<int>(blockIdx.x) / n_kv * KB;
+  // the query tiles that see a key of the block: from the one holding row
+  // k0 under a causal mask, up to row k0 + KB - 2 + W under a window
+  const int qt0 = a.causal ? k0 / QT : 0;
+  const int q_end = WINDOW ? min(a.sq, k0 + KB - 1 + a.window) : a.sq;
+  const int n_qt = max(0, (q_end + QT - 1) / QT - qt0);
+  const int n_t = n_qt * a.kv_group;  // the group's heads, each over n_qt
+
+  auto load_tile = [&](int t, int s) {
+    const int bh = g * a.kv_group + t / n_qt;
+    const int q0 = (qt0 + t % n_qt) * QT;
+    const uint32_t full = s_bar + 8 * s;
+    const uint32_t q_dst = s_ring + s * 2 * W::QT_BYTES;
+    hopper::mbar_expect_tx(full, 2 * W::QT_BYTES + W::ST_BYTES);
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) {
+      hopper::load_box(q_dst + c * QT * SW, &tm_q, c * W::ACOLS, q0, bh,
+                       heads_inner & 1, full);
+      hopper::load_box(q_dst + W::QT_BYTES + c * QT * SW, &tm_do,
+                       c * W::ACOLS, q0, bh, heads_inner & 8, full);
+    }
+    hopper::bulk_load(
+        s_st + s * W::ST_BYTES,
+        a.stats + (static_cast<long long>(bh) * a.n_st + q0 / ST_ROWS) * 2 *
+                      ST_ROWS,
+        W::ST_BYTES, full);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(s_bar + 8 * s, 1);
+      hopper::mbar_init(s_bar + 8 * (ST + s), 4 * NWG);
+    }
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(kv_bar, 2 * W::K_BYTES);
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) {
+      hopper::load_box(s_k + c * KB * SW, &tm_k, c * W::ACOLS, k0, g,
+                       heads_inner & 2, kv_bar);
+      hopper::load_box(s_v + c * KB * SW, &tm_v, c * W::ACOLS, k0, g,
+                       heads_inner & 4, kv_bar);
+    }
+    for (int t = 0; t < ST && t < n_t; ++t) load_tile(t, t);
+  }
+
+  // this warpgroup's keys kw0..kw0+63; this thread's kr0 (fragment entries
+  // 4i, 4i+1) and kr0 + 8 (4i+2, 4i+3), at queries 8i + 2 (lane % 4) + {0,1}
+  const int kw0 = k0 + 64 * wg;
+  const int kr0 = kw0 + 16 * warp + lane / 4;
+  const float c2 = a.scale * LOG2E;
+  float dk_acc[NSUB][NA], dv_acc[NSUB][NA];
+#pragma unroll
+  for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+
+  hopper::mbar_wait(kv_bar, 0);
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % ST;
+    const int q0 = (qt0 + t % n_qt) * QT;
+    const uint32_t q_tile = s_ring + s * 2 * W::QT_BYTES;
+    const uint32_t do_tile = q_tile + W::QT_BYTES;
+    hopper::mbar_wait(s_bar + 8 * s, (t / ST) & 1);
+
+    // S^T = K Q^T, dP^T = V dO^T: DT / 16 k-steps, 32 bytes into an atom
+    float sacc[QT / 2], dpacc[QT / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const int atom = kk * 32 / SW, off = kk * 32 % SW;
+      hopper::WgmmaSS<QT>::run(
+          sacc,
+          hopper::smem_desc(s_k + atom * KB * SW + wg * 64 * SW + off, 16,
+                            8 * SW, W::LAYOUT),
+          hopper::smem_desc(q_tile + atom * QT * SW + off, 16, 8 * SW,
+                            W::LAYOUT),
+          kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const int atom = kk * 32 / SW, off = kk * 32 % SW;
+      hopper::WgmmaSS<QT>::run(
+          dpacc,
+          hopper::smem_desc(s_v + atom * KB * SW + wg * 64 * SW + off, 16,
+                            8 * SW, W::LAYOUT),
+          hopper::smem_desc(do_tile + atom * QT * SW + off, 16, 8 * SW,
+                            W::LAYOUT),
+          kk > 0);
+    }
+    hopper::wgmma_commit();
+    // refill the stage tile t-1 used while this tile's products run
+    if (tid == 0 && t >= 1 && t - 1 + ST < n_t) {
+      const int sp = (t - 1) % ST;
+      hopper::mbar_wait(s_bar + 8 * (ST + sp), ((t - 1) / ST) & 1);
+      load_tile(t - 1 + ST, sp);
+    }
+    __syncwarp();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dpacc);
+
+    // P^T and dS^T, rounded to bf16 in place as the A fragments of the next
+    // products; masks only where some (key, query) pair of the warpgroup's
+    // tile is not attended
+    const float* ls = stats + s * 2 * ST_ROWS;  // L2 of the tile's rows
+    const float* dl = ls + ST_ROWS;             // their Delta
+    const bool edge = !(q0 + QT <= a.sq && kw0 + 64 <= a.skv &&
+                        (!a.causal || q0 >= kw0 + 63) &&
+                        (!WINDOW || q0 + QT - 1 - kw0 < a.window));
+    uint32_t pa[QT / 4], dsa[QT / 4];
+#pragma unroll
+    for (int i = 0; i < QT / 2; i += 2) {
+      const int col = 8 * (i / 4) + 2 * (lane % 4);
+      const int key = kr0 + 8 * ((i / 2) & 1);
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = exp2f(fmaf(sacc[i + e], c2, -ls[col + e]));
+        if (edge && !attends<WINDOW>(a, q0 + col + e, key)) x = 0.f;
+        p[e] = x;
+        ds[e] = x * (dpacc[i + e] - dl[col + e]);
+      }
+      pa[i / 2] = hopper::pack_bf16x2(p[0], p[1]);
+      dsa[i / 2] = hopper::pack_bf16x2(ds[0], ds[1]);
+    }
+
+    // dV += P^T dO, dK += dS^T Q: QT / 16 k-steps of 16 rows, one wgmma
+    // per swizzle atom of dO / Q (MN-major)
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const uint32_t ap[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                              pa[4 * kk + 3]};
+#pragma unroll
+      for (int c = 0; c < NSUB; ++c)
+        hopper::WgmmaRS<W::ACOLS>::run(
+            dv_acc[c], ap,
+            hopper::smem_desc(do_tile + c * QT * SW + kk * 16 * SW, 8 * SW,
+                              8 * SW, W::LAYOUT));
+    }
+#pragma unroll
+    for (int kk = 0; kk < QT / 16; ++kk) {
+      const uint32_t as[4] = {dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2],
+                              dsa[4 * kk + 3]};
+#pragma unroll
+      for (int c = 0; c < NSUB; ++c)
+        hopper::WgmmaRS<W::ACOLS>::run(
+            dk_acc[c], as,
+            hopper::smem_desc(q_tile + c * QT * SW + kk * 16 * SW, 8 * SW,
+                              8 * SW, W::LAYOUT));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) {
+      hopper::fence_regs(dk_acc[c]);
+      hopper::fence_regs(dv_acc[c]);
+    }
+    hopper::fence_regs(pa);
+    hopper::fence_regs(dsa);
+    if (lane == 0) hopper::mbar_arrive(s_bar + 8 * (ST + s));
+  }
+
+  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(a.dk);
+  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(a.dv);
+  const size_t row0 = (static_cast<size_t>(g) * a.skv + kr0) * DV;
+#pragma unroll
+  for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < NA; i += 4) {
+      const int col = c * W::ACOLS + 2 * i + 2 * (lane % 4);
+      if (DV < DT && col >= DV) continue;
+      if (kr0 < a.skv) {
+        *reinterpret_cast<uint32_t*>(dk + row0 + col) = hopper::pack_bf16x2(
+            dk_acc[c][i] * a.scale, dk_acc[c][i + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dv + row0 + col) =
+            hopper::pack_bf16x2(dv_acc[c][i], dv_acc[c][i + 1]);
+      }
+      if (kr0 + 8 < a.skv) {
+        *reinterpret_cast<uint32_t*>(dk + row0 + 8 * DV + col) =
+            hopper::pack_bf16x2(dk_acc[c][i + 2] * a.scale,
+                                dk_acc[c][i + 3] * a.scale);
+        *reinterpret_cast<uint32_t*>(dv + row0 + 8 * DV + col) =
+            hopper::pack_bf16x2(dv_acc[c][i + 2], dv_acc[c][i + 3]);
+      }
+    }
+}
+
+// 3. dQ: one block per (128-row query tile, bh)
+template <int DT, int DV, bool WINDOW>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const Args a,
+                    int heads_inner) {
+  using W = Wg<DT>;
+  constexpr int SW = W::SW, NSUB = W::NSUB, NA = W::NA, QB = W::QB;
+  constexpr int ST = W::DQ_STAGES, BKV = W::BKV;
+  extern __shared__ uint8_t smem[];
+  const uint32_t s_q = (hopper::smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t s_do = s_q + W::QB_BYTES;
+  const uint32_t s_ring = s_do + W::QB_BYTES;  // stage s: K, then V
+  const uint32_t s_bar = s_ring + ST * 2 * W::KV_BYTES;
+  // full[s] at s_bar + 8 s, empty[s] at s_bar + 8 (ST + s), Q/dO's last
+  const uint32_t q_bar = s_bar + 16 * ST;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int n_qt = (a.sq + QB - 1) / QB;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / a.bh) * QB;
+  const int bh = blockIdx.x % a.bh;
+  const int g = bh / a.kv_group;
+  const int kv_end = a.causal ? min(a.skv, q0 + QB) : a.skv;
+  // first tile: the one holding key q0 - window + 1
+  const int j0 = WINDOW ? max(0, q0 - a.window + 1) / BKV : 0;
+  const int n_kv = max(0, (kv_end + BKV - 1) / BKV - j0);  // tiles walked
+
+  auto load_kv = [&](int j, int s) {
+    const uint32_t full = s_bar + 8 * s;
+    const uint32_t k_dst = s_ring + s * 2 * W::KV_BYTES;
+    hopper::mbar_expect_tx(full, 2 * W::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) {
+      hopper::load_box(k_dst + c * BKV * SW, &tm_k, c * W::ACOLS, j * BKV, g,
+                       heads_inner & 2, full);
+      hopper::load_box(k_dst + W::KV_BYTES + c * BKV * SW, &tm_v,
+                       c * W::ACOLS, j * BKV, g, heads_inner & 4, full);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(s_bar + 8 * s, 1);
+      hopper::mbar_init(s_bar + 8 * (ST + s), 4 * NWG);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect_tx(q_bar, 2 * W::QB_BYTES);
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) {
+      hopper::load_box(s_q + c * QB * SW, &tm_q, c * W::ACOLS, q0, bh,
+                       heads_inner & 1, q_bar);
+      hopper::load_box(s_do + c * QB * SW, &tm_do, c * W::ACOLS, q0, bh,
+                       heads_inner & 8, q_bar);
+    }
+    for (int t = 0; t < ST && t < n_kv; ++t) load_kv(j0 + t, t);
+  }
+
+  // this warpgroup's rows rw0..rw0+63; this thread's r0 (fragment entries
+  // 4i, 4i+1) and r0 + 8 (4i+2, 4i+3), at keys 8i + 2 (lane % 4) + {0, 1}
+  const int rw0 = q0 + 64 * wg;
+  const int r0 = rw0 + 16 * warp + lane / 4;
+  const float l0 = r0 < a.sq ? stat(a, bh, r0, 0) : 0.f;
+  const float l1 = r0 + 8 < a.sq ? stat(a, bh, r0 + 8, 0) : 0.f;
+  const float dl0 = r0 < a.sq ? stat(a, bh, r0, 1) : 0.f;
+  const float dl1 = r0 + 8 < a.sq ? stat(a, bh, r0 + 8, 1) : 0.f;
+  const float c2 = a.scale * LOG2E;
+  float dq_acc[NSUB][NA];
+#pragma unroll
+  for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dq_acc[c][i] = 0.f;
+
+  hopper::mbar_wait(q_bar, 0);
+  for (int t = 0; t < n_kv; ++t) {  // t-th tile walked: key tile j0 + t
+    const int k0 = (j0 + t) * BKV;
+    const int s = t % ST;
+    const uint32_t k_tile = s_ring + s * 2 * W::KV_BYTES;
+    const uint32_t v_tile = k_tile + W::KV_BYTES;
+    hopper::mbar_wait(s_bar + 8 * s, (t / ST) & 1);
+
+    // S = Q K^T, dP = dO V^T
+    float sacc[BKV / 2], dpacc[BKV / 2];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const int atom = kk * 32 / SW, off = kk * 32 % SW;
+      hopper::WgmmaSS<BKV>::run(
+          sacc,
+          hopper::smem_desc(s_q + atom * QB * SW + wg * 64 * SW + off, 16,
+                            8 * SW, W::LAYOUT),
+          hopper::smem_desc(k_tile + atom * BKV * SW + off, 16, 8 * SW,
+                            W::LAYOUT),
+          kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const int atom = kk * 32 / SW, off = kk * 32 % SW;
+      hopper::WgmmaSS<BKV>::run(
+          dpacc,
+          hopper::smem_desc(s_do + atom * QB * SW + wg * 64 * SW + off, 16,
+                            8 * SW, W::LAYOUT),
+          hopper::smem_desc(v_tile + atom * BKV * SW + off, 16, 8 * SW,
+                            W::LAYOUT),
+          kk > 0);
+    }
+    hopper::wgmma_commit();
+    if (tid == 0 && t >= 1 && t - 1 + ST < n_kv) {
+      const int sp = (t - 1) % ST;
+      hopper::mbar_wait(s_bar + 8 * (ST + sp), ((t - 1) / ST) & 1);
+      load_kv(j0 + t - 1 + ST, sp);
+    }
+    __syncwarp();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sacc);
+    hopper::fence_regs(dpacc);
+
+    // dS = P * (dP - Delta), rounded to bf16 in place as the A fragments
+    // of dS K; masks only on the diagonal, window-edge and ragged tiles
+    const bool edge = !(rw0 + 64 <= a.sq && k0 + BKV <= a.skv &&
+                        (!a.causal || rw0 >= k0 + BKV - 1) &&
+                        (!WINDOW || rw0 + 63 - k0 < a.window));
+    uint32_t dsa[BKV / 4];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; i += 2) {
+      const bool hi = (i / 2) & 1;
+      const int row = hi ? r0 + 8 : r0;
+      const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4);
+      float ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(fmaf(sacc[i + e], c2, hi ? -l1 : -l0));
+        ds[e] = p * (dpacc[i + e] - (hi ? dl1 : dl0));
+        if (edge && !attends<WINDOW>(a, row, kpos + e)) ds[e] = 0.f;
+      }
+      dsa[i / 2] = hopper::pack_bf16x2(ds[0], ds[1]);
+    }
+
+    // dQ += dS K: BKV / 16 k-steps of 16 keys, K MN-major
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t as[4] = {dsa[4 * kk], dsa[4 * kk + 1], dsa[4 * kk + 2],
+                              dsa[4 * kk + 3]};
+#pragma unroll
+      for (int c = 0; c < NSUB; ++c)
+        hopper::WgmmaRS<W::ACOLS>::run(
+            dq_acc[c], as,
+            hopper::smem_desc(k_tile + c * BKV * SW + kk * 16 * SW, 8 * SW,
+                              8 * SW, W::LAYOUT));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NSUB; ++c) hopper::fence_regs(dq_acc[c]);
+    hopper::fence_regs(dsa);
+    if (lane == 0) hopper::mbar_arrive(s_bar + 8 * (ST + s));
+  }
+
+  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(a.dq) +
+                      (static_cast<size_t>(bh) * a.sq + r0) * DV;
+#pragma unroll
+  for (int c = 0; c < NSUB; ++c)
+#pragma unroll
+    for (int i = 0; i < NA; i += 4) {
+      const int col = c * W::ACOLS + 2 * i + 2 * (lane % 4);
+      if (DV < DT && col >= DV) continue;
+      if (r0 < a.sq)
+        *reinterpret_cast<uint32_t*>(dq + col) = hopper::pack_bf16x2(
+            dq_acc[c][i] * a.scale, dq_acc[c][i + 1] * a.scale);
+      if (r0 + 8 < a.sq)
+        *reinterpret_cast<uint32_t*>(dq + 8 * DV + col) = hopper::pack_bf16x2(
+            dq_acc[c][i + 2] * a.scale, dq_acc[c][i + 3] * a.scale);
+    }
+}
+
+template <int DT, int DV, bool WINDOW>
+int launch_wgmma(const Args& a, cudaStream_t stream) {
+  using W = Wg<DT>;
+  auto dkdv = bwd_dkdv_wgmma_kernel<DT, DV, WINDOW>;
+  auto dq = bwd_dq_wgmma_kernel<DT, DV, WINDOW>;
+  cudaError_t err;
+  if ((err = hopper::allow_smem<bwd_dkdv_wgmma_kernel<DT, DV, WINDOW>>(
+           W::DKDV_SMEM)) != cudaSuccess ||
+      (err = hopper::allow_smem<bwd_dq_wgmma_kernel<DT, DV, WINDOW>>(
+           W::DQ_SMEM)) != cudaSuccess)
+    return static_cast<int>(err);
+  const hopper::EncodeTiled fn = hopper::encoder();
+  if (fn == nullptr) return hopper::ERR_NO_ENCODER;
+  const CUtensorMapSwizzle sw = hopper::swizzle_of(W::SW);
+  const int n_kv = a.bh / a.kv_group;
+  // dK/dV's maps (64-row Q/dO boxes, 128-key K/V boxes), then dQ's
+  CUtensorMap q1, do1, k1, v1, q2, do2, k2, v2;
+  bool in_q, in_k, in_v, in_do;
+  if (!hopper::encode(fn, &q1, a.q, a.bh, a.sq, DV, a.q_sb, a.q_ss, W::QT,
+                      W::ACOLS, sw, &in_q) ||
+      !hopper::encode(fn, &do1, a.dout, a.bh, a.sq, DV, a.do_sb, a.do_ss,
+                      W::QT, W::ACOLS, sw, &in_do) ||
+      !hopper::encode(fn, &k1, a.k, n_kv, a.skv, DV, a.k_sb, a.k_ss, W::KB,
+                      W::ACOLS, sw, &in_k) ||
+      !hopper::encode(fn, &v1, a.v, n_kv, a.skv, DV, a.v_sb, a.v_ss, W::KB,
+                      W::ACOLS, sw, &in_v) ||
+      !hopper::encode(fn, &q2, a.q, a.bh, a.sq, DV, a.q_sb, a.q_ss, W::QB,
+                      W::ACOLS, sw, &in_q) ||
+      !hopper::encode(fn, &do2, a.dout, a.bh, a.sq, DV, a.do_sb, a.do_ss,
+                      W::QB, W::ACOLS, sw, &in_do) ||
+      !hopper::encode(fn, &k2, a.k, n_kv, a.skv, DV, a.k_sb, a.k_ss, W::BKV,
+                      W::ACOLS, sw, &in_k) ||
+      !hopper::encode(fn, &v2, a.v, n_kv, a.skv, DV, a.v_sb, a.v_ss, W::BKV,
+                      W::ACOLS, sw, &in_v))
+    return hopper::ERR_ENCODE;
+  const int heads_inner = in_q | in_k << 1 | in_v << 2 | in_do << 3;
+  bwd_prep_kernel<DV, __nv_bfloat16>
+      <<<dim3(a.n_st, a.bh), THREADS, 0, stream>>>(a);
+  dkdv<<<(a.skv + W::KB - 1) / W::KB * n_kv, THREADS, W::DKDV_SMEM,
+         stream>>>(q1, do1, k1, v1, a, heads_inner);
+  dq<<<(a.sq + W::QB - 1) / W::QB * a.bh, THREADS, W::DQ_SMEM, stream>>>(
+      q2, do2, k2, v2, a, heads_inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// fp32 (and bf16 at D = 256) on the CUDA cores
+// ---------------------------------------------------------------------------
 
 // query rows a tile (BQ) and keys a tile (BKV): 64, 32 at D = 256 so that
 // the dK/dV pass's four staged tiles fit shared memory
@@ -83,17 +645,10 @@ template <int D> struct Cfg {
   static constexpr int TD = D / 16;    // accumulator columns a thread
   static constexpr int P = D + 1;      // padded row of a staged tile
   static constexpr int SP = BKV + 1;   // padded row of a score tile
-  static constexpr size_t PREP = (BQ + BKV) * P + BQ * SP;
   static constexpr size_t DKDV = (2 * BQ + 2 * BKV) * P + 2 * BQ * SP + 2 * BQ;
   static constexpr size_t DQ = (2 * BQ + 2 * BKV) * P + BQ * SP + 2 * BQ;
   static_assert(DKDV * sizeof(float) <= 227 * 1024, "smem per block");
 };
-
-template <bool WINDOW>
-__device__ __forceinline__ bool attends(const Args& a, int qpos, int kpos) {
-  return qpos < a.sq && kpos < a.skv && (!a.causal || qpos >= kpos) &&
-         (!WINDOW || qpos - kpos < a.window);
-}
 
 // dst [rows][D + 1] <- rows row0.. of src (row stride ss), zeros past len
 template <int D, typename T>
@@ -115,10 +670,10 @@ __device__ __forceinline__ void key_range(const Args& a, int q0, int& begin,
   begin = WINDOW ? max(0, q0 - a.window + 1) / BKV * BKV : 0;
 }
 
-// s += A B^T and (optionally) dp += C E^T over D for a thread's score block:
-// rows ty + 16 i of the [BQ][P] tiles A and C, rows tx + 16 j of the
-// [BKV][P] tiles B and E
-template <int D, bool BOTH>
+// s += A B^T and dp += C E^T over D for a thread's score block: rows
+// ty + 16 i of the [BQ][P] tiles A and C, rows tx + 16 j of the [BKV][P]
+// tiles B and E
+template <int D>
 __device__ __forceinline__ void scores(const float* A, const float* B,
                                        const float* C, const float* E,
                                        float (&s)[Cfg<D>::TI][Cfg<D>::TJ],
@@ -131,113 +686,46 @@ __device__ __forceinline__ void scores(const float* A, const float* B,
     for (int j = 0; j < K::TJ; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[K::TI], b[K::TJ], c[K::TI], e[K::TJ];
+    float av[K::TI], b[K::TJ], c[K::TI], e[K::TJ];
 #pragma unroll
     for (int i = 0; i < K::TI; ++i) {
-      a[i] = A[(ty + 16 * i) * K::P + d];
-      if (BOTH) c[i] = C[(ty + 16 * i) * K::P + d];
+      av[i] = A[(ty + 16 * i) * K::P + d];
+      c[i] = C[(ty + 16 * i) * K::P + d];
     }
 #pragma unroll
     for (int j = 0; j < K::TJ; ++j) {
       b[j] = B[(tx + 16 * j) * K::P + d];
-      if (BOTH) e[j] = E[(tx + 16 * j) * K::P + d];
+      e[j] = E[(tx + 16 * j) * K::P + d];
     }
 #pragma unroll
     for (int i = 0; i < K::TI; ++i)
 #pragma unroll
       for (int j = 0; j < K::TJ; ++j) {
-        s[i][j] = fmaf(a[i], b[j], s[i][j]);
-        if (BOTH) dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
+        s[i][j] = fmaf(av[i], b[j], s[i][j]);
+        dp[i][j] = fmaf(c[i], e[j], dp[i][j]);
       }
   }
 }
 
-// ---------------------------------------------------------------------------
-// 1. prep: Delta and the log-sum-exp of each query row
-// ---------------------------------------------------------------------------
-
-template <int D, bool WINDOW, typename T>
-__global__ void __launch_bounds__(THREADS) bwd_prep_kernel(Args a) {
-  using K = Cfg<D>;
-  constexpr int BQ = K::BQ, BKV = K::BKV;
-  constexpr int RT = THREADS / BQ;  // threads a row: consecutive lanes
-  constexpr int RC = BKV / RT;      // score columns each
-  extern __shared__ float smem[];
-  float* qs = smem;               // [BQ][P]
-  float* ks = qs + BQ * K::P;     // [BKV][P]
-  float* ss = ks + BKV * K::P;    // [BQ][SP]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
-  const T* qb = static_cast<const T*>(a.q) + bh * a.q_sb;
-  const T* kb = static_cast<const T*>(a.k) + (bh / a.kv_group) * a.k_sb;
-  stage<D>(qs, qb, a.q_ss, q0, BQ, a.sq);
-
-  const int r = tid / RT, part = tid % RT;
-  const int gr = q0 + r;
-  {
-    float acc = 0.f;
-    if (gr < a.sq) {
-      const T* orow = static_cast<const T*>(a.o) + bh * a.o_sb + gr * a.o_ss;
-      const T* drow =
-          static_cast<const T*>(a.dout) + bh * a.do_sb + gr * a.do_ss;
-      for (int d = part; d < D; d += RT) acc += ld(orow + d) * ld(drow + d);
-    }
-#pragma unroll
-    for (int off = RT / 2; off > 0; off /= 2)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (part == 0 && gr < a.sq) a.delta[(long long)bh * a.sq + gr] = acc;
+// rows q0.. of head bh: their L2 and Delta into shared memory
+__device__ __forceinline__ void stage_stats(const Args& a, int bh, int q0,
+                                            int rows, float* l_s,
+                                            float* dl_s) {
+  const int tid = threadIdx.x;
+  if (tid < rows) {
+    const bool in = q0 + tid < a.sq;
+    l_s[tid] = in ? stat(a, bh, q0 + tid, 0) : 0.f;
+    dl_s[tid] = in ? stat(a, bh, q0 + tid, 1) : 0.f;
   }
-
-  float m = NEG_INF, l = 0.f;  // row r's, held by each of its RT threads
-  int kv_begin, kv_end;
-  key_range<D, WINDOW>(a, q0, kv_begin, kv_end);
-  for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // Q staged; the last tile's ks and ss read
-    stage<D>(ks, kb, a.k_ss, k0, BKV, a.skv);
-    __syncthreads();
-    float s[K::TI][K::TJ], unused[K::TI][K::TJ];
-    scores<D, false>(qs, ks, nullptr, nullptr, s, unused);
-#pragma unroll
-    for (int i = 0; i < K::TI; ++i)
-#pragma unroll
-      for (int j = 0; j < K::TJ; ++j)
-        ss[(ty + 16 * i) * K::SP + tx + 16 * j] = s[i][j] * a.scale;
-    __syncthreads();
-    const float* srow = ss + r * K::SP + part * RC;
-    float mx = NEG_INF;
-#pragma unroll
-    for (int c = 0; c < RC; ++c)
-      if (attends<WINDOW>(a, gr, k0 + part * RC + c)) mx = fmaxf(mx, srow[c]);
-#pragma unroll
-    for (int off = RT / 2; off > 0; off /= 2)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < RC; ++c)
-      if (attends<WINDOW>(a, gr, k0 + part * RC + c))
-        sum += expf(srow[c] - m_new);
-#pragma unroll
-    for (int off = RT / 2; off > 0; off /= 2)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    l = l * expf(m - m_new) + sum;
-    m = m_new;
-  }
-  if (part == 0 && gr < a.sq)
-    a.lse[(long long)bh * a.sq + gr] = l > 0.f ? m + logf(l) : 0.f;
 }
 
-// ---------------------------------------------------------------------------
 // 2. dK, dV: one block per (KV head, key tile)
-// ---------------------------------------------------------------------------
-
 template <int D, bool WINDOW, typename T>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
   using K = Cfg<D>;
   constexpr int BQ = K::BQ, BKV = K::BKV, TK = BKV / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;               // [BKV][P]
+  extern __shared__ float fsmem[];
+  float* ks = fsmem;              // [BKV][P]
   float* vs = ks + BKV * K::P;    // [BKV][P]
   float* qs = vs + BKV * K::P;    // [BQ][P]
   float* dos = qs + BQ * K::P;    // [BQ][P]
@@ -248,6 +736,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int g = blockIdx.y;
   const int k0 = blockIdx.x * BKV;  // the longest causal walks first
+  const float c2 = a.scale * LOG2E;
   stage<D>(ks, static_cast<const T*>(a.k) + g * a.k_sb, a.k_ss, k0, BKV,
            a.skv);
   stage<D>(vs, static_cast<const T*>(a.v) + g * a.v_sb, a.v_ss, k0, BKV,
@@ -271,15 +760,10 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
       __syncthreads();  // K/V staged; the last tile's qs, dos, ps, dss read
       stage<D>(qs, qb, a.q_ss, q0, BQ, a.sq);
       stage<D>(dos, db, a.do_ss, q0, BQ, a.sq);
-      if (tid < BQ) {
-        const bool in = q0 + tid < a.sq;
-        const long long row = (long long)bh * a.sq + q0 + tid;
-        lse_s[tid] = in ? a.lse[row] : 0.f;
-        dl_s[tid] = in ? a.delta[row] : 0.f;
-      }
+      stage_stats(a, bh, q0, BQ, lse_s, dl_s);
       __syncthreads();
       float s[K::TI][K::TJ], dp[K::TI][K::TJ];
-      scores<D, true>(qs, ks, dos, vs, s, dp);
+      scores<D>(qs, ks, dos, vs, s, dp);
 #pragma unroll
       for (int i = 0; i < K::TI; ++i) {
         const int row = ty + 16 * i;
@@ -287,7 +771,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
         for (int j = 0; j < K::TJ; ++j) {
           const int col = tx + 16 * j;
           const float p = attends<WINDOW>(a, q0 + row, k0 + col)
-                              ? expf(s[i][j] * a.scale - lse_s[row])
+                              ? exp2f(fmaf(s[i][j], c2, -lse_s[row]))
                               : 0.f;
           ps[row * K::SP + col] = p;
           dss[row * K::SP + col] = p * (dp[i][j] - dl_s[row]);
@@ -332,16 +816,13 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
   }
 }
 
-// ---------------------------------------------------------------------------
 // 3. dQ: one block per (query tile, bh)
-// ---------------------------------------------------------------------------
-
 template <int D, bool WINDOW, typename T>
 __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   using K = Cfg<D>;
   constexpr int BQ = K::BQ, BKV = K::BKV;
-  extern __shared__ float smem[];
-  float* qs = smem;               // [BQ][P]
+  extern __shared__ float fsmem[];
+  float* qs = fsmem;              // [BQ][P]
   float* dos = qs + BQ * K::P;    // [BQ][P]
   float* ks = dos + BQ * K::P;    // [BKV][P]
   float* vs = ks + BKV * K::P;    // [BKV][P]
@@ -352,16 +833,12 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
   const int g = bh / a.kv_group;
+  const float c2 = a.scale * LOG2E;
   stage<D>(qs, static_cast<const T*>(a.q) + bh * a.q_sb, a.q_ss, q0, BQ,
            a.sq);
   stage<D>(dos, static_cast<const T*>(a.dout) + bh * a.do_sb, a.do_ss, q0,
            BQ, a.sq);
-  if (tid < BQ) {
-    const bool in = q0 + tid < a.sq;
-    const long long row = (long long)bh * a.sq + q0 + tid;
-    lse_s[tid] = in ? a.lse[row] : 0.f;
-    dl_s[tid] = in ? a.delta[row] : 0.f;
-  }
+  stage_stats(a, bh, q0, BQ, lse_s, dl_s);
   const T* kb = static_cast<const T*>(a.k) + g * a.k_sb;
   const T* vb = static_cast<const T*>(a.v) + g * a.v_sb;
 
@@ -379,7 +856,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
     stage<D>(vs, vb, a.v_ss, k0, BKV, a.skv);
     __syncthreads();
     float s[K::TI][K::TJ], dp[K::TI][K::TJ];
-    scores<D, true>(qs, ks, dos, vs, s, dp);
+    scores<D>(qs, ks, dos, vs, s, dp);
 #pragma unroll
     for (int i = 0; i < K::TI; ++i) {
       const int row = ty + 16 * i;
@@ -387,7 +864,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
       for (int j = 0; j < K::TJ; ++j) {
         const int col = tx + 16 * j;
         const float p = attends<WINDOW>(a, q0 + row, k0 + col)
-                            ? expf(s[i][j] * a.scale - lse_s[row])
+                            ? exp2f(fmaf(s[i][j], c2, -lse_s[row]))
                             : 0.f;
         dss[row * K::SP + col] = p * (dp[i][j] - dl_s[row]);
       }
@@ -418,83 +895,143 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   }
 }
 
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t floats) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(floats * sizeof(float)));
-}
-
 template <int D, bool WINDOW, typename T>
-int launch(const Args& a, cudaStream_t stream) {
+int launch_cuda_cores(const Args& a, cudaStream_t stream) {
   using K = Cfg<D>;
-  auto prep = bwd_prep_kernel<D, WINDOW, T>;
-  auto dkdv = bwd_dkdv_kernel<D, WINDOW, T>;
-  auto dq = bwd_dq_kernel<D, WINDOW, T>;
   cudaError_t err;
-  if ((err = opt_in(prep, K::PREP)) != cudaSuccess ||
-      (err = opt_in(dkdv, K::DKDV)) != cudaSuccess ||
-      (err = opt_in(dq, K::DQ)) != cudaSuccess)
+  if ((err = hopper::allow_smem<bwd_dkdv_kernel<D, WINDOW, T>>(
+           K::DKDV * sizeof(float))) != cudaSuccess ||
+      (err = hopper::allow_smem<bwd_dq_kernel<D, WINDOW, T>>(
+           K::DQ * sizeof(float))) != cudaSuccess)
     return static_cast<int>(err);
   const int q_tiles = (a.sq + K::BQ - 1) / K::BQ;
   const int k_tiles = (a.skv + K::BKV - 1) / K::BKV;
-  prep<<<dim3(q_tiles, a.bh), THREADS, K::PREP * sizeof(float), stream>>>(a);
-  dkdv<<<dim3(k_tiles, a.bh / a.kv_group), THREADS,
-         K::DKDV * sizeof(float), stream>>>(a);
-  dq<<<dim3(q_tiles, a.bh), THREADS, K::DQ * sizeof(float), stream>>>(a);
+  bwd_prep_kernel<D, T><<<dim3(a.n_st, a.bh), THREADS, 0, stream>>>(a);
+  bwd_dkdv_kernel<D, WINDOW, T>
+      <<<dim3(k_tiles, a.bh / a.kv_group), THREADS, K::DKDV * sizeof(float),
+         stream>>>(a);
+  bwd_dq_kernel<D, WINDOW, T><<<dim3(q_tiles, a.bh), THREADS,
+                                K::DQ * sizeof(float), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 typedef int (*Launch)(const Args&, cudaStream_t);
 
-template <int D> Launch pick_window(bool window, bool bf16) {
-  if (bf16)
-    return window ? launch<D, true, __nv_bfloat16>
-                  : launch<D, false, __nv_bfloat16>;
-  return window ? launch<D, true, float> : launch<D, false, float>;
+template <int DT, int DV> Launch pick_wgmma(bool window) {
+  return window ? launch_wgmma<DT, DV, true> : launch_wgmma<DT, DV, false>;
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+template <int D, typename T> Launch pick_cuda_cores(bool window) {
+  return window ? launch_cuda_cores<D, true, T>
+                : launch_cuda_cores<D, false, T>;
+}
+
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores but at
+// D = 256)
 Launch pick_launch(int d, int window, int dtype) {
-  if (dtype != 0 && dtype != 1) return nullptr;
-  const bool w = window > 0, bf16 = dtype == 1;
+  const bool w = window > 0;
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return pick_wgmma<16, 16>(w);
+      case 32: return pick_wgmma<32, 32>(w);
+      case 64: return pick_wgmma<64, 64>(w);
+      case 80: return pick_wgmma<128, 80>(w);  // the D = 128 tile, padded
+      case 128: return pick_wgmma<128, 128>(w);
+      case 256: return pick_cuda_cores<256, __nv_bfloat16>(w);
+      default: return nullptr;
+    }
+  }
+  if (dtype != 0) return nullptr;
   switch (d) {
-    case 16: return pick_window<16>(w, bf16);
-    case 32: return pick_window<32>(w, bf16);
-    case 64: return pick_window<64>(w, bf16);
-    case 80: return pick_window<80>(w, bf16);
-    case 128: return pick_window<128>(w, bf16);
-    case 256: return pick_window<256>(w, bf16);
+    case 16: return pick_cuda_cores<16, float>(w);
+    case 32: return pick_cuda_cores<32, float>(w);
+    case 64: return pick_cuda_cores<64, float>(w);
+    case 80: return pick_cuda_cores<80, float>(w);
+    case 128: return pick_cuda_cores<128, float>(w);
+    case 256: return pick_cuda_cores<256, float>(w);
     default: return nullptr;
   }
 }
 
+// the plan entries of repro_flash_attention_bwd_plan
+template <int DT> int wgmma_plan(int what) {
+  using W = Wg<DT>;
+  const int v[] = {1,           W::KB, W::QT,        W::DKDV_STAGES,
+                   W::DKDV_SMEM, W::QB, W::BKV,       W::DQ_STAGES,
+                   W::DQ_SMEM};
+  return what >= 0 && what < 9 ? v[what] : -1;
+}
+
+template <int D> int cuda_core_plan(int what) {
+  using K = Cfg<D>;
+  const int v[] = {0,     K::BKV, K::BQ, 0, static_cast<int>(K::DKDV * 4),
+                   K::BQ, K::BKV, 0,     static_cast<int>(K::DQ * 4)};
+  return what >= 0 && what < 9 ? v[what] : -1;
+}
+
 }  // namespace
 
+// The launch plan at head dim d and dtype (0 = float32, 1 = bfloat16):
+// what = 0 the route (1: tensor cores, 0: CUDA cores), 1 keys a dK/dV
+// block, 2 query rows a tile of its walk, 3 stages of its Q/dO ring (0:
+// staged by plain loads), 4 its shared-memory bytes, 5 query rows a dQ
+// block, 6 keys a tile of its walk, 7 stages of its K/V ring, 8 its
+// shared-memory bytes; -1 for what the kernels do not take.
+// kernels/flash_attention_bwd.py ``plan`` is held to it when it loads.
+extern "C" int repro_flash_attention_bwd_plan(int d, int dtype, int what) {
+  if (dtype == 1) {
+    switch (d) {
+      case 16: return wgmma_plan<16>(what);
+      case 32: return wgmma_plan<32>(what);
+      case 64: return wgmma_plan<64>(what);
+      case 80:  // the D = 128 tile
+      case 128: return wgmma_plan<128>(what);
+      case 256: return cuda_core_plan<256>(what);
+      default: return -1;
+    }
+  }
+  if (dtype != 0) return -1;
+  switch (d) {
+    case 16: return cuda_core_plan<16>(what);
+    case 32: return cuda_core_plan<32>(what);
+    case 64: return cuda_core_plan<64>(what);
+    case 80: return cuda_core_plan<80>(what);
+    case 128: return cuda_core_plan<128>(what);
+    case 256: return cuda_core_plan<256>(what);
+    default: return -1;
+  }
+}
+
 // q, o, dout [bh, sq, d] and k, v [bh / kv_group, skv, d], each with its
-// own (head, row) strides and a contiguous last dim; dq [bh, sq, d] and dk,
-// dv [bh / kv_group, skv, d] contiguous, of the inputs' dtype (0 = float32,
-// 1 = bfloat16); lse and delta float32 [bh, sq] scratch.  d in {16, 32, 64,
-// 80, 128, 256}; window >= 0 (0: none).  Three launches on ``stream`` (prep,
-// dK/dV, dQ); returns the CUDA error of the launches (0 on success) and
-// never synchronises.
+// own (head, row) strides and a contiguous last dim (bf16 but at d = 256:
+// 16-byte aligned bases and strides, which TMA needs); lse float32
+// [bh, sq], the forward's L2; dq [bh, sq, d] and dk, dv [bh / kv_group,
+// skv, d] contiguous, of the inputs' dtype (0 = float32, 1 = bfloat16);
+// stats float32 [bh, n_st = ceil(sq / 64), 2, 64] scratch.  d in {16, 32,
+// 64, 80, 128, 256}; window >= 0 (0: none).  Three launches on ``stream``
+// (prep, dK/dV, dQ); returns the CUDA error of the launches (0 on success;
+// negative: a tensor-map failure, see repro_cuda_error_string) and never
+// synchronises.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, float* lse, float* delta,
-    int bh, int sq, int skv, int d, int kv_group, int causal, int window,
-    float scale, long long q_sb, long long q_ss, long long k_sb,
+    const void* dout, const float* lse, void* dq, void* dk, void* dv,
+    float* stats, int bh, int sq, int skv, int d, int kv_group, int causal,
+    int window, float scale, long long q_sb, long long q_ss, long long k_sb,
     long long k_ss, long long v_sb, long long v_ss, long long o_sb,
     long long o_ss, long long do_sb, long long do_ss, int dtype,
     void* stream) {
   const Launch launch = pick_launch(d, window, dtype);
   if (launch == nullptr || window < 0 || kv_group < 1 || bh % kv_group)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, dout, dq, dk, dv, lse, delta,
-               bh, sq, skv, kv_group, causal, window, scale,
+  const Args a{q, k, v, o, dout, lse, dq, dk, dv, stats,
+               bh, sq, skv, kv_group, causal, window,
+               (sq + ST_ROWS - 1) / ST_ROWS, scale,
                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss};
   return launch(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return hopper::error_string(
+      err, "cuTensorMapEncodeTiled refused a q/k/v/dO tensor map (bases and "
+           "strides must be 16-byte aligned)");
 }

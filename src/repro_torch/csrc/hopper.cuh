@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
 // mbarriers, TMA tile loads through a host-encoded CUtensorMap, warpgroup
 // matrix multiplies (wgmma) with shared-memory descriptors, and cp.async
-// copies with their group waits.  Header-only; csrc/flash_attention.cu,
-// csrc/matmul.cu and csrc/decode_attention.cu include it.  The build hashes
-// every csrc/*.cuh with each source, so an edited header rebuilds its users.
+// copies with their group waits, and the host side of the tensor maps
+// (cuTensorMapEncodeTiled fetched from the driver).  Header-only; every
+// csrc/*.cu but tdfir.cu includes it.  The build hashes every csrc/*.cuh
+// with each source, so an edited header rebuilds its users.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links -lcuda
@@ -74,6 +75,28 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(bar)
       : "memory");
+}
+
+// ``bytes`` (a multiple of 16) of contiguous global memory at ``src`` into
+// shared memory at ``dst`` (both 16-byte aligned), completion reported to
+// ``bar`` as transaction bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// box (c0 = column, row, head) of a map whose outer dims are (S, heads), or
+// (heads, S) when ``heads_inner`` (the strides must grow outward; see
+// ``encode``)
+__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, int head,
+                                         bool heads_inner, uint32_t bar) {
+  tma_load_3d(dst, map, col, heads_inner ? head : row,
+              heads_inner ? row : head, bar);
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -271,6 +294,78 @@ __device__ __forceinline__ void cp_async_commit() {
 // wait until at most N of this thread's newest copy groups are in flight
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tensor maps (host) ---------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime, so
+// that no library links -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+constexpr int ERR_NO_ENCODER = -1;  // the driver has no cuTensorMapEncodeTiled
+constexpr int ERR_ENCODE = -2;      // it refused a tensor map
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [n, s, d] bf16 tensor with strides (sb, ss, 1) as a 3-D map whose boxes
+// are (acols columns, ``rows`` rows, one head); columns and rows past the
+// tensor read as zeros.  The outer dims go in order of growing stride;
+// ``heads_inner`` says whether heads came first.
+inline bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int n,
+                   int s, int d, long long sb, long long ss, int rows,
+                   int acols, CUtensorMapSwizzle swizzle, bool* heads_inner) {
+  *heads_inner = sb < ss;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(*heads_inner ? n : s),
+                              static_cast<cuuint64_t>(*heads_inner ? s : n)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(*heads_inner ? sb : ss) * 2,
+      static_cast<cuuint64_t>(*heads_inner ? ss : sb) * 2};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(acols),
+                             static_cast<cuuint32_t>(*heads_inner ? 1 : rows),
+                             static_cast<cuuint32_t>(*heads_inner ? rows : 1)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the swizzle of a box whose rows are ``bytes`` wide (32, 64 or 128)
+inline CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// the message of a launch's error code: a CUDA error, or one of the two
+// tensor-map failures above
+inline const char* error_string(int err, const char* maps) {
+  if (err == ERR_NO_ENCODER)
+    return "the driver offers no cuTensorMapEncodeTiled (TMA needs CUDA 12)";
+  if (err == ERR_ENCODE) return maps;
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 // ---- launch ----------------------------------------------------------------

@@ -18,6 +18,10 @@ row/head strides; a view that breaks that raises, it never takes another
 path.  D = 80 runs the bf16 kernel's D = 128 tile, with TMA zero-filling the
 columns past 80.  D = 256 (recurrentgemma) runs a tile of its own: 64 keys a
 tile in a 2-stage ring (``csrc/flash_attention.cu`` ``Tile<256>``).
+
+Training passes ``lse``, an out buffer for each row's log-sum-exp, which
+the backward (:mod:`repro_torch.kernels.flash_attention_bwd`) reads in
+place of a recompute; serving passes none and gets the same output bits.
 """
 from __future__ import annotations
 
@@ -50,7 +54,7 @@ def kv_ring(d: int) -> tuple[int, int]:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention_kv_ring.argtypes = [ctypes.c_int] * 2
@@ -63,27 +67,36 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _tma_strides(t: torch.Tensor):
+def _tma_strides(t: torch.Tensor, what: str = "bf16 flash attention "
+                 "loads q/k/v"):
     """(head, row) strides of a [N, S, D] view for its tensor map: a dim of
-    size 1 is never stepped, so its stride is replaced by a dense one."""
+    size 1 is never stepped, so its stride is replaced by a dense one.
+    Raises, naming ``what``, where TMA cannot take the view."""
     n, s, d = t.shape
     ss = t.stride(1) if s > 1 else d
     sb = t.stride(0) if n > 1 else s * ss
     if t.data_ptr() % 16 or (sb * t.element_size()) % 16 \
             or (ss * t.element_size()) % 16:
         raise ValueError(
-            f"bf16 flash attention loads q/k/v by TMA, which needs 16-byte "
-            f"aligned base addresses and strides; got a view at address "
-            f"{t.data_ptr():#x} with head/row strides ({sb}, {ss}) elements")
+            f"{what} by TMA, which needs 16-byte aligned base addresses and "
+            f"strides; got a view at address {t.data_ptr():#x} with "
+            f"head/row strides ({sb}, {ss}) elements")
     return sb, ss
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_group: int = 1,
-                    window: int = 0) -> torch.Tensor:
+                    causal: bool = True, kv_group: int = 1, window: int = 0,
+                    lse: torch.Tensor | None = None) -> torch.Tensor:
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D] in
     ``q.dtype``; scale ``1/sqrt(D)``, fp32 softmax carries; ``window`` 0 is
-    no window."""
+    no window.
+
+    ``lse``, a contiguous float32 [BH, Sq] on q's device, receives each
+    row's log-sum-exp in base 2, L2 = log2(sum_k exp(scale s_qk)) over the
+    keys the row attends (s = q k^T), the units in which the backward
+    exponentiates (P = exp2(scale log2(e) s - L2)); a row that attends no
+    key gets 0 (:func:`repro_torch.kernels.ref.mha_ref` with
+    ``return_lse=True`` gives the same)."""
     global launches
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
@@ -109,6 +122,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{v.dtype}")
     if any(t.stride(2) != 1 for t in (q, k, v)):
         raise ValueError("flash attention needs a contiguous last (D) dim")
+    if lse is not None and (lse.shape != (bh, sq)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"flash attention's lse must be a contiguous "
+                         f"float32 [{bh}, {sq}] on {q.device}, got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
     if q.dtype == torch.bfloat16:
         strides = [x for t in (q, k, v) for x in _tma_strides(t)]
     else:
@@ -117,12 +137,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bh == 0 or sq == 0:
         return out
     if k.shape[1] == 0:         # softmax over no keys: the plain version's 0
+        if lse is not None:
+            lse.zero_()
         return out.zero_()
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, sq,
             k.shape[1], d, kv_group, int(causal), int(window),
             1.0 / math.sqrt(d),
             *strides, _DTYPE_CODES[q.dtype], stream)

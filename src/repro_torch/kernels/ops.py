@@ -9,10 +9,12 @@ graph (:class:`CountedGraph`) takes back the launches its capture recorded
 (nothing ran) and adds them again on every replay (they all run).
 
 Training reaches flash attention through :class:`FlashAttention`, an
-autograd function whose backward is the hand-written backward kernel
-(``flash_attention_bwd``; on CPU tensors, ``ref.mha_backward_ref``);
-:func:`flash_attention` takes it only under grad mode with an input that
-requires grad, so serving launches exactly what it did before.
+autograd function whose forward also saves each row's log-sum-exp
+(:func:`flash_attention_lse`) and whose backward is the hand-written
+backward kernel (``flash_attention_bwd``; on CPU tensors,
+``ref.mha_backward_ref``), which reads it; :func:`flash_attention` takes it
+only under grad mode with an input that requires grad, so serving launches
+exactly what it did before.
 
 A fake tensor (``torch._subclasses.FakeTensor``: shape and dtype, no data)
 reaching the matmul or tdFIR wrapper, on either device, neither launches
@@ -150,38 +152,56 @@ def _flash_forward(q, k, v, causal, kv_group, window):
                                window=window)
 
 
-def flash_attention_bwd(q, k, v, o, do, *, causal: bool = True,
+def flash_attention_lse(q, k, v, *, causal: bool = True, kv_group: int = 1,
+                        window: int = 0):
+    """The forward alone, also returning each row's log-sum-exp: (out
+    [BH, Sq, D], lse float32 [BH, Sq], base 2; see
+    ``kernels.flash_attention.flash_attention``), what the backward
+    takes."""
+    if _on_cpu(q, k, v):
+        return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group,
+                           window=window, return_lse=True)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    out = _fa.flash_attention(q, k, v, causal=causal, kv_group=kv_group,
+                              window=window, lse=lse)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                         kv_group: int = 1, window: int = 0):
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v with output
-    ``o``, given the output's gradient ``do``."""
-    if _on_cpu(q, k, v, o, do):
-        return ref.mha_backward_ref(q, k, v, o, do, causal=causal,
+    ``o`` and row log-sum-exps ``lse`` (:func:`flash_attention_lse`),
+    given the output's gradient ``do``."""
+    if _on_cpu(q, k, v, o, do, lse):
+        return ref.mha_backward_ref(q, k, v, o, do, lse, causal=causal,
                                     kv_group=kv_group, window=window)
-    return _fab.flash_attention_bwd(q, k, v, o, do, causal=causal,
+    return _fab.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                     kv_group=kv_group, window=window)
 
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with its gradient: the forward kernel, which saves
-    q, k, v and its output, and the backward kernel (on CPU tensors, the
-    plain versions of both).  Under ``torch.utils.checkpoint`` the forward
-    runs again in the backward pass and counts its launch again."""
+    q, k, v, its output and each row's log-sum-exp, and the backward kernel
+    (on CPU tensors, the plain versions of both).  Under
+    ``torch.utils.checkpoint`` the forward runs again in the backward pass,
+    counts its launch again and saves its log-sum-exp again."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kv_group, window):
-        out = _flash_forward(q, k, v, causal, kv_group, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = flash_attention_lse(q, k, v, causal=causal,
+                                       kv_group=kv_group, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = (causal, kv_group, window)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, kv_group, window = ctx.mask
-        if do.stride(-1) != 1:
-            do = do.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=causal,
-                                         kv_group=kv_group, window=window)
+        do = do.contiguous()    # a broadcast or strided grad: TMA loads it
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=causal, kv_group=kv_group,
+                                         window=window)
         return dq, dk, dv, None, None, None
 
 

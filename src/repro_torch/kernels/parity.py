@@ -21,7 +21,9 @@ fp32 and rounds only its outputs to bf16, so it is held to the plain
 backward run in fp32 on the same bf16 inputs: each of dq, dk and dv within
 ``BWD_ABS_TOL`` of that tensor's largest entry and ``BWD_ROW_TOL`` on
 ``bwd_row_err``, limits that must reject the simulated faults of
-``bwd_fault_controls``.  ``bwd_row_err`` is ``row_err`` with each row's
+``bwd_fault_controls``; the log-sum-exp the forward saves for it is
+held to the plain one at ``LSE_TOL``, a limit that must reject
+``lse_fault``.  ``bwd_row_err`` is ``row_err`` with each row's
 rms floored at ``BWD_ROW_FLOOR`` of the whole tensor's: a causal dQ row
 with few keys is all cancellation (row 0's is P = 1 times dP - Delta = dO
 V - dO O with O = V, zero but for rounding), so its own rms measures fp32
@@ -159,10 +161,36 @@ BWD_TILE = 64
 
 def bwd_want32(q, k, v, o, do, **kw):
     """What the bf16 backward is held to: the plain backward in fp32 on
-    the same inputs."""
-    from .ref import mha_backward_ref
-    return mha_backward_ref(q.float(), k.float(), v.float(), o.float(),
-                            do.float(), **kw)
+    the same inputs, with the log-sum-exps of the plain forward in fp32 on
+    them."""
+    from .ref import mha_backward_ref, mha_ref
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lse = mha_ref(qf, kf, vf, return_lse=True, **kw)[1]
+    return mha_backward_ref(qf, kf, vf, o.float(), do.float(), lse, **kw)
+
+
+# the forward's saved log-sum-exp (base 2) against the plain one on the same
+# inputs, bf16 inputs against the plain forward in fp32 (the kernels sum
+# their bf16 products in fp32): sound runs read within a few ulp of L2 ~ 16
+# (PERF.md), and ``lse_fault`` must break it
+LSE_TOL = 1e-5
+
+
+def lse_fault(q, k, v, *, causal: bool = True, kv_group: int = 1,
+              window: int = 0) -> torch.Tensor:
+    """The plain L2 with a simulated fault: each row's sum l taken over its
+    P rounded to bf16 (the P the bf16 forward feeds to P V), not over the
+    fp32 P.  Inputs in fp32; rows with no key keep the sentinel 0."""
+    from .ref import LOG2E, NEG_INF, _attention_mask
+    if kv_group != 1:
+        k = k.repeat_interleave(kv_group, dim=0)
+    s = torch.einsum("bqd,bkd->bqk", q, k) * (LOG2E / math.sqrt(q.shape[-1]))
+    keep = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.where(keep[None], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(keep[None], torch.exp2(s - m), 0.0).bfloat16().float()
+    lse = m[..., 0] + torch.log2(p.sum(-1))
+    return torch.where(keep.any(-1)[None], lse, 0.0)
 
 
 def bwd_row_err(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -40,26 +40,38 @@ def tdfir_complex_ref(x_re, x_im, h_re, h_im):
 
 
 NEG_INF = -1e30
+LOG2E = 1.0 / math.log(2.0)
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, kv_group: int = 1,
-            window: int = 0) -> torch.Tensor:
+            causal: bool = True, kv_group: int = 1, window: int = 0,
+            return_lse: bool = False):
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D]: row ``bh`` of q attends
     over K/V row ``bh // kv_group`` (the GQA layout).  ``window`` > 0 keeps
     only keys with ``qpos - kpos < window`` (the JAX layers' sliding-window
-    rule); 0 is no window."""
+    rule); 0 is no window.  With ``return_lse`` it returns (out, lse): lse
+    float32 [BH, Sq], each row's log-sum-exp of its scaled scores in base 2,
+    L2 = log2(e) logsumexp(scale s) over the keys the row attends (0 for a
+    row that attends none), what the forward kernels save for the
+    backward."""
     if kv_group != 1:
         k = k.repeat_interleave(kv_group, dim=0)
         v = v.repeat_interleave(kv_group, dim=0)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
+    mask = None
     if causal or window:
         mask = _attention_mask(q.shape[1], k.shape[1], causal, window,
                                q.device)
         s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
+    out = torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1) * LOG2E
+    if mask is not None:
+        lse = torch.where(mask.any(-1)[None], lse, 0.0)
+    return out, lse
 
 
 def _attention_mask(sq: int, sk: int, causal: bool, window: int, device):
@@ -76,15 +88,18 @@ def _attention_mask(sq: int, sk: int, causal: bool, window: int, device):
 
 
 def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     o: torch.Tensor, do: torch.Tensor, *,
-                     causal: bool = True, kv_group: int = 1,
+                     o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                     *, causal: bool = True, kv_group: int = 1,
                      window: int = 0):
-    """The gradient of :func:`mha_ref` by its explicit formulas, in fp32:
-    P = softmax(scale Q K^T, masked), dV = P^T dO, dP = dO V^T,
-    Delta = rowsum(dO * O), dS = P * (dP - Delta) (0 where masked),
+    """The gradient of :func:`mha_ref` by its explicit formulas, in fp32,
+    given the forward's row log-sum-exps (``lse``, base 2, as
+    ``mha_ref(..., return_lse=True)`` returns them):
+    P = exp2(log2(e) scale Q K^T - lse) (0 where masked), dV = P^T dO,
+    dP = dO V^T, Delta = rowsum(dO * O), dS = P * (dP - Delta),
     dQ = scale dS K, dK = scale dS^T Q.  Under GQA each KV head's dK and
     dV sum over its ``kv_group`` query heads.  ``o`` is the forward's
-    output; returns (dq, dk, dv) in the inputs' dtypes."""
+    output; returns (dq, dk, dv) in the inputs' dtypes.  A row that
+    attends no key (lse 0) adds nothing, as in the kernels."""
     n_kv, sk, d = k.shape
     bh, sq = q.shape[:2]
     scale = 1.0 / math.sqrt(d)
@@ -93,8 +108,8 @@ def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = v.float().repeat_interleave(kv_group, dim=0)
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
     mask = _attention_mask(sq, sk, causal, window, q.device)
-    s = torch.where(mask[None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask[None],
+                    torch.exp2(s * LOG2E - lse.float()[..., None]), 0.0)
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)
     delta = (dof * of).sum(-1, keepdim=True)

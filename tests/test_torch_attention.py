@@ -208,7 +208,7 @@ def test_cpu_attention_launches_no_kernel():
     x = torch.ones(2, 8, 16)
     ops.flash_attention(x, x, x)
     ops.decode_attention(x[:, :1], x[:, :, None], x[:, :, None], 8)
-    ops.flash_attention_bwd(x, x, x, x, x)
+    ops.flash_attention_bwd(x, x, x, x, x, x[..., 0])
     assert ops.launch_counts() == {"matmul": 0, "tdfir": 0,
                                    "flash_attention": 0,
                                    "decode_attention": 0,
@@ -217,6 +217,6 @@ def test_cpu_attention_launches_no_kernel():
         cuda_fa.flash_attention(x, x, x)
     from repro_torch.kernels import flash_attention_bwd as cuda_fab
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_fab.flash_attention_bwd(x, x, x, x, x)
+        cuda_fab.flash_attention_bwd(x, x, x, x, x, x[..., 0])
     with pytest.raises(ValueError, match="CUDA"):
         cuda_da.decode_attention(x[:, :1], x[:, :, None], x[:, :, None], 8)

@@ -82,10 +82,10 @@ def test_port_attention_grad_matches_jax_vjp(case, plan):
 
     b, _, h, kvh = case[0], case[1], case[3], case[4]
     hq, hk, hv = (_heads(torch.from_numpy(x)) for x in (q, k, v))
-    o = ref.mha_ref(hq, hk, hv, causal=case[6], kv_group=h // kvh,
-                    window=case[7])
+    o, lse = ref.mha_ref(hq, hk, hv, causal=case[6], kv_group=h // kvh,
+                         window=case[7], return_lse=True)
     dq, dk, dv = ref.mha_backward_ref(hq, hk, hv, o,
-                                      _heads(torch.from_numpy(g)),
+                                      _heads(torch.from_numpy(g)), lse,
                                       causal=case[6], kv_group=h // kvh,
                                       window=case[7])
     for got, w in zip((dq, dk, dv), want[1:]):
@@ -119,7 +119,8 @@ def test_flash_attention_function_is_used_only_under_grad():
 def test_backward_bf16_returns_bf16():
     gen = torch.Generator().manual_seed(1)
     x = torch.randn(2, 9, 16, generator=gen).bfloat16()
-    grads = ref.mha_backward_ref(x, x[:1], x[:1], x, x, kv_group=2)
+    lse = ref.mha_ref(x, x[:1], x[:1], kv_group=2, return_lse=True)[1]
+    grads = ref.mha_backward_ref(x, x[:1], x[:1], x, x, lse, kv_group=2)
     assert [t.dtype for t in grads] == [torch.bfloat16] * 3
     assert [t.shape for t in grads] == [x.shape, x[:1].shape, x[:1].shape]
 
@@ -138,10 +139,10 @@ def test_bwd_limits_pass_rounding_and_reject_simulated_faults(causal,
     k, v = (torch.randn(2, s, 64, generator=gen).bfloat16()
             for _ in range(2))
     kw = dict(causal=causal, kv_group=4, window=window)
-    o = ref.mha_ref(q, k, v, **kw)
+    o, lse = ref.mha_ref(q, k, v, return_lse=True, **kw)
     want32 = parity.bwd_want32(q, k, v, o, do, **kw)
     ok, err, rerr = parity.bwd_within_limits(
-        ref.mha_backward_ref(q, k, v, o, do, **kw), want32)
+        ref.mha_backward_ref(q, k, v, o, do, lse, **kw), want32)
     assert ok, (err, rerr)
     controls = parity.bwd_fault_controls(q, k, v, o, do, 4, causal, window)
     assert len(controls) == 4
@@ -184,19 +185,20 @@ def test_cuda_backward_kernel_matches_plain_version(case):
     q, do = randn(bh, sq, d), randn(bh, sq, d)
     k, v = randn(n_kv, skv, d), randn(n_kv, skv, d)
     kw = dict(causal=causal, kv_group=rep, window=window)
-    o = ref.mha_ref(q, k, v, **kw)
-    want = ref.mha_backward_ref(q, k, v, o, do, **kw)
+    o, lse = ref.mha_ref(q, k, v, return_lse=True, **kw)
+    want = ref.mha_backward_ref(q, k, v, o, do, lse, **kw)
     ops.reset_launch_counts()
-    got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
-    again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention_bwd"] == 2
     for g, a, w in zip(got, again, want):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
         assert torch.equal(g, a)
     b16 = [t.bfloat16() for t in (q, k, v, o, do)]
-    want32 = ref.mha_backward_ref(*(t.float() for t in b16), **kw)
-    for g, w in zip(ops.flash_attention_bwd(*b16, **kw), want32):
+    want32 = parity.bwd_want32(*b16, **kw)
+    lse16 = ops.flash_attention_lse(*b16[:3], **kw)[1]
+    for g, w in zip(ops.flash_attention_bwd(*b16, lse16, **kw), want32):
         assert g.dtype == torch.bfloat16
         torch.testing.assert_close(g.float(), w, rtol=2e-2, atol=2e-2)
 
@@ -215,11 +217,12 @@ def test_cuda_flash_attention_function_trains():
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1)
-    o = ref.mha_ref(q.detach(), k.detach(), v.detach(), kv_group=4)
+    o, lse = ref.mha_ref(q.detach(), k.detach(), v.detach(), kv_group=4,
+                         return_lse=True)
     want = ref.mha_backward_ref(q.detach(), k.detach(), v.detach(), o, 2 * o,
-                                kv_group=4)
+                                lse, kv_group=4)
     for got, w in zip((q.grad, k.grad, v.grad), want):
         torch.testing.assert_close(got, w, rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError, match="head dim"):
         x = torch.randn(2, 16, 48, device="cuda")
-        ops.flash_attention_bwd(x, x, x, x, x)
+        ops.flash_attention_bwd(x, x, x, x, x, x[..., 0])

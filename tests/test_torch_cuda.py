@@ -488,7 +488,8 @@ def test_cuda_graph_replays_count_launches():
     engine = ContinuousBatcher(lm, n_slots=2, cache_len=32)
     assert engine.graph.launches == {"matmul": 0, "tdfir": 0,
                                      "flash_attention": 0,
-                                     "decode_attention": 3}
+                                     "decode_attention": 3,
+                                     "flash_attention_bwd": 0}
     ops.reset_launch_counts()
     engine._active[:] = True
     for _ in range(5):
