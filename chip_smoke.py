@@ -279,7 +279,33 @@ these phases, each printing its seconds:
                reduced granite: 25 steps whose loss falls by more than
                0.2, then 10 steps saving every 5 and 15 resuming at step
                10 with the restored parameters bitwise equal to the
-               saved.
+               saved;
+ 14. dist      distribution with explicit collectives: (a) granite-3-2b
+               whole in bf16 at (b)'s shape, seed and AdamW on one NCCL
+               rank, a ("pod", "data", "model") mesh of (1, 1, 1): the
+               uncompressed pod-parallel step's loss, gradients and
+               updated parameters bitwise equal to ``make_train_step``'s
+               from the same state, the compressed step's reduced
+               gradients within max|g| / 254 of each leaf's and its error
+               feedback exactly g - out, then a warm-up and 4 timed
+               compressed steps from the initial weights (losses finite
+               and falling, 80 flash forward and 40 backward launches a
+               step), the plain and compressed pod steps' wall and device
+               ms, the error feedback's bytes and the peak memory; (b) two
+               spawned processes on the one card over a gloo group (card
+               tensors pass its point-to-point ops through host memory,
+               counted): the pod
+               step at full width, 2 layers in fp32, B 4, S 256, pod = 2,
+               within 2e-4 of each leaf's max of the whole-batch step and
+               the compressed one within its int8 bound; ``pipeline_apply``
+               and ``make_pipeline_train_step`` with tanh(h @ w) stages at
+               D 2048, B 64 (gpipe and one_f_one_b on 2 stages,
+               interleaved on 4 with V 2, m in {1, S, 4S}) against
+               ``sequential_apply`` at the reference test's limits; and
+               ``apply_moe_ep`` on moonshot-v1-16b-a3b's MoE layer at full
+               width over model = 2 against ``apply_moe`` (y within 1e-4,
+               aux within 0.05, every gradient nonzero, both ranks holding
+               the same gradients).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -425,6 +451,19 @@ TRAIN_SHAPE = (4, 2048)             # B, S
 TRAIN_VOCAB_CHUNK = 2048
 TRAIN_STEPS = 8
 TRAIN_LR = 3e-4
+# phase 14, distribution: (a) the pod-parallel step of granite-3-2b whole in
+# bf16 at 13 (b)'s shape and seed on one NCCL rank, a (pod, data, model)
+# mesh of (1, 1, 1), a warm-up and DIST_STEPS timed compressed steps; (b)
+# two gloo ranks on the one card: the pod step at full width (layers, B, S)
+# with pod = 2, the pipeline's tanh(h @ w) stages at granite's width
+# (D, B), and moonshot's MoE layer (x of B, S) over model = 2
+DIST_STEPS = 4
+DIST_POD = (2, 4, 256)
+DIST_PIPE = (2048, 64)
+DIST_PIPE_CASES = (("gpipe", 2, 1), ("one_f_one_b", 2, 1),
+                   ("interleaved", 4, 2))     # schedule, stages, V
+DIST_MOE_ARCH = "moonshot-v1-16b-a3b"
+DIST_MOE_X = (4, 256)
 
 
 class SmokeFailure(RuntimeError):
@@ -3469,11 +3508,11 @@ def three_kernels(kernel, shape: str) -> None:
 # phase 13: training
 # ---------------------------------------------------------------------------
 
-def train_batch(cfg, b: int, s: int, step: int) -> dict:
+def train_batch(cfg, b: int, s: int, step: int, device="cuda") -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticTokens, data_config_for
     data = SyntheticTokens(data_config_for(
-        cfg, ShapeConfig("smoke", s, b, "train")), device="cuda")
+        cfg, ShapeConfig("smoke", s, b, "train")), device=device)
     return data.batch(step)
 
 
@@ -3713,6 +3752,436 @@ def run_train_cli() -> None:
                 "(c) the second run did not resume at step 10")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: distribution
+# ---------------------------------------------------------------------------
+
+def run_dist(ops) -> dict:
+    """Phase 14: (a) the pod-parallel step on one NCCL rank at full size,
+    (b) two gloo ranks on the one card; returns (a)'s timed steps'
+    launches."""
+    launches = dist_pod_step(ops)
+    free_card()
+    dist_two_ranks()
+    return launches
+
+
+def dist_pod_step(ops, device="cuda") -> dict:
+    """(a): granite-3-2b whole in bf16 at 13 (b)'s shape, seed, plan and
+    AdamW, on a ("pod", "data", "model") mesh of (1, 1, 1) over a one-rank
+    NCCL group.  From the same state: the uncompressed pod step's loss,
+    gradients and updated parameters bitwise equal to ``make_train_step``'s
+    (both reductions are identities on one rank); the compressed step's
+    reduced gradients within max|g| / 254 of each leaf's plain gradient
+    (plus fp32 rounding: one rank's ``compressed_psum`` is the int8 round
+    trip) and its error feedback exactly g - out; then a warm-up and
+    DIST_STEPS timed compressed steps (losses finite and falling, 80 flash
+    forward and 40 backward launches a step), step wall and device ms of
+    the plain and the compressed pod step, the error feedback's bytes and
+    the peak memory.  Returns the timed steps' launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.launch.mesh import init_local_group, make_test_mesh
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import grad_compression, optimizer, train_step
+    from torch.profiler import ProfilerActivity
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_SHAPE
+    plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=DIST_STEPS + 4)
+    require(init_local_group(device), "(a) a process group already exists")
+    try:
+        mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"),
+                              device=device)
+        gen = torch.Generator(device=device).manual_seed(6)
+        lm = LM(cfg, init_params(cfg, gen, device), plan)
+        params = lm.params()
+        batches = [train_batch(cfg, b, s, i, device)
+                   for i in range(DIST_STEPS + 2)]
+        print(f"  (a) {TRAIN_ARCH} whole, bf16, B={b} S={s}, remat block, "
+              f"AdamW; {dist.get_backend()} group of "
+              f"{dist.get_world_size()}, mesh {mesh}")
+        # the gradients: the plain path and the pod path, uncompressed
+        lm.requires_grad_(True)
+        total, metrics = lm.train_loss(batches[0])
+        g_plain = dict(zip(params, torch.autograd.grad(
+            total, list(params.values()))))
+        loss_plain = metrics["loss"].detach()
+        g_pod, _, loss_pod, _ = train_step.make_pod_gradients(lm, mesh)(
+            params, None, batches[0])
+        differ = [n for n in g_plain if not torch.equal(g_plain[n], g_pod[n])]
+        print(f"  (a) uncompressed pod gradients against the plain ones: "
+              f"{len(g_plain) - len(differ)} of {len(g_plain)} leaves "
+              f"bitwise equal; loss {loss_pod.item():.6f} against "
+              f"{loss_plain.item():.6f}")
+        require(not differ, f"(a) pod gradients differ: {differ[:3]}")
+        require(torch.equal(loss_pod, loss_plain), "(a) the pod loss differs")
+        del g_pod
+        # the compressed gradients: the int8 round trip on one rank
+        # the same weights (shared storage) under the compressing plan
+        lm_c = LM(cfg, {n: p.detach() for n, p in params.items()},
+                  dataclasses.replace(plan, grad_compression=True))
+        ef0 = grad_compression.init_error_feedback(params)
+        g_c, ef_c, _, _ = train_step.make_pod_gradients(lm_c, mesh)(
+            lm_c.params(), ef0, batches[0])
+        del ef0
+        worst, ef_exact = 0.0, True
+        for n, g in g_plain.items():
+            gf = g.float()
+            top = gf.abs().max().item()
+            err = (g_c[n] - gf).abs().max().item()
+            require(err <= top * (1 / 254 + 2 ** -22) + 1e-12,
+                    f"(a) {n}: the int8 error {err:.3e} is past max|g|/254 "
+                    f"= {top / 254:.3e}")
+            worst = max(worst, err / max(top / 254, 1e-30))
+            ef_exact &= torch.equal(ef_c[n], gf - g_c[n])
+        print(f"  (a) compressed pod gradients: largest error "
+              f"{worst:.4f} of each leaf's max|g|/254; error feedback "
+              f"{'exactly' if ef_exact else 'NOT'} g - out")
+        require(ef_exact, "(a) the error feedback is not g - out")
+        del g_c, ef_c, g_plain, total, metrics
+        free_card()
+        # one step each from the same state
+        snap = {n: p.detach().clone() for n, p in params.items()}
+        _, _, m_plain = train_step.make_train_step(lm, tcfg)(
+            params, optimizer.init(params, tcfg), batches[0], 0)
+        after = {n: p.detach().clone() for n, p in params.items()}
+        lm.load_params(snap)
+        pod_step = train_step.make_pod_parallel_train_step(lm, tcfg, mesh)
+        opt = optimizer.init(params, tcfg)
+        _, opt, m_pod = pod_step(params, opt, batches[0], 0)
+        differ = [n for n in after if not torch.equal(after[n], params[n])]
+        print(f"  (a) one step from the same state: the pod step's "
+              f"parameters {'bitwise equal to' if not differ else 'DIFFER from'}"
+              f" make_train_step's ({len(after)} leaves), loss "
+              f"{m_pod['loss'].item():.6f} against "
+              f"{m_plain['loss'].item():.6f}")
+        require(not differ, f"(a) updated parameters differ: {differ[:3]}")
+        require(torch.equal(m_pod["loss"], m_plain["loss"]),
+                "(a) the pod step's loss differs from make_train_step's")
+        del after
+
+        def timed(step_fn, model, state, first):
+            walls, losses = [], []
+            for i in range(DIST_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, state, m = step_fn(model.params(), state,
+                                      batches[first + i], first + i)
+                losses.append(m["loss"].item())
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return state, walls, losses
+
+        def device_ms(step_fn, model, state):
+            def run():
+                step_fn(model.params(), state, batches[-1], DIST_STEPS + 3)
+            _, k = traced_kernels(run, [ProfilerActivity.CUDA])
+            return sum(ms for _, ms in k)
+
+        opt, plain_walls, _ = timed(pod_step, lm, opt, 1)
+        plain_dev = device_ms(pod_step, lm, opt)
+        del opt
+        lm.load_params(snap)
+        del snap
+        free_card()
+        # the compressed step from the initial weights: a warm-up,
+        # DIST_STEPS timed
+        pod_c = train_step.make_pod_parallel_train_step(lm_c, tcfg, mesh)
+        opt_c = optimizer.init(lm_c.params(), tcfg)
+        torch.cuda.reset_peak_memory_stats()
+        _, opt_c, m0 = pod_c(lm_c.params(), opt_c, batches[0], 0)
+        ops.reset_launch_counts()
+        opt_c, walls, losses = timed(pod_c, lm_c, opt_c, 1)
+        launches = ops.launch_counts()
+        losses = [m0["loss"].item()] + losses
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / DIST_STEPS for k, v in launches.items() if v}
+        comp_dev = device_ms(pod_c, lm_c, opt_c)
+        ef_bytes = sum(t.nbytes for t in opt_c["ef"].values())
+        print(f"  (a) compressed steps: losses {[round(x, 4) for x in losses]}"
+              f" (warm-up first); launches a step {per_step}")
+        require(all(np.isfinite(losses)), "(a) a compressed loss is not "
+                "finite")
+        require(losses[-1] < losses[0], f"(a) the compressed loss did not "
+                f"fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+        require(per_step.get("flash_attention") == 2 * cfg.n_layers
+                and per_step.get("flash_attention_bwd") == cfg.n_layers,
+                f"(a) launches a step {per_step}, not {2 * cfg.n_layers} "
+                f"flash forward and {cfg.n_layers} backward")
+        print(f"  (a) pod step, plain: wall {np.mean(plain_walls):.1f} ms "
+              f"(each {[round(w, 1) for w in plain_walls]}), device "
+              f"{plain_dev:.1f} ms; compressed: wall {np.mean(walls):.1f} ms "
+              f"(each {[round(w, 1) for w in walls]}), device "
+              f"{comp_dev:.1f} ms; the int8 pass over "
+              f"{sum(p.numel() for p in params.values()) / 1e9:.3f} B "
+              f"parameters costs {comp_dev - plain_dev:.1f} ms of device "
+              f"time ({(comp_dev - plain_dev) / plain_dev:.1%}); error "
+              f"feedback {ef_bytes / 2**30:.2f} GiB (fp32); peak memory "
+              f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated)")
+        del lm, lm_c, opt_c, params, batches
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_two_ranks() -> None:
+    """(b): two processes on the one card over a gloo group (NCCL refuses
+    two ranks on one device; card tensors pass gloo's point-to-point ops
+    through host memory, ``dist.collectives``): the pod step, the pipeline
+    and expert-parallel MoE, each rank checking its own numbers
+    (``dist_rank``)."""
+    from repro_torch.launch.mesh import run_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_ranks(dist_rank, 2, tmp, "cuda", backend="gloo", timeout_s=600)
+        wall = time.perf_counter() - t0
+        got = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+    for line in got[0]["lines"]:
+        print(f"  (b) {line}")
+    print(f"  (b) host-staged point-to-point ops (rank 0, rank 1): "
+          f"{got[0]['staged']}, {got[1]['staged']}; two ranks' wall "
+          f"{wall:.1f} s, start-up included")
+    require(got[0]["sums"] == got[1]["sums"], "(b) the two ranks hold "
+            "different gradients")
+
+
+def dist_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One rank of (b): checks its numbers (a failure fails the phase) and
+    writes its report to ``tmp``."""
+    from repro_torch.dist import collectives as col
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    lines, sums = [], {}
+    dist_rank_pod(rank, device, lines, sums)
+    dist_rank_pipeline(rank, device, lines, sums)
+    dist_rank_moe(rank, device, lines, sums)
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump({"lines": lines, "sums": sums,
+                   "staged": col.staged_ops()}, f)
+
+
+def _leaf_err(got, want) -> float:
+    """Largest |got - want| of a leaf over the leaf's largest |want|."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def dist_rank_pod(rank, device, lines, sums, arch=TRAIN_ARCH,
+                  shape=DIST_POD) -> None:
+    """The pod step of granite-3-2b at full width, fp32, pod = 2: the
+    uncompressed gradients and one step's parameters within 2e-4 of each
+    leaf's max of the plain step on the whole batch in this process;
+    compressed, each leaf within max over pods of max|g_p| / 127 of the
+    uncompressed mean and the pods' gradients less their error feedback
+    summing to what was reduced."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.plan import Plan
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import grad_compression, optimizer, train_step
+    layers, b, s = shape
+    cfg = dataclasses.replace(cut_depth(get_config(arch), layers)[0],
+                              dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                       eps=1e-4)
+    plan = Plan(remat="block")
+    mesh = make_test_mesh((2,), ("pod",), device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    lm = LM(cfg, init_params(cfg, gen, device), plan)
+    params = lm.params()
+    batch = train_batch(cfg, b, s, 0, device)
+    lm.requires_grad_(True)
+
+    def grads_of(rows):
+        total, _ = lm.train_loss({k: x[rows] for k, x in batch.items()})
+        return dict(zip(params, torch.autograd.grad(
+            total, list(params.values()))))
+
+    whole = grads_of(slice(0, b))
+    own = grads_of(slice(rank * b // 2, (rank + 1) * b // 2))
+    g_pod, _, _, _ = train_step.make_pod_gradients(lm, mesh)(
+        params, None, batch)
+    worst_g = max(_leaf_err(g_pod[n], whole[n]) for n in whole)
+    lm_c = LM(cfg, {n: p.detach() for n, p in params.items()},
+              dataclasses.replace(plan, grad_compression=True))
+    g_c, ef, _, _ = train_step.make_pod_gradients(lm_c, mesh)(
+        lm_c.params(), grad_compression.init_error_feedback(params), batch)
+    pod = mesh.get_group("pod")
+    worst_c, worst_sent = 0.0, 0.0
+    for n in whole:
+        bound = col.all_reduce(own[n].abs().max(), op=dist.ReduceOp.MAX,
+                               group=pod).item() / 127
+        err = (g_c[n] - g_pod[n]).abs().max().item()
+        require(err <= bound * 1.001 + 1e-7, f"(b) {n}: the compressed "
+                f"gradient is {err:.3e} from the mean, past {bound:.3e}")
+        worst_c = max(worst_c, err / max(bound, 1e-30))
+        sent = col.all_reduce(own[n] - ef[n], group=pod)
+        worst_sent = max(worst_sent, _leaf_err(sent, 2 * g_c[n]))
+    require(worst_sent <= 1e-5, f"(b) the pods' gradients less their error "
+            f"feedback are {worst_sent:.2e} from what was reduced")
+    del whole, own, g_pod, g_c, ef
+    snap = {n: p.detach().clone() for n, p in params.items()}
+    _, _, m_plain = train_step.make_train_step(lm, tcfg)(
+        params, optimizer.init(params, tcfg), batch, 0)
+    after = {n: p.detach().clone() for n, p in params.items()}
+    lm.load_params(snap)
+    _, _, m_pod = train_step.make_pod_parallel_train_step(lm, tcfg, mesh)(
+        params, optimizer.init(params, tcfg), batch, 0)
+    worst_p = max(_leaf_err(params[n], after[n]) for n in after)
+    lm.load_params(snap)
+    _, _, m_c = train_step.make_pod_parallel_train_step(lm_c, tcfg, mesh)(
+        lm_c.params(), optimizer.init(params, tcfg), batch, 0)
+    finite = all(torch.isfinite(p).all().item() for p in params.values())
+    rel = abs(m_pod["loss"].item() - m_plain["loss"].item()) / abs(
+        m_plain["loss"].item())
+    lines.append(
+        f"pod step, {arch} {layers} layers fp32 B={b} S={s}, pod = 2: "
+        f"gradients {worst_g:.2e} of each leaf's max from the whole-batch "
+        f"step's, one step's parameters {worst_p:.2e}, loss rel {rel:.2e}; "
+        f"compressed: {worst_c:.3f} of the int8 bound, sent less reduced "
+        f"{worst_sent:.2e}, parameters {'finite' if finite else 'NOT finite'}"
+        f", loss {m_c['loss'].item():.6f}")
+    require(worst_g <= 2e-4 and worst_p <= 2e-4 and rel <= 1e-5,
+            f"(b) the pod step is {worst_g:.2e} / {worst_p:.2e} / {rel:.2e} "
+            f"from the whole-batch step")
+    require(finite, "(b) the compressed step left a parameter not finite")
+    sums["pod"] = [round(p.double().sum().item(), 6)
+                   for p in params.values()]
+
+
+def _allclose_err(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 passes."""
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def dist_rank_pipeline(rank, device, lines, sums, shape=DIST_PIPE) -> None:
+    """``pipeline_apply`` (forward, and the gradients of ``(out *
+    ct).sum()`` for the weights and the input) and
+    ``make_pipeline_train_step`` over the two ranks at m in {1, S, 4S}
+    for each of DIST_PIPE_CASES, in this process against
+    ``sequential_apply`` on the same microbatches (the same products
+    shapes, so the reference test's elementwise allclose applies: 1e-5
+    forward, 1e-4 gradients, 1e-5 absolute) and on the whole batch (its
+    products have other shapes and round otherwise: 1e-5 and 1e-4 of each
+    tensor's max), and the step's loss and parameters against the
+    sequential step's (1e-5; 1e-4 relative, 1e-5 absolute)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.pipeline import pipeline_apply, sequential_apply
+    from repro_torch.dist.plan import Plan
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import optimizer, train_step
+    d, b = shape
+    mesh = make_test_mesh((2,), ("pod",), device=device)
+    # eps 1e-4, as in 13 (a'): a first Adam step is g / (|g| + eps), which
+    # at 1e-8 turns rounding in a near-zero gradient into a whole step
+    tcfg = TrainConfig(lr=1e-2, warmup_steps=1, eps=1e-4)
+    gen = torch.Generator(device=device).manual_seed(21)
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+
+    def rnd(*sz):
+        return torch.randn(sz, generator=gen, device=device)
+
+    for sched, n_stages, v in DIST_PIPE_CASES:
+        ws = rnd(n_stages, d, d) / d ** 0.5
+        x, y, ct = rnd(b, d), rnd(b, d), rnd(b, d)
+
+        def grads(fn):
+            w = ws.clone().requires_grad_()
+            xx = x.clone().requires_grad_()
+            out = fn(w, xx)
+            return (out.detach(),) + torch.autograd.grad(
+                (out * ct).sum(), [w, xx])
+
+        def trained(mesh_, plan):
+            p = ws.clone()
+            _, _, m = train_step.make_pipeline_train_step(
+                stage, tcfg, mesh_, plan)(
+                    p, optimizer.init({"stages": p}, tcfg), (x, y), 0)
+            return p, m["loss"].item()
+
+        whole = grads(lambda w, xx: sequential_apply(stage, w, xx))
+        p_want, l_want = trained(None, Plan())
+        for m in (1, n_stages, 4 * n_stages):
+            got = grads(lambda w, xx: pipeline_apply(
+                stage, w, xx, mesh, microbatches=m, schedule=sched,
+                virtual_stages=v))
+            want = grads(lambda w, xx: torch.cat([
+                sequential_apply(stage, w, c) for c in xx.chunk(m)]))
+            plan = Plan(microbatches=m, pipeline_schedule=sched,
+                        virtual_stages=v)
+            p_got, l_got = trained(mesh, plan)
+            fwd = _allclose_err(got[0], want[0], 1e-5, 1e-5)
+            bwd = max(_allclose_err(g, w, 1e-4, 1e-5)
+                      for g, w in zip(got[1:], want[1:]))
+            fwd_w = _leaf_err(got[0], whole[0]) / 1e-5
+            bwd_w = max(_leaf_err(g, w) for g, w in zip(got[1:], whole[1:])
+                        ) / 1e-4
+            par = _allclose_err(p_got, p_want, 1e-4, 1e-5)
+            lines.append(
+                f"pipeline {sched}, {n_stages} stages (V={v}) on 2 ranks, "
+                f"D={d} B={b} m={m}: of their limits, forward {fwd:.3f} and "
+                f"gradients {bwd:.3f} against the same microbatches, "
+                f"{fwd_w:.3f} and {bwd_w:.3f} against the whole batch, "
+                f"step parameters {par:.3f}; loss {l_got:.6f} against "
+                f"{l_want:.6f}")
+            require(max(fwd, bwd, fwd_w, bwd_w, par) <= 1
+                    and abs(l_got - l_want) <= 1e-5 * max(1.0, abs(l_want)),
+                    f"(b) past its limits: {lines[-1]}")
+            sums[f"pipe/{sched}/{m}"] = round(got[1].double().sum().item(),
+                                              6)
+
+
+def dist_rank_moe(rank, device, lines, sums, arch=DIST_MOE_ARCH,
+                  shape=DIST_MOE_X) -> None:
+    """``apply_moe_ep`` on the MoE layer at full width over model = 2 (half
+    the experts a rank) against ``apply_moe`` on the whole input: y within
+    1e-4, aux within 0.05 (a per-shard estimator, as
+    tests/test_distributed.py holds it), every gradient nonzero."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    mesh = make_test_mesh((2,), ("model",), device=device)
+    gen = torch.Generator(device=device).manual_seed(22)
+    p = moe.init_moe(cfg, gen, device, torch.float32)
+    b, s = shape
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+    ct = torch.randn((b, s, cfg.d_model), generator=gen, device=device)
+    with torch.no_grad():
+        y_ref, aux_ref = moe.apply_moe(p, cfg, x, groups=1)
+    leaves = {f"{k}.{n}" if isinstance(v, dict) else k: t
+              for k, v in p.items()
+              for n, t in (v.items() if isinstance(v, dict) else [(k, v)])}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    x.requires_grad_(True)
+    y, aux = moe.apply_moe_ep(p, cfg, x, rules=Rules(mesh))
+    got = torch.autograd.grad((y * ct).sum() + aux,
+                              [x, *leaves.values()])
+    err = (y.detach() - y_ref).abs().max().item()
+    zero = [n for n, g in zip(["x", *leaves], got) if not g.abs().sum() > 0]
+    lines.append(
+        f"expert-parallel MoE, {arch} layer at full width ({cfg.moe.n_experts}"
+        f" experts, {cfg.moe.n_experts // 2} a rank, top {cfg.moe.top_k}), "
+        f"x {list(x.shape)} fp32, model = 2: y {err:.2e} from apply_moe's, "
+        f"aux {aux.item():.5f} against {aux_ref.item():.5f}, "
+        f"{len(got)} gradients, {len(zero)} zero")
+    require(err <= 1e-4, f"(b) expert-parallel y is {err:.2e} from "
+            f"apply_moe's")
+    require(abs(aux.item() - aux_ref.item()) <= 0.05, "(b) aux is off")
+    require(not zero, f"(b) zero gradients: {zero}")
+    sums["moe"] = [round(g.double().sum().item(), 6) for g in got]
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
@@ -3848,13 +4317,19 @@ def main() -> int:
             run_fleet(ops, lookup, cells, tmp)
     with phase("13 train"):
         trained = run_train(ops)
+    free_card()
+    with phase("14 dist"):
+        distributed = run_dist(ops)
     # flash and decode: the serving cells' launches, each cell counted
     # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), and flash
-    # forward and backward in the training steps of 13 (b)
+    # forward and backward in the training steps of 13 (b) and the timed
+    # pod-parallel steps of 14 (a)
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]
                      + cross[k] for k in family})
-    launches["flash_attention"] += trained["flash_attention"]
-    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    launches["flash_attention"] += (trained["flash_attention"]
+                                    + distributed["flash_attention"])
+    launches["flash_attention_bwd"] = (trained["flash_attention_bwd"]
+                                       + distributed["flash_attention_bwd"])
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

@@ -11,7 +11,14 @@ the manifest names each leaf by its key path (``["params",
 "blocks.0.attn.wq"]``) where the reference pickles a JAX treedef.
 bfloat16 leaves (numpy has none) are stored as their raw 16 bits and
 viewed back, so they round-trip bitwise.  :meth:`Checkpointer.restore`
-puts every leaf on the device the caller names (default the CPU).  Writes
+puts every leaf on the device the caller names (default the CPU), or, with
+``shardings`` (a tree of ``dist.sharding.NamedSharding``, or None leaves),
+each leaf as a DTensor with the asked placements on the sharding's mesh:
+the checkpoint holds whole tensors, so restoring onto another mesh is a
+placement decision (``runtime.elastic.reshard_restore``).  A DTensor leaf
+is saved whole (``full_tensor``, a collective: every rank of its mesh
+calls ``save``); in a process group of more than one rank only rank 0
+writes, and every rank waits for the write before ``save`` returns.  Writes
 can run on a background thread (``async_save``, from a host snapshot
 taken first); ``wait()`` joins and re-raises a failed write.  ``keep``
 bounds the steps kept, and ``.tmp`` directories (a writer that died) are
@@ -28,6 +35,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import DeviceLike
 
@@ -42,6 +51,15 @@ def _leaves(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
     return [(path, tree)]
 
 
+def _whole(leaf):
+    """A DTensor leaf gathered whole (a collective), any other as it is."""
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
+def _writer() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
     """(numpy array to write, dtype name to restore)."""
     if isinstance(leaf, torch.Tensor):
@@ -53,6 +71,12 @@ def _to_host(leaf) -> Tuple[np.ndarray, str]:
         return arr, str(arr.dtype)
     arr = np.asarray(leaf)
     return arr, str(arr.dtype)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _nest(tree: dict, path, value) -> None:
@@ -71,12 +95,20 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+        flat = [(path, _whole(leaf)) for path, leaf in _leaves(tree)]
+        final = self.dir / f"step_{step}"
+        if _writer():
+            self._write(step, flat, extra)
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dist.barrier()
+        return final
+
+    def _write(self, step: int, flat, extra: Optional[dict]):
         tmp = self.dir / f"step_{step}.tmp"
         final = self.dir / f"step_{step}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        flat = _leaves(tree)
         manifest = {"step": step, "n_leaves": len(flat), "leaves": [],
                     "extra": extra or {}, "time": time.time()}
         for i, (path, leaf) in enumerate(flat):
@@ -90,20 +122,23 @@ class Checkpointer:
             shutil.rmtree(final)
         tmp.rename(final)                       # atomic publish
         self._gc()
-        return final
 
     def async_save(self, step: int, tree: Any,
                    extra: Optional[dict] = None):
         # snapshot to host first: the caller may go on writing the tensors
-        host = {}
+        host = []
         for path, leaf in _leaves(tree):
-            _nest(host, path, leaf.detach().to("cpu", copy=True)
-                  if isinstance(leaf, torch.Tensor) else np.array(leaf))
+            leaf = _whole(leaf)
+            host.append((path, leaf.detach().to("cpu", copy=True)
+                         if isinstance(leaf, torch.Tensor)
+                         else np.array(leaf)))
         self.wait()
+        if not _writer():
+            return
 
         def work():
             try:
-                self.save(step, host, extra)
+                self._write(step, host, extra)
             except BaseException as e:   # surfaced at next wait()
                 self._error = e
 
@@ -125,9 +160,12 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None,
-                device: DeviceLike = "cpu") -> tuple:
+                device: DeviceLike = "cpu", shardings: Any = None) -> tuple:
         """(tree of tensors on ``device``, extra) of ``step`` (default the
-        latest)."""
+        latest); with ``shardings``, a tree matching the saved one whose
+        leaves are ``NamedSharding`` (the leaf comes back as that
+        sharding's DTensor on its mesh's device) or None (a plain tensor on
+        ``device``)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -139,7 +177,10 @@ class Checkpointer:
             t = torch.from_numpy(np.load(path / f"leaf_{leaf['index']}.npy"))
             if leaf["dtype"] in _VIEWS:
                 t = t.view(_VIEWS[leaf["dtype"]])
-            _nest(tree, tuple(leaf["path"]), t.to(device))
+            key = tuple(leaf["path"])
+            sh = _at(shardings, key) if shardings is not None else None
+            _nest(tree, key, t.to(device) if sh is None
+                  else sh.distribute(t))
         return tree, manifest["extra"]
 
     # --------------------------------------------------------------- gc

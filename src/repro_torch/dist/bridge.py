@@ -17,11 +17,13 @@ advertises its mesh analogue via ``Backend.mesh_role`` ("data" | "model" |
   * data role — leading dimension of every input over the batch axes;
   * model role — trailing dimension over the "model" axis.
 
-The port has no ``DeviceMesh`` / ``Rules`` yet (they come with the
-distribution slice), so the mesh is :class:`LocalMesh`, a one-device
-stand-in with the reference test's axes ``("data", "model")`` of sizes
-(1, 1): every input is whole on it, and the trace runs on the inputs' own
-device.  A mesh with an axis past one device raises, naming item 11.
+The mesh is :class:`LocalMesh`, a one-device stand-in with the reference
+test's axes ``("data", "model")`` of sizes (1, 1): every input is whole on
+it, and the trace runs on the inputs' own device.  A mesh with an axis
+past one device raises, naming ROADMAP item 11b: tracing a sharded
+candidate needs DTensor placements of its inputs under ``Rules`` and a
+per-device trace with its collectives (automatic partitioning, where the
+reference leaves the collectives to GSPMD).
 """
 from __future__ import annotations
 
@@ -76,8 +78,9 @@ def mesh_verify(cost_runner, dest, fn, inputs):
     mesh = cost_runner.mesh
     if any(int(s) != 1 for s in mesh.shape.values()):
         raise NotImplementedError(
-            f"mesh {dict(mesh.shape)}: sharded verification needs "
-            f"DeviceMesh and sharding rules (ROADMAP queue 1 item 11)")
+            f"mesh {dict(mesh.shape)}: sharded verification needs DTensor "
+            f"placements of the inputs and a per-device trace with its "
+            f"collectives (ROADMAP queue 1 item 11b)")
     ev = cost_runner.measure(fn, inputs)
     if ev.correct:
         ev.info["mesh"] = dict(mesh.shape)

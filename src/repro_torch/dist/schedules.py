@@ -1,13 +1,14 @@
 """Pipeline-parallel schedules: static tick plans for ``pipeline_apply``; a
 copy of the JAX package's ``repro.dist.schedules`` (pure Python).  In the
-port the static plan lint (``repro_torch.analysis.plan_lint``) builds them
-to judge a plan's pipeline genes; ``pipeline_apply`` joins with the mesh
-slice.
+port ``repro_torch.dist.pipeline.pipeline_apply`` runs them over a mesh's
+ranks, and the static plan lint (``repro_torch.analysis.plan_lint``)
+builds them to judge a plan's pipeline genes.
 
 A :class:`Schedule` turns (stages, ranks, microbatches, virtual stages) into
 a :class:`TickPlan` — a static per-tick script that ``pipeline_apply``
-executes inside one ``shard_map``.  Every schedule computes the *same*
-function (numerics match ``sequential_apply`` exactly, forward and grad);
+executes (the reference inside one ``shard_map``).  Every schedule
+computes the *same* function (numerics match ``sequential_apply``
+exactly, forward and grad);
 they differ in how microbatches stream through the stage ring and therefore
 in the pipeline **bubble** (ticks a rank sits idle) and the per-rank
 activation **in-flight** count (the memory a production backward pass keeps

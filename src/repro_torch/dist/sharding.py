@@ -1,0 +1,230 @@
+"""Logical-axis sharding rules: map model-side axis names to mesh axes; the
+port of ``repro.dist.sharding``.
+
+The port's parameters, caches and optimizer state carry *logical* axes
+(``"embed"``, ``"heads"``, ``"batch"`` ...: ``models.lm.param_axes``,
+``cache_axes``, ``train.optimizer.opt_state_axes``).  :class:`Rules` turns
+a logical-axes tuple into a :class:`PartitionSpec` for a concrete mesh,
+with the reference's two fallbacks (an invalid plan must still compute):
+
+  * divisibility — a dimension is sharded over the largest prefix of its
+    assigned mesh axes whose total size divides it (replicated only when
+    not even the first axis divides);
+  * duplicate axes — a mesh axis already used earlier in the same spec is
+    skipped (with ``Plan.decode_kv_seq_shard`` the ``kv_seq`` axis claims
+    "model" and ``kv_heads`` falls back to replicated).
+
+The mesh is a ``torch.distributed.device_mesh.DeviceMesh``; :class:`Rules`
+reads only its axis names and sizes (:func:`mesh_axes`, which also takes
+any object with ``axis_names`` and a ``shape`` mapping, as a JAX mesh
+has).  :class:`NamedSharding` turns a spec into DTensor placements, one
+``Shard(dim)`` or ``Replicate()`` per mesh dimension.  A tuple entry
+shards one dimension over several mesh dimensions major to minor, as JAX
+does; DTensor shards over mesh dimensions in the mesh's order, so a tuple
+whose axes are not in that order has no placement and raises (the
+builders of ``launch.mesh`` and ``BASE_RULES`` keep "pod" before "data").
+
+``constrain`` is the identity on a plain tensor (under ``jit`` the
+reference's is a layout hint) and a ``redistribute`` on a DTensor.
+:class:`NullRules` is the no-mesh identity.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
+
+# logical axis -> mesh axes.  A tuple value shards one dimension over
+# several mesh axes (and stays a tuple inside the PartitionSpec); a string
+# value is a single mesh axis.  "batch"/"embed" ride the data-class axes
+# (embed sharding over "data" is the FSDP-style parameter shard); the
+# model-class axes carry heads / ff / experts / vocab (tensor parallel).
+BASE_RULES = {
+    "batch": ("pod", "data"),
+    "embed": ("data",),
+    "heads": "model",
+    "kv_heads": "model",
+    "ff": "model",
+    "lru": "model",
+    "vocab": "model",
+    "experts": "model",
+}
+
+
+def mesh_axes(mesh) -> Dict[str, int]:
+    """Axis name -> size, in the mesh's order."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return {a: int(mesh.shape[a]) for a in mesh.axis_names}
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The mesh axes that carry the batch dimension, in batch order."""
+    names = mesh_axes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dimension: None (replicated), a mesh axis name
+    or a tuple of names (major to minor); a tuple of one name is that name,
+    as ``jax.sharding.PartitionSpec`` normalises it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+class NamedSharding:
+    """A spec on a DeviceMesh: ``placements`` (one per mesh dimension) and
+    ``distribute`` (a tensor every rank holds whole -> the DTensor of this
+    rank's shard)."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec
+
+    @property
+    def placements(self) -> tuple:
+        names = list(self.mesh.mesh_dim_names)
+        out = [Replicate()] * len(names)
+        for dim, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            idx = [names.index(a) for a in
+                   ((entry,) if isinstance(entry, str) else entry)]
+            if idx != sorted(idx):
+                raise ValueError(
+                    f"{self.spec}: dimension {dim} is sharded over "
+                    f"{entry} major to minor, against the mesh's order "
+                    f"{tuple(names)}; DTensor has no such placement")
+            for i in idx:
+                out[i] = Shard(dim)
+        return tuple(out)
+
+    def distribute(self, tensor) -> DTensor:
+        """The DTensor of ``tensor`` (whole, the same on every rank) under
+        this sharding: each rank keeps its own shard, with no
+        communication."""
+        return distribute_tensor(tensor.to(self.mesh.device_type),
+                                 self.mesh, self.placements,
+                                 src_data_rank=None)
+
+
+class Rules:
+    """Sharding rules for one (mesh, plan) pair.
+
+    ``exclude_axes`` removes mesh axes from every rule (the reference uses
+    it inside a ``shard_map`` whose manual axes the inner rules must not
+    name).
+    """
+
+    def __init__(self, mesh, plan=None, exclude_axes: Sequence[str] = ()):
+        self.mesh = mesh
+        self.plan = plan
+        self.exclude_axes = tuple(exclude_axes)
+        self.shape = mesh_axes(mesh)
+        self.rules = dict(BASE_RULES)
+        if plan is not None and getattr(plan, "decode_kv_seq_shard", False):
+            self.rules["kv_seq"] = "model"
+
+    def _assign(self, logical: Optional[str], dim: Optional[int],
+                used: set):
+        """Mesh-axis entry for one dimension (None = replicated)."""
+        if logical is None:
+            return None
+        rule = self.rules.get(logical)
+        if rule is None:
+            return None
+        as_tuple = isinstance(rule, tuple)
+        candidates = rule if as_tuple else (rule,)
+        axes = tuple(a for a in candidates
+                     if a in self.shape
+                     and a not in self.exclude_axes
+                     and a not in used)
+        if not axes:
+            return None
+        if dim is not None:
+            # shard over the largest prefix of the remaining axes whose
+            # total size divides the dimension
+            size, take = 1, 0
+            for a in axes:
+                if dim % (size * self.shape[a]) != 0:
+                    break
+                size *= self.shape[a]
+                take += 1
+            axes = axes[:take]
+            if not axes:
+                return None                  # replicate: nothing divides
+        used.update(axes)
+        return axes if as_tuple else axes[0]
+
+    def spec(self, axes: Optional[Sequence[Optional[str]]],
+             dims: Optional[Sequence[int]] = None) -> PartitionSpec:
+        """PartitionSpec for a logical-axes tuple (trailing Nones trimmed);
+        ``dims`` (the concrete shape) enables the divisibility fallback."""
+        entries = []
+        used: set = set()
+        for i, logical in enumerate(tuple(axes or ())):
+            dim = None if dims is None else dims[i]
+            entries.append(self._assign(logical, dim, used))
+        while entries and entries[-1] is None:
+            entries.pop()
+        return PartitionSpec(*entries)
+
+    def sharding(self, axes, shape=None) -> NamedSharding:
+        return NamedSharding(self.mesh, self.spec(axes, dims=shape))
+
+    def constrain(self, x, axes):
+        """A DTensor redistributed to its logical axes; a plain tensor
+        unchanged."""
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(self.mesh,
+                              self.sharding(axes, tuple(x.shape)).placements)
+
+
+class NullRules:
+    """No-mesh rules: every operation is the identity / fully replicated."""
+
+    mesh = None
+    plan = None
+
+    def spec(self, axes, dims=None) -> PartitionSpec:
+        return PartitionSpec()
+
+    def sharding(self, axes, shape=None):
+        return None
+
+    def constrain(self, x, axes):
+        return x
+
+
+def _is_axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str) for e in x)
+
+
+def tree_shardings(rules, axes_tree, tree) -> Any:
+    """Shardings mirroring ``tree`` (dicts and lists of tensors, arrays or
+    anything with a ``shape``) from a logical-axes tree of the same
+    structure whose leaves are tuples of logical axis names (``()`` a
+    scalar)."""
+    if _is_axes_leaf(axes_tree):
+        shape = getattr(tree, "shape", None)
+        return rules.sharding(axes_tree,
+                              None if shape is None else tuple(shape))
+    if isinstance(axes_tree, dict):
+        if set(axes_tree) != set(tree):
+            raise ValueError(f"axes and tree differ: "
+                             f"{sorted(set(axes_tree) ^ set(tree))[:5]}")
+        return {k: tree_shardings(rules, axes_tree[k], tree[k])
+                for k in tree}
+    if isinstance(axes_tree, list):
+        return [tree_shardings(rules, a, t) for a, t in zip(axes_tree, tree)]
+    raise TypeError(f"not a logical-axes tree: {axes_tree!r}")

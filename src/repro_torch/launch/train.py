@@ -4,8 +4,13 @@ The reference's flags, plus ``--device`` (default ``cuda``; without a card
 it raises unless ``--device cpu`` is given): a seeded random-weight model,
 the deterministic data pipeline, the train step through the backward
 kernels, and the fault-tolerant checkpointed loop with its straggler
-watchdog.  ``--pod-parallel`` and ``--compress`` need a mesh and are
-refused (ROADMAP queue 1 item 11).
+watchdog.  As the reference does, it builds a host mesh
+(``launch.mesh.make_host_mesh``: the process group's ranks on one
+``("data",)`` axis, a one-rank group started when none exists and
+destroyed at the end) and runs the pod-parallel step when ``"pod"`` is
+among its axes, else the plain step: on a host mesh ``--pod-parallel``
+falls back to the plain step.  ``--compress`` sets
+``plan.grad_compression`` (int8 cross-pod gradients in the pod step).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
       --reduced --steps 100 --batch 8 --seq 128 --device cpu
@@ -43,14 +48,12 @@ def main(argv=None):
     from repro_torch.data.pipeline import SyntheticTokens, data_config_for
     from repro_torch.device import resolve
     from repro_torch.dist.plan import Plan
-    from repro_torch.models.layers import not_ported
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models.lm import LM, init_params
     from repro_torch.runtime.fault_tolerance import run_resilient
     from repro_torch.train import optimizer, train_step as ts
 
-    if args.pod_parallel or args.compress:
-        raise not_ported("--pod-parallel / --compress (a mesh of pods, "
-                         "int8 cross-pod gradients)", 11)
     dev = resolve(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
@@ -69,29 +72,38 @@ def main(argv=None):
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         return init_params(cfg, gen, dev)
 
-    model = LM(cfg, seeded_params(), plan)
-    step_fn = ts.make_train_step(model, tcfg)
-    ckpt = Checkpointer(args.ckpt_dir, keep=2)
+    started = not torch.distributed.is_initialized()
+    try:
+        mesh = make_host_mesh(dev)
+        model = LM(cfg, seeded_params(), plan, Rules(mesh, plan))
+        if args.pod_parallel and "pod" in mesh.mesh_dim_names:
+            step_fn = ts.make_pod_parallel_train_step(model, tcfg, mesh)
+        else:
+            step_fn = ts.make_train_step(model, tcfg)
+        ckpt = Checkpointer(args.ckpt_dir, keep=2)
 
-    def init_state():
-        params = model.load_params(seeded_params())
-        return {"params": params, "opt": optimizer.init(params, tcfg)}
+        def init_state():
+            params = model.load_params(seeded_params())
+            return {"params": params, "opt": optimizer.init(params, tcfg)}
 
-    def body(state, step):
-        batch = data.batch(step)
-        t0 = time.perf_counter()
-        params, opt, metrics = step_fn(state["params"], state["opt"], batch,
-                                       step)
-        if step % args.log_every == 0:
-            print(f"step {step:5d} loss={float(metrics['loss']):.4f} "
-                  f"lr={float(metrics['lr']):.2e} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"dt={time.perf_counter()-t0:.3f}s", flush=True)
-        return {"params": params, "opt": opt}, metrics
+        def body(state, step):
+            batch = data.batch(step)
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(state["params"], state["opt"],
+                                           batch, step)
+            if step % args.log_every == 0:
+                print(f"step {step:5d} loss={float(metrics['loss']):.4f} "
+                      f"lr={float(metrics['lr']):.2e} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"dt={time.perf_counter()-t0:.3f}s", flush=True)
+            return {"params": params, "opt": opt}, metrics
 
-    res = run_resilient(total_steps=args.steps, checkpointer=ckpt,
-                        init_state=init_state, step_fn=body,
-                        save_every=args.save_every, device=dev)
+        res = run_resilient(total_steps=args.steps, checkpointer=ckpt,
+                            init_state=init_state, step_fn=body,
+                            save_every=args.save_every, device=dev)
+    finally:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     losses = [h.get("loss") for h in res.metrics_history if "loss" in h]
     if losses:
         print(f"done: {res.last_step} steps, {res.restarts} restarts, "

@@ -31,7 +31,7 @@ from repro_torch.kernels import ops
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
 
 
-def not_ported(what: str, item: int) -> NotImplementedError:
+def not_ported(what: str, item) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1 item "
         f"{item})")
@@ -67,6 +67,33 @@ def init_ffn(d: int, hidden: int, act: str, use_bias: bool, dtype,
     if use_bias:
         p["b_in"] = torch.zeros(hidden, dtype=dtype, device=device)
         p["b_out"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
+
+
+def ffn_axes(act: str, use_bias: bool) -> dict:
+    """An FFN's logical axes (``repro.models.layers.ffn_axes``)."""
+    p = {"w_in": ("embed", "ff"), "w_out": ("ff", "embed")}
+    if act in ("swiglu", "geglu"):
+        p["w_gate"] = ("embed", "ff")
+    if use_bias:
+        p["b_in"] = ("ff",)
+        p["b_out"] = (None,)
+    return p
+
+
+def norm_axes(kind: str) -> dict:
+    p = {"scale": (None,)}
+    if kind == "layernorm":
+        p["bias"] = (None,)
+    return p
+
+
+def attn_axes(cfg) -> dict:
+    p = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+         "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if cfg.use_bias:
+        p.update({"bq": ("heads", None), "bk": ("kv_heads", None),
+                  "bv": ("kv_heads", None), "bo": (None,)})
     return p
 
 

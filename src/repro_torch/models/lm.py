@@ -85,6 +85,7 @@ Differences from the JAX model, none of which changes a result:
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
@@ -97,6 +98,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.dist.plan import Plan
+from repro_torch.dist.sharding import NullRules
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.layers import not_ported
 
@@ -257,6 +259,79 @@ def _layer_names(cfg: ModelConfig) -> List[Tuple[str, str]]:
             + [(f"tail.{i}", pat[i % len(pat)]) for i in range(tail)])
 
 
+def _block_axes(cfg: ModelConfig, kind: str) -> dict:
+    """One block's logical axes (``repro.models.lm._*_block_axes``)."""
+    if kind == "ssm":
+        return {"norm": layers.norm_axes(cfg.norm), "ssm": ssm.ssm_axes(cfg)}
+    if kind == "recurrent":
+        return {"norm": layers.norm_axes(cfg.norm),
+                "lru": rglru.rglru_axes(cfg),
+                "ffn_norm": layers.norm_axes(cfg.norm),
+                "ffn": layers.ffn_axes(cfg.ffn_act, cfg.use_bias)}
+    ffn = (moe.moe_axes(cfg) if cfg.moe is not None and kind != "cross"
+           else layers.ffn_axes(cfg.ffn_act, cfg.use_bias))
+    return {"attn_norm": layers.norm_axes(cfg.norm),
+            "attn": layers.attn_axes(cfg),
+            "ffn_norm": layers.norm_axes(cfg.norm), "ffn": ffn}
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each parameter's logical axes, keyed by the LM's state-dict names
+    (``repro.models.lm.param_axes``, whose stacked leading ``"layers"``
+    axes the port drops: it keeps one module a layer)."""
+    p = {"embed": ("vocab", "embed")}
+    p.update(flatten(layers.norm_axes(cfg.norm), "final_norm."))
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed", "vocab")
+    if cfg.family == "audio":
+        p.update(flatten(layers.norm_axes(cfg.norm), "enc_norm."))
+    for name, kind in _layer_names(cfg):
+        p.update(flatten(_block_axes(cfg, kind), f"{name}."))
+    return p
+
+
+def cache_axes(cfg: ModelConfig, quant: bool = False) -> Cache:
+    """The decode cache's logical axes, the tree of :func:`init_cache`
+    (``repro.models.lm.cache_axes``: the port's cache is the JAX one, its
+    layers stacked on a leading ``"layers"`` axis)."""
+    def kvbuf(*lead, quantized=quant):
+        ax = tuple(lead) + ("batch", "kv_seq", "kv_heads", None)
+        out = {"k": ax, "v": ax}
+        if quantized:
+            out["k_scale"] = ax
+            out["v_scale"] = ax
+        return out
+
+    def rec_axes(*lead):
+        return {"conv": tuple(lead) + ("batch", None, "lru"),
+                "h": tuple(lead) + ("batch", None, "lru")}
+
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        return {"attn": kvbuf("layers")}
+    if fam == "vlm":
+        return {"attn": kvbuf("layers", None),
+                "cross": kvbuf("layers", quantized=False)}
+    if fam == "audio":
+        return {"attn": kvbuf("layers"),
+                "cross": kvbuf("layers", quantized=False)}
+    if fam == "hybrid":
+        pat = cfg.hybrid.pattern
+        out = {"groups": {f"b{i}": (rec_axes("layers") if kind == "recurrent"
+                                    else kvbuf("layers"))
+                          for i, kind in enumerate(pat)}}
+        _, tail = hybrid_groups(cfg)
+        if tail:
+            out["tail"] = [rec_axes() if pat[i % len(pat)] == "recurrent"
+                           else kvbuf() for i in range(tail)]
+        return out
+    if fam == "ssm":
+        return {"blocks": {"conv": ("layers", "batch", None, "lru"),
+                           "state": ("layers", "batch", "heads", None,
+                                     None)}}
+    raise ValueError(fam)
+
+
 def _group(params: Params, prefix: str) -> nn.ParameterDict:
     return nn.ParameterDict({
         k[len(prefix):]: nn.Parameter(v, requires_grad=False)
@@ -308,10 +383,12 @@ class DenseBlock(nn.Module):
     ring; ``causal=False`` is the audio encoder's layer (prefill only)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
-                 plan: Plan, window: int = 0, causal: bool = True):
+                 plan: Plan, window: int = 0, causal: bool = True,
+                 rules=None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
+        self.rules = rules or NullRules()
         self.window = window
         self.causal = causal
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
@@ -340,7 +417,8 @@ class DenseBlock(nn.Module):
                                    groups=x.shape[0] * x.shape[1], **kw)
         elif plan.moe_impl == "shardmap_ep":
             y, aux = moe.apply_moe_ep(self.ffn, cfg, x,
-                                      plan.moe_capacity_factor, **kw)
+                                      plan.moe_capacity_factor,
+                                      rules=self.rules, **kw)
         else:
             y, aux = moe.apply_moe(self.ffn, cfg, x,
                                    plan.moe_capacity_factor,
@@ -530,12 +608,16 @@ class LM(nn.Module):
     """The LM over ``params`` (a state dict from :func:`init_params` or
     :func:`repro_torch.models.convert.params_from_numpy`); it runs where
     its parameters lie.  Its weights take no gradient (serving) until
-    ``requires_grad_(True)`` (``repro_torch.train.train_step``)."""
+    ``requires_grad_(True)`` (``repro_torch.train.train_step``).  ``rules``
+    (default :class:`NullRules`) reach the MoE layers under
+    ``plan.moe_impl == "shardmap_ep"``, whose experts then run
+    expert-parallel over the rules' mesh (:func:`moe.apply_moe_ep`)."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
-                 plan: Optional[Plan] = None):
+                 plan: Optional[Plan] = None, rules=None):
         super().__init__()
         self.plan = plan or Plan()
+        self.rules = rules or NullRules()
         check_supported(cfg, self.plan)
         self.cfg = cfg
         # sqrt(d_model) rounded to the activation type once, as the JAX
@@ -596,7 +678,8 @@ class LM(nn.Module):
         # the hybrid's local attention runs at cfg.window although its
         # attn_kind is "local", as the JAX hybrid branch passes it
         window = cfg.window if cfg.family == "hybrid" else _window_of(cfg)
-        return DenseBlock(cfg, params, prefix, plan, window)
+        return DenseBlock(cfg, params, prefix, plan, window,
+                          rules=self.rules)
 
     @property
     def device(self) -> torch.device:
@@ -730,6 +813,20 @@ class LM(nn.Module):
         lse = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[..., None].long())[..., 0]
         return torch.sum(lse - gold)
+
+    @contextlib.contextmanager
+    def rules_as(self, rules) -> Iterator[None]:
+        """Run with ``rules`` in place of the LM's own, in every layer that
+        holds rules (the pod-parallel step's inner rules, whose batch axes
+        its ranks have already split)."""
+        held = [(m, m.rules) for m in self.modules() if hasattr(m, "rules")]
+        for m, _ in held:
+            m.rules = rules
+        try:
+            yield
+        finally:
+            for m, old in held:
+                m.rules = old
 
     def params(self) -> Dict[str, nn.Parameter]:
         """The LM's parameters by state-dict name (what the optimizer

@@ -35,6 +35,7 @@ module, none of which changes a result:
 """
 from __future__ import annotations
 
+import math
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
@@ -65,6 +66,22 @@ def init_moe(cfg: ModelConfig, generator: torch.Generator, device,
     if m.dense_residual:
         p["dense"] = layers.init_ffn(d, m.dense_d_ff or cfg.d_ff, act, False,
                                      dtype, generator, device)
+    return p
+
+
+def moe_axes(cfg: ModelConfig) -> dict:
+    """One layer's logical axes (``repro.models.moe.moe_axes``): the
+    experts' leading axis is ``experts``."""
+    m = cfg.moe
+    experts = {"w_in": ("experts", "embed", "ff"),
+               "w_out": ("experts", "ff", "embed")}
+    if cfg.ffn_act in ("swiglu", "geglu"):
+        experts["w_gate"] = ("experts", "embed", "ff")
+    p = {"router": ("embed", None), "experts": experts}
+    if m.shared_experts:
+        p["shared"] = layers.ffn_axes(cfg.ffn_act, False)
+    if m.dense_residual:
+        p["dense"] = layers.ffn_axes(cfg.ffn_act, False)
     return p
 
 
@@ -221,9 +238,97 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor,
 
 
 def apply_moe_ep(p, cfg: ModelConfig, x: torch.Tensor,
-                 capacity_factor: Optional[float] = None, **kw):
-    """The expert-parallel MoE as the JAX module runs it on one device (no
-    mesh): :func:`apply_moe` over one group.  Its ``shard_map`` body, each
-    model rank running its own experts, waits for the port's multi-card
-    slice (ROADMAP queue 1 item 11)."""
-    return apply_moe(p, cfg, x, capacity_factor, groups=1, **kw)
+                 capacity_factor: Optional[float] = None, rules=None, **kw):
+    """Expert-parallel MoE over the ``model`` axis of ``rules.mesh``: the
+    JAX ``shard_map`` body (``repro.models.moe.apply_moe_ep``) as SPMD
+    code, every rank of the mesh calling it with the whole ``x`` and
+    weights.
+
+    Each rank takes its data slice of the tokens (its coordinate on the
+    batch axes, pod-major) and its ``E / ep`` experts, routes its tokens
+    over all E experts with the per-(data shard, expert) capacity, and
+    runs only its own experts.  The partial outputs and the load-balance
+    ``aux`` are summed over ``model``, ``aux`` is averaged over the batch
+    axes, and the outputs are gathered so that every rank holds the whole
+    ``y``.  The collectives treat the result as one replicated value
+    (:mod:`repro_torch.dist.collectives`): the gradient each rank gets
+    for ``x`` and every weight is the whole one.
+
+    A batch axis in ``rules.exclude_axes`` is one the caller has already
+    split (the pod-parallel step's, whose ranks each hold their own rows):
+    ``x`` is this rank's part along it, so the tokens are not cut again
+    and nothing is summed or averaged over it.
+
+    Without a mesh, with a ``model`` axis of 1, or when the experts or the
+    batch do not divide, it runs :func:`apply_moe` over one group, as the
+    reference falls back.  ``drops`` (``**kw``) is counted on that path
+    only."""
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.sharding import batch_axes, mesh_axes
+
+    m = cfg.moe
+    mesh = getattr(rules, "mesh", None)
+    shape = mesh_axes(mesh) if mesh is not None else {}
+    ep = shape.get("model", 1)
+    excluded = getattr(rules, "exclude_axes", ())
+    dp = tuple(a for a in batch_axes(mesh) if a not in excluded
+               ) if mesh is not None else ()
+    dp_size = math.prod(shape[a] for a in dp)
+    b, s, d = x.shape
+    if mesh is None or ep == 1 or m.n_experts % ep or b % dp_size:
+        return apply_moe(p, cfg, x, capacity_factor, groups=1, **kw)
+    if kw.get("drops") is not None:
+        raise ValueError("apply_moe_ep counts drops only without a mesh")
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    e_loc = m.n_experts // ep
+    off = coord["model"] * e_loc
+    shard = 0
+    for a in dp:                                   # pod-major
+        shard = shard * shape[a] + coord[a]
+    b_loc = b // dp_size
+    t_loc = b_loc * s
+    k = m.top_k
+    cap = capacity_of(cfg, t_loc, capacity_factor)
+
+    groups = [mesh.get_group(a) for a in (*dp, "model") if shape[a] > 1]
+    xr = col.replicated(x, groups)
+    router = col.replicated(p["router"], groups)
+    experts = {n: col.replicated(w, groups)[off:off + e_loc]
+               for n, w in p["experts"].items()}
+    tokens = xr[shard * b_loc:(shard + 1) * b_loc].reshape(1, t_loc, d)
+    with record_function("moe.route"):
+        r = route(router, cfg, tokens, cap)
+        local = r.expert - off
+        keep = r.keep & (local >= 0) & (local < e_loc)
+        rows = local * cap + r.slot                             # [1, t, k]
+        spare = e_loc * cap
+        buf = x.new_zeros((spare + 1, d))
+        buf.index_copy_(0, torch.where(keep, rows, spare).reshape(-1),
+                        tokens[:, :, None, :].expand(1, t_loc, k, d)
+                        .reshape(-1, d))
+    with record_function("moe.experts"):
+        out = layers.apply_ffn(experts, buf[:spare].view(e_loc, cap, d),
+                               cfg.ffn_act).reshape(spare, d)
+    with record_function("moe.combine"):
+        got = torch.where(keep[..., None], out[torch.where(
+            keep, rows, 0).reshape(-1)].reshape(1, t_loc, k, d), 0)
+        partial = (got.float() * r.gate[..., None]).sum(dim=2)   # [1, t, d]
+        y = col.sum_replicated(partial, mesh.get_group("model"))
+        y = y.to(x.dtype).reshape(b_loc, s, d)
+        for a in reversed(dp):                 # minor axis first
+            y = col.gather_replicated(y, mesh.get_group(a))
+
+    me = torch.softmax(r.logits[0], dim=-1).mean(dim=0)          # [E]
+    ce_loc = r.counts[0, off:off + e_loc].float() / (t_loc * k)
+    aux = m.n_experts * torch.sum(me[off:off + e_loc] * ce_loc)
+    aux = col.sum_replicated(aux, mesh.get_group("model"))
+    for a in dp:
+        aux = col.sum_replicated(aux, mesh.get_group(a)) / shape[a]
+
+    if m.shared_experts:
+        with record_function("moe.shared"):
+            y = y + layers.apply_ffn(p["shared"], x, cfg.ffn_act)
+    if m.dense_residual:
+        with record_function("moe.dense"):
+            y = y + layers.apply_ffn(p["dense"], x, cfg.ffn_act)
+    return y, aux

@@ -61,6 +61,14 @@ def init_rglru(cfg: ModelConfig, generator: torch.Generator, device,
     }
 
 
+def rglru_axes(cfg: ModelConfig) -> dict:
+    """One block's logical axes (``repro.models.rglru.rglru_axes``)."""
+    return {"w_x": ("embed", "lru"), "w_gate": ("embed", "lru"),
+            "conv_w": (None, "lru"), "w_rg": ("lru", None),
+            "w_ig": ("lru", None), "lam": (None,),
+            "w_out": ("lru", "embed")}
+
+
 def _gates(p, x, rg, ig):
     """(a, b) of the recurrence for the conv output x [B, S, W] and its
     gate projections ``rg = x w_rg``, ``ig = x w_ig``, float32:

@@ -59,6 +59,13 @@ def init_ssm(cfg: ModelConfig, generator: torch.Generator, device,
     }
 
 
+def ssm_axes(cfg: ModelConfig) -> dict:
+    """One layer's logical axes (``repro.models.ssm.ssm_axes``)."""
+    return {"w_in": ("embed", "lru"), "conv_w": (None, "lru"),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,),
+            "w_out": ("lru", "embed"), "norm_scale": (None,)}
+
+
 def _split_in(cfg: ModelConfig, h):
     """The input projection [..., 2 di + 2 G N + nh] -> (z, x, B, C, dt)."""
     s = cfg.ssm

@@ -4,9 +4,9 @@ the port of ``repro.runtime``.
   * :mod:`repro_torch.runtime.fault_tolerance` — :class:`StragglerWatchdog`
     and :func:`run_resilient`, the checkpointed, self-restarting training
     loop.
-  * :mod:`repro_torch.runtime.elastic` — :class:`ResizeEvent` /
-    :func:`detect_resize` signal capacity changes (``reshard_restore``
-    joins with the training and mesh slices).
+  * :mod:`repro_torch.runtime.elastic` — reshard-on-restore across mesh
+    sizes (``reshard_restore``, ``available_mesh``); :class:`ResizeEvent`
+    / :func:`detect_resize` signal capacity changes.
   * :mod:`repro_torch.runtime.control` — the online fleet control loop
     (:class:`FleetController`, :class:`FaultInjector`,
     :class:`ControlLoop`) closing plan -> serve -> observe -> replan.

@@ -8,8 +8,9 @@ residual in an error-feedback buffer that is added back the next step.  As
 in the reference, the ranks agree on the largest scale (``pmax``), each
 rank's dequantized leaf is re-rounded to it and summed as int32, and the
 re-rounding error joins the residual.  The trees are dicts of tensors
-keyed by name.  The multi-rank step that uses it waits for the mesh slice
-(ROADMAP queue 1 item 11); one rank (a gloo group of one) runs it here.
+keyed by name.  ``train_step.make_pod_parallel_train_step`` runs it over
+the mesh's "pod" group.  The collectives go through
+:mod:`repro_torch.dist.collectives`.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.dist import collectives as col
 
 Tree = Mapping[str, torch.Tensor]
 
@@ -49,11 +52,9 @@ def compressed_psum(grads: Tree, ef_state: Tree,
         gf = g.float() + ef_state[name]
         q, scale = quantize_int8(gf)
         deq = dequantize_int8(q, scale)
-        scale_max = scale.clone()
-        dist.all_reduce(scale_max, op=dist.ReduceOp.MAX, group=group)
+        scale_max = col.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
         q_rescaled = torch.round(deq / scale_max).to(torch.int32)
-        total = q_rescaled.clone()
-        dist.all_reduce(total, group=group)
+        total = col.all_reduce(q_rescaled, group=group)
         reduced[name] = total.float() * scale_max
         # the quantization residual, and the rescaling error folded in
         new_ef[name] = (gf - deq) + (deq - q_rescaled.float() * scale_max)
@@ -62,8 +63,5 @@ def compressed_psum(grads: Tree, ef_state: Tree,
 
 def plain_psum(grads: Tree, group: Optional[dist.ProcessGroup] = None
                ) -> Dict[str, torch.Tensor]:
-    out = {}
-    for name, g in grads.items():
-        out[name] = g.clone()
-        dist.all_reduce(out[name], group=group)
-    return out
+    return {name: col.all_reduce(g, group=group)
+            for name, g in grads.items()}

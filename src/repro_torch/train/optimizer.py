@@ -9,8 +9,8 @@ writes both in place under ``torch.no_grad()`` (one leaf at a time, so the
 fp32 temporaries never exceed one leaf), with the reference's arithmetic:
 gradients clipped by their global norm, moments and bias corrections in
 fp32, decoupled weight decay, the fp32 result cast to each parameter's
-dtype.  ``opt_state_axes`` (the moments' sharding) waits for the mesh
-slice (ROADMAP queue 1 item 11).
+dtype.  :func:`opt_state_axes` gives the state's logical axes (the
+moments mirror the parameters).
 """
 from __future__ import annotations
 
@@ -53,6 +53,17 @@ def init(params: Mapping[str, torch.Tensor], tcfg: TrainConfig) -> State:
     if tcfg.use_master_copy:
         state["master"] = {n: p.detach().float().clone()
                            for n, p in params.items()}
+    return state
+
+
+def opt_state_axes(par_axes: Mapping[str, tuple], tcfg: TrainConfig
+                   ) -> State:
+    """Logical axes of :func:`init`'s state from the parameters' axes
+    (``models.lm.param_axes``): the moments (and the master copy) mirror
+    them, ``count`` is a scalar."""
+    state: State = {"m": par_axes, "v": par_axes, "count": ()}
+    if tcfg.use_master_copy:
+        state["master"] = par_axes
     return state
 
 

@@ -8,8 +8,13 @@ plan's remat (``LM.train_loss``).  The port's LM holds its parameters:
 restored checkpoint, is first copied into them), and the step updates them
 and ``opt_state`` in place and returns them.  The gradients come from
 ``torch.autograd.grad`` through the backward kernels (flash attention's
-on the card).  The multi-pod and pipelined steps need a mesh and wait for
-ROADMAP queue 1 item 11.
+on the card).
+
+``make_pod_parallel_train_step(model, tcfg, mesh)`` is the explicit
+multi-pod step, and ``make_pipeline_train_step`` the pipelined one.  Both
+are SPMD: every rank of the mesh runs the step with the whole parameters
+and the whole batch, does its part, and ends with the same gradients and
+takes the same optimizer step.
 """
 from __future__ import annotations
 
@@ -19,9 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models.layers import not_ported
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import Rules, batch_axes, mesh_axes
 from repro_torch.models.lm import LM
-from repro_torch.train import optimizer
+from repro_torch.train import grad_compression, optimizer
 
 
 def _split_microbatches(batch: Mapping[str, Any], n: int):
@@ -86,14 +92,153 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> Callable:
     return train_step
 
 
-def make_pod_parallel_train_step(model: LM, tcfg: TrainConfig, mesh):
-    raise not_ported("the pod-parallel train step (a mesh, compressed "
-                     "cross-pod gradients)", 11)
+def _batch_slice(batch: Mapping[str, Any], mesh, whole: tuple = ()):
+    """(this rank's rows of ``batch``, the mesh axes that cut them): the
+    batch axes that shard it under :class:`Rules` (``("pod", "data")`` as
+    present, less ``whole``, and as they divide B), pod-major, as the
+    reference's ``P("pod")`` in-spec and the "batch" rule lay them out."""
+    b = next(iter(batch.values())).shape[0]
+    shape = mesh_axes(mesh)
+    entry = Rules(mesh, exclude_axes=whole).spec(("batch",), (b,))
+    axes = entry[0] if entry else ()
+    axes = (axes,) if isinstance(axes, str) else axes
+    if "pod" in shape and "pod" not in axes:
+        raise ValueError(f"batch {b} % pod {shape['pod']} != 0")
+    coord = dict(zip(shape, mesh.get_coordinate()))
+    shard, n = 0, 1
+    for a in axes:
+        shard, n = shard * shape[a] + coord[a], n * shape[a]
+    rows = slice(shard * (b // n), (shard + 1) * (b // n))
+    return {k: x[rows] for k, x in batch.items()}, axes
+
+
+def make_pod_gradients(model: LM, mesh) -> Callable:
+    """The body of the pod-parallel step (the reference's ``pod_body``):
+    ``(params, ef, batch) -> (grads, new_ef, loss, metrics)``.
+
+    Each rank takes its pod's rows, and of those its "data" shard's, and
+    runs the LM under inner rules that exclude the batch axes (its rows are
+    already cut, as the reference's inner rules exclude the manual "pod"):
+    expert-parallel MoE then splits only its experts, over "model".  The
+    gradients are averaged over the mesh's "data" group, then summed over
+    its "pod" group with ``compressed_psum`` under
+    ``plan.grad_compression`` (``ef`` the error feedback, fp32 per leaf;
+    ``new_ef`` is ``ef`` without compression), else ``plain_psum``, and
+    divided by the pod count.  The loss and metrics are averaged the same
+    way.  The mean over "data" is the pod's own where the pod's loss is
+    the mean of its shards' (each holds as many tokens): a model without
+    MoE, or expert-parallel MoE, which routes each data shard alone as the
+    reference's does.  A grouped MoE (``moe_impl="gspmd"``) routes the
+    pod's whole batch, so there each data rank computes all of its pod's
+    rows and nothing is averaged over "data".  Ranks along "model" compute
+    the same numbers."""
+    shape = mesh_axes(mesh)
+    if "pod" not in shape:
+        raise ValueError(f"the pod-parallel step needs a 'pod' axis, the "
+                         f"mesh has {tuple(shape)}")
+    loss_fn = make_loss_fn(model)
+    plan = model.plan
+    compress = plan.grad_compression
+    whole = (("data",) if model.cfg.moe is not None
+             and plan.moe_impl != "shardmap_ep" else ())
+    inner = Rules(mesh, plan, exclude_axes=batch_axes(mesh))
+    pod = mesh.get_group("pod")
+    data = mesh.get_group("data") if "data" in shape else None
+    model.requires_grad_(True)
+
+    def mean(tree, group, n):
+        """``tree``'s leaves averaged over ``group``, each replaced as it
+        is done (one leaf's copy alive at a time)."""
+        for k in tree:
+            tree[k] = col.all_reduce(tree[k], group=group).div_(n)
+        return tree
+
+    def pod_gradients(params, ef, batch):
+        params = model.load_params(params)
+        rows, axes = _batch_slice(batch, mesh, whole)
+        with model.rules_as(inner):
+            total, metrics = loss_fn(rows)
+            grads = _grads(total, params)
+        metrics = {k: torch.as_tensor(v, device=model.device).detach()
+                   .float() for k, v in metrics.items()}
+        if "data" in axes:
+            mean(grads, data, shape["data"])
+            mean(metrics, data, shape["data"])
+        if compress:
+            grads, new_ef = grad_compression.compressed_psum(grads, ef, pod)
+        else:
+            grads, new_ef = grad_compression.plain_psum(grads, pod), ef
+        for g in grads.values():
+            g.div_(shape["pod"])
+        mean(metrics, pod, shape["pod"])
+        return grads, new_ef, metrics["loss"], metrics
+
+    return pod_gradients
+
+
+def make_pod_parallel_train_step(model: LM, tcfg: TrainConfig,
+                                 mesh) -> Callable:
+    """The explicit multi-pod step with the (optionally int8-compressed)
+    cross-pod gradient sum, as SPMD code every rank of ``mesh`` runs:
+    :func:`make_pod_gradients`, then AdamW.  ``opt_state["ef"]`` holds the
+    error-feedback buffers: when absent, an fp32 zero a leaf, as the
+    reference makes them (``compressed_psum`` broadcasts it, and returns
+    whole buffers); the optimizer update leaves it out and it is put back
+    after."""
+    pod_gradients = make_pod_gradients(model, mesh)
+
+    def train_step(params, opt_state, batch, step):
+        params = model.load_params(params)
+        ef = opt_state.get("ef")
+        if ef is None:
+            ef = {k: torch.zeros((), dtype=torch.float32, device=p.device)
+                  for k, p in params.items()}
+        grads, new_ef, loss, metrics = pod_gradients(params, ef, batch)
+        opt_wo_ef = {k: v for k, v in opt_state.items() if k != "ef"}
+        params, new_opt, opt_metrics = optimizer.update(
+            grads, opt_wo_ef, params, tcfg)
+        new_opt["ef"] = new_ef
+        return params, new_opt, dict(metrics, **opt_metrics, loss=loss,
+                                     step=step)
+
+    return train_step
 
 
 def make_pipeline_train_step(stage_fn, tcfg: TrainConfig, mesh, plan, *,
-                             axis: str = "pod", loss_fn=None):
-    raise not_ported("the pipelined train step (a mesh of stages)", 11)
+                             axis: str = "pod",
+                             loss_fn: Callable = None) -> Callable:
+    """Train step for a stage-stacked model pipelined over ``axis``, as
+    SPMD code every rank of ``mesh`` runs: the forward pass under the
+    plan's pipeline genes (``pipeline_schedule`` / ``virtual_stages`` /
+    ``microbatches``, :func:`repro_torch.dist.pipeline.pipeline_apply`),
+    the backward through its ring shifts.  ``stage_params`` is one tensor
+    whose leading dim is the stage (whole on every rank, as are the
+    gradients it gets back, so every rank takes the same AdamW step, in
+    place); ``batch`` is ``(x, y)``; ``loss_fn(pred, y)`` defaults to the
+    mean squared error.  The optimizer state is :func:`optimizer.init` of
+    ``{"stages": stage_params}``."""
+    from repro_torch.dist.pipeline import pipeline_apply
+
+    n_micro = max(getattr(plan, "microbatches", 1), 1)
+    schedule = getattr(plan, "pipeline_schedule", "gpipe")
+    virtual = getattr(plan, "virtual_stages", 1)
+    loss_of = loss_fn or (lambda pred, y: torch.mean((pred - y) ** 2))
+
+    def train_step(stage_params, opt_state, batch, step):
+        x, y = batch
+        ws = stage_params.detach().requires_grad_(True)
+        out = pipeline_apply(stage_fn, ws, x, mesh, microbatches=n_micro,
+                             axis=axis, schedule=schedule,
+                             virtual_stages=virtual)
+        lval = loss_of(out, y)
+        grad, = torch.autograd.grad(lval, ws)
+        params = {"stages": stage_params}
+        _, new_opt, opt_metrics = optimizer.update(
+            {"stages": grad}, opt_state, params, tcfg)
+        return stage_params, new_opt, dict(opt_metrics, loss=lval.detach(),
+                                           step=step)
+
+    return train_step
 
 
 # ---------------------------------------------------------------------------
