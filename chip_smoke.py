@@ -126,7 +126,12 @@ these phases, each printing its seconds:
                and encoder (S=3072) beside non-causal SDPA (GQA where KV <
                H), both families' causal S=2048 self-attention beside
                causal SDPA, and decode over their pools and whole contexts
-               beside masked SDPA;
+               beside masked SDPA; the decode kernel with its ``lse``
+               output against its plain version at phase 15 (c)'s slice
+               of the cache ([4,1056,8,64] fp32, 32 heads) and at the
+               second half of the main pool, where three rows hold no
+               valid key (zeros and -1e30), and timed against the call
+               without it at the main shape;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after;
@@ -208,8 +213,8 @@ these phases, each printing its seconds:
                seamless-m4t-medium whole in fp32, each with phase 6 (a)'s
                checks (tokens equal to batch-1 ``generate``'s, graph
                logits within 1e-5 of an eager engine's, one state's step
-               replayed twice for the same bits); then (k) the VLM at 4 of
-               its 20 groups (20 of 100 layers) and (l) seamless whole in
+               replayed twice for the same bits); then (k) the VLM at 2 of
+               its 20 groups (10 of 100 layers) and (l) seamless whole in
                bf16 with phase 9's metrics: the step beside its bytes
                bound (the decoder's weights, the self-attention pool's
                valid rows, every slot's whole cross K/V), tokens per wall
@@ -218,8 +223,8 @@ these phases, each printing its seconds:
                device time split into self attention, cross attention
                (the attention kernels labelled by their order on the
                stream), the audio encoder, GEMMs and the rest; flash
-               launches 20 (k) and 36 (l) a prefill (self, cross and
-               encoder layers), decode launches 20 and 24 a step (self and
+               launches 10 (k) and 36 (l) a prefill (self, cross and
+               encoder layers), decode launches 10 and 24 a step (self and
                cross layers);
  11. modeled   the planner's modeled-cost path: each app of phase 5 at the
                paper's sizes through ``plan_offload`` with a
@@ -305,7 +310,27 @@ these phases, each printing its seconds:
                ``apply_moe_ep`` on moonshot-v1-16b-a3b's MoE layer at full
                width over model = 2 against ``apply_moe`` (y within 1e-4,
                aux within 0.05, every gradient nonzero, both ranks holding
-               the same gradients).
+               the same gradients);
+ 15. part      automatic partitioning: two spawned processes on the one
+               card over a gloo group, a ("data", "model") mesh of (1, 2),
+               granite-3-2b at full width built with ``Rules`` (16 of 32
+               heads and 4 of 8 KV heads a rank, ff and vocab halved):
+               (a) 2 layers in fp32, B 4, S 256: the sharded
+               ``make_train_step`` against the plain one from the same
+               weights in the same process, the loss within 1e-5
+               relative, each gathered gradient and updated parameter
+               within 2e-4 of its leaf's max, the flash forward twice and
+               the backward once a layer on each rank's heads; (b) 4
+               layers in bf16, B 4, S 2048, block remat: a warm-up and 3
+               timed steps (the loss falls), step wall and device ms,
+               peak memory and the collectives staged through host memory
+               per rank; (c) 2 layers in fp32: four 1000-token prompts
+               prefilled into a 2112-slot cache and 16 greedy decode
+               steps, heads-sharded and with ``decode_kv_seq_shard``
+               (each rank decodes half the slots and the halves merge by
+               their ``lse``), logits within 1e-4 of the unsharded LM's
+               and the same tokens, the decode kernel launched a layer
+               and step on each rank.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -419,10 +444,11 @@ AUDIO_HEADS = (16, 16, 64)
 AUDIO_CTX = 3072
 # phase 10: (label, arch, layers kept (None: all), flash launches a
 # prefill, decode launches a step); phase 7's trace, prompts and
-# cache_len, each request with its own context.  (k) keeps 4 of the VLM's
-# 20 groups (20 of its 100 layers: 16 self, 4 cross); (l) is seamless
-# whole (12 encoder, 12 self and 12 cross layers)
-CROSS_CELLS = (("k", "llama-3.2-vision-90b", 20, 20, 20),
+# cache_len, each request with its own context.  (k) keeps 2 of the VLM's
+# 20 groups (10 of its 100 layers: 8 self, 2 cross), so that the script
+# stays near 900 s of its 1200 with phase 15; (l) is seamless whole (12
+# encoder, 12 self and 12 cross layers)
+CROSS_CELLS = (("k", "llama-3.2-vision-90b", 10, 10, 10),
                ("l", "seamless-m4t-medium", None, 36, 24))
 # the flash backward's shapes (phase 3): (what, H, KV, Sq, Skv, D, causal,
 # window); granite's first at S 2048 (its main path's heads), then ragged
@@ -464,6 +490,14 @@ DIST_PIPE_CASES = (("gpipe", 2, 1), ("one_f_one_b", 2, 1),
                    ("interleaved", 4, 2))     # schedule, stages, V
 DIST_MOE_ARCH = "moonshot-v1-16b-a3b"
 DIST_MOE_X = (4, 256)
+# phase 15, automatic partitioning of granite-3-2b on a (data, model) mesh
+# of (1, 2) over two gloo ranks on the one card: (a) layers, B, S in fp32;
+# (b) layers, B, S, timed steps in bf16; (c) layers, prompts, prompt
+# length, cache slots, decode steps in fp32
+PART_MESH = (1, 2)
+PART_TRAIN = (2, 4, 256)
+PART_STEPS = (4, 4, 2048, 3)
+PART_SERVE = (2, 4, 1000, 2112, 16)
 
 
 class SmokeFailure(RuntimeError):
@@ -1247,6 +1281,71 @@ def check_cross_attention(ops, ref, gen, readings):
                               ops.decode_attention(q, kc, vc, ln))
 
 
+def check_decode_lse(ops, ref, gen) -> None:
+    """Phase 4: the decode kernel with its ``lse`` output (each row's
+    base-2 log-sum-exp, what phase 15 (c)'s kv_seq-sharded decode merges
+    by) against the plain version's, output and lse: fp32 at phase 15
+    (c)'s slice of the cache (32 heads over [4,1056,8,64], one rank's
+    lengths) and at the second half of the main pool (lengths past 1056
+    clamped into it: three rows hold no valid key, which must give zeros
+    and -1e30), then bf16 at the main shape, timed against the same call
+    without ``lse``."""
+    b, h, kv, s, d = DECODE_MAIN
+    half = s // 2
+    rank_lens = tuple(PART_SERVE[2] + i for i in range(b))
+    tail_lens = tuple(min(max(n - half, 0), half) for n in DECODE_MAIN_LENS)
+    neg = float(np.float32(ref.NEG_INF))
+    for what, dtype, shape, lens, tol, lse_tol in (
+            ("15 (c) slice", torch.float32, (b, h, kv, half, d), rank_lens,
+             2e-4, 1e-4),
+            ("second half", torch.float32, (b, h, kv, half, d), tail_lens,
+             2e-4, 1e-4),
+            ("main shape", torch.bfloat16, DECODE_MAIN, DECODE_MAIN_LENS,
+             5e-2, 1e-3)):
+        q, kc, vc, ln = decode_inputs(gen, dtype, *shape, lens)
+        lse = torch.empty((b, h), dtype=torch.float32, device="cuda")
+        got = ops.decode_attention(q, kc, vc, ln, lse=lse)
+        want, want_lse = ref.decode_attention_ref(
+            q.float(), kc.float(), vc.float(), ln, return_lse=True)
+        err = check_close(f"decode lse {what} {dtype} lens {lens} out", got,
+                          want.to(dtype), tol)
+        lse_err = max_abs_err(lse, want_lse)
+        empty = torch.tensor(lens, device="cuda") == 0
+        print(f"  decode lse {what}: lse max_abs_err {lse_err:.2e} (limit "
+              f"{lse_tol:.0e}); rows with no valid key {int(empty.sum())}")
+        require(lse_err <= lse_tol, f"decode lse {what}: the lse is "
+                f"{lse_err:.2e} from the plain version's")
+        require(bool((lse[empty] == neg).all()) and not got[empty].any(),
+                f"decode lse {what}: a row with no valid key is not zeros "
+                f"and -1e30")
+        require_same_bits(f"decode {what} with and without lse", got,
+                          ops.decode_attention(q, kc, vc, ln))
+    caches = itertools.cycle([decode_inputs(gen, torch.bfloat16,
+                                            *DECODE_MAIN, DECODE_MAIN_LENS)
+                              for _ in range(4)])
+
+    def with_lse():
+        q, kc, vc, ln = next(caches)
+        return ops.decode_attention(q, kc, vc, ln, lse=lse)
+
+    def without():
+        q, kc, vc, ln = next(caches)
+        return ops.decode_attention(q, kc, vc, ln)
+
+    def plain():
+        q, kc, vc, ln = next(caches)
+        return ref.decode_attention_ref(q, kc, vc, ln, return_lse=True)
+
+    print(f"  decode 4x32 over [4,2112,8,64] bf16 at lens "
+          f"{'/'.join(map(str, DECODE_MAIN_LENS))}: with lse "
+          f"{time_ms(with_lse, 200):.4f} ms (device "
+          f"{device_profile(with_lse)[0]:.4f}), without "
+          f"{time_ms(without, 200):.4f} ms (device "
+          f"{device_profile(without)[0]:.4f}); the plain version with its "
+          f"lse {time_ms(plain, 50):.4f} ms (device "
+          f"{device_profile(plain)[0]:.4f})")
+
+
 def time_kernels(ops, ref):
     """Phase 4: per-kernel times at the main-path shapes."""
     gen = torch.Generator().manual_seed(1)
@@ -1339,6 +1438,7 @@ def time_kernels(ops, ref):
           f"{device_profile(four_real)[0]:.4f})")
     time_attention(ops, ref, gen, rows, dev)
     time_backward(ops, ref, gen, rows, dev)
+    check_decode_lse(ops, ref, gen)
     listed = dict(rows, tdfir_complex=rows["tdfir"]["complex"])
     for name, r in listed.items():
         print(f"  {name:16s} kernel {r['ms']:.4f} ms  bound "
@@ -4182,6 +4282,245 @@ def dist_rank_moe(rank, device, lines, sums, arch=DIST_MOE_ARCH,
     sums["moe"] = [round(g.double().sum().item(), 6) for g in got]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: automatic partitioning
+# ---------------------------------------------------------------------------
+
+def run_partition() -> dict:
+    """Phase 15: two processes on the one card over a gloo group, each a
+    rank of a ("data", "model") mesh of PART_MESH, granite-3-2b at full
+    width partitioned by ``Rules`` (``part_rank``); each rank checks its own
+    numbers.  Returns the kernel launches of the sharded runs, both ranks
+    summed."""
+    from repro_torch.launch.mesh import run_ranks
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_ranks(part_rank, 2, tmp, backend="gloo", timeout_s=600)
+        wall = time.perf_counter() - t0
+        got = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(2)]
+    for r, rank in enumerate(got):
+        print(f"  rank {r} collectives staged through host memory: "
+              f"{rank['staged']}")
+    print(f"  two ranks' wall {wall:.1f} s, start-up included")
+    for key in ("a_loss", "b_losses", "c_tokens"):
+        require(got[0]["same"][key] == got[1]["same"][key],
+                f"(15) the two ranks disagree on {key}: "
+                f"{got[0]['same'][key]} vs {got[1]['same'][key]}")
+    return {k: got[0]["launches"].get(k, 0) + got[1]["launches"].get(k, 0)
+            for k in ("flash_attention", "flash_attention_bwd",
+                      "decode_attention")}
+
+
+def part_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 15: (a), (b), (c) on the mesh; writes its report
+    to ``tmp`` (a failed check raises, and so fails the phase)."""
+    from collections import Counter
+    from repro_torch.dist import collectives as col
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.cuda.set_device(0)
+    mesh = make_test_mesh(PART_MESH, ("data", "model"), device="cuda")
+    same, launches = {}, Counter()
+
+    def note(line):         # printed as it comes, the rank first
+        print(f"  rank {rank} {line}", flush=True)
+
+    part_train_parity(mesh, note, same, launches)
+    free_card()
+    part_train_steps(mesh, note, same, launches)
+    free_card()
+    part_serve(mesh, note, same, launches)
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump({"same": same, "launches": launches,
+                   "staged": col.staged_ops()}, f)
+
+
+def part_lm(cfg, seed: int, plan, mesh):
+    """The plain LM and the partitioned one over the same seeded weights
+    (whole on every rank: the same generator on the same card)."""
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.models.lm import LM, init_params
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                         "cuda")
+    plain = LM(cfg, {n: p.clone() for n, p in params.items()}, plan)
+    return plain, LM(cfg, params, plan, rules=Rules(mesh, plan))
+
+
+def part_train_parity(mesh, note, same, launches) -> None:
+    """(a): PART_TRAIN in fp32, block remat: every gradient of
+    ``train_loss`` gathered and one sharded ``make_train_step`` against the
+    plain LM's in this process; the step's flash launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.dist.sharding import whole
+    from repro_torch.kernels import ops
+    from repro_torch.train import optimizer, train_step
+    layers, b, s = PART_TRAIN
+    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), layers)[0],
+                              dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                       eps=1e-4)
+    plain, part = part_lm(cfg, 5, Plan(remat="block"), mesh)
+    batch = train_batch(cfg, b, s, 0)
+    out = {}
+    for name, lm in (("plain", plain), ("part", part)):
+        step = train_step.make_train_step(lm, tcfg)
+        total, _ = lm.train_loss(batch)
+        grads = [whole(g) for g in torch.autograd.grad(
+            total, list(lm.params().values()))]
+        ops.reset_launch_counts()
+        params, _, metrics = step(lm.params(), optimizer.init(
+            lm.params(), tcfg), batch, 0)
+        n = ops.launch_counts()
+        out[name] = (float(metrics["loss"]), grads,
+                     [whole(p.detach()) for p in params.values()], n)
+    launches.update(out["part"][3])
+    (l_plain, g_plain, p_plain, _), (l_part, g_part, p_part, n) = \
+        out["plain"], out["part"]
+    rel = abs(l_part - l_plain) / abs(l_plain)
+    worst_g = max(_leaf_err(a, c) for a, c in zip(g_part, g_plain))
+    worst_p = max(_leaf_err(a, c) for a, c in zip(p_part, p_plain))
+    heads = [str(t.placements) for t in (part.blocks[0].attn["wq"],
+                                         part.blocks[0].attn["wk"])]
+    note(f"(a) {layers} layers fp32 B={b} S={s}: step loss "
+                 f"sharded {l_part:.7f}, plain {l_plain:.7f} (rel "
+                 f"{rel:.2e}); {len(g_part)} gathered gradients, largest "
+                 f"error {worst_g:.2e} of the leaf's max; updated params "
+                 f"{worst_p:.2e}; wq, wk placements {heads}; launches "
+                 f"{dict((k, v) for k, v in n.items() if v)}")
+    require(rel <= 1e-5, f"(a) the sharded loss is {rel:.2e} from the "
+            f"plain one")
+    require(worst_g <= 2e-4, f"(a) a gathered gradient is {worst_g:.2e} of "
+            f"its max from the plain one")
+    require(worst_p <= 2e-4, f"(a) an updated parameter is {worst_p:.2e} of "
+            f"its max from the plain one")
+    require(n["flash_attention"] == 2 * layers
+            and n["flash_attention_bwd"] == layers,
+            f"(a) the sharded step launched {n}, not flash forward twice "
+            f"and the backward once a layer")
+    same["a_loss"] = l_part
+
+
+def part_train_steps(mesh, note, same, launches) -> None:
+    """(b): PART_STEPS in bf16, block remat: a warm-up and the timed steps
+    (CUDA-synchronised wall), a profiled step's device time and heaviest
+    host ops, the peak memory of this process."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import optimizer, train_step
+    from torch.profiler import ProfilerActivity
+    layers, b, s, steps = PART_STEPS
+    cfg = cut_depth(get_config(TRAIN_ARCH), layers)[0]
+    plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps + 3)
+    torch.cuda.reset_peak_memory_stats()
+    lm = LM(cfg, init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(6), "cuda"), plan,
+            rules=Rules(mesh, plan))
+    step_fn = train_step.make_train_step(lm, tcfg)
+    opt = optimizer.init(lm.params(), tcfg)
+    batches = [train_batch(cfg, b, s, i) for i in range(steps + 2)]
+    losses, walls = [], []
+    for i in range(steps + 1):
+        if i == 1:
+            ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt, metrics = step_fn(lm.params(), opt, batches[i], i)
+        losses.append(metrics["loss"].item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n = ops.launch_counts()
+    launches.update(n)
+    prof, kernels = traced_kernels(
+        lambda: step_fn(lm.params(), opt, batches[-1], steps + 1),
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    dev_ms = sum(ms for _, ms in kernels)
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3)
+                   for a in prof.key_averages()), key=lambda kv: -kv[1])
+    peak = torch.cuda.max_memory_allocated()
+    wall = float(np.mean(walls[1:]))
+    note(f"(b) {layers} of {get_config(TRAIN_ARCH).n_layers} layers "
+                 f"bf16 B={b} S={s}, block remat: losses "
+                 f"{[round(x, 4) for x in losses]} (warm-up first); step "
+                 f"wall {wall:.1f} ms (each {[round(w, 1) for w in walls[1:]]}"
+                 f"), device {dev_ms:.1f} ms (a profiled step: "
+                 f"{len(kernels)} kernels), idle share "
+                 f"{max(0.0, 1 - dev_ms / wall):.1%}; peak memory "
+                 f"{peak / 2**30:.2f} GiB; launches in the timed steps "
+                 f"{dict((k, v) for k, v in n.items() if v)}; the profiled "
+                 f"step's heaviest host ops by self time (ms) "
+                 f"{[(k, round(ms, 1)) for k, ms in host[:6]]}")
+    require(all(np.isfinite(losses)), "(b) a loss is not finite")
+    require(losses[-1] < losses[0], f"(b) the loss did not fall: "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    require(n["flash_attention"] == 2 * layers * steps
+            and n["flash_attention_bwd"] == layers * steps,
+            f"(b) the timed steps launched {n}")
+    same["b_losses"] = losses
+
+
+def part_serve(mesh, note, same, launches) -> None:
+    """(c): PART_SERVE in fp32, heads-sharded and with
+    ``decode_kv_seq_shard``: a prefill and greedy decode steps through
+    ``make_prefill_step`` / ``make_serve_step`` against the plain LM's."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.plan import Plan
+    from repro_torch.kernels import ops
+    from repro_torch.train import train_step
+    layers, nreq, plen, cache_len, steps = PART_SERVE
+    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), layers)[0],
+                              dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompts = torch.randint(0, cfg.vocab_size, (nreq, plen), generator=gen,
+                            device="cuda")
+
+    def greedy(lm):
+        logits, cache = train_step.make_prefill_step(lm, cache_len)(
+            {"tokens": prompts})
+        got, toks = [logits], []
+        step = train_step.make_serve_step(lm)
+        for i in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok)
+            logits, cache = step(cache, tok, plen + i)
+            got.append(logits)
+        return got, torch.cat(toks, 1), cache
+
+    for mode, kw in (("heads", {}), ("kv_seq",
+                                     {"decode_kv_seq_shard": True})):
+        plain, part = part_lm(cfg, 8, Plan(remat="none", **kw), mesh)
+        with torch.no_grad():
+            want, want_tok, _ = greedy(plain)
+            ops.reset_launch_counts()
+            got, tok, cache = greedy(part)
+            n = ops.launch_counts()
+        launches.update(n)
+        err = max(max_abs_err(a, c) for a, c in zip(got, want))
+        local = tuple(cache["attn"]["k"].to_local().shape)
+        note(f"(c) {mode}: {layers} layers fp32, {nreq} prompts of "
+                     f"{plen} into {cache_len} slots, {steps} greedy steps: "
+                     f"logits max_abs_err {err:.2e} against the plain LM, "
+                     f"tokens equal {torch.equal(tok, want_tok)}; this "
+                     f"rank's cache [L, B, W, KV, D] {local} of "
+                     f"{tuple(cache['attn']['k'].shape)}; launches "
+                     f"{dict((k, v) for k, v in n.items() if v)}")
+        require(err <= 1e-4, f"(c) {mode}: logits {err:.2e} from the plain "
+                f"LM's")
+        require(torch.equal(tok, want_tok), f"(c) {mode}: greedy tokens "
+                f"differ from the plain LM's")
+        require(n["decode_attention"] == layers * steps
+                and n["flash_attention"] == layers,
+                f"(c) {mode}: launched {n}, not the decode kernel once a "
+                f"layer and step and flash once a layer")
+        same["c_tokens"] = same.get("c_tokens", []) + tok.tolist()
+        del plain, part, cache
+        free_card()
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
@@ -4320,16 +4659,23 @@ def main() -> int:
     free_card()
     with phase("14 dist"):
         distributed = run_dist(ops)
+    free_card()
+    with phase("15 part"):
+        partitioned = run_partition()
     # flash and decode: the serving cells' launches, each cell counted
-    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), and flash
+    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), flash
     # forward and backward in the training steps of 13 (b) and the timed
-    # pod-parallel steps of 14 (a)
+    # pod-parallel steps of 14 (a), and all three in phase 15's sharded
+    # runs on both ranks
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]
                      + cross[k] for k in family})
+    launches["decode_attention"] += partitioned["decode_attention"]
     launches["flash_attention"] += (trained["flash_attention"]
-                                    + distributed["flash_attention"])
+                                    + distributed["flash_attention"]
+                                    + partitioned["flash_attention"])
     launches["flash_attention_bwd"] = (trained["flash_attention_bwd"]
-                                       + distributed["flash_attention_bwd"])
+                                       + distributed["flash_attention_bwd"]
+                                       + partitioned["flash_attention_bwd"])
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

@@ -55,6 +55,11 @@
 //   the group's live splits in split order (so results are bitwise
 //   repeatable), writes ``out`` in the input type and resets the counter,
 //   so the next launch (or a graph replay) finds it at zero.
+// - With ``lse`` given, whoever writes a row's ``out`` also writes the row's
+//   log-sum-exp of its scaled scores in base 2, m + log2(l), from the final
+//   (max, denominator) of that merge; a row with no valid key writes
+//   NEG_INF beside its zeros.  Two halves of a cache merge by these
+//   (kv_seq-sharded decoding).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -150,9 +155,9 @@ template <typename T, int D, int NP>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ cache_len,
-              T* __restrict__ out, float* __restrict__ part,
-              int* __restrict__ counters, int h, int kvh, int s_len,
-              int chunk, int n_splits, float scale) {
+              T* __restrict__ out, float* __restrict__ lse,
+              float* __restrict__ part, int* __restrict__ counters, int h,
+              int kvh, int s_len, int chunk, int n_splits, float scale) {
   constexpr int d = D;
   constexpr int EPC = Traits<T>::EPC;
   constexpr int TK = warp_tile<T, D>();
@@ -217,9 +222,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 
   const int len = min(cache_len[b], s_len);
   if (len <= 0) {  // no valid key: zeros, as the merge of no split gives
-    if (split == 0)
+    if (split == 0) {
       for (int e = tid; e < rep * d; e += THREADS)
         out[(size_t)head0 * d + e] = from_float<T>(0.f);
+      if (lse != nullptr)
+        for (int r = tid; r < rep; r += THREADS) lse[head0 + r] = NEG_INF;
+    }
     return;
   }
   const int s_begin = split * chunk;
@@ -363,6 +371,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     }
     if (n_live == 1) {
       out[(size_t)(head0 + r) * d + dd] = from_float<T>(a / fmaxf(ls, 1e-20f));
+      if (lse != nullptr && dd == 0) lse[head0 + r] = mx + log2f(ls);
       continue;
     }
     mine[r * part_row + 2 + dd] = a;
@@ -406,14 +415,15 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       }
     }
     out[(size_t)(head0 + r) * d + dd] = from_float<T>(a / fmaxf(ls, 1e-20f));
+    if (lse != nullptr && dd == 0) lse[head0 + r] = mx + log2f(ls);
   }
   if (tid == 0) counters[bg] = 0;  // ready for the next launch
 }
 
 template <typename T, int D, int NP>
 int launch(const void* q, const void* k, const void* v, const int* lens,
-           void* out, float* part, int* counters, int b, int h, int kvh,
-           int s_len, int chunk, int n_splits, float scale,
+           void* out, float* lse, float* part, int* counters, int b, int h,
+           int kvh, int s_len, int chunk, int n_splits, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>(h / kvh);
   // the largest group this instantiation takes: NP passes of its rows
@@ -423,8 +433,8 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_kernel<T, D, NP><<<dim3(n_splits, b * kvh), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lens, static_cast<T*>(out), part, counters,
-      h, kvh, s_len, chunk, n_splits, scale);
+      static_cast<const T*>(v), lens, static_cast<T*>(out), lse, part,
+      counters, h, kvh, s_len, chunk, n_splits, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,15 +444,15 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
 // lane in both dtypes)
 template <typename T, int D>
 int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
-                void* out, float* part, int* counters, int b, int h, int kvh,
-                int s_len, int chunk, int n_splits, float scale,
-                cudaStream_t s) {
+                void* out, float* lse, float* part, int* counters, int b,
+                int h, int kvh, int s_len, int chunk, int n_splits,
+                float scale, cudaStream_t s) {
   constexpr int rows_per_pass = 32 / lanes_per_row(D / Traits<T>::EPC);
   const int passes = (h / kvh + rows_per_pass - 1) / rows_per_pass;
 #define REPRO_DECODE_NP(NP)                                                  \
   if (passes <= NP)                                                          \
-    return launch<T, D, NP>(q, k, v, lens, out, part, counters, b, h, kvh,   \
-                            s_len, chunk, n_splits, scale, s);
+    return launch<T, D, NP>(q, k, v, lens, out, lse, part, counters, b, h,  \
+                            kvh, s_len, chunk, n_splits, scale, s);
   REPRO_DECODE_NP(1)
   REPRO_DECODE_NP(2)
   REPRO_DECODE_NP(4)
@@ -458,31 +468,31 @@ int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* lens,
-             void* out, float* part, int* counters, int b, int h, int kvh,
-             int s_len, int d, int chunk, int n_splits, float scale,
+             void* out, float* lse, float* part, int* counters, int b, int h,
+             int kvh, int s_len, int d, int chunk, int n_splits, float scale,
              cudaStream_t s) {
   if (chunk < 1 || chunk % Traits<T>::TK != 0 ||
       (long long)chunk * n_splits < s_len)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16:
-      return dispatch_np<T, 16>(q, k, v, lens, out, part, counters, b, h, kvh,
-                                s_len, chunk, n_splits, scale, s);
+      return dispatch_np<T, 16>(q, k, v, lens, out, lse, part, counters, b,
+                                h, kvh, s_len, chunk, n_splits, scale, s);
     case 32:
-      return dispatch_np<T, 32>(q, k, v, lens, out, part, counters, b, h, kvh,
-                                s_len, chunk, n_splits, scale, s);
+      return dispatch_np<T, 32>(q, k, v, lens, out, lse, part, counters, b,
+                                h, kvh, s_len, chunk, n_splits, scale, s);
     case 64:
-      return dispatch_np<T, 64>(q, k, v, lens, out, part, counters, b, h, kvh,
-                                s_len, chunk, n_splits, scale, s);
+      return dispatch_np<T, 64>(q, k, v, lens, out, lse, part, counters, b,
+                                h, kvh, s_len, chunk, n_splits, scale, s);
     case 80:  // h2o-danube: 10 (bf16) or 20 (fp32) chunks on 16 or 32 lanes
-      return dispatch_np<T, 80>(q, k, v, lens, out, part, counters, b, h, kvh,
-                                s_len, chunk, n_splits, scale, s);
+      return dispatch_np<T, 80>(q, k, v, lens, out, lse, part, counters, b,
+                                h, kvh, s_len, chunk, n_splits, scale, s);
     case 128:
-      return dispatch_np<T, 128>(q, k, v, lens, out, part, counters, b, h,
-                                 kvh, s_len, chunk, n_splits, scale, s);
+      return dispatch_np<T, 128>(q, k, v, lens, out, lse, part, counters, b,
+                                 h, kvh, s_len, chunk, n_splits, scale, s);
     case 256:  // recurrentgemma: 32 chunks a row in bf16, 64 in fp32
-      return dispatch_np<T, 256>(q, k, v, lens, out, part, counters, b, h,
-                                 kvh, s_len, chunk, n_splits, scale, s);
+      return dispatch_np<T, 256>(q, k, v, lens, out, lse, part, counters, b,
+                                 h, kvh, s_len, chunk, n_splits, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -497,7 +507,9 @@ extern "C" int repro_decode_attention_key_tile(int dtype) {
 }
 
 // q [b, h, d] and caches [b, s_len, kvh, d], contiguous, 16-byte aligned;
-// lens int32 [b] on the device; out [b, h, d].  The keys are split into
+// lens int32 [b] on the device; out [b, h, d]; ``lse`` fp32 [b, h] or null:
+// each row's base-2 log-sum-exp of its scaled scores (NEG_INF for a row with
+// no valid key).  The keys are split into
 // n_splits splits of ``chunk`` (chunk * n_splits >= s_len).  Scratch:
 // ``part`` fp32 [b * h * n_splits * (d + 2)], ``counters`` int32 [b * kvh],
 // zero on entry and left zero on exit.  dtype: 0 = float32, 1 = bfloat16
@@ -507,18 +519,20 @@ extern "C" int repro_decode_attention_key_tile(int dtype) {
 // success); nothing here synchronises.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lens, void* out,
-    void* part, void* counters, int b, int h, int kvh, int s_len, int d,
+    void* lse, void* part, void* counters, int b, int h, int kvh, int s_len,
+    int d,
     int chunk, int n_splits, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
+  float* ls = static_cast<float*>(lse);
   float* pa = static_cast<float*>(part);
   int* cnt = static_cast<int*>(counters);
   if (dtype == 0)
-    return dispatch<float>(q, k, v, ln, out, pa, cnt, b, h, kvh, s_len, d,
-                           chunk, n_splits, scale, s);
+    return dispatch<float>(q, k, v, ln, out, ls, pa, cnt, b, h, kvh, s_len,
+                           d, chunk, n_splits, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, ln, out, pa, cnt, b, h, kvh,
-                                   s_len, d, chunk, n_splits, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, ln, out, ls, pa, cnt, b, h,
+                                   kvh, s_len, d, chunk, n_splits, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -20,10 +20,10 @@ advertises its mesh analogue via ``Backend.mesh_role`` ("data" | "model" |
 The mesh is :class:`LocalMesh`, a one-device stand-in with the reference
 test's axes ``("data", "model")`` of sizes (1, 1): every input is whole on
 it, and the trace runs on the inputs' own device.  A mesh with an axis
-past one device raises, naming ROADMAP item 11b: tracing a sharded
-candidate needs DTensor placements of its inputs under ``Rules`` and a
-per-device trace with its collectives (automatic partitioning, where the
-reference leaves the collectives to GSPMD).
+past one device raises, naming ROADMAP item 11c: tracing a sharded
+candidate needs its inputs placed as DTensors under ``Rules`` (as the
+partitioned LM places its parameters) and a per-device trace that costs
+the collectives DTensor places.
 """
 from __future__ import annotations
 
@@ -80,7 +80,7 @@ def mesh_verify(cost_runner, dest, fn, inputs):
         raise NotImplementedError(
             f"mesh {dict(mesh.shape)}: sharded verification needs DTensor "
             f"placements of the inputs and a per-device trace with its "
-            f"collectives (ROADMAP queue 1 item 11b)")
+            f"collectives (ROADMAP queue 1 item 11c)")
     ev = cost_runner.measure(fn, inputs)
     if ev.correct:
         ev.info["mesh"] = dict(mesh.shape)

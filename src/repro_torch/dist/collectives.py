@@ -20,12 +20,18 @@ cotangent, which would count a replicated loss once per rank):
     from the previous one (``dist.batch_isend_irecv``); its gradient goes
     the other way (the reference's ``ppermute`` and its transpose).
 
+A ``group`` of None is no group: the value is whole on this rank and
+:func:`sum_replicated` and :func:`max_replicated` return it as it is.
+
 Each collective runs on the group's backend.  Two ranks on one card need
 gloo (NCCL refuses two ranks on one device).  Gloo reduces and gathers
 card tensors itself, but takes none for its point-to-point ops: there
 :func:`shift` moves a card tensor through host memory and back (transport
 only; the computation stays on the card), and :func:`staged_ops` counts
-each such call.
+each such call.  DTensor gathers a shard through the functional
+``all_gather_into_tensor``, which gloo does not survive on a card tensor
+(the process dies); :func:`stage_card_gathers` routes that op's card
+tensors through host memory too, counted the same way.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 _STAGED: Counter = Counter()
+_GATHER_LIB = None      # the CUDA kernel of the staged functional all-gather
 
 
 def staged_ops() -> Dict[str, int]:
@@ -49,6 +56,30 @@ def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None
     out = t.detach().clone()
     dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def _staged_all_gather(inp: torch.Tensor, group_size: int,
+                       group_name: str) -> torch.Tensor:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    group = _resolve_process_group(group_name)
+    if dist.get_backend(group) != "gloo":
+        raise RuntimeError(f"the staged all-gather serves gloo groups, "
+                           f"{group_name} is {dist.get_backend(group)}")
+    _STAGED["all_gather_into_tensor"] += 1
+    return all_gather(inp.detach().to("cpu"), group).to(inp.device)
+
+
+def stage_card_gathers() -> None:
+    """From now on, in this process, the functional all-gather
+    (``torch.ops._c10d_functional.all_gather_into_tensor``, what DTensor
+    gathers a shard with) moves a card tensor through host memory over a
+    gloo group, and raises over any other backend.  Called when a card
+    mesh is built over gloo (``launch.mesh``); idempotent."""
+    global _GATHER_LIB
+    if _GATHER_LIB is None:
+        lib = torch.library.Library("_c10d_functional", "IMPL")
+        lib.impl("all_gather_into_tensor", _staged_all_gather, "CUDA")
+        _GATHER_LIB = lib
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -128,7 +159,14 @@ class _RingShift(torch.autograd.Function):
 
 
 def sum_replicated(x: torch.Tensor, group) -> torch.Tensor:
-    return _SumReplicated.apply(x, group)
+    return x if group is None else _SumReplicated.apply(x, group)
+
+
+def max_replicated(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over ``group``, detached (a stabiliser, as a
+    log-sum-exp's shift, carries no gradient)."""
+    x = x.detach()
+    return x if group is None else all_reduce(x, dist.ReduceOp.MAX, group)
 
 
 def gather_replicated(x: torch.Tensor, group) -> torch.Tensor:

@@ -27,13 +27,29 @@ builders of ``launch.mesh`` and ``BASE_RULES`` keep "pod" before "data").
 ``constrain`` is the identity on a plain tensor (under ``jit`` the
 reference's is a layout hint) and a ``redistribute`` on a DTensor.
 :class:`NullRules` is the no-mesh identity.
+
+Automatic partitioning (the reference's GSPMD) is DTensor's sharding
+propagation: :meth:`Rules.distribute` places a parameter dict by its
+logical axes, plain torch ops on DTensors place their collectives, and
+``constrain`` pins an activation where the reference constrains one.
+DTensor has no sharding rule for a hand-written kernel, so
+:meth:`Rules.local` runs a function on each rank's shards
+(``torch.distributed.tensor.experimental.local_map``) with placements
+from logical axes; :meth:`Rules.offset` and :meth:`Rules.group` tell such
+a function where its shard lies and over which group to reduce.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+import torch
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
+from torch.distributed.tensor.experimental import local_map
+
+Axes = Tuple[Optional[str], ...]
 
 # logical axis -> mesh axes.  A tuple value shards one dimension over
 # several mesh axes (and stays a tuple inside the PartitionSpec); a string
@@ -188,12 +204,122 @@ class Rules:
         return x.redistribute(self.mesh,
                               self.sharding(axes, tuple(x.shape)).placements)
 
+    @property
+    def sharded(self) -> bool:
+        """Whether a mesh axis the rules may name spans more than one
+        device."""
+        return any(n > 1 for a, n in self.shape.items()
+                   if a not in self.exclude_axes)
+
+    def place(self, x: torch.Tensor, axes: Axes) -> DTensor:
+        """``x`` as the DTensor of its logical axes: a tensor every rank
+        holds whole (the same values) keeps this rank's shard, with no
+        communication; a DTensor is constrained."""
+        if isinstance(x, DTensor):
+            return self.constrain(x, axes)
+        return self.sharding(axes, tuple(x.shape)).distribute(x)
+
+    def distribute(self, tree, axes_tree):
+        """A dict (or list) of whole tensors placed by a logical-axes tree
+        of the same structure (``models.lm.param_axes``), through
+        :func:`tree_shardings`: each leaf the DTensor of this rank's shard
+        (a DTensor leaf is redistributed)."""
+        def put(sh, t):
+            if isinstance(t, DTensor):
+                return t.redistribute(sh.mesh, sh.placements)
+            return sh.distribute(t)
+
+        return _zip_map(put, tree_shardings(self, axes_tree, tree), tree)
+
+    def gathered(self, w, axes: Axes):
+        """A weight as its product uses it: the ``"embed"`` dimension's
+        data-class shard (FSDP-style) gathered, the model-class shards
+        kept.  Its gradient is scattered back by the redistribution's
+        backward."""
+        return self.constrain(w, tuple(None if a == "embed" else a
+                                       for a in axes))
+
+    def offset(self, x, dim: int) -> int:
+        """The first index of dimension ``dim`` that this rank's shard of
+        ``x`` holds (0 for a plain tensor)."""
+        if not isinstance(x, DTensor):
+            return 0
+        _, start = compute_local_shape_and_global_offset(
+            x.shape, x.device_mesh, x.placements)
+        return int(start[dim])
+
+    def group(self, x, dim: int):
+        """The process group over which dimension ``dim`` of ``x`` is
+        sharded: None for a plain tensor or a whole dimension."""
+        if not isinstance(x, DTensor):
+            return None
+        mesh_dims = [i for i, p in enumerate(x.placements)
+                     if isinstance(p, Shard) and p.dim % x.dim() == dim]
+        if len(mesh_dims) > 1:
+            raise NotImplementedError(
+                f"dimension {dim} of {tuple(x.shape)} is sharded over "
+                f"{len(mesh_dims)} mesh axes; a local reduction takes one")
+        return x.device_mesh.get_group(mesh_dims[0]) if mesh_dims else None
+
+    def local(self, fn: Callable, in_axes: Sequence[Axes],
+              out_axes: Union[Axes, List[Axes]]) -> Callable:
+        """``fn`` run on each rank's shards: its arguments, tensors, are
+        constrained to ``in_axes`` and handed over as plain local tensors,
+        its outputs (one, of ``out_axes``, or a list of them, ``[]`` for
+        none) wrapped as DTensors whose logical axes take the mesh axes the
+        inputs gave the same names.  Autograd flows through: an input that
+        is whole over a mesh axis along which another input is split gets a
+        partial gradient there (each rank's own part of the sum).  With no
+        DTensor among the arguments ``fn`` runs as it is."""
+        def run(*args):
+            if not any(isinstance(a, DTensor) for a in args):
+                return fn(*args)
+            placed, learned = [], {}
+            for a, axes in zip(args, in_axes):
+                spec = tuple(self.spec(axes, tuple(a.shape)))
+                for name, entry in zip(axes, spec + (None,) * len(axes)):
+                    if name is not None:
+                        learned.setdefault(name, entry)
+                placed.append(self.place(a, axes))
+            in_pl = [a.placements for a in placed]
+            split = [any(isinstance(p[i], Shard) for p in in_pl)
+                     for i in range(self.mesh.ndim)]
+            grad_pl = [tuple(
+                Partial() if isinstance(pi, Replicate) and split[i] else pi
+                for i, pi in enumerate(p)) for p in in_pl]
+            # local_map reads a tuple as one placement list per output
+            outs = out_axes if isinstance(out_axes, list) else [out_axes]
+            out_pl = tuple(list(self._out_placements(ax, learned))
+                           for ax in outs)
+            if not isinstance(out_axes, list):
+                out_pl = out_pl[0]
+            elif not out_pl:
+                out_pl = None           # fn returns None, a leaf of its own
+            return local_map(
+                fn, out_placements=out_pl,
+                in_placements=tuple(in_pl), in_grad_placements=tuple(grad_pl),
+                device_mesh=self.mesh, redistribute_inputs=True)(*placed)
+        return run
+
+    def _out_placements(self, axes: Axes, learned: dict) -> tuple:
+        entries, used = [], set()
+        for name in axes:
+            if name in learned:
+                entry = learned[name]
+                used.update((entry,) if isinstance(entry, str)
+                            else entry or ())
+            else:
+                entry = self._assign(name, None, used)
+            entries.append(entry)
+        return NamedSharding(self.mesh, PartitionSpec(*entries)).placements
+
 
 class NullRules:
     """No-mesh rules: every operation is the identity / fully replicated."""
 
     mesh = None
     plan = None
+    sharded = False
 
     def spec(self, axes, dims=None) -> PartitionSpec:
         return PartitionSpec()
@@ -204,10 +330,36 @@ class NullRules:
     def constrain(self, x, axes):
         return x
 
+    def gathered(self, w, axes):
+        return w
+
+    def offset(self, x, dim: int) -> int:
+        return 0
+
+    def group(self, x, dim: int):
+        return None
+
+    def local(self, fn, in_axes, out_axes):
+        return fn
+
+
+def whole(x):
+    """A DTensor gathered whole on every rank as a plain tensor (its
+    gradient flows back); anything else unchanged."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
 
 def _is_axes_leaf(x) -> bool:
     return isinstance(x, tuple) and all(
         e is None or isinstance(e, str) for e in x)
+
+
+def _zip_map(fn, a, b):
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in b}
+    if isinstance(a, list):
+        return [_zip_map(fn, x, y) for x, y in zip(a, b)]
+    return fn(a, b)
 
 
 def tree_shardings(rules, axes_tree, tree) -> Any:

@@ -8,6 +8,11 @@ reads KV head ``h // (H // KV)``), and every row has its own valid length,
 because the continuous batcher's slots sit at different positions.  The
 TPU kernel's ``[BH, D]`` / ``[BH, S, D]`` form is the case ``H = KV = 1``.
 One call is one kernel launch: the splits and their in-order merge.
+With ``lse`` (an fp32 [B, H] buffer) the launch also writes each row's
+base-2 log-sum-exp of its scaled scores from that merge's final max and
+denominator (``-1e30`` for a row with no valid key): what two slices of a
+cache need to be merged into the whole (``models.layers``' kv_seq-sharded
+decode).
 :func:`plan` sizes the splits from the shape (the lengths stay on the
 device); the partials and the merge counters are scratch kept per device
 and stream across calls, so calls in flight on different streams never
@@ -33,7 +38,7 @@ import ctypes
 import functools
 import math
 from contextlib import contextmanager
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -125,7 +130,7 @@ def live_blocks(p: DecodePlan, lens, kvh: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     lib.repro_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
         + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_decode_attention.restype = ctypes.c_int
     lib.repro_decode_attention_key_tile.argtypes = [ctypes.c_int]
@@ -193,9 +198,12 @@ def lens_tensor(cache_len, b: int, device: torch.device) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len,
+                     lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q [B, H, D]; k/v_cache [B, S, KV, D]; ``cache_len`` int or int
-    tensor [B] (each >= 1) -> [B, H, D] in ``q.dtype``."""
+    tensor [B] -> [B, H, D] in ``q.dtype``; a row of length 0 gets zeros.
+    ``lse``, a contiguous fp32 [B, H] tensor on q's device, receives each
+    row's base-2 log-sum-exp (``-1e30`` at length 0)."""
     global launches
     dev = q.device
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
@@ -228,6 +236,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)):
         raise ValueError("CUDA decode attention needs 16-byte aligned q and "
                          "caches (16-byte cp.async copies)")
+    if lse is not None and (lse.shape != (b, h) or lse.dtype != torch.float32
+                            or lse.device != dev or not lse.is_contiguous()):
+        raise ValueError(f"decode attention's lse is a contiguous float32 "
+                         f"[{b}, {h}] tensor on {dev}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
     lens = lens_tensor(cache_len, b, dev)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     if b == 0 or h == 0:
@@ -240,7 +253,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     with _build.on_device(dev):
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+            lens.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), part.data_ptr(),
             counters.data_ptr(), b, h, kvh, s_len, d, p.chunk, p.n_splits,
             1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, err, "decode_attention")

@@ -206,11 +206,20 @@ class FlashAttention(torch.autograd.Function):
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cache_len) -> torch.Tensor:
-    """q [B, H, D]; caches [B, S, KV, D]; per-row ``cache_len`` -> [B, H, D]."""
+                     v_cache: torch.Tensor, cache_len,
+                     lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q [B, H, D]; caches [B, S, KV, D]; per-row ``cache_len`` -> [B, H,
+    D].  ``lse``, an fp32 [B, H] tensor, receives each row's base-2
+    log-sum-exp (``-1e30`` for a row of length 0, whose output is 0), as
+    :func:`flash_attention_lse` gives the forward's."""
     if _on_cpu(q, k_cache, v_cache):
-        return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
-    return _da.decode_attention(q, k_cache, v_cache, cache_len)
+        if lse is None:
+            return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
+        out, got = ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                            return_lse=True)
+        lse.copy_(got)
+        return out
+    return _da.decode_attention(q, k_cache, v_cache, cache_len, lse=lse)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -122,14 +122,18 @@ def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, cache_len) -> torch.Tensor:
+                         v_cache: torch.Tensor, cache_len,
+                         return_lse: bool = False):
     """One query per row over a GQA cache.
 
     q [B, H, D]; caches [B, S, KV, D]; ``cache_len`` an int or an int
     tensor [B] (key ``s`` of row ``b`` is valid iff ``s < cache_len[b]``).
     Query head ``h`` reads KV head ``h // (H // KV)``.  With H = KV = 1 this
     is the TPU oracle ``decode_attention_ref`` on ``[BH, D]`` /
-    ``[BH, S, D]``.
+    ``[BH, S, D]``.  A row with no valid key is zeros, as in the kernel.
+    With ``return_lse`` it returns (out, lse): lse float32 [B, H], each
+    row's log-sum-exp of its scaled scores over its valid keys in base 2
+    (``NEG_INF`` for a row with none), as the kernel writes it.
     """
     b, h, d = q.shape
     s_len, kvh = k_cache.shape[1], k_cache.shape[2]
@@ -139,6 +143,10 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = torch.arange(s_len, device=q.device)[None, :] < lens   # [B?, S]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = torch.where(valid[:, None, None, :], torch.softmax(s, dim=-1), 0.0)
     out = torch.einsum("bgrk,bkgd->bgrd", p.to(q.dtype), v_cache)
-    return out.reshape(b, h, d)
+    if not return_lse:
+        return out.reshape(b, h, d)
+    lse = torch.where(valid.any(-1)[:, None, None],
+                      torch.logsumexp(s, dim=-1) * LOG2E, NEG_INF)
+    return out.reshape(b, h, d), lse.reshape(b, h)

@@ -74,6 +74,9 @@ def _mesh(shape: Sequence[int], axes: Sequence[str],
             "a cuda mesh (device=None) over a gloo group: pass "
             "device='cpu' for a host mesh, or device='cuda' to run card "
             "tensors over it")
+    if dev.type == "cuda" and dist.get_backend() == "gloo":
+        from repro_torch.dist.collectives import stage_card_gathers
+        stage_card_gathers()
     world = dist.get_world_size()
     if world < need:
         raise ValueError(f"a mesh of {tuple(shape)} needs {need} ranks, the "

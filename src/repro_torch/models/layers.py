@@ -18,17 +18,33 @@ a Pallas kernel.
 
 The RoPE angles are built once per model call (:func:`rope_table`) and
 handed to every layer's :func:`apply_rope`.
+
+Under a mesh (``dist.sharding.Rules``) the activations and weights are
+DTensors and the plain torch ops partition themselves; the kernels run
+inside :meth:`Rules.local` on each rank's own heads (:func:`attention`,
+:func:`decode_attention`) or its slice of the cache's ``kv_seq`` axis,
+and :func:`write_kv` writes a decode step's K/V into each rank's part of
+the cache.  Without a mesh (``NullRules``, plain tensors) they are the
+calls they always were.
 """
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import NullRules
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
+
+# logical axes of the attention operands (the reference's constraints)
+Q_AXES = ("batch", None, "heads", None)          # q [B, S, H, Dh]
+KV_AXES = ("batch", None, "kv_heads", None)      # k, v [B, S, KV, Dh]
+CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)   # a layer's [B, W, KV, D]
 
 
 def not_ported(what: str, item) -> NotImplementedError:
@@ -187,8 +203,28 @@ def out_project(p, cfg, attn_out):
 # attention
 # ---------------------------------------------------------------------------
 
+def local_kv_heads(k, v, h_local: int, h0: int, group: int, dim: int = 2):
+    """(k, v, kv_group) for ``h_local`` query heads from global head
+    ``h0`` that read KV head ``h // group``: the K/V as they are when they
+    hold exactly those heads' KV heads (``KV * group == h_local``), else,
+    KV whole while the query heads are split (the divisibility fallback),
+    only the KV heads these query heads read along ``dim``: a slice when
+    each is read by the same number of them, one KV head a query head
+    otherwise."""
+    if k.shape[dim] * group == h_local:
+        return k, v, group
+    idx = [(h0 + i) // group for i in range(h_local)]
+    n = idx[-1] - idx[0] + 1
+    per = h_local // n
+    if per * n == h_local and all(idx[i] == idx[0] + i // per
+                                  for i in range(h_local)):
+        return (k.narrow(dim, idx[0], n), v.narrow(dim, idx[0], n), per)
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(dim, sel), v.index_select(dim, sel), 1
+
+
 def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
-              softcap: float = 0.0, plan=None):
+              softcap: float = 0.0, plan=None, rules=None):
     """q [B, Sq, H, Dh], k/v [B, Skv, KV, Dh] -> [B, Sq, H, Dh].
 
     ``Skv`` may differ from ``Sq`` under ``causal=False``: cross-attention
@@ -202,23 +238,37 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
     ``qpos - kpos < window`` (h2o-danube's sliding window).  Logit soft caps
     wait: no config sets one, and the JAX blockwise path ignores them;
     no model of the JAX package passes a query offset (ROADMAP item 8).
+
+    Under a mesh each rank runs the kernel on its own rows and heads
+    (:meth:`Rules.local`), with the KV heads they read
+    (:func:`local_kv_heads`); the kernel's gradient flows through.
     """
     if q_offset or softcap > 0:
         raise not_ported("attention with a soft cap or query offset", 8)
-    b, sq, h, dh = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    # [B, S, H, Dh] -> [B*H, S, Dh] (each with its own S): a view when
-    # B == 1 (the serving engine's prefill), a copy otherwise
-    qh = q.transpose(1, 2).reshape(b * h, sq, dh)
-    kh = k.transpose(1, 2).reshape(b * kvh, skv, dh)
-    vh = v.transpose(1, 2).reshape(b * kvh, skv, dh)
-    out = ops.flash_attention(qh, kh, vh, causal=causal, kv_group=h // kvh,
-                              window=window)
-    return out.reshape(b, h, sq, dh).transpose(1, 2)
+    rules = rules or NullRules()
+    q = rules.constrain(q, Q_AXES)
+    k, v = rules.constrain(k, KV_AXES), rules.constrain(v, KV_AXES)
+    group = q.shape[2] // k.shape[2]
+    h0 = rules.offset(q, 2)
+
+    def local(q, k, v):
+        b, sq, h, dh = q.shape
+        k, v, kv_group = local_kv_heads(k, v, h, h0, group)
+        skv, kvh = k.shape[1], k.shape[2]
+        # [B, S, H, Dh] -> [B*H, S, Dh] (each with its own S): a view when
+        # B == 1 (the serving engine's prefill), a copy otherwise
+        qh = q.transpose(1, 2).reshape(b * h, sq, dh)
+        kh = k.transpose(1, 2).reshape(b * kvh, skv, dh)
+        vh = v.transpose(1, 2).reshape(b * kvh, skv, dh)
+        out = ops.flash_attention(qh, kh, vh, causal=causal,
+                                  kv_group=kv_group, window=window)
+        return out.reshape(b, h, sq, dh).transpose(1, 2)
+
+    return rules.local(local, (Q_AXES, KV_AXES, KV_AXES), Q_AXES)(q, k, v)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
-                     softcap: float = 0.0):
+                     softcap: float = 0.0, rules=None):
     """q [B, 1, H, Dh]; caches [B, S, KV, Dh]; ``cache_len`` = valid entries,
     an int or an int tensor [B] (one per row: the batcher's slots sit at
     different positions; a cross layer's is S for every row, a device
@@ -227,12 +277,84 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
     ``window`` is accepted and ignored, as in the JAX layer: a windowed
     cache is a ring of ``min(cache_len, window)`` slots that holds exactly
-    the window, so validity stays ``kpos < cache_len``."""
+    the window, so validity stays ``kpos < cache_len``.
+
+    Under a mesh each rank decodes its own rows: over its own query heads
+    and the KV heads they read, or, where the cache's ``kv_seq`` axis is
+    sharded (``Plan.decode_kv_seq_shard``: the KV heads and so the query
+    heads whole), over its slice ``[r W/n, (r+1) W/n)`` of the keys with
+    ``cache_len`` clamped into it; the kernel's log-sum-exps ``lse_r``
+    then merge the slices, ``out = sum_r 2^(lse_r - M) out_r / sum_r
+    2^(lse_r - M)`` with ``M = max_r lse_r`` (two all-reduces and a max
+    over the group); ``cache_len`` is then a tensor."""
     del window
     if softcap > 0:
         raise not_ported("decode attention with a soft cap", 8)
-    return ops.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                                cache_len)[:, None]
+    rules = rules or NullRules()
+    q = q[:, 0]
+    k_cache = rules.constrain(k_cache, CACHE_AXES)
+    v_cache = rules.constrain(v_cache, CACHE_AXES)
+    group = q.shape[1] // k_cache.shape[2]
+    seq = rules.group(k_cache, 1)
+    if seq is None:
+        q_axes = ("batch", "heads", None)
+        q = rules.constrain(q, q_axes)
+        h0 = rules.offset(q, 1)
+
+        def local(q, k_cache, v_cache, lens):
+            k_cache, v_cache, _ = local_kv_heads(
+                k_cache, v_cache, q.shape[1], h0, group)
+            return ops.decode_attention(q.contiguous(), k_cache.contiguous(),
+                                        v_cache.contiguous(), lens)
+    else:
+        q_axes = ("batch", None, None)
+        start = rules.offset(k_cache, 1)
+
+        def local(q, k_cache, v_cache, lens):
+            w = k_cache.shape[1]
+            lens = torch.clamp(lens - start, 0, w).to(torch.int32)
+            lse = torch.empty(q.shape[:2], dtype=torch.float32,
+                              device=q.device)
+            out = ops.decode_attention(q.contiguous(), k_cache, v_cache,
+                                       lens, lse=lse)
+            top = col.max_replicated(lse, seq)
+            wt = torch.exp2(lse - top)
+            num = col.sum_replicated(out.float() * wt[..., None], seq)
+            return (num / col.sum_replicated(wt, seq)[..., None]).to(q.dtype)
+
+    out = rules.local(local, (q_axes, CACHE_AXES, CACHE_AXES, ("batch",)),
+                      q_axes)(q, k_cache, v_cache, cache_len)
+    return out[:, None]
+
+
+def write_kv(caches: Sequence, new: Sequence, slot, rules=None) -> None:
+    """Write a decode step's entries into its ring buffers in place:
+    ``caches`` [B, W, KV, ·] and ``new`` [B, 1, KV, ·] pairwise, row ``b``
+    at slot ``slot[b]``.  Under a mesh each rank writes its part of the
+    cache: its rows and KV heads, and where the ``kv_seq`` axis is sharded
+    only the rows whose slot lies in its slice."""
+    rules = rules or NullRules()
+    caches = [rules.constrain(c, CACHE_AXES) for c in caches]
+    width = caches[0].shape[1]
+    start = rules.offset(caches[0], 1)
+    kv = "kv_heads" if rules.group(caches[0], 2) is not None else None
+    new_axes = ("batch", None, kv, None)
+    n = len(caches)
+
+    def local(slot, *bufs):
+        rows = torch.arange(slot.shape[0], device=slot.device)
+        at = slot
+        keep = None
+        if bufs[0].shape[1] != width:           # this rank's kv_seq slice
+            at = slot - start
+            keep = (at >= 0) & (at < bufs[0].shape[1])
+            rows, at = rows[keep], at[keep]
+        for c, x in zip(bufs[:n], bufs[n:]):
+            x = x[:, 0] if keep is None else x[keep, 0]
+            c[rows, at] = x.to(c.dtype)
+
+    rules.local(local, [("batch",)] + [CACHE_AXES] * n + [new_axes] * n,
+                [])(slot, *caches, *new)
 
 
 # ---------------------------------------------------------------------------

@@ -82,6 +82,25 @@ Differences from the JAX model, none of which changes a result:
     the JAX model's dense/blockwise switch computes the same function.  The
     int8 cache's decode attention is plain torch, as the JAX one is jnp,
     and so are the SSD and RG-LRU bodies.
+
+Under a mesh (``LM(cfg, params, plan, rules=Rules(mesh, plan))`` with an
+axis past one device) the dense family is partitioned as the reference's
+GSPMD partitions it: the parameters become DTensors placed by
+:func:`param_axes` (``embed`` over "data", FSDP-style, gathered where a
+product uses it; ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` over
+"model"), the inputs are placed by their batch axes, activations are
+constrained at the reference's sites (the embedding, q and k, the
+attention and FFN outputs, the logits), DTensor places the collectives
+of the plain ops, and each rank runs the kernels on its own heads or
+``kv_seq`` slice (``models.layers``).  The vocabulary stays split in the
+loss and the logits' mask: each rank's log-sum-exp is merged over
+"model" and the gold logit comes from the rank that holds it.  The entry
+points take whole inputs on every rank and return whole logits and loss;
+the decode cache stays placed by :func:`cache_axes`.  The mesh path is
+eager (no CUDA graph).  The MoE family keeps the explicit expert-parallel
+path (``moe_impl="shardmap_ep"``, whole parameters); the grouped MoE, the
+SSM, recurrent and cross blocks and the int8 cache under such a mesh
+raise (ROADMAP item 11c).
 """
 from __future__ import annotations
 
@@ -93,14 +112,20 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve
 from repro_torch.dist.plan import Plan
-from repro_torch.dist.sharding import NullRules
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import NullRules, whole
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.layers import not_ported
+
+BATCH_SEQ = ("batch", None)             # tokens, labels [B, S]
+HIDDEN = ("batch", None, None)          # the residual stream [B, S, d]
+LOGITS = ("batch", None, "vocab")       # logits [B, S, V]
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, Any]
@@ -397,8 +422,15 @@ class DenseBlock(nn.Module):
         self.ffn = (moe.MoEWeights(params, f"{prefix}.ffn.")
                     if cfg.moe is not None
                     else _group(params, f"{prefix}.ffn."))
+        self._attn_axes = layers.attn_axes(cfg)
+        self._ffn_axes = layers.ffn_axes(cfg.ffn_act, cfg.use_bias)
         # LM.count_moe_drops: int64 [2, 3], rows prefill and decode
         self.moe_drops: Optional[torch.Tensor] = None
+
+    def _used(self, group, axes) -> dict:
+        """A parameter group's weights as the products use them
+        (:meth:`Rules.gathered`; the parameters themselves off a mesh)."""
+        return {n: self.rules.gathered(w, axes[n]) for n, w in group.items()}
 
     def _ffn(self, h, step: int, route_per_row: bool = False):
         """(h, aux): ``step`` 0 in prefill and training, 1 in decode (the
@@ -407,8 +439,9 @@ class DenseBlock(nn.Module):
         cfg, plan = self.cfg, self.plan
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
         if cfg.moe is None:
-            return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act,
-                                        cfg.use_bias), 0.0
+            y = layers.apply_ffn(self._used(self.ffn, self._ffn_axes), x,
+                                 cfg.ffn_act, cfg.use_bias)
+            return h + self.rules.constrain(y, HIDDEN), 0.0
         kw = dict(drops=None if self.moe_drops is None
                   else self.moe_drops[step])
         if route_per_row:       # one group a row: the JAX engine's vmap
@@ -420,25 +453,35 @@ class DenseBlock(nn.Module):
                                       plan.moe_capacity_factor,
                                       rules=self.rules, **kw)
         else:
+            if self.rules.sharded:
+                raise not_ported("the grouped MoE under a sharded mesh",
+                                 "11c")
             y, aux = moe.apply_moe(self.ffn, cfg, x,
                                    plan.moe_capacity_factor,
                                    groups=plan.moe_groups, **kw)
         return h + y, aux
 
-    def _qkv(self, h, rope):
+    def _qkv(self, h, rope, p):
         cfg = self.cfg
         x = layers.apply_norm(self.attn_norm, h, cfg.norm)
-        q = layers.q_project(self.attn, cfg, x)
-        k, v = layers.kv_project(self.attn, cfg, x)
+        q = layers.q_project(p, cfg, x)
+        k, v = layers.kv_project(p, cfg, x)
         return layers.apply_rope(q, rope), layers.apply_rope(k, rope), v
 
+    def _out(self, h, p, attn_out):
+        y = layers.out_project(p, self.cfg, attn_out)
+        return h + self.rules.constrain(y, HIDDEN)
+
     def _attend(self, h, rope):
-        q, k, v = self._qkv(h, rope)
+        p = self._used(self.attn, self._attn_axes)
+        q, k, v = self._qkv(h, rope, p)
+        q = self.rules.constrain(q, layers.Q_AXES)
+        k = self.rules.constrain(k, layers.KV_AXES)
         attn_out = layers.attention(q, k, v, causal=self.causal,
                                     window=self.window,
                                     softcap=self.cfg.logit_softcap,
-                                    plan=self.plan)
-        return h + layers.out_project(self.attn, self.cfg, attn_out), (k, v)
+                                    plan=self.plan, rules=self.rules)
+        return self._out(h, p, attn_out), (k, v)
 
     def prefill(self, h, rope):
         """h [B, S, d] -> (h, (k, v)) with the layer's post-RoPE K/V."""
@@ -455,31 +498,30 @@ class DenseBlock(nn.Module):
         "k_scale", "v_scale"]}`` [B, W, KV, ·] (written in place at each
         row's slot); pos, cache_len int tensors [B]; ``route_per_row``
         routes each row through the MoE on its own."""
-        q, k, v = self._qkv(h, rope)
+        p = self._used(self.attn, self._attn_axes)
+        q, k, v = self._qkv(h, rope, p)
         k_cache, v_cache = cache["k"], cache["v"]
         w = k_cache.shape[1]
         # the JAX rule: the ring slot pos % w under a window, else
         # min(pos, w - 1)
         slot = pos % w if self.window else torch.clamp(pos, max=w - 1)
-        rows = torch.arange(h.shape[0], device=h.device)
-        quant = "k_scale" in cache
-        if quant:
+        if "k_scale" in cache:
+            rows = torch.arange(h.shape[0], device=h.device)
             k, k_s = layers.quantize_kv(k)
             v, v_s = layers.quantize_kv(v)
             cache["k_scale"][rows, slot] = k_s[:, 0]
             cache["v_scale"][rows, slot] = v_s[:, 0]
-        k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-        if quant:
+            k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
+            v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
             attn_out = layers.decode_attention_quant(
                 q, k_cache, cache["k_scale"], v_cache, cache["v_scale"],
                 cache_len, softcap=self.cfg.logit_softcap)
         else:
+            layers.write_kv((k_cache, v_cache), (k, v), slot, self.rules)
             attn_out = layers.decode_attention(
                 q, k_cache, v_cache, cache_len, window=self.window,
-                softcap=self.cfg.logit_softcap)
-        h = h + layers.out_project(self.attn, self.cfg, attn_out)
-        return self._ffn(h, 1, route_per_row)[0]
+                softcap=self.cfg.logit_softcap, rules=self.rules)
+        return self._ffn(self._out(h, p, attn_out), 1, route_per_row)[0]
 
 
 class CrossBlock(nn.Module):
@@ -609,9 +651,11 @@ class LM(nn.Module):
     :func:`repro_torch.models.convert.params_from_numpy`); it runs where
     its parameters lie.  Its weights take no gradient (serving) until
     ``requires_grad_(True)`` (``repro_torch.train.train_step``).  ``rules``
-    (default :class:`NullRules`) reach the MoE layers under
-    ``plan.moe_impl == "shardmap_ep"``, whose experts then run
-    expert-parallel over the rules' mesh (:func:`moe.apply_moe_ep`)."""
+    (default :class:`NullRules`) with a sharded mesh partition the dense
+    family (the module docstring: ``params``, whole on every rank, are
+    placed here) and reach the MoE layers under ``plan.moe_impl ==
+    "shardmap_ep"``, whose experts then run expert-parallel over the
+    rules' mesh (:func:`moe.apply_moe_ep`)."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  plan: Optional[Plan] = None, rules=None):
@@ -620,6 +664,11 @@ class LM(nn.Module):
         self.rules = rules or NullRules()
         check_supported(cfg, self.plan)
         self.cfg = cfg
+        if self.rules.sharded and cfg.family == "dense" and cfg.moe is None:
+            if self.plan.kv_cache_quant:
+                raise not_ported("the int8 KV cache under a sharded mesh",
+                                 "11c")
+            params = self.rules.distribute(params, param_axes(cfg))
         # sqrt(d_model) rounded to the activation type once, as the JAX
         # _embed rounds it: a Python float multiplies with no host copy
         self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model),
@@ -667,6 +716,8 @@ class LM(nn.Module):
 
     def _block(self, params: Params, prefix: str, kind: str) -> nn.Module:
         cfg, plan = self.cfg, self.plan
+        if self.rules.sharded and kind != "dense":
+            raise not_ported(f"the {kind} block under a sharded mesh", "11c")
         if kind == "ssm":
             return SSMBlock(cfg, params, prefix, plan)
         if kind == "recurrent":
@@ -689,22 +740,74 @@ class LM(nn.Module):
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.cfg.dtype)
 
+    @property
+    def partitioned(self) -> bool:
+        """Whether the parameters are DTensors over the rules' mesh."""
+        return isinstance(self.embed, DTensor)
+
+    def _place(self, x, axes):
+        """A whole input (the same on every rank) placed by its logical
+        axes when the LM is partitioned; unchanged otherwise."""
+        return self.rules.place(x, axes) if self.partitioned else x
+
     # ------------------------------------------------------------- pieces
     def _embed(self, tokens):
-        return self.embed[tokens.long()].to(self.dtype) * self._embed_scale
+        """The scaled embedding of ``tokens`` [B, S].  Over a vocabulary
+        split across ranks each rank looks up the tokens its rows hold and
+        the rows are summed over the split (``_embed`` in the reference:
+        ``take``, then the constraint)."""
+        rules = self.rules
+        table = rules.gathered(self.embed, ("vocab", "embed"))
+        tokens = self._place(tokens, BATCH_SEQ)
+        start, group = rules.offset(table, 0), rules.group(table, 0)
+
+        def lookup(table, tokens):
+            if group is None:
+                return table[tokens.long()]
+            local = tokens.long() - start
+            hit = (local >= 0) & (local < table.shape[0])
+            rows = torch.nn.functional.embedding(
+                torch.where(hit, local, 0), table)
+            return col.sum_replicated(
+                torch.where(hit[..., None], rows, 0.0), group)
+
+        h = rules.local(lookup, (("vocab", None), BATCH_SEQ), HIDDEN)(
+            table, tokens)
+        return rules.constrain(h.to(self.dtype) * self._embed_scale, HIDDEN)
 
     def _rope(self, positions):
-        return layers.rope_table(positions, self.cfg.head_dim,
+        rope = layers.rope_table(positions, self.cfg.head_dim,
                                  self.cfg.rope_theta)
+        lead = ("batch",) if positions.dim() == 2 else ()
+        return tuple(self._place(t, lead + (None,) * (t.dim() - len(lead)))
+                     for t in rope)
+
+    def _unembed_matrix(self):
+        """[d, V_pad] as the logits' product uses it."""
+        if self.cfg.tie_embeddings:
+            return self.rules.gathered(self.embed, ("vocab", "embed")).T
+        return self.rules.gathered(self.unembed, ("embed", "vocab"))
 
     def logits_for(self, hidden):
-        """Full fp32 logits for a short hidden slice, padded vocab masked."""
-        cfg = self.cfg
-        w = self.embed.T if cfg.tie_embeddings else self.unembed
-        logits = torch.matmul(hidden, w).float()
-        if cfg.padded_vocab != cfg.vocab_size:
-            logits[..., cfg.vocab_size:] = layers.NEG_INF
-        return logits
+        """Full fp32 logits for a short hidden slice, padded vocab masked
+        (on each rank's part of the vocabulary under a mesh)."""
+        logits = torch.matmul(hidden, self._unembed_matrix()).float()
+        logits = self.rules.constrain(logits, LOGITS)
+        return self._mask_pad(logits)
+
+    def _mask_pad(self, logits):
+        """``logits`` [B, S, V_pad] with the padded vocabulary at
+        ``NEG_INF``."""
+        v = self.cfg.vocab_size
+        if self.cfg.padded_vocab == v:
+            return logits
+        start = self.rules.offset(logits, 2)
+
+        def mask(logits):
+            cols = torch.arange(logits.shape[-1], device=logits.device)
+            return torch.where(cols + start >= v, layers.NEG_INF, logits)
+
+        return self.rules.local(mask, (LOGITS,), LOGITS)(logits)
 
     def count_moe_drops(self) -> torch.Tensor:
         """Count the MoE's routed and dropped (token, k) pairs from now on:
@@ -721,8 +824,12 @@ class LM(nn.Module):
         return counts
 
     def init_cache(self, batch: int, seq_len: int) -> Cache:
-        return init_cache(self.cfg, batch, seq_len, device=self.device,
-                          quant=self.plan.kv_cache_quant)
+        cache = init_cache(self.cfg, batch, seq_len, device=self.device,
+                           quant=self.plan.kv_cache_quant)
+        if self.partitioned:
+            cache = self.rules.distribute(
+                cache, cache_axes(self.cfg, self.plan.kv_cache_quant))
+        return cache
 
     def context(self, batch, b: int) -> Optional[torch.Tensor]:
         """The modality context of a VLM or audio ``batch`` (None for the
@@ -793,26 +900,45 @@ class LM(nn.Module):
         chunk = min(self.plan.vocab_chunk or s, s)
         if s % chunk:
             chunk = s
-        w = self.embed.T if self.cfg.tie_embeddings else self.unembed
-        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        labels = self._place(labels, BATCH_SEQ)
+        total = None
         for c0 in range(0, s, chunk):
-            part = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], w)
+            part = (hidden[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
             if torch.is_grad_enabled():
-                total = total + ckpt.checkpoint(self._xent_sum, *part,
-                                                use_reentrant=False)
+                got = ckpt.checkpoint(self._xent_sum, *part,
+                                      use_reentrant=False)
             else:
-                total = total + self._xent_sum(*part)
+                got = self._xent_sum(*part)
+            total = got if total is None else total + got
         return total / (b * s)
 
-    def _xent_sum(self, hidden, labels, w):
-        logits = torch.matmul(hidden, w).float()
-        v = self.cfg.vocab_size
-        if self.cfg.padded_vocab != v:
-            pad = torch.arange(logits.shape[-1], device=logits.device) >= v
-            logits = torch.where(pad, layers.NEG_INF, logits)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, labels[..., None].long())[..., 0]
-        return torch.sum(lse - gold)
+    def _xent_sum(self, hidden, labels):
+        """The chunk's summed cross-entropy.  Over a vocabulary split
+        across ranks the log-sum-exp is merged over the split (a max, then a
+        sum of each rank's exponentials) and the gold logit is summed from
+        the rank that holds it."""
+        logits = torch.matmul(hidden, self._unembed_matrix()).float()
+        logits = self._mask_pad(self.rules.constrain(logits, LOGITS))
+        start = self.rules.offset(logits, 2)
+        group = self.rules.group(logits, 2)
+
+        def rows(logits, labels):
+            if group is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(-1, labels[..., None].long())[..., 0]
+                return lse - gold
+            top = col.max_replicated(logits.amax(-1), group)
+            lse = torch.log(col.sum_replicated(
+                torch.exp(logits - top[..., None]).sum(-1), group)) + top
+            local = labels.long() - start
+            hit = (local >= 0) & (local < logits.shape[-1])
+            gold = logits.gather(-1, torch.where(hit, local, 0)[..., None])
+            gold = col.sum_replicated(torch.where(hit, gold[..., 0], 0.0),
+                                      group)
+            return lse - gold
+
+        return torch.sum(self.rules.local(rows, (LOGITS, BATCH_SEQ),
+                                          BATCH_SEQ)(logits, labels))
 
     @contextlib.contextmanager
     def rules_as(self, rules) -> Iterator[None]:
@@ -857,9 +983,30 @@ class LM(nn.Module):
         h, rope, ctx = self._inputs(batch, tokens)
         h, _, collected = self.backbone(h, rope, ctx, collect=True)
         last = layers.apply_norm(self.final_norm, h[:, -1:], self.cfg.norm)
-        cache = assemble_cache(self.cfg, collected, cache_len,
-                               quant=self.plan.kv_cache_quant)
-        return self.logits_for(last)[:, 0], cache
+        if self.partitioned:
+            cache = self._assemble_placed(collected, cache_len)
+        else:
+            cache = assemble_cache(self.cfg, collected, cache_len,
+                                   quant=self.plan.kv_cache_quant)
+        return whole(self.logits_for(last)[:, 0]), cache
+
+    def _assemble_placed(self, collected, cache_len: int) -> Cache:
+        """The dense family's decode cache from the layers' K/V DTensors:
+        each rank rings its own rows and KV heads
+        (:func:`assemble_cache` on local tensors), then the cache is
+        placed by :func:`cache_axes` (under ``decode_kv_seq_shard`` each
+        rank keeps its slice of the slots)."""
+        def ring(*kvs):
+            got = assemble_cache(self.cfg, list(zip(kvs[::2], kvs[1::2])),
+                                 cache_len)["attn"]
+            return got["k"], got["v"]
+
+        kvs = [t for kv in collected for t in kv]
+        out = ("layers", "batch", None, "kv_heads", None)
+        k, v = self.rules.local(ring, [layers.KV_AXES] * len(kvs),
+                                [out, out])(*kvs)
+        return self.rules.distribute({"attn": {"k": k, "v": v}},
+                                     cache_axes(self.cfg))
 
     def init_context_cache(self, batch, batch_size: int,
                            cache_len: int) -> Cache:
@@ -902,6 +1049,8 @@ class LM(nn.Module):
         if rings:
             cache_len = torch.clamp(pos + 1, max=rings[0]).to(torch.int32)
             rope = self._rope(pos[:, None])
+            pos = self._place(pos, ("batch",))
+            cache_len = self._place(cache_len, ("batch",))
         if cross:       # a device fill: a captured step copies no host data
             ctx_len = torch.full((b,), cross[0]["k"].shape[1],
                                  dtype=torch.int32, device=self.device)
@@ -911,7 +1060,7 @@ class LM(nn.Module):
             else:
                 h = blk.decode(h, c, pos, cache_len, rope, route_per_row)
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
-        return self.logits_for(h)[:, 0], cache
+        return whole(self.logits_for(h)[:, 0]), cache
 
     def _inputs(self, batch, tokens):
         """(embedded tokens, the RoPE table of positions 0..S-1 (None for
@@ -932,7 +1081,7 @@ class LM(nn.Module):
         h, rope, ctx = self._inputs(batch, tokens)
         h, aux, _ = self.backbone(h, rope, ctx)
         h = layers.apply_norm(self.final_norm, h, self.cfg.norm)
-        loss = self.chunked_softmax_xent(h, labels)
+        loss = whole(self.chunked_softmax_xent(h, labels))
         return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 

@@ -96,6 +96,11 @@ class ContinuousBatcher:
                  tick_s: float = DEFAULT_TICK_S):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1: {n_slots}")
+        if getattr(model, "partitioned", False):
+            raise ValueError(
+                "a partitioned LM (rules over a sharded mesh) steps eagerly: "
+                "its collectives cannot be captured into the batcher's CUDA "
+                "graph; serve it through train_step.make_serve_step")
         self.model = model
         self.cfg = model.cfg
         self.n_slots = int(n_slots)

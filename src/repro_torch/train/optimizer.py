@@ -11,6 +11,12 @@ gradients clipped by their global norm, moments and bias corrections in
 fp32, decoupled weight decay, the fp32 result cast to each parameter's
 dtype.  :func:`opt_state_axes` gives the state's logical axes (the
 moments mirror the parameters).
+
+Parameters that are DTensors (a partitioned LM) get moments placed as
+they are; their gradients, which come back partial where a rank summed
+only its own rows, are first redistributed to the parameters' placements,
+the clip reads the whole model's norm on every rank, and each rank then
+updates its own shards.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import math
 from typing import Dict, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from repro_torch.configs.base import TrainConfig
@@ -39,14 +46,15 @@ def lr_schedule(tcfg: TrainConfig, step) -> torch.Tensor:
 
 
 def init(params: Mapping[str, torch.Tensor], tcfg: TrainConfig) -> State:
-    """Zero moments beside each parameter (on its device), a zero count,
-    and the fp32 master copy under ``tcfg.use_master_copy``."""
+    """Zero moments beside each parameter (on its device, a DTensor's
+    with its placements), a zero count, and the fp32 master copy under
+    ``tcfg.use_master_copy``."""
     mdt = torch_dtype(tcfg.master_dtype)
     first = next(iter(params.values()))
     state: State = {
-        "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        "m": {n: torch.zeros_like(p, dtype=mdt, requires_grad=False)
               for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        "v": {n: torch.zeros_like(p, dtype=mdt, requires_grad=False)
               for n, p in params.items()},
         "count": torch.zeros((), dtype=torch.int32, device=first.device),
     }
@@ -68,15 +76,32 @@ def opt_state_axes(par_axes: Mapping[str, tuple], tcfg: TrainConfig
 
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(x, dtype=torch.float32)
-        for x in tree.values()]))
+    """sqrt of the sum of every leaf's squares, in fp32; a DTensor leaf's
+    over its whole value, the same on every rank."""
+    def norm(x):
+        n = torch.linalg.vector_norm(x, dtype=torch.float32)
+        return n.full_tensor() if isinstance(n, DTensor) else n
+    return torch.linalg.vector_norm(torch.stack([norm(x)
+                                                 for x in tree.values()]))
 
 
 def _fp32(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when fp32 (updated in place), else an fp32 copy."""
     return t if t.dtype == torch.float32 else t.float()
+
+
+def _local(t):
+    """This rank's shard of a DTensor (its storage: written in place);
+    anything else itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like_param(g, p):
+    """A DTensor gradient redistributed to its parameter's placements
+    (partial sums reduced)."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 @torch.no_grad()
@@ -95,6 +120,7 @@ def _update(grads, state, params, tcfg):
     count = state["count"]
     count.add_(1)
     lr = lr_schedule(tcfg, count)
+    grads = {n: _like_param(g, params[n]) for n, g in grads.items()}
     gnorm = global_norm(grads)
     clip = torch.clamp(tcfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1, b2, eps = tcfg.beta1, tcfg.beta2, tcfg.eps
@@ -103,13 +129,14 @@ def _update(grads, state, params, tcfg):
     bc2 = 1.0 - torch.pow(b2, c)
     master = state.get("master")
     for name, p in params.items():
-        g = grads[name].float() * clip
-        m, v = state["m"][name], state["v"][name]
+        p = _local(p)
+        g = _local(grads[name]).float() * clip
+        m, v = _local(state["m"][name]), _local(state["v"][name])
         m32, v32 = _fp32(m), _fp32(v)
         m32.mul_(b1).add_(g, alpha=1 - b1)
         v32.mul_(b2).add_(g.square_(), alpha=1 - b2)
         step = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(eps))
-        base = master[name] if master is not None else p
+        base = _local(master[name]) if master is not None else p
         base32 = _fp32(base)
         step.add_(base32, alpha=tcfg.weight_decay)
         base32.sub_(step.mul_(lr))

@@ -10,6 +10,13 @@ and ``opt_state`` in place and returns them.  The gradients come from
 ``torch.autograd.grad`` through the backward kernels (flash attention's
 on the card).
 
+Over an LM partitioned by ``Rules`` on a sharded mesh (the dense family,
+``models.lm``) the same :func:`make_train_step` and :func:`make_serve_step`
+run as SPMD code on every rank: each rank passes the whole batch, the LM
+places it by its batch axes, the gradients come back as DTensors that the
+optimizer reduces to their parameters' placements, and the loss, metrics
+and logits come back whole on every rank.  That path is eager.
+
 ``make_pod_parallel_train_step(model, tcfg, mesh)`` is the explicit
 multi-pod step, and ``make_pipeline_train_step`` the pipelined one.  Both
 are SPMD: every rank of the mesh runs the step with the whole parameters
@@ -71,14 +78,14 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> Callable:
             total, metrics = loss_fn(batch)
             grads = _grads(total, params)
         else:
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32,
+                                         requires_grad=False)
                      for n, p in params.items()}
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
             for mb in _split_microbatches(batch, n_micro):
                 total, _ = loss_fn(mb)
                 for n, g in _grads(total, params).items():
-                    grads[n].add_(g)
+                    grads[n].add_(optimizer._like_param(g, params[n]))
                 loss = loss + total.detach()
             grads = {n: g / n_micro for n, g in grads.items()}
             metrics = {"loss": loss / n_micro,

@@ -2,8 +2,10 @@
 on one NCCL rank bitwise equal to the plain step (both reductions are
 copies), and on two gloo ranks sharing the card the pod step against the
 whole-batch step, the pipeline against ``sequential_apply`` on the same
-microbatches and expert-parallel MoE against ``apply_moe``.  Imports no
-jax: run it on the card with
+microbatches and expert-parallel MoE against ``apply_moe``; the decode
+kernel's ``lse`` output against the plain version's, and DTensor's
+all-gather of card tensors over gloo staged through host memory.
+Imports no jax: run it on the card with
 ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_dist_cuda.py``.
 """
 import dataclasses
@@ -118,3 +120,53 @@ def test_two_gloo_ranks_on_one_card(tmp_path):
         assert got["pod"] <= 2e-4, got
         assert got["pipe"] <= 1e-5, got
         assert got["moe"] <= 1e-5, got
+
+
+@pytest.mark.gpu
+def test_decode_kernel_writes_each_rows_lse():
+    """One launch writes the output and each row's base-2 log-sum-exp,
+    against the plain version's; a row of length 0 gets zeros and
+    -1e30 (a kv_seq slice that holds none of the row's keys)."""
+    _card()
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(4, 32, 64, generator=gen, device="cuda")
+    kc, vc = (torch.randn(4, 1056, 8, 64, generator=gen, device="cuda")
+              for _ in range(2))
+    lens = torch.tensor([0, 5, 1000, 1056], dtype=torch.int32,
+                        device="cuda")
+    lse = torch.empty(4, 32, device="cuda")
+    ops.reset_launch_counts()
+    out = ops.decode_attention(q, kc, vc, lens, lse=lse)
+    assert ops.launch_counts()["decode_attention"] == 1
+    want, want_lse = ref.decode_attention_ref(q, kc, vc, lens,
+                                              return_lse=True)
+    torch.testing.assert_close(out, want, rtol=0, atol=2e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-4)
+    assert not out[0].any()
+    assert bool((lse[0] == torch.tensor(ref.NEG_INF)).all())
+    assert torch.equal(out, ops.decode_attention(q, kc, vc, lens))
+
+
+def _gathers(rank, world, out):
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.dist import collectives as col
+    torch.cuda.set_device(0)
+    mesh = make_test_mesh((1, 2), ("data", "model"), device="cuda")
+    x = torch.full((4, 3), float(rank), device="cuda")
+    got = DTensor.from_local(x, mesh, [Replicate(), Shard(0)]).full_tensor()
+    torch.save({"got": got.cpu(), "staged": col.staged_ops()},
+               f"{out}/rank{rank}.pt")
+
+
+@pytest.mark.gpu
+def test_dtensor_gathers_card_tensors_over_gloo(tmp_path):
+    """DTensor's all-gather of a card tensor over gloo (which the process
+    would not survive) goes through host memory, counted."""
+    _card()
+    run_ranks(_gathers, 2, str(tmp_path), backend="gloo")
+    want = torch.cat([torch.zeros(4, 3), torch.ones(4, 3)])
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt")
+        assert torch.equal(got["got"], want)
+        assert got["staged"] == {"all_gather_into_tensor": 1}
