@@ -170,9 +170,10 @@ these phases, each printing its seconds:
                whose greedy tokens must equal batch-1 ``generate``'s, whose
                graph-replayed logits must equal an eager engine's bit for
                bit, and one state's step replayed twice for the same bits;
-               (g) moonshot-v1-16b-a3b whole and (h) arctic-480b at full
-               width, 2 of its 35 layers, in bf16, with phase 7's metrics,
-               the device idle share of an unprofiled run, the step's
+               (g) moonshot-v1-16b-a3b at 24 of its 48 layers and (h)
+               arctic-480b at 2 of its 35, at full width in bf16, with
+               phase 7's metrics, the device idle share of an unprofiled
+               run, the step's
                bound (every weight read once: the dispatch runs all
                experts), and the step's device time split into attention,
                GEMMs and the rest (a graph replay, by kernel name) and into
@@ -330,7 +331,18 @@ these phases, each printing its seconds:
                (each rank decodes half the slots and the halves merge by
                their ``lse``), logits within 1e-4 of the unsharded LM's
                and the same tokens, the decode kernel launched a layer
-               and step on each rank.
+               and step on each rank; (d) every other family and the int8
+               cache at full width and a cut depth (``PART_FAMILIES``:
+               moonshot-v1-16b-a3b's grouped MoE at 2 layers,
+               mamba2-1.3b at 2, recurrentgemma-2b's (recurrent,
+               recurrent, local attention) group, seamless-m4t-medium at
+               2 encoder and 2 decoder layers, llama-3.2-vision-90b's
+               group of 4 self and 1 cross layer in bf16, granite-3-2b
+               with the int8 cache at 2), each against the same LM
+               unpartitioned on the card: a train step's loss and
+               updated parameters, a prefill and 2 decode steps' logits
+               and tokens, heads- or kv_seq-sharded, the flash forward,
+               backward and decode launches each path needs.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -412,9 +424,13 @@ FAMILY_CELLS = (
     ("e", "command-r-plus-104b", 8, (1000, 2048), 2112, False),
     ("f", "granite-3-2b", None, SERVE_PROMPTS, SERVE_CACHE_LEN, True),
 )
-# phase 8: (label, arch, layers kept (None: all)); phase 7's trace, prompts
-# and cache_len; (g') is moonshot at 2 layers in fp32, the parity cell
-MOE_CELLS = (("g", "moonshot-v1-16b-a3b", None), ("h", "arctic-480b", 2))
+# phase 8: (label, arch, layers kept (None: all), why the depth is cut);
+# phase 7's trace, prompts and cache_len; (g') is moonshot at 2 layers in
+# fp32, the parity cell.  (g) keeps 24 of moonshot's 48 layers (whole
+# until phase 15 (d) came), to pay for (d) within the script's time
+MOE_CELLS = (("g", "moonshot-v1-16b-a3b", 24,
+              "fits one card; cut to pay for phase 15 (d)'s seconds"),
+             ("h", "arctic-480b", 2, "would not fit one card"))
 MOE_PARITY_ARCH = "moonshot-v1-16b-a3b"
 # recurrentgemma-2b (phase 3, phase 4 rows, phase 9 (j)): B, H, KV, S, D of
 # its 4096-token prefill under its 2048-token local-attention window, and
@@ -498,6 +514,38 @@ PART_MESH = (1, 2)
 PART_TRAIN = (2, 4, 256)
 PART_STEPS = (4, 4, 2048, 3)
 PART_SERVE = (2, 4, 1000, 2112, 16)
+# phase 15 (d): the other families and the int8 cache on the same mesh at
+# full width and a cut depth, each against the same LM unpartitioned on the
+# card: (label, arch, layers kept (the audio family's encoder layers too),
+# dtype, plan fields, decode sharding, flash forward / backward launches of
+# the train step, flash launches of the prefill, decode launches a step).
+# The VLM's group (4 self and 1 cross layer, 6.4 B parameters) runs in
+# bf16: in fp32 its plain train step alone (weights, gradients, moments)
+# would take 102 GB
+PART_FAMILIES = (
+    ("moonshot", "moonshot-v1-16b-a3b", 2, "float32", {}, "heads",
+     (4, 2), 2, 2),
+    ("mamba2", "mamba2-1.3b", 2, "float32", {}, "heads", (0, 0), 0, 0),
+    ("recurrentgemma", "recurrentgemma-2b", 3, "float32", {}, "heads",
+     (2, 1), 1, 1),
+    ("seamless", "seamless-m4t-medium", 2, "float32", {}, "kv_seq",
+     (12, 6), 6, 4),
+    ("vlm", "llama-3.2-vision-90b", 5, "bfloat16", {}, "kv_seq",
+     (10, 5), 5, 5),
+    ("granite-int8", "granite-3-2b", 2, "float32",
+     {"kv_cache_quant": True}, "kv_seq", (4, 2), 2, 0),
+)
+PART_FAMILY_TRAIN = (2, 64)            # B, S
+PART_FAMILY_SERVE = (2, 64, 96, 2)     # prompts, length, cache slots, steps
+# the bf16 cell's limit (phase 3's bf16 flash limit), relative: the loss,
+# each updated parameter of its leaf's largest magnitude, each step's
+# logits of their largest magnitude.  An int8 step whose written values
+# differ from the plain LM's (a value rounded to the other side of a half)
+# is held to the int8 cache's own bound, probabilities within 0.05
+PART_BF16_TOL = 2e-2
+# the two ranks take turns at the plain reference of a family whose plain
+# train step (weights, gradients, two moments) takes more than this
+PART_TURNS_BYTES = 24e9
 
 
 class SmokeFailure(RuntimeError):
@@ -2719,15 +2767,15 @@ def run_family(ops, b_pool: int, cells: list):
     return total
 
 
-def cut_depth(cfg, n_layers):
+def cut_depth(cfg, n_layers, why: str = "would not fit one card"):
     """``cfg`` with its first ``n_layers`` layers (None: all), and the cut
-    as printed."""
+    as printed, with ``why``."""
     if n_layers is None:
         return cfg, f"all {cfg.n_layers} layers"
     return (dataclasses.replace(cfg, n_layers=n_layers),
             f"depth cut to {n_layers} of {cfg.n_layers} layers (all "
             f"{cfg.n_layers}, {cfg.n_params() * 2 / 1e9:.0f} GB of bf16, "
-            f"would not fit one card)")
+            f"{why})")
 
 
 def weights(lm) -> str:
@@ -2770,8 +2818,8 @@ def run_moe(ops, cells: list):
     from repro_torch.configs import get_config
     check_moe_parity(ops)
     total = {"flash_attention": 0, "decode_attention": 0}
-    for label, arch, n_layers in MOE_CELLS:
-        cfg, cut = cut_depth(get_config(arch), n_layers)
+    for label, arch, n_layers, why in MOE_CELLS:
+        cfg, cut = cut_depth(get_config(arch), n_layers, why)
         m = cfg.moe
         before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed=2)
@@ -4288,10 +4336,11 @@ def dist_rank_moe(rank, device, lines, sums, arch=DIST_MOE_ARCH,
 
 def run_partition() -> dict:
     """Phase 15: two processes on the one card over a gloo group, each a
-    rank of a ("data", "model") mesh of PART_MESH, granite-3-2b at full
-    width partitioned by ``Rules`` (``part_rank``); each rank checks its own
-    numbers.  Returns the kernel launches of the sharded runs, both ranks
-    summed."""
+    rank of a ("data", "model") mesh of PART_MESH, granite-3-2b and (d)
+    every other family at full width partitioned by ``Rules``
+    (``part_rank``); each rank checks its own numbers, and both must hold
+    the same losses and tokens.  Returns the kernel launches of the
+    sharded runs, both ranks summed."""
     from repro_torch.launch.mesh import run_ranks
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4302,7 +4351,7 @@ def run_partition() -> dict:
         print(f"  rank {r} collectives staged through host memory: "
               f"{rank['staged']}")
     print(f"  two ranks' wall {wall:.1f} s, start-up included")
-    for key in ("a_loss", "b_losses", "c_tokens"):
+    for key in got[0]["same"]:
         require(got[0]["same"][key] == got[1]["same"][key],
                 f"(15) the two ranks disagree on {key}: "
                 f"{got[0]['same'][key]} vs {got[1]['same'][key]}")
@@ -4312,8 +4361,8 @@ def run_partition() -> dict:
 
 
 def part_rank(rank: int, world: int, tmp: str) -> None:
-    """One rank of phase 15: (a), (b), (c) on the mesh; writes its report
-    to ``tmp`` (a failed check raises, and so fails the phase)."""
+    """One rank of phase 15: (a), (b), (c), (d) on the mesh; writes its
+    report to ``tmp`` (a failed check raises, and so fails the phase)."""
     from collections import Counter
     from repro_torch.dist import collectives as col
     from repro_torch.launch.mesh import make_test_mesh
@@ -4329,6 +4378,9 @@ def part_rank(rank: int, world: int, tmp: str) -> None:
     part_train_steps(mesh, note, same, launches)
     free_card()
     part_serve(mesh, note, same, launches)
+    for spec in PART_FAMILIES:
+        part_family(mesh, rank, spec, note, same, launches)
+        free_card()
     with open(f"{tmp}/rank{rank}.json", "w") as f:
         json.dump({"same": same, "launches": launches,
                    "staged": col.staged_ops()}, f)
@@ -4519,6 +4571,200 @@ def part_serve(mesh, note, same, launches) -> None:
         same["c_tokens"] = same.get("c_tokens", []) + tok.tolist()
         del plain, part, cache
         free_card()
+
+
+def part_context(cfg, b: int, seed: int) -> dict:
+    """A batch's seeded context (the VLM's image embeddings, the audio
+    frames; nothing for the other families) on the card."""
+    from repro_torch.launch.serve import request_extras
+    parts = [request_extras(cfg, seed, i) for i in range(b)]
+    return {k: torch.from_numpy(np.concatenate([p[k] for p in parts]))
+            .cuda() for k in parts[0]}
+
+
+def part_family(mesh, rank: int, spec, note, same, launches) -> None:
+    """(d), one family: ``PART_FAMILY_TRAIN`` and ``PART_FAMILY_SERVE``
+    through ``make_train_step`` and a prefill with greedy decode steps,
+    the partitioned LM against the plain one from the same seeded weights
+    (whole on the card, in this process; the two ranks take turns at the
+    plain run where it is large): the train step's loss and each updated
+    parameter (this rank's shard against the plain one's slice), the
+    logits of the prefill and each step (the plain LM's tokens fed to
+    both) and the greedy tokens; the partitioned runs' kernel launches
+    counted."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import LM, init_params
+    from repro_torch.train import optimizer, train_step
+    label, arch, layers, dtype, kw, mode, train_n, prefill_n, step_n = spec
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cut = {"encoder_layers": layers} if full.family == "audio" else {}
+    cfg = dataclasses.replace(full, n_layers=layers, dtype=dtype,
+                              param_dtype=dtype, **cut)
+    plan = Plan(remat="block", decode_kv_seq_shard=mode == "kv_seq", **kw)
+    rules = Rules(mesh, plan)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                       eps=1e-4, master_dtype=dtype)
+    b, s = PART_FAMILY_TRAIN
+    nreq, plen, cache_len, steps = PART_FAMILY_SERVE
+    seed = 20 + [f[0] for f in PART_FAMILIES].index(label)
+    batch = dict(train_batch(cfg, b, s, 0), **part_context(cfg, b, seed))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size, (nreq, plen),
+                                       generator=gen, device="cuda"),
+               **part_context(cfg, nreq, seed + 100)}
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), "cuda")
+
+    elem = torch.finfo(getattr(torch, dtype)).bits // 8
+    turns = 4 * cfg.n_params() * elem > PART_TURNS_BYTES
+    want = None
+    for turn in range(2):
+        if (turn == rank) if turns else turn == 0:
+            want = part_family_plain(cfg, plan, rules, tcfg, fresh(), batch,
+                                     prompts, cache_len, steps)
+            free_card()
+        if turns:
+            dist.barrier()
+    plain_s = time.perf_counter() - t0
+
+    part = LM(cfg, fresh(), plan, rules=rules)
+    free_card()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits, cache = part.prefill(prompts, cache_len)
+        got, written = [logits], []
+        for i in range(steps):
+            logits, cache = part.decode_step(cache, want["tokens"][:, i:i + 1],
+                                             plen + i)
+            got.append(logits)
+            if plan.kv_cache_quant:
+                written.append({k: cache["attn"][k].full_tensor()
+                                for k in ("k", "v")})
+    n_serve = ops.launch_counts()
+    del cache
+    step = train_step.make_train_step(part, tcfg)
+    ops.reset_launch_counts()
+    params, _, metrics = step(part.params(), optimizer.init(part.params(),
+                                                            tcfg), batch, 0)
+    n_train = ops.launch_counts()
+    launches.update(n_serve)
+    launches.update(n_train)
+    loss = float(metrics["loss"])
+    floor = 1e-4 * max(m for _, m in want["slices"].values())
+    worst_p = max(
+        ((p.to_local().float() - w.float()).abs().max().item()
+         / max(m, floor)) for (p, (w, m)) in
+        ((params[n], want["slices"][n]) for n in params))
+    rel = abs(loss - want["loss"]) / abs(want["loss"])
+    errs, flips, probs = [], [], []
+    for i, (a, c) in enumerate(zip(got, want["logits"])):
+        err = max_abs_err(a, c)
+        if dtype == "bfloat16":
+            err /= c.abs().max().item()
+        moved = 0
+        if plan.kv_cache_quant and i:
+            moved = sum(int((written[i - 1][k] != want["written"][i - 1][k])
+                            .sum()) for k in ("k", "v"))
+        if moved:
+            probs.append(max_abs_err(a.softmax(-1), c.softmax(-1)))
+        flips.append(moved)
+        errs.append(err)
+    tokens = torch.cat([g.argmax(-1, keepdim=True) for g in got[:-1]], 1)
+    same_tok = torch.equal(tokens, want["tokens"])
+    peak = torch.cuda.max_memory_allocated()
+    note(f"(d) {label}: {arch} full width, {layers} of {full.n_layers} "
+         f"layers{' (and encoder layers)' if cut else ''}, {dtype}, "
+         f"{mode}-sharded decode; train B={b} S={s}: loss sharded "
+         f"{loss:.7f}, plain {want['loss']:.7f} (rel {rel:.2e}); updated "
+         f"params, this rank's shards, largest error {worst_p:.2e} of the "
+         f"leaf's max; serve {nreq} prompts of {plen} into {cache_len} "
+         f"slots, {steps} steps: logits max_abs_err "
+         f"{'of their largest ' if dtype == 'bfloat16' else ''}"
+         f"{[float(f'{e:.2e}') for e in errs]} (prefill first), tokens "
+         f"equal {same_tok}"
+         + (f", int8 values written unlike the plain LM's a step "
+            f"{flips[1:]}, probabilities there within {max(probs):.2e}"
+            if probs else "")
+         + f"; launches serve {dict((k, v) for k, v in n_serve.items() if v)}"
+         f", train {dict((k, v) for k, v in n_train.items() if v)}; "
+         f"plain reference {'in turns' if turns else 'alongside'} "
+         f"{plain_s:.1f} s, the family {time.perf_counter() - t0:.1f} s, "
+         f"peak memory {peak / 2**30:.2f} GiB")
+    if dtype == "bfloat16":
+        tol_loss = tol_p = tol_logits = PART_BF16_TOL
+    else:
+        tol_loss, tol_p, tol_logits = 1e-5, 2e-4, 1e-4
+        require(same_tok, f"(d) {label}: greedy tokens differ from the "
+                f"plain LM's")
+    require(rel <= tol_loss, f"(d) {label}: the sharded loss is {rel:.2e} "
+            f"from the plain one")
+    require(worst_p <= tol_p, f"(d) {label}: an updated parameter is "
+            f"{worst_p:.2e} of its leaf's max from the plain one")
+    for e, moved in zip(errs, flips):
+        require(e <= tol_logits or moved, f"(d) {label}: logits {e:.2e} "
+                f"from the plain LM's")
+    require(all(p < 0.05 for p in probs), f"(d) {label}: int8 "
+            f"probabilities {probs} from the plain LM's")
+    fwd, bwd = train_n
+    require(n_train["flash_attention"] == fwd
+            and n_train["flash_attention_bwd"] == bwd,
+            f"(d) {label}: the train step launched {n_train}, not flash "
+            f"{fwd} and its backward {bwd}")
+    require(n_serve["flash_attention"] == prefill_n
+            and n_serve["decode_attention"] == step_n * steps,
+            f"(d) {label}: serving launched {n_serve}, not flash "
+            f"{prefill_n} and decode {step_n} a step")
+    same[f"d_{label}"] = [loss] + tokens.flatten().tolist()
+    del part, params, step
+
+
+def part_family_plain(cfg, plan, rules, tcfg, params, batch, prompts,
+                      cache_len: int, steps: int) -> dict:
+    """The plain LM of (d) on ``params``: the prefill's and greedy steps'
+    logits and tokens (and, under the int8 cache, the K/V each step
+    leaves), then one train step's loss and, of each updated parameter,
+    the slice this rank's shard holds under ``rules`` and the leaf's
+    largest magnitude."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from repro_torch.models.lm import LM, param_axes
+    from repro_torch.train import optimizer, train_step
+    lm = LM(cfg, params, plan)
+    plen = prompts["tokens"].shape[1]
+    with torch.no_grad():
+        logits, cache = lm.prefill(prompts, cache_len)
+        got, toks, written = [logits], [], []
+        for i in range(steps):
+            toks.append(logits.argmax(-1, keepdim=True))
+            logits, cache = lm.decode_step(cache, toks[-1], plen + i)
+            got.append(logits)
+            if plan.kv_cache_quant:
+                written.append({k: cache["attn"][k].clone()
+                                for k in ("k", "v")})
+    del cache
+    step = train_step.make_train_step(lm, tcfg)
+    params, _, metrics = step(lm.params(), optimizer.init(lm.params(), tcfg),
+                              batch, 0)
+    axes = param_axes(cfg)
+    slices = {}
+    for n, p in params.items():
+        pl = rules.sharding(axes[n], tuple(p.shape)).placements
+        shape, off = compute_local_shape_and_global_offset(
+            p.shape, rules.mesh, pl)
+        part = p.detach()[tuple(slice(o, o + k) for o, k in zip(off, shape))]
+        slices[n] = (part.clone(), p.detach().abs().max().item())
+    return {"loss": float(metrics["loss"]), "logits": got,
+            "tokens": torch.cat(toks, 1), "written": written,
+            "slices": slices}
 
 
 def run_digests() -> int:

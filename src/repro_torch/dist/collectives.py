@@ -16,6 +16,10 @@ cotangent, which would count a replicated loss once per rank):
   * :func:`replicated` — identity forward, all-reduce (sum) of the
     gradient backward over each group in turn: a replicated input whose
     uses are split between ranks gets its whole gradient on every rank;
+  * :func:`sum_partials` — all-reduce (sum) forward and backward: per-rank
+    partials -> a total that each rank uses for its own part of the work
+    (a norm's sum of squares over a width the ranks split), so its
+    gradient is the sum of every rank's;
   * :func:`ring_shift` — sends to the next rank of the group and receives
     from the previous one (``dist.batch_isend_irecv``); its gradient goes
     the other way (the reference's ``ppermute`` and its transpose).
@@ -175,6 +179,11 @@ def gather_replicated(x: torch.Tensor, group) -> torch.Tensor:
 
 def replicated(x: torch.Tensor, groups: Sequence) -> torch.Tensor:
     return _Replicated.apply(x, tuple(groups))
+
+
+def sum_partials(x: torch.Tensor, group) -> torch.Tensor:
+    return (x if group is None
+            else replicated(sum_replicated(x, group), (group,)))
 
 
 def ring_shift(x: torch.Tensor, group) -> torch.Tensor:

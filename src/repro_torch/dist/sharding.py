@@ -126,10 +126,19 @@ class NamedSharding:
     def distribute(self, tensor) -> DTensor:
         """The DTensor of ``tensor`` (whole, the same on every rank) under
         this sharding: each rank keeps its own shard, with no
-        communication."""
-        return distribute_tensor(tensor.to(self.mesh.device_type),
-                                 self.mesh, self.placements,
-                                 src_data_rank=None)
+        communication.  The shard is a copy (a dim-0 shard or a replicated
+        tensor would otherwise be a view of ``tensor``): the whole tensor
+        can be freed or written without touching it."""
+        whole = tensor.to(self.mesh.device_type)
+        out = distribute_tensor(whole, self.mesh, self.placements,
+                                src_data_rank=None)
+        local = out.to_local()
+        if local.untyped_storage().data_ptr() \
+                == whole.untyped_storage().data_ptr():
+            out = DTensor.from_local(local.clone(), self.mesh,
+                                     out.placements, run_check=False,
+                                     shape=out.shape, stride=out.stride())
+        return out
 
 
 class Rules:
@@ -262,15 +271,20 @@ class Rules:
         return x.device_mesh.get_group(mesh_dims[0]) if mesh_dims else None
 
     def local(self, fn: Callable, in_axes: Sequence[Axes],
-              out_axes: Union[Axes, List[Axes]]) -> Callable:
+              out_axes: Union[Axes, List[Axes]],
+              partial: Sequence[str] = ()) -> Callable:
         """``fn`` run on each rank's shards: its arguments, tensors, are
         constrained to ``in_axes`` and handed over as plain local tensors,
         its outputs (one, of ``out_axes``, or a list of them, ``[]`` for
         none) wrapped as DTensors whose logical axes take the mesh axes the
-        inputs gave the same names.  Autograd flows through: an input that
-        is whole over a mesh axis along which another input is split gets a
-        partial gradient there (each rank's own part of the sum).  With no
-        DTensor among the arguments ``fn`` runs as it is."""
+        inputs gave the same names.  ``partial`` names logical axes whose
+        mesh axes (as the inputs split them) the outputs are partial sums
+        over: each rank's own part, summed where the output is
+        constrained (the experts' outputs of a rank's own experts).
+        Autograd flows through: an input that is whole over a mesh axis
+        along which another input is split gets a partial gradient there
+        (each rank's own part of the sum).  With no DTensor among the
+        arguments ``fn`` runs as it is."""
         def run(*args):
             if not any(isinstance(a, DTensor) for a in args):
                 return fn(*args)
@@ -289,7 +303,7 @@ class Rules:
                 for i, pi in enumerate(p)) for p in in_pl]
             # local_map reads a tuple as one placement list per output
             outs = out_axes if isinstance(out_axes, list) else [out_axes]
-            out_pl = tuple(list(self._out_placements(ax, learned))
+            out_pl = tuple(list(self._out_placements(ax, learned, partial))
                            for ax in outs)
             if not isinstance(out_axes, list):
                 out_pl = out_pl[0]
@@ -301,7 +315,8 @@ class Rules:
                 device_mesh=self.mesh, redistribute_inputs=True)(*placed)
         return run
 
-    def _out_placements(self, axes: Axes, learned: dict) -> tuple:
+    def _out_placements(self, axes: Axes, learned: dict,
+                        partial: Sequence[str] = ()) -> tuple:
         entries, used = [], set()
         for name in axes:
             if name in learned:
@@ -311,7 +326,15 @@ class Rules:
             else:
                 entry = self._assign(name, None, used)
             entries.append(entry)
-        return NamedSharding(self.mesh, PartitionSpec(*entries)).placements
+        out = list(NamedSharding(self.mesh,
+                                 PartitionSpec(*entries)).placements)
+        names = list(self.mesh.mesh_dim_names)
+        for name in partial:
+            entry = learned.get(name)
+            for a in ((entry,) if isinstance(entry, str) else entry or ()):
+                if isinstance(out[names.index(a)], Replicate):
+                    out[names.index(a)] = Partial()
+        return tuple(out)
 
 
 class NullRules:
@@ -339,7 +362,7 @@ class NullRules:
     def group(self, x, dim: int):
         return None
 
-    def local(self, fn, in_axes, out_axes):
+    def local(self, fn, in_axes, out_axes, partial=()):
         return fn
 
 

@@ -22,9 +22,10 @@ handed to every layer's :func:`apply_rope`.
 Under a mesh (``dist.sharding.Rules``) the activations and weights are
 DTensors and the plain torch ops partition themselves; the kernels run
 inside :meth:`Rules.local` on each rank's own heads (:func:`attention`,
-:func:`decode_attention`) or its slice of the cache's ``kv_seq`` axis,
-and :func:`write_kv` writes a decode step's K/V into each rank's part of
-the cache.  Without a mesh (``NullRules``, plain tensors) they are the
+:func:`decode_attention`, and the int8 cache's plain
+:func:`decode_attention_quant`) or its slice of the cache's ``kv_seq``
+axis, and :func:`write_kv` writes (and for the int8 cache quantizes) a
+decode step's K/V into each rank's part of the cache.  Without a mesh (``NullRules``, plain tensors) they are the
 calls they always were.
 """
 from __future__ import annotations
@@ -40,6 +41,7 @@ from repro_torch.dist.sharding import NullRules
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
+LOG2E = 1.0 / math.log(2.0)
 
 # logical axes of the attention operands (the reference's constraints)
 Q_AXES = ("batch", None, "heads", None)          # q [B, S, H, Dh]
@@ -203,24 +205,26 @@ def out_project(p, cfg, attn_out):
 # attention
 # ---------------------------------------------------------------------------
 
-def local_kv_heads(k, v, h_local: int, h0: int, group: int, dim: int = 2):
-    """(k, v, kv_group) for ``h_local`` query heads from global head
-    ``h0`` that read KV head ``h // group``: the K/V as they are when they
-    hold exactly those heads' KV heads (``KV * group == h_local``), else,
-    KV whole while the query heads are split (the divisibility fallback),
-    only the KV heads these query heads read along ``dim``: a slice when
-    each is read by the same number of them, one KV head a query head
-    otherwise."""
-    if k.shape[dim] * group == h_local:
-        return k, v, group
+def local_kv_heads(tensors: Sequence, h_local: int, h0: int, group: int,
+                   dim: int = 2):
+    """(tensors, kv_group) for ``h_local`` query heads from global head
+    ``h0`` that read KV head ``h // group``; ``tensors`` share the KV-head
+    axis ``dim`` (K and V, or an int8 cache's values and scales).  They
+    are as they are when they hold exactly those heads' KV heads
+    (``KV * group == h_local``), else, KV whole while the query heads are
+    split (the divisibility fallback), only the KV heads these query heads
+    read: a slice when each is read by the same number of them, one KV
+    head a query head otherwise."""
+    if tensors[0].shape[dim] * group == h_local:
+        return list(tensors), group
     idx = [(h0 + i) // group for i in range(h_local)]
     n = idx[-1] - idx[0] + 1
     per = h_local // n
     if per * n == h_local and all(idx[i] == idx[0] + i // per
                                   for i in range(h_local)):
-        return (k.narrow(dim, idx[0], n), v.narrow(dim, idx[0], n), per)
-    sel = torch.tensor(idx, device=k.device)
-    return k.index_select(dim, sel), v.index_select(dim, sel), 1
+        return [t.narrow(dim, idx[0], n) for t in tensors], per
+    sel = torch.tensor(idx, device=tensors[0].device)
+    return [t.index_select(dim, sel) for t in tensors], 1
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
@@ -253,7 +257,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
 
     def local(q, k, v):
         b, sq, h, dh = q.shape
-        k, v, kv_group = local_kv_heads(k, v, h, h0, group)
+        (k, v), kv_group = local_kv_heads((k, v), h, h0, group)
         skv, kvh = k.shape[1], k.shape[2]
         # [B, S, H, Dh] -> [B*H, S, Dh] (each with its own S): a view when
         # B == 1 (the serving engine's prefill), a copy otherwise
@@ -290,49 +294,63 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     del window
     if softcap > 0:
         raise not_ported("decode attention with a soft cap", 8)
+    return _decode_on_mesh(_decode_kernel, q, (k_cache, v_cache), cache_len,
+                           rules)
+
+
+def _decode_kernel(q, k_cache, v_cache, lens, lse=None):
+    return ops.decode_attention(q.contiguous(), k_cache.contiguous(),
+                                v_cache.contiguous(), lens, lse=lse)
+
+
+def _decode_on_mesh(kernel, q, caches, cache_len, rules):
+    """``kernel(q [B, H, Dh], *caches, lens, lse=None)`` on each rank's
+    rows and heads, or on its ``kv_seq`` slice with the slices merged by
+    their ``lse`` (:func:`decode_attention`); ``caches`` share the layout
+    [B, S, KV, ·]; -> [B, 1, H, Dh]."""
     rules = rules or NullRules()
     q = q[:, 0]
-    k_cache = rules.constrain(k_cache, CACHE_AXES)
-    v_cache = rules.constrain(v_cache, CACHE_AXES)
-    group = q.shape[1] // k_cache.shape[2]
-    seq = rules.group(k_cache, 1)
+    caches = [rules.constrain(c, CACHE_AXES) for c in caches]
+    group = q.shape[1] // caches[0].shape[2]
+    seq = rules.group(caches[0], 1)
     if seq is None:
         q_axes = ("batch", "heads", None)
         q = rules.constrain(q, q_axes)
         h0 = rules.offset(q, 1)
 
-        def local(q, k_cache, v_cache, lens):
-            k_cache, v_cache, _ = local_kv_heads(
-                k_cache, v_cache, q.shape[1], h0, group)
-            return ops.decode_attention(q.contiguous(), k_cache.contiguous(),
-                                        v_cache.contiguous(), lens)
+        def local(q, *args):
+            bufs, _ = local_kv_heads(args[:-1], q.shape[1], h0, group)
+            return kernel(q, *bufs, args[-1])
     else:
         q_axes = ("batch", None, None)
-        start = rules.offset(k_cache, 1)
+        start = rules.offset(caches[0], 1)
 
-        def local(q, k_cache, v_cache, lens):
-            w = k_cache.shape[1]
-            lens = torch.clamp(lens - start, 0, w).to(torch.int32)
+        def local(q, *args):
+            bufs = args[:-1]
+            w = bufs[0].shape[1]
+            lens = torch.clamp(args[-1] - start, 0, w).to(torch.int32)
             lse = torch.empty(q.shape[:2], dtype=torch.float32,
                               device=q.device)
-            out = ops.decode_attention(q.contiguous(), k_cache, v_cache,
-                                       lens, lse=lse)
+            out = kernel(q, *bufs, lens, lse=lse)
             top = col.max_replicated(lse, seq)
             wt = torch.exp2(lse - top)
             num = col.sum_replicated(out.float() * wt[..., None], seq)
             return (num / col.sum_replicated(wt, seq)[..., None]).to(q.dtype)
 
-    out = rules.local(local, (q_axes, CACHE_AXES, CACHE_AXES, ("batch",)),
-                      q_axes)(q, k_cache, v_cache, cache_len)
+    out = rules.local(local, (q_axes, *[CACHE_AXES] * len(caches),
+                              ("batch",)), q_axes)(q, *caches, cache_len)
     return out[:, None]
 
 
-def write_kv(caches: Sequence, new: Sequence, slot, rules=None) -> None:
+def write_kv(caches: Sequence, new: Sequence, slot, rules=None,
+             quant: bool = False) -> None:
     """Write a decode step's entries into its ring buffers in place:
     ``caches`` [B, W, KV, ·] and ``new`` [B, 1, KV, ·] pairwise, row ``b``
-    at slot ``slot[b]``.  Under a mesh each rank writes its part of the
-    cache: its rows and KV heads, and where the ``kv_seq`` axis is sharded
-    only the rows whose slot lies in its slice."""
+    at slot ``slot[b]``; with ``quant`` ``caches`` are an int8 cache's
+    ``(k, v, k_scale, v_scale)`` and ``new`` its ``(k, v)``, quantized
+    here (:func:`quantize_kv`).  Under a mesh each rank writes its part of
+    the cache: its rows and KV heads, and where the ``kv_seq`` axis is
+    sharded only the rows whose slot lies in its slice."""
     rules = rules or NullRules()
     caches = [rules.constrain(c, CACHE_AXES) for c in caches]
     width = caches[0].shape[1]
@@ -342,6 +360,10 @@ def write_kv(caches: Sequence, new: Sequence, slot, rules=None) -> None:
     n = len(caches)
 
     def local(slot, *bufs):
+        vals = bufs[n:]
+        if quant:
+            pairs = [quantize_kv(x) for x in vals]
+            vals = [x for x, _ in pairs] + [sc for _, sc in pairs]
         rows = torch.arange(slot.shape[0], device=slot.device)
         at = slot
         keep = None
@@ -349,12 +371,24 @@ def write_kv(caches: Sequence, new: Sequence, slot, rules=None) -> None:
             at = slot - start
             keep = (at >= 0) & (at < bufs[0].shape[1])
             rows, at = rows[keep], at[keep]
-        for c, x in zip(bufs[:n], bufs[n:]):
+        for c, x in zip(bufs[:n], vals):
             x = x[:, 0] if keep is None else x[keep, 0]
             c[rows, at] = x.to(c.dtype)
 
-    rules.local(local, [("batch",)] + [CACHE_AXES] * n + [new_axes] * n,
-                [])(slot, *caches, *new)
+    rules.local(local, [("batch",)] + [CACHE_AXES] * n
+                + [new_axes] * len(new), [])(slot, *caches, *new)
+
+
+def write_state(cache, new, axes, rules=None) -> None:
+    """Copy ``new`` into the decode state ``cache`` in place (a recurrent
+    block's conv window or state); under a mesh each rank writes its own
+    part of ``cache``, placed by ``axes``, taking that part of ``new``."""
+    rules = rules or NullRules()
+
+    def local(cache, new):
+        cache.copy_(new)
+
+    rules.local(local, [axes, axes], [])(cache, new)
 
 
 # ---------------------------------------------------------------------------
@@ -373,18 +407,29 @@ def quantize_kv(x):
 
 
 def decode_attention_quant(q, k_q, k_scale, v_q, v_scale, cache_len, *,
-                           softcap: float = 0.0):
+                           softcap: float = 0.0, rules=None):
     """Decode attention over an int8 cache: q [B, 1, H, Dh]; ``k_q``/``v_q``
     int8 [B, S, KV, Dh]; scales fp32 [B, S, KV, 1]; ``cache_len`` an int or
-    an int tensor [B] -> [B, 1, H, Dh].  The K scales fold into the scores
-    and the V scales into the probabilities, so the cache is never
-    dequantized whole.  A windowed cache needs no mask here either (see
-    :func:`decode_attention`)."""
+    an int tensor [B] -> [B, 1, H, Dh] (:func:`decode_quant`).  A windowed
+    cache needs no mask here either (see :func:`decode_attention`), and
+    under a mesh each rank decodes its own heads or ``kv_seq`` slice as
+    :func:`decode_attention` does, the slices merged by their ``lse``."""
     if softcap > 0:
         raise not_ported("decode attention with a soft cap", 8)
-    b, _, h, d = q.shape
+    return _decode_on_mesh(decode_quant, q, (k_q, k_scale, v_q, v_scale),
+                           cache_len, rules)
+
+
+def decode_quant(q, k_q, k_scale, v_q, v_scale, cache_len, lse=None):
+    """The int8 cache's decode attention, plain torch: q [B, H, Dh] ->
+    [B, H, Dh].  The K scales fold into the scores and the V scales into
+    the probabilities, so the cache is never dequantized whole.  ``lse``
+    (fp32 [B, H], optional) receives each row's base-2 log-sum-exp of its
+    scaled scores over its valid keys, ``NEG_INF`` for a row with none:
+    the decode kernel's convention, so that ``kv_seq`` slices merge."""
+    b, h, d = q.shape
     s_len, kvh = k_q.shape[1], k_q.shape[2]
-    qg = q[:, 0].reshape(b, kvh, h // kvh, d)
+    qg = q.reshape(b, kvh, h // kvh, d)
     scores = torch.einsum("bgrd,bkgd->bgrk", qg,
                           k_q.to(q.dtype)).to(torch.float32)
     scores = scores * k_scale[..., 0].transpose(1, 2)[:, :, None, :]
@@ -396,7 +441,11 @@ def decode_attention_quant(q, k_q, k_scale, v_q, v_scale, cache_len, *,
     probs = probs * v_scale[..., 0].transpose(1, 2)[:, :, None, :]
     out = torch.einsum("bgrk,bkgd->bgrd", probs.to(q.dtype),
                        v_q.to(q.dtype))
-    return out.reshape(b, 1, h, d)
+    if lse is not None:
+        got = torch.where(valid.any(-1)[:, None, None],
+                          torch.logsumexp(scores, dim=-1) * LOG2E, NEG_INF)
+        lse.copy_(got.reshape(b, h))
+    return out.reshape(b, h, d)
 
 
 # ---------------------------------------------------------------------------

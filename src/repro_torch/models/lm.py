@@ -84,23 +84,27 @@ Differences from the JAX model, none of which changes a result:
     and so are the SSD and RG-LRU bodies.
 
 Under a mesh (``LM(cfg, params, plan, rules=Rules(mesh, plan))`` with an
-axis past one device) the dense family is partitioned as the reference's
+axis past one device) every family is partitioned as the reference's
 GSPMD partitions it: the parameters become DTensors placed by
 :func:`param_axes` (``embed`` over "data", FSDP-style, gathered where a
-product uses it; ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` over
-"model"), the inputs are placed by their batch axes, activations are
-constrained at the reference's sites (the embedding, q and k, the
-attention and FFN outputs, the logits), DTensor places the collectives
-of the plain ops, and each rank runs the kernels on its own heads or
-``kv_seq`` slice (``models.layers``).  The vocabulary stays split in the
-loss and the logits' mask: each rank's log-sum-exp is merged over
-"model" and the gold logit comes from the rank that holds it.  The entry
-points take whole inputs on every rank and return whole logits and loss;
-the decode cache stays placed by :func:`cache_axes`.  The mesh path is
-eager (no CUDA graph).  The MoE family keeps the explicit expert-parallel
-path (``moe_impl="shardmap_ep"``, whole parameters); the grouped MoE, the
-SSM, recurrent and cross blocks and the int8 cache under such a mesh
-raise (ROADMAP item 11c).
+product uses it; ``heads`` / ``kv_heads`` / ``ff`` / ``vocab`` /
+``experts`` / ``lru`` over "model"), the inputs and the modality context
+are placed by their batch axes, activations are constrained at the
+reference's sites (the embedding, q and k, the attention, FFN, MoE and
+mixer outputs, the logits), DTensor places the collectives of the plain
+ops, and each rank runs the kernels and the plain-torch recurrences on
+its own part (``models.layers``: attention, cross attention and the int8
+cache on its heads or ``kv_seq`` slice; ``models.moe``: its data rank's
+routing groups and its own experts; ``models.ssm``: its SSD heads;
+``models.rglru``: its "lru" channels).  The vocabulary stays split in the
+loss and the logits' mask: each rank's log-sum-exp is merged over "model"
+and the gold logit comes from the rank that holds it.  The entry points
+take whole inputs on every rank and return whole logits and loss; the
+decode cache (K/V, int8 scales, cross K/V, recurrent states) stays placed
+by :func:`cache_axes`.  The mesh path is eager (no CUDA graph).  The MoE
+family under ``moe_impl="shardmap_ep"`` keeps the explicit expert-parallel
+path and whole parameters, and so does every family on a mesh with a
+"pod" axis (the pod-parallel step's, ``train.train_step``).
 """
 from __future__ import annotations
 
@@ -357,6 +361,33 @@ def cache_axes(cfg: ModelConfig, quant: bool = False) -> Cache:
     raise ValueError(fam)
 
 
+# a recurrent layer's prefill state by kind, as its layer of the cache
+# (:func:`cache_axes` without the stacked leading axes)
+STATE_AXES = {"recurrent": {"conv": ("batch", None, "lru"),
+                            "h": ("batch", None, "lru")},
+              "ssm": {"conv": ("batch", None, "lru"),
+                      "state": ("batch", "heads", None, None)}}
+
+
+def _leaves(tree) -> list:
+    """A tree's leaves (dicts in sorted key order, lists in order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+def _rebuild(template, leaves: list):
+    """``leaves`` (consumed from the front) in ``template``'s structure,
+    a logical-axes tree whose leaves are tuples."""
+    if isinstance(template, dict):
+        return {k: _rebuild(template[k], leaves) for k in sorted(template)}
+    if isinstance(template, list):
+        return [_rebuild(t, leaves) for t in template]
+    return leaves.pop(0)
+
+
 def _group(params: Params, prefix: str) -> nn.ParameterDict:
     return nn.ParameterDict({
         k[len(prefix):]: nn.Parameter(v, requires_grad=False)
@@ -401,6 +432,12 @@ def remat(plan: Plan, fn, *args):
 # modules
 # ===========================================================================
 
+def _used(rules, group, axes) -> dict:
+    """A parameter group's weights as the products use them
+    (:meth:`Rules.gathered`; the parameters themselves off a mesh)."""
+    return {n: rules.gathered(w, axes[n]) for n, w in group.items()}
+
+
 class DenseBlock(nn.Module):
     """One pre-norm decoder layer: GQA attention + FFN (dense, or the MoE
     under ``cfg.moe``), residual each; ``window`` > 0 is a sliding window
@@ -427,10 +464,16 @@ class DenseBlock(nn.Module):
         # LM.count_moe_drops: int64 [2, 3], rows prefill and decode
         self.moe_drops: Optional[torch.Tensor] = None
 
-    def _used(self, group, axes) -> dict:
-        """A parameter group's weights as the products use them
-        (:meth:`Rules.gathered`; the parameters themselves off a mesh)."""
-        return {n: self.rules.gathered(w, axes[n]) for n, w in group.items()}
+    def _moe_used(self) -> dict:
+        """The MoE's weights as :func:`moe.apply_moe` takes them, gathered
+        as :func:`_used` gathers a group."""
+        axes = moe.moe_axes(self.cfg)
+        out = {"router": self.rules.gathered(self.ffn.router,
+                                             axes["router"])}
+        for part in ("experts", "shared", "dense"):
+            if part in axes:
+                out[part] = _used(self.rules, self.ffn[part], axes[part])
+        return out
 
     def _ffn(self, h, step: int, route_per_row: bool = False):
         """(h, aux): ``step`` 0 in prefill and training, 1 in decode (the
@@ -439,27 +482,23 @@ class DenseBlock(nn.Module):
         cfg, plan = self.cfg, self.plan
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
         if cfg.moe is None:
-            y = layers.apply_ffn(self._used(self.ffn, self._ffn_axes), x,
+            y = layers.apply_ffn(_used(self.rules, self.ffn, self._ffn_axes), x,
                                  cfg.ffn_act, cfg.use_bias)
             return h + self.rules.constrain(y, HIDDEN), 0.0
         kw = dict(drops=None if self.moe_drops is None
                   else self.moe_drops[step])
-        if route_per_row:       # one group a row: the JAX engine's vmap
-            y, aux = moe.apply_moe(self.ffn, cfg, x,
-                                   plan.moe_capacity_factor,
-                                   groups=x.shape[0] * x.shape[1], **kw)
-        elif plan.moe_impl == "shardmap_ep":
+        if plan.moe_impl == "shardmap_ep" and not route_per_row:
             y, aux = moe.apply_moe_ep(self.ffn, cfg, x,
                                       plan.moe_capacity_factor,
                                       rules=self.rules, **kw)
-        else:
-            if self.rules.sharded:
-                raise not_ported("the grouped MoE under a sharded mesh",
-                                 "11c")
-            y, aux = moe.apply_moe(self.ffn, cfg, x,
-                                   plan.moe_capacity_factor,
-                                   groups=plan.moe_groups, **kw)
-        return h + y, aux
+        else:   # the grouped dispatch; per row, a group a row (the JAX
+            # engine's vmap)
+            groups = x.shape[0] * x.shape[1] if route_per_row \
+                else plan.moe_groups
+            y, aux = moe.apply_moe(self._moe_used(), cfg, x,
+                                   plan.moe_capacity_factor, groups=groups,
+                                   rules=self.rules, **kw)
+        return h + self.rules.constrain(y, HIDDEN), aux
 
     def _qkv(self, h, rope, p):
         cfg = self.cfg
@@ -473,7 +512,7 @@ class DenseBlock(nn.Module):
         return h + self.rules.constrain(y, HIDDEN)
 
     def _attend(self, h, rope):
-        p = self._used(self.attn, self._attn_axes)
+        p = _used(self.rules, self.attn, self._attn_axes)
         q, k, v = self._qkv(h, rope, p)
         q = self.rules.constrain(q, layers.Q_AXES)
         k = self.rules.constrain(k, layers.KV_AXES)
@@ -498,7 +537,7 @@ class DenseBlock(nn.Module):
         "k_scale", "v_scale"]}`` [B, W, KV, ·] (written in place at each
         row's slot); pos, cache_len int tensors [B]; ``route_per_row``
         routes each row through the MoE on its own."""
-        p = self._used(self.attn, self._attn_axes)
+        p = _used(self.rules, self.attn, self._attn_axes)
         q, k, v = self._qkv(h, rope, p)
         k_cache, v_cache = cache["k"], cache["v"]
         w = k_cache.shape[1]
@@ -506,16 +545,11 @@ class DenseBlock(nn.Module):
         # min(pos, w - 1)
         slot = pos % w if self.window else torch.clamp(pos, max=w - 1)
         if "k_scale" in cache:
-            rows = torch.arange(h.shape[0], device=h.device)
-            k, k_s = layers.quantize_kv(k)
-            v, v_s = layers.quantize_kv(v)
-            cache["k_scale"][rows, slot] = k_s[:, 0]
-            cache["v_scale"][rows, slot] = v_s[:, 0]
-            k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-            v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
+            bufs = (k_cache, v_cache, cache["k_scale"], cache["v_scale"])
+            layers.write_kv(bufs, (k, v), slot, self.rules, quant=True)
             attn_out = layers.decode_attention_quant(
                 q, k_cache, cache["k_scale"], v_cache, cache["v_scale"],
-                cache_len, softcap=self.cfg.logit_softcap)
+                cache_len, softcap=self.cfg.logit_softcap, rules=self.rules)
         else:
             layers.write_kv((k_cache, v_cache), (k, v), slot, self.rules)
             attn_out = layers.decode_attention(
@@ -529,41 +563,55 @@ class CrossBlock(nn.Module):
     audio encoder's output): pre-norm attention whose K/V are projected
     from the context (no RoPE, no norm on the context, never causal), then
     the block's own FFN, residual each
-    (``repro.models.lm._apply_cross_block``)."""
+    (``repro.models.lm._apply_cross_block``).  Under a mesh each rank
+    attends with its own heads (and the KV heads they read), over the
+    whole context in prefill and its heads or ``kv_seq`` slice of the
+    cross cache in decode."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
-                 plan: Plan):
+                 plan: Plan, rules=None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
+        self.rules = rules or NullRules()
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
         self.attn = _group(params, f"{prefix}.attn.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
         self.ffn = _group(params, f"{prefix}.ffn.")
+        self._attn_axes = layers.attn_axes(cfg)
+        self._ffn_axes = layers.ffn_axes(cfg.ffn_act, cfg.use_bias)
 
-    def _q(self, h):
-        return layers.q_project(
-            self.attn, self.cfg,
-            layers.apply_norm(self.attn_norm, h, self.cfg.norm))
+    def _q(self, h, p):
+        q = layers.q_project(p, self.cfg,
+                             layers.apply_norm(self.attn_norm, h,
+                                               self.cfg.norm))
+        return self.rules.constrain(q, layers.Q_AXES)
 
-    def _out(self, h, attn_out):
-        cfg = self.cfg
-        h = h + layers.out_project(self.attn, cfg, attn_out)
+    def _out(self, h, p, attn_out):
+        cfg, rules = self.cfg, self.rules
+        h = h + rules.constrain(layers.out_project(p, cfg, attn_out), HIDDEN)
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
-        return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act, cfg.use_bias)
+        y = layers.apply_ffn(_used(rules, self.ffn, self._ffn_axes), x,
+                             cfg.ffn_act, cfg.use_bias)
+        return h + rules.constrain(y, HIDDEN)
 
-    def context_kv(self, ctx):
+    def context_kv(self, ctx, p=None):
         """The context's K/V [B, S_ctx, KV, Dh]: what the cross cache
-        holds."""
-        return layers.kv_project(self.attn, self.cfg, ctx)
+        holds (``p``: the attention's weights as :func:`_used` gives
+        them)."""
+        p = p or _used(self.rules, self.attn, self._attn_axes)
+        k, v = layers.kv_project(p, self.cfg, ctx)
+        return (self.rules.constrain(k, layers.KV_AXES),
+                self.rules.constrain(v, layers.KV_AXES))
 
     def prefill(self, h, ctx):
         """h [B, S, d] over ctx [B, S_ctx, d] -> (h, (k, v)) with the
         context's K/V."""
-        k, v = self.context_kv(ctx)
-        attn_out = layers.attention(self._q(h), k, v, causal=False,
-                                    plan=self.plan)
-        return self._out(h, attn_out), (k, v)
+        p = _used(self.rules, self.attn, self._attn_axes)
+        k, v = self.context_kv(ctx, p)
+        attn_out = layers.attention(self._q(h, p), k, v, causal=False,
+                                    plan=self.plan, rules=self.rules)
+        return self._out(h, p, attn_out), (k, v)
 
     def train_forward(self, h, ctx):
         return self.prefill(h, ctx)[0], 0.0
@@ -572,9 +620,11 @@ class CrossBlock(nn.Module):
         """h [B, 1, d]; ``cache`` this layer's ``{"k", "v"}`` [B, S_ctx,
         KV, Dh] (read, never written); ``ctx_len`` an int32 device tensor
         [B] of S_ctx (every row's whole context)."""
-        attn_out = layers.decode_attention(self._q(h), cache["k"],
-                                           cache["v"], ctx_len)
-        return self._out(h, attn_out)
+        p = _used(self.rules, self.attn, self._attn_axes)
+        attn_out = layers.decode_attention(self._q(h, p), cache["k"],
+                                           cache["v"], ctx_len,
+                                           rules=self.rules)
+        return self._out(h, p, attn_out)
 
 
 class SSMBlock(nn.Module):
@@ -582,32 +632,36 @@ class SSMBlock(nn.Module):
     (``repro.models.lm``'s ssm branch)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
-                 plan: Plan):
+                 plan: Plan, rules=None):
         super().__init__()
         self.cfg = cfg
         self.plan = plan
+        self.rules = rules or NullRules()
         self.norm = _group(params, f"{prefix}.norm.")
         self.ssm = _group(params, f"{prefix}.ssm.")
+        self._axes = ssm.ssm_axes(cfg)
+
+    def _mix(self, h, **kw):
+        x = layers.apply_norm(self.norm, h, self.cfg.norm)
+        return ssm.apply_ssm(_used(self.rules, self.ssm, self._axes),
+                             self.cfg, x, chunk=self.plan.ssd_chunk,
+                             bf16=self.plan.ssd_bf16, rules=self.rules, **kw)
 
     def prefill(self, h, rope=None):
         """h [B, S, d] -> (h, the decode state ``{"conv", "state"}``)."""
-        x = layers.apply_norm(self.norm, h, self.cfg.norm)
-        y, st = ssm.apply_ssm(self.ssm, self.cfg, x, return_state=True,
-                              chunk=self.plan.ssd_chunk,
-                              bf16=self.plan.ssd_bf16)
-        return h + y, st
+        y, st = self._mix(h, return_state=True)
+        return h + self.rules.constrain(y, HIDDEN), st
 
     def train_forward(self, h, rope=None):
-        x = layers.apply_norm(self.norm, h, self.cfg.norm)
-        return h + ssm.apply_ssm(self.ssm, self.cfg, x,
-                                 chunk=self.plan.ssd_chunk,
-                                 bf16=self.plan.ssd_bf16), 0.0
+        return h + self.rules.constrain(self._mix(h), HIDDEN), 0.0
 
     def decode(self, h, cache, *_, **__):
         """h [B, 1, d]; ``cache`` this layer's ``{"conv", "state"}``,
         written in place."""
         x = layers.apply_norm(self.norm, h, self.cfg.norm)
-        return h + ssm.decode_ssm(self.ssm, self.cfg, x, cache)
+        y = ssm.decode_ssm(_used(self.rules, self.ssm, self._axes),
+                           self.cfg, x, cache, rules=self.rules)
+        return h + self.rules.constrain(y, HIDDEN)
 
 
 class RecurrentBlock(nn.Module):
@@ -615,35 +669,47 @@ class RecurrentBlock(nn.Module):
     residual each (``repro.models.lm._apply_recurrent_block``)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
-                 plan: Plan):
+                 plan: Plan, rules=None):
         super().__init__()
         self.cfg = cfg
+        self.rules = rules or NullRules()
         self.norm = _group(params, f"{prefix}.norm.")
         self.lru = _group(params, f"{prefix}.lru.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
         self.ffn = _group(params, f"{prefix}.ffn.")
+        self._lru_axes = rglru.rglru_axes(cfg)
+        self._ffn_axes = layers.ffn_axes(cfg.ffn_act, cfg.use_bias)
 
-    def _ffn(self, h):
-        cfg = self.cfg
+    def _ffn(self, h, y):
+        """The residual of the recurrence's output ``y``, then the FFN's."""
+        cfg, rules = self.cfg, self.rules
+        h = h + rules.constrain(y, HIDDEN)
         x = layers.apply_norm(self.ffn_norm, h, cfg.norm)
-        return h + layers.apply_ffn(self.ffn, x, cfg.ffn_act, cfg.use_bias)
+        y = layers.apply_ffn(_used(rules, self.ffn, self._ffn_axes), x,
+                             cfg.ffn_act, cfg.use_bias)
+        return h + rules.constrain(y, HIDDEN)
+
+    def _lru(self):
+        return _used(self.rules, self.lru, self._lru_axes)
 
     def prefill(self, h, rope=None):
         """h [B, S, d] -> (h, the decode state ``{"conv", "h"}``)."""
         x = layers.apply_norm(self.norm, h, self.cfg.norm)
-        y, st = rglru.apply_rglru(self.lru, self.cfg, x, return_state=True)
-        return self._ffn(h + y), st
+        y, st = rglru.apply_rglru(self._lru(), self.cfg, x,
+                                  return_state=True, rules=self.rules)
+        return self._ffn(h, y), st
 
     def train_forward(self, h, rope=None):
         x = layers.apply_norm(self.norm, h, self.cfg.norm)
-        return self._ffn(h + rglru.apply_rglru(self.lru, self.cfg, x)), 0.0
+        return self._ffn(h, rglru.apply_rglru(self._lru(), self.cfg, x,
+                                              rules=self.rules)), 0.0
 
     def decode(self, h, cache, *_, **__):
         """h [B, 1, d]; ``cache`` this block's ``{"conv", "h"}``, written
         in place."""
         x = layers.apply_norm(self.norm, h, self.cfg.norm)
-        return self._ffn(h + rglru.decode_rglru(self.lru, self.cfg, x,
-                                                cache))
+        return self._ffn(h, rglru.decode_rglru(self._lru(), self.cfg, x,
+                                               cache, rules=self.rules))
 
 
 class LM(nn.Module):
@@ -651,11 +717,12 @@ class LM(nn.Module):
     :func:`repro_torch.models.convert.params_from_numpy`); it runs where
     its parameters lie.  Its weights take no gradient (serving) until
     ``requires_grad_(True)`` (``repro_torch.train.train_step``).  ``rules``
-    (default :class:`NullRules`) with a sharded mesh partition the dense
+    (default :class:`NullRules`) with a sharded mesh partition every
     family (the module docstring: ``params``, whole on every rank, are
-    placed here) and reach the MoE layers under ``plan.moe_impl ==
-    "shardmap_ep"``, whose experts then run expert-parallel over the
-    rules' mesh (:func:`moe.apply_moe_ep`)."""
+    placed here) but the MoE under ``plan.moe_impl == "shardmap_ep"``,
+    whose experts then run expert-parallel over the rules' mesh
+    (:func:`moe.apply_moe_ep`) on whole parameters, and any family on a
+    mesh with a "pod" axis (the pod-parallel step's: :meth:`_partitions`)."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  plan: Optional[Plan] = None, rules=None):
@@ -664,10 +731,7 @@ class LM(nn.Module):
         self.rules = rules or NullRules()
         check_supported(cfg, self.plan)
         self.cfg = cfg
-        if self.rules.sharded and cfg.family == "dense" and cfg.moe is None:
-            if self.plan.kv_cache_quant:
-                raise not_ported("the int8 KV cache under a sharded mesh",
-                                 "11c")
+        if self._partitions():
             params = self.rules.distribute(params, param_axes(cfg))
         # sqrt(d_model) rounded to the activation type once, as the JAX
         # _embed rounds it: a Python float multiplies with no host copy
@@ -714,18 +778,28 @@ class LM(nn.Module):
                 f"{sorted(set(params) - set(self.state_dict()))[:5]}, "
                 f"missing {sorted(set(self.state_dict()) - set(params))[:5]}")
 
+    def _partitions(self) -> bool:
+        """Whether the rules partition this LM: a mesh axis past one
+        device, but not the expert-parallel MoE (whole parameters, explicit
+        collectives) and not a mesh with a "pod" axis, the pod-parallel
+        step's, whose ranks each run the whole LM on their rows (its inner
+        sharding is ROADMAP item 11c (ii))."""
+        shape = getattr(self.rules, "shape", {})
+        return (self.rules.sharded and "pod" not in shape
+                and not (self.cfg.moe is not None
+                         and self.plan.moe_impl == "shardmap_ep"))
+
     def _block(self, params: Params, prefix: str, kind: str) -> nn.Module:
-        cfg, plan = self.cfg, self.plan
-        if self.rules.sharded and kind != "dense":
-            raise not_ported(f"the {kind} block under a sharded mesh", "11c")
+        cfg, plan, rules = self.cfg, self.plan, self.rules
         if kind == "ssm":
-            return SSMBlock(cfg, params, prefix, plan)
+            return SSMBlock(cfg, params, prefix, plan, rules)
         if kind == "recurrent":
-            return RecurrentBlock(cfg, params, prefix, plan)
+            return RecurrentBlock(cfg, params, prefix, plan, rules)
         if kind == "cross":
-            return CrossBlock(cfg, params, prefix, plan)
+            return CrossBlock(cfg, params, prefix, plan, rules)
         if kind == "encoder":
-            return DenseBlock(cfg, params, prefix, plan, causal=False)
+            return DenseBlock(cfg, params, prefix, plan, causal=False,
+                              rules=rules)
         # the hybrid's local attention runs at cfg.window although its
         # attn_kind is "local", as the JAX hybrid branch passes it
         window = cfg.window if cfg.family == "hybrid" else _window_of(cfg)
@@ -856,6 +930,7 @@ class LM(nn.Module):
             raise ValueError(f"{key} of shape {tuple(ctx.shape)} does not "
                              f"fit a batch of {b} at d_model "
                              f"{self.cfg.d_model}")
+        ctx = self._place(ctx, HIDDEN)
         return self.encode(ctx) if self.cfg.family == "audio" else ctx
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
@@ -991,22 +1066,36 @@ class LM(nn.Module):
         return whole(self.logits_for(last)[:, 0]), cache
 
     def _assemble_placed(self, collected, cache_len: int) -> Cache:
-        """The dense family's decode cache from the layers' K/V DTensors:
-        each rank rings its own rows and KV heads
-        (:func:`assemble_cache` on local tensors), then the cache is
-        placed by :func:`cache_axes` (under ``decode_kv_seq_shard`` each
-        rank keeps its slice of the slots)."""
-        def ring(*kvs):
-            got = assemble_cache(self.cfg, list(zip(kvs[::2], kvs[1::2])),
-                                 cache_len)["attn"]
-            return got["k"], got["v"]
+        """The decode cache from the layers' prefill outputs as DTensors
+        (K/V, cross K/V, recurrent states): each rank assembles its own
+        rows, heads and channels (:func:`assemble_cache` on local tensors,
+        quantizing an int8 cache), then the cache is placed by
+        :func:`cache_axes` (under ``decode_kv_seq_shard`` each rank keeps
+        its slice of the slots)."""
+        quant = self.plan.kv_cache_quant
+        axes = cache_axes(self.cfg, quant)
+        kinds = [kind for _, kind in _layer_names(self.cfg)
+                 if kind != "encoder"]
+        flat, in_axes, layout = [], [], []
+        for st, kind in zip(collected, kinds):
+            names = sorted(st) if isinstance(st, dict) else None
+            flat += [st[n] for n in names] if names else list(st)
+            in_axes += ([STATE_AXES[kind][n] for n in names] if names
+                        else [layers.KV_AXES] * 2)
+            layout.append(names)
 
-        kvs = [t for kv in collected for t in kv]
-        out = ("layers", "batch", None, "kv_heads", None)
-        k, v = self.rules.local(ring, [layers.KV_AXES] * len(kvs),
-                                [out, out])(*kvs)
-        return self.rules.distribute({"attn": {"k": k, "v": v}},
-                                     cache_axes(self.cfg))
+        def build(*ts):
+            it = iter(ts)
+            states = [{n: next(it) for n in names} if names
+                      else (next(it), next(it)) for names in layout]
+            return _leaves(assemble_cache(self.cfg, states, cache_len,
+                                          quant=quant))
+
+        # the slots are whole here: the ring is built on each rank's rows
+        out_axes = [tuple(None if a == "kv_seq" else a for a in ax)
+                    for ax in _leaves(axes)]
+        got = self.rules.local(build, in_axes, out_axes)(*flat)
+        return self.rules.distribute(_rebuild(axes, list(got)), axes)
 
     def init_context_cache(self, batch, batch_size: int,
                            cache_len: int) -> Cache:
@@ -1017,10 +1106,19 @@ class LM(nn.Module):
         cache = self.init_cache(batch_size, cache_len)
         ctx = self.context(batch, batch_size)
         if ctx is not None:
-            kvs = [blk.context_kv(ctx) for blk in self.layers
-                   if isinstance(blk, CrossBlock)]
-            cache["cross"] = {"k": torch.stack([k for k, _ in kvs]),
-                              "v": torch.stack([v for _, v in kvs])}
+            kvs = [t for blk in self.layers if isinstance(blk, CrossBlock)
+                   for t in blk.context_kv(ctx)]
+
+            def stack(*kvs):
+                return [torch.stack(kvs[0::2]), torch.stack(kvs[1::2])]
+
+            out = ("layers",) + layers.KV_AXES
+            k, v = self.rules.local(stack, [layers.KV_AXES] * len(kvs),
+                                    [out, out])(*kvs)
+            cache["cross"] = {"k": k, "v": v}
+            if self.partitioned:
+                cache["cross"] = self.rules.distribute(
+                    cache["cross"], cache_axes(self.cfg)["cross"])
         return cache
 
     def decode_step(self, cache: Cache, tokens, pos, *,
@@ -1052,8 +1150,9 @@ class LM(nn.Module):
             pos = self._place(pos, ("batch",))
             cache_len = self._place(cache_len, ("batch",))
         if cross:       # a device fill: a captured step copies no host data
-            ctx_len = torch.full((b,), cross[0]["k"].shape[1],
-                                 dtype=torch.int32, device=self.device)
+            ctx_len = self._place(torch.full(
+                (b,), cross[0]["k"].shape[1], dtype=torch.int32,
+                device=self.device), ("batch",))
         for blk, c in zip(self.layers, per_layer):
             if isinstance(blk, CrossBlock):
                 h = blk.decode(h, c, ctx_len)

@@ -32,6 +32,12 @@ module, none of which changes a result:
     the serving engine can capture it in a CUDA graph;
   * ``drops`` (optional) counts routed and dropped pairs, and the experts
     routed to, in place.
+
+Under a mesh (a partitioned LM's ``rules``) :func:`apply_moe` runs the
+routing and the experts in :meth:`Rules.local`: each data rank routes its
+own groups and each rank runs only its own experts (the reference's
+constraints put the groups on the batch axes and the experts on
+"model"); :func:`apply_moe_ep` is the explicit ``shard_map`` path.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ from torch import nn
 from torch.autograd.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import NullRules, whole
 from repro_torch.models import layers
 
 # ---------------------------------------------------------------------------
@@ -163,9 +171,13 @@ def route(router: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor,
     return Routing(expert, gates, slot, slot < capacity, counts, logits)
 
 
+TOKENS = ("batch", None, None)          # x [B, S, D], routing [G, Tg, k]
+WHOLE = (None, None, None)
+
+
 def apply_moe(p, cfg: ModelConfig, x: torch.Tensor,
               capacity_factor: Optional[float] = None, groups: int = 1, *,
-              drops: Optional[torch.Tensor] = None
+              drops: Optional[torch.Tensor] = None, rules=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], aux).
 
@@ -177,7 +189,19 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor,
     (those with a pair in any group: the experts whose weights the call
     needs), in place.  Profiler ranges name the pieces: ``moe.route``
     (routing and dispatch), ``moe.experts`` (the expert FFNs over all E),
-    ``moe.combine``, ``moe.shared`` and ``moe.dense``."""
+    ``moe.combine``, ``moe.shared`` and ``moe.dense``.
+
+    Under a mesh (``rules`` of a partitioned LM: ``x`` and the weights
+    DTensors) the groups lie on the batch axes, as the reference
+    constrains them: each data rank routes its own groups (every rank of
+    the mesh, when the groups do not split as the rows do), the tokens
+    whole across "model"; the counts behind ``aux`` and ``drops`` are
+    summed over the batch axes, so both are the one-device run's.  Each
+    rank then dispatches only to its own experts' slice of the buffer
+    (the experts, or the expert FFN's hidden width, lie on "model") and
+    its combine is a partial sum over "model", summed where the caller
+    constrains ``y``."""
+    rules = rules or NullRules()
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
@@ -187,37 +211,76 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor,
     tg = t // g
     k, n_exp = m.top_k, m.n_experts
     cap = capacity_of(cfg, tg, capacity_factor)
-    tokens = x.reshape(g, tg, d)
-    with record_function("moe.route"):
-        r = route(p["router"], cfg, tokens, cap)
-        # dispatch into [E, G, C] rows (+ one spare row for the dropped
-        # pairs)
-        group = torch.arange(g, device=x.device)[:, None, None]
-        rows = (r.expert * g + group) * cap + r.slot             # [G, Tg, k]
-        spare = n_exp * g * cap
-        buf = x.new_zeros((spare + 1, d))
-        buf.index_copy_(0, torch.where(r.keep, rows, spare).reshape(-1),
-                        tokens[:, :, None, :].expand(g, tg, k, d)
-                        .reshape(-1, d))
-    with record_function("moe.experts"):
-        out = layers.apply_ffn(p["experts"],
-                               buf[:spare].view(n_exp, g * cap, d),
-                               cfg.ffn_act).reshape(spare, d)
+    # each rank's groups are its own rows when the groups split as they do
+    split = rules.spec(("batch",), (g,)) == rules.spec(("batch",), (b,))
+    tok = TOKENS if split else WHOLE
+    batch = rules.group(rules.constrain(x, TOKENS), 0) if split else None
 
-    # combine: each token's kept contributions, (out * gate) in fp32 cast to
-    # the activation dtype, summed in ascending expert id from zero
-    with record_function("moe.combine"):
-        by_id = torch.argsort(r.expert, dim=-1)
-        keep = r.keep.gather(-1, by_id)
-        rows = torch.where(keep, rows.gather(-1, by_id), 0)
-        gate = r.gate.gather(-1, by_id)
-        got = torch.where(keep[..., None], out[rows.reshape(-1)].reshape(
-            g, tg, k, d), 0)
-        contrib = (got.float() * gate[..., None]).to(x.dtype)
-        y = torch.zeros((g, tg, d), dtype=x.dtype, device=x.device)
-        for j in range(k):
-            y = y + contrib[:, :, j]
-        y = y.reshape(b, s, d)
+    def route_local(x, router):
+        with record_function("moe.route"):
+            r = route(router, cfg, x.reshape(-1, tg, d), cap)
+            per_expert = col.sum_replicated(r.counts.sum(dim=0), batch)
+            probs = torch.softmax(r.logits, dim=-1)
+            me = (probs.mean(dim=(0, 1)) if batch is None else
+                  col.sum_replicated(probs.sum(dim=(0, 1)), batch) / t)
+            if drops is not None:
+                drops[0].add_(t * k)
+                drops[1].add_(col.sum_replicated((~r.keep).sum(), batch))
+                # an expert with a pair has one in slot 0, always kept
+                drops[2].add_((per_expert > 0).sum())
+            aux = n_exp * torch.sum(me * per_expert.float() / (t * k))
+        return r.expert, r.gate, r.slot, r.keep, aux
+
+    expert, gate, slot, keep, aux = rules.local(
+        route_local, (tok, (None, None)), [tok] * 4 + [()])(x, p["router"])
+
+    names = list(p["experts"])
+    w_axes = {"w_in": ("experts", None, "ff"), "w_gate": ("experts", None,
+                                                          "ff"),
+              "w_out": ("experts", "ff", None)}
+    weights = [rules.constrain(p["experts"][n], w_axes[n]) for n in names]
+    e0 = rules.offset(weights[0], 0)
+
+    def experts_local(x, expert, gate, slot, keep, *weights):
+        tokens = x.reshape(-1, tg, d)
+        g_loc = tokens.shape[0]
+        e_loc = weights[0].shape[0]
+        with record_function("moe.route"):
+            # dispatch into [E_loc, G_loc, C] rows (+ one spare row for the
+            # dropped pairs and the other ranks' experts)
+            local = expert - e0
+            mine = keep & (local >= 0) & (local < e_loc)
+            group = torch.arange(g_loc, device=x.device)[:, None, None]
+            rows = (local * g_loc + group) * cap + slot          # [G, Tg, k]
+            spare = e_loc * g_loc * cap
+            buf = x.new_zeros((spare + 1, d))
+            buf.index_copy_(0, torch.where(mine, rows, spare).reshape(-1),
+                            tokens[:, :, None, :].expand(g_loc, tg, k, d)
+                            .reshape(-1, d))
+        with record_function("moe.experts"):
+            out = layers.apply_ffn(dict(zip(names, weights)),
+                                   buf[:spare].view(e_loc, g_loc * cap, d),
+                                   cfg.ffn_act).reshape(spare, d)
+        # combine: each token's kept contributions, (out * gate) in fp32
+        # cast to the activation dtype, summed in ascending expert id from
+        # zero
+        with record_function("moe.combine"):
+            by_id = torch.argsort(expert, dim=-1)
+            kept = mine.gather(-1, by_id)
+            rows = torch.where(kept, rows.gather(-1, by_id), 0)
+            wt = gate.gather(-1, by_id)
+            got = torch.where(kept[..., None], out[rows.reshape(-1)].reshape(
+                g_loc, tg, k, d), 0)
+            contrib = (got.float() * wt[..., None]).to(x.dtype)
+            y = torch.zeros((g_loc, tg, d), dtype=x.dtype, device=x.device)
+            for j in range(k):
+                y = y + contrib[:, :, j]
+        return y.reshape(x.shape)
+
+    y = rules.local(experts_local,
+                    (tok, tok, tok, tok, tok, *[w_axes[n] for n in names]),
+                    tok, partial=("experts", "ff"))(
+        x, expert, gate, slot, keep, *weights)
 
     if m.shared_experts:
         with record_function("moe.shared"):
@@ -225,16 +288,7 @@ def apply_moe(p, cfg: ModelConfig, x: torch.Tensor,
     if m.dense_residual:
         with record_function("moe.dense"):
             y = y + layers.apply_ffn(p["dense"], x, cfg.ffn_act)
-    per_expert = r.counts.sum(dim=0)                              # [E]
-    if drops is not None:
-        drops[0].add_(r.keep.numel())
-        drops[1].add_((~r.keep).sum())
-        # an expert with a pair has one in slot 0, which is always kept
-        drops[2].add_((per_expert > 0).sum())
-
-    me = torch.softmax(r.logits, dim=-1).mean(dim=(0, 1))        # [E]
-    aux = n_exp * torch.sum(me * per_expert.float() / (t * k))
-    return y, aux
+    return y, whole(aux)
 
 
 def apply_moe_ep(p, cfg: ModelConfig, x: torch.Tensor,
@@ -263,7 +317,6 @@ def apply_moe_ep(p, cfg: ModelConfig, x: torch.Tensor,
     batch do not divide, it runs :func:`apply_moe` over one group, as the
     reference falls back.  ``drops`` (``**kw``) is counted on that path
     only."""
-    from repro_torch.dist import collectives as col
     from repro_torch.dist.sharding import batch_axes, mesh_axes
 
     m = cfg.moe

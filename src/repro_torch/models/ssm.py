@@ -29,10 +29,22 @@ import torch.nn.functional as F
 from torch.autograd.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sharding import NullRules
 from repro_torch.models import layers
 
 # leaves that stay float32 whatever the model's parameter dtype
 FP32_LEAVES = ("A_log", "D", "dt_bias")
+
+# logical axes under a mesh: the input projection's output gathered whole,
+# the per-head leaves and the SSD state split by heads, the gated norm's
+# output [B, S, di] by its heads' channels, the decode conv window by
+# "lru" (the cache's, models.lm.cache_axes)
+WHOLE_IN = ("batch", None, None)
+HEADS = ("heads",)
+STATE_AXES = ("batch", "heads", None, None)
+Y_AXES = ("batch", None, "heads")
+CONV_AXES = ("batch", None, "lru")
 
 
 def init_ssm(cfg: ModelConfig, generator: torch.Generator, device,
@@ -91,13 +103,19 @@ def _causal_conv(x, w, state: Optional[torch.Tensor] = None):
     return F.silu(out), new_state
 
 
-def _gated_norm(p, y, z, dtype):
+def _gated_norm(scale, y, z, dtype, group=None, width: int = 0):
     """Mamba-2's gated RMSNorm: norm(y * silu(z)) in float32, cast to
-    ``dtype``."""
+    ``dtype``.  With ``group`` the ranks hold slices of the width (their
+    heads' channels, ``width`` in all): the sum of squares is summed over
+    the group (:func:`collectives.sum_partials`)."""
     y = y * F.silu(z)
     yf = y.float()
-    return (yf * torch.rsqrt(yf.square().mean(dim=-1, keepdim=True) + 1e-6)
-            * p["norm_scale"].float()).to(dtype)
+    sq = yf.square()
+    if group is None:
+        ms = sq.mean(dim=-1, keepdim=True)
+    else:
+        ms = col.sum_partials(sq.sum(dim=-1, keepdim=True), group) / width
+    return (yf * torch.rsqrt(ms + 1e-6) * scale.float()).to(dtype)
 
 
 def _heads(cfg: ModelConfig, b_, c_):
@@ -112,74 +130,115 @@ def _heads(cfg: ModelConfig, b_, c_):
             .repeat_interleave(rep, dim=-2))
 
 
+def _head_slices(p, rules):
+    """(A_log, D, dt_bias) constrained by the heads, and (h0, the group
+    over which the heads are split): each rank runs the SSD on heads
+    ``[h0, h0 + n_local)``, n_local their local length."""
+    heads = [rules.constrain(p[n], HEADS) for n in ("A_log", "D", "dt_bias")]
+    return heads, rules.offset(heads[0], 0), rules.group(heads[0], 0)
+
+
+def _local_heads(cfg: ModelConfig, zxbcdt, conv_w, conv_prev, h0: int,
+                 n: int):
+    """The projection's whole ``[..., 2 di + 2 G N + nh]``, after the
+    causal conv of its x|B|C part (over ``conv_prev``, or zeros), as the
+    pieces of heads ``[h0, h0 + n)``: (z [..., n P], x [..., n, P], B and
+    C [..., n, N], dt [..., n]) and the conv's new state."""
+    s = cfg.ssm
+    di, gn, P = s.d_inner(cfg.d_model), s.n_groups * s.d_state, s.headdim
+    z, x, b_, c_, dt = _split_in(cfg, zxbcdt)
+    xbc, conv_state = _causal_conv(torch.cat([x, b_, c_], dim=-1), conv_w,
+                                   conv_prev)
+    x, b_, c_ = torch.split(xbc, [di, gn, gn], dim=-1)
+    bh, ch = _heads(cfg, b_, c_)                        # [..., nh, N]
+    cols = slice(h0 * P, (h0 + n) * P)
+    return (z[..., cols], x[..., cols].reshape(*x.shape[:-1], n, P),
+            bh[..., h0:h0 + n, :], ch[..., h0:h0 + n, :],
+            dt[..., h0:h0 + n], conv_state)
+
+
 def apply_ssm(p: Mapping[str, torch.Tensor], cfg: ModelConfig, hidden,
               return_state: bool = False, chunk: int = 0,
-              bf16: bool = False):
+              bf16: bool = False, rules=None):
     """The prefill path: hidden [B, S, d] -> [B, S, d] (and the decode
     state ``{"conv", "state"}`` with ``return_state``).  ``chunk`` (0: the
-    config's) must divide S once capped at S, as the JAX module asserts."""
+    config's) must divide S once capped at S, as the JAX module asserts.
+
+    Under a mesh (``rules`` of a partitioned LM) the input projection's
+    columns split on "lru" do not fall on its z|x|B,C|dt boundaries, and
+    every head reads the whole B and C: its output is gathered whole (the
+    reshard GSPMD places there), the conv runs whole, and each rank runs
+    the SSD chunks on its own heads (:meth:`Rules.local`), the gated norm
+    summing its squares over the heads' ranks."""
+    rules = rules or NullRules()
     s = cfg.ssm
-    b, seq, _ = hidden.shape
+    seq = hidden.shape[1]
     q = min(chunk or s.chunk, seq)
     if seq % q:
         raise ValueError(f"seq {seq} must divide chunk {q}")
     nc = seq // q
-    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
-    gn = s.n_groups * s.d_state
-    P, N = s.headdim, s.d_state
+    di, P, N = s.d_inner(cfg.d_model), s.headdim, s.d_state
+    zxbcdt = rules.constrain(torch.matmul(hidden, p["w_in"]), WHOLE_IN)
+    heads, h0, group = _head_slices(p, rules)
 
-    z, x, b_, c_, dt = _split_in(cfg, torch.matmul(hidden, p["w_in"]))
-    xbc, conv_state = _causal_conv(torch.cat([x, b_, c_], dim=-1),
-                                   p["conv_w"])
-    x, b_, c_ = torch.split(xbc, [di, gn, gn], dim=-1)
-    x = x.reshape(b, seq, nh, P)
-    bh, ch = _heads(cfg, b_, c_)                         # [b, S, nh, N]
+    def local(zxbcdt, conv_w, a_log, d_skip, dt_bias, norm_scale):
+        b, nh = zxbcdt.shape[0], a_log.shape[0]     # this rank's rows, heads
+        z, x, bh, ch, dt, conv_state = _local_heads(cfg, zxbcdt, conv_w,
+                                                    None, h0, nh)
+        dt = F.softplus(dt.float() + dt_bias)            # [b, S, nh]
+        da = dt * -torch.exp(a_log)                      # log-decay
 
-    dt = F.softplus(dt.float() + p["dt_bias"])           # [b, S, nh]
-    da = dt * -torch.exp(p["A_log"])                     # log-decay
+        xc = x.reshape(b, nc, q, nh, P)
+        bc = bh.reshape(b, nc, q, nh, N)
+        cc = ch.reshape(b, nc, q, nh, N)
+        dtc = dt.reshape(b, nc, q, nh)
+        cum = torch.cumsum(da.reshape(b, nc, q, nh), dim=2)
 
-    xc = x.reshape(b, nc, q, nh, P)
-    bc = bh.reshape(b, nc, q, nh, N)
-    cc = ch.reshape(b, nc, q, nh, N)
-    dtc = dt.reshape(b, nc, q, nh)
-    cum = torch.cumsum(da.reshape(b, nc, q, nh), dim=2)  # [b, nc, q, nh]
+        # intra-chunk (diagonal block): L[i, j] = exp(cum_i - cum_j), i >= j
+        ct = torch.bfloat16 if bf16 else torch.float32
+        mask = torch.ones((q, q), dtype=torch.bool,
+                          device=x.device).tril()[None, None, :, :, None]
+        diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+        decay = torch.exp(torch.where(mask, diff, float("-inf"))).to(ct)
+        scores = torch.einsum("bcihn,bcjhn->bcijh", cc.to(ct),
+                              bc.to(ct)) * decay
+        xdt = (xc.float() * dtc[..., None]).to(ct)
+        y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores.float(),
+                              xdt.float())
 
-    # intra-chunk (diagonal block): L[i, j] = exp(cum_i - cum_j), i >= j
-    ct = torch.bfloat16 if bf16 else torch.float32
-    mask = torch.ones((q, q), dtype=torch.bool,
-                      device=hidden.device).tril()[None, None, :, :, None]
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
-    decay = torch.exp(torch.where(mask, diff, float("-inf"))).to(ct)
-    scores = torch.einsum("bcihn,bcjhn->bcijh", cc.to(ct), bc.to(ct)) * decay
-    xdt = (xc.float() * dtc[..., None]).to(ct)
-    y_diag = torch.einsum("bcijh,bcjhp->bcihp", scores.float(), xdt.float())
+        # chunk states: S_c = sum_j exp(cum_last - cum_j) B_j (x_j dt_j)^T
+        seg = torch.exp(cum[:, :, -1:, :] - cum).to(ct)  # [b, nc, q, nh]
+        states = torch.einsum("bcjhn,bcjhp->bchnp",
+                              bc.to(ct).float() * seg.float()[..., None],
+                              xdt.float())
+        chunk_decay = torch.exp(cum[:, :, -1, :])        # [b, nc, nh]
 
-    # chunk states: S_c = sum_j exp(cum_last - cum_j) B_j (x_j dt_j)^T
-    seg = torch.exp(cum[:, :, -1:, :] - cum).to(ct)      # [b, nc, q, nh]
-    states = torch.einsum("bcjhn,bcjhp->bchnp",
-                          bc.to(ct).float() * seg.float()[..., None],
-                          xdt.float())
-    chunk_decay = torch.exp(cum[:, :, -1, :])            # [b, nc, nh]
+        # inter-chunk recurrence over the nc chunk states
+        prev = torch.zeros((b, nh, N, P), dtype=torch.float32,
+                           device=x.device)
+        prevs = []
+        for c in range(nc):
+            prevs.append(prev)
+            prev = states[:, c] + chunk_decay[:, c, :, None, None] * prev
+        prev_states = torch.stack(prevs, dim=1)          # [b, nc, nh, N, P]
 
-    # inter-chunk recurrence over the nc chunk states
-    prev = torch.zeros((b, nh, N, P), dtype=torch.float32,
-                       device=hidden.device)
-    prevs = []
-    for c in range(nc):
-        prevs.append(prev)
-        prev = states[:, c] + chunk_decay[:, c, :, None, None] * prev
-    prev_states = torch.stack(prevs, dim=1)              # [b, nc, nh, N, P]
+        y_inter = torch.einsum("bcihn,bchnp->bcihp",
+                               cc.float() * torch.exp(cum)[..., None],
+                               prev_states)
+        y = (y_diag + y_inter).reshape(b, seq, nh, P)
+        y = y + x.float() * d_skip[None, None, :, None]
+        y = _gated_norm(norm_scale[h0 * P:(h0 + nh) * P],
+                        y.reshape(b, seq, nh * P).to(hidden.dtype), z,
+                        hidden.dtype, group, di)
+        return y, conv_state.to(hidden.dtype), prev
 
-    y_inter = torch.einsum("bcihn,bchnp->bcihp",
-                           cc.float() * torch.exp(cum)[..., None],
-                           prev_states)
-    y = (y_diag + y_inter).reshape(b, seq, nh, P)
-    y = y + x.float() * p["D"][None, None, :, None]
-    y = _gated_norm(p, y.reshape(b, seq, di).to(hidden.dtype), z,
-                    hidden.dtype)
+    y, conv_state, prev = rules.local(
+        local, (WHOLE_IN, (None, None), HEADS, HEADS, HEADS, (None,)),
+        [Y_AXES, WHOLE_IN, STATE_AXES])(
+        zxbcdt, p["conv_w"], *heads, p["norm_scale"])
     out = torch.matmul(y, p["w_out"])
     if return_state:
-        return out, {"conv": conv_state.to(hidden.dtype), "state": prev}
+        return out, {"conv": conv_state, "state": prev}
     return out
 
 
@@ -197,31 +256,46 @@ def init_ssm_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
 
 
 def decode_ssm(p: Mapping[str, torch.Tensor], cfg: ModelConfig, hidden,
-               cache: Mapping[str, torch.Tensor]):
+               cache: Mapping[str, torch.Tensor], rules=None):
     """One decode step: hidden [B, 1, d] -> [B, 1, d]; writes the new
     ``conv`` and ``state`` into ``cache`` in place (the JAX module returns
     them).  The recurrence between the two projections (conv, state update
     and readout, as elementwise products and sums: no GEMM) runs under the
-    profiler range ``ssm.state``."""
+    profiler range ``ssm.state``.  Under a mesh the heads split as in
+    :func:`apply_ssm`: the conv window is gathered whole, and each rank
+    updates its heads' state and its part of the window in place."""
+    rules = rules or NullRules()
     s = cfg.ssm
-    b = hidden.shape[0]
-    di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
-    gn = s.n_groups * s.d_state
-    z, x, b_, c_, dt = _split_in(cfg, torch.matmul(hidden, p["w_in"]))
+    di, P = s.d_inner(cfg.d_model), s.headdim
+    zxbcdt = rules.constrain(torch.matmul(hidden, p["w_in"]), WHOLE_IN)
+    heads, h0, group = _head_slices(p, rules)
+    conv_prev = rules.constrain(cache["conv"], WHOLE_IN)
+
+    def local(zxbcdt, conv_w, conv_prev, state, a_log, d_skip, dt_bias,
+              norm_scale):
+        b, nh = zxbcdt.shape[0], a_log.shape[0]     # this rank's rows, heads
+        with record_function("ssm.state"):
+            z, x, bh, ch, dt, conv_state = _local_heads(
+                cfg, zxbcdt, conv_w, conv_prev, h0, nh)
+            x = x.reshape(b, nh, P).float()
+            bh, ch = bh.reshape(b, nh, -1), ch.reshape(b, nh, -1)
+            dt = F.softplus(dt.float().reshape(b, nh) + dt_bias)
+            da = torch.exp(dt * -torch.exp(a_log))           # [b, nh]
+            st = state * da[:, :, None, None] \
+                + (bh.float() * dt[..., None])[..., None] * x[:, :, None, :]
+            y = (ch.float()[..., None] * st).sum(dim=2)      # [b, nh, P]
+            y = y + x * d_skip[None, :, None]
+            state.copy_(st)
+        y = _gated_norm(norm_scale[h0 * P:(h0 + nh) * P],
+                        y.reshape(b, 1, nh * P).to(hidden.dtype), z,
+                        hidden.dtype, group, di)
+        return y, conv_state
+
+    y, conv_state = rules.local(
+        local, (WHOLE_IN, (None, None), WHOLE_IN, STATE_AXES, HEADS, HEADS,
+                HEADS, (None,)), [Y_AXES, WHOLE_IN])(
+        zxbcdt, p["conv_w"], conv_prev, cache["state"], *heads,
+        p["norm_scale"])
     with record_function("ssm.state"):
-        xbc, conv_state = _causal_conv(torch.cat([x, b_, c_], dim=-1),
-                                       p["conv_w"], cache["conv"])
-        x, b_, c_ = torch.split(xbc, [di, gn, gn], dim=-1)
-        x = x.reshape(b, nh, s.headdim).float()
-        bh, ch = _heads(cfg, b_.reshape(b, gn), c_.reshape(b, gn))
-        dt = F.softplus(dt.float().reshape(b, nh) + p["dt_bias"])
-        da = torch.exp(dt * -torch.exp(p["A_log"]))      # [b, nh]
-        st = cache["state"] * da[:, :, None, None] \
-            + (bh.float() * dt[..., None])[..., None] * x[:, :, None, :]
-        y = (ch.float()[..., None] * st).sum(dim=2)      # [b, nh, P]
-        y = y + x * p["D"][None, :, None]
-        cache["conv"].copy_(conv_state)
-        cache["state"].copy_(st)
-    y = _gated_norm(p, y.reshape(b, 1, di).to(hidden.dtype), z,
-                    hidden.dtype)
+        layers.write_state(cache["conv"], conv_state, CONV_AXES, rules)
     return torch.matmul(y, p["w_out"])

@@ -5,8 +5,9 @@ The state is a dict of tensors keyed by the LM's parameter names: ``m`` and
 ``v`` in ``tcfg.master_dtype``, an int32 ``count`` and, under
 ``tcfg.use_master_copy``, an fp32 ``master`` copy of the parameters.
 Where the reference returns new parameters and a new state, :func:`update`
-writes both in place under ``torch.no_grad()`` (one leaf at a time, so the
-fp32 temporaries never exceed one leaf), with the reference's arithmetic:
+writes both in place under ``torch.no_grad()`` (one leaf at a time, a
+large leaf in runs of rows, so the fp32 temporaries stay near 256 MB
+each), with the reference's arithmetic:
 gradients clipped by their global norm, moments and bias corrections in
 fp32, decoupled weight decay, the fp32 result cast to each parameter's
 dtype.  :func:`opt_state_axes` gives the state's logical axes (the
@@ -130,19 +131,38 @@ def _update(grads, state, params, tcfg):
     master = state.get("master")
     for name, p in params.items():
         p = _local(p)
-        g = _local(grads[name]).float() * clip
-        m, v = _local(state["m"][name]), _local(state["v"][name])
-        m32, v32 = _fp32(m), _fp32(v)
-        m32.mul_(b1).add_(g, alpha=1 - b1)
-        v32.mul_(b2).add_(g.square_(), alpha=1 - b2)
-        step = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(eps))
-        base = _local(master[name]) if master is not None else p
-        base32 = _fp32(base)
-        step.add_(base32, alpha=tcfg.weight_decay)
-        base32.sub_(step.mul_(lr))
-        for t, t32 in ((m, m32), (v, v32), (base, base32)):
-            if t is not t32:
-                t.copy_(t32)
-        if master is not None:
-            p.copy_(base32)
+        g_all = _local(grads[name])
+        m_all, v_all = _local(state["m"][name]), _local(state["v"][name])
+        base_all = _local(master[name]) if master is not None else p
+        for rows in _row_chunks(p):
+            g = g_all[rows].float() * clip
+            m, v = m_all[rows], v_all[rows]
+            m32, v32 = _fp32(m), _fp32(v)
+            m32.mul_(b1).add_(g, alpha=1 - b1)
+            v32.mul_(b2).add_(g.square_(), alpha=1 - b2)
+            step = (m32 / bc1).div_((v32 / bc2).sqrt_().add_(eps))
+            base = base_all[rows]
+            base32 = _fp32(base)
+            step.add_(base32, alpha=tcfg.weight_decay)
+            base32.sub_(step.mul_(lr))
+            for t, t32 in ((m, m32), (v, v32), (base, base32)):
+                if t is not t32:
+                    t.copy_(t32)
+            if master is not None:
+                p[rows].copy_(base32)
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+# elements of a leaf updated at once: the fp32 temporaries of an update stay
+# near 256 MB each, whatever the leaf (a vocabulary's embedding is GBs)
+_CHUNK = 1 << 26
+
+
+def _row_chunks(t: torch.Tensor) -> list:
+    """Index of ``t`` (the whole of a small leaf, else runs of rows of at
+    most ``_CHUNK`` elements), over which the update's elementwise
+    arithmetic runs in turn."""
+    if t.dim() == 0 or t.numel() <= _CHUNK:
+        return [Ellipsis]
+    rows = max(1, _CHUNK // (t.numel() // t.shape[0]))
+    return [slice(r, r + rows) for r in range(0, t.shape[0], rows)]

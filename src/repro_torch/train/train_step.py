@@ -10,7 +10,7 @@ and ``opt_state`` in place and returns them.  The gradients come from
 ``torch.autograd.grad`` through the backward kernels (flash attention's
 on the card).
 
-Over an LM partitioned by ``Rules`` on a sharded mesh (the dense family,
+Over an LM partitioned by ``Rules`` on a sharded mesh (every family,
 ``models.lm``) the same :func:`make_train_step` and :func:`make_serve_step`
 run as SPMD code on every rank: each rank passes the whole batch, the LM
 places it by its batch axes, the gradients come back as DTensors that the

@@ -20,7 +20,9 @@ steps on (2, 4) against the JAX serve step on one device, logits within
 each rank decodes 16 slots, half of them past every row's length) and once
 heads-sharded, where the 2 KV heads stay whole and each rank's one query
 head reads one of them; (iv) the plain decode's ``lse`` against numpy and
-two half slices merged by their ``lse`` against the whole.  The JAX side
+two half slices merged by their ``lse`` against the whole.  The other
+families and the int8 cache are held in
+``tests/test_torch_dist_families.py``.  The JAX side
 runs once in a subprocess, the port's ranks once (8 gloo ranks over a
 ``FileStore`` under ``tmp_path``, both meshes).
 """
@@ -364,31 +366,14 @@ def test_decode_halves_merge_into_the_whole(lens):
                                rtol=0, atol=1e-5)
 
 
-# ------------------------------------------------- refusals (item 11c)
-def _stand_in_rules():
-    mesh = types.SimpleNamespace(axis_names=AXES, shape={"data": 1,
-                                                         "model": 2})
-    return Rules(mesh, Plan())
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-2b",
-                                  "llama-3.2-vision-90b",
-                                  "seamless-m4t-medium"])
-def test_other_families_refuse_a_sharded_mesh(arch):
-    cfg = get_config(arch).reduced()
-    params = init_params(cfg, device="cpu")
+# ------------------------------- what still refuses a sharded mesh (11c)
+def test_mesh_bridge_refuses_a_sharded_mesh():
+    """The modeled-cost path's mesh bridge traces one device only (ROADMAP
+    item 11c (iii)); the batcher over a partitioned LM refuses too (test
+    above)."""
+    from repro_torch.dist import bridge
+    runner = types.SimpleNamespace(mesh=types.SimpleNamespace(
+        shape={"data": 1, "model": 2}))
     with pytest.raises(NotImplementedError, match="11c"):
-        LM(cfg, params, Plan(), rules=_stand_in_rules())
-
-
-def test_grouped_moe_and_int8_cache_refuse_a_sharded_mesh():
-    cfg = get_config("moonshot-v1-16b-a3b").reduced()
-    lm = LM(cfg, init_params(cfg, device="cpu"), Plan(),
-            rules=_stand_in_rules())
-    toks = torch.zeros((2, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="11c"):
-        lm.train_loss({"tokens": toks, "labels": toks})
-    cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="11c"):
-        LM(cfg, init_params(cfg, device="cpu"), Plan(kv_cache_quant=True),
-           rules=_stand_in_rules())
+        bridge.mesh_verify(runner, types.SimpleNamespace(mesh_role="model"),
+                           lambda x: x, [torch.zeros(2)])
