@@ -193,8 +193,9 @@ these phases, each printing its seconds:
                and 4096 (past its 2048 window), each with phase 6 (a)'s
                checks (tokens equal to batch-1 ``generate``'s, graph logits
                within 1e-5 of an eager engine's, one state's step replayed
-               twice for the same bits); then (i) mamba2-1.3b and (j)
-               recurrentgemma-2b whole in bf16 (cache_len 2112 and 4160)
+               twice for the same bits); then (i) mamba2-1.3b at 24 of
+               its 48 layers and (j) recurrentgemma-2b whole in bf16
+               (cache_len 2112 and 4160)
                with phase 8's metrics: the step beside its bytes bound
                (the weights and the recurrent state read and written once,
                the rings' valid rows), tokens per wall second, the idle
@@ -243,7 +244,13 @@ these phases, each printing its seconds:
                up; per record the measured and modeled ms, their ratio,
                the dominant term, the FLOPs by dtype and the bytes, the
                selection under each policy, the planner's wall beside
-               phase 5's and the seconds spent tracing;
+               phase 5's and the seconds spent tracing; then the dp and
+               tp winners of the host-time runs traced by ``dist.bridge``
+               on a ("data", "model") mesh of BRIDGE_MESH under the fake
+               process group, in a child process (one device's trace on
+               DTensor shards): every pair correct, no launch while
+               traced, the modeled ms and collective bytes per device
+               beside the one-device ones;
  12. fleet     the router, health, fleet, control and observability layers
                over phase 11's lookup (its H100 verdicts), with every
                trace, graph capture and launch forbidden
@@ -342,7 +349,22 @@ these phases, each printing its seconds:
                unpartitioned on the card: a train step's loss and
                updated parameters, a prefill and 2 decode steps' logits
                and tokens, heads- or kv_seq-sharded, the flash forward,
-               backward and decode launches each path needs.
+               backward and decode launches each path needs;
+ 16. pod part  the pod-parallel step partitioned inside each pod: four
+               spawned processes on the one card over a gloo group, a
+               ("pod", "data", "model") mesh of POD_PART_MESH,
+               granite-3-2b at full width built with ``Rules`` (each LM
+               on its pod's ("data", "model") sub-mesh, 16 of 32 heads a
+               rank), 2 layers in fp32, B 4, S 256: the pod gradients and
+               one pod step against the whole-batch ``make_train_step`` of
+               the same LM unpartitioned in each process (loss within
+               1e-5 relative, gradients and parameters within 2e-4 of
+               each leaf's max), the compressed gradients within max over
+               pods of max|g_p| / 127 of the plain ones, every leaf and its
+               error feedback a rank's share, then POD_PART_STEPS timed
+               steps (wall and device ms per rank, peak memory,
+               collectives staged through host memory), the flash
+               forward twice and the backward once a layer and step.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -383,6 +405,10 @@ MATMUL_MAIN = (512, 512, 512)              # 3mm at N=512, fp32
 # policies phase 11 selects under
 PLANNER_APPS = ("3mm", "tdFIR", "NAS.BT")
 MODELED_POLICIES = ("host-time", "modeled")
+# phase 11: the dp and tp winners traced on a ("data", "model") mesh of the
+# fake process group, one device's trace
+BRIDGE_MESH = (4, 2)
+BRIDGE_ROLES = {"many-core CPU": "data", "GPU": "model"}
 TDFIR_MAIN = (64, 4096, 128)               # F, N, K of the paper's tdFIR
 TDFIR_MAIN_BLOCK_N = 128                   # the app's max(128, K)
 # granite-3-2b serving (phase 6): B, H, KV, S, D of the longest prefill, and
@@ -440,11 +466,13 @@ GRIFFIN_FLASH = (1, 10, 1, 4096, 256)
 GRIFFIN_WINDOW = 2048
 GRIFFIN_DECODE = (4, 10, 1, 2048, 256)
 GRIFFIN_DECODE_LENS = (1, 1000, 2048, 2048)
-# phase 9: (label, arch, prompts, cache_len); 8 requests, one arrival a
-# tick, 4 slots, max_gen 64.  mamba2's prompts divide its SSD chunk of 256
-# (the JAX model asserts it); recurrentgemma's 4096 is past its window
-RECURRENT_CELLS = (("i", "mamba2-1.3b", (1024, 2048), 2112),
-                   ("j", "recurrentgemma-2b", (1000, 4096), 4160))
+# phase 9: (label, arch, layers kept (None: all), prompts, cache_len); 8
+# requests, one arrival a tick, 4 slots, max_gen 64.  mamba2's prompts
+# divide its SSD chunk of 256 (the JAX model asserts it); recurrentgemma's
+# 4096 is past its window.  (i) keeps 24 of mamba2's 48 identical layers
+# (whole until phase 16 came), to pay for phase 16 and phase 11's mesh
+RECURRENT_CELLS = (("i", "mamba2-1.3b", 24, (1024, 2048), 2112),
+                   ("j", "recurrentgemma-2b", None, (1000, 4096), 4160))
 # the parity cells (i'), (j'), (k'), (l'): layers kept (None: all), in
 # fp32 (recurrentgemma's 5 are one group of (recurrent, recurrent, local
 # attention) and a tail of two recurrent blocks, the whole model's 8 x 3 +
@@ -546,6 +574,13 @@ PART_BF16_TOL = 2e-2
 # the two ranks take turns at the plain reference of a family whose plain
 # train step (weights, gradients, two moments) takes more than this
 PART_TURNS_BYTES = 24e9
+# phase 16, the pod-parallel step partitioned inside each pod: granite-3-2b
+# at full width on four gloo ranks on the one card, a (pod, data, model)
+# mesh of POD_PART_MESH; (layers, B, S) in fp32, then POD_PART_STEPS timed
+# steps
+POD_PART_MESH = (2, 1, 2)
+POD_PART_TRAIN = (2, 4, 256)
+POD_PART_STEPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1936,7 +1971,7 @@ def run_modeled(ops, plan_walls, tmp: str):
             return ev
 
     runner = WatchedCostRunner(mesh=LocalMesh())
-    selected = {}
+    selected, winners = {}, []
     lookup = PlanLookup(SearchCache(os.path.join(tmp, "lookup.json")))
     ops.reset_launch_counts()
     by_app = {name: [] for name in PLANNER_APPS}
@@ -1953,6 +1988,12 @@ def run_modeled(ops, plan_walls, tmp: str):
             check_plan_report(name, report)
             modeled_table(name, report)
             by_app[name].extend(report.records)
+            if policy == MODELED_POLICIES[0]:
+                winners += [(name, BRIDGE_ROLES[r.paper_analogue],
+                             dict(r.choice), r.mesh_time_s)
+                            for r in report.records
+                            if r.method == "loop" and r.mesh_time_s
+                            and r.paper_analogue in BRIDGE_ROLES]
             sel = report.selected
             selected[(name, policy)] = (
                 f"{sel.paper_analogue} {sel.method} "
@@ -1964,6 +2005,7 @@ def run_modeled(ops, plan_walls, tmp: str):
             "phase 11 never launched the matmul or the tdfir kernel")
     for (name, policy), what in selected.items():
         print(f"  selected {name:6s} under {policy:9s}: {what}")
+    bridge_on_mesh(winners)
     keys = check_lookup(lookup, by_app, serve_key)
     # the second pass: lookups only, with the tracer poisoned
     misses, lookups = lookup.stats.misses, lookup.stats.lookups
@@ -1986,6 +2028,92 @@ def run_modeled(ops, plan_walls, tmp: str):
                  f"{ev.time_s * 1e6:10.2f} us modeled"))
     print(f"  lookup stats {lookup.stats.to_dict()}")
     return lookup
+
+
+def bridge_on_mesh(winners) -> None:
+    """Phase 11's sharded bridge: each app's dp and tp winners (``winners``:
+    (app, role, choice, one-device modeled s)) traced on a ("data",
+    "model") mesh of BRIDGE_MESH of the fake process group, in a child
+    process (its group stays out of the later phases'): every pair must be
+    correct, with no kernel launched while it is traced; its modeled ms
+    and collective bytes per device are printed beside the one-device
+    ones."""
+    require(len(winners) == 2 * len(PLANNER_APPS),
+            f"phase 11 has {len(winners)} dp / tp winners with a modeled "
+            f"time, not {2 * len(PLANNER_APPS)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bridge.json")
+        with open(path, "w") as f:
+            json.dump(winners, f)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                        f"chip_smoke.bridge_mesh_child({path!r})"],
+                       cwd=ROOT, check=True, timeout=300)
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            got = json.load(f)
+    print(f"  the bridge on a (data, model) mesh of {BRIDGE_MESH} (fake "
+          f"process group, one device traced), {wall:.1f} s in a child "
+          f"process:")
+    for (name, role, _, local_s), ev in zip(winners, got):
+        print(f"    {name:6s} {role:5s}: modeled {ev['ms']:.6f} ms "
+              f"(one device {local_s * 1e3:.6f}), collective bytes per "
+              f"device {ev['coll']:.0f} (one device 0), FLOPs per device "
+              f"{ev['flops']:.4g}, dominant {ev['dominant']}, traced in "
+              f"{ev['trace_s']:.2f} s, launches {ev['launches']}")
+        require(ev["correct"], f"(11) {name} {role} on the mesh: "
+                f"{ev['error']}")
+        require(not ev["launches"], f"(11) {name} {role}: a kernel "
+                f"launched while it was traced on the mesh")
+
+
+def bridge_mesh_child(path: str) -> None:
+    """The child process of :func:`bridge_on_mesh`: reads the winners from
+    ``path``, writes each one's Evaluation there."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.apps import APPS
+    from repro_torch.backends import FPGA, GPU, MANY_CORE
+    from repro_torch.core import function_blocks
+    from repro_torch.core.measure import CompiledCostRunner
+    from repro_torch.dist import bridge
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    with open(path) as f:
+        winners = json.load(f)
+    dests = {"data": MANY_CORE, "model": GPU}
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(np.prod(BRIDGE_MESH)))
+    out = []
+    try:
+        runner = CompiledCostRunner(make_test_mesh(
+            BRIDGE_MESH, ("data", "model"), device="cpu"))
+        for name, role, choice, _ in winners:
+            app = APPS[name]()
+            # the planner's function-block impls, which a winner may name
+            matches = function_blocks.detect(app)
+            for dest in (MANY_CORE, GPU, FPGA):
+                function_blocks.apply_matches(app, matches, dest.key)
+            inputs = app.make_inputs(0, small=False, device="cpu")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            ev = bridge.mesh_verify(runner, dests[role], app.build(choice),
+                                    inputs)
+            trace_s = time.perf_counter() - t0
+            rl = ev.info.get("roofline", {})
+            out.append({"correct": ev.correct, "ms": ev.time_s * 1e3,
+                        "error": ev.info.get("error", ""),
+                        "coll": ev.info.get("collective_bytes_per_device",
+                                            0.0),
+                        "flops": ev.info.get("flops_per_device", 0.0),
+                        "dominant": rl.get("dominant", ""),
+                        "trace_s": trace_s,
+                        "launches": {k: v for k, v in
+                                     ops.launch_counts().items() if v}})
+    finally:
+        dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(out, f)
 
 
 def modeled_table(name: str, report) -> None:
@@ -3100,19 +3228,21 @@ def run_recurrent(ops, cells: list):
     """Phase 9: the recurrent families through the captured engine, 8
     requests a cell (one arrival a tick, 4 slots, max_gen 64 in bf16,
     phase 6 (a)'s mixed max_gen in fp32), each model freed before the next:
-    the parity cell of each family, then the whole model in bf16; returns
+    the parity cell of each family, then the model in bf16 at the depth
+    RECURRENT_CELLS keeps; returns
     the flash and decode launches summed over (i) and (j) and notes each
     in ``cells``."""
     from repro_torch.configs import get_config
     total = {"flash_attention": 0, "decode_attention": 0}
-    for label, arch, prompts, cache_len in RECURRENT_CELLS:
+    for label, arch, n_layers, prompts, cache_len in RECURRENT_CELLS:
         check_parity(ops, label, arch, prompts, cache_len)
-        cfg = get_config(arch)
+        cfg, depth = cut_depth(get_config(arch), n_layers,
+                               "cut to pay for phase 16's seconds")
         before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed=2)
-        print(f" ({label}) {arch}: full width and depth ({describe(cfg)}), "
-              f"all {cfg.n_layers} layers, bfloat16, {weights(lm)}; prompts "
-              f"{prompts}, cache_len {cache_len}")
+        print(f" ({label}) {arch}: full width ({describe(cfg)}), {depth}, "
+              f"bfloat16, {weights(lm)}; prompts {prompts}, cache_len "
+              f"{cache_len}")
         reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1,
                            prompts=prompts)
         engine, out, wall, launches = serve_engine(ops, lm, reqs, label,
@@ -4767,6 +4897,194 @@ def part_family_plain(cfg, plan, rules, tcfg, params, batch, prompts,
             "slices": slices}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the pod-parallel step partitioned inside each pod
+# ---------------------------------------------------------------------------
+
+def run_pod_partition() -> dict:
+    """Phase 16: four processes on the one card over a gloo group, each a
+    rank of a ("pod", "data", "model") mesh of POD_PART_MESH, granite-3-2b
+    at full width built with ``Rules`` (partitioned on its pod's ("data",
+    "model") sub-mesh: 16 of 32 heads a rank), 2 layers in fp32
+    (``pod_part_rank``); each rank checks its own numbers, and all must
+    hold the same losses.  Returns the flash launches of the partitioned
+    pod steps, the ranks summed."""
+    from repro_torch.launch.mesh import run_ranks
+    world = int(np.prod(POD_PART_MESH))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run_ranks(pod_part_rank, world, tmp, backend="gloo", timeout_s=600)
+        wall = time.perf_counter() - t0
+        got = [json.load(open(f"{tmp}/rank{r}.json")) for r in range(world)]
+    print(f"  {world} ranks' wall {wall:.1f} s, start-up included")
+    for r in range(1, world):
+        require(got[r]["same"] == got[0]["same"], f"(16) rank {r} holds "
+                f"other losses than rank 0: {got[r]['same']} vs "
+                f"{got[0]['same']}")
+    return {k: sum(g["launches"].get(k, 0) for g in got)
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def pod_part_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 16 (a failed check raises, and so fails the
+    phase): the partitioned pod step's gradients and one step against the
+    whole-batch step of the same LM unpartitioned in this process, the
+    compressed gradients against the plain ones within the int8 bound, the
+    placements and shard shapes, then POD_PART_STEPS timed steps."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.plan import Plan
+    from repro_torch.dist.sharding import Rules, whole
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.lm import LM, init_params, param_axes
+    from repro_torch.train import grad_compression, optimizer, train_step
+    from torch.profiler import ProfilerActivity
+    torch.cuda.set_device(0)
+    mesh = make_test_mesh(POD_PART_MESH, ("pod", "data", "model"),
+                          device="cuda")
+    layers, b, s = POD_PART_TRAIN
+    cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), layers)[0],
+                              dtype="float32", param_dtype="float32")
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
+                       eps=1e-4)
+    plan = Plan(remat="block")
+    cplan = dataclasses.replace(plan, grad_compression=True)
+    params0 = init_params(cfg, torch.Generator(device="cuda").manual_seed(8),
+                          "cuda")
+    batch = train_batch(cfg, b, s, 0)
+    pods = POD_PART_MESH[0]
+    pod = dict(zip(("pod", "data", "model"), mesh.get_coordinate()))["pod"]
+
+    def note(line):
+        print(f"  rank {rank} {line}", flush=True)
+
+    # the plain LM in this process: the whole batch's and this pod's
+    # gradients, and the whole-batch step
+    plain = LM(cfg, {n: p.clone() for n, p in params0.items()}, plan)
+    plain.requires_grad_(True)
+    pp = plain.params()
+
+    def grads_of(rows):
+        total, _ = plain.train_loss({k: x[rows] for k, x in batch.items()})
+        return dict(zip(pp, torch.autograd.grad(total, list(pp.values()))))
+
+    g_whole = grads_of(slice(0, b))
+    g_own = grads_of(slice(pod * b // pods, (pod + 1) * b // pods))
+    _, _, m_plain = train_step.make_train_step(plain, tcfg)(
+        pp, optimizer.init(pp, tcfg), batch, 0)
+    p_plain = {n: p.detach().clone() for n, p in pp.items()}
+    del plain, pp
+    free_card()
+
+    part = LM(cfg, {n: p.clone() for n, p in params0.items()}, plan,
+              rules=Rules(mesh, plan))
+    part_c = LM(cfg, params0, cplan, rules=Rules(mesh, cplan))
+    require(part.partitioned and part.rules.mesh.mesh_dim_names
+            == ("data", "model"), "(16) the LM is not partitioned on its "
+            "pod's (data, model) sub-mesh")
+    ops.reset_launch_counts()
+    g_pod, _, loss_pod, _ = train_step.make_pod_gradients(part, mesh)(
+        part.params(), None, batch)
+    ef0 = grad_compression.init_error_feedback(part_c.params())
+    g_c, ef, _, _ = train_step.make_pod_gradients(part_c, mesh)(
+        part_c.params(), ef0, batch)
+    n = ops.launch_counts()
+    worst_g = max(_leaf_err(whole(g_pod[k]), g_whole[k]) for k in g_whole)
+    # compressed: each shard within max over pods of max|g_p| / 127 of the
+    # plain mean (each pod's code within half its scale, the re-rounding
+    # to the pods' largest within half of that)
+    pod_group = mesh.get_group("pod")
+    worst_c, shards = 0.0, []
+    for k, want in g_pod.items():
+        bound = col.all_reduce(g_own[k].abs().max(), op=dist.ReduceOp.MAX,
+                               group=pod_group).item() / 127
+        err = (g_c[k].to_local() - want.to_local()).abs().max().item()
+        worst_c = max(worst_c, err / max(bound, 1e-30))
+        p = part.params()[k]
+        shards.append((k, tuple(p.to_local().shape), tuple(p.shape),
+                       tuple(ef[k].to_local().shape)))
+    require(worst_c <= 1.001, f"(16) a compressed gradient is {worst_c:.3f} "
+            f"of its int8 bound from the plain one")
+    # placements: each leaf's local shape its share of the devices its
+    # spec names (a heads, ff or vocab leaf split over "model"), the error
+    # feedback shard-shaped
+    sizes = dict(zip(("pod", "data", "model"), POD_PART_MESH))
+    for k, local, full, ef_local in shards:
+        axes = param_axes(cfg)[k]
+        split = int(np.prod([sizes[a] for e in part.rules.spec(axes, full)
+                             for a in ((e,) if isinstance(e, str)
+                                       else e or ())]))
+        require(int(np.prod(local)) * split == int(np.prod(full))
+                and ef_local == local, f"(16) {k}: local {local} of "
+                f"{full}, error feedback {ef_local}")
+        require(split > 1 or not {"heads", "ff", "vocab"} & set(axes),
+                f"(16) {k} {axes} is whole on every rank")
+    del g_pod, g_c, ef, ef0, g_own, part_c
+    free_card()
+    # one step against the whole-batch step
+    step = train_step.make_pod_parallel_train_step(part, tcfg, mesh)
+    opt = optimizer.init(part.params(), tcfg)
+    ops.reset_launch_counts()
+    params, opt, m = step(part.params(), opt, batch, 0)
+    n_step = ops.launch_counts()
+    rel = abs(m["loss"].item() - m_plain["loss"].item()) / abs(
+        m_plain["loss"].item())
+    worst_p = max(_leaf_err(whole(params[k].detach()), p_plain[k])
+                  for k in p_plain)
+    require(rel <= 1e-5 and worst_g <= 2e-4 and worst_p <= 2e-4,
+            f"(16) the partitioned pod step is {rel:.2e} (loss) / "
+            f"{worst_g:.2e} (gradients) / {worst_p:.2e} (parameters) from "
+            f"the whole-batch step")
+    require(n_step["flash_attention"] == 2 * layers
+            and n_step["flash_attention_bwd"] == layers,
+            f"(16) the pod step launched {n_step}, not the flash forward "
+            f"twice and the backward once a layer")
+    wq = part.blocks[0].attn["wq"]
+    note(f"{layers} layers fp32 B={b} S={s} on (pod, data, model) "
+         f"{POD_PART_MESH}: loss {m['loss'].item():.7f}, whole-batch step "
+         f"{m_plain['loss'].item():.7f} (rel {rel:.2e}); gradients "
+         f"{worst_g:.2e} and one step's parameters {worst_p:.2e} of each "
+         f"leaf's max from the whole-batch step's; compressed "
+         f"{worst_c:.3f} of the int8 bound; wq {tuple(wq.to_local().shape)}"
+         f" of {tuple(wq.shape)} {wq.placements}; launches of the two "
+         f"pod-gradient calls {dict((k, v) for k, v in n.items() if v)}")
+    # the timed steps
+    torch.cuda.reset_peak_memory_stats()
+    batches = [train_batch(cfg, b, s, i) for i in range(1, POD_PART_STEPS + 2)]
+    walls = []
+    for i in range(POD_PART_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batches[i], i + 1)
+        m["loss"].item()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    n_timed = ops.launch_counts()
+    staged = dict(col.staged_ops())
+    _, kernels = traced_kernels(
+        lambda: step(params, opt, batches[-1], POD_PART_STEPS + 1),
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    dev_ms = sum(ms for _, ms in kernels)
+    peak = torch.cuda.max_memory_allocated()
+    note(f"{POD_PART_STEPS} timed steps: wall {[round(w, 1) for w in walls]}"
+         f" ms, device {dev_ms:.1f} ms (a profiled step: {len(kernels)} "
+         f"kernels), idle share {max(0.0, 1 - dev_ms / np.mean(walls)):.1%}"
+         f"; peak memory {peak / 2**30:.2f} GiB; collectives staged through "
+         f"host memory so far {staged}")
+    require(n_timed["flash_attention"] == 2 * layers * (POD_PART_STEPS + 1)
+            and n_timed["flash_attention_bwd"]
+            == layers * (POD_PART_STEPS + 1),
+            f"(16) the timed steps launched {n_timed}")
+    launches = {k: n[k] + n_timed[k]
+                for k in ("flash_attention", "flash_attention_bwd")}
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump({"same": [round(loss_pod.item(), 6),
+                            round(m["loss"].item(), 6)],
+                   "launches": launches}, f)
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
@@ -4908,20 +5226,26 @@ def main() -> int:
     free_card()
     with phase("15 part"):
         partitioned = run_partition()
+    free_card()
+    with phase("16 pod part"):
+        pod_part = run_pod_partition()
     # flash and decode: the serving cells' launches, each cell counted
     # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), flash
     # forward and backward in the training steps of 13 (b) and the timed
-    # pod-parallel steps of 14 (a), and all three in phase 15's sharded
-    # runs on both ranks
+    # pod-parallel steps of 14 (a), all three in phase 15's sharded runs
+    # on both ranks, and flash forward and backward in phase 16's
+    # partitioned pod steps on all four ranks
     launches.update({k: served[k] + family[k] + moe_cells[k] + recurrent[k]
                      + cross[k] for k in family})
     launches["decode_attention"] += partitioned["decode_attention"]
     launches["flash_attention"] += (trained["flash_attention"]
                                     + distributed["flash_attention"]
-                                    + partitioned["flash_attention"])
+                                    + partitioned["flash_attention"]
+                                    + pod_part["flash_attention"])
     launches["flash_attention_bwd"] = (trained["flash_attention_bwd"]
                                        + distributed["flash_attention_bwd"]
-                                       + partitioned["flash_attention_bwd"])
+                                       + partitioned["flash_attention_bwd"]
+                                       + pod_part["flash_attention_bwd"])
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

@@ -137,7 +137,8 @@ class CompiledCostRunner:
     def __init__(self, mesh=None, n_chips: Optional[int] = None,
                  model_flops: float = 0.0):
         self.mesh = mesh
-        self.n_chips = n_chips or (mesh.size if mesh is not None else 1)
+        size = getattr(mesh, "size", 1)        # DeviceMesh.size() a method
+        self.n_chips = n_chips or int(size() if callable(size) else size)
         self.model_flops = model_flops
 
     def score_analysis(self, analyzed: dict, verify_s: float = 0.0, *,
@@ -190,11 +191,14 @@ class CompiledCostRunner:
         return self.score_artifact(artifact, verify_s,
                                    bubble_fraction=bubble_fraction)
 
-    def measure(self, fn: Callable, inputs, *,
+    def measure(self, fn: Callable, inputs, *, shardings=None,
                 bubble_fraction: float = 0.0) -> Evaluation:
         """Trace ``fn(inputs)`` and score it.  ``inputs`` may hold real
         tensors or :class:`~repro_torch.core.trace_analysis.TensorSpec` s:
         either way they become fake tensors on their own device (the card
-        for a spec without one), and no device memory is touched."""
-        return self.measure_traced(Traceable(fn, inputs),
+        for a spec without one), and no device memory is touched.
+        ``shardings`` (NamedShardings over a DeviceMesh, a tree like
+        ``inputs``) trace one device of that mesh on DTensor shards, its
+        collectives counted (``trace_analysis.trace``)."""
+        return self.measure_traced(Traceable(fn, inputs, shardings),
                                    bubble_fraction=bubble_fraction)

@@ -24,10 +24,24 @@ Heuristics (the reference's, restated for eager PyTorch):
   * a kernel wrapper of ``repro_torch.kernels.ops`` reached by a fake
     tensor is not launched: it reports its own work from the formula kept
     beside its plan (``kernels.ops.recording_work``);
-  * collectives: counted by ``torch.distributed.tensor.debug.CommDebugMode``,
-    their operand bytes by the recording mode; on one device all are 0,
-    under the reference's keys (``coll_*``, ``count_*``,
+  * collectives: each ``c10d`` / functional-collective op the trace
+    reaches (DTensor's redistributions run through them) is counted and
+    charged its operand bytes by the recording mode; on one device all are
+    0, under the reference's keys (``coll_*``, ``count_*``,
     ``collective_bytes``).
+
+On a mesh (``shardings``: a ``dist.sharding.NamedSharding`` for each input
+over a ``DeviceMesh``, as ``dist.bridge`` places a candidate's inputs) the
+inputs are DTensors of this rank's fake shards, and the trace is one
+device's, as the reference's compiled SPMD program is: DTensor's sharding
+propagation places the collectives, each op is recorded at its local
+shapes, and the global-shape ops DTensor runs to propagate shapes are left
+out.  An op that DTensor cannot shard (it has no strategy, its local op
+fails, or a result's local shape is not the one its placements give) is
+not hidden: what the failed attempt recorded is dropped, its
+plain tensor operands join as replicated values and, where that still
+fails, its DTensor operands are gathered whole (counted all-gathers) and
+it runs on whole tensors, its results replicated.
 
 :func:`analyze_ops` returns the reference's keys plus the FLOPs by dtype
 (``flops_fp32``, ``flops_bf16``, ``flops_fp16``, ``flops_fp64``), which
@@ -36,12 +50,16 @@ its own peak.
 """
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensorMode
-from torch.distributed.tensor.debug import CommDebugMode
+from torch._subclasses.fake_tensor import (FakeTensorMode,
+                                           unset_fake_temporarily)
+from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
@@ -196,21 +214,104 @@ def op_cost(func, args, kwargs, out) -> Optional[TracedOp]:
     return TracedOp(name, flops, float(nbytes), dtype, _sig(ins), _sig(outs))
 
 
+def _propagating() -> bool:
+    """Whether DTensor's sharding propagation is running the current op on
+    global-shape fake tensors (to learn its output's shape): no device
+    runs that op."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_code.co_name.startswith("_propagate_tensor_meta"):
+            return True
+        frame = frame.f_back
+    return False
+
+
+def _consistent(x) -> bool:
+    """Whether a DTensor's local tensor has the shape its placements give
+    this rank (a strategy can get it wrong: then the op is not
+    sharded)."""
+    if not isinstance(x, DTensor):
+        return True
+    with unset_fake_temporarily():
+        local, _ = compute_local_shape_and_global_offset(
+            x.shape, x.device_mesh, x.placements)
+    return tuple(local) == tuple(x._local_tensor.shape)
+
+
 class _Recorder(TorchDispatchMode):
     """Records the cost of every op that reaches the dispatcher, and the
-    work the kernel wrappers report for their fake calls."""
+    work the kernel wrappers report for their fake calls.  An op on
+    DTensors is handed to DTensor with this mode pushed again, so the
+    local ops it runs are recorded (module docstring)."""
 
     def __init__(self):
         super().__init__()
         self.ops: List[TracedOp] = []
+        self._dtensor = False       # inside DTensor's handling of an op
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            if self._dtensor:
+                return NotImplemented
+            return self._on_dtensors(func, args, kwargs)
+        if self._dtensor and _propagating():
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
         rec = op_cost(func, args, kwargs, out)
         if rec is not None:
             self.ops.append(rec)
         return out
+
+    def _on_dtensors(self, func, args, kwargs):
+        mesh = next(x.device_mesh for x in tree_leaves((args, kwargs))
+                    if isinstance(x, DTensor))
+        rep = [Replicate()] * mesh.ndim
+
+        def plain(x):
+            return (isinstance(x, torch.Tensor)
+                    and not isinstance(x, DTensor) and x.dim() > 0)
+
+        def joined(x):
+            return (DTensor.from_local(x, mesh, rep, run_check=False)
+                    if plain(x) else x)
+
+        attempts = [lambda x: x]
+        if any(map(plain, tree_leaves((args, kwargs)))):
+            attempts.append(joined)
+        self._dtensor = True
+        try:
+            with self:
+                for wrap in attempts:
+                    mark = len(self.ops)
+                    try:
+                        out = func(*tree_map(wrap, args),
+                                   **tree_map(wrap, kwargs))
+                        if all(map(_consistent, tree_leaves(out))):
+                            return out
+                    # DTensor's strategies fail in other ways from one torch
+                    # release to the next (IndexError in a convolution's);
+                    # a genuine fault raises again in the gathered run
+                    except Exception:       # noqa: BLE001
+                        pass
+                    del self.ops[mark:]         # no device ran that attempt
+                return self._gathered(func, args, kwargs, mesh, rep)
+        finally:
+            self._dtensor = False
+
+    @staticmethod
+    def _gathered(func, args, kwargs, mesh, rep):
+        """``func`` on every operand gathered whole, its results
+        replicated."""
+        def gathered(x):
+            if isinstance(x, DTensor):
+                return x.redistribute(mesh, rep).to_local()
+            return x
+
+        out = func(*tree_map(gathered, args), **tree_map(gathered, kwargs))
+        return tree_map(lambda t: DTensor.from_local(t, mesh, rep,
+                                                     run_check=False)
+                        if isinstance(t, torch.Tensor) else t, out)
 
     def kernel(self, name: str, flops: float, nbytes: float) -> None:
         self.ops.append(TracedOp(f"kernel.{name}", float(flops),
@@ -220,8 +321,8 @@ class _Recorder(TorchDispatchMode):
 def analyze_ops(ops: Sequence[TracedOp],
                 comm_counts: Dict[str, float]) -> Dict[str, float]:
     """Whole-trace cost (per device): the reference's keys plus the FLOPs
-    by dtype; ``comm_counts`` (kind -> count, from CommDebugMode) gives
-    the ``count_*`` keys."""
+    by dtype; ``comm_counts`` (kind -> count) gives the ``count_*``
+    keys."""
     flops = 0.0
     nbytes = 0.0
     by_dtype = {d: 0.0 for d in PEAK_FLOPS_BY_DTYPE}
@@ -274,7 +375,20 @@ def _leaf_device(x) -> Optional[torch.device]:
     return dev
 
 
-def trace(fn: Callable, inputs) -> TracedArtifact:
+def _placed(x, sharding):
+    """The DTensor of this rank's fake shard of ``x`` (a fake tensor of
+    the global shape) under ``sharding`` (a NamedSharding)."""
+    placements = sharding.placements
+    with unset_fake_temporarily():      # the offsets are host arithmetic
+        local, _ = compute_local_shape_and_global_offset(
+            x.shape, sharding.mesh, placements)
+    return DTensor.from_local(
+        torch.empty(tuple(local), dtype=x.dtype, device=x.device),
+        sharding.mesh, placements, run_check=False, shape=x.shape,
+        stride=x.stride())
+
+
+def trace(fn: Callable, inputs, shardings=None) -> TracedArtifact:
     """Run ``fn(inputs)`` once on fake tensors and record its ops.
 
     ``inputs`` is a pytree whose tensor leaves are real tensors or
@@ -283,9 +397,17 @@ def trace(fn: Callable, inputs) -> TracedArtifact:
     without one: the card), so no data is read and no device memory is
     touched.  Leaves on more than one device raise ``ValueError``.  A
     real tensor the function closes over becomes fake on first use.
+    ``shardings`` (a tree of the same structure whose leaves are
+    ``NamedSharding`` s over one ``DeviceMesh``) traces one device of that
+    mesh instead: each input is the DTensor of this rank's fake shard, on
+    the mesh's device type (module docstring).
     """
     devices = {d for d in map(_leaf_device, tree_leaves(inputs))
                if d is not None}
+    if shardings is not None:
+        mesh = next(sh.mesh for sh in tree_leaves(
+            shardings, is_leaf=lambda x: hasattr(x, "placements")))
+        devices = {torch.device(mesh.device_type)}
     if len(devices) > 1:
         raise ValueError(f"inputs span devices {sorted(map(str, devices))}; "
                          f"a trace runs on one")
@@ -302,25 +424,38 @@ def trace(fn: Callable, inputs) -> TracedArtifact:
             return x
 
         fake_inputs = tree_map(fake, inputs)
-        comm = CommDebugMode()
-        with comm, recorder, kernel_ops.recording_work(recorder.kernel):
+        if shardings is not None:
+            fake_inputs = _zip_placed(fake_inputs, shardings)
+        with recorder, kernel_ops.recording_work(recorder.kernel):
             fn(fake_inputs)
-    # CommDebugMode's keys are op packets or functional-collective functions
     counts = {k: 0.0 for k in COLLECTIVES}
-    for op, n in comm.get_comm_counts().items():
-        kind = _COLLECTIVE_OF.get(getattr(op, "__name__", ""), "")
-        if kind:
-            counts[kind] += float(n)
+    for op in recorder.ops:
+        if op.collective:
+            counts[op.collective] += 1.0
     return TracedArtifact(recorder.ops, dev, counts)
 
 
-class Traceable:
-    """A candidate and its inputs, not yet traced: the port's ``Lowered``.
-    :meth:`trace` is the expensive step (the reference's ``compile``)."""
+def _zip_placed(tree, shardings):
+    """``tree``'s tensor leaves placed by the matching ``shardings``."""
+    if isinstance(tree, dict):
+        return {k: _zip_placed(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_placed(v, sh) for v, sh in zip(tree,
+                                                             shardings))
+    if isinstance(tree, torch.Tensor) and shardings is not None:
+        return _placed(tree, shardings)
+    return tree
 
-    def __init__(self, fn: Callable, inputs):
+
+class Traceable:
+    """A candidate and its inputs (and, on a mesh, their shardings), not yet
+    traced: the port's ``Lowered``.  :meth:`trace` is the expensive step
+    (the reference's ``compile``)."""
+
+    def __init__(self, fn: Callable, inputs, shardings=None):
         self.fn = fn
         self.inputs = inputs
+        self.shardings = shardings
 
     def trace(self) -> TracedArtifact:
-        return trace(self.fn, self.inputs)
+        return trace(self.fn, self.inputs, self.shardings)

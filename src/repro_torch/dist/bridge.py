@@ -17,13 +17,17 @@ advertises its mesh analogue via ``Backend.mesh_role`` ("data" | "model" |
   * data role — leading dimension of every input over the batch axes;
   * model role — trailing dimension over the "model" axis.
 
+Both inherit :class:`Rules`' divisibility fallback, so odd shapes
+replicate instead of failing to trace.
+
 The mesh is :class:`LocalMesh`, a one-device stand-in with the reference
-test's axes ``("data", "model")`` of sizes (1, 1): every input is whole on
-it, and the trace runs on the inputs' own device.  A mesh with an axis
-past one device raises, naming ROADMAP item 11c: tracing a sharded
-candidate needs its inputs placed as DTensors under ``Rules`` (as the
-partitioned LM places its parameters) and a per-device trace that costs
-the collectives DTensor places.
+test's axes ``("data", "model")`` of sizes (1, 1), on which every input is
+whole and the trace runs on the inputs' own device; or a ``DeviceMesh``
+(ranks or a fake process group: ``torch.testing._internal.distributed.
+fake_pg``), on which the inputs become DTensors placed by
+``Rules(mesh, DEST_PLANS[role])`` and the candidate is traced as one
+device runs it, DTensor's collectives counted and priced
+(``core.trace_analysis``).
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from collections import OrderedDict
 from torch.utils._pytree import tree_map
 
 from repro_torch.dist.plan import Plan
+from repro_torch.dist.sharding import Rules, mesh_axes, tree_shardings
 
 # Plan templates the dp / tp verifications trace under.
 DEST_PLANS = {
@@ -68,22 +73,28 @@ def mesh_verify(cost_runner, dest, fn, inputs):
     """Trace ``fn(inputs)`` for ``cost_runner.mesh`` under the destination's
     role and return the roofline Evaluation, or None without a cost runner,
     without a mesh, or when the destination has no mesh analogue (e.g. the
-    FPGA one).  On the one-device mesh every input is whole, so the trace
-    takes the inputs as they are, on their own device."""
+    FPGA one).  On a mesh with an axis past one device the inputs are
+    placed by the role's logical axes and the trace is one device's; a
+    correct Evaluation's ``info`` holds the mesh, the inputs' logical axes,
+    and the FLOPs and collective bytes per device."""
     if cost_runner is None or getattr(cost_runner, "mesh", None) is None:
         return None
     role = getattr(dest, "mesh_role", "")
     if not role or role not in DEST_PLANS:
         return None
     mesh = cost_runner.mesh
-    if any(int(s) != 1 for s in mesh.shape.values()):
-        raise NotImplementedError(
-            f"mesh {dict(mesh.shape)}: sharded verification needs DTensor "
-            f"placements of the inputs and a per-device trace with its "
-            f"collectives (ROADMAP queue 1 item 11c)")
-    ev = cost_runner.measure(fn, inputs)
+    shape = (dict(mesh.shape) if isinstance(mesh, LocalMesh)
+             else mesh_axes(mesh))
+    axes = state_axes(inputs, role)
+    shardings = None
+    if any(n > 1 for n in shape.values()):
+        shardings = tree_shardings(Rules(mesh, DEST_PLANS[role]), axes,
+                                   inputs)
+    ev = cost_runner.measure(fn, inputs, shardings=shardings)
     if ev.correct:
-        ev.info["mesh"] = dict(mesh.shape)
-        ev.info["input_axes"] = state_axes(inputs, role)
+        rl = ev.info["roofline"]
+        ev.info.update(mesh=shape, input_axes=axes,
+                       flops_per_device=rl["flops_per_device"],
+                       collective_bytes_per_device=rl[
+                           "collective_bytes_per_device"])
     return ev
-

@@ -220,6 +220,15 @@ class Rules:
         return any(n > 1 for a, n in self.shape.items()
                    if a not in self.exclude_axes)
 
+    def without(self, axis: str) -> "Rules":
+        """The same rules on this rank's slice of the mesh across ``axis``
+        (for "pod", its pod's ``mesh["data", "model"]``): what they place
+        never names ``axis``, so DTensor issues no collective across it,
+        as the reference's inner rules leave the manual "pod" axis of its
+        ``shard_map`` alone."""
+        rest = tuple(a for a in self.shape if a != axis)
+        return Rules(self.mesh[rest], self.plan, self.exclude_axes)
+
     def place(self, x: torch.Tensor, axes: Axes) -> DTensor:
         """``x`` as the DTensor of its logical axes: a tensor every rank
         holds whole (the same values) keeps this rank's shard, with no

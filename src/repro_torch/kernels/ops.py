@@ -25,6 +25,12 @@ to the analysis that is tracing (:func:`recording_work`).  The check is
 an ``isinstance`` on each operand (any fake operand takes the fake path:
 a trace may close over a real tensor beside fake ones), so a real launch
 pays nothing measurable for it.
+
+DTensor has no sharding rule for these kernels.  A DTensor operand (the
+mesh bridge traces a candidate on DTensor shards, ``dist.bridge``) is
+gathered whole (a counted all-gather), the wrapper runs on the whole
+tensors, and its results are replicated: the way the trace runs any op
+DTensor cannot shard (``core.trace_analysis``).
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -75,6 +82,23 @@ def _fake_of(*tensors: torch.Tensor) -> Optional[FakeTensor]:
     return None
 
 
+def _replicated(kernel: Callable, *args, **kw):
+    """``kernel`` on ``args`` gathered whole, when one is a DTensor (None
+    otherwise): its results replicated over the operand's mesh."""
+    mesh = next((t.device_mesh for t in args if isinstance(t, DTensor)),
+                None)
+    if mesh is None:
+        return None
+    rep = [Replicate()] * mesh.ndim
+    out = kernel(*[t.redistribute(mesh, rep).to_local()
+                   if isinstance(t, DTensor) else t for t in args], **kw)
+
+    def wrap(t):
+        return DTensor.from_local(t, mesh, rep, run_check=False)
+
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
 def _fake_call(name: str, work: Tuple[float, float]) -> None:
     sink = getattr(_tls, "sink", None)
     if sink is not None:
@@ -94,6 +118,9 @@ def _fir_shapes(xs, hs) -> Tuple[int, int, int]:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    out = _replicated(matmul, a, b)
+    if out is not None:
+        return out
     fake = _fake_of(a, b)
     if fake is not None:
         if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -109,6 +136,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def tdfir(x: torch.Tensor, h: torch.Tensor, block_n: int = 512
           ) -> torch.Tensor:
+    out = _replicated(tdfir, x, h, block_n=block_n)
+    if out is not None:
+        return out
     fake = _fake_of(x, h)
     if fake is not None:
         _fake_call("tdfir", _fir.work(*_fir_shapes((x,), (h,))))
@@ -119,6 +149,10 @@ def tdfir(x: torch.Tensor, h: torch.Tensor, block_n: int = 512
 
 
 def tdfir_complex(x_re, x_im, h_re, h_im, block_n: int = 512):
+    out = _replicated(tdfir_complex, x_re, x_im, h_re, h_im,
+                      block_n=block_n)
+    if out is not None:
+        return out
     fake = _fake_of(x_re, x_im, h_re, h_im)
     if fake is not None:
         shape = _fir_shapes((x_re, x_im), (h_re, h_im))

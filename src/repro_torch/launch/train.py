@@ -8,8 +8,9 @@ watchdog.  As the reference does, it builds a host mesh
 (``launch.mesh.make_host_mesh``: the process group's ranks on one
 ``("data",)`` axis, a one-rank group started when none exists and
 destroyed at the end) and runs the pod-parallel step when ``"pod"`` is
-among its axes, else the plain step: on a host mesh ``--pod-parallel``
-falls back to the plain step.  ``--compress`` sets
+among its axes (the model, built with ``Rules`` on the mesh, is then
+partitioned on each pod's ("data", "model") sub-mesh), else the plain
+step: on a host mesh ``--pod-parallel`` falls back to the plain step.  ``--compress`` sets
 ``plan.grad_compression`` (int8 cross-pod gradients in the pod step).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\

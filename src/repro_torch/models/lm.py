@@ -103,8 +103,11 @@ take whole inputs on every rank and return whole logits and loss; the
 decode cache (K/V, int8 scales, cross K/V, recurrent states) stays placed
 by :func:`cache_axes`.  The mesh path is eager (no CUDA graph).  The MoE
 family under ``moe_impl="shardmap_ep"`` keeps the explicit expert-parallel
-path and whole parameters, and so does every family on a mesh with a
-"pod" axis (the pod-parallel step's, ``train.train_step``).
+path and whole parameters.  On a mesh with a "pod" axis (the pod-parallel
+step's, ``train.train_step``) the LM is partitioned on its pod's ("data",
+"model") sub-mesh (``Rules.without("pod")``), as the reference's GSPMD
+partitions its inner model inside the ``shard_map`` over "pod": nothing
+it places names "pod", and the step reduces across pods itself.
 """
 from __future__ import annotations
 
@@ -719,10 +722,11 @@ class LM(nn.Module):
     ``requires_grad_(True)`` (``repro_torch.train.train_step``).  ``rules``
     (default :class:`NullRules`) with a sharded mesh partition every
     family (the module docstring: ``params``, whole on every rank, are
-    placed here) but the MoE under ``plan.moe_impl == "shardmap_ep"``,
-    whose experts then run expert-parallel over the rules' mesh
-    (:func:`moe.apply_moe_ep`) on whole parameters, and any family on a
-    mesh with a "pod" axis (the pod-parallel step's: :meth:`_partitions`)."""
+    placed here; on a mesh with a "pod" axis, on this rank's pod's
+    sub-mesh, which ``rules`` then holds) but the MoE under
+    ``plan.moe_impl == "shardmap_ep"``, whose experts then run
+    expert-parallel over the rules' mesh (:func:`moe.apply_moe_ep`) on
+    whole parameters (:meth:`_partitions`)."""
 
     def __init__(self, cfg: ModelConfig, params: Params,
                  plan: Optional[Plan] = None, rules=None):
@@ -732,6 +736,8 @@ class LM(nn.Module):
         check_supported(cfg, self.plan)
         self.cfg = cfg
         if self._partitions():
+            if "pod" in self.rules.shape:
+                self.rules = self.rules.without("pod")
             params = self.rules.distribute(params, param_axes(cfg))
         # sqrt(d_model) rounded to the activation type once, as the JAX
         # _embed rounds it: a Python float multiplies with no host copy
@@ -779,13 +785,14 @@ class LM(nn.Module):
                 f"missing {sorted(set(self.state_dict()) - set(params))[:5]}")
 
     def _partitions(self) -> bool:
-        """Whether the rules partition this LM: a mesh axis past one
-        device, but not the expert-parallel MoE (whole parameters, explicit
-        collectives) and not a mesh with a "pod" axis, the pod-parallel
-        step's, whose ranks each run the whole LM on their rows (its inner
-        sharding is ROADMAP item 11c (ii))."""
-        shape = getattr(self.rules, "shape", {})
-        return (self.rules.sharded and "pod" not in shape
+        """Whether the rules partition this LM: a mesh axis other than
+        "pod" past one device, but not the expert-parallel MoE (whole
+        parameters, explicit collectives)."""
+        rules = self.rules
+        excluded = ("pod",) + tuple(getattr(rules, "exclude_axes", ()))
+        inner = [n for a, n in getattr(rules, "shape", {}).items()
+                 if a not in excluded]
+        return (any(n > 1 for n in inner)
                 and not (self.cfg.moe is not None
                          and self.plan.moe_impl == "shardmap_ep"))
 
@@ -1018,8 +1025,9 @@ class LM(nn.Module):
     @contextlib.contextmanager
     def rules_as(self, rules) -> Iterator[None]:
         """Run with ``rules`` in place of the LM's own, in every layer that
-        holds rules (the pod-parallel step's inner rules, whose batch axes
-        its ranks have already split)."""
+        holds rules (the pod-parallel step's inner rules over an LM with
+        whole parameters, which exclude the "pod" axis its ranks have
+        already split)."""
         held = [(m, m.rules) for m in self.modules() if hasattr(m, "rules")]
         for m, _ in held:
             m.rules = rules

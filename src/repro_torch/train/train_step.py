@@ -19,12 +19,17 @@ and logits come back whole on every rank.  That path is eager.
 
 ``make_pod_parallel_train_step(model, tcfg, mesh)`` is the explicit
 multi-pod step, and ``make_pipeline_train_step`` the pipelined one.  Both
-are SPMD: every rank of the mesh runs the step with the whole parameters
-and the whole batch, does its part, and ends with the same gradients and
-takes the same optimizer step.
+are SPMD code every rank of the mesh runs with the whole batch.  In the
+pod step each rank runs the LM on its pod's rows, partitioned on the pod's
+("data", "model") sub-mesh when it was built with ``Rules``, and sums its
+own shard of the gradients across pods, so each rank holds its share of
+the parameters, gradients, moments and error feedback.  The pipelined
+step holds its stage parameters whole on every rank, and every rank takes
+the same optimizer step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
@@ -32,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist import collectives as col
-from repro_torch.dist.sharding import Rules, batch_axes, mesh_axes
+from repro_torch.dist.sharding import Rules, mesh_axes
 from repro_torch.models.lm import LM
 from repro_torch.train import grad_compression, optimizer
 
@@ -99,85 +104,71 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> Callable:
     return train_step
 
 
-def _batch_slice(batch: Mapping[str, Any], mesh, whole: tuple = ()):
-    """(this rank's rows of ``batch``, the mesh axes that cut them): the
-    batch axes that shard it under :class:`Rules` (``("pod", "data")`` as
-    present, less ``whole``, and as they divide B), pod-major, as the
-    reference's ``P("pod")`` in-spec and the "batch" rule lay them out."""
+def _pod_rows(batch: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """This rank's pod's rows of ``batch``: its leading dimension cut into
+    as many parts as the mesh has pods, as the reference's ``P("pod")``
+    in-spec cuts it."""
     b = next(iter(batch.values())).shape[0]
     shape = mesh_axes(mesh)
-    entry = Rules(mesh, exclude_axes=whole).spec(("batch",), (b,))
-    axes = entry[0] if entry else ()
-    axes = (axes,) if isinstance(axes, str) else axes
-    if "pod" in shape and "pod" not in axes:
-        raise ValueError(f"batch {b} % pod {shape['pod']} != 0")
-    coord = dict(zip(shape, mesh.get_coordinate()))
-    shard, n = 0, 1
-    for a in axes:
-        shard, n = shard * shape[a] + coord[a], n * shape[a]
-    rows = slice(shard * (b // n), (shard + 1) * (b // n))
-    return {k: x[rows] for k, x in batch.items()}, axes
+    n = shape["pod"]
+    if b % n:
+        raise ValueError(f"batch {b} % pod {n} != 0")
+    pod = dict(zip(shape, mesh.get_coordinate()))["pod"]
+    rows = slice(pod * (b // n), (pod + 1) * (b // n))
+    return {k: x[rows] for k, x in batch.items()}
 
 
 def make_pod_gradients(model: LM, mesh) -> Callable:
     """The body of the pod-parallel step (the reference's ``pod_body``):
     ``(params, ef, batch) -> (grads, new_ef, loss, metrics)``.
 
-    Each rank takes its pod's rows, and of those its "data" shard's, and
-    runs the LM under inner rules that exclude the batch axes (its rows are
-    already cut, as the reference's inner rules exclude the manual "pod"):
-    expert-parallel MoE then splits only its experts, over "model".  The
-    gradients are averaged over the mesh's "data" group, then summed over
-    its "pod" group with ``compressed_psum`` under
-    ``plan.grad_compression`` (``ef`` the error feedback, fp32 per leaf;
-    ``new_ef`` is ``ef`` without compression), else ``plain_psum``, and
-    divided by the pod count.  The loss and metrics are averaged the same
-    way.  The mean over "data" is the pod's own where the pod's loss is
-    the mean of its shards' (each holds as many tokens): a model without
-    MoE, or expert-parallel MoE, which routes each data shard alone as the
-    reference's does.  A grouped MoE (``moe_impl="gspmd"``) routes the
-    pod's whole batch, so there each data rank computes all of its pod's
-    rows and nothing is averaged over "data".  Ranks along "model" compute
-    the same numbers."""
+    Each rank takes its pod's rows and runs the LM on them, as the
+    reference runs its inner model under GSPMD inside the ``shard_map``
+    over "pod".  An LM built with ``Rules`` on the mesh is partitioned on
+    its pod's ("data", "model") sub-mesh (``models.lm``): it places the
+    rows over "data" and its parameters over both axes, and its gradients
+    come back as DTensors there, each reduced to its parameter's
+    placements.  The expert-parallel MoE keeps whole parameters and runs
+    under rules that exclude "pod" (``moe.apply_moe_ep`` splits the pod's
+    rows over "data" and the experts over "model"); an LM without rules
+    runs its pod's rows whole.  The gradients are then summed over the
+    mesh's "pod" group, each rank its own shard, with ``compressed_psum``
+    under ``plan.grad_compression`` (``ef`` the error feedback, fp32 per
+    leaf; ``new_ef`` is ``ef`` without compression), else ``plain_psum``,
+    and divided by the pod count.  The loss and metrics, whole on every
+    rank, are averaged over "pod"."""
     shape = mesh_axes(mesh)
     if "pod" not in shape:
         raise ValueError(f"the pod-parallel step needs a 'pod' axis, the "
                          f"mesh has {tuple(shape)}")
     loss_fn = make_loss_fn(model)
-    plan = model.plan
-    compress = plan.grad_compression
-    whole = (("data",) if model.cfg.moe is not None
-             and plan.moe_impl != "shardmap_ep" else ())
-    inner = Rules(mesh, plan, exclude_axes=batch_axes(mesh))
+    compress = model.plan.grad_compression
+    # an LM on the mesh with whole parameters (the expert-parallel MoE)
+    # runs under the reference's inner rules: "pod" is already cut
+    inner = (None if model.partitioned or model.rules.mesh is None
+             else Rules(mesh, model.plan, exclude_axes=("pod",)))
     pod = mesh.get_group("pod")
-    data = mesh.get_group("data") if "data" in shape else None
+    n_pods = shape["pod"]
     model.requires_grad_(True)
-
-    def mean(tree, group, n):
-        """``tree``'s leaves averaged over ``group``, each replaced as it
-        is done (one leaf's copy alive at a time)."""
-        for k in tree:
-            tree[k] = col.all_reduce(tree[k], group=group).div_(n)
-        return tree
 
     def pod_gradients(params, ef, batch):
         params = model.load_params(params)
-        rows, axes = _batch_slice(batch, mesh, whole)
-        with model.rules_as(inner):
+        rows = _pod_rows(batch, mesh)
+        with (model.rules_as(inner) if inner is not None
+              else contextlib.nullcontext()):
             total, metrics = loss_fn(rows)
             grads = _grads(total, params)
-        metrics = {k: torch.as_tensor(v, device=model.device).detach()
-                   .float() for k, v in metrics.items()}
-        if "data" in axes:
-            mean(grads, data, shape["data"])
-            mean(metrics, data, shape["data"])
+        grads = {n: optimizer._like_param(g, params[n])
+                 for n, g in grads.items()}
         if compress:
             grads, new_ef = grad_compression.compressed_psum(grads, ef, pod)
         else:
             grads, new_ef = grad_compression.plain_psum(grads, pod), ef
         for g in grads.values():
-            g.div_(shape["pod"])
-        mean(metrics, pod, shape["pod"])
+            g.div_(n_pods)
+        metrics = {k: col.all_reduce(torch.as_tensor(
+            v, device=model.device).detach().float(), group=pod).div_(n_pods)
+            for k, v in metrics.items()}
         return grads, new_ef, metrics["loss"], metrics
 
     return pod_gradients
@@ -187,11 +178,11 @@ def make_pod_parallel_train_step(model: LM, tcfg: TrainConfig,
                                  mesh) -> Callable:
     """The explicit multi-pod step with the (optionally int8-compressed)
     cross-pod gradient sum, as SPMD code every rank of ``mesh`` runs:
-    :func:`make_pod_gradients`, then AdamW.  ``opt_state["ef"]`` holds the
-    error-feedback buffers: when absent, an fp32 zero a leaf, as the
-    reference makes them (``compressed_psum`` broadcasts it, and returns
-    whole buffers); the optimizer update leaves it out and it is put back
-    after."""
+    :func:`make_pod_gradients`, then AdamW on each rank's shards.
+    ``opt_state["ef"]`` holds the error-feedback buffers: when absent, an
+    fp32 zero a leaf, as the reference makes them (``compressed_psum``
+    broadcasts it, and returns buffers in the gradients' placements); the
+    optimizer update leaves it out and it is put back after."""
     pod_gradients = make_pod_gradients(model, mesh)
 
     def train_step(params, opt_state, batch, step):

@@ -364,16 +364,3 @@ def test_decode_halves_merge_into_the_whole(lens):
     torch.testing.assert_close(got[live], want[live], rtol=0, atol=1e-6)
     torch.testing.assert_close(top + torch.log2(sum(wts)), whole_lse,
                                rtol=0, atol=1e-5)
-
-
-# ------------------------------- what still refuses a sharded mesh (11c)
-def test_mesh_bridge_refuses_a_sharded_mesh():
-    """The modeled-cost path's mesh bridge traces one device only (ROADMAP
-    item 11c (iii)); the batcher over a partitioned LM refuses too (test
-    above)."""
-    from repro_torch.dist import bridge
-    runner = types.SimpleNamespace(mesh=types.SimpleNamespace(
-        shape={"data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match="11c"):
-        bridge.mesh_verify(runner, types.SimpleNamespace(mesh_role="model"),
-                           lambda x: x, [torch.zeros(2)])

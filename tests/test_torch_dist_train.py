@@ -19,9 +19,10 @@ gradients of ``(y * ct).sum() + aux`` within 1e-4, every rank holding them
 whole.
 
 (5') The pod step with reduced moonshot (capacity factor 1.0, so experts
-drop tokens) at B 16: grouped MoE on (pod 2, data 2), where each pod routes
-its whole batch, against the JAX loss's gradients on each pod's rows
-averaged over pods; and expert-parallel MoE from an LM built with ``Rules``
+drop tokens) at B 16: grouped MoE on (pod 2, data 2), partitioned on each
+pod's "data" sub-mesh, where each pod routes its whole batch (one group,
+which the data ranks do not split), against the JAX loss's gradients on
+each pod's rows averaged over pods (gathered whole to compare); and expert-parallel MoE from an LM built with ``Rules``
 on (pod 2, data 2, model 2), against the JAX expert-parallel loss (over
 ``model`` 2) on each (pod, data) shard's rows averaged over the shards: the
 loss within 1e-5, the gradients within 1e-4 and the updated parameters
@@ -39,7 +40,7 @@ from helpers import run_multidevice
 from repro_torch.configs import get_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist.plan import Plan
-from repro_torch.dist.sharding import Rules
+from repro_torch.dist.sharding import Rules, whole
 from repro_torch.launch.mesh import make_test_mesh, run_ranks
 from repro_torch.models import moe
 from repro_torch.models.convert import params_from_numpy
@@ -240,8 +241,8 @@ def _rank(rank, world, tmp):
         params, _, _ = ts.make_pod_parallel_train_step(lm, tcfg, mesh)(
             lm.params(), optimizer.init(lm.params(), tcfg), mbatch, 0)
         out[f"{impl}/loss"] = loss
-        out.update({f"{impl}/grad/{n}": t for n, t in grads.items()})
-        out.update({f"{impl}/p/{n}": p.detach().clone()
+        out.update({f"{impl}/grad/{n}": whole(t) for n, t in grads.items()})
+        out.update({f"{impl}/p/{n}": whole(p.detach()).clone()
                     for n, p in params.items()})
     # (7) expert-parallel MoE
     mesh = make_test_mesh(*MOE_MESH, device="cpu")

@@ -415,20 +415,6 @@ def test_bridge_mesh_verify_dp_tp_only():
     assert MANY_CORE.mesh_verify(runner, fn, inputs).time_s == ev_dp.time_s
 
 
-def test_mesh_past_one_device_raises_naming_item_11():
-    class TwoDevices:
-        shape = {"data": 2, "model": 1}
-        size = 2
-
-    app = APPS["3mm"]()
-    inputs = app.make_inputs(0, small=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        bridge.mesh_verify(CompiledCostRunner(TwoDevices()), MANY_CORE,
-                           app.build({}), inputs)
-    assert LocalMesh().size == 1 and dict(LocalMesh().shape) == {
-        "data": 1, "model": 1}
-
-
 def test_planner_records_mesh_time():
     app = APPS["tdFIR"]()
     report = plan_offload(
