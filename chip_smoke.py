@@ -134,7 +134,14 @@ these phases, each printing its seconds:
                without it at the main shape;
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
-               counters set to 0 just before and read just after;
+               counters set to 0 just before and read just after (the
+               linted runs below included); then each app at its small
+               size through ``plan_offload(lint_choice=)`` with a lint
+               that rejects one pattern its loop searches meet
+               (``PLAN_LINT_REJECT``: 3mm's FPGA-analogue ``mm1_E_AB``):
+               that pattern never built or measured, ``static_pruned`` at
+               least 1, at most 4 FPGA-analogue measurements, a correct
+               selection, and matmul (3mm) and tdfir (tdFIR) launched;
   6. serve     the port's continuous batcher on granite-3-2b at full width,
                its decode step captured in a CUDA graph and replayed each
                tick (no step may run from Python), beside an engine that
@@ -233,7 +240,9 @@ these phases, each printing its seconds:
                ``CompiledCostRunner`` on the one-device mesh (every correct
                dp / tp winner traced on fake tensors and scored by the H100
                roofline) and ``publish=`` a ``PlanLookup`` over a
-               ``SearchCache`` on disk, under the host-time and the modeled
+               ``SearchCache`` on disk, under the host-time (with a
+               ``lint_choice`` that rejects nothing, whose verdicts must
+               equal phase 5's unlinted ones) and the modeled
                policy: phase 5's verdicts, a modeled time and a roofline on
                every correct dp / tp record and none on the FPGA
                analogue's, no kernel launch while a candidate is traced,
@@ -364,7 +373,26 @@ these phases, each printing its seconds:
                error feedback a rank's share, then POD_PART_STEPS timed
                steps (wall and device ms per rank, peak memory,
                collectives staged through host memory), the flash
-               forward twice and the backward once a layer and step.
+               forward twice and the backward once a layer and step;
+ 17. analysis  static analysis and the dry run: (a) the CUDA kernel lint
+               (``analysis.kernel_lint``: every output element written
+               once, every access in bounds, sm_90's launch limits, no
+               aliasing) over the launch plans of the shapes phases 3-16
+               launched, no error; (b) the dry-run cells of
+               ``DRYRUN_CELLS`` (granite-3-2b train_4k and decode_32k on
+               the (16, 16) mesh, train_4k on the (2, 16, 16) one) through
+               ``launch.dryrun.run_cell``, traced on a fake process group
+               of 512 ranks with the card's device type in a child process
+               started before phase 2 and waited for at the build's end
+               (its seconds beside the build's): no kernel launch and no
+               card allocation while traced, fake flash forward and
+               backward (train) or decode calls recorded, a finite
+               positive roofline, the per-card peak, ``fits_80GiB``, the
+               modeled step and energy printed; (c) the cell of
+               ``DRYRUN_PRUNED`` (microbatches 3) pruned by P002 untraced;
+               (d) phase 13 (b)'s training shape traced on one device: its
+               peak estimate over 13 (b)'s measured peak memory and its
+               modeled step over 13 (b)'s device ms, printed (not gated).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -385,6 +413,7 @@ import sys
 import tempfile
 import time
 from contextlib import contextmanager
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -405,6 +434,15 @@ MATMUL_MAIN = (512, 512, 512)              # 3mm at N=512, fp32
 # policies phase 11 selects under
 PLANNER_APPS = ("3mm", "tdFIR", "NAS.BT")
 MODELED_POLICIES = ("host-time", "modeled")
+# phase 5's linted runs: the one pattern (nest, destination keys) a lint
+# rejects in each app; 3mm's is an FPGA-analogue pattern, as in
+# tests/test_analysis.py.  tdFIR and NAS.BT give the FPGA loop search no
+# pattern (NAS.BT has no kernel-capable nest; tdFIR's filter bank is
+# pinned by its function-block verification), so theirs is a many-core /
+# GPU loop pattern: tdFIR's output scaling, NAS.BT's wrong smoother
+PLAN_LINT_REJECT = {"3mm": ("mm1_E_AB", ("pallas",)),
+                    "tdFIR": ("scale_output", ("dp",)),
+                    "NAS.BT": ("seidel_relax", ("dp", "tp"))}
 # phase 11: the dp and tp winners traced on a ("data", "model") mesh of the
 # fake process group, one device's trace
 BRIDGE_MESH = (4, 2)
@@ -581,6 +619,15 @@ PART_TURNS_BYTES = 24e9
 POD_PART_MESH = (2, 1, 2)
 POD_PART_TRAIN = (2, 4, 256)
 POD_PART_STEPS = 2
+# phase 17, the dry run: (arch, shape, mesh kind) of the cells traced in a
+# child process on a fake process group of 512 ranks with the card's
+# device type (started before phase 2's build, read in phase 17), and the
+# plan a cell the static lint must prune untraced
+DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"),
+                ("granite-3-2b", "decode_32k", "single"),
+                ("granite-3-2b", "train_4k", "multi"))
+DRYRUN_PRUNED = ("granite-3-2b", "train_4k", "single", {"microbatches": 3})
+DRYRUN_TIMEOUT = 420
 
 
 class SmokeFailure(RuntimeError):
@@ -1908,14 +1955,20 @@ def check_plan_report(name: str, report) -> None:
                 "NAS.BT: the wrong Jacobi smoother was selected")
 
 
+def verdicts(report) -> list:
+    """(destination, method, correct) of each verification of a report."""
+    return [(r.destination, r.method, r.correct) for r in report.records]
+
+
 def run_planner(ops):
-    """Phase 5: the port's main path; returns launches per kernel and the
-    planner's wall seconds per app."""
+    """Phase 5: the port's main path; then each app linted
+    (:func:`run_linted`).  Returns launches per kernel (both runs'), the
+    planner's wall seconds per app and each app's verdicts."""
     from repro_torch.core.planner import UserTarget
     from repro_torch.quickstart import print_report, run_app
 
     ops.reset_launch_counts()
-    grew, walls = {}, {}
+    grew, walls, seen = {}, {}, {}
     for name in PLANNER_APPS:
         before = ops.launch_counts()
         t0 = time.perf_counter()
@@ -1928,17 +1981,95 @@ def run_planner(ops):
               f"{ {k: after[k] - before[k] for k in after} }]", flush=True)
         grew[name] = {k: after[k] - before[k] for k in after}
         check_plan_report(name, report)
+        seen[name] = verdicts(report)
     require(grew["3mm"]["matmul"] > 0, "3mm never launched the matmul kernel")
     require(grew["tdFIR"]["tdfir"] > 0, "tdFIR never launched the tdfir "
             "kernel")
-    return ops.launch_counts(), walls
+    run_linted(ops)
+    return ops.launch_counts(), walls, seen
 
 
-def run_modeled(ops, plan_walls, tmp: str):
+def run_linted(ops) -> None:
+    """Phase 5's linted runs: each app at its small size through
+    ``plan_offload(lint_choice=)`` on the card, with a lint that rejects
+    one pattern the app's loop searches meet (``PLAN_LINT_REJECT``): that
+    pattern is never built or measured, the records count it
+    (``static_pruned``), the FPGA analogue measures at most 4 patterns and
+    the selection is correct.  The matmul and tdfir launches of these runs
+    count into the ``kernels`` line."""
+    from repro_torch.analysis import Finding
+    from repro_torch.apps import APPS
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.measure import TimedRunner
+    from repro_torch.core.planner import UserTarget, plan_offload
+
+    for name in PLANNER_APPS:
+        nest, impls = PLAN_LINT_REJECT[name]
+        app = APPS[name]()
+        built, build = [], app.build
+
+        def spying(choice, build=build, built=built):
+            built.append(dict(choice))
+            return build(choice)
+
+        def lint_choice(choice, nest=nest, impls=impls):
+            if choice.get(nest) in impls:
+                return [Finding("X001", "error",
+                                f"{nest} on {choice[nest]} rejected")]
+            return []
+
+        app.build = spying
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        report = plan_offload(
+            app, UserTarget(),
+            inputs=app.make_inputs(seed=0, small=True, device="cuda"),
+            runner=TimedRunner(repeats=1),
+            ga_cfg=GAConfig.for_gene_length(min(app.gene_length, 6), seed=0),
+            device="cuda", lint_choice=lint_choice)
+        wall = time.perf_counter() - t0
+        grew = {k: v - before[k] for k, v in ops.launch_counts().items()
+                if v != before[k]}
+        pruned = {r.destination + "/" + r.method:
+                  r.cache_stats.get("static_pruned")
+                  for r in report.records if r.cache_stats.get(
+                      "static_pruned")}
+        sel = report.selected
+        fpga = [r for r in report.records if r.paper_analogue == "FPGA"
+                and r.method == "loop"]
+        print(f"  linted {name:6s} (small, {nest} on {'/'.join(impls)} "
+              f"rejected): {wall:.1f} s, {len(built)} patterns built, "
+              f"pruned {pruned}, FPGA loop measured "
+              f"{fpga[0].n_measurements if fpga else None}, selected "
+              f"{sel.paper_analogue} {sel.method} "
+              f"{ {k: v for k, v in sel.choice.items() if v != 'seq'} }, "
+              f"launches {grew}", flush=True)
+        require(all(c.get(nest) not in impls for c in built),
+                f"(5) linted {name}: a rejected pattern was measured")
+        require(sum(pruned.values()) >= 1,
+                f"(5) linted {name}: nothing was statically pruned")
+        require(len(fpga) == 1 and fpga[0].n_measurements <= 4,
+                f"(5) linted {name}: the FPGA loop measured more than 4")
+        require(sel is not None and sel.correct
+                and sel.choice.get(nest) not in impls,
+                f"(5) linted {name}: no correct selection")
+        if name == "3mm":
+            require(pruned.get(fpga[0].destination + "/loop", 0) >= 1
+                    and grew.get("matmul", 0) > 0,
+                    f"(5) linted 3mm: the FPGA pattern was not pruned, or "
+                    f"the matmul kernel did not launch ({grew})")
+        if name == "tdFIR":
+            require(grew.get("tdfir", 0) > 0,
+                    "(5) linted tdFIR never launched the tdfir kernel")
+
+
+def run_modeled(ops, plan_walls, plan_verdicts, tmp: str):
     """Phase 11: the modeled-cost path.  Each app at the paper's sizes
     through ``plan_offload`` with a ``CompiledCostRunner`` on the one-device
     mesh and a ``PlanLookup`` over a ``SearchCache`` on disk, under the
-    host-time and the modeled policy; every correct dp / tp record must
+    host-time and the modeled policy (the host-time runs with a
+    ``lint_choice`` that rejects nothing, whose verdicts must be phase 5's
+    unlinted ones); every correct dp / tp record must
     carry a modeled time and its roofline (the FPGA analogue's none), no
     kernel may launch while a candidate is analysed, the lookup must hold
     each destination's verdict, and a second scoring pass over it, with the
@@ -1977,15 +2108,22 @@ def run_modeled(ops, plan_walls, tmp: str):
     by_app = {name: [] for name in PLANNER_APPS}
     for name in PLANNER_APPS:
         for policy in MODELED_POLICIES:
+            linted = policy == MODELED_POLICIES[0]
+            kw = {"lint_choice": lambda choice: []} if linted else {}
             t0 = time.perf_counter()
             report = run_app(name, UserTarget(), full=True,
                              policy=policy, device="cuda",
-                             cost_runner=runner, publish=lookup)
+                             cost_runner=runner, publish=lookup, **kw)
             wall = time.perf_counter() - t0
             print_report(name, report)
             print(f"  [{wall:.1f} s with the cost runner; phase 5 "
                   f"without it {plan_walls[name]:.1f} s]", flush=True)
             check_plan_report(name, report)
+            if linted:
+                require(verdicts(report) == plan_verdicts[name],
+                        f"(11) {name}: a lint that rejects nothing changed "
+                        f"the verdicts {verdicts(report)} from phase 5's "
+                        f"{plan_verdicts[name]}")
             modeled_table(name, report)
             by_app[name].extend(report.records)
             if policy == MODELED_POLICIES[0]:
@@ -3902,7 +4040,8 @@ def run_train(ops) -> dict:
     the parameters), step wall and device ms, tokens per second, the
     model-FLOPs share of the bf16 peak, the idle share, the device split
     and peak memory; (c) ``launch.train.main`` on reduced granite.
-    Returns (b)'s launches per step."""
+    Returns (b)'s launches, and its peak memory and profiled step's
+    device ms (phase 17 (d))."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.dist.plan import Plan
@@ -3991,7 +4130,7 @@ def run_train(ops) -> dict:
     del lm, opt, step_fn, batches, batch
     free_card()
     run_train_cli()
-    return launches
+    return launches, {"peak_bytes": peak, "device_ms": dev_ms}
 
 
 def run_train_cli() -> None:
@@ -4071,6 +4210,11 @@ def dist_pod_step(ops, device="cuda") -> dict:
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1,
                        total_steps=DIST_STEPS + 4)
     require(init_local_group(device), "(a) a process group already exists")
+    # the compressed steps peak within 12 GiB of the card's memory (67.6
+    # of 79.2 GiB on an H100 80GB): segments that grow in place keep
+    # fragmentation from failing them (an out-of-memory there has been
+    # seen with 11 GiB reserved but unallocated)
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     try:
         mesh = make_test_mesh((1, 1, 1), ("pod", "data", "model"),
                               device=device)
@@ -4202,6 +4346,7 @@ def dist_pod_step(ops, device="cuda") -> dict:
         del lm, lm_c, opt_c, params, batches
         return launches
     finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
         dist.destroy_process_group()
 
 
@@ -5085,6 +5230,212 @@ def pod_part_rank(rank: int, world: int, tmp: str) -> None:
                    "launches": launches}, f)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: static analysis and the dry run
+# ---------------------------------------------------------------------------
+
+def start_dryrun(tmp: str) -> subprocess.Popen:
+    """Start :func:`dryrun_child` in its own process (its fake process group
+    stays out of every other phase's), writing to ``tmp``."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.dryrun_child({os.path.join(tmp, 'dryrun.json')!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def dryrun_child(path: str) -> None:
+    """Phase 17's child: each of DRYRUN_CELLS through
+    ``launch.dryrun.run_cell`` on the card's device type (a fake process
+    group of 512 ranks, the production mesh), DRYRUN_PRUNED, and phase 13
+    (b)'s training shape traced on one device (no mesh); for each, the
+    kernel launches and the card bytes allocated while it ran (both must
+    stay 0).  Writes the results to ``path`` as JSON."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core import cost_model
+    from repro_torch.dist.plan import Plan
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    def watched(fn):
+        before, held = ops.launch_counts(), torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        got = fn()
+        return got, {"wall_s": time.perf_counter() - t0,
+                     "launches": {k: v - before[k] for k, v in
+                                  ops.launch_counts().items()
+                                  if v != before[k]},
+                     "allocated": torch.cuda.memory_allocated() - held}
+
+    out = {"cells": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            res, w = watched(lambda: dryrun.run_cell(
+                arch, shape, mesh, out_dir=Path(tmp), use_cache=False,
+                device="cuda"))
+            out["cells"].append({**{k: res.get(k) for k in (
+                "arch", "shape", "mesh", "n_chips", "trace_s", "memory",
+                "kernel_calls", "roofline", "fits_80GiB", "energy",
+                "collectives", "error")}, **w})
+        arch, shape, mesh, over = DRYRUN_PRUNED
+        res, w = watched(lambda: dryrun.run_cell(
+            arch, shape, mesh, out_dir=Path(tmp), overrides=over,
+            use_cache=False, device="cuda"))
+        out["pruned"] = {**{k: res.get(k) for k in ("error", "lint",
+                                                    "trace_s")}, **w}
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_SHAPE
+    shape = ShapeConfig("phase-13b", seq_len=s, global_batch=b, kind="train")
+    plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
+    (art, trace_s), w = watched(lambda: dryrun.trace_cell(
+        cfg, shape, None, plan, "cuda"))
+    rl = cost_model.roofline_from_analysis(
+        art.analyze(), n_chips=1,
+        model_flops=cost_model.model_flops_for(cfg, shape))
+    out["one_rank"] = {"trace_s": trace_s, "memory": art.memory,
+                       "roofline": rl.to_dict(),
+                       "kernel_calls": dryrun.kernel_calls(art), **w}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def finish_dryrun(proc: subprocess.Popen, tmp: str) -> dict:
+    """Wait for the child (at most DRYRUN_TIMEOUT s) and read its results;
+    its output is printed."""
+    try:
+        log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"(17) the dry-run child ran past "
+                           f"{DRYRUN_TIMEOUT} s")
+    tail = "\n".join(log.splitlines()[-40:])
+    require(proc.returncode == 0, f"(17) the dry-run child failed:\n{tail}")
+    with open(os.path.join(tmp, "dryrun.json")) as f:
+        return json.load(f)
+
+
+def lint_launch_plans():
+    """(a): the CUDA kernel lint over the launch plans of the shapes phases
+    3-16 launched (the serving, training, cross-attention and planner
+    shapes of the constants above) and at its defaults: no error."""
+    from repro_torch.analysis import has_errors, kernel_lint as kl
+    p = functools.partial
+    factories = list(kl.default_factories())
+    m, k, n = MATMUL_MAIN
+    factories += [p(kl.matmul_model, m, n, k, dtype="float32"),
+                 p(kl.matmul_model, m, n, k, dtype="bfloat16"),
+                 p(kl.tdfir_model, *TDFIR_MAIN),
+                 p(kl.tdfir_model, *TDFIR_MAIN, planes=2)]
+    flash = [(FLASH_MAIN[1], FLASH_MAIN[2], FLASH_MAIN[3], FLASH_MAIN[3],
+              FLASH_MAIN[4]),
+             (FLASH_MAIN[1], FLASH_MAIN[2], FLASH_RAGGED_S, FLASH_RAGGED_S,
+              FLASH_MAIN[4]),
+             (H2O_FLASH[1], H2O_FLASH[2], H2O_FLASH[3], H2O_FLASH[3],
+              H2O_FLASH[4]),
+             (GRIFFIN_FLASH[1], GRIFFIN_FLASH[2], GRIFFIN_FLASH[3],
+              GRIFFIN_FLASH[3], GRIFFIN_FLASH[4]),
+             (VLM_HEADS[0], VLM_HEADS[1], 2048, VLM_CTX, VLM_HEADS[2]),
+             (AUDIO_HEADS[0], AUDIO_HEADS[1], AUDIO_CTX, AUDIO_CTX,
+              AUDIO_HEADS[2])]
+    flash += [(h, kv, 2048, 2048, FLASH_WIDE_D) for h, kv in WIDE_LAYOUTS]
+    flash += [(h, kv, sq, skv, d) for _, h, kv, sq, skv, d, _, _
+              in BWD_CASES]
+    b_train, s_train = TRAIN_SHAPE
+    flash.append((b_train * 32, 8 * b_train, s_train, s_train, 64))
+    for h, kv, sq, skv, d in flash:
+        for dtype in ("bfloat16", "float32"):
+            factories.append(p(kl.flash_attention_model, h, sq, skv, d,
+                              dtype=dtype, kv_group=h // kv))
+            factories.append(p(kl.flash_attention_bwd_model, h, sq, skv, d,
+                              dtype=dtype, kv_group=h // kv))
+    decode = [DECODE_MAIN, DECODE_WRAP, H2O_DECODE, GRIFFIN_DECODE,
+              (4, VLM_HEADS[0], VLM_HEADS[1], 2112, VLM_HEADS[2]),
+              (4, VLM_HEADS[0], VLM_HEADS[1], VLM_CTX, VLM_HEADS[2]),
+              (4, AUDIO_HEADS[0], AUDIO_HEADS[1], 2112, AUDIO_HEADS[2]),
+              (4, AUDIO_HEADS[0], AUDIO_HEADS[1], AUDIO_CTX,
+               AUDIO_HEADS[2])]
+    decode += [(4, h, kv, 2112, FLASH_WIDE_D) for h, kv in WIDE_LAYOUTS]
+    for b, h, kv, s, d in decode:
+        for dtype in ("bfloat16", "float32"):
+            factories.append(p(kl.decode_attention_model, b, h, kv, s, d,
+                              dtype=dtype))
+    t0 = time.perf_counter()
+    models, errs = kl.kernel_models(factories)
+    findings = errs + [f for m in models for f in kl.check_model(m)]
+    bad = [f for f in findings if f.severity == "error"]
+    for f in bad:
+        print(f"  [error] {f.subject}: {f.rule_id} {f.message}")
+    print(f"  (a) kernel lint: {len(models)} launch plans of {len(factories)} "
+          f"shapes, {len(bad)} errors, {time.perf_counter() - t0:.2f} s")
+    require(not has_errors(findings), "(17) the kernel lint found errors")
+
+
+def run_analysis(got: dict, train_meas: dict, smi: str) -> None:
+    """Phase 17: (a) :func:`lint_launch_plans`; (b) the dry-run cells of the
+    child (no launch, no card allocation while traced, the fake attention
+    calls of their step kind, a finite positive roofline, ``fits_80GiB``
+    printed); (c) the pruned cell (P002, no trace); (d) phase 13 (b)'s
+    training shape traced on one device beside what phase 13 (b)
+    measured: the dry run's peak over the measured peak memory and its
+    modeled step over the measured device ms (reported, not gated)."""
+    lint_launch_plans()
+    for c in got["cells"]:
+        what = f"{c['arch']} x {c['shape']} x {c['mesh']}"
+        require(not c.get("error"), f"(17) {what}: {c.get('error')}")
+        rl, mem, calls = c["roofline"], c["memory"], c["kernel_calls"]
+        print(f"  (b) {what}: {c['n_chips']} cards, traced in "
+              f"{c['trace_s']} s ({c['wall_s']:.1f} s the cell), peak "
+              f"{mem['peak_estimate_bytes'] / 2**30:.2f} GiB a card (args "
+              f"{mem['argument_bytes'] / 2**30:.3f}, temps "
+              f"{mem['temp_bytes'] / 2**30:.2f}, aliased "
+              f"{mem['alias_bytes'] / 2**30:.3f}), fits_80GiB "
+              f"{c['fits_80GiB']}, modeled step {rl['step_time_s'] * 1e3:.3f}"
+              f" ms ({rl['dominant']}), collective bytes a card "
+              f"{rl['collective_bytes_per_device']:.4g}, energy "
+              f"{c['energy']['energy_j']:.1f} J; fake kernel calls "
+              f"{ {k: v['calls'] for k, v in calls.items()} }; launches "
+              f"{c['launches']}, card bytes allocated {c['allocated']}")
+        require(not c["launches"] and c["allocated"] == 0,
+                f"(17) {what}: the dry run launched {c['launches']} or "
+                f"allocated {c['allocated']} bytes on the card")
+        want = (("flash_attention", "flash_attention_bwd")
+                if c["shape"].startswith("train") else ("decode_attention",))
+        require(all(calls.get(k, {}).get("calls", 0) > 0 for k in want),
+                f"(17) {what}: no fake {want} call in the trace: {calls}")
+        require(np.isfinite(rl["step_time_s"]) and rl["step_time_s"] > 0,
+                f"(17) {what}: roofline step {rl['step_time_s']}")
+    pr = got["pruned"]
+    print(f"  (c) {DRYRUN_PRUNED[:3]} with {DRYRUN_PRUNED[3]}: "
+          f"{pr['error'][:120]}...")
+    require(pr["error"] and "statically pruned" in pr["error"]
+            and any(f["rule_id"] == "P002" for f in pr["lint"])
+            and pr["trace_s"] is None and not pr["launches"],
+            f"(17) the microbatches=3 cell was not pruned untraced: {pr}")
+    one = got["one_rank"]
+    rl, mem = one["roofline"], one["memory"]
+    require(not one["launches"] and one["allocated"] == 0,
+            f"(17) (d): the one-device trace launched {one['launches']} or "
+            f"allocated {one['allocated']} bytes")
+    peak_ratio = mem["peak_estimate_bytes"] / train_meas["peak_bytes"]
+    step_ratio = rl["step_time_s"] * 1e3 / train_meas["device_ms"]
+    print(f"  (d) phase 13 (b)'s shape ({TRAIN_ARCH} bf16, B={TRAIN_SHAPE[0]}"
+          f" S={TRAIN_SHAPE[1]}, block remat, vocab_chunk "
+          f"{TRAIN_VOCAB_CHUNK}) traced on one device in "
+          f"{one['trace_s']:.1f} s: peak estimate "
+          f"{mem['peak_estimate_bytes'] / 2**30:.2f} GiB (args "
+          f"{mem['argument_bytes'] / 2**30:.2f}, temps "
+          f"{mem['temp_bytes'] / 2**30:.2f}) against the measured "
+          f"{train_meas['peak_bytes'] / 2**30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated): {peak_ratio:.3f}x; modeled "
+          f"step {rl['step_time_s'] * 1e3:.1f} ms ({rl['dominant']}) "
+          f"against the measured device {train_meas['device_ms']:.1f} ms: "
+          f"{step_ratio:.3f}x; fake kernel calls "
+          f"{ {k: v['calls'] for k, v in one['kernel_calls'].items()} } "
+          f"[{smi}]")
+
+
 def run_digests() -> int:
     """``--digests``: flash (no window) and decode attention on seeded
     inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
@@ -5150,6 +5501,10 @@ def run_digests() -> int:
     return 0
 
 
+# processes the phases start, which main stops if they outlive a failure
+_CHILDREN: list = []
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5159,6 +5514,19 @@ def main() -> int:
     if sys.argv[1:]:
         print(f"usage: {sys.argv[0]} [--digests]", file=sys.stderr)
         return 2
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            return run_phases(tmp)
+        finally:
+            # a failure before phase 2's end leaves the dry-run child
+            # running: stop it
+            for proc in _CHILDREN:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+
+def run_phases(tmp: str) -> int:
     from repro_torch import device as port_device
     from repro_torch.kernels import _build, ops, ref
 
@@ -5175,6 +5543,10 @@ def main() -> int:
               f"{torch.backends.cudnn.allow_tf32}")
         require(not torch.backends.cuda.matmul.allow_tf32
                 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    # phase 17's dry-run cells trace on the host's CPU (fake tensors, no
+    # kernel): their child runs beside the build and is waited for at its end
+    child = start_dryrun(tmp)
+    _CHILDREN.append(child)
     with phase("2 build"):
         logs = _build.build_all()
         for name, log in logs.items():
@@ -5196,12 +5568,16 @@ def main() -> int:
         print(f"  tdfir: spill stores {spills} bytes (one per kernel); SASS: "
               f"{n_lds128} LDS.128 (16-byte shared loads)")
         require(spills and not any(spills), "a tdfir kernel spills registers")
+        t0 = time.perf_counter()
+        dry = finish_dryrun(child, tmp)
+        print(f"  the dry-run child (phase 17) waited for "
+              f"{time.perf_counter() - t0:.1f} s past the build")
     with phase("3 check"):
         errs = check_kernels(ops, ref)
     with phase("4 time"):
         times = time_kernels(ops, ref)
     with phase("5 plan"):
-        launches, plan_walls = run_planner(ops)
+        launches, plan_walls, plan_verdicts = run_planner(ops)
     cells = []          # the bf16 serving cells, for phase 12
     with phase("6 serve"):
         served, b_pool = run_serve(ops, cells)
@@ -5213,13 +5589,13 @@ def main() -> int:
         recurrent = run_recurrent(ops, cells)
     with phase("10 cross"):
         cross = run_cross(ops, cells)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp11:
         with phase("11 modeled"):
-            lookup = run_modeled(ops, plan_walls, tmp)
+            lookup = run_modeled(ops, plan_walls, plan_verdicts, tmp11)
         with phase("12 fleet"):
-            run_fleet(ops, lookup, cells, tmp)
+            run_fleet(ops, lookup, cells, tmp11)
     with phase("13 train"):
-        trained = run_train(ops)
+        trained, train_meas = run_train(ops)
     free_card()
     with phase("14 dist"):
         distributed = run_dist(ops)
@@ -5229,6 +5605,8 @@ def main() -> int:
     free_card()
     with phase("16 pod part"):
         pod_part = run_pod_partition()
+    with phase("17 analysis"):
+        run_analysis(dry, train_meas, smi)
     # flash and decode: the serving cells' launches, each cell counted
     # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), flash
     # forward and backward in the training steps of 13 (b) and the timed

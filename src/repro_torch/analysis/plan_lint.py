@@ -6,8 +6,8 @@ function-block parsing) before any measurement is spent; this is the
 framework-side analogue: every check here replicates, in closed form, a
 decision the runtime stack makes while tracing / lowering / modeling a
 :class:`repro_torch.dist.plan.Plan` — so an infeasible or self-contradictory
-candidate is rejected for the GA's penalty without paying for a trace (the
-reference wires it into its batch evaluator; the port's router lints every
+candidate is rejected for the GA's penalty without paying for a trace
+(``make_cached_batch_evaluator(lint=...)``; the router also lints every
 endpoint with it before scoring).
 
 What "error" means here is narrow: the artifact provably cannot be built

@@ -67,6 +67,10 @@ class SearchContext:
     penalty_s: Optional[float] = None
     seed: int = 0
     fb_matches: list = field(default_factory=list)   # function-block matches
+    # static choice linter (repro_torch.analysis): (choice dict) -> findings.
+    # The loop searches charge a choice with an error-severity finding the
+    # penalty without building or measuring it (prune before measuring).
+    lint_choice: Optional[Callable[[Dict[str, str]], list]] = None
 
     def measure(self, app, choice: Dict[str, str]):
         """Measure one choice dict, stamping the run's penalty scale."""

@@ -28,7 +28,8 @@ def ga_loop_search(backend: Backend, app, ctx: SearchContext) -> SearchResult:
     from repro_torch.core import loop_offload
     return loop_offload.ga_search(
         app, backend, ctx.runner, ctx.inputs, ctx.ref_out,
-        fixed_choice=ctx.fixed_choice, ga_cfg=ctx.ga_cfg, seed=ctx.seed)
+        fixed_choice=ctx.fixed_choice, ga_cfg=ctx.ga_cfg, seed=ctx.seed,
+        lint_choice=ctx.lint_choice)
 
 
 def intensity_loop_search(backend: Backend, app,
@@ -38,7 +39,8 @@ def intensity_loop_search(backend: Backend, app,
     from repro_torch.core import loop_offload
     return loop_offload.fpga_search(
         app, backend, ctx.runner, ctx.inputs, ctx.ref_out, ctx.small_state,
-        fixed_choice=ctx.fixed_choice, penalty_s=ctx.penalty_s)
+        fixed_choice=ctx.fixed_choice, penalty_s=ctx.penalty_s,
+        lint_choice=ctx.lint_choice)
 
 
 MANY_CORE = Backend(key="dp", name="xla_dp",

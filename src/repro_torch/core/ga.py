@@ -149,7 +149,8 @@ def run_ga(gene_length: int,
             "n_correct": sum(e.correct for e in evals),
             "n_fresh": n_fresh,
             # individuals a static linter rejected without any measurement
-            # (kept for parity with the JAX package's history rows)
+            # (repro_torch.analysis via the batch evaluator / loop-GA lint
+            # hooks)
             "n_pruned": sum(bool(e.info.get("static_pruned"))
                             for e in evals),
         })

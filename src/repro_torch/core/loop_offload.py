@@ -26,14 +26,36 @@ def _measure_choice(app, choice, runner, inputs, ref_out,
     return ev
 
 
+def _lint_findings(lint_choice, choice) -> Optional[list]:
+    """Error-severity findings for a choice, or None when it may run."""
+    if lint_choice is None:
+        return None
+    findings = list(lint_choice(choice) or ())
+    if any(getattr(f, "severity", None) == "error" for f in findings):
+        return findings
+    return None
+
+
+def _pruned_evaluation(findings) -> Evaluation:
+    return Evaluation(
+        time_s=float("inf"), correct=False,
+        info={"static_pruned": True,
+              "static_findings": [f.to_dict() if hasattr(f, "to_dict")
+                                  else f for f in findings]})
+
+
 def ga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
               inputs, ref_out, fixed_choice: Optional[Dict[str, str]] = None,
               ga_cfg: Optional[GAConfig] = None,
-              seed: int = 0) -> SearchResult:
+              seed: int = 0, lint_choice=None) -> SearchResult:
     """Full GA over the app's nests for one destination.
 
     ``fixed_choice`` pins nests already offloaded as function blocks (the
     paper's residual rule); their genes are excluded from the search.
+    ``lint_choice(choice)`` (see :class:`repro_torch.backends.SearchContext`)
+    rejects a choice with an error-severity finding for the penalty: no
+    build, no measurement (the paper's structure analysis inside the GA
+    loop).
     """
     fixed_choice = dict(fixed_choice or {})
     free_nests = [n for n in app.nests if n.name not in fixed_choice]
@@ -52,6 +74,7 @@ def ga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
     # Evaluations by the canonical choice dict
     measured: Dict[Tuple[Tuple[str, str], ...], Evaluation] = {}
     reused = [0]
+    pruned = [0]
 
     def evaluate(genes: Tuple[int, ...]) -> Evaluation:
         choice = dict(fixed_choice)
@@ -62,7 +85,12 @@ def ga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
         if ckey in measured:
             reused[0] += 1
             return measured[ckey]
-        ev = _measure_choice(app, choice, runner, inputs, ref_out)
+        findings = _lint_findings(lint_choice, choice)
+        if findings is not None:
+            pruned[0] += 1
+            ev = _pruned_evaluation(findings)
+        else:
+            ev = _measure_choice(app, choice, runner, inputs, ref_out)
         measured[ckey] = ev
         return ev
 
@@ -78,23 +106,37 @@ def ga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
         best_time_s=res.best_eval.effective_time,
         n_measurements=res.n_measurements, verify_elapsed_s=elapsed,
         history=res.history, best_correct=res.best_eval.correct,
-        cache_stats={"measured": len(measured), "reused": reused[0]})
+        cache_stats={"measured": len(measured) - pruned[0],
+                     "reused": reused[0], "static_pruned": pruned[0]})
 
 
 def fpga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
                 inputs, ref_out, small_state,
                 fixed_choice: Optional[Dict[str, str]] = None,
-                penalty_s: Optional[float] = None) -> SearchResult:
-    """Narrow-then-measure protocol (<= 4 measured patterns)."""
+                penalty_s: Optional[float] = None,
+                lint_choice=None) -> SearchResult:
+    """Narrow-then-measure protocol (<= 4 measured patterns).
+
+    With ``lint_choice`` the linter narrows before the measured budget is
+    spent: a pattern with an error-severity finding is dropped unmeasured
+    and the next pattern by intensity takes its slot, so each of the <= 4
+    measurements goes to a statically feasible pattern.
+    """
     fixed_choice = dict(fixed_choice or {})
     t0 = time.perf_counter()
     candidates = [p for p in intensity.narrow(app, small_state)
                   if p.nest.name not in fixed_choice
                   and dest.key in p.nest.impls]
+    n_pruned = 0
     singles = []
-    for p in candidates[:3]:
+    for p in candidates:
+        if len(singles) >= 3:
+            break
         choice = dict(fixed_choice)
         choice[p.nest.name] = dest.key
+        if _lint_findings(lint_choice, choice) is not None:
+            n_pruned += 1
+            continue
         ev = _measure_choice(app, choice, runner, inputs, ref_out,
                              penalty_s=penalty_s)
         singles.append((p.nest.name, ev))
@@ -105,17 +147,23 @@ def fpga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
         choice = dict(fixed_choice)
         choice[good[0][0]] = dest.key
         choice[good[1][0]] = dest.key
-        ev = _measure_choice(app, choice, runner, inputs, ref_out,
-                             penalty_s=penalty_s)
-        results.append((f"{good[0][0]}+{good[1][0]}", ev))
+        # two feasible patterns may still be infeasible together
+        if _lint_findings(lint_choice, choice) is not None:
+            n_pruned += 1
+        else:
+            ev = _measure_choice(app, choice, runner, inputs, ref_out,
+                                 penalty_s=penalty_s)
+            results.append((f"{good[0][0]}+{good[1][0]}", ev))
     elapsed = time.perf_counter() - t0
 
     if not results:
         ev = _measure_choice(app, fixed_choice, runner, inputs, ref_out,
                              penalty_s=penalty_s)
+        note = "no pallas-capable nests" if not candidates else \
+            "all candidate patterns statically pruned"
         return SearchResult(dest.name, fixed_choice, ev.effective_time,
-                            1, elapsed, note="no pallas-capable nests",
-                            best_correct=ev.correct)
+                            1, elapsed, note=note, best_correct=ev.correct,
+                            cache_stats={"static_pruned": n_pruned})
     # as in run_ga: a wrong result never wins the search outright
     correct_results = [r for r in results if r[1].correct]
     best_name, best_ev = min(correct_results or results,
@@ -130,4 +178,5 @@ def fpga_search(app: OffloadableApp, dest: Backend, runner: TimedRunner,
         destination=dest.name, best_choice=best_choice,
         best_time_s=best_ev.effective_time, n_measurements=len(results),
         verify_elapsed_s=elapsed, history=history,
-        best_correct=best_ev.correct)
+        best_correct=best_ev.correct,
+        cache_stats={"static_pruned": n_pruned})

@@ -191,14 +191,11 @@ def plan_offload(app, targets: UserTarget, *, seed: int = 0,
     incorrect one as a failure — so a lookup scores destinations without
     ever tracing.
 
-    ``lint_choice`` keeps the JAX planner's signature; its layer comes with
-    a later slice, and passing one raises ``NotImplementedError`` naming
-    the ROADMAP item that brings it.
+    ``lint_choice`` (repro_torch.analysis) rejects loop-offload choices
+    before any measurement: a callable mapping a choice dict to a list of
+    :class:`~repro_torch.analysis.Finding`; a choice with an
+    error-severity finding is charged the penalty unmeasured.
     """
-    if lint_choice is not None:
-        raise NotImplementedError(
-            "plan_offload(lint_choice=...) is not ported yet: ROADMAP "
-            "queue 1 item 12 (static analysis)")
     dev = _device.resolve(device)
     runner = runner or TimedRunner()
     backends = backends if backends is not None else default_registry()
@@ -237,7 +234,7 @@ def plan_offload(app, targets: UserTarget, *, seed: int = 0,
         # one penalty scale for every verification in this run (GA-internal
         # evaluations get it via run_ga; direct measurements get it stamped)
         penalty_s=ga_cfg.penalty_s if ga_cfg is not None else None,
-        seed=seed, fb_matches=matches)
+        seed=seed, fb_matches=matches, lint_choice=lint_choice)
 
     records: List[VerificationRecord] = []
     fb_pinned = False                   # residual rule state

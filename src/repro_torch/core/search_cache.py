@@ -21,11 +21,11 @@ the per-candidate cost to per-unique-artifact cost:
     bubble fractions re-score it.
 
 :func:`make_cached_batch_evaluator` packages the layers as a
-``run_ga(evaluate_batch=...)`` callback: a generation is deduped by
-``Plan.structural_key()`` *before* tracing, unique keys are traced one
-after another (a trace is Python holding the interpreter lock, where the
-reference's compiles ran on a thread pool), and every candidate is scored
-from the shared analysis with its own ``bubble_fraction``.
+``run_ga(evaluate_batch=...)`` callback: a generation is linted and
+deduped by ``Plan.structural_key()`` *before* tracing, the unique missing
+keys are traced on a thread pool (traces on a mesh take turns, see
+``trace_analysis.trace``), and every candidate is scored from the shared
+analysis with its own ``bubble_fraction``.
 
 Disk entries that are corrupted, truncated, from an incompatible cache
 version or from another runtime (:func:`runtime_fingerprint`) are ignored
@@ -292,34 +292,59 @@ def make_cached_batch_evaluator(
         *,
         key_extra: Sequence = (),
         pipe_ranks: int = 1,
+        workers: int = 4,
+        from_genes: Optional[Callable[[Tuple[int, ...]], Any]] = None,
+        lint: Optional[Callable[[Any], Sequence]] = None,
 ) -> Callable[[List[Tuple[int, ...]]], List[Any]]:
     """Build a ``run_ga(evaluate_batch=...)`` callback over the cache.
 
     ``trace_plan(plan)`` (the reference's ``lower_plan``) returns a
     :class:`~repro_torch.core.trace_analysis.Traceable` for one candidate
-    (a ``repro_torch.dist.plan.Plan`` made from the GA's genes);
-    ``runner`` is a :class:`repro_torch.core.measure.CompiledCostRunner`;
-    ``key_extra`` names the run identity ((arch, shape, mesh fingerprint,
-    ...)) baked into every cache key; ``pipe_ranks`` sizes the pipeline
-    axis the model-only schedule genes are charged against.
+    (``from_genes(genes)``, by default ``repro_torch.dist.plan.Plan.
+    from_genes``); it runs on the worker pool with the trace, so building
+    a candidate is no serial prefix of the generation.  ``runner`` is a
+    :class:`repro_torch.core.measure.CompiledCostRunner`; ``key_extra``
+    names the run identity ((arch, shape, mesh fingerprint, ...)) baked
+    into every cache key; ``pipe_ranks`` sizes the pipeline axis the
+    model-only schedule genes are charged against.
 
     Per generation: candidates are deduped by ``plan.structural_key()``
-    *before* any tracing, unique missing keys are traced and analysed, and
-    each candidate is scored from its key's analysis with its own bubble
-    fraction — at most one trace per unique structural key, ever.  The
-    callback exposes ``.cache`` (the :class:`SearchCache`) and
-    ``.evaluate`` (a per-individual fallback for ``run_ga``).
+    *before* any tracing, the unique missing keys are traced and analysed
+    on a pool of ``workers`` threads (each trace installs its own
+    ``FakeTensorMode``, recorder and work sink, all per thread; traces on
+    a mesh take turns, ``trace_analysis.trace``), and each candidate is
+    scored from its key's analysis with its own bubble fraction — at most
+    one trace per unique structural key, ever.  A worker's ``compile``
+    span has no parent (spans nest per thread).  The callback exposes
+    ``.cache`` (the :class:`SearchCache`) and ``.evaluate`` (a
+    per-individual fallback for ``run_ga``).
+
+    ``lint(plan)`` (e.g. a closure over
+    :func:`repro_torch.analysis.lint_plan`) returns static findings for one
+    candidate; an error-severity finding rejects it with the GA penalty
+    *before* tracing: it never reaches the pool, ``stats.static_pruned``
+    counts it, and it is neither a hit nor a miss.  Lint verdicts are
+    memoized per gene tuple (findings may depend on model-only genes).
     """
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.core import cost_model
     from repro_torch.core.ga import Evaluation
-    from repro_torch.dist.plan import Plan
     from repro_torch.obs import get_tracer
 
     if cache is None:
         cache = SearchCache()
-    key_prefix = tuple(key_extra)
+    if from_genes is None:
+        from repro_torch.dist.plan import Plan
 
-    def build(key, plan) -> dict:
+        def from_genes(genes):
+            return Plan.from_genes(list(genes))
+
+    key_prefix = tuple(key_extra)
+    lint_memo: Dict[Tuple[int, ...], list] = {}
+
+    def build(item) -> dict:
+        key, plan = item
         with get_tracer().span("compile", cat="search",
                                track="search") as csp:
             try:
@@ -338,42 +363,72 @@ def make_cached_batch_evaluator(
         gen_span = get_tracer().span("evaluate_batch", cat="search",
                                      track="search",
                                      candidates=len(generation))
-        plans = [Plan.from_genes(list(g)) for g in generation]
+        plans = [from_genes(g) for g in generation]
         keys = [(key_prefix, p.structural_key()) for p in plans]
         hashes = [hash_key(k) for k in keys]
         cache.stats.candidates += len(generation)
 
+        # static pruning before the pool: the memo key is the whole
+        # individual, not the structural key
+        pruned: Dict[int, list] = {}             # generation idx -> findings
+        if lint is not None:
+            for i, (genes, plan) in enumerate(zip(generation, plans)):
+                gk = tuple(genes)
+                findings = lint_memo.get(gk)
+                if findings is None:
+                    findings = lint_memo[gk] = list(lint(plan) or ())
+                if any(getattr(f, "severity", None) == "error"
+                       for f in findings):
+                    pruned[i] = findings
+            cache.stats.static_pruned += len(pruned)
+
         payloads: Dict[str, dict] = {}
-        fresh: set = set()                       # hashes traced this batch
-        for h, key, plan in zip(hashes, keys, plans):
-            if h in payloads:
+        todo: Dict[str, tuple] = {}              # hash -> (key, plan)
+        for i, (h, key, plan) in enumerate(zip(hashes, keys, plans)):
+            if i in pruned or h in payloads or h in todo:
                 continue
             payload = cache.lookup(key, count=False)
-            if payload is None:
-                payload = build(key, plan)
-                fresh.add(h)
-            payloads[h] = payload
-        # per-candidate accounting: every candidate that did not pay for
-        # its own trace is a hit (put/put_failure counted the misses)
-        cache.stats.hits += len(generation) - len(fresh)
-        for h, key in zip(hashes, keys):
-            if h not in fresh and cache.from_disk(key):
+            if payload is not None:
+                payloads[h] = payload
+            else:
+                todo[h] = (key, plan)
+        if todo:
+            n = max(1, min(workers, len(todo)))
+            with ThreadPoolExecutor(max_workers=n) as ex:
+                for h, payload in zip(todo, ex.map(build, todo.values())):
+                    payloads[h] = payload
+        # per-candidate accounting: every unpruned candidate that did not
+        # pay for its own trace is a hit (put/put_failure counted the
+        # misses; pruned candidates never enter the cache)
+        hits = len(generation) - len(pruned) - len(todo)
+        cache.stats.hits += hits
+        for i, (h, key) in enumerate(zip(hashes, keys)):
+            if i not in pruned and h not in todo and cache.from_disk(key):
                 cache.stats.disk_hits += 1
 
         out = []
-        for h, plan in zip(hashes, plans):
+        for i, (h, plan) in enumerate(zip(hashes, plans)):
+            if i in pruned:
+                out.append(Evaluation(
+                    time_s=float("inf"), correct=False,
+                    info={"static_pruned": True,
+                          "static_findings": [
+                              f.to_dict() if hasattr(f, "to_dict") else f
+                              for f in pruned[i]]}))
+                continue
             payload = payloads[h]
             if "error" in payload:
                 out.append(Evaluation(time_s=float("inf"), correct=False,
                                       info={"error": payload["error"]}))
                 continue
             bubble = cost_model.plan_bubble_fraction(plan, pipe_ranks)
-            is_fresh = h in fresh
+            fresh = h in todo
             out.append(runner.score_analysis(
                 payload["analysis"],
-                payload.get("compile_s", 0.0) if is_fresh else 0.0,
-                bubble_fraction=bubble, cache_hit=not is_fresh))
-        gen_span.set(compiles=len(fresh), hits=len(generation) - len(fresh))
+                payload.get("compile_s", 0.0) if fresh else 0.0,
+                bubble_fraction=bubble, cache_hit=not fresh))
+        gen_span.set(n_pruned=len(pruned), compiles=len(todo),
+                     n_fresh=len(todo), hits=hits)
         gen_span.finish()
         return out
 

@@ -23,7 +23,8 @@ Heuristics (the reference's, restated for eager PyTorch):
     multipliers).  Views and aliasing ops count 0;
   * a kernel wrapper of ``repro_torch.kernels.ops`` reached by a fake
     tensor is not launched: it reports its own work from the formula kept
-    beside its plan (``kernels.ops.recording_work``);
+    beside its plan (``kernels.ops.recording_work``), priced at its
+    operands' dtype (a bf16 flash at the bf16 peak);
   * collectives: each ``c10d`` / functional-collective op the trace
     reaches (DTensor's redistributions run through them) is counted and
     charged its operand bytes by the recording mode; on one device all are
@@ -47,20 +48,34 @@ it runs on whole tensors, its results replicated.
 (``flops_fp32``, ``flops_bf16``, ``flops_fp16``, ``flops_fp64``), which
 :func:`repro_torch.core.cost_model.roofline_from_analysis` prices each at
 its own peak.
+
+The per-device memory account (:attr:`TracedArtifact.memory`, where the
+reference reads XLA's ``memory_analysis()``) follows the fake storages
+while the trace runs: the inputs' (local shards') storages at the start,
+each storage an op allocates when it does, and its release when the
+storage dies (a weakref finalizer: a tensor autograd saves for the
+backward keeps its storage, and its bytes, alive).  The peak of the live
+bytes, the inputs, the results and the results that are inputs written in
+place (the optimizer's updates, a decode cache: the port's counterpart of
+donated buffers) give the reference's five keys.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import sys
+import threading
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
-from torch._subclasses.fake_tensor import (FakeTensorMode,
-                                           unset_fake_temporarily)
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor, Replicate
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
-from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
 from torch.utils._pytree import tree_leaves, tree_map
 from torch.utils.flop_counter import flop_registry
 
@@ -170,8 +185,20 @@ def _sig(ts) -> Tuple:
                  for t in ts)
 
 
-def _tensors(tree) -> List[torch.Tensor]:
-    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+def _tensors(tree, out: Optional[list] = None) -> List[torch.Tensor]:
+    """The tensors of an op's arguments or results (tuples, lists and
+    dicts of them), in order: ``tree_leaves`` without its generality,
+    which a trace would pay for on every op."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
 
 
 def op_cost(func, args, kwargs, out) -> Optional[TracedOp]:
@@ -232,21 +259,94 @@ def _consistent(x) -> bool:
     sharded)."""
     if not isinstance(x, DTensor):
         return True
-    with unset_fake_temporarily():
-        local, _ = compute_local_shape_and_global_offset(
-            x.shape, x.device_mesh, x.placements)
-    return tuple(local) == tuple(x._local_tensor.shape)
+    return _local_shape(tuple(x.shape), x.device_mesh,
+                        tuple(x.placements)) == tuple(x._local_tensor.shape)
+
+
+@functools.lru_cache(maxsize=4096)
+def _local_shape(shape: Tuple[int, ...], mesh, placements) -> Tuple[int, ...]:
+    """This rank's shard shape of a global ``shape`` under ``placements``:
+    host arithmetic, run with no dispatch mode active (neither faked nor
+    recorded) and memoised (DTensor computes it slowly, and a trace asks
+    for it on every op)."""
+    with _disable_current_modes():
+        local, _ = compute_local_shape_and_global_offset(shape, mesh,
+                                                         placements)
+    return tuple(local)
+
+
+class _Memory:
+    """Live bytes of the fake storages one trace holds, and their peak.
+    A storage is counted once, from the first tensor seen on it, until it
+    dies (module docstring)."""
+
+    def __init__(self):
+        self.live = 0
+        self.peak = 0
+        self._held: Dict[int, int] = {}     # id(storage) -> bytes
+
+    def hold(self, tree) -> int:
+        """Count the storages of ``tree``'s tensors (a DTensor's local
+        shard) not yet held; returns the bytes of all of them."""
+        total = 0
+        for st in _storages(tree):
+            key = id(st)
+            if key not in self._held:
+                self._held[key] = st.nbytes()
+                self.live += st.nbytes()
+                weakref.finalize(st, self._release, key)
+            total += self._held[key]
+        self.peak = max(self.peak, self.live)
+        return total
+
+    def _release(self, key: int) -> None:
+        self.live -= self._held.pop(key, 0)
+
+
+def _storages(tree) -> list:
+    """The distinct storages of a tree's tensors (a DTensor's local
+    shard's)."""
+    out, seen = [], set()
+    for t in _tensors(tree):
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        if not isinstance(t, torch.Tensor) or t.layout != torch.strided:
+            continue
+        st = t.untyped_storage()
+        if id(st) not in seen:
+            seen.add(id(st))
+            out.append(st)
+    return out
+
+
+def memory_account(memory: _Memory, inputs, outputs,
+                   argument_bytes: int) -> Dict[str, int]:
+    """The reference's five keys (``src/repro/launch/dryrun.py``): the
+    arguments, the results, the results that are arguments written in
+    place (``alias_bytes``), and the temporaries the peak held beyond
+    them; ``peak_estimate_bytes`` = arguments + results + temporaries -
+    aliases."""
+    held = {id(st) for st in _storages(inputs)}
+    outs = _storages(outputs)
+    out_bytes = sum(st.nbytes() for st in outs)
+    alias = sum(st.nbytes() for st in outs if id(st) in held)
+    temp = max(0, memory.peak - argument_bytes - (out_bytes - alias))
+    return {"argument_bytes": argument_bytes, "output_bytes": out_bytes,
+            "temp_bytes": temp, "alias_bytes": alias,
+            "peak_estimate_bytes": argument_bytes + out_bytes + temp - alias}
 
 
 class _Recorder(TorchDispatchMode):
-    """Records the cost of every op that reaches the dispatcher, and the
-    work the kernel wrappers report for their fake calls.  An op on
-    DTensors is handed to DTensor with this mode pushed again, so the
-    local ops it runs are recorded (module docstring)."""
+    """Records the cost of every op that reaches the dispatcher, the work
+    the kernel wrappers report for their fake calls, and the storages the
+    ops allocate (:class:`_Memory`).  An op on DTensors is handed to
+    DTensor with this mode pushed again, so the local ops it runs are
+    recorded (module docstring)."""
 
     def __init__(self):
         super().__init__()
         self.ops: List[TracedOp] = []
+        self.memory = _Memory()
         self._dtensor = False       # inside DTensor's handling of an op
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -261,6 +361,7 @@ class _Recorder(TorchDispatchMode):
         rec = op_cost(func, args, kwargs, out)
         if rec is not None:
             self.ops.append(rec)
+        self.memory.hold(out)
         return out
 
     def _on_dtensors(self, func, args, kwargs):
@@ -313,9 +414,16 @@ class _Recorder(TorchDispatchMode):
                                                      run_check=False)
                         if isinstance(t, torch.Tensor) else t, out)
 
-    def kernel(self, name: str, flops: float, nbytes: float) -> None:
+    def kernel(self, name: str, flops: float, nbytes: float,
+               dtype: torch.dtype) -> None:
         self.ops.append(TracedOp(f"kernel.{name}", float(flops),
-                                 float(nbytes), "fp32"))
+                                 float(nbytes), _dtype_key(dtype)))
+
+    @property
+    def work_sink(self):
+        """The kernel wrappers' sink on threads that carry this mode but no
+        sink of their own (the autograd engine's, ``kernels.ops``)."""
+        return self.kernel
 
 
 def analyze_ops(ops: Sequence[TracedOp],
@@ -345,13 +453,17 @@ def analyze_ops(ops: Sequence[TracedOp],
 class TracedArtifact:
     """The ops one trace of a candidate reached: the port's compiled
     artifact.  :meth:`analyze` is the cost walk (memoised per artifact by
-    ``search_cache.analyze_artifact``); :meth:`as_text` lists the ops."""
+    ``search_cache.analyze_artifact``); :meth:`as_text` lists the ops;
+    ``memory`` is the per-device memory account (:func:`memory_account`,
+    None when not taken)."""
 
     def __init__(self, ops: List[TracedOp], device: torch.device,
-                 comm_counts: Dict[str, float]):
+                 comm_counts: Dict[str, float],
+                 memory: Optional[Dict[str, int]] = None):
         self.ops = ops
         self.device = device
         self.comm_counts = comm_counts
+        self.memory = memory
 
     def analyze(self) -> Dict[str, float]:
         return analyze_ops(self.ops, self.comm_counts)
@@ -378,12 +490,10 @@ def _leaf_device(x) -> Optional[torch.device]:
 def _placed(x, sharding):
     """The DTensor of this rank's fake shard of ``x`` (a fake tensor of
     the global shape) under ``sharding`` (a NamedSharding)."""
-    placements = sharding.placements
-    with unset_fake_temporarily():      # the offsets are host arithmetic
-        local, _ = compute_local_shape_and_global_offset(
-            x.shape, sharding.mesh, placements)
+    placements = tuple(sharding.placements)
+    local = _local_shape(tuple(x.shape), sharding.mesh, placements)
     return DTensor.from_local(
-        torch.empty(tuple(local), dtype=x.dtype, device=x.device),
+        torch.empty(local, dtype=x.dtype, device=x.device),
         sharding.mesh, placements, run_check=False, shape=x.shape,
         stride=x.stride())
 
@@ -412,6 +522,20 @@ def trace(fn: Callable, inputs, shardings=None) -> TracedArtifact:
         raise ValueError(f"inputs span devices {sorted(map(str, devices))}; "
                          f"a trace runs on one")
     dev = devices.pop() if devices else _device.resolve(None)
+    # traces on a mesh take turns: DTensor runs each op's shape
+    # propagation under whichever fake mode it detects, through one
+    # process-wide dispatcher, and torch's own threaded tests serialise
+    # that (ShardingPropagator._fake_mode_lock); a trace without a mesh
+    # holds nothing that another thread's trace could meet
+    with _MESH_TRACES if shardings is not None else contextlib.nullcontext():
+        return _trace(fn, inputs, shardings, dev)
+
+
+# held by each trace on a mesh for its whole run (:func:`trace`)
+_MESH_TRACES = threading.Lock()
+
+
+def _trace(fn, inputs, shardings, dev) -> TracedArtifact:
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
     recorder = _Recorder()
     with fake_mode:
@@ -426,23 +550,28 @@ def trace(fn: Callable, inputs, shardings=None) -> TracedArtifact:
         fake_inputs = tree_map(fake, inputs)
         if shardings is not None:
             fake_inputs = _zip_placed(fake_inputs, shardings)
+        arguments = recorder.memory.hold(fake_inputs)
         with recorder, kernel_ops.recording_work(recorder.kernel):
-            fn(fake_inputs)
+            out = fn(fake_inputs)
+        memory = memory_account(recorder.memory, fake_inputs, out, arguments)
     counts = {k: 0.0 for k in COLLECTIVES}
     for op in recorder.ops:
         if op.collective:
             counts[op.collective] += 1.0
-    return TracedArtifact(recorder.ops, dev, counts)
+    return TracedArtifact(recorder.ops, dev, counts, memory)
 
 
 def _zip_placed(tree, shardings):
-    """``tree``'s tensor leaves placed by the matching ``shardings``."""
+    """``tree``'s tensor leaves placed by the matching ``shardings`` (a
+    subtree whose sharding is None stays whole)."""
+    if shardings is None:
+        return tree
     if isinstance(tree, dict):
         return {k: _zip_placed(v, shardings[k]) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zip_placed(v, sh) for v, sh in zip(tree,
                                                              shardings))
-    if isinstance(tree, torch.Tensor) and shardings is not None:
+    if isinstance(tree, torch.Tensor):
         return _placed(tree, shardings)
     return tree
 

@@ -48,6 +48,7 @@ from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
+from torch.utils._python_dispatch import _disable_current_modes
 
 Axes = Tuple[Optional[str], ...]
 
@@ -133,8 +134,8 @@ class NamedSharding:
         out = distribute_tensor(whole, self.mesh, self.placements,
                                 src_data_rank=None)
         local = out.to_local()
-        if local.untyped_storage().data_ptr() \
-                == whole.untyped_storage().data_ptr():
+        if local.untyped_storage()._cdata \
+                == whole.untyped_storage()._cdata:
             out = DTensor.from_local(local.clone(), self.mesh,
                                      out.placements, run_check=False,
                                      shape=out.shape, stride=out.stride())
@@ -262,8 +263,11 @@ class Rules:
         ``x`` holds (0 for a plain tensor)."""
         if not isinstance(x, DTensor):
             return 0
-        _, start = compute_local_shape_and_global_offset(
-            x.shape, x.device_mesh, x.placements)
+        # host arithmetic: with no dispatch mode active, so that a trace's
+        # fake mode (core.trace_analysis) neither fakes nor records it
+        with _disable_current_modes():
+            _, start = compute_local_shape_and_global_offset(
+                x.shape, x.device_mesh, x.placements)
         return int(start[dim])
 
     def group(self, x, dim: int):

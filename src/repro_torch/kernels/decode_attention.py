@@ -38,7 +38,7 @@ import ctypes
 import functools
 import math
 from contextlib import contextmanager
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -119,6 +119,29 @@ def plan(b: int, h: int, kvh: int, s_len: int, d: int,
     return DecodePlan(chunk, max(1, -(-s_len // chunk)))
 
 
+def valid_rows(cache_len, b: int, s_len: int) -> int:
+    """Cache rows the lengths make valid, summed over the ``b`` slots:
+    ``cache_len`` an int (every slot), or a list or tensor of 1 or ``b``
+    host-readable lengths, each clamped to the cache's ``s_len``."""
+    if isinstance(cache_len, torch.Tensor):
+        cache_len = cache_len.reshape(-1).tolist()
+    if isinstance(cache_len, int):
+        cache_len = [cache_len]
+    lens = [min(max(int(n), 0), s_len) for n in cache_len]
+    return sum(lens) * (b if len(lens) == 1 else 1)
+
+
+def work(b: int, h: int, kvh: int, d: int, valid: int, itemsize: int = 2,
+         lse: bool = False) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch over ``valid`` cache rows in all
+    (:func:`valid_rows`): 4 FLOP per query head, head dim and valid key
+    (q k and p v), the valid rows of K and V read once, q read and the
+    output written once (and, with ``lse``, the fp32 log-sum-exps).  The
+    bound in PERF.md and the modeled cost both take it."""
+    nbytes = itemsize * (2 * valid * kvh * d + 2 * b * h * d)
+    return (4.0 * h * d * valid, float(nbytes + (4 * b * h if lse else 0)))
+
+
 def live_blocks(p: DecodePlan, lens, kvh: int) -> int:
     """Blocks that do work for these per-slot lengths (the rest return at
     once)."""
@@ -161,13 +184,19 @@ def graph_scratch(store: dict):
         _graph_store = outer
 
 
+def scratch_key(dev, stream: int, graph: Optional[dict] = None):
+    """The store and key of the scratch a launch on ``stream`` uses: its
+    own (device, stream) entry, or a graph's own store while one captures
+    (``graph``), so no two streams and no two graphs share one."""
+    return (_SCRATCH, (dev, stream)) if graph is None else (graph, dev)
+
+
 def _scratch(dev: torch.device, stream: int, floats: int, groups: int):
     if torch.cuda.is_current_stream_capturing() and _graph_store is None:
         raise RuntimeError("decode attention is captured into a CUDA graph "
                            "only inside graph_scratch (ops.CountedGraph), "
                            "so that the graph holds its own scratch")
-    store, key = ((_SCRATCH, (dev, stream)) if _graph_store is None
-                  else (_graph_store, dev))
+    store, key = scratch_key(dev, stream, _graph_store)
     part, counters = store.get(key, (None, None))
     if part is None or part.numel() < floats or counters.numel() < groups:
         part = torch.empty((floats,), dtype=torch.float32, device=dev)

@@ -28,6 +28,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +39,9 @@ launches = 0
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+THREADS = 256                   # a block's threads, both routes
+BF16_ROWS = 128                 # query rows a tensor-core block (2 x 64)
+F32_ROWS, F32_KEYS = 64, 32     # the CUDA-core block's rows and key tile
 
 
 def kv_ring(d: int) -> tuple[int, int]:
@@ -48,6 +52,59 @@ def kv_ring(d: int) -> tuple[int, int]:
     kernel's own when it loads."""
     width = 128 if d == 80 else d
     return (64 if width == 256 else 128), (2 if width >= 128 else 3)
+
+
+class FlashPlan(NamedTuple):
+    """The forward's launch at one shape, as ``csrc/flash_attention.cu``
+    makes it."""
+    route: str           # "wgmma" (tensor cores) or "cuda-cores"
+    grid: Tuple[int, int, int]
+    threads: int
+    rows: int            # query rows a block
+    keys: int            # keys a K/V tile
+    stages: int          # stages of the K/V ring (0: staged by plain loads)
+    smem: int            # dynamic shared memory bytes a block
+
+
+def plan(bh: int, sq: int, d: int, dtype: torch.dtype) -> FlashPlan:
+    """The launch for q [bh, sq, d] of ``dtype``.  bf16: a 1-D grid of
+    ``ceil(sq / 128) * bh`` blocks of 256 threads (two consumer
+    warpgroups of 64 rows), block x taking head ``x % bh`` and the
+    ``x // bh``-th query tile from the last (the longest causal walks
+    first); its Q tile, then :func:`kv_ring` stages of a K and a V tile,
+    behind 1024 bytes of alignment slack and ``2 * stages + 1``
+    mbarriers.  fp32: a ``(ceil(sq / 64), bh)`` grid of 256 threads; Q
+    and K tiles with padded rows, a V tile, the 64 x 32 scores (padded)
+    and three per-row statistics, in fp32."""
+    if d not in HEAD_DIMS or dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash attention takes D in {HEAD_DIMS} and "
+                         f"float32 or bfloat16, got D={d}, {dtype}")
+    if dtype == torch.bfloat16:
+        width = 128 if d == 80 else d
+        keys, stages = kv_ring(d)
+        smem = (1024 + BF16_ROWS * width * 2 + stages * 2 * keys * width * 2
+                + 8 * (2 * stages + 1))
+        return FlashPlan("wgmma", (-(-sq // BF16_ROWS) * bh, 1, 1), THREADS,
+                         BF16_ROWS, keys, stages, smem)
+    floats = (F32_ROWS * (d + 1) + F32_KEYS * (d + 1) + F32_KEYS * d
+              + F32_ROWS * (F32_KEYS + 1) + 3 * F32_ROWS)
+    return FlashPlan("cuda-cores", (-(-sq // F32_ROWS), bh, 1), THREADS,
+                     F32_ROWS, F32_KEYS, 0, 4 * floats)
+
+
+def work(bh: int, sq: int, skv: int, d: int, kv_group: int, causal: bool,
+         window: int = 0, itemsize: int = 2, lse: bool = False
+         ) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one launch: 4 FLOP per attended (query, key) pair
+    and head dim (``flash_attention_bwd.attended_pairs`` counts the causal
+    and window masks), q, k, v read once and o written once (and, with
+    ``lse``, the fp32 log-sum-exps).  The bound in PERF.md and the modeled
+    cost (``repro_torch.core.trace_analysis``) both take it."""
+    from repro_torch.kernels.flash_attention_bwd import attended_pairs
+    pairs = attended_pairs(sq, skv, causal, window)
+    n_kv = bh // kv_group
+    nbytes = itemsize * (2 * bh * sq * d + 2 * n_kv * skv * d)
+    return 4.0 * bh * pairs * d, float(nbytes + (4 * bh * sq if lse else 0))
 
 
 @functools.lru_cache(maxsize=None)

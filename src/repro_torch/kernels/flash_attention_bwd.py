@@ -86,6 +86,7 @@ def plan(d: int, dtype: torch.dtype) -> Plan:
     return Plan("cuda-cores", bq, bq, 0, dkdv, bq, bq, 0, dq)
 
 
+@functools.lru_cache(maxsize=1024)
 def attended_pairs(sq: int, skv: int, causal: bool, window: int = 0) -> int:
     """(query, key) pairs one head attends: every pair without a mask, key
     k for query q only where k <= q under ``causal`` and q - k < ``window``

@@ -17,14 +17,17 @@ only under grad mode with an input that requires grad, so serving launches
 exactly what it did before.
 
 A fake tensor (``torch._subclasses.FakeTensor``: shape and dtype, no data)
-reaching the matmul or tdFIR wrapper, on either device, neither launches
-nor runs the plain version: the wrapper returns an empty result of the
-right shape and dtype and hands the kernel's work, from the formula kept
-beside its plan (``matmul.work``, ``tdfir.work``, ``tdfir.complex_work``),
-to the analysis that is tracing (:func:`recording_work`).  The check is
-an ``isinstance`` on each operand (any fake operand takes the fake path:
-a trace may close over a real tensor beside fake ones), so a real launch
-pays nothing measurable for it.
+reaching a wrapper, on either device, neither launches nor runs the plain
+version: the wrapper refuses what its kernel refuses, returns empty
+results of the kernel's shapes and dtypes and hands the kernel's work,
+from the formula kept beside its plan (``matmul.work``, ``tdfir.work``,
+``tdfir.complex_work``, ``flash_attention.work``,
+``flash_attention_bwd.work``, ``decode_attention.work``), with the
+operands' dtype, to the analysis that is tracing (:func:`recording_work`).
+The check is an ``isinstance`` on each operand (any fake operand takes the
+fake path: a trace may close over a real tensor beside fake ones), made
+before the device check, so a fake CPU tensor never runs the plain
+version; a real launch pays nothing measurable for it.
 
 DTensor has no sharding rule for these kernels.  A DTensor operand (the
 mesh bridge traces a candidate on DTensor shards, ``dist.bridge``) is
@@ -41,6 +44,8 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Replicate
+from torch.utils._python_dispatch import (_disable_current_modes,
+                                          _get_current_dispatch_mode_stack)
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -62,10 +67,14 @@ _tls = threading.local()
 
 
 @contextmanager
-def recording_work(sink: Callable[[str, float, float], None]):
-    """Hand ``sink(kernel, flops, nbytes)`` the work of every fake-tensor
-    kernel call this thread makes inside the block (the trace analysis,
-    ``repro_torch.core.trace_analysis``); the FLOPs are fp32 operations."""
+def recording_work(sink: Callable[[str, float, float, torch.dtype], None]):
+    """Hand ``sink(kernel, flops, nbytes, dtype)`` the work of every
+    fake-tensor kernel call this thread makes inside the block (the trace
+    analysis, ``repro_torch.core.trace_analysis``); ``dtype`` is the
+    operands', whose peak the FLOPs are priced at.  A thread with no sink
+    of its own takes the ``work_sink`` of a dispatch mode on its stack:
+    the autograd engine runs a backward on cards on threads of its own,
+    carrying the tracing mode there but not this thread's sink."""
     saved = getattr(_tls, "sink", None)
     _tls.sink = sink
     try:
@@ -99,10 +108,14 @@ def _replicated(kernel: Callable, *args, **kw):
     return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
-def _fake_call(name: str, work: Tuple[float, float]) -> None:
+def _fake_call(name: str, work: Tuple[float, float],
+               dtype: torch.dtype) -> None:
     sink = getattr(_tls, "sink", None)
+    if sink is None:            # an autograd thread: the tracing mode's
+        sink = next((m.work_sink for m in _get_current_dispatch_mode_stack()
+                     if getattr(m, "work_sink", None) is not None), None)
     if sink is not None:
-        sink(name, *work)
+        sink(name, *work, dtype)
 
 
 def _fir_shapes(xs, hs) -> Tuple[int, int, int]:
@@ -127,7 +140,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"matmul shapes {tuple(a.shape)} @ "
                              f"{tuple(b.shape)}")
         _fake_call("matmul", _mm.work(a.shape[0], b.shape[1], a.shape[1],
-                                      a.element_size()))
+                                      a.element_size()), a.dtype)
         return fake.new_empty((a.shape[0], b.shape[1]), dtype=a.dtype)
     if _on_cpu(a, b):
         return ref.matmul_ref(a, b)
@@ -141,7 +154,7 @@ def tdfir(x: torch.Tensor, h: torch.Tensor, block_n: int = 512
         return out
     fake = _fake_of(x, h)
     if fake is not None:
-        _fake_call("tdfir", _fir.work(*_fir_shapes((x,), (h,))))
+        _fake_call("tdfir", _fir.work(*_fir_shapes((x,), (h,))), x.dtype)
         return fake.new_empty(x.shape, dtype=x.dtype)
     if _on_cpu(x, h):
         return ref.tdfir_ref(x, h)
@@ -156,7 +169,7 @@ def tdfir_complex(x_re, x_im, h_re, h_im, block_n: int = 512):
     fake = _fake_of(x_re, x_im, h_re, h_im)
     if fake is not None:
         shape = _fir_shapes((x_re, x_im), (h_re, h_im))
-        _fake_call("tdfir_complex", _fir.complex_work(*shape))
+        _fake_call("tdfir_complex", _fir.complex_work(*shape), x_re.dtype)
         return (fake.new_empty(x_re.shape, dtype=x_re.dtype),
                 fake.new_empty(x_re.shape, dtype=x_re.dtype))
     if _on_cpu(x_re, x_im, h_re, h_im):
@@ -178,7 +191,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_forward(q, k, v, causal, kv_group, window)
 
 
+def _flash_shapes(q, k, v, kv_group: int, window: int, *more):
+    """(BH, Sq, Skv, D) of fake flash operands (``more``: o and do, shaped
+    as q), refused as the kernels refuse them."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
+            or any(t.shape != q.shape for t in more):
+        raise ValueError(f"flash attention takes q [BH,S,D] and k/v "
+                         f"[BH/kv_group,S,D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    bh, sq, d = q.shape
+    if kv_group < 1 or k.shape[0] * kv_group != bh or k.shape[2] != d:
+        raise ValueError(f"k/v rows {k.shape[0]} x kv_group {kv_group} must "
+                         f"equal q rows {bh}, with head dim {d}")
+    if d not in _fa.HEAD_DIMS:
+        raise ValueError(f"CUDA flash attention takes head dim D in "
+                         f"{_fa.HEAD_DIMS}, got {d}")
+    if not 0 <= window < 2 ** 31:
+        raise ValueError(f"flash attention takes a window in [0, 2^31), got "
+                         f"{window}")
+    if len({t.dtype for t in (q, k, v, *more)}) != 1 \
+            or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"CUDA flash attention takes float32 or bfloat16 "
+                        f"operands of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    return bh, sq, k.shape[1], d
+
+
+def _flash_fake(fake, q, k, v, causal, kv_group, window, lse: bool):
+    """The fake forward: its work reported, empty out (and lse)."""
+    bh, sq, skv, d = _flash_shapes(q, k, v, kv_group, window)
+    _fake_call("flash_attention",
+               _fa.work(bh, sq, skv, d, kv_group, causal, window,
+                        q.element_size(), lse=lse), q.dtype)
+    out = fake.new_empty((bh, sq, d), dtype=q.dtype)
+    if not lse:
+        return out
+    return out, fake.new_empty((bh, sq), dtype=torch.float32)
+
+
 def _flash_forward(q, k, v, causal, kv_group, window):
+    out = _replicated(_flash_forward, q, k, v, causal, kv_group, window)
+    if out is not None:
+        return out
+    fake = _fake_of(q, k, v)
+    if fake is not None:
+        return _flash_fake(fake, q, k, v, causal, kv_group, window, False)
     if _on_cpu(q, k, v):
         return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group,
                            window=window)
@@ -192,6 +249,13 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, kv_group: int = 1,
     [BH, Sq, D], lse float32 [BH, Sq], base 2; see
     ``kernels.flash_attention.flash_attention``), what the backward
     takes."""
+    out = _replicated(flash_attention_lse, q, k, v, causal=causal,
+                      kv_group=kv_group, window=window)
+    if out is not None:
+        return out
+    fake = _fake_of(q, k, v)
+    if fake is not None:
+        return _flash_fake(fake, q, k, v, causal, kv_group, window, True)
     if _on_cpu(q, k, v):
         return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group,
                            window=window, return_lse=True)
@@ -206,6 +270,23 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v with output
     ``o`` and row log-sum-exps ``lse`` (:func:`flash_attention_lse`),
     given the output's gradient ``do``."""
+    out = _replicated(flash_attention_bwd, q, k, v, o, do, lse,
+                      causal=causal, kv_group=kv_group, window=window)
+    if out is not None:
+        return out
+    fake = _fake_of(q, k, v, o, do, lse)
+    if fake is not None:
+        bh, sq, skv, d = _flash_shapes(q, k, v, kv_group, window, o, do)
+        if tuple(lse.shape) != (bh, sq) or lse.dtype != torch.float32:
+            raise ValueError(f"flash attention backward takes the forward's "
+                             f"lse as a float32 [{bh}, {sq}], got "
+                             f"{lse.dtype} {tuple(lse.shape)}")
+        _fake_call("flash_attention_bwd",
+                   _fab.work(bh, sq, skv, d, kv_group, causal, window,
+                             q.element_size()), q.dtype)
+        return (fake.new_empty(q.shape, dtype=q.dtype),
+                fake.new_empty(k.shape, dtype=q.dtype),
+                fake.new_empty(k.shape, dtype=q.dtype))
     if _on_cpu(q, k, v, o, do, lse):
         return ref.mha_backward_ref(q, k, v, o, do, lse, causal=causal,
                                     kv_group=kv_group, window=window)
@@ -245,7 +326,28 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q [B, H, D]; caches [B, S, KV, D]; per-row ``cache_len`` -> [B, H,
     D].  ``lse``, an fp32 [B, H] tensor, receives each row's base-2
     log-sum-exp (``-1e30`` for a row of length 0, whose output is 0), as
-    :func:`flash_attention_lse` gives the forward's."""
+    :func:`flash_attention_lse` gives the forward's.
+
+    A fake call reports the work of the valid rows its lengths give
+    (``decode_attention.valid_rows``); lengths held in a fake tensor cannot
+    be read, and then every row counts the whole cache: an upper bound."""
+    out = _replicated(decode_attention, q, k_cache, v_cache, cache_len,
+                      lse=lse)
+    if out is not None:
+        return out
+    fake = _fake_of(q, k_cache, v_cache)
+    if fake is not None:
+        b, h, kvh, s_len, d = _decode_shapes(q, k_cache, v_cache)
+        lens = cache_len
+        if isinstance(cache_len, FakeTensor):
+            lens = s_len
+        elif isinstance(cache_len, torch.Tensor):   # real: read on the host
+            with _disable_current_modes():
+                lens = cache_len.reshape(-1).tolist()
+        _fake_call("decode_attention",
+                   _da.work(b, h, kvh, d, _da.valid_rows(lens, b, s_len),
+                            q.element_size(), lse=lse is not None), q.dtype)
+        return fake.new_empty((b, h, d), dtype=q.dtype)
     if _on_cpu(q, k_cache, v_cache):
         if lse is None:
             return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
@@ -254,6 +356,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         lse.copy_(got)
         return out
     return _da.decode_attention(q, k_cache, v_cache, cache_len, lse=lse)
+
+
+def _decode_shapes(q, k_cache, v_cache):
+    """(B, H, KV, S, D) of fake decode operands, refused as the kernel
+    refuses them."""
+    if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"decode attention takes q [B,H,D] and caches "
+                         f"[B,S,KV,D], got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    b, h, d = q.shape
+    _, s_len, kvh, dk = k_cache.shape
+    if k_cache.shape[0] != b or dk != d or h % kvh:
+        raise ValueError(f"q {tuple(q.shape)} does not group over the cache "
+                         f"{tuple(k_cache.shape)}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) \
+            or q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"CUDA decode attention takes float32 or bfloat16 "
+                        f"q/caches of one dtype, got {q.dtype}, "
+                        f"{k_cache.dtype}, {v_cache.dtype}")
+    if d not in _da.HEAD_DIMS:
+        raise ValueError(f"CUDA decode attention takes head dim D in "
+                         f"{_da.HEAD_DIMS}, got D={d}")
+    if h // kvh > _da.max_group(d, q.dtype):
+        raise ValueError(f"CUDA decode attention takes H/KV <= "
+                         f"{_da.max_group(d, q.dtype)} at D={d} in "
+                         f"{q.dtype}, got {h // kvh}")
+    return b, h, kvh, s_len, d
 
 
 def launch_counts() -> Dict[str, int]:

@@ -70,10 +70,12 @@ def init_ffn(d: int, hidden: int, act: str, use_bias: bool, dtype,
              generator, device, n: int = 0) -> dict:
     """An FFN's weights (``repro.models.layers.init_ffn``), or ``n`` of them
     stacked on a leading axis (an MoE's experts), drawn one at a time so
-    that a float32 draw never holds more than one."""
+    that a float32 draw never holds more than one (at once on the meta
+    device, where a draw holds nothing: ``launch.specs``)."""
     def dense(shape, fan_in):
-        if not n:
-            return dense_init(shape, fan_in, dtype, generator, device)
+        if not n or torch.device(device).type == "meta":
+            return dense_init(((n,) if n else ()) + shape, fan_in, dtype,
+                              generator, device)
         out = torch.empty((n, *shape), dtype=dtype, device=device)
         for e in range(n):
             out[e] = dense_init(shape, fan_in, dtype, generator, device)
@@ -368,12 +370,16 @@ def write_kv(caches: Sequence, new: Sequence, slot, rules=None,
         at = slot
         keep = None
         if bufs[0].shape[1] != width:           # this rank's kv_seq slice
+            # a row whose slot lies outside the slice writes back what its
+            # clamped slot holds: no shape depends on the data (no host
+            # sync, and a fake-tensor trace runs it)
             at = slot - start
-            keep = (at >= 0) & (at < bufs[0].shape[1])
-            rows, at = rows[keep], at[keep]
+            keep = ((at >= 0) & (at < bufs[0].shape[1]))[:, None, None]
+            at = at.clamp(0, bufs[0].shape[1] - 1)
         for c, x in zip(bufs[:n], vals):
-            x = x[:, 0] if keep is None else x[keep, 0]
-            c[rows, at] = x.to(c.dtype)
+            x = x[:, 0].to(c.dtype)
+            c[rows, at] = x if keep is None else torch.where(keep, x,
+                                                             c[rows, at])
 
     rules.local(local, [("batch",)] + [CACHE_AXES] * n
                 + [new_axes] * len(new), [])(slot, *caches, *new)
