@@ -6,8 +6,9 @@
 
 Run from the root of a checkout; it builds the CUDA kernels itself.
 ``--digests`` runs only the kernels, on seeded inputs: the attention
-kernels without a window at the serving shapes (and the VLM's non-causal
-cross shape, Sq 2048 over 1024 keys), then the planner's fp32 matmul and
+kernels without a window, cap or offset at the serving shapes (the flash
+backward at 13 (b)'s training shape, and the VLM's non-causal cross
+shape, Sq 2048 over 1024 keys), then the planner's fp32 matmul and
 tdFIR kernels (real and complex) at the paper's sizes, and prints a
 SHA-256 of each output and its ms (CUDA events and device time): run in
 two checkouts (this script copied into the other one's root, where it
@@ -95,7 +96,16 @@ these phases, each printing its seconds:
                entry and a floored row limit (``kernels/parity.py``)
                beside simulated faults (a dropped mask, a dK missing a
                group member, Delta one row off, dQ scaled by sqrt(D)),
-               each call twice for the same bits;
+               each call twice for the same bits; logit soft caps and the
+               query offset (``check_softcap``): flash at granite's S=2048
+               capped at SOFTCAP_CHECK and a causal chunk of 1000 queries
+               over 2048 keys at its offset, with and without the cap,
+               bf16 and fp32; every head dim's tile capped and offset;
+               decode at the main pool and recurrentgemma's ring capped
+               (its lse too, twice for the same bits); the backward at
+               ``SOFTCAP_BWD_CASES``; each at the limits of the uncapped
+               call beside fault controls that they must reject (the cap
+               dropped, its derivative dropped, the offset dropped);
   4. time      each kernel, its plain version and the library call at the
                main-path shapes (CUDA events over many launches after a
                warm-up, and device time per call from torch.profiler),
@@ -131,7 +141,11 @@ these phases, each printing its seconds:
                of the cache ([4,1056,8,64] fp32, 32 heads) and at the
                second half of the main pool, where three rows hold no
                valid key (zeros and -1e30), and timed against the call
-               without it at the main shape;
+               without it at the main shape; the capped rows under Gemma
+               2's cap of 50 (the flash forward at S=2048, the backward at
+               B 4, decode at the main pool), each beside the uncapped
+               call, and the offset chunk forward and backward beside
+               SDPA with its boolean mask (``time_softcap``);
   5. plan      the port's planner (``repro_torch.quickstart`` settings) over
                3mm, tdFIR and NAS.BT at the paper's sizes, with the launch
                counters set to 0 just before and read just after (the
@@ -148,7 +162,7 @@ these phases, each printing its seconds:
                runs the step eagerly: (a) 2 layers in fp32, eight staggered
                requests whose greedy tokens must equal batch-1
                ``generate``'s and whose logits must lie within 1e-5 of the
-               eager engine's; (b) all 40 layers in bf16, the same trace,
+               eager engine's; (b) 20 of its 40 layers in bf16, the same trace,
                every request complete and no NaN logit, with wall and
                tick-clock metrics, tokens per wall second and the device's
                idle share over a whole engine run (graph and eager: the
@@ -163,7 +177,7 @@ these phases, each printing its seconds:
                8 requests a cell: (c) h2o-danube-1.8b at full width and depth
                (prompts 1000 and 5000 past its 4096 window, a wrapped ring),
                (d) nemotron-4-15b at full width and depth, (e)
-               command-r-plus-104b at full width, 8 of its 64 layers, (f)
+               command-r-plus-104b at full width, 4 of its 64 layers, (f)
                granite-3-2b with the int8 KV cache, whose first decode step
                must lie within 0.05 of the exact cache's in probability.
                Every engine run of phases 6 and 7 sets the launch counters
@@ -177,7 +191,7 @@ these phases, each printing its seconds:
                whose greedy tokens must equal batch-1 ``generate``'s, whose
                graph-replayed logits must equal an eager engine's bit for
                bit, and one state's step replayed twice for the same bits;
-               (g) moonshot-v1-16b-a3b at 24 of its 48 layers and (h)
+               (g) moonshot-v1-16b-a3b at 8 of its 48 layers and (h)
                arctic-480b at 2 of its 35, at full width in bf16, with
                phase 7's metrics, the device idle share of an unprofiled
                run, the step's
@@ -200,7 +214,7 @@ these phases, each printing its seconds:
                and 4096 (past its 2048 window), each with phase 6 (a)'s
                checks (tokens equal to batch-1 ``generate``'s, graph logits
                within 1e-5 of an eager engine's, one state's step replayed
-               twice for the same bits); then (i) mamba2-1.3b at 24 of
+               twice for the same bits); then (i) mamba2-1.3b at 12 of
                its 48 layers and (j) recurrentgemma-2b whole in bf16
                (cache_len 2112 and 4160)
                with phase 8's metrics: the step beside its bytes bound
@@ -222,8 +236,8 @@ these phases, each printing its seconds:
                seamless-m4t-medium whole in fp32, each with phase 6 (a)'s
                checks (tokens equal to batch-1 ``generate``'s, graph
                logits within 1e-5 of an eager engine's, one state's step
-               replayed twice for the same bits); then (k) the VLM at 2 of
-               its 20 groups (10 of 100 layers) and (l) seamless whole in
+               replayed twice for the same bits); then (k) the VLM at 1 of
+               its 20 groups (5 of 100 layers) and (l) seamless whole in
                bf16 with phase 9's metrics: the step beside its bytes
                bound (the decoder's weights, the self-attention pool's
                valid rows, every slot's whole cross K/V), tokens per wall
@@ -337,7 +351,7 @@ these phases, each printing its seconds:
                weights in the same process, the loss within 1e-5
                relative, each gathered gradient and updated parameter
                within 2e-4 of its leaf's max, the flash forward twice and
-               the backward once a layer on each rank's heads; (b) 4
+               the backward once a layer on each rank's heads; (b) 2
                layers in bf16, B 4, S 2048, block remat: a warm-up and 3
                timed steps (the loss falls), step wall and device ms,
                peak memory and the collectives staged through host memory
@@ -392,7 +406,24 @@ these phases, each printing its seconds:
                ``DRYRUN_PRUNED`` (microbatches 3) pruned by P002 untraced;
                (d) phase 13 (b)'s training shape traced on one device: its
                peak estimate over 13 (b)'s measured peak memory and its
-               modeled step over 13 (b)'s device ms, printed (not gated).
+               modeled step over 13 (b)'s device ms, printed (not gated);
+ 18. softcap   logit soft caps on the LM (``run_softcap``): (a)
+               granite-3-2b at full width, 2 layers in fp32, capped at
+               SOFTCAP_PARITY: 4 requests through the captured batcher,
+               tokens equal to the CPU batcher's (the plain versions), the
+               capped prefill logits far from the uncapped LM's, one train
+               step against the CPU's within 13 (a')'s limits; (b) the
+               whole model in bf16 under Gemma 2's cap of 50: 4 requests
+               on the captured engine beside the same weights uncapped
+               (decode ms a step, wall and CUDA events), then 3 train steps
+               at 13 (b)'s shape (wall and CUDA-event ms, peak memory,
+               beside 13 (b)'s), the flash and decode launches;
+ 19. examples  ``repro_torch.autoplan_model`` (its GA in a child process
+               started before phase 2, run twice over one disk cache: no
+               launch, no card byte, one trace a structural key, none on
+               the warm cache), then on the card ``serve_lm --trace 6``
+               over its trio, ``train_lm`` (the loss falls by 0.2, no
+               restart) and ``train_lm --wide`` (``run_examples``).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -412,7 +443,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -460,6 +491,9 @@ DECODE_MAIN_LENS = (1, 300, 1000, 2112)
 DECODE_WRAP = (64, 32, 8, 2112, 64)
 DECODE_WRAP_LENS = (1, 17, 300, 640, 1000, 2111, 2112, 2500) * 8
 SERVE_ARCH = "granite-3-2b"
+# (b) keeps 20 of granite's 40 layers (whole until phases 18 and 19 came,
+# to pay for them; phase 18 (b) serves all 40, capped and not)
+SERVE_LAYERS = 20
 SERVE_PROMPTS = (1000, 2048)               # alternating prompt lengths
 SERVE_GENS = (16, 64, 32, 48, 24, 56, 40, 64)  # (a): mixed max_gen
 SERVE_MAX_GEN = 64                         # (b)
@@ -485,15 +519,16 @@ WIDE_LAYOUTS = tuple((h, 8) for h in WIDE_GROUP_HEADS) + MOE_LAYOUTS
 FAMILY_CELLS = (
     ("c", "h2o-danube-1.8b", None, (1000, 5000), 5120, False),
     ("d", "nemotron-4-15b", None, (1000, 2048), 2112, False),
-    ("e", "command-r-plus-104b", 8, (1000, 2048), 2112, False),
+    ("e", "command-r-plus-104b", 4, (1000, 2048), 2112, False),
     ("f", "granite-3-2b", None, SERVE_PROMPTS, SERVE_CACHE_LEN, True),
 )
 # phase 8: (label, arch, layers kept (None: all), why the depth is cut);
 # phase 7's trace, prompts and cache_len; (g') is moonshot at 2 layers in
-# fp32, the parity cell.  (g) keeps 24 of moonshot's 48 layers (whole
-# until phase 15 (d) came), to pay for (d) within the script's time
-MOE_CELLS = (("g", "moonshot-v1-16b-a3b", 24,
-              "fits one card; cut to pay for phase 15 (d)'s seconds"),
+# fp32, the parity cell.  (g) keeps 8 of moonshot's 48 layers (whole
+# until phase 15 (d) came, 24 until phases 18 and 19 came), to pay for
+# them within the script's time
+MOE_CELLS = (("g", "moonshot-v1-16b-a3b", 8,
+              "fits one card; cut to pay for phases 15 (d), 18 and 19"),
              ("h", "arctic-480b", 2, "would not fit one card"))
 MOE_PARITY_ARCH = "moonshot-v1-16b-a3b"
 # recurrentgemma-2b (phase 3, phase 4 rows, phase 9 (j)): B, H, KV, S, D of
@@ -507,9 +542,10 @@ GRIFFIN_DECODE_LENS = (1, 1000, 2048, 2048)
 # phase 9: (label, arch, layers kept (None: all), prompts, cache_len); 8
 # requests, one arrival a tick, 4 slots, max_gen 64.  mamba2's prompts
 # divide its SSD chunk of 256 (the JAX model asserts it); recurrentgemma's
-# 4096 is past its window.  (i) keeps 24 of mamba2's 48 identical layers
-# (whole until phase 16 came), to pay for phase 16 and phase 11's mesh
-RECURRENT_CELLS = (("i", "mamba2-1.3b", 24, (1024, 2048), 2112),
+# 4096 is past its window.  (i) keeps 12 of mamba2's 48 identical layers
+# (whole until phase 16 came, 24 until phases 18 and 19 came), to pay for
+# phase 16, phase 11's mesh and phases 18 and 19
+RECURRENT_CELLS = (("i", "mamba2-1.3b", 12, (1024, 2048), 2112),
                    ("j", "recurrentgemma-2b", None, (1000, 4096), 4160))
 # the parity cells (i'), (j'), (k'), (l'): layers kept (None: all), in
 # fp32 (recurrentgemma's 5 are one group of (recurrent, recurrent, local
@@ -526,11 +562,11 @@ AUDIO_HEADS = (16, 16, 64)
 AUDIO_CTX = 3072
 # phase 10: (label, arch, layers kept (None: all), flash launches a
 # prefill, decode launches a step); phase 7's trace, prompts and
-# cache_len, each request with its own context.  (k) keeps 2 of the VLM's
-# 20 groups (10 of its 100 layers: 8 self, 2 cross), so that the script
-# stays near 900 s of its 1200 with phase 15; (l) is seamless whole (12
-# encoder, 12 self and 12 cross layers)
-CROSS_CELLS = (("k", "llama-3.2-vision-90b", 10, 10, 10),
+# cache_len, each request with its own context.  (k) keeps 1 of the VLM's
+# 20 groups (5 of its 100 layers: 4 self, 1 cross; 2 groups until phases
+# 18 and 19 came, 4 until phase 15), so that the script stays within its
+# 1200 s; (l) is seamless whole (12 encoder, 12 self and 12 cross layers)
+CROSS_CELLS = (("k", "llama-3.2-vision-90b", 5, 5, 5),
                ("l", "seamless-m4t-medium", None, 36, 24))
 # the flash backward's shapes (phase 3): (what, H, KV, Sq, Skv, D, causal,
 # window); granite's first at S 2048 (its main path's heads), then ragged
@@ -574,11 +610,12 @@ DIST_MOE_ARCH = "moonshot-v1-16b-a3b"
 DIST_MOE_X = (4, 256)
 # phase 15, automatic partitioning of granite-3-2b on a (data, model) mesh
 # of (1, 2) over two gloo ranks on the one card: (a) layers, B, S in fp32;
-# (b) layers, B, S, timed steps in bf16; (c) layers, prompts, prompt
-# length, cache slots, decode steps in fp32
+# (b) layers, B, S, timed steps in bf16 (2 layers: 4 until phases 18 and
+# 19 came); (c) layers, prompts, prompt length, cache slots, decode steps
+# in fp32
 PART_MESH = (1, 2)
 PART_TRAIN = (2, 4, 256)
-PART_STEPS = (4, 4, 2048, 3)
+PART_STEPS = (2, 4, 2048, 3)
 PART_SERVE = (2, 4, 1000, 2112, 16)
 # phase 15 (d): the other families and the int8 cache on the same mesh at
 # full width and a cut depth, each against the same LM unpartitioned on the
@@ -628,6 +665,48 @@ DRYRUN_CELLS = (("granite-3-2b", "train_4k", "single"),
                 ("granite-3-2b", "train_4k", "multi"))
 DRYRUN_PRUNED = ("granite-3-2b", "train_4k", "single", {"microbatches": 3})
 DRYRUN_TIMEOUT = 420
+# logit soft caps and the query offset (phases 3, 4 and 18): a cap that
+# bends unit-scale scores far past every limit (the kernel checks and their
+# fault controls; 18 (a)), and Gemma 2's self-attention cap
+# (arXiv:2408.00118) on the full-width path (18 (b)) and the timed rows;
+# the offset case: a causal chunk of Sq queries after Skv - Sq earlier ones
+SOFTCAP_CHECK = 2.0
+SOFTCAP_PARITY = 1.0
+SOFTCAP_GEMMA = 50.0
+OFFSET_CASE = (1000, 2048)             # Sq, Skv
+OFFSET = OFFSET_CASE[1] - OFFSET_CASE[0]
+# the backward's capped and offset cases (phase 3), BWD_CASES' fields and
+# the cap and the offset: granite's heads at its main shape, the offset
+# case with and without the cap, and the general kernels' other tiles
+# (D 80 on the D 128 tile under a window; D 256 on the CUDA cores)
+SOFTCAP_BWD_CASES = (
+    ("granite capped", 32, 8, 2048, 2048, 64, True, 0, SOFTCAP_CHECK, 0),
+    ("granite chunk", 32, 8, *OFFSET_CASE, 64, True, 0, 0.0, OFFSET),
+    ("granite capped chunk", 32, 8, *OFFSET_CASE, 64, True, 0,
+     SOFTCAP_CHECK, OFFSET),
+    ("h2o-danube capped", 32, 8, 1000, 1000, 80, True, 300, SOFTCAP_CHECK,
+     0),
+    ("recurrentgemma capped", 10, 1, 1000, 1000, 256, True, 500,
+     SOFTCAP_CHECK, 0),
+)
+# phase 18 (a): granite-3-2b at full width, 2 layers in fp32, its cap at
+# SOFTCAP_PARITY: 4 requests (prompt lengths in turn, max_gen each) through
+# the captured batcher on the card and the batcher on the CPU, then one
+# train step against the CPU's (13 (a')'s limits at B 1, S 256); (b) the
+# whole model in bf16 under Gemma 2's cap: 4 requests of phase 6's prompts,
+# SOFTCAP_SERVE_GEN tokens each, then SOFTCAP_TRAIN_STEPS timed steps at
+# 13 (b)'s shape
+SOFTCAP_PROMPTS = (300, 700)
+SOFTCAP_GENS = (16, 24, 12, 20)
+SOFTCAP_SERVE_GEN = 16
+SOFTCAP_TRAIN_STEPS = 3
+# phase 19, the examples: autoplan_model's GA (generations, population) in
+# a child process started before phase 2 (beside the dry-run child) and
+# run twice over one disk cache; train_lm's steps, and --wide's
+EXAMPLE_AUTOPLAN = (2, 5)
+EXAMPLE_TRAIN_STEPS = 20
+EXAMPLE_WIDE_STEPS = 5
+EXAMPLE_TIMEOUT = 420
 
 
 class SmokeFailure(RuntimeError):
@@ -872,6 +951,7 @@ def check_kernels(ops, ref):
     check_tdfir_edges(ops, ref, gen)
     errs.update(check_attention(ops, ref, gen))
     errs["flash_attention_bwd"] = check_flash_backward(ops, ref, gen)
+    check_softcap(ops, ref, gen)
     return errs
 
 
@@ -1569,6 +1649,7 @@ def time_kernels(ops, ref):
     time_attention(ops, ref, gen, rows, dev)
     time_backward(ops, ref, gen, rows, dev)
     check_decode_lse(ops, ref, gen)
+    time_softcap(ops, ref, gen, rows, dev)
     listed = dict(rows, tdfir_complex=rows["tdfir"]["complex"])
     for name, r in listed.items():
         print(f"  {name:16s} kernel {r['ms']:.4f} ms  bound "
@@ -2132,6 +2213,8 @@ def run_modeled(ops, plan_walls, plan_verdicts, tmp: str):
                             for r in report.records
                             if r.method == "loop" and r.mesh_time_s
                             and r.paper_analogue in BRIDGE_ROLES]
+                if name == PLANNER_APPS[-1]:
+                    bridge = start_bridge(winners, tmp)
             sel = report.selected
             selected[(name, policy)] = (
                 f"{sel.paper_analogue} {sel.method} "
@@ -2143,7 +2226,7 @@ def run_modeled(ops, plan_walls, plan_verdicts, tmp: str):
             "phase 11 never launched the matmul or the tdfir kernel")
     for (name, policy), what in selected.items():
         print(f"  selected {name:6s} under {policy:9s}: {what}")
-    bridge_on_mesh(winners)
+    finish_bridge(*bridge)
     keys = check_lookup(lookup, by_app, serve_key)
     # the second pass: lookups only, with the tracer poisoned
     misses, lookups = lookup.stats.misses, lookup.stats.lookups
@@ -2168,31 +2251,44 @@ def run_modeled(ops, plan_walls, plan_verdicts, tmp: str):
     return lookup
 
 
-def bridge_on_mesh(winners) -> None:
+def start_bridge(winners, tmp: str):
     """Phase 11's sharded bridge: each app's dp and tp winners (``winners``:
     (app, role, choice, one-device modeled s)) traced on a ("data",
     "model") mesh of BRIDGE_MESH of the fake process group, in a child
-    process (its group stays out of the later phases'): every pair must be
-    correct, with no kernel launched while it is traced; its modeled ms
-    and collective bytes per device are printed beside the one-device
-    ones."""
+    process (its group stays out of the later phases'), started beside
+    the last planner run; returns what :func:`finish_bridge` takes."""
     require(len(winners) == 2 * len(PLANNER_APPS),
             f"phase 11 has {len(winners)} dp / tp winners with a modeled "
             f"time, not {2 * len(PLANNER_APPS)}")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "bridge.json")
-        with open(path, "w") as f:
-            json.dump(winners, f)
-        t0 = time.perf_counter()
-        subprocess.run([sys.executable, "-c", "import chip_smoke; "
-                        f"chip_smoke.bridge_mesh_child({path!r})"],
-                       cwd=ROOT, check=True, timeout=300)
-        wall = time.perf_counter() - t0
-        with open(path) as f:
-            got = json.load(f)
+    path = os.path.join(tmp, "bridge.json")
+    with open(path, "w") as f:
+        json.dump(winners, f)
+    proc = subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                             f"chip_smoke.bridge_mesh_child({path!r})"],
+                            cwd=ROOT)
+    _CHILDREN.append(proc)
+    return winners, path, proc, time.perf_counter()
+
+
+def finish_bridge(winners, path: str, proc, t0: float) -> None:
+    """Wait for the bridge's child (at most 300 s): every pair must be
+    correct, with no kernel launched while it is traced; its modeled ms
+    and collective bytes per device are printed beside the one-device
+    ones."""
+    try:
+        proc.wait(timeout=max(1.0, 300 - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SmokeFailure("(11) the bridge's child ran past 300 s")
+    require(proc.returncode == 0, f"(11) the bridge's child failed "
+            f"({proc.returncode})")
+    wall = time.perf_counter() - t0
+    with open(path) as f:
+        got = json.load(f)
     print(f"  the bridge on a (data, model) mesh of {BRIDGE_MESH} (fake "
           f"process group, one device traced), {wall:.1f} s in a child "
-          f"process:")
+          f"process beside the last planner run:")
     for (name, role, _, local_s), ev in zip(winners, got):
         print(f"    {name:6s} {role:5s}: modeled {ev['ms']:.6f} ms "
               f"(one device {local_s * 1e3:.6f}), collective bytes per "
@@ -2206,7 +2302,7 @@ def bridge_on_mesh(winners) -> None:
 
 
 def bridge_mesh_child(path: str) -> None:
-    """The child process of :func:`bridge_on_mesh`: reads the winners from
+    """The child process of :func:`start_bridge`: reads the winners from
     ``path``, writes each one's Evaluation there."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -2787,11 +2883,15 @@ def engine_idle_share(lm, reqs, cache_len: int, eager: bool):
                        f"pad kernels")
 
 
-def step_times(engine, lm, prompts, label: str, eager_too: bool = True):
+def step_times(engine, lm, prompts, label: str, eager_too: bool = True,
+               profile: bool = True):
     """A decode step over the engine's pool (each slot 32 tokens past a
     prompt), replayed from the graph and, where ``eager_too``, run eagerly:
     host-clock ms per step (20 steps, synchronised) and device ms per step
-    from a profile; returns the replay's (wall, device) ms."""
+    from a profile (without ``profile``: CUDA-event ms per step over 50,
+    the stream's time, which for a graph replay is its kernels' and the
+    gaps between them; late in a process a profiler trace can lose its pad
+    kernels, ``traced_kernels``); returns the replay's (wall, device) ms."""
     engine._last_tok[:] = 0
     engine._pos[:] = [prompts[i % len(prompts)] + 32
                       for i in range(SERVE_SLOTS)]
@@ -2810,11 +2910,11 @@ def step_times(engine, lm, prompts, label: str, eager_too: bool = True):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / 20 * 1e3
-        dev_ms = device_profile(fn, 5)[0]
+        dev_ms = device_profile(fn, 5)[0] if profile else time_ms(fn, 50)
         got[what] = (wall_ms, dev_ms)
         print(f"  ({label}) decode step over {SERVE_SLOTS} slots, {what}: "
               f"{wall_ms:.3f} ms wall (host clock, synchronised), "
-              f"{dev_ms:.3f} ms device")
+              f"{dev_ms:.3f} ms {'device' if profile else 'CUDA events'}")
     return got["graph replay"]
 
 
@@ -2922,9 +3022,11 @@ def run_serve(ops, cells: list):
     del lm, graph_engine, eager_engine
     free_card()
 
-    print(f" (b) {SERVE_ARCH} full width and depth ({cfg.n_layers} layers), "
-          f"bfloat16: the same trace shape, max_gen {SERVE_MAX_GEN}; the "
-          f"graph-replayed engine beside an eager one")
+    cfg, cut = cut_depth(cfg, SERVE_LAYERS, "cut to pay for phases 18 and "
+                         "19; phase 18 (b) serves all 40")
+    print(f" (b) {SERVE_ARCH} full width, {cut}, bfloat16: the same trace "
+          f"shape, max_gen {SERVE_MAX_GEN}; the graph-replayed engine beside "
+          f"an eager one")
     before = torch.cuda.memory_allocated()
     lm = watched_lm(cfg, seed=1)
     reqs = serve_trace(cfg, (SERVE_MAX_GEN,) * len(SERVE_GENS), seed=1)
@@ -3375,7 +3477,7 @@ def run_recurrent(ops, cells: list):
     for label, arch, n_layers, prompts, cache_len in RECURRENT_CELLS:
         check_parity(ops, label, arch, prompts, cache_len)
         cfg, depth = cut_depth(get_config(arch), n_layers,
-                               "cut to pay for phase 16's seconds")
+                               "cut to pay for phases 16, 18 and 19")
         before = torch.cuda.memory_allocated()
         lm = watched_lm(cfg, seed=2)
         print(f" ({label}) {arch}: full width ({describe(cfg)}), {depth}, "
@@ -3768,9 +3870,12 @@ def check_lse(ref, shape: str, dtype, lse, q, k, v, **kw) -> tuple:
     return err, ferr
 
 
-def check_flash_backward(ops, ref, gen) -> float:
+def check_flash_backward(ops, ref, gen, cases=BWD_CASES) -> float:
     """Phase 3, the flash-attention backward kernel against the plain
-    backward (``ref.mha_backward_ref``) at every shape of ``BWD_CASES``,
+    backward (``ref.mha_backward_ref``) at every shape of ``cases``
+    (``BWD_CASES``; ``SOFTCAP_BWD_CASES`` add a soft cap and a query
+    offset, whose fault controls are ``parity.bwd_cap_fault_controls``,
+    which fp32's 2e-4 must reject too),
     on the forward kernel's own output and log-sum-exp (which is held to
     the plain one first: ``parity.LSE_TOL``, beside ``parity.lse_fault``;
     granite's shape is ``FLASH_MAIN``'s):
@@ -3793,11 +3898,14 @@ def check_flash_backward(ops, ref, gen) -> float:
     sound = {"abs": 0.0, "row": 0.0}
     faults = {"abs": float("inf"), "row": float("inf")}
     lse_sound, lse_ctrl = 0.0, float("inf")
-    for what, h, kv, sq, skv, d, causal, window in BWD_CASES:
-        kw = dict(causal=causal, kv_group=h // kv, window=window)
+    for case in cases:
+        what, h, kv, sq, skv, d, causal, window = case[:8]
+        masks = dict(zip(("softcap", "q_offset"), case[8:]))
+        kw = dict(causal=causal, kv_group=h // kv, window=window, **masks)
         shape = (f"{what} H={h} KV={kv} Sq={sq} Skv={skv} D={d}"
                  f"{' causal' if causal else ''}"
-                 f"{f' window {window}' if window else ''}")
+                 f"{f' window {window}' if window else ''}"
+                 + "".join(f" {k} {v}" for k, v in masks.items() if v))
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = bwd_inputs(gen, h, kv, sq, skv, d, dtype)
             o, lse = ops.flash_attention_lse(q, k, v, **kw)
@@ -3820,6 +3928,16 @@ def check_flash_backward(ops, ref, gen) -> float:
                       f"{'ok' if ok else 'MISMATCH'}  (twice: same bits)")
                 require(ok, f"flash_attention_bwd {shape} fp32: kernel "
                         f"disagrees with its plain version")
+                for fault, bad in (parity.bwd_cap_fault_controls(
+                        q, k, v, o, do, h // kv, causal=causal,
+                        window=window, **masks) if masks else {}).items():
+                    fok = all(torch.allclose(b, w, rtol=2e-4, atol=2e-4)
+                              for b, w in zip(bad, want))
+                    ferr = max(max_abs_err(b, w) for b, w in zip(bad, want))
+                    print(f"    control, {fault:28s} max_abs_err {ferr:.3e}"
+                          f"  {'PASSES' if fok else 'rejected'}")
+                    require(not fok, f"flash_attention_bwd {shape} fp32: "
+                            f"2e-4 passes a simulated fault ({fault})")
                 continue
             want32 = parity.bwd_want32(q, k, v, o, do, **kw)
             ok, err, rerr = parity.bwd_within_limits(got, want32)
@@ -3837,8 +3955,11 @@ def check_flash_backward(ops, ref, gen) -> float:
             if main_err is None:
                 main_err = max(max_abs_err(g, w) for g, w in zip(got, want32))
                 print(f"    max_abs_err {main_err:.3e} (the kernels line's)")
-            for fault, bad in parity.bwd_fault_controls(
-                    q, k, v, o, do, h // kv, causal, window).items():
+            controls = (parity.bwd_cap_fault_controls(
+                q, k, v, o, do, h // kv, causal=causal, window=window,
+                **masks) if masks else parity.bwd_fault_controls(
+                    q, k, v, o, do, h // kv, causal, window))
+            for fault, bad in controls.items():
                 fok, ferr, frerr = parity.bwd_within_limits(bad, want32)
                 print(f"    control, {fault:28s} err {ferr:.3e}  row_err "
                       f"{frerr:.3e}  {'PASSES' if fok else 'rejected'}")
@@ -3853,6 +3974,150 @@ def check_flash_backward(ops, ref, gen) -> float:
           f"row_err {sound['row']:.3e}; smallest fault reading err "
           f"{faults['abs']:.3e}, row_err {faults['row']:.3e}")
     return main_err
+
+
+def check_masked(what: str, got, want, controls: dict) -> None:
+    """A capped or offset call against its plain version at the limits of
+    the uncapped call (bf16: ``parity.within_limits``; fp32: 2e-4), beside
+    fault controls that those limits must reject."""
+    from repro_torch.kernels import parity
+    bf16 = got.dtype == torch.bfloat16
+    if bf16:
+        check_flash_bf16(what, got, want)
+    else:
+        check_close(what, got, want, 2e-4)
+    for fault, bad in controls.items():
+        if bf16:
+            ok, ferr, frerr = parity.within_limits(bad, want)
+        else:
+            ok = torch.allclose(bad.float(), want.float(), rtol=2e-4,
+                                atol=2e-4)
+            ferr, frerr = max_abs_err(bad, want), parity.row_err(bad, want)
+        print(f"    control, {fault:26s} max_abs_err {ferr:.3e}  row_err "
+              f"{frerr:.3e}  {'PASSES' if ok else 'rejected'}")
+        require(not ok, f"{what}: the limits pass a simulated fault "
+                f"({fault})")
+
+
+def check_softcap(ops, ref, gen) -> None:
+    """Phase 3, logit soft caps and the query offset in the three attention
+    kernels, each against its plain version at the limits of the uncapped
+    call beside fault controls that those limits must reject (the cap
+    dropped, the offset dropped: ``parity.cap_fault_controls``,
+    ``decode_cap_fault_controls``): flash at row 3's shape capped and at
+    the offset case (a causal chunk, Sq < Skv) with and without the cap,
+    in bf16 and fp32; every head dim's tile capped and offset (bf16 at two
+    lengths, causal and not, kv_group 1 and 4; fp32 at one); decode at row
+    4's shape capped (its lse too, and two calls bitwise equal) and at
+    recurrentgemma's D 256 group; then the backward at
+    ``SOFTCAP_BWD_CASES``."""
+    from repro_torch.kernels import parity
+    cap, (sq, skv) = SOFTCAP_CHECK, OFFSET_CASE
+    print(f" soft cap {cap} and query offset (flash H=32 KV=8 D=64 at "
+          f"S={FLASH_MAIN[3]} capped, and a causal chunk of {sq} queries "
+          f"over {skv} keys at offset {OFFSET}; bf16 at both flash limits, "
+          f"fp32 at 2e-4, each beside fault controls that they must reject)")
+    for dtype in (torch.bfloat16, torch.float32):
+        for what, s, kv_len, kw in (
+                (f"S={FLASH_MAIN[3]} capped", FLASH_MAIN[3], None,
+                 dict(softcap=cap)),
+                (f"Sq={sq} Skv={skv} offset {OFFSET}", sq, skv,
+                 dict(q_offset=OFFSET)),
+                (f"Sq={sq} Skv={skv} offset {OFFSET} capped", sq, skv,
+                 dict(q_offset=OFFSET, softcap=cap))):
+            q, k, v, rep = flash_inputs(gen, s, dtype, skv=kv_len)
+            got = ops.flash_attention(q, k, v, kv_group=rep, **kw)
+            want = ref.mha_ref(q, k, v, kv_group=rep, **kw)
+            check_masked(f"flash {what} {dtype}", got, want,
+                         parity.cap_fault_controls(q, k, v, rep, **kw))
+    print(f" flash under a cap of {cap}, every head dim: bf16 at S 63 and "
+          f"200, causal and not, kv_group 1 and 4 (strided views), all "
+          f"queries and the last two thirds at their offset; fp32 at S 200 "
+          f"(H=8 over KV=2), both ways; max over each head dim")
+    for d in parity.SWEEP_D:
+        worst, worst_row = 0.0, 0.0
+        for s in (63, 200):
+            for rep, causal, q, k, v in parity.sweep_cases(gen, d, s):
+                for off in (0, s // 3):
+                    kw = dict(causal=causal, kv_group=rep, softcap=cap,
+                              q_offset=off)
+                    got = ops.flash_attention(q[:, off:], k, v, **kw)
+                    want = ref.mha_ref(q[:, off:], k, v, **kw)
+                    torch.cuda.synchronize()
+                    ok, err, rerr = parity.within_limits(got, want)
+                    require(ok, f"flash bf16 D={d} S={s} {kw}: kernel "
+                            f"disagrees with its plain version (abs "
+                            f"{err:.3e}, row {rerr:.3e})")
+                    worst, worst_row = max(worst, err), max(worst_row, rerr)
+        q, k, v, rep = flash_inputs(gen, 200, torch.float32, h=8, kv=2, d=d)
+        err32 = 0.0
+        for causal, off in ((True, 0), (True, 67), (False, 0)):
+            kw = dict(causal=causal, kv_group=rep, softcap=cap,
+                      q_offset=off)
+            got = ops.flash_attention(q[:, off:], k, v, **kw)
+            want = ref.mha_ref(q[:, off:], k, v, **kw)
+            torch.cuda.synchronize()
+            require(torch.allclose(got, want, rtol=2e-4, atol=2e-4),
+                    f"flash fp32 D={d} {kw}: kernel disagrees with its "
+                    f"plain version")
+            err32 = max(err32, max_abs_err(got, want))
+        print(f"  flash capped D={d:<3d} bf16 max_abs_err {worst:.3e}  "
+              f"row_err {worst_row:.3e}; fp32 max_abs_err {err32:.3e}  ok")
+
+    print(f" decode_attention capped at {cap} (4 slots x 32 heads over "
+          f"[4,2112,8,64], lens 1/300/1000/2112; recurrentgemma's 10 heads "
+          f"over [4,2048,1,256]): bf16 at 5e-2 and row_err "
+          f"{parity.DECODE_ROW_TOL} against the plain version in fp32, fp32 "
+          f"at 2e-4, beside the cap dropped; the lse (fp32 1e-4, bf16 "
+          f"1e-3) and two calls bitwise equal")
+    neg = float(np.float32(ref.NEG_INF))
+    for shape, lens in ((DECODE_MAIN, DECODE_MAIN_LENS),
+                        (GRIFFIN_DECODE, GRIFFIN_DECODE_LENS)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc, ln = decode_inputs(gen, dtype, *shape, lens)
+            what = f"decode {list(shape)} capped {dtype}"
+            lse = torch.empty(q.shape[:2], dtype=torch.float32,
+                              device="cuda")
+            got = ops.decode_attention(q, kc, vc, ln, lse=lse, softcap=cap)
+            want = ref.decode_attention_ref(q, kc, vc, ln, softcap=cap)
+            want32, want_lse = ref.decode_attention_ref(
+                q.float(), kc.float(), vc.float(), ln, softcap=cap,
+                return_lse=True)
+            controls = parity.decode_cap_fault_controls(q, kc, vc, ln)
+            if dtype == torch.bfloat16:
+                torch.cuda.synchronize()
+                ok, err, rerr = parity.within_decode_limits(got, want,
+                                                            want32)
+                print(f"  {what:48s} max_abs_err {err:.3e}  row_err "
+                      f"{rerr:.3e}  {'ok' if ok else 'MISMATCH'}")
+                require(ok, f"{what}: kernel disagrees with its plain "
+                        f"version")
+                for fault, bad in controls.items():
+                    frerr = parity.row_err(bad, want32)
+                    print(f"    control, {fault:26s} row_err {frerr:.3e}  "
+                          f"{'PASSES' if frerr <= parity.DECODE_ROW_TOL else 'rejected'}")
+                    require(frerr > parity.DECODE_ROW_TOL, f"{what}: the "
+                            f"row limit passes a simulated fault ({fault})")
+            else:
+                check_close(what, got, want, 2e-4)
+                for fault, bad in controls.items():
+                    ok = torch.allclose(bad, want, rtol=2e-4, atol=2e-4)
+                    print(f"    control, {fault:26s} max_abs_err "
+                          f"{max_abs_err(bad, want):.3e}  "
+                          f"{'PASSES' if ok else 'rejected'}")
+                    require(not ok, f"{what}: 2e-4 passes a simulated "
+                            f"fault ({fault})")
+            lse_tol = 1e-4 if dtype == torch.float32 else 1e-3
+            lse_err = max_abs_err(lse, want_lse)
+            empty = torch.tensor(lens, device="cuda") == 0
+            print(f"    lse max_abs_err {lse_err:.2e} (limit {lse_tol:.0e})")
+            require(lse_err <= lse_tol and bool((lse[empty] == neg).all()),
+                    f"{what}: the lse is {lse_err:.2e} from the plain "
+                    f"version's")
+            require_same_bits(f"{what}, called twice", got,
+                              ops.decode_attention(q, kc, vc, ln,
+                                                   softcap=cap))
+    check_flash_backward(ops, ref, gen, SOFTCAP_BWD_CASES)
 
 
 def backward_case(ops, ref, gen, b, h, kv, s, d):
@@ -3909,6 +4174,120 @@ def time_backward(ops, ref, gen, rows, dev) -> None:
     free_card()
 
 
+def uncapped(rows, dev, name: str) -> None:
+    """Phase 4: the uncapped row that the next capped one stands beside,
+    as timed earlier in the phase."""
+    print(f"  {name} uncapped (above): kernel {rows[name]['ms']:.4f} ms "
+          f"(device {dev[name]['kernel']:.4f})")
+
+
+def masked_row(what: str, kernel, plain, t_bound: float, by: str,
+               library=None, iters: int = 50, plain_iters: int = 5) -> None:
+    """Phase 4, one capped or offset row: the kernel's CUDA-event and
+    device ms per call beside its bound, its plain version's CUDA-event ms
+    and, where one PyTorch call computes the same function, that call's
+    (else "none": SDPA has no cap)."""
+    ms, dev_ms = time_ms(kernel, iters), device_profile(kernel)[0]
+    lib = (f"{time_ms(library, iters):.4f} ms (device "
+           f"{device_profile(library)[0]:.4f})" if library is not None
+           else "none (SDPA has no cap)")
+    print(f"  {what}: kernel {ms:.4f} ms (device {dev_ms:.4f})  bound "
+          f"{t_bound:.4f} ms ({by})  plain "
+          f"{time_ms(plain, plain_iters):.4f} ms  library {lib}")
+
+
+def time_softcap(ops, ref, gen, rows, dev) -> None:
+    """Phase 4, the capped and offset rows of PERF.md (3-cap, 3-off,
+    3-bwd-cap, 3-bwd-off, 4-cap) under Gemma 2's cap, each beside the
+    uncapped call at the same shape timed earlier in this phase (``rows``,
+    ``dev``) and its bound: the flash forward at row 3's shape,
+    the backward at row 3-bwd's (B 4), decode at row 4's (four cache pairs
+    in turn, cold in L2), and the offset case (a causal chunk of Sq
+    queries over Skv keys) forward and backward, whose SDPA call takes a
+    boolean mask of the chunk's positions.  The cap adds no FLOP to the
+    bound (a tanh, like the exponential, is not counted)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention_bwd as fab
+    cap = SOFTCAP_GEMMA
+    b, h, kv, s, d = FLASH_MAIN
+    q, k, v, rep = flash_inputs(gen, s, torch.bfloat16)
+    t_bound, by = bound(*fa.work(b * h, s, s, d, rep, True), BF16_PEAK_FLOPS)
+    uncapped(rows, dev, "flash_attention")
+    masked_row(f"flash_attention S={s} D={d} causal bf16 cap {cap:g}",
+               lambda: ops.flash_attention(q, k, v, kv_group=rep,
+                                           softcap=cap),
+               lambda: ref.mha_ref(q, k, v, kv_group=rep, softcap=cap),
+               t_bound, by)
+    sq, skv = OFFSET_CASE
+    q, k, v, rep = flash_inputs(gen, sq, torch.bfloat16, skv=skv)
+    keep = (torch.arange(sq, device="cuda")[:, None] + OFFSET
+            >= torch.arange(skv, device="cuda")[None, :])
+    q4, k4, v4 = (x.reshape(b, -1, x.shape[1], d) for x in (q, k, v))
+    t_bound, by = bound(*fa.work(b * h, sq, skv, d, rep, True,
+                                 q_offset=OFFSET), BF16_PEAK_FLOPS)
+    masked_row(f"flash_attention Sq={sq} Skv={skv} offset {OFFSET} causal "
+               f"bf16",
+               lambda: ops.flash_attention(q, k, v, kv_group=rep,
+                                           q_offset=OFFSET),
+               lambda: ref.mha_ref(q, k, v, kv_group=rep, q_offset=OFFSET),
+               t_bound, by,
+               lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, attn_mask=keep, enable_gqa=True))
+
+    bt, s = TRAIN_SHAPE
+    uncapped(rows, dev, "flash_attention_bwd")
+    for what, sq, skv, kw in (("", s, s, ({"softcap": cap},)),
+                              (f" offset {OFFSET}", *OFFSET_CASE,
+                               ({"q_offset": OFFSET},))):
+        q, k, v, do = bwd_inputs(gen, h, kv, sq, skv, d, torch.bfloat16,
+                                 b=bt)
+        t_bound, by = bound(*fab.work(bt * h, sq, skv, d, h // kv, True,
+                                      q_offset=OFFSET if what else 0),
+                            BF16_PEAK_FLOPS)
+        library = None
+        if what:        # SDPA's backward under the chunk's boolean mask
+            keep = (torch.arange(sq, device="cuda")[:, None] + OFFSET
+                    >= torch.arange(skv, device="cuda")[None, :])
+            q4, k4, v4 = (x.detach().reshape(bt, -1, x.shape[1], d)
+                          .requires_grad_() for x in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=keep,
+                                                  enable_gqa=True)
+            do4 = do.reshape(bt, h, sq, d)
+
+            def library():
+                return torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                           retain_graph=True)
+        for m in kw:
+            o, lse = ops.flash_attention_lse(q, k, v, kv_group=h // kv, **m)
+            tag = " ".join(f"{n} {x:g}" for n, x in m.items())
+            masked_row(f"flash_attention_bwd B={bt} H={h} KV={kv} Sq={sq} "
+                       f"Skv={skv} D={d} causal bf16{what} {tag}",
+                       functools.partial(ops.flash_attention_bwd, q, k, v,
+                                         o, do, lse, kv_group=h // kv, **m),
+                       functools.partial(ref.mha_backward_ref, q, k, v, o,
+                                         do, lse, kv_group=h // kv, **m),
+                       t_bound, by, library, iters=20, plain_iters=2)
+        free_card()
+
+    b, h, kv, s, d = DECODE_MAIN
+    q, _, _, lens = decode_inputs(gen, torch.bfloat16, b, h, kv, s, d,
+                                  DECODE_MAIN_LENS)
+    caches = itertools.cycle([
+        decode_inputs(gen, torch.bfloat16, b, h, kv, s, d,
+                      DECODE_MAIN_LENS)[1:3] for _ in range(4)])
+    valid = sum(DECODE_MAIN_LENS)
+    t_bound, by = bound(4.0 * h * d * valid,
+                        2.0 * (2 * valid * kv * d + 2 * b * h * d),
+                        BF16_PEAK_FLOPS)
+    uncapped(rows, dev, "decode_attention")
+    masked_row(f"decode_attention [4,2112,8,64] bf16 cap {cap:g}",
+               lambda: ops.decode_attention(q, *next(caches), lens,
+                                            softcap=cap),
+               lambda: ref.decode_attention_ref(q, *next(caches), lens,
+                                                softcap=cap),
+               t_bound, by, iters=200, plain_iters=20)
+
+
 def three_kernels(kernel, shape: str) -> None:
     """Phase 4: one flash_attention_bwd call is exactly three device
     launches (prep, dK/dV, dQ), each printed with its device ms per call."""
@@ -3932,8 +4311,26 @@ def train_batch(cfg, b: int, s: int, step: int, device="cuda") -> dict:
     return data.batch(step)
 
 
-def check_train_parity(ops) -> None:
-    """(a'): granite-3-2b at full width, 2 layers in fp32, B 2, S 256: the
+@contextmanager
+def one_cpu_thread():
+    """The CPU reference on one thread, the count restored after: a
+    reduction's order (torch's parallel reductions, MKL's GEMMs) then
+    depends on no thread count, fixed or chosen at run time.  In run 28C
+    the first of two calls of one function in one process moved its loss
+    by 1.06e-6 relative and a gradient past 13 (a')'s 2e-4; one thread
+    holds the CPU's two losses bit for bit, which (a') requires."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def check_train_parity(ops, softcap: float = 0.0, label: str = "a'",
+                       batch_size: int = TRAIN_PARITY[1]) -> None:
+    """(a'): granite-3-2b at full width, 2 layers in fp32, B 2, S 256
+    (``softcap``: under that logit soft cap at ``batch_size``, 18 (a)): the
     loss and every gradient of ``LM.train_loss`` and one
     ``make_train_step`` on the card (the flash forward and backward
     kernels) against the same on the CPU (their plain versions), from the
@@ -3944,15 +4341,19 @@ def check_train_parity(ops) -> None:
     g / (|g| + eps), which at the default 1e-8 turns the two devices'
     fp32 rounding in a near-zero gradient into a sixth of a step (5e-4 of
     a parameter's max, seen on the card), as tests/test_torch_train.py
-    notes for the JAX package's step."""
+    notes for the JAX package's step.  The CPU's side runs on one thread
+    (:func:`one_cpu_thread`), and its two losses of the one function (the
+    first call's and the step's) must agree bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.dist.plan import Plan
     from repro_torch.models.lm import LM
     from repro_torch.train import optimizer, train_step
-    layers, b, s = TRAIN_PARITY
+    layers, _, s = TRAIN_PARITY
+    b = batch_size
     cfg = dataclasses.replace(cut_depth(get_config(TRAIN_ARCH), layers)[0],
-                              dtype="float32", param_dtype="float32")
+                              dtype="float32", param_dtype="float32",
+                              logit_softcap=softcap)
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10,
                        eps=1e-4)
     gpu = watched_lm(cfg, 5, Plan(remat="block"))
@@ -3961,17 +4362,18 @@ def check_train_parity(ops) -> None:
     batch = train_batch(cfg, b, s, 0)
     out = {}
     for where, lm in (("cuda", gpu), ("cpu", cpu)):
-        lm.requires_grad_(True)
-        mb = {k: x.to(where) for k, x in batch.items()}
-        total, _ = lm.train_loss(mb)
-        grads = torch.autograd.grad(total, list(lm.params().values()))
-        step = train_step.make_train_step(lm, tcfg)
-        ops.reset_launch_counts()
-        params, _, metrics = step(lm.params(), optimizer.init(
-            lm.params(), tcfg), mb, 0)
-        out[where] = (total.item(), [g.cpu() for g in grads],
-                      [p.detach().cpu() for p in params.values()],
-                      float(metrics["loss"]), ops.launch_counts())
+        with one_cpu_thread() if where == "cpu" else nullcontext():
+            lm.requires_grad_(True)
+            mb = {k: x.to(where) for k, x in batch.items()}
+            total, _ = lm.train_loss(mb)
+            grads = torch.autograd.grad(total, list(lm.params().values()))
+            step = train_step.make_train_step(lm, tcfg)
+            ops.reset_launch_counts()
+            params, _, metrics = step(lm.params(), optimizer.init(
+                lm.params(), tcfg), mb, 0)
+            out[where] = (total.item(), [g.cpu() for g in grads],
+                          [p.detach().cpu() for p in params.values()],
+                          float(metrics["loss"]), ops.launch_counts())
     names = list(gpu.params())
     (l_gpu, g_gpu, p_gpu, m_gpu, n_gpu), (l_cpu, g_cpu, p_cpu, m_cpu, _) = \
         out["cuda"], out["cpu"]
@@ -3980,21 +4382,26 @@ def check_train_parity(ops) -> None:
         1e-30).item() for a, c in zip(g_gpu, g_cpu))
     worst_p = max((a - c).abs().max().item() / c.abs().max().clamp_min(
         1e-30).item() for a, c in zip(p_gpu, p_cpu))
-    print(f"  (a') {TRAIN_ARCH} {layers} layers fp32 B={b} S={s}: loss card "
-          f"{l_gpu:.7f} CPU {l_cpu:.7f} (rel {rel:.2e}); step loss card "
-          f"{m_gpu:.7f} CPU {m_cpu:.7f}; {len(names)} gradient leaves, "
-          f"largest error {worst_g:.2e} of the leaf's max; updated params "
-          f"{worst_p:.2e}; step launches {n_gpu}")
+    cap = f", cap {softcap:g}" if softcap else ""
+    print(f"  ({label}) {TRAIN_ARCH} {layers} layers fp32{cap} B={b} S={s}: "
+          f"loss card {l_gpu:.7f} CPU {l_cpu:.7f} (rel {rel:.2e}); step "
+          f"loss card {m_gpu:.7f} CPU {m_cpu:.7f} (the CPU's two losses "
+          f"{'bitwise equal' if l_cpu == m_cpu else 'DIFFER'}, one thread); "
+          f"{len(names)} gradient leaves, largest error {worst_g:.2e} of "
+          f"the leaf's max; updated params {worst_p:.2e}; step launches "
+          f"{n_gpu}")
+    require(l_cpu == m_cpu, f"({label}) the CPU's loss moved between two "
+            f"calls of one function: {l_cpu!r} and {m_cpu!r}")
     require(rel <= 1e-5 and abs(m_gpu - m_cpu) <= 1e-5 * abs(m_cpu),
-            f"(a') the card's loss is {rel:.2e} from the CPU's")
-    require(worst_g <= 2e-4, f"(a') a gradient is {worst_g:.2e} of its max "
-            f"from the CPU's")
-    require(worst_p <= 2e-4, f"(a') an updated parameter is {worst_p:.2e} "
-            f"of its max from the CPU's")
+            f"({label}) the card's loss is {rel:.2e} from the CPU's")
+    require(worst_g <= 2e-4, f"({label}) a gradient is {worst_g:.2e} of its "
+            f"max from the CPU's")
+    require(worst_p <= 2e-4, f"({label}) an updated parameter is "
+            f"{worst_p:.2e} of its max from the CPU's")
     require(n_gpu["flash_attention"] == 2 * layers
             and n_gpu["flash_attention_bwd"] == layers,
-            f"(a') the step launched {n_gpu}, not flash forward twice and "
-            f"backward once a layer")
+            f"({label}) the step launched {n_gpu}, not flash forward twice "
+            f"and backward once a layer")
 
 
 def train_split(lm, step, xent_ms: float, xent_gemm_ms: float) -> float:
@@ -4040,8 +4447,8 @@ def run_train(ops) -> dict:
     the parameters), step wall and device ms, tokens per second, the
     model-FLOPs share of the bf16 peak, the idle share, the device split
     and peak memory; (c) ``launch.train.main`` on reduced granite.
-    Returns (b)'s launches, and its peak memory and profiled step's
-    device ms (phase 17 (d))."""
+    Returns (b)'s launches, and its peak memory, profiled step's device
+    ms (phase 17 (d)) and its mean step wall ms (phase 18)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.dist.plan import Plan
@@ -4130,7 +4537,8 @@ def run_train(ops) -> dict:
     del lm, opt, step_fn, batches, batch
     free_card()
     run_train_cli()
-    return launches, {"peak_bytes": peak, "device_ms": dev_ms}
+    return launches, {"peak_bytes": peak, "device_ms": dev_ms,
+                      "wall_ms": wall}
 
 
 def run_train_cli() -> None:
@@ -5234,6 +5642,339 @@ def pod_part_rank(rank: int, world: int, tmp: str) -> None:
 # phase 17: static analysis and the dry run
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 18: logit soft caps on the LM
+# ---------------------------------------------------------------------------
+
+def run_softcap(ops, train_meas) -> dict:
+    """Phase 18: (a) granite-3-2b at full width, 2 layers in fp32, under a
+    cap of SOFTCAP_PARITY: 4 requests through the captured batcher on the
+    card and the batcher on the CPU must give the same tokens, the capped
+    prefill logits must differ from the uncapped LM's on the same weights
+    far past the 1e-5 limit, and one train step must hold 13 (a')'s limits
+    against the CPU's; (b) the whole model in bf16 under Gemma 2's cap of
+    SOFTCAP_GEMMA: 4 requests of phase 6's prompts, SOFTCAP_SERVE_GEN
+    tokens each, through the captured engine, beside the same weights
+    uncapped (decode ms a step, peak memory), then SOFTCAP_TRAIN_STEPS
+    timed steps at 13 (b)'s shape in a child process
+    (:func:`softcap_train_child`: wall and device ms a step, peak memory,
+    beside 13 (b)'s).  Returns the flash, backward and decode launches of
+    (a)'s engine and step and (b)'s engines and steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    from repro_torch.power import envelope_for
+    from repro_torch.serve import ContinuousBatcher
+    cfg = get_config(TRAIN_ARCH)
+    total = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    cap = SOFTCAP_PARITY
+    cfg_a = dataclasses.replace(cut_depth(cfg, 2)[0], dtype="float32",
+                                param_dtype="float32", logit_softcap=cap)
+    cache_len = max(SOFTCAP_PROMPTS) + max(SOFTCAP_GENS)
+    print(f" (a) {TRAIN_ARCH} full width, 2 layers, float32, logit soft cap "
+          f"{cap:g}: {len(SOFTCAP_GENS)} requests, prompts "
+          f"{SOFTCAP_PROMPTS}, max_gen {SOFTCAP_GENS}, {SERVE_SLOTS} slots, "
+          f"cache_len {cache_len}; the card's captured batcher against the "
+          f"CPU's")
+    lm = watched_lm(cfg_a, seed=18)
+    reqs = serve_trace(cfg_a, SOFTCAP_GENS, seed=18, prompts=SOFTCAP_PROMPTS)
+    _, out, wall, launches = serve_engine(ops, lm, reqs, "18 a",
+                                          cache_len=cache_len)
+    add(launches)
+    cpu = LM(cfg_a, {n: p.detach().cpu() for n, p in lm.params().items()})
+    t0 = time.perf_counter()
+    want = ContinuousBatcher(cpu, n_slots=SERVE_SLOTS, cache_len=cache_len,
+                             envelope=envelope_for(None)).run(reqs)
+    cpu_s = time.perf_counter() - t0
+    same = [np.array_equal(out[r.rid], want[r.rid]) for r in reqs]
+    print(f"  (a) tokens identical to the CPU batcher's (the plain "
+          f"versions) for {sum(same)}/{len(reqs)} requests; card {wall:.2f} "
+          f"s, CPU {cpu_s:.2f} s")
+    require(all(same), "(18 a) the card's capped tokens differ from the "
+            "CPU's")
+    plain = LM(dataclasses.replace(cfg_a, logit_softcap=0.0), lm.params())
+    batch = request_batch(reqs[1])
+    capped_logits = lm.prefill(batch, cache_len)[0]
+    plain_logits = plain.prefill(batch, cache_len)[0]
+    moved = max_abs_err(capped_logits, plain_logits)
+    flips = sum(int((out[r.rid] != generate_plain(plain, r, cache_len)
+                     ).sum()) for r in reqs[:2])
+    print(f"  (a) the cap moves a {reqs[1].prompt_len}-token prefill's "
+          f"logits by {moved:.3e} (the limit is 1e-5); {flips} of the first "
+          f"two requests' {sum(r.max_gen for r in reqs[:2])} tokens differ "
+          f"uncapped")
+    require(moved > 1e3 * 1e-5, "(18 a) the cap does not move the logits "
+            "past the parity limit")
+    del lm, plain, cpu
+    free_card()
+    ops.reset_launch_counts()
+    check_train_parity(ops, softcap=cap, label="18 a", batch_size=1)
+    add(ops.launch_counts())
+    free_card()
+
+    cap = SOFTCAP_GEMMA
+    cfg_b = dataclasses.replace(cfg, logit_softcap=cap)
+    print(f" (b) {TRAIN_ARCH} whole ({cfg.n_layers} layers), bfloat16, logit "
+          f"soft cap {cap:g} (Gemma 2's, arXiv:2408.00118): 4 requests of "
+          f"prompts {SERVE_PROMPTS}, max_gen {SOFTCAP_SERVE_GEN}, on the "
+          f"captured engine; then {SOFTCAP_TRAIN_STEPS} train steps at B="
+          f"{TRAIN_SHAPE[0]} S={TRAIN_SHAPE[1]}")
+    torch.cuda.reset_peak_memory_stats()
+    lm = watched_lm(cfg_b, seed=19)
+    plain = watched_lm(dataclasses.replace(cfg_b, logit_softcap=0.0), 19,
+                       params=lm.params())
+    reqs = serve_trace(cfg_b, (SOFTCAP_SERVE_GEN,) * 4, seed=19)
+    steps = {}
+    for what, m in (("uncapped", plain), (f"cap {cap:g}", lm)):
+        engine, out, wall, launches = serve_engine(ops, m, reqs,
+                                                   f"18 b, {what}")
+        add(launches)
+        steps[what] = step_times(engine, m, SERVE_PROMPTS, f"18 b, {what}",
+                                 eager_too=False, profile=False)
+        del engine
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (b) decode step over {SERVE_SLOTS} slots, graph replay, ms "
+          f"wall / CUDA events: " + ", ".join(
+              f"{w} {a:.3f} / {e:.3f}" for w, (a, e) in steps.items())
+          + f"; serving peak {peak / 2**30:.2f} GiB (both engines); "
+          f"launches of the capped engine {launches}")
+    del lm, plain
+    free_card()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.json")
+        subprocess.run([sys.executable, "-c", "import chip_smoke; "
+                        f"chip_smoke.softcap_train_child({path!r})"],
+                       cwd=ROOT, check=True, timeout=300)
+        with open(path) as f:
+            got = json.load(f)
+    add(got["launches"])
+    per_step = {k: n / SOFTCAP_TRAIN_STEPS
+                for k, n in got["launches"].items() if n}
+    print(f"  (b) in a child process: losses "
+          f"{[round(x, 4) for x in got['losses']]} (warm-up first); step "
+          f"wall {got['wall_ms']:.1f} ms, device {got['device_ms']:.1f} ms "
+          f"(a profiled step), peak memory {got['peak'] / 2**30:.2f} GiB; "
+          f"13 (b) uncapped in this run: wall {train_meas['wall_ms']:.1f}, "
+          f"device {train_meas['device_ms']:.1f}, peak "
+          f"{train_meas['peak_bytes'] / 2**30:.2f} GiB; launches a step "
+          f"{per_step}")
+    require(all(np.isfinite(got["losses"])), "(18 b) a training loss is not "
+            "finite")
+    require(per_step.get("flash_attention") == 2 * cfg.n_layers
+            and per_step.get("flash_attention_bwd") == cfg.n_layers,
+            f"(18 b) launches a step {per_step}, not {2 * cfg.n_layers} "
+            f"flash forward and {cfg.n_layers} backward")
+    return total
+
+
+def softcap_train_child(path: str) -> None:
+    """Phase 18 (b)'s training, in a process of its own: a profiler trace
+    late in a long process loses its first records past any pad
+    (``traced_kernels``; run 29B), so the device time of the capped step
+    is taken in a fresh one.  granite-3-2b whole in bf16 under Gemma 2's
+    cap at 13 (b)'s shape: a warm-up step, SOFTCAP_TRAIN_STEPS timed steps
+    (synchronised wall), a profiled step's device time (its kernels,
+    summed as 13 (b)'s), the peak memory and the launches of the timed
+    steps, written to ``path``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.kernels import ops
+    from repro_torch.train import optimizer, train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              logit_softcap=SOFTCAP_GEMMA)
+    b, s = TRAIN_SHAPE
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1,
+                       total_steps=SOFTCAP_TRAIN_STEPS + 2)
+    lm = watched_lm(cfg, 20, Plan(remat="block",
+                                  vocab_chunk=TRAIN_VOCAB_CHUNK))
+    step_fn = train_step.make_train_step(lm, tcfg)
+    opt = optimizer.init(lm.params(), tcfg)
+    batches = [train_batch(cfg, b, s, i)
+               for i in range(SOFTCAP_TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i, batch in enumerate(batches):
+        if i == 1:
+            ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, opt, metrics = step_fn(lm.params(), opt, batch, i)
+        losses.append(metrics["loss"].item())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = ops.launch_counts()
+    # the kernels of one profiled step, as train_split sums 13 (b)'s: the
+    # ``train.*`` ranges the trace also lists on the device are left out
+    from torch.profiler import ProfilerActivity
+    _, traced = traced_kernels(
+        lambda: step_fn(lm.params(), opt, batches[-1],
+                        SOFTCAP_TRAIN_STEPS + 1),
+        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    dev_ms = sum(ms for n, ms in traced if not n.startswith("train."))
+    with open(path, "w") as f:
+        json.dump({"losses": losses, "wall_ms": float(np.mean(walls[1:])),
+                   "device_ms": dev_ms, "launches": launches,
+                   "peak": torch.cuda.max_memory_allocated()}, f)
+
+
+def generate_plain(lm, r, cache_len: int) -> np.ndarray:
+    """Batch-1 ``generate`` of one request's tokens (18 (a)'s uncapped
+    comparison)."""
+    from repro_torch.launch.serve import generate
+    return generate(lm, request_batch(r), r.prompt_len, r.max_gen,
+                    cache_len)[0].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the examples
+# ---------------------------------------------------------------------------
+
+def start_autoplan(tmp: str) -> subprocess.Popen:
+    """Start :func:`autoplan_child` in its own process (its fake process
+    group stays out of every other phase's), writing to ``tmp``."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         f"chip_smoke.autoplan_child({tmp!r})"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def autoplan_child(tmp: str) -> None:
+    """Phase 19's child: ``python -m repro_torch.autoplan_model`` at
+    EXAMPLE_AUTOPLAN on the card's device type, twice over one disk cache
+    in ``tmp``; for each run the structural key of every candidate whose
+    step was built (one build a trace), the cache's stats, the kernel
+    launches and the card bytes allocated while it ran (both must stay 0),
+    and its seconds.  Writes ``tmp/autoplan.json``."""
+    from repro_torch import autoplan_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+
+    # two tracing threads of one core's Python, beside the build's nvcc
+    # processes and the dry-run child (run 29B, with four threads and the
+    # default intra-op threads, slowed the build from 80 to 131 s)
+    torch.set_num_threads(1)
+    keys = []
+    build = dryrun.build_step
+
+    def counting(cfg, shape, mesh, plan, device=None):
+        keys.append(repr(plan.structural_key()))
+        return build(cfg, shape, mesh, plan, device)
+    dryrun.build_step = counting
+    gens, pop = EXAMPLE_AUTOPLAN
+    runs = []
+    for _ in range(2):
+        before, held = ops.launch_counts(), torch.cuda.memory_allocated()
+        keys.clear()
+        t0 = time.perf_counter()
+        _, best, st = autoplan_model.main(
+            ["--generations", str(gens), "--population", str(pop),
+             "--compile-workers", "2",
+             "--cache-dir", os.path.join(tmp, "autoplan")])
+        runs.append({"wall_s": time.perf_counter() - t0, "keys": list(keys),
+                     "stats": st.to_dict(), "best_s": best.time_s,
+                     "launches": {k: v - before[k] for k, v in
+                                  ops.launch_counts().items()
+                                  if v != before[k]},
+                     "allocated": torch.cuda.memory_allocated() - held})
+    with open(os.path.join(tmp, "autoplan.json"), "w") as f:
+        json.dump(runs, f)
+
+
+def finish_autoplan(proc: subprocess.Popen, tmp: str) -> list:
+    """Wait for the child (at most EXAMPLE_TIMEOUT s) and read its runs;
+    its output's tail is printed."""
+    try:
+        log, _ = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"(19) the autoplan child ran past "
+                           f"{EXAMPLE_TIMEOUT} s")
+    tail = "\n".join(log.splitlines()[-40:])
+    require(proc.returncode == 0, f"(19) the autoplan child failed:\n{tail}")
+    print("\n".join(line for line in log.splitlines()[-18:]
+                    if "Warning" not in line))
+    with open(os.path.join(tmp, "autoplan.json")) as f:
+        return json.load(f)
+
+
+def run_examples(ops, autoplan: list, tmp: str) -> dict:
+    """Phase 19: ``repro_torch.autoplan_model`` (its child's two runs: no
+    launch and no card byte, at most one trace per unique structural key,
+    none on the warm disk cache), then on the card ``serve_lm --trace 6``
+    over its trio (every request complete), ``train_lm --steps
+    EXAMPLE_TRAIN_STEPS`` (the loss falls by 0.2, no restart) and
+    ``train_lm --wide --steps EXAMPLE_WIDE_STEPS`` (the reference's ~100M
+    config; finite losses); each one's seconds.  Returns their launches."""
+    from repro_torch import serve_lm, train_lm
+    from repro_torch.configs import ARCHS
+    cold, warm = autoplan
+    for what, run in (("cold", cold), ("warm", warm)):
+        st = run["stats"]
+        print(f"  autoplan_model {EXAMPLE_AUTOPLAN[0]} generations of "
+              f"{EXAMPLE_AUTOPLAN[1]}, {what} cache: {run['wall_s']:.1f} s, "
+              f"{st['candidates']} candidates, {len(run['keys'])} traces "
+              f"({len(set(run['keys']))} structural keys), unique traces "
+              f"{st['unique_compiles']}, disk hits {st['disk_hits']}, trace "
+              f"{st['compile_s']:.1f} s, best {run['best_s'] * 1e6:.1f} us "
+              f"modeled; launches {run['launches']}, card bytes "
+              f"{run['allocated']}")
+        require(not run["launches"] and run["allocated"] == 0,
+                f"(19) autoplan ({what}) launched or allocated on the card")
+    require(cold["keys"] and len(set(cold["keys"])) == len(cold["keys"])
+            == cold["stats"]["unique_compiles"],
+            "(19) autoplan traced a structural key more than once")
+    require(not warm["keys"] and warm["stats"]["unique_compiles"] == 0
+            and warm["stats"]["disk_hits"] > 0,
+            "(19) autoplan traced again over its warm disk cache")
+    require(warm["best_s"] == cold["best_s"], "(19) the warm search chose "
+            "another plan")
+    total = {}
+
+    def timed(what, fn):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for k, n in ops.launch_counts().items():
+            total[k] = total.get(k, 0) + n
+        print(f"  {what}: {secs:.1f} s; launches {ops.launch_counts()}")
+        return got
+
+    out = timed("serve_lm --trace 6", lambda: serve_lm.main(["--trace", "6"]))
+    for arch in serve_lm.TRIO:
+        require(len(out[arch]) == 6 and all(len(t) == 12
+                                            for t in out[arch].values()),
+                f"(19) serve_lm: {arch} did not complete its 6 requests")
+    res = timed(f"train_lm --steps {EXAMPLE_TRAIN_STEPS}",
+                lambda: train_lm.main(["--steps", str(EXAMPLE_TRAIN_STEPS),
+                                       "--ckpt-dir",
+                                       os.path.join(tmp, "train_lm")]))
+    losses = [float(h["loss"]) for h in res.metrics_history if "loss" in h]
+    require(len(losses) == EXAMPLE_TRAIN_STEPS and res.restarts == 0
+            and losses[-1] < losses[0] - 0.2,
+            f"(19) train_lm: losses {losses}, restarts {res.restarts}")
+    try:
+        res = timed(f"train_lm --wide --steps {EXAMPLE_WIDE_STEPS}",
+                    lambda: train_lm.main(
+                        ["--wide", "--steps", str(EXAMPLE_WIDE_STEPS),
+                         "--ckpt-dir", os.path.join(tmp, "train_wide")]))
+    finally:
+        ARCHS.pop(f"{TRAIN_ARCH}-100m", None)
+    losses = [float(h["loss"]) for h in res.metrics_history if "loss" in h]
+    require(len(losses) == EXAMPLE_WIDE_STEPS and all(np.isfinite(losses)),
+            f"(19) train_lm --wide: losses {losses}")
+    free_card()
+    return total
+
+
 def start_dryrun(tmp: str) -> subprocess.Popen:
     """Start :func:`dryrun_child` in its own process (its fake process group
     stays out of every other phase's), writing to ``tmp``."""
@@ -5437,8 +6178,9 @@ def run_analysis(got: dict, train_meas: dict, smi: str) -> None:
 
 
 def run_digests() -> int:
-    """``--digests``: flash (no window) and decode attention on seeded
-    inputs at the serving shapes, then the planner's fp32 matmul and tdFIR
+    """``--digests``: flash (no window, no cap, no offset) and decode
+    attention on seeded inputs at the serving shapes, the flash backward at
+    13 (b)'s training shape, then the planner's fp32 matmul and tdFIR
     kernels (real and complex) at the paper's sizes, through the wrapper
     calls that every checkout since the port's second slice takes; prints
     each output's SHA-256 and its ms per call (CUDA events, and profiler
@@ -5464,7 +6206,15 @@ def run_digests() -> int:
             cases.append((f"decode {list(shape)} {dtype}",
                           functools.partial(ops.decode_attention, q, kc, vc,
                                             ln)))
-    # the non-causal cross shape, after the rest (their inputs unchanged)
+    # the non-causal cross shape and the backward at 13 (b)'s training
+    # shape, after the rest (their inputs unchanged)
+    b, s = TRAIN_SHAPE
+    q, k, v, do = bwd_inputs(gen, 32, 8, s, s, FLASH_MAIN[4],
+                             torch.bfloat16, b=b)
+    o, lse = ops.flash_attention_lse(q, k, v, kv_group=4)
+    cases.append((f"flash bwd B={b} H=32 KV=8 S={s} D={FLASH_MAIN[4]} bf16",
+                  functools.partial(ops.flash_attention_bwd, q, k, v, o, do,
+                                    lse, kv_group=4)))
     h, kv, d = VLM_HEADS
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, rep = flash_inputs(gen, FLASH_MAIN[3], dtype, h=h, kv=kv,
@@ -5490,8 +6240,10 @@ def run_digests() -> int:
                                     block_n=TDFIR_MAIN_BLOCK_N)))
     for what, fn in cases:
         out = fn()
-        out = (torch.stack(out) if isinstance(out, tuple) else out
-               ).contiguous()
+        if isinstance(out, tuple):
+            out = (torch.stack(out) if len({t.shape for t in out}) == 1
+                   else torch.cat([t.reshape(-1) for t in out]))
+        out = out.contiguous()
         digest = hashlib.sha256(out.view(torch.uint8).cpu().numpy()
                                 .tobytes()).hexdigest()[:16]
         events = time_ms(fn, 100)
@@ -5547,6 +6299,9 @@ def run_phases(tmp: str) -> int:
     # kernel): their child runs beside the build and is waited for at its end
     child = start_dryrun(tmp)
     _CHILDREN.append(child)
+    # phase 19's autoplan search traces on the host's CPU too: beside it
+    planner_child = start_autoplan(tmp)
+    _CHILDREN.append(planner_child)
     with phase("2 build"):
         logs = _build.build_all()
         for name, log in logs.items():
@@ -5572,6 +6327,10 @@ def run_phases(tmp: str) -> int:
         dry = finish_dryrun(child, tmp)
         print(f"  the dry-run child (phase 17) waited for "
               f"{time.perf_counter() - t0:.1f} s past the build")
+        t0 = time.perf_counter()
+        autoplan = finish_autoplan(planner_child, tmp)
+        print(f"  the autoplan child (phase 19) waited for "
+              f"{time.perf_counter() - t0:.1f} s past the dry-run child")
     with phase("3 check"):
         errs = check_kernels(ops, ref)
     with phase("4 time"):
@@ -5607,8 +6366,12 @@ def run_phases(tmp: str) -> int:
         pod_part = run_pod_partition()
     with phase("17 analysis"):
         run_analysis(dry, train_meas, smi)
+    with phase("18 softcap"):
+        capped = run_softcap(ops, train_meas)
+    with phase("19 examples"):
+        examples = run_examples(ops, autoplan, tmp)
     # flash and decode: the serving cells' launches, each cell counted
-    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j and 10 k-l), flash
+    # from 0 on its own (6 b, 7 c-f, 8 g-h, 9 i-j, 10 k-l), flash
     # forward and backward in the training steps of 13 (b) and the timed
     # pod-parallel steps of 14 (a), all three in phase 15's sharded runs
     # on both ranks, and flash forward and backward in phase 16's
@@ -5624,6 +6387,10 @@ def run_phases(tmp: str) -> int:
                                        + distributed["flash_attention_bwd"]
                                        + partitioned["flash_attention_bwd"]
                                        + pod_part["flash_attention_bwd"])
+    # and the capped LM's (18: serving and training) and the examples' (19)
+    for name in ("flash_attention", "decode_attention",
+                 "flash_attention_bwd"):
+        launches[name] += capped.get(name, 0) + examples.get(name, 0)
 
     sources = {"matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/matmul.py:18"),

@@ -48,6 +48,18 @@
 // - Scores are kept in the log2 domain (scaled by scale * log2(e)), so each
 //   exponential is one exp2f.  D is a template parameter, so the lane and
 //   copy arithmetic compiles to shifts.
+// - A logit soft cap c > 0 (Gemma 2's, as the JAX layers' decode_attention
+//   computes it) turns each scaled score s into c tanh(s / c) where it goes
+//   to the log2 domain: (c log2(e)) tanh(raw (scale / c)), both factors
+//   computed on the host (``cap2`` 0: no cap).  It is a runtime branch,
+//   uniform over the launch, not a template flag: the 55 instantiations
+//   stay 55, and without a cap every score is the product it was (the
+//   same bits; the wide groups' unrolled tiles run some 4-10 % slower for
+//   the branch's code: PERF.md).  tanh is tanh_abs, 1 - 2 / (1 + e^{2x}):
+//   branch-free and a few instructions (the capped step at the main pool
+//   costs 3 % over the uncapped one where tanhf's cost 11 %), and within
+//   2e-7 of tanh absolutely, which is what a score needs: its error is an
+//   exponent's, and the fp32 limit holds.
 // - The block merges its warps once through shared memory, in warp
 //   order.  A single live split writes ``out``; otherwise the block writes
 //   its unnormalised (m, l, acc) partial, fences, and counts itself in an
@@ -79,6 +91,12 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int STAGES = 3;
 constexpr int MERGE_BATCH = 8;  // splits whose partials one load batch reads
 constexpr int MAX_LANE_ELEMS = 80;     // NP * CPL * EPC: a lane's q floats
+
+// tanh(x) = 1 - 2 / (1 + e^{2x}), with x given as 2 x log2(e): within 2e-7
+// of tanh absolutely (-1 and 1 exactly far out), branch-free
+__device__ __forceinline__ float tanh_abs(float x2) {
+  return 1.f - __fdividef(2.f, 1.f + exp2f(x2));
+}
 
 template <typename T> struct Traits;
 template <> struct Traits<float> {
@@ -157,7 +175,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
               const T* __restrict__ vc, const int* __restrict__ cache_len,
               T* __restrict__ out, float* __restrict__ lse,
               float* __restrict__ part, int* __restrict__ counters, int h,
-              int kvh, int s_len, int chunk, int n_splits, float scale) {
+              int kvh, int s_len, int chunk, int n_splits, float scale,
+              float cap_in, float cap2) {
   constexpr int d = D;
   constexpr int EPC = Traits<T>::EPC;
   constexpr int TK = warp_tile<T, D>();
@@ -302,7 +321,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         float mx = m[r];
 #pragma unroll
         for (int jj = 0; jj < SUB; ++jj) {
-          sc[r][jj] = j0 + jj < n_valid ? sc[r][jj] * scale2 : NEG_INF;
+          const float x = cap2 > 0.f ? cap2 * tanh_abs(sc[r][jj] * cap_in)
+                                     : sc[r][jj] * scale2;
+          sc[r][jj] = j0 + jj < n_valid ? x : NEG_INF;
           mx = fmaxf(mx, sc[r][jj]);
         }
         const float corr = exp2f(m[r] - mx);
@@ -424,7 +445,7 @@ template <typename T, int D, int NP>
 int launch(const void* q, const void* k, const void* v, const int* lens,
            void* out, float* lse, float* part, int* counters, int b, int h,
            int kvh, int s_len, int chunk, int n_splits, float scale,
-           cudaStream_t stream) {
+           float cap_in, float cap2, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>(h / kvh);
   // the largest group this instantiation takes: NP passes of its rows
   constexpr int rows_per_pass = 32 / lanes_per_row(D / Traits<T>::EPC);
@@ -434,7 +455,7 @@ int launch(const void* q, const void* k, const void* v, const int* lens,
   decode_kernel<T, D, NP><<<dim3(n_splits, b * kvh), THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lens, static_cast<T*>(out), lse, part,
-      counters, h, kvh, s_len, chunk, n_splits, scale);
+      counters, h, kvh, s_len, chunk, n_splits, scale, cap_in, cap2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,13 +467,14 @@ template <typename T, int D>
 int dispatch_np(const void* q, const void* k, const void* v, const int* lens,
                 void* out, float* lse, float* part, int* counters, int b,
                 int h, int kvh, int s_len, int chunk, int n_splits,
-                float scale, cudaStream_t s) {
+                float scale, float cap_in, float cap2, cudaStream_t s) {
   constexpr int rows_per_pass = 32 / lanes_per_row(D / Traits<T>::EPC);
   const int passes = (h / kvh + rows_per_pass - 1) / rows_per_pass;
 #define REPRO_DECODE_NP(NP)                                                  \
   if (passes <= NP)                                                          \
     return launch<T, D, NP>(q, k, v, lens, out, lse, part, counters, b, h,  \
-                            kvh, s_len, chunk, n_splits, scale, s);
+                            kvh, s_len, chunk, n_splits, scale, cap_in, \
+                            cap2, s);
   REPRO_DECODE_NP(1)
   REPRO_DECODE_NP(2)
   REPRO_DECODE_NP(4)
@@ -470,29 +492,35 @@ template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const int* lens,
              void* out, float* lse, float* part, int* counters, int b, int h,
              int kvh, int s_len, int d, int chunk, int n_splits, float scale,
-             cudaStream_t s) {
+             float cap_in, float cap2, cudaStream_t s) {
   if (chunk < 1 || chunk % Traits<T>::TK != 0 ||
       (long long)chunk * n_splits < s_len)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16:
       return dispatch_np<T, 16>(q, k, v, lens, out, lse, part, counters, b,
-                                h, kvh, s_len, chunk, n_splits, scale, s);
+                                h, kvh, s_len, chunk, n_splits, scale,
+                                cap_in, cap2, s);
     case 32:
       return dispatch_np<T, 32>(q, k, v, lens, out, lse, part, counters, b,
-                                h, kvh, s_len, chunk, n_splits, scale, s);
+                                h, kvh, s_len, chunk, n_splits, scale,
+                                cap_in, cap2, s);
     case 64:
       return dispatch_np<T, 64>(q, k, v, lens, out, lse, part, counters, b,
-                                h, kvh, s_len, chunk, n_splits, scale, s);
+                                h, kvh, s_len, chunk, n_splits, scale,
+                                cap_in, cap2, s);
     case 80:  // h2o-danube: 10 (bf16) or 20 (fp32) chunks on 16 or 32 lanes
       return dispatch_np<T, 80>(q, k, v, lens, out, lse, part, counters, b,
-                                h, kvh, s_len, chunk, n_splits, scale, s);
+                                h, kvh, s_len, chunk, n_splits, scale,
+                                cap_in, cap2, s);
     case 128:
       return dispatch_np<T, 128>(q, k, v, lens, out, lse, part, counters, b,
-                                 h, kvh, s_len, chunk, n_splits, scale, s);
+                                 h, kvh, s_len, chunk, n_splits, scale,
+                                 cap_in, cap2, s);
     case 256:  // recurrentgemma: 32 chunks a row in bf16, 64 in fp32
       return dispatch_np<T, 256>(q, k, v, lens, out, lse, part, counters, b,
-                                 h, kvh, s_len, chunk, n_splits, scale, s);
+                                 h, kvh, s_len, chunk, n_splits, scale,
+                                 cap_in, cap2, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -508,8 +536,9 @@ extern "C" int repro_decode_attention_key_tile(int dtype) {
 
 // q [b, h, d] and caches [b, s_len, kvh, d], contiguous, 16-byte aligned;
 // lens int32 [b] on the device; out [b, h, d]; ``lse`` fp32 [b, h] or null:
-// each row's base-2 log-sum-exp of its scaled scores (NEG_INF for a row with
-// no valid key).  The keys are split into
+// each row's base-2 log-sum-exp of its scaled (and capped) scores (NEG_INF
+// for a row with no valid key); softcap >= 0 (0: none).  The keys are split
+// into
 // n_splits splits of ``chunk`` (chunk * n_splits >= s_len).  Scratch:
 // ``part`` fp32 [b * h * n_splits * (d + 2)], ``counters`` int32 [b * kvh],
 // zero on entry and left zero on exit.  dtype: 0 = float32, 1 = bfloat16
@@ -521,18 +550,26 @@ extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lens, void* out,
     void* lse, void* part, void* counters, int b, int h, int kvh, int s_len,
     int d,
-    int chunk, int n_splits, float scale, int dtype, void* stream) {
+    int chunk, int n_splits, float scale, float softcap, int dtype,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* ln = static_cast<const int*>(lens);
   float* ls = static_cast<float*>(lse);
   float* pa = static_cast<float*>(part);
   int* cnt = static_cast<int*>(counters);
+  if (!(softcap >= 0.f)) return static_cast<int>(cudaErrorInvalidValue);
+  // the cap's factors: c tanh(s scale / c) in log2 units (cap2 0: no cap),
+  // tanh_abs taking 2 log2(e) s scale / c
+  const float cap_in =
+      softcap > 0.f ? 2.8853900817779268f * scale / softcap : 0.f;
+  const float cap2 = softcap * 1.4426950408889634f;
   if (dtype == 0)
     return dispatch<float>(q, k, v, ln, out, ls, pa, cnt, b, h, kvh, s_len,
-                           d, chunk, n_splits, scale, s);
+                           d, chunk, n_splits, scale, cap_in, cap2, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, ln, out, ls, pa, cnt, b, h,
-                                   kvh, s_len, d, chunk, n_splits, scale, s);
+                                   kvh, s_len, d, chunk, n_splits, scale,
+                                   cap_in, cap2, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

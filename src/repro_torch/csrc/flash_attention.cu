@@ -1,8 +1,12 @@
 // Flash (online-softmax) attention, the prefill attention of the LM:
-// O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal and window masks) V[g]
+// O[bh] = softmax(cap(Q[bh] K[g]^T / sqrt(D)), causal and window masks) V[g]
 // with g = bh / kv_group (grouped-query attention reads its KV head in
 // place).  A window W > 0 keeps key k for query q only where q - k < W (the
-// JAX layers' sliding-window rule); W = 0 is no window.
+// JAX layers' sliding-window rule); W = 0 is no window.  A logit soft cap
+// c > 0 replaces each scaled score s by c tanh(s / c) before the mask
+// (Gemma 2's rule, as the JAX layers' dense_attention computes it); c = 0
+// is no cap.  A query offset o puts query row i at position i + o for the
+// causal and window compares (a chunk of queries after o earlier ones).
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_kernel /
 // flash_attention (the Pallas online-softmax kernel; grid (BH, Sq/bq,
@@ -64,14 +68,24 @@
 // Both stop a causal walk after the tile holding the block's last query
 // row, which skips exactly the tiles the TPU grid ran fully masked (they
 // left every carry unchanged).  Under a window W both also start the walk at
-// the tile holding key q0 - W + 1 (q0 the block's first query row), so tiles
-// wholly left of every row's window are never loaded; the window compare
-// runs only on tiles that reach past some row's left edge.  A row whose
-// keys in a tile are all masked keeps a running max of NEG_INF; its
-// exponentials are then taken against 0, so they come out 0 (not 1) and
-// the first tile with a valid key resets the carries.  The window is a
-// template flag (a kernel with and one without): without a window the
-// kernels compile to what they were before it, at the same speed.  Ragged Sq and Skv
+// the tile holding key p0 - W + 1 (p0 the position of the block's first
+// query row), so tiles wholly left of every row's window are never loaded;
+// the window compare runs only on tiles that reach past some row's left
+// edge.  A row whose keys in a tile are all masked keeps a running max of
+// NEG_INF; its exponentials are then taken against 0, so they come out 0
+// (not 1) and the first tile with a valid key resets the carries.  The
+// window, the query offset and the soft cap are runtime values of one
+// template flag, GENERAL (a kernel with it and one without, so no more
+// instantiations than the window alone made): without them a launch runs
+// the kernel it ran before any of the three, with the same arithmetic.
+// The general kernel takes "no window" as a window of 2^30 keys, walks
+// the offset's tile range (the causal walk ends at the tile holding key
+// p0 + rows - 1) and caps every score tile in fp32 with the accurate
+// tanhf (about one more exponential and a division a score beside the
+// softmax's exponential): the fp32 kernel must hold its 2e-4 and the bf16
+// kernel the limits of its uncapped rows.  The bf16 kernel keeps raw
+// (unscaled) scores, so it caps them as (c / scale) tanh(s scale / c).
+// Ragged Sq and Skv
 // are masked, so any length works; row and sequence strides are arguments,
 // so q/k/v may be views of the model's [B, S, H, D] projections.
 //
@@ -87,13 +101,17 @@
 // store, beside the row's output, L2 = m * scale * log2(e) + log2(l) from
 // the running max m of the raw scores and the denominator l they hold, so
 // that the backward (csrc/flash_attention_bwd.cu) recovers
-// P = exp2(s * scale * log2(e) - L2) without walking the keys again.  A row
-// that attends no key (l = 0) stores 0: its masked P stays 0.
+// P = exp2(s * scale * log2(e) - L2) without walking the keys again (s the
+// capped score under a cap).  A row that attends no key (l = 0) stores 0:
+// its masked P stays 0.
 #include "hopper.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+// the general kernels' window when the caller has none: wider than any
+// sequence, and small enough that positions plus it never overflow
+constexpr int NO_WINDOW = 1 << 30;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -128,15 +146,17 @@ template <int D> struct Tile {
 using hopper::load_box;
 
 // D: the tile's width; DV <= D: the rows' (D = 128 tile, DV = 80: TMA
-// zero-fills the columns past DV, which are never stored)
-template <int D, int DV, bool WINDOW>
+// zero-fills the columns past DV, which are never stored); GENERAL: the
+// window, query offset and soft cap apply (else all three are off)
+template <int D, int DV, bool GENERAL>
 __global__ void __launch_bounds__(BF16_THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   int n_bh, int sq, int skv, int kv_group, int causal,
-                  int window, float scale, int heads_inner) {
+                  int window, int q_offset, float softcap, float scale,
+                  int heads_inner) {
   using T = Tile<D>;
   constexpr int SW = T::SW, NSUB = T::NSUB, NO = T::NO, STAGES = T::STAGES;
   constexpr int BKV = T::BKV;
@@ -155,11 +175,12 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / n_bh) * BQ;
   const int bh = blockIdx.x % n_bh;
   const int kvh = bh / kv_group;
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  // first tile: the one holding key q0 - window + 1, the block's leftmost
+  const int p0 = q0 + (GENERAL ? q_offset : 0);  // first row's position
+  const int kv_end = causal ? min(skv, p0 + BQ) : skv;
+  // first tile: the one holding key p0 - window + 1, the block's leftmost
   // key in any row's window
-  const int j0 = WINDOW ? max(0, q0 - window + 1) / BKV : 0;
-  const int n_kv = (kv_end + BKV - 1) / BKV - j0;  // tiles walked
+  const int j0 = GENERAL ? max(0, p0 - window + 1) / BKV : 0;
+  const int n_kv = max(0, (kv_end + BKV - 1) / BKV - j0);  // tiles walked
 
   const CUtensorMap* map_k = &tm_k;
   const CUtensorMap* map_v = &tm_v;
@@ -197,7 +218,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   // this thread's two query rows: r0 holds fragment entries 4i, 4i+1 and
   // r0 + 8 entries 4i+2, 4i+3 (columns 8i + 2 (lane % 4) + {0, 1})
   const int r0 = q0 + 64 * wg + 16 * warp + lane / 4;
+  const int pr0 = r0 + p0 - q0;  // its position
   const float c2 = scale * LOG2E;
+  // the cap on raw scores: (c / scale) tanh(s scale / c)
+  const float cap_out = GENERAL ? softcap / scale : 0.f;
+  const float cap_in = GENERAL && softcap > 0.f ? scale / softcap : 0.f;
   float o_acc[NSUB][NO];
 #pragma unroll
   for (int c = 0; c < NSUB; ++c)
@@ -207,7 +232,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
   float l0 = 0.f, l1 = 0.f;          // this thread's share of the row sums
 
   hopper::mbar_wait(q_bar, 0);
-  const int row_last = q0 + 64 * wg + 63;  // this warpgroup's last row
+  const int row_last = p0 + 64 * wg + 63;  // its warpgroup's last position
   for (int t = 0; t < n_kv; ++t) {  // t-th tile walked: key tile j0 + t
     const int j = j0 + t;
     const int s = t % STAGES;
@@ -237,18 +262,23 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     __syncwarp();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sacc);
+    if (GENERAL && softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i)
+        sacc[i] = cap_out * tanhf(sacc[i] * cap_in);
+    }
 
     // masks: only the diagonal tile, the ragged last tile and the tiles
     // that reach past a row's window edge need them
     const int k0 = j * BKV;
-    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > q0 + 64 * wg) ||
-        (WINDOW && row_last - k0 >= window)) {
+    if (k0 + BKV > skv || (causal && k0 + BKV - 1 > p0 + 64 * wg) ||
+        (GENERAL && row_last - k0 >= window)) {
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) {
         const int kpos = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
-        const int row = r0 + 8 * ((i / 2) & 1);
-        if (kpos >= skv || (causal && row < kpos) ||
-            (WINDOW && row - kpos >= window))
+        const int pos = pr0 + 8 * ((i / 2) & 1);
+        if (kpos >= skv || (causal && pos < kpos) ||
+            (GENERAL && pos - kpos >= window))
           sacc[i] = NEG_INF;
       }
     }
@@ -270,8 +300,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
     m1 = mx1;
     // under a window, a row with no valid key yet: exponentials against 0
     // give p = 0 (without one every row's first tile holds key 0)
-    const float mc0 = (WINDOW && mx0 == NEG_INF ? 0.f : mx0) * c2;
-    const float mc1 = (WINDOW && mx1 == NEG_INF ? 0.f : mx1) * c2;
+    const float mc0 = (GENERAL && mx0 == NEG_INF ? 0.f : mx0) * c2;
+    const float mc1 = (GENERAL && mx1 == NEG_INF ? 0.f : mx1) * c2;
     float sum0 = 0.f, sum1 = 0.f;
     uint32_t pa[BKV / 4];  // P in bf16: the A fragments of P V
 #pragma unroll
@@ -344,7 +374,8 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int D, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int bh, int sq, int skv, int kv_group, int causal,
-                int window, float scale, long long q_sb, long long q_ss,
+                int window, int q_offset, float softcap, float scale,
+                long long q_sb, long long q_ss,
                 long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                 cudaStream_t stream) {
   using T = Tile<D>;
@@ -362,15 +393,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
                       T::ACOLS, swizzle, &inner_v))
     return hopper::ERR_ENCODE;
   const int heads_inner = inner_q | inner_k << 1 | inner_v << 2;
-  auto kernel = window > 0 ? flash_bf16_kernel<D, DV, true>
-                           : flash_bf16_kernel<D, DV, false>;
+  const bool general = window > 0 || q_offset > 0 || softcap > 0.f;
+  auto kernel = general ? flash_bf16_kernel<D, DV, true>
+                        : flash_bf16_kernel<D, DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = ((sq + BQ - 1) / BQ) * bh;
   kernel<<<grid, BF16_THREADS, T::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, bh, sq, skv, kv_group,
-      causal, window, scale, heads_inner);
+      causal, window > 0 ? window : NO_WINDOW, q_offset, softcap, scale,
+      heads_inner);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -390,12 +423,13 @@ template <int D> constexpr size_t f32_smem_floats() {
          + 3 * F32_BQ;             // running max, denominator, correction
 }
 
-template <int D, bool WINDOW>
+template <int D, bool GENERAL>
 __global__ void __launch_bounds__(F32_THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int sq, int skv, int kv_group,
-                 int causal, int window, float scale, long long q_sb,
+                 int causal, int window, int q_offset, float softcap,
+                 float scale, long long q_sb,
                  long long q_ss, long long k_sb, long long k_ss,
                  long long v_sb, long long v_ss) {
   constexpr int BQ = F32_BQ, BKV = F32_BKV, THREADS = F32_THREADS;
@@ -414,6 +448,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = tid / 16;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
+  const int p0 = q0 + (GENERAL ? q_offset : 0);  // first row's position
   const float* qb = q + bh * q_sb;
   const float* kb = k + (bh / kv_group) * k_sb;
   const float* vb = v + (bh / kv_group) * v_sb;
@@ -434,9 +469,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
 
   // keys past the tile's last query row are masked for all of its rows,
-  // and keys left of q0 - window + 1 for all of them under a window
-  const int kv_end = causal ? min(skv, q0 + BQ) : skv;
-  const int kv_begin = WINDOW ? max(0, q0 - window + 1) / BKV * BKV : 0;
+  // and keys left of p0 - window + 1 for all of them under a window
+  const int kv_end = causal ? min(skv, p0 + BQ) : skv;
+  const int kv_begin = GENERAL ? max(0, p0 - window + 1) / BKV * BKV : 0;
   __syncthreads();
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
@@ -472,9 +507,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int col = tx + 16 * j;
         const int kpos = k0 + col;
-        const bool valid = kpos < skv && (!causal || q0 + row >= kpos) &&
-                           (!WINDOW || q0 + row - kpos < window);
-        ss[row * (BKV + 1) + col] = valid ? sacc[i][j] * scale : NEG_INF;
+        const bool valid = kpos < skv && (!causal || p0 + row >= kpos) &&
+                           (!GENERAL || p0 + row - kpos < window);
+        float x = sacc[i][j] * scale;
+        if (GENERAL && softcap > 0.f) x = softcap * tanhf(x / softcap);
+        ss[row * (BKV + 1) + col] = valid ? x : NEG_INF;
       }
     }
     __syncthreads();
@@ -494,8 +531,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int kpos = k0 + part * 8 + c;
-        const bool valid = kpos < skv && (!causal || q0 + r >= kpos) &&
-                           (!WINDOW || q0 + r - kpos < window);
+        const bool valid = kpos < skv && (!causal || p0 + r >= kpos) &&
+                           (!GENERAL || p0 + r - kpos < window);
         const float p = valid ? expf(srow[c] - m_new) : 0.f;
         sum += p;
         srow[c] = p;
@@ -552,13 +589,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int bh, int sq, int skv, int kv_group, int causal,
-               int window, float scale, long long q_sb, long long q_ss,
+               int window, int q_offset, float softcap, float scale,
+               long long q_sb, long long q_ss,
                long long k_sb, long long k_ss, long long v_sb, long long v_ss,
                cudaStream_t stream) {
   constexpr size_t smem = f32_smem_floats<D>() * sizeof(float);
   static_assert(smem <= 227 * 1024, "a block opts into at most 227 KB");
-  auto kernel = window > 0 ? flash_f32_kernel<D, true>
-                           : flash_f32_kernel<D, false>;
+  const bool general = window > 0 || q_offset > 0 || softcap > 0.f;
+  auto kernel = general ? flash_f32_kernel<D, true>
+                        : flash_f32_kernel<D, false>;
   // above 48 KB (D = 80, 128, 256: 141 KB) only as opted-in dynamic
   // shared memory
   cudaError_t err = cudaFuncSetAttribute(
@@ -569,14 +608,15 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, F32_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, sq, skv,
-      kv_group, causal, window, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
+      kv_group, causal, window > 0 ? window : NO_WINDOW, q_offset, softcap,
+      scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss);
   return static_cast<int>(cudaGetLastError());
 }
 
 typedef int (*Launch)(const void*, const void*, const void*, void*, float*,
-                      int, int, int, int, int, int, float, long long,
+                      int, int, int, int, int, int, int, float, float,
                       long long, long long, long long, long long, long long,
-                      cudaStream_t);
+                      long long, cudaStream_t);
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
 Launch pick_launch(int d, int dtype) {
@@ -619,19 +659,22 @@ extern "C" int repro_flash_attention_kv_ring(int d, int what) {
 // [bh, sq] contiguous (each row's L2, see the header).  dtype: 0 = float32
 // (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel; bases and strides
 // 16-byte aligned), shared by all four.  d in {16, 32, 64, 80, 128, 256};
-// window >= 0 (0: none).  Returns the CUDA error of the launch (0 on
-// success; negative: a tensor-map failure, see repro_cuda_error_string);
-// nothing here synchronises.
+// window in [0, 2^30) (0: none); q_offset in [0, 2^30); softcap >= 0 (0:
+// none).  Returns the CUDA error of the launch (0 on success; negative: a
+// tensor-map failure, see repro_cuda_error_string); nothing here
+// synchronises.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-    int sq, int skv, int d, int kv_group, int causal, int window, float scale,
-    long long q_sb, long long q_ss, long long k_sb, long long k_ss,
-    long long v_sb, long long v_ss, int dtype, void* stream) {
+    int sq, int skv, int d, int kv_group, int causal, int window,
+    int q_offset, float scale, float softcap, long long q_sb, long long q_ss,
+    long long k_sb, long long k_ss, long long v_sb, long long v_ss,
+    int dtype, void* stream) {
   const Launch launch = pick_launch(d, dtype);
-  if (launch == nullptr || window < 0)
+  if (launch == nullptr || window < 0 || window >= NO_WINDOW ||
+      q_offset < 0 || q_offset >= NO_WINDOW || !(softcap >= 0.f))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(q, k, v, o, lse, bh, sq, skv, kv_group, causal, window,
-                scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+                q_offset, softcap, scale, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                 static_cast<cudaStream_t>(stream));
 }
 

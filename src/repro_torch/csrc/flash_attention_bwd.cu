@@ -1,7 +1,9 @@
 // Flash-attention backward: the gradient of csrc/flash_attention.cu's
-// O[bh] = softmax(Q[bh] K[g]^T / sqrt(D), causal and window masks) V[g],
-// g = bh / kv_group, with respect to Q, K and V, given O, dO and the row
-// log-sum-exps the forward saved.
+// O[bh] = softmax(cap(Q[bh] K[g]^T / sqrt(D)), causal and window masks)
+// V[g], g = bh / kv_group, with respect to Q, K and V, given O, dO and the
+// row log-sum-exps the forward saved; the soft cap c tanh(s / c) (c = 0:
+// none) and the query offset (query row i at position i + o in the causal
+// and window compares) are the forward's.
 //
 // Replaces: the gradient of src/repro/kernels/flash_attention.py,
 // flash_attention (the Pallas online-softmax kernel), which the reference
@@ -15,6 +17,17 @@
 //   dQ = scale dS K,  dK = scale dS^T Q,
 // dK and dV of a KV head summed over its kv_group query heads.  A row that
 // attends no key has L2 = 0 and every P of it masked: it adds nothing.
+// Under a soft cap c the forward's score is c t with t = tanh(S scale / c):
+// P = exp2(c t log2(e) - L2), and dS above is the gradient of the capped
+// score, so it is multiplied by the cap's derivative 1 - t^2 before the
+// final scale.  t is recomputed from the score fragment where P and dS are
+// formed (tanhf, fp32), never held for a tile.  The window, the offset and
+// the cap are runtime values of one template flag, GENERAL, as in the
+// forward: without them the kernels are what they were before any of the
+// three.  The offset moves the walks' tile ranges: the dK/dV pass starts
+// at the query tile holding position k0 (row k0 - o) and ends under a
+// window at row k0 + keys - 2 + W - o; the dQ pass walks the forward's
+// key tiles of positions q0 + o on.
 //
 // One call is three kernels on the stream:
 //
@@ -99,8 +112,10 @@ struct Args {
   const float* lse;  // [bh, sq]: the forward's L2
   void *dq, *dk, *dv;
   float* stats;      // [bh, n_st, 2, ST_ROWS]: L2 and Delta, 0 past sq
-  int bh, sq, skv, kv_group, causal, window, n_st;
+  int bh, sq, skv, kv_group, causal, window, q_offset, n_st;
   float scale;
+  float cap_in, cap_l2;  // scale / c and c log2(e) under a cap c > 0
+  int capped;
   long long q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss;
 };
 
@@ -111,10 +126,26 @@ __device__ __forceinline__ float stat(const Args& a, int bh, int row,
                   which) * ST_ROWS + row % ST_ROWS];
 }
 
-template <bool WINDOW>
-__device__ __forceinline__ bool attends(const Args& a, int qpos, int kpos) {
-  return qpos < a.sq && kpos < a.skv && (!a.causal || qpos >= kpos) &&
-         (!WINDOW || qpos - kpos < a.window);
+// whether query row ``row`` (at position row + q_offset) attends key kpos
+template <bool GENERAL>
+__device__ __forceinline__ bool attends(const Args& a, int row, int kpos) {
+  const int qpos = row + (GENERAL ? a.q_offset : 0);
+  return row < a.sq && kpos < a.skv && (!a.causal || qpos >= kpos) &&
+         (!GENERAL || qpos - kpos < a.window);
+}
+
+// P of a raw score s (Q K^T) at its row's L2, and in ``dcap`` the soft
+// cap's derivative 1 - t^2 there (1 without a cap)
+template <bool GENERAL>
+__device__ __forceinline__ float prob(const Args& a, float s, float c2,
+                                      float l2, float& dcap) {
+  if (GENERAL && a.capped) {
+    const float t = tanhf(s * a.cap_in);
+    dcap = 1.f - t * t;
+    return exp2f(fmaf(t, a.cap_l2, -l2));
+  }
+  dcap = 1.f;
+  return exp2f(fmaf(s, c2, -l2));
 }
 
 // ---------------------------------------------------------------------------
@@ -183,7 +214,7 @@ template <int DT> struct Wg {
 };
 
 // 2. dK, dV: one block per (KV head, 128-key tile)
-template <int DT, int DV, bool WINDOW>
+template <int DT, int DV, bool GENERAL>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
@@ -211,10 +242,13 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int n_kv = a.bh / a.kv_group;
   const int g = blockIdx.x % n_kv;
   const int k0 = static_cast<int>(blockIdx.x) / n_kv * KB;
-  // the query tiles that see a key of the block: from the one holding row
-  // k0 under a causal mask, up to row k0 + KB - 2 + W under a window
-  const int qt0 = a.causal ? k0 / QT : 0;
-  const int q_end = WINDOW ? min(a.sq, k0 + KB - 1 + a.window) : a.sq;
+  const int off = GENERAL ? a.q_offset : 0;
+  // the query tiles that see a key of the block: from the one holding
+  // position k0 under a causal mask, up to position k0 + KB - 2 + W under
+  // a window (row = position - off)
+  const int qt0 = a.causal ? max(0, k0 - off) / QT : 0;
+  const int q_end =
+      GENERAL ? min(a.sq, k0 + KB - 1 + a.window - off) : a.sq;
   const int n_qt = max(0, (q_end + QT - 1) / QT - qt0);
   const int n_t = n_qt * a.kv_group;  // the group's heads, each over n_qt
 
@@ -321,8 +355,8 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float* ls = stats + s * 2 * ST_ROWS;  // L2 of the tile's rows
     const float* dl = ls + ST_ROWS;             // their Delta
     const bool edge = !(q0 + QT <= a.sq && kw0 + 64 <= a.skv &&
-                        (!a.causal || q0 >= kw0 + 63) &&
-                        (!WINDOW || q0 + QT - 1 - kw0 < a.window));
+                        (!a.causal || q0 + off >= kw0 + 63) &&
+                        (!GENERAL || q0 + QT - 1 + off - kw0 < a.window));
     uint32_t pa[QT / 4], dsa[QT / 4];
 #pragma unroll
     for (int i = 0; i < QT / 2; i += 2) {
@@ -331,10 +365,12 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       float p[2], ds[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float x = exp2f(fmaf(sacc[i + e], c2, -ls[col + e]));
-        if (edge && !attends<WINDOW>(a, q0 + col + e, key)) x = 0.f;
+        float dcap;
+        float x = prob<GENERAL>(a, sacc[i + e], c2, ls[col + e], dcap);
+        if (edge && !attends<GENERAL>(a, q0 + col + e, key)) x = 0.f;
         p[e] = x;
         ds[e] = x * (dpacc[i + e] - dl[col + e]);
+        if (GENERAL) ds[e] *= dcap;
       }
       pa[i / 2] = hopper::pack_bf16x2(p[0], p[1]);
       dsa[i / 2] = hopper::pack_bf16x2(ds[0], ds[1]);
@@ -403,7 +439,7 @@ bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // 3. dQ: one block per (128-row query tile, bh)
-template <int DT, int DV, bool WINDOW>
+template <int DT, int DV, bool GENERAL>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
@@ -429,9 +465,10 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x) / a.bh) * QB;
   const int bh = blockIdx.x % a.bh;
   const int g = bh / a.kv_group;
-  const int kv_end = a.causal ? min(a.skv, q0 + QB) : a.skv;
-  // first tile: the one holding key q0 - window + 1
-  const int j0 = WINDOW ? max(0, q0 - a.window + 1) / BKV : 0;
+  const int off = GENERAL ? a.q_offset : 0;
+  const int kv_end = a.causal ? min(a.skv, q0 + off + QB) : a.skv;
+  // first tile: the one holding key q0 + off - window + 1
+  const int j0 = GENERAL ? max(0, q0 + off - a.window + 1) / BKV : 0;
   const int n_kv = max(0, (kv_end + BKV - 1) / BKV - j0);  // tiles walked
 
   auto load_kv = [&](int j, int s) {
@@ -530,8 +567,8 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     // dS = P * (dP - Delta), rounded to bf16 in place as the A fragments
     // of dS K; masks only on the diagonal, window-edge and ragged tiles
     const bool edge = !(rw0 + 64 <= a.sq && k0 + BKV <= a.skv &&
-                        (!a.causal || rw0 >= k0 + BKV - 1) &&
-                        (!WINDOW || rw0 + 63 - k0 < a.window));
+                        (!a.causal || rw0 + off >= k0 + BKV - 1) &&
+                        (!GENERAL || rw0 + off + 63 - k0 < a.window));
     uint32_t dsa[BKV / 4];
 #pragma unroll
     for (int i = 0; i < BKV / 2; i += 2) {
@@ -541,9 +578,12 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       float ds[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float p = exp2f(fmaf(sacc[i + e], c2, hi ? -l1 : -l0));
+        float dcap;
+        const float p =
+            prob<GENERAL>(a, sacc[i + e], c2, hi ? l1 : l0, dcap);
         ds[e] = p * (dpacc[i + e] - (hi ? dl1 : dl0));
-        if (edge && !attends<WINDOW>(a, row, kpos + e)) ds[e] = 0.f;
+        if (GENERAL) ds[e] *= dcap;
+        if (edge && !attends<GENERAL>(a, row, kpos + e)) ds[e] = 0.f;
       }
       dsa[i / 2] = hopper::pack_bf16x2(ds[0], ds[1]);
     }
@@ -586,15 +626,15 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-template <int DT, int DV, bool WINDOW>
+template <int DT, int DV, bool GENERAL>
 int launch_wgmma(const Args& a, cudaStream_t stream) {
   using W = Wg<DT>;
-  auto dkdv = bwd_dkdv_wgmma_kernel<DT, DV, WINDOW>;
-  auto dq = bwd_dq_wgmma_kernel<DT, DV, WINDOW>;
+  auto dkdv = bwd_dkdv_wgmma_kernel<DT, DV, GENERAL>;
+  auto dq = bwd_dq_wgmma_kernel<DT, DV, GENERAL>;
   cudaError_t err;
-  if ((err = hopper::allow_smem<bwd_dkdv_wgmma_kernel<DT, DV, WINDOW>>(
+  if ((err = hopper::allow_smem<bwd_dkdv_wgmma_kernel<DT, DV, GENERAL>>(
            W::DKDV_SMEM)) != cudaSuccess ||
-      (err = hopper::allow_smem<bwd_dq_wgmma_kernel<DT, DV, WINDOW>>(
+      (err = hopper::allow_smem<bwd_dq_wgmma_kernel<DT, DV, GENERAL>>(
            W::DQ_SMEM)) != cudaSuccess)
     return static_cast<int>(err);
   const hopper::EncodeTiled fn = hopper::encoder();
@@ -661,13 +701,14 @@ __device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
   }
 }
 
-// the key tiles a query tile at q0 walks: [begin, end)
-template <int D, bool WINDOW>
+// the key tiles a query tile at row q0 walks: [begin, end)
+template <int D, bool GENERAL>
 __device__ __forceinline__ void key_range(const Args& a, int q0, int& begin,
                                           int& end) {
   constexpr int BQ = Cfg<D>::BQ, BKV = Cfg<D>::BKV;
-  end = a.causal ? min(a.skv, q0 + BQ) : a.skv;
-  begin = WINDOW ? max(0, q0 - a.window + 1) / BKV * BKV : 0;
+  const int p0 = q0 + (GENERAL ? a.q_offset : 0);  // its position
+  end = a.causal ? min(a.skv, p0 + BQ) : a.skv;
+  begin = GENERAL ? max(0, p0 - a.window + 1) / BKV * BKV : 0;
 }
 
 // s += A B^T and dp += C E^T over D for a thread's score block: rows
@@ -720,7 +761,7 @@ __device__ __forceinline__ void stage_stats(const Args& a, int bh, int q0,
 }
 
 // 2. dK, dV: one block per (KV head, key tile)
-template <int D, bool WINDOW, typename T>
+template <int D, bool GENERAL, typename T>
 __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
   using K = Cfg<D>;
   constexpr int BQ = K::BQ, BKV = K::BKV, TK = BKV / 16;
@@ -748,10 +789,13 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < K::TD; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  // rows before k0 see none of the tile's keys under a causal mask, rows
-  // from its last key + W on none under a window
-  const int q_begin = a.causal ? k0 / BQ * BQ : 0;
-  const int q_end = WINDOW ? min(a.sq, k0 + BKV - 1 + a.window) : a.sq;
+  // rows before position k0 see none of the tile's keys under a causal
+  // mask, rows from its last key + W on none under a window (row =
+  // position - q_offset)
+  const int off = GENERAL ? a.q_offset : 0;
+  const int q_begin = a.causal ? max(0, k0 - off) / BQ * BQ : 0;
+  const int q_end =
+      GENERAL ? min(a.sq, k0 + BKV - 1 + a.window - off) : a.sq;
   for (int rr = 0; rr < a.kv_group; ++rr) {
     const int bh = g * a.kv_group + rr;
     const T* qb = static_cast<const T*>(a.q) + bh * a.q_sb;
@@ -770,11 +814,15 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
 #pragma unroll
         for (int j = 0; j < K::TJ; ++j) {
           const int col = tx + 16 * j;
-          const float p = attends<WINDOW>(a, q0 + row, k0 + col)
-                              ? exp2f(fmaf(s[i][j], c2, -lse_s[row]))
-                              : 0.f;
+          float dcap = 1.f;
+          const float p =
+              attends<GENERAL>(a, q0 + row, k0 + col)
+                  ? prob<GENERAL>(a, s[i][j], c2, lse_s[row], dcap)
+                  : 0.f;
           ps[row * K::SP + col] = p;
-          dss[row * K::SP + col] = p * (dp[i][j] - dl_s[row]);
+          float ds = p * (dp[i][j] - dl_s[row]);
+          if (GENERAL) ds *= dcap;
+          dss[row * K::SP + col] = ds;
         }
       }
       __syncthreads();
@@ -817,7 +865,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_kernel(Args a) {
 }
 
 // 3. dQ: one block per (query tile, bh)
-template <int D, bool WINDOW, typename T>
+template <int D, bool GENERAL, typename T>
 __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   using K = Cfg<D>;
   constexpr int BQ = K::BQ, BKV = K::BKV;
@@ -849,7 +897,7 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
     for (int j = 0; j < K::TD; ++j) dq[i][j] = 0.f;
 
   int kv_begin, kv_end;
-  key_range<D, WINDOW>(a, q0, kv_begin, kv_end);
+  key_range<D, GENERAL>(a, q0, kv_begin, kv_end);
   for (int k0 = kv_begin; k0 < kv_end; k0 += BKV) {
     __syncthreads();  // Q, dO staged; the last tile's ks and dss read
     stage<D>(ks, kb, a.k_ss, k0, BKV, a.skv);
@@ -863,10 +911,14 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < K::TJ; ++j) {
         const int col = tx + 16 * j;
-        const float p = attends<WINDOW>(a, q0 + row, k0 + col)
-                            ? exp2f(fmaf(s[i][j], c2, -lse_s[row]))
-                            : 0.f;
-        dss[row * K::SP + col] = p * (dp[i][j] - dl_s[row]);
+        float dcap = 1.f;
+        const float p =
+            attends<GENERAL>(a, q0 + row, k0 + col)
+                ? prob<GENERAL>(a, s[i][j], c2, lse_s[row], dcap)
+                : 0.f;
+        float ds = p * (dp[i][j] - dl_s[row]);
+        if (GENERAL) ds *= dcap;
+        dss[row * K::SP + col] = ds;
       }
     }
     __syncthreads();
@@ -895,41 +947,40 @@ __global__ void __launch_bounds__(THREADS) bwd_dq_kernel(Args a) {
   }
 }
 
-template <int D, bool WINDOW, typename T>
+template <int D, bool GENERAL, typename T>
 int launch_cuda_cores(const Args& a, cudaStream_t stream) {
   using K = Cfg<D>;
   cudaError_t err;
-  if ((err = hopper::allow_smem<bwd_dkdv_kernel<D, WINDOW, T>>(
+  if ((err = hopper::allow_smem<bwd_dkdv_kernel<D, GENERAL, T>>(
            K::DKDV * sizeof(float))) != cudaSuccess ||
-      (err = hopper::allow_smem<bwd_dq_kernel<D, WINDOW, T>>(
+      (err = hopper::allow_smem<bwd_dq_kernel<D, GENERAL, T>>(
            K::DQ * sizeof(float))) != cudaSuccess)
     return static_cast<int>(err);
   const int q_tiles = (a.sq + K::BQ - 1) / K::BQ;
   const int k_tiles = (a.skv + K::BKV - 1) / K::BKV;
   bwd_prep_kernel<D, T><<<dim3(a.n_st, a.bh), THREADS, 0, stream>>>(a);
-  bwd_dkdv_kernel<D, WINDOW, T>
+  bwd_dkdv_kernel<D, GENERAL, T>
       <<<dim3(k_tiles, a.bh / a.kv_group), THREADS, K::DKDV * sizeof(float),
          stream>>>(a);
-  bwd_dq_kernel<D, WINDOW, T><<<dim3(q_tiles, a.bh), THREADS,
+  bwd_dq_kernel<D, GENERAL, T><<<dim3(q_tiles, a.bh), THREADS,
                                 K::DQ * sizeof(float), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 typedef int (*Launch)(const Args&, cudaStream_t);
 
-template <int DT, int DV> Launch pick_wgmma(bool window) {
-  return window ? launch_wgmma<DT, DV, true> : launch_wgmma<DT, DV, false>;
+template <int DT, int DV> Launch pick_wgmma(bool general) {
+  return general ? launch_wgmma<DT, DV, true> : launch_wgmma<DT, DV, false>;
 }
 
-template <int D, typename T> Launch pick_cuda_cores(bool window) {
-  return window ? launch_cuda_cores<D, true, T>
-                : launch_cuda_cores<D, false, T>;
+template <int D, typename T> Launch pick_cuda_cores(bool general) {
+  return general ? launch_cuda_cores<D, true, T>
+                 : launch_cuda_cores<D, false, T>;
 }
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores but at
-// D = 256)
-Launch pick_launch(int d, int window, int dtype) {
-  const bool w = window > 0;
+// D = 256); w: the general kernels (a window, query offset or soft cap)
+Launch pick_launch(int d, bool w, int dtype) {
   if (dtype == 1) {
     switch (d) {
       case 16: return pick_wgmma<16, 16>(w);
@@ -1008,7 +1059,9 @@ extern "C" int repro_flash_attention_bwd_plan(int d, int dtype, int what) {
 // [bh, sq], the forward's L2; dq [bh, sq, d] and dk, dv [bh / kv_group,
 // skv, d] contiguous, of the inputs' dtype (0 = float32, 1 = bfloat16);
 // stats float32 [bh, n_st = ceil(sq / 64), 2, 64] scratch.  d in {16, 32,
-// 64, 80, 128, 256}; window >= 0 (0: none).  Three launches on ``stream``
+// 64, 80, 128, 256}; window in [0, 2^30) (0: none), q_offset in [0, 2^30),
+// softcap >= 0 (0: none), as the forward took them.  Three launches on
+// ``stream``
 // (prep, dK/dV, dQ); returns the CUDA error of the launches (0 on success;
 // negative: a tensor-map failure, see repro_cuda_error_string) and never
 // synchronises.
@@ -1016,16 +1069,24 @@ extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, void* dq, void* dk, void* dv,
     float* stats, int bh, int sq, int skv, int d, int kv_group, int causal,
-    int window, float scale, long long q_sb, long long q_ss, long long k_sb,
-    long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-    long long o_ss, long long do_sb, long long do_ss, int dtype,
-    void* stream) {
-  const Launch launch = pick_launch(d, window, dtype);
-  if (launch == nullptr || window < 0 || kv_group < 1 || bh % kv_group)
+    int window, int q_offset, float scale, float softcap, long long q_sb,
+    long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+    long long v_ss, long long o_sb, long long o_ss, long long do_sb,
+    long long do_ss, int dtype, void* stream) {
+  constexpr int NO_WINDOW = 1 << 30;  // as the forward's
+  const bool general = window > 0 || q_offset > 0 || softcap > 0.f;
+  const Launch launch = pick_launch(d, general, dtype);
+  if (launch == nullptr || window < 0 || window >= NO_WINDOW ||
+      q_offset < 0 || q_offset >= NO_WINDOW || !(softcap >= 0.f) ||
+      kv_group < 1 || bh % kv_group)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool capped = softcap > 0.f;
   const Args a{q, k, v, o, dout, lse, dq, dk, dv, stats,
-               bh, sq, skv, kv_group, causal, window,
+               bh, sq, skv, kv_group, causal,
+               window > 0 ? window : NO_WINDOW, q_offset,
                (sq + ST_ROWS - 1) / ST_ROWS, scale,
+               capped ? scale / softcap : 0.f,
+               capped ? softcap * LOG2E : 0.f, capped,
                q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss, do_sb, do_ss};
   return launch(a, static_cast<cudaStream_t>(stream));
 }

@@ -12,7 +12,9 @@ With ``lse`` (an fp32 [B, H] buffer) the launch also writes each row's
 base-2 log-sum-exp of its scaled scores from that merge's final max and
 denominator (``-1e30`` for a row with no valid key): what two slices of a
 cache need to be merged into the whole (``models.layers``' kv_seq-sharded
-decode).
+decode).  ``softcap`` > 0 caps each scaled score at ``c tanh(s / c)``
+before the softmax (the JAX layers' ``decode_attention`` rule); the lse is
+then the capped scores', so the merge of two slices is unchanged.
 :func:`plan` sizes the splits from the shape (the lengths stay on the
 device); the partials and the merge counters are scratch kept per device
 and stream across calls, so calls in flight on different streams never
@@ -43,6 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import check_masks
 
 # kernel launches since the last reset (repro_torch.kernels.ops)
 launches = 0
@@ -153,7 +156,7 @@ def live_blocks(p: DecodePlan, lens, kvh: int) -> int:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     lib.repro_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
         + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_decode_attention.restype = ctypes.c_int
     lib.repro_decode_attention_key_tile.argtypes = [ctypes.c_int]
@@ -228,11 +231,13 @@ def lens_tensor(cache_len, b: int, device: torch.device) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
-                     lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lse: Optional[torch.Tensor] = None,
+                     softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, D]; k/v_cache [B, S, KV, D]; ``cache_len`` int or int
     tensor [B] -> [B, H, D] in ``q.dtype``; a row of length 0 gets zeros.
     ``lse``, a contiguous fp32 [B, H] tensor on q's device, receives each
-    row's base-2 log-sum-exp (``-1e30`` at length 0)."""
+    row's base-2 log-sum-exp (``-1e30`` at length 0); ``softcap`` 0 is no
+    cap."""
     global launches
     dev = q.device
     if dev.type != "cuda" or k_cache.device != dev or v_cache.device != dev:
@@ -270,6 +275,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode attention's lse is a contiguous float32 "
                          f"[{b}, {h}] tensor on {dev}, got {lse.dtype} "
                          f"{tuple(lse.shape)} on {lse.device}")
+    check_masks(0, 0, softcap, "decode attention")
     lens = lens_tensor(cache_len, b, dev)
     out = torch.empty((b, h, d), dtype=q.dtype, device=dev)
     if b == 0 or h == 0:
@@ -285,7 +291,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             lens.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), part.data_ptr(),
             counters.data_ptr(), b, h, kvh, s_len, d, p.chunk, p.n_splits,
-            1.0 / math.sqrt(d), _DTYPE_CODES[q.dtype], stream)
+            1.0 / math.sqrt(d), float(softcap), _DTYPE_CODES[q.dtype],
+            stream)
     _build.check(lib, err, "decode_attention")
     launches += 1
     return out

@@ -10,7 +10,12 @@ attention: row ``bh`` of ``q`` reads K/V row ``bh // kv_group``, so the
 model's KV heads are never repeated per query head.  ``window`` > 0 keeps
 only keys with ``qpos - kpos < window`` (h2o-danube's sliding window; the
 TPU kernel had none, the JAX layers mask it in jnp), and the walk skips the
-key tiles left of every row's window.  Ragged ``S`` is masked in the kernel
+key tiles left of every row's window.  ``softcap`` > 0 caps each scaled
+score at ``c tanh(s / c)`` before the mask, and ``q_offset`` puts query row
+``i`` at position ``i + q_offset`` for the causal and window compares (the
+JAX ``dense_attention``'s arguments; its Pallas kernel had neither).  The
+three run in one general kernel (``GENERAL`` in the sources, forward and
+backward); without any of them the launch is the kernel it always was.  Ragged ``S`` is masked in the kernel
 (the TPU wrapper asserted ``S % block == 0``), and q/k/v may be strided
 views as long as their last dimension is contiguous.  The bf16 kernel reads
 them through TMA tensor maps, which need 16-byte aligned base addresses and
@@ -42,6 +47,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256                   # a block's threads, both routes
 BF16_ROWS = 128                 # query rows a tensor-core block (2 x 64)
 F32_ROWS, F32_KEYS = 64, 32     # the CUDA-core block's rows and key tile
+MAX_POS = 2 ** 30               # a window or query offset is below it
+
+
+def check_masks(window: int, q_offset: int, softcap: float,
+                what: str = "flash attention") -> None:
+    """Raise ``ValueError`` for a window or query offset outside
+    ``[0, 2^30)`` or a soft cap that is not a finite value >= 0, as the
+    kernels refuse them."""
+    if not 0 <= window < MAX_POS:
+        raise ValueError(f"{what} takes a window in [0, 2^30), got {window}")
+    if not 0 <= q_offset < MAX_POS:
+        raise ValueError(f"{what} takes a query offset in [0, 2^30), got "
+                         f"{q_offset}")
+    if not (math.isfinite(softcap) and softcap >= 0):
+        raise ValueError(f"{what} takes a soft cap >= 0 (0: none), got "
+                         f"{softcap}")
 
 
 def kv_ring(d: int) -> tuple[int, int]:
@@ -93,15 +114,17 @@ def plan(bh: int, sq: int, d: int, dtype: torch.dtype) -> FlashPlan:
 
 
 def work(bh: int, sq: int, skv: int, d: int, kv_group: int, causal: bool,
-         window: int = 0, itemsize: int = 2, lse: bool = False
-         ) -> Tuple[float, float]:
+         window: int = 0, itemsize: int = 2, lse: bool = False,
+         q_offset: int = 0) -> Tuple[float, float]:
     """(FLOPs, bytes) of one launch: 4 FLOP per attended (query, key) pair
     and head dim (``flash_attention_bwd.attended_pairs`` counts the causal
-    and window masks), q, k, v read once and o written once (and, with
-    ``lse``, the fp32 log-sum-exps).  The bound in PERF.md and the modeled
-    cost (``repro_torch.core.trace_analysis``) both take it."""
+    and window masks at the query offset), q, k, v read once and o written
+    once (and, with ``lse``, the fp32 log-sum-exps).  A soft cap adds no
+    FLOP here: its tanh is a transcendental, as the exponential is.  The
+    bound in PERF.md and the modeled cost
+    (``repro_torch.core.trace_analysis``) both take it."""
     from repro_torch.kernels.flash_attention_bwd import attended_pairs
-    pairs = attended_pairs(sq, skv, causal, window)
+    pairs = attended_pairs(sq, skv, causal, window, q_offset)
     n_kv = bh // kv_group
     nbytes = itemsize * (2 * bh * sq * d + 2 * n_kv * skv * d)
     return 4.0 * bh * pairs * d, float(nbytes + (4 * bh * sq if lse else 0))
@@ -111,7 +134,7 @@ def work(bh: int, sq: int, skv: int, d: int, kv_group: int, causal: bool,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.repro_flash_attention.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
         + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention.restype = ctypes.c_int
     lib.repro_flash_attention_kv_ring.argtypes = [ctypes.c_int] * 2
@@ -143,14 +166,17 @@ def _tma_strides(t: torch.Tensor, what: str = "bf16 flash attention "
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, kv_group: int = 1, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0,
                     lse: torch.Tensor | None = None) -> torch.Tensor:
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D] in
     ``q.dtype``; scale ``1/sqrt(D)``, fp32 softmax carries; ``window`` 0 is
-    no window.
+    no window, ``softcap`` 0 no cap, ``q_offset`` the first query row's
+    position.
 
     ``lse``, a contiguous float32 [BH, Sq] on q's device, receives each
-    row's log-sum-exp in base 2, L2 = log2(sum_k exp(scale s_qk)) over the
-    keys the row attends (s = q k^T), the units in which the backward
+    row's log-sum-exp in base 2, L2 = log2(sum_k exp(s_qk)) over the keys
+    the row attends (s = scale q k^T, capped under a cap), the units in
+    which the backward
     exponentiates (P = exp2(scale log2(e) s - L2)); a row that attends no
     key gets 0 (:func:`repro_torch.kernels.ref.mha_ref` with
     ``return_lse=True`` gives the same)."""
@@ -170,9 +196,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"CUDA flash attention takes head dim D in "
                          f"{HEAD_DIMS}, got {d}")
-    if not 0 <= window < 2 ** 31:
-        raise ValueError(f"flash attention takes a window in [0, 2^31), got "
-                         f"{window}")
+    check_masks(window, q_offset, softcap)
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA flash attention takes float32 or bfloat16 "
                         f"q/k/v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -203,8 +227,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), bh, sq,
-            k.shape[1], d, kv_group, int(causal), int(window),
-            1.0 / math.sqrt(d),
+            k.shape[1], d, kv_group, int(causal), int(window), int(q_offset),
+            1.0 / math.sqrt(d), float(softcap),
             *strides, _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, err, "flash_attention")
     launches += 1

@@ -10,7 +10,9 @@ flash_attention_bwd` sends CPU tensors to the plain version
 (:func:`repro_torch.kernels.ref.mha_backward_ref`) instead.  It takes what
 the forward wrapper takes: float32 and bfloat16 (summed in fp32 either way,
 returned in the inputs' dtype), D in ``HEAD_DIMS``, causal or not (then
-``Sq != Skv`` too), ``kv_group``, ``window``, ragged lengths, and strided
+``Sq != Skv`` too), ``kv_group``, ``window``, ``softcap`` (the gradient
+of the capped scores times the cap's derivative ``1 - tanh^2``),
+``q_offset``, ragged lengths, and strided
 q/k/v/o/do views whose last dimension is contiguous; it refuses, with a
 message, what the forward refuses.  bf16 at D up to 128 runs on the tensor
 cores (``wgmma`` fed by TMA: bases and strides of q, k, v, o and do must be
@@ -30,7 +32,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import HEAD_DIMS, _tma_strides
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, _tma_strides,
+                                                 check_masks)
 
 # wrapper calls since the last reset (repro_torch.kernels.ops)
 launches = 0
@@ -87,12 +90,14 @@ def plan(d: int, dtype: torch.dtype) -> Plan:
 
 
 @functools.lru_cache(maxsize=1024)
-def attended_pairs(sq: int, skv: int, causal: bool, window: int = 0) -> int:
+def attended_pairs(sq: int, skv: int, causal: bool, window: int = 0,
+                   q_offset: int = 0) -> int:
     """(query, key) pairs one head attends: every pair without a mask, key
     k for query q only where k <= q under ``causal`` and q - k < ``window``
-    under a window (0: none)."""
+    under a window (0: none), query row i at position q = i +
+    ``q_offset``."""
     total = 0
-    for q in range(sq):
+    for q in range(q_offset, q_offset + sq):
         hi = min(skv, q + 1) if causal else skv      # keys [lo, hi)
         lo = max(0, q - window + 1) if window else 0
         total += max(0, hi - lo)
@@ -100,12 +105,12 @@ def attended_pairs(sq: int, skv: int, causal: bool, window: int = 0) -> int:
 
 
 def work(bh: int, sq: int, skv: int, d: int, kv_group: int, causal: bool,
-         window: int = 0, itemsize: int = 2) -> tuple:
+         window: int = 0, itemsize: int = 2, q_offset: int = 0) -> tuple:
     """(FLOPs, bytes) of the backward's least work: 10 FLOP per attended
     pair and head dim (Q K^T recomputed, dO V^T, dV, dQ and dK), and q, o,
     do, k, v read once and dq, dk, dv written once.  (The tensor-core
     design does 14: dQ recomputes Q K^T and dO V^T.)"""
-    pairs = attended_pairs(sq, skv, causal, window)
+    pairs = attended_pairs(sq, skv, causal, window, q_offset)
     n_kv = bh // kv_group
     flops = 10.0 * bh * pairs * d
     nbytes = itemsize * (4 * bh * sq * d + 4 * n_kv * skv * d)
@@ -116,7 +121,7 @@ def work(bh: int, sq: int, skv: int, d: int, kv_group: int, causal: bool,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     lib.repro_flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float]
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
         + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     lib.repro_flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 3
@@ -138,7 +143,8 @@ def _lib() -> ctypes.CDLL:
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True, kv_group: int = 1,
-                        window: int = 0):
+                        window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0):
     """q, o, do [BH, Sq, D], k/v [BH // kv_group, Skv, D], lse float32
     [BH, Sq] -> (dq [BH, Sq, D], dk, dv [BH // kv_group, Skv, D]),
     contiguous, in ``q.dtype``; ``o`` is the forward's output at these
@@ -164,9 +170,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"CUDA flash attention backward takes head dim D "
                          f"in {HEAD_DIMS}, got {d}")
-    if not 0 <= window < 2 ** 31:
-        raise ValueError(f"flash attention backward takes a window in "
-                         f"[0, 2^31), got {window}")
+    check_masks(window, q_offset, softcap, "flash attention backward")
     if len({t.dtype for t in ts}) != 1 or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"CUDA flash attention backward takes float32 or "
                         f"bfloat16 q/k/v/o/do of one dtype, got "
@@ -198,8 +202,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.repro_flash_attention_bwd(
             *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
                                      stats)),
-            bh, sq, skv, d, kv_group, int(causal), int(window),
-            1.0 / math.sqrt(d), *strides, _DTYPE_CODES[q.dtype],
+            bh, sq, skv, d, kv_group, int(causal), int(window), int(q_offset),
+            1.0 / math.sqrt(d), float(softcap), *strides, _DTYPE_CODES[q.dtype],
             _build.raw_stream(q.device))
     _build.check(lib, err, "flash_attention_bwd")
     launches += 1

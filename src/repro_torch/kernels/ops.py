@@ -178,20 +178,25 @@ def tdfir_complex(x_re, x_im, h_re, h_im, block_n: int = 512):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, kv_group: int = 1,
-                    window: int = 0) -> torch.Tensor:
+                    causal: bool = True, kv_group: int = 1, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0) -> torch.Tensor:
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D] -> [BH, Sq, D];
-    ``window`` > 0 keeps keys with ``qpos - kpos < window``.  Under grad
-    mode with an input that requires grad it goes through
-    :class:`FlashAttention` (the backward kernel on the card); otherwise
-    (serving) it is the forward call alone."""
+    ``window`` > 0 keeps keys with ``qpos - kpos < window``, ``softcap`` > 0
+    caps the scaled scores at ``c tanh(s / c)``, and query row ``i`` sits
+    at position ``qpos = i + q_offset``.  Under grad mode with an input
+    that requires grad it goes through :class:`FlashAttention` (the
+    backward kernel on the card); otherwise (serving) it is the forward
+    call alone."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, kv_group, window)
-    return _flash_forward(q, k, v, causal, kv_group, window)
+        return FlashAttention.apply(q, k, v, causal, kv_group, window,
+                                    softcap, q_offset)
+    return _flash_forward(q, k, v, causal, kv_group, window, softcap,
+                          q_offset)
 
 
-def _flash_shapes(q, k, v, kv_group: int, window: int, *more):
+def _flash_shapes(q, k, v, kv_group: int, window: int, *more,
+                  softcap: float = 0.0, q_offset: int = 0):
     """(BH, Sq, Skv, D) of fake flash operands (``more``: o and do, shaped
     as q), refused as the kernels refuse them."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
@@ -206,9 +211,7 @@ def _flash_shapes(q, k, v, kv_group: int, window: int, *more):
     if d not in _fa.HEAD_DIMS:
         raise ValueError(f"CUDA flash attention takes head dim D in "
                          f"{_fa.HEAD_DIMS}, got {d}")
-    if not 0 <= window < 2 ** 31:
-        raise ValueError(f"flash attention takes a window in [0, 2^31), got "
-                         f"{window}")
+    _fa.check_masks(window, q_offset, softcap)
     if len({t.dtype for t in (q, k, v, *more)}) != 1 \
             or q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"CUDA flash attention takes float32 or bfloat16 "
@@ -217,81 +220,93 @@ def _flash_shapes(q, k, v, kv_group: int, window: int, *more):
     return bh, sq, k.shape[1], d
 
 
-def _flash_fake(fake, q, k, v, causal, kv_group, window, lse: bool):
+def _flash_fake(fake, q, k, v, causal, kv_group, window, softcap, q_offset,
+                lse: bool):
     """The fake forward: its work reported, empty out (and lse)."""
-    bh, sq, skv, d = _flash_shapes(q, k, v, kv_group, window)
+    bh, sq, skv, d = _flash_shapes(q, k, v, kv_group, window,
+                                   softcap=softcap, q_offset=q_offset)
     _fake_call("flash_attention",
                _fa.work(bh, sq, skv, d, kv_group, causal, window,
-                        q.element_size(), lse=lse), q.dtype)
+                        q.element_size(), lse=lse, q_offset=q_offset),
+               q.dtype)
     out = fake.new_empty((bh, sq, d), dtype=q.dtype)
     if not lse:
         return out
     return out, fake.new_empty((bh, sq), dtype=torch.float32)
 
 
-def _flash_forward(q, k, v, causal, kv_group, window):
-    out = _replicated(_flash_forward, q, k, v, causal, kv_group, window)
+def _flash_forward(q, k, v, causal, kv_group, window, softcap, q_offset):
+    masks = dict(window=window, softcap=softcap, q_offset=q_offset)
+    out = _replicated(_flash_forward, q, k, v, causal, kv_group, window,
+                      softcap, q_offset)
     if out is not None:
         return out
     fake = _fake_of(q, k, v)
     if fake is not None:
-        return _flash_fake(fake, q, k, v, causal, kv_group, window, False)
+        return _flash_fake(fake, q, k, v, causal, kv_group, window, softcap,
+                           q_offset, False)
     if _on_cpu(q, k, v):
         return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group,
-                           window=window)
+                           **masks)
     return _fa.flash_attention(q, k, v, causal=causal, kv_group=kv_group,
-                               window=window)
+                               **masks)
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, kv_group: int = 1,
-                        window: int = 0):
+                        window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0):
     """The forward alone, also returning each row's log-sum-exp: (out
-    [BH, Sq, D], lse float32 [BH, Sq], base 2; see
-    ``kernels.flash_attention.flash_attention``), what the backward
-    takes."""
+    [BH, Sq, D], lse float32 [BH, Sq], base 2, of the capped scores under
+    a cap; see ``kernels.flash_attention.flash_attention``), what the
+    backward takes."""
+    masks = dict(window=window, softcap=softcap, q_offset=q_offset)
     out = _replicated(flash_attention_lse, q, k, v, causal=causal,
-                      kv_group=kv_group, window=window)
+                      kv_group=kv_group, **masks)
     if out is not None:
         return out
     fake = _fake_of(q, k, v)
     if fake is not None:
-        return _flash_fake(fake, q, k, v, causal, kv_group, window, True)
+        return _flash_fake(fake, q, k, v, causal, kv_group, window, softcap,
+                           q_offset, True)
     if _on_cpu(q, k, v):
         return ref.mha_ref(q, k, v, causal=causal, kv_group=kv_group,
-                           window=window, return_lse=True)
+                           return_lse=True, **masks)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     out = _fa.flash_attention(q, k, v, causal=causal, kv_group=kv_group,
-                              window=window, lse=lse)
+                              lse=lse, **masks)
     return out, lse
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        kv_group: int = 1, window: int = 0):
+                        kv_group: int = 1, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0):
     """(dq, dk, dv) of :func:`flash_attention` at q, k, v with output
     ``o`` and row log-sum-exps ``lse`` (:func:`flash_attention_lse`),
     given the output's gradient ``do``."""
+    masks = dict(window=window, softcap=softcap, q_offset=q_offset)
     out = _replicated(flash_attention_bwd, q, k, v, o, do, lse,
-                      causal=causal, kv_group=kv_group, window=window)
+                      causal=causal, kv_group=kv_group, **masks)
     if out is not None:
         return out
     fake = _fake_of(q, k, v, o, do, lse)
     if fake is not None:
-        bh, sq, skv, d = _flash_shapes(q, k, v, kv_group, window, o, do)
+        bh, sq, skv, d = _flash_shapes(q, k, v, kv_group, window, o, do,
+                                       softcap=softcap, q_offset=q_offset)
         if tuple(lse.shape) != (bh, sq) or lse.dtype != torch.float32:
             raise ValueError(f"flash attention backward takes the forward's "
                              f"lse as a float32 [{bh}, {sq}], got "
                              f"{lse.dtype} {tuple(lse.shape)}")
         _fake_call("flash_attention_bwd",
                    _fab.work(bh, sq, skv, d, kv_group, causal, window,
-                             q.element_size()), q.dtype)
+                             q.element_size(), q_offset=q_offset), q.dtype)
         return (fake.new_empty(q.shape, dtype=q.dtype),
                 fake.new_empty(k.shape, dtype=q.dtype),
                 fake.new_empty(k.shape, dtype=q.dtype))
     if _on_cpu(q, k, v, o, do, lse):
         return ref.mha_backward_ref(q, k, v, o, do, lse, causal=causal,
-                                    kv_group=kv_group, window=window)
+                                    kv_group=kv_group, **masks)
     return _fab.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                    kv_group=kv_group, window=window)
+                                    kv_group=kv_group, **masks)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -302,42 +317,47 @@ class FlashAttention(torch.autograd.Function):
     counts its launch again and saves its log-sum-exp again."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, kv_group, window):
+    def forward(ctx, q, k, v, causal, kv_group, window, softcap, q_offset):
         out, lse = flash_attention_lse(q, k, v, causal=causal,
-                                       kv_group=kv_group, window=window)
+                                       kv_group=kv_group, window=window,
+                                       softcap=softcap, q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.mask = (causal, kv_group, window)
+        ctx.mask = (causal, kv_group, window, softcap, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, kv_group, window = ctx.mask
+        causal, kv_group, window, softcap, q_offset = ctx.mask
         do = do.contiguous()    # a broadcast or strided grad: TMA loads it
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
                                          causal=causal, kv_group=kv_group,
-                                         window=window)
-        return dq, dk, dv, None, None, None
+                                         window=window, softcap=softcap,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len,
-                     lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     lse: Optional[torch.Tensor] = None,
+                     softcap: float = 0.0) -> torch.Tensor:
     """q [B, H, D]; caches [B, S, KV, D]; per-row ``cache_len`` -> [B, H,
     D].  ``lse``, an fp32 [B, H] tensor, receives each row's base-2
     log-sum-exp (``-1e30`` for a row of length 0, whose output is 0), as
-    :func:`flash_attention_lse` gives the forward's.
+    :func:`flash_attention_lse` gives the forward's; ``softcap`` > 0 caps
+    the scaled scores at ``c tanh(s / c)``.
 
     A fake call reports the work of the valid rows its lengths give
     (``decode_attention.valid_rows``); lengths held in a fake tensor cannot
     be read, and then every row counts the whole cache: an upper bound."""
     out = _replicated(decode_attention, q, k_cache, v_cache, cache_len,
-                      lse=lse)
+                      lse=lse, softcap=softcap)
     if out is not None:
         return out
     fake = _fake_of(q, k_cache, v_cache)
     if fake is not None:
         b, h, kvh, s_len, d = _decode_shapes(q, k_cache, v_cache)
+        _fa.check_masks(0, 0, softcap, "decode attention")
         lens = cache_len
         if isinstance(cache_len, FakeTensor):
             lens = s_len
@@ -350,12 +370,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return fake.new_empty((b, h, d), dtype=q.dtype)
     if _on_cpu(q, k_cache, v_cache):
         if lse is None:
-            return ref.decode_attention_ref(q, k_cache, v_cache, cache_len)
+            return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
+                                            softcap=softcap)
         out, got = ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
-                                            return_lse=True)
+                                            return_lse=True, softcap=softcap)
         lse.copy_(got)
         return out
-    return _da.decode_attention(q, k_cache, v_cache, cache_len, lse=lse)
+    return _da.decode_attention(q, k_cache, v_cache, cache_len, lse=lse,
+                                softcap=softcap)
 
 
 def _decode_shapes(q, k_cache, v_cache):

@@ -29,6 +29,13 @@ with few keys is all cancellation (row 0's is P = 1 times dP - Delta = dO
 V - dO O with O = V, zero but for rounding), so its own rms measures fp32
 noise, not the gradient.
 
+A logit soft cap and a query offset (``softcap``, ``q_offset``) leave each
+kernel's limits as they are; the faults they add are the cap dropped (the
+uncapped function), the cap's derivative dropped in the backward, and the
+offset dropped (:func:`cap_fault_controls`, :func:`bwd_cap_fault_controls`,
+:func:`decode_cap_fault_controls`), which the limits must reject at a cap
+that bends the checked scores (about 2 for unit-scale scores).
+
 The fp32 tdfir kernels are held at a flat 3e-4 (the reference's own limit)
 at the shapes of ``tdfir_edges``: the edges of their blocked tap loop, kept
 here once for ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and the plan
@@ -177,15 +184,18 @@ LSE_TOL = 1e-5
 
 
 def lse_fault(q, k, v, *, causal: bool = True, kv_group: int = 1,
-              window: int = 0) -> torch.Tensor:
+              window: int = 0, softcap: float = 0.0,
+              q_offset: int = 0) -> torch.Tensor:
     """The plain L2 with a simulated fault: each row's sum l taken over its
     P rounded to bf16 (the P the bf16 forward feeds to P V), not over the
     fp32 P.  Inputs in fp32; rows with no key keep the sentinel 0."""
-    from .ref import LOG2E, NEG_INF, _attention_mask
+    from .ref import LOG2E, NEG_INF, _attention_mask, softcap_scores
     if kv_group != 1:
         k = k.repeat_interleave(kv_group, dim=0)
-    s = torch.einsum("bqd,bkd->bqk", q, k) * (LOG2E / math.sqrt(q.shape[-1]))
-    keep = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = softcap_scores(torch.einsum("bqd,bkd->bqk", q, k)
+                       / math.sqrt(q.shape[-1]), softcap) * LOG2E
+    keep = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device,
+                           q_offset)
     s = torch.where(keep[None], s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.where(keep[None], torch.exp2(s - m), 0.0).bfloat16().float()
@@ -277,19 +287,89 @@ def bwd_fault_controls(q, k, v, o, do, kv_group: int, causal: bool = True,
     return controls
 
 
+def cap_fault_controls(q, k, v, kv_group: int, *, causal: bool = True,
+                       window: int = 0, softcap: float = 0.0,
+                       q_offset: int = 0) -> dict:
+    """Forward outputs of the faults of a capped or offset launch,
+    simulated on the plain version in the inputs' dtype: the cap dropped
+    (under a cap) and the offset dropped (under an offset)."""
+    from .ref import mha_ref
+    kw = dict(causal=causal, kv_group=kv_group, window=window)
+    controls = {}
+    if softcap > 0:
+        controls["cap dropped"] = mha_ref(q, k, v, q_offset=q_offset, **kw)
+    if q_offset:
+        controls["offset dropped"] = mha_ref(q, k, v, softcap=softcap, **kw)
+    return controls
+
+
+def bwd_cap_fault_controls(q, k, v, o, do, kv_group: int, *,
+                           causal: bool = True, window: int = 0,
+                           softcap: float = 0.0, q_offset: int = 0) -> dict:
+    """(dq, dk, dv) of the faults of a capped or offset backward, in fp32
+    as :func:`bwd_want32` gives the sound one: the cap dropped (the
+    uncapped backward at the uncapped forward's lse), the cap's derivative
+    dropped (P from the capped scores, dS not multiplied by 1 - t^2), and
+    the offset dropped."""
+    from .ref import LOG2E, _attention_mask, mha_backward_ref, mha_ref
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    kw = dict(causal=causal, kv_group=kv_group, window=window)
+    controls = {}
+    if softcap > 0:
+        lse = mha_ref(qf, kf, vf, q_offset=q_offset, return_lse=True,
+                      **kw)[1]
+        controls["cap dropped"] = mha_backward_ref(
+            qf, kf, vf, of, dof, lse, q_offset=q_offset, **kw)
+        # the capped P and dS without the cap's derivative
+        lse = mha_ref(qf, kf, vf, q_offset=q_offset, softcap=softcap,
+                      return_lse=True, **kw)[1]
+        n_kv, sk, d = kf.shape
+        scale = 1.0 / math.sqrt(d)
+        kr = kf.repeat_interleave(kv_group, 0)
+        vr = vf.repeat_interleave(kv_group, 0)
+        s = softcap * torch.tanh(torch.einsum("bqd,bkd->bqk", qf, kr)
+                                 * scale / softcap)
+        keep = _attention_mask(q.shape[1], sk, causal, window, q.device,
+                               q_offset)
+        p = torch.where(keep[None], torch.exp2(s * LOG2E - lse[..., None]),
+                        0.0)
+        dp = torch.einsum("bqd,bkd->bqk", dof, vr)
+        ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+        dq = torch.einsum("bqk,bkd->bqd", ds, kr) * scale
+        dk = (torch.einsum("bqk,bqd->bkd", ds, qf) * scale).reshape(
+            n_kv, kv_group, sk, d).sum(1)
+        dv = torch.einsum("bqk,bqd->bkd", p, dof).reshape(
+            n_kv, kv_group, sk, d).sum(1)
+        controls["cap's derivative dropped"] = (dq, dk, dv)
+    if q_offset:
+        lse = mha_ref(qf, kf, vf, softcap=softcap, return_lse=True, **kw)[1]
+        controls["offset dropped"] = mha_backward_ref(
+            qf, kf, vf, of, dof, lse, softcap=softcap, **kw)
+    return controls
+
+
+def decode_cap_fault_controls(q, kc, vc, lens) -> dict:
+    """The decode output with the cap dropped, in fp32 as
+    :func:`decode_want32` gives the sound one."""
+    from .ref import decode_attention_ref
+    return {"cap dropped": decode_attention_ref(q.float(), kc.float(),
+                                                vc.float(), lens)}
+
+
 # csrc/decode_attention.cu: 8 warps a block, warp w takes the split's key
 # tiles w, w + 8, ...; each warp's cp.async ring has 3 stages
 DECODE_WARPS = 8
 DECODE_STAGES = 3
 
 
-def decode_want32(q, kc, vc, lens) -> torch.Tensor:
+def decode_want32(q, kc, vc, lens, softcap: float = 0.0) -> torch.Tensor:
     """What the row-scaled decode limit compares with: the plain version
     run in fp32 on the same (bf16) inputs.  The bf16 plain version rounds
     its scores to bf16, which alone reads up to about 0.05 on ``row_err``
     (three times a sound kernel); the kernel keeps them in fp32."""
     from .ref import decode_attention_ref
-    return decode_attention_ref(q.float(), kc.float(), vc.float(), lens)
+    return decode_attention_ref(q.float(), kc.float(), vc.float(), lens,
+                                softcap=softcap)
 
 
 def within_decode_limits(got, want, want32):

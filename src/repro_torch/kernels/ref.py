@@ -43,26 +43,36 @@ NEG_INF = -1e30
 LOG2E = 1.0 / math.log(2.0)
 
 
+def softcap_scores(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    """Scaled scores under a logit soft cap ``c``: ``c tanh(s / c)`` (the
+    JAX layers' rule); 0 is no cap."""
+    return torch.tanh(s / softcap) * softcap if softcap > 0 else s
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, kv_group: int = 1, window: int = 0,
+            softcap: float = 0.0, q_offset: int = 0,
             return_lse: bool = False):
     """q [BH, Sq, D], k/v [BH // kv_group, Skv, D]: row ``bh`` of q attends
     over K/V row ``bh // kv_group`` (the GQA layout).  ``window`` > 0 keeps
     only keys with ``qpos - kpos < window`` (the JAX layers' sliding-window
-    rule); 0 is no window.  With ``return_lse`` it returns (out, lse): lse
-    float32 [BH, Sq], each row's log-sum-exp of its scaled scores in base 2,
-    L2 = log2(e) logsumexp(scale s) over the keys the row attends (0 for a
-    row that attends none), what the forward kernels save for the
-    backward."""
+    rule); 0 is no window.  ``softcap`` > 0 caps the scaled scores at
+    ``c tanh(s / c)`` before the mask; query row ``i`` sits at position
+    ``i + q_offset`` for the causal and window compares.  With
+    ``return_lse`` it returns (out, lse): lse float32 [BH, Sq], each row's
+    log-sum-exp of its (capped) scaled scores in base 2, L2 = log2(e)
+    logsumexp(s) over the keys the row attends (0 for a row that attends
+    none), what the forward kernels save for the backward."""
     if kv_group != 1:
         k = k.repeat_interleave(kv_group, dim=0)
         v = v.repeat_interleave(kv_group, dim=0)
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqd,bkd->bqk", q, k).to(torch.float32) * scale
+    s = softcap_scores(s, softcap)
     mask = None
     if causal or window:
         mask = _attention_mask(q.shape[1], k.shape[1], causal, window,
-                               q.device)
+                               q.device, q_offset)
         s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqk,bkd->bqd", p.to(q.dtype), v)
@@ -74,10 +84,11 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out, lse
 
 
-def _attention_mask(sq: int, sk: int, causal: bool, window: int, device):
+def _attention_mask(sq: int, sk: int, causal: bool, window: int, device,
+                    q_offset: int = 0):
     """[Sq, Sk] bool: key kept for query (all True without causal or
-    window)."""
-    diff = (torch.arange(sq, device=device)[:, None]
+    window); query row ``i`` sits at position ``i + q_offset``."""
+    diff = (torch.arange(sq, device=device)[:, None] + q_offset
             - torch.arange(sk, device=device)[None, :])
     mask = torch.ones_like(diff, dtype=torch.bool)
     if causal:
@@ -90,12 +101,15 @@ def _attention_mask(sq: int, sk: int, causal: bool, window: int, device):
 def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                      *, causal: bool = True, kv_group: int = 1,
-                     window: int = 0):
+                     window: int = 0, softcap: float = 0.0,
+                     q_offset: int = 0):
     """The gradient of :func:`mha_ref` by its explicit formulas, in fp32,
     given the forward's row log-sum-exps (``lse``, base 2, as
     ``mha_ref(..., return_lse=True)`` returns them):
-    P = exp2(log2(e) scale Q K^T - lse) (0 where masked), dV = P^T dO,
-    dP = dO V^T, Delta = rowsum(dO * O), dS = P * (dP - Delta),
+    P = exp2(log2(e) s - lse) (0 where masked) with s = scale Q K^T, or
+    under a soft cap c, s = c t with t = tanh(scale Q K^T / c);
+    dV = P^T dO, dP = dO V^T, Delta = rowsum(dO * O),
+    dS = P * (dP - Delta), times the cap's derivative 1 - t^2 under a cap,
     dQ = scale dS K, dK = scale dS^T Q.  Under GQA each KV head's dK and
     dV sum over its ``kv_group`` query heads.  ``o`` is the forward's
     output; returns (dq, dk, dv) in the inputs' dtypes.  A row that
@@ -107,13 +121,18 @@ def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float().repeat_interleave(kv_group, dim=0)
     vf = v.float().repeat_interleave(kv_group, dim=0)
     s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
-    mask = _attention_mask(sq, sk, causal, window, q.device)
+    if softcap > 0:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+    mask = _attention_mask(sq, sk, causal, window, q.device, q_offset)
     p = torch.where(mask[None],
                     torch.exp2(s * LOG2E - lse.float()[..., None]), 0.0)
     dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)
     delta = (dof * of).sum(-1, keepdim=True)
     ds = torch.where(mask[None], p * (dp - delta), 0.0)
+    if softcap > 0:
+        ds = ds * (1.0 - t * t)
     dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
     dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
     dk = dk.reshape(n_kv, kv_group, sk, d).sum(1)
@@ -123,7 +142,7 @@ def mha_backward_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, cache_len,
-                         return_lse: bool = False):
+                         return_lse: bool = False, softcap: float = 0.0):
     """One query per row over a GQA cache.
 
     q [B, H, D]; caches [B, S, KV, D]; ``cache_len`` an int or an int
@@ -134,12 +153,14 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     With ``return_lse`` it returns (out, lse): lse float32 [B, H], each
     row's log-sum-exp of its scaled scores over its valid keys in base 2
     (``NEG_INF`` for a row with none), as the kernel writes it.
+    ``softcap`` > 0 caps the scaled scores at ``c tanh(s / c)`` first.
     """
     b, h, d = q.shape
     s_len, kvh = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, kvh, h // kvh, d)
     scale = 1.0 / math.sqrt(d)
     s = torch.einsum("bgrd,bkgd->bgrk", qg, k_cache).to(torch.float32) * scale
+    s = softcap_scores(s, softcap)
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = torch.arange(s_len, device=q.device)[None, :] < lens   # [B?, S]
     s = torch.where(valid[:, None, None, :], s, NEG_INF)

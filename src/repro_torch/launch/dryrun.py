@@ -62,20 +62,20 @@ def default_device() -> str:
 
 
 @contextlib.contextmanager
-def fake_group():
-    """A ``"fake"`` process group of ``WORLD`` ranks, this process rank 0,
-    for the block (an existing group of that size is used as it is)."""
+def fake_group(world: int = WORLD):
+    """A ``"fake"`` process group of ``world`` ranks (the dry run's
+    ``WORLD`` by default), this process rank 0, for the block (an
+    existing group of that size is used as it is)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
-        if dist.get_world_size() != WORLD:
+        if dist.get_world_size() != world:
             raise RuntimeError(f"a process group of {dist.get_world_size()} "
-                               f"ranks is running; the dry run needs "
-                               f"{WORLD}")
+                               f"ranks is running; this needs {world}")
         yield
         return
     dist.init_process_group("fake", store=FakeStore(), rank=0,
-                            world_size=WORLD)
+                            world_size=world)
     try:
         yield
     finally:

@@ -241,16 +241,17 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
     the port computes it with the flash-attention kernel at every length
     (the kernel is the blockwise algorithm).  ``plan.gqa_grouped`` only
     changes the JAX layout, not the result.  ``window`` > 0 keeps keys with
-    ``qpos - kpos < window`` (h2o-danube's sliding window).  Logit soft caps
-    wait: no config sets one, and the JAX blockwise path ignores them;
-    no model of the JAX package passes a query offset (ROADMAP item 8).
+    ``qpos - kpos < window`` (h2o-danube's sliding window); ``softcap`` > 0
+    caps the scaled scores at ``c tanh(s / c)`` before the mask (Gemma 2's
+    logit soft cap), and query row ``i`` sits at ``qpos = i + q_offset``:
+    the JAX ``dense_attention``'s function, at every length (the JAX
+    blockwise path, taken from ``plan.blockwise_attn_threshold`` on, drops
+    the cap; the port does not).
 
     Under a mesh each rank runs the kernel on its own rows and heads
     (:meth:`Rules.local`), with the KV heads they read
     (:func:`local_kv_heads`); the kernel's gradient flows through.
     """
-    if q_offset or softcap > 0:
-        raise not_ported("attention with a soft cap or query offset", 8)
     rules = rules or NullRules()
     q = rules.constrain(q, Q_AXES)
     k, v = rules.constrain(k, KV_AXES), rules.constrain(v, KV_AXES)
@@ -267,7 +268,8 @@ def attention(q, k, v, *, causal: bool, window: int = 0, q_offset: int = 0,
         kh = k.transpose(1, 2).reshape(b * kvh, skv, dh)
         vh = v.transpose(1, 2).reshape(b * kvh, skv, dh)
         out = ops.flash_attention(qh, kh, vh, causal=causal,
-                                  kv_group=kv_group, window=window)
+                                  kv_group=kv_group, window=window,
+                                  softcap=softcap, q_offset=q_offset)
         return out.reshape(b, h, sq, dh).transpose(1, 2)
 
     return rules.local(local, (Q_AXES, KV_AXES, KV_AXES), Q_AXES)(q, k, v)
@@ -283,7 +285,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
 
     ``window`` is accepted and ignored, as in the JAX layer: a windowed
     cache is a ring of ``min(cache_len, window)`` slots that holds exactly
-    the window, so validity stays ``kpos < cache_len``.
+    the window, so validity stays ``kpos < cache_len``.  ``softcap`` > 0
+    caps the scaled scores at ``c tanh(s / c)`` in the kernel.
 
     Under a mesh each rank decodes its own rows: over its own query heads
     and the KV heads they read, or, where the cache's ``kv_seq`` axis is
@@ -292,17 +295,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     ``cache_len`` clamped into it; the kernel's log-sum-exps ``lse_r``
     then merge the slices, ``out = sum_r 2^(lse_r - M) out_r / sum_r
     2^(lse_r - M)`` with ``M = max_r lse_r`` (two all-reduces and a max
-    over the group); ``cache_len`` is then a tensor."""
+    over the group; a capped slice's lse is its capped scores', so the
+    merge is the same); ``cache_len`` is then a tensor."""
     del window
-    if softcap > 0:
-        raise not_ported("decode attention with a soft cap", 8)
-    return _decode_on_mesh(_decode_kernel, q, (k_cache, v_cache), cache_len,
-                           rules)
 
+    # an uncapped call is the call it always was
+    caps = {"softcap": softcap} if softcap > 0 else {}
 
-def _decode_kernel(q, k_cache, v_cache, lens, lse=None):
-    return ops.decode_attention(q.contiguous(), k_cache.contiguous(),
-                                v_cache.contiguous(), lens, lse=lse)
+    def kernel(q, k_cache, v_cache, lens, lse=None):
+        return ops.decode_attention(q.contiguous(), k_cache.contiguous(),
+                                    v_cache.contiguous(), lens, lse=lse,
+                                    **caps)
+
+    return _decode_on_mesh(kernel, q, (k_cache, v_cache), cache_len, rules)
 
 
 def _decode_on_mesh(kernel, q, caches, cache_len, rules):
@@ -419,18 +424,24 @@ def decode_attention_quant(q, k_q, k_scale, v_q, v_scale, cache_len, *,
     an int tensor [B] -> [B, 1, H, Dh] (:func:`decode_quant`).  A windowed
     cache needs no mask here either (see :func:`decode_attention`), and
     under a mesh each rank decodes its own heads or ``kv_seq`` slice as
-    :func:`decode_attention` does, the slices merged by their ``lse``."""
-    if softcap > 0:
-        raise not_ported("decode attention with a soft cap", 8)
-    return _decode_on_mesh(decode_quant, q, (k_q, k_scale, v_q, v_scale),
+    :func:`decode_attention` does, the slices merged by their ``lse``.
+    ``softcap`` > 0 caps the scaled scores (the K scales folded in) at
+    ``c tanh(s / c)``, in the JAX layer's order."""
+    def kernel(q, k_q, k_scale, v_q, v_scale, lens, lse=None):
+        return decode_quant(q, k_q, k_scale, v_q, v_scale, lens, lse=lse,
+                            softcap=softcap)
+
+    return _decode_on_mesh(kernel, q, (k_q, k_scale, v_q, v_scale),
                            cache_len, rules)
 
 
-def decode_quant(q, k_q, k_scale, v_q, v_scale, cache_len, lse=None):
+def decode_quant(q, k_q, k_scale, v_q, v_scale, cache_len, lse=None,
+                 softcap: float = 0.0):
     """The int8 cache's decode attention, plain torch: q [B, H, Dh] ->
     [B, H, Dh].  The K scales fold into the scores and the V scales into
-    the probabilities, so the cache is never dequantized whole.  ``lse``
-    (fp32 [B, H], optional) receives each row's base-2 log-sum-exp of its
+    the probabilities, so the cache is never dequantized whole; a soft cap
+    ``softcap`` > 0 then caps the scaled scores.  ``lse`` (fp32 [B, H],
+    optional) receives each row's base-2 log-sum-exp of its (capped)
     scaled scores over its valid keys, ``NEG_INF`` for a row with none:
     the decode kernel's convention, so that ``kv_seq`` slices merge."""
     b, h, d = q.shape
@@ -440,6 +451,8 @@ def decode_quant(q, k_q, k_scale, v_q, v_scale, cache_len, lse=None):
                           k_q.to(q.dtype)).to(torch.float32)
     scores = scores * k_scale[..., 0].transpose(1, 2)[:, :, None, :]
     scores = scores * (1.0 / math.sqrt(d))
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
     lens = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
     valid = torch.arange(s_len, device=q.device)[None, :] < lens   # [B?, S]
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)

@@ -147,14 +147,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig, plan: Optional[Plan] = None) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet:
-    logit soft caps (no config sets one, and the JAX blockwise path ignores
-    them), and a family the JAX package does not have either."""
+    """Raise ``NotImplementedError`` for a family the JAX package does not
+    have either; every plan and every logit soft cap runs."""
     del plan     # every plan runs: kv_cache_quant, moe_impl, ssd_*
     if cfg.family not in FAMILIES:
         raise not_ported(f"the {cfg.family!r} family", 8)
-    if cfg.logit_softcap > 0:
-        raise not_ported("logit soft caps", 8)
 
 
 def vlm_groups(cfg: ModelConfig) -> Tuple[int, int]:
@@ -445,7 +442,9 @@ class DenseBlock(nn.Module):
     """One pre-norm decoder layer: GQA attention + FFN (dense, or the MoE
     under ``cfg.moe``), residual each; ``window`` > 0 is a sliding window
     (h2o-danube's, the hybrid's local attention) whose decode cache is a
-    ring; ``causal=False`` is the audio encoder's layer (prefill only)."""
+    ring; ``causal=False`` is the audio encoder's layer (prefill only,
+    never soft-capped: ``cfg.logit_softcap`` caps the decoder's self
+    attention alone, as in the JAX package)."""
 
     def __init__(self, cfg: ModelConfig, params: Params, prefix: str,
                  plan: Plan, window: int = 0, causal: bool = True,
@@ -456,6 +455,9 @@ class DenseBlock(nn.Module):
         self.rules = rules or NullRules()
         self.window = window
         self.causal = causal
+        # the decoder's self attention is capped; the audio encoder's is
+        # not (the JAX encoder calls dense_attention without a cap)
+        self.softcap = cfg.logit_softcap if causal else 0.0
         self.attn_norm = _group(params, f"{prefix}.attn_norm.")
         self.attn = _group(params, f"{prefix}.attn.")
         self.ffn_norm = _group(params, f"{prefix}.ffn_norm.")
@@ -520,8 +522,7 @@ class DenseBlock(nn.Module):
         q = self.rules.constrain(q, layers.Q_AXES)
         k = self.rules.constrain(k, layers.KV_AXES)
         attn_out = layers.attention(q, k, v, causal=self.causal,
-                                    window=self.window,
-                                    softcap=self.cfg.logit_softcap,
+                                    window=self.window, softcap=self.softcap,
                                     plan=self.plan, rules=self.rules)
         return self._out(h, p, attn_out), (k, v)
 
@@ -552,12 +553,12 @@ class DenseBlock(nn.Module):
             layers.write_kv(bufs, (k, v), slot, self.rules, quant=True)
             attn_out = layers.decode_attention_quant(
                 q, k_cache, cache["k_scale"], v_cache, cache["v_scale"],
-                cache_len, softcap=self.cfg.logit_softcap, rules=self.rules)
+                cache_len, softcap=self.softcap, rules=self.rules)
         else:
             layers.write_kv((k_cache, v_cache), (k, v), slot, self.rules)
             attn_out = layers.decode_attention(
                 q, k_cache, v_cache, cache_len, window=self.window,
-                softcap=self.cfg.logit_softcap, rules=self.rules)
+                softcap=self.softcap, rules=self.rules)
         return self._ffn(self._out(h, p, attn_out), 1, route_per_row)[0]
 
 

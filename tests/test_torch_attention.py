@@ -182,15 +182,26 @@ def test_decode_cache_len_scalar_broadcasts():
 
 
 def test_attention_layers_refuse_other_families():
-    """Soft caps and query offsets are refused (ROADMAP item 8); a window
-    is computed in prefill and, as in the JAX layer, ignored in decode
-    (the ring holds the window)."""
-    x = torch.zeros(1, 4, 2, 16)
-    for kw in ({"softcap": 30.0}, {"q_offset": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            layers.attention(x, x, x, causal=True, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        layers.decode_attention(x[:, :1], x, x, 4, softcap=30.0)
+    """Soft caps and query offsets, once refused, are computed: prefill
+    and decode match the JAX layers at 2e-4 (tests/test_kernels.py's
+    tolerance; tests/test_torch_softcap.py holds the rest).  A window is
+    computed in prefill and, as in the JAX layer, ignored in decode (the
+    ring holds the window)."""
+    rng = np.random.default_rng(8)
+    x, kx = _normal(rng, (1, 4, 2, 16)), _normal(rng, (1, 6, 2, 16))
+    for kw in ({"softcap": 1.5}, {"q_offset": 2}):
+        want = jax_layers.dense_attention(*map(jnp.asarray, (x, kx, kx)),
+                                          causal=True, **kw)
+        got = layers.attention(*map(torch.from_numpy, (x, kx, kx)),
+                               causal=True, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)
+    want = jax_layers.decode_attention(*map(jnp.asarray, (x[:, :1], kx, kx)),
+                                       4, softcap=1.5)
+    got = layers.decode_attention(*map(torch.from_numpy, (x[:, :1], kx, kx)),
+                                  4, softcap=1.5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
     g = torch.Generator().manual_seed(0)
     q, k = (torch.randn(1, 4, 2, 16, generator=g) for _ in range(2))
     assert not torch.equal(layers.attention(q, k, k, causal=True, window=2),

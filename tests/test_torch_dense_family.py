@@ -266,8 +266,9 @@ def test_init_cache_ring_and_int8_layout():
 def test_every_dense_config_is_supported():
     """check_supported takes every dense and MoE config in configs/ and the
     int8 cache, and since the cross-attention slice every config of every
-    family (the VLM and audio ones build and prefill); it refuses logit
-    soft caps, naming ROADMAP item 8."""
+    family (the VLM and audio ones build and prefill); since the soft-cap
+    slice a logit soft cap too, whose capped prefill matches the JAX
+    model's at 1e-4 (a window and a cap together: h2o-danube)."""
     dense = [c for c in ARCHS.values() if c.family == "dense"]
     assert {c.name for c in dense} >= {"granite-3-2b", "h2o-danube-1.8b",
                                        "nemotron-4-15b",
@@ -276,8 +277,17 @@ def test_every_dense_config_is_supported():
     assert len(served) == len(dense) + 2
     for c in served:
         check_supported(c, Plan(kv_cache_quant=True))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        check_supported(dataclasses.replace(dense[0], logit_softcap=30.0))
+    capped = dataclasses.replace(dense[0], logit_softcap=30.0)
+    check_supported(capped, Plan(kv_cache_quant=True))
+    cfg, jcfg, params, state = _weights("h2o")
+    over = {"logit_softcap": 1.0}
+    model = Model(dataclasses.replace(jcfg, **over))
+    lm = LM(dataclasses.replace(cfg, **over), dict(state))
+    toks = _tokens(cfg, 2, 12, 4)
+    want, _ = jax.jit(lambda p, b: model.prefill(p, b, 16))(
+        params, {"tokens": jnp.asarray(toks)})
+    got, _ = lm.prefill({"tokens": torch.from_numpy(toks)}, 16)
+    _close(got, want)
     for c in ARCHS.values():
         check_supported(c)
     cross = [c for c in ARCHS.values() if c.family in ("vlm", "audio")]

@@ -152,18 +152,24 @@ def test_blockwise_plan_matches_port(pair):
 
 
 def test_refuses_what_the_slice_does_not_port(pair):
-    """Logit soft caps are refused, naming ROADMAP item 8; every dense
-    config (h2o-danube's window too), the MoE, SSM, hybrid, VLM and audio
-    families and the int8 KV cache are not, the VLM and audio LMs build
-    and run a prefill and a decode step, and ``train_loss`` (ROADMAP item
-    9, now ported) returns a finite loss."""
-    cfg, _, _, _, lm = pair
+    """Nothing of the dense LM is refused any more: a logit soft cap
+    (ROADMAP item 8, once refused) builds, inits and prefills with the
+    JAX model's logits at 1e-4, and so does every dense config
+    (h2o-danube's window too), the MoE, SSM, hybrid, VLM and audio
+    families and the int8 KV cache; the VLM and audio LMs build and run a
+    prefill and a decode step, and ``train_loss`` (ROADMAP item 9, now
+    ported) returns a finite loss.  Weights that do not fit the config
+    are still refused."""
+    cfg, _, params, _, lm = pair
     state = dict(lm.state_dict())
-    bad = dataclasses.replace(cfg, logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        init_params(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        LM(bad, state)
+    capped = dataclasses.replace(cfg, logit_softcap=1.0)
+    assert init_params(capped, device="cpu").keys() == state.keys()
+    toks = _tokens(cfg, 2, 12, 5)
+    want, _ = jax.jit(lambda p, b: Model(dataclasses.replace(
+        jax_config(ARCH).reduced(), logit_softcap=1.0)).prefill(p, b, 16))(
+        params, {"tokens": jnp.asarray(toks)})
+    got, _ = LM(capped, state).prefill({"tokens": torch.from_numpy(toks)}, 16)
+    _close(got, want)
     for ok in ("h2o-danube-1.8b", "moonshot-v1-16b-a3b", "arctic-480b",
                "mamba2-1.3b", "recurrentgemma-2b", "llama-3.2-vision-90b",
                "seamless-m4t-medium"):

@@ -314,8 +314,10 @@ def test_init_moe_uses_the_jax_distributions():
 
 def test_check_supported_takes_the_moe_family():
     """Both MoE configs and the expert-parallel plan run, and so do the
-    SSM, hybrid, VLM and audio families (each builds an LM); logit soft
-    caps are refused, naming ROADMAP item 8."""
+    SSM, hybrid, VLM and audio families (each builds an LM); since the
+    soft-cap slice a capped MoE config too, which builds and prefills
+    finite logits that the cap moves (its parity with the JAX model is in
+    tests/test_torch_softcap.py)."""
     for arch in (MOONSHOT, ARCTIC):
         check_supported(get_config(arch))
         check_supported(get_config(arch), Plan(moe_impl="shardmap_ep"))
@@ -324,9 +326,16 @@ def test_check_supported_takes_the_moe_family():
         check_supported(get_config(arch))
         cfg = get_config(arch).reduced()
         LM(cfg, init_params(cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        check_supported(dataclasses.replace(get_config(MOONSHOT),
-                                            logit_softcap=30.0))
+    check_supported(dataclasses.replace(get_config(MOONSHOT),
+                                        logit_softcap=30.0))
+    cfg = get_config(MOONSHOT).reduced()
+    state = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = {"tokens": torch.arange(12).reshape(2, 6) % cfg.vocab_size}
+    plain, _ = LM(cfg, state).prefill(toks, 8)
+    capped, _ = LM(dataclasses.replace(cfg, logit_softcap=1.0),
+                   state).prefill(toks, 8)
+    assert torch.isfinite(capped).all()
+    assert (capped - plain).abs().max().item() > 1e-3
 
 
 # ---- the continuous batcher ------------------------------------------------
