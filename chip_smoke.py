@@ -9,7 +9,8 @@ Run from the root of a checkout; it builds the CUDA kernels itself.
 kernels without a window, cap or offset at the serving shapes (the flash
 backward at 13 (b)'s training shape, and the VLM's non-causal cross
 shape, Sq 2048 over 1024 keys), then the planner's fp32 matmul and
-tdFIR kernels (real and complex) at the paper's sizes, and prints a
+tdFIR kernels (real and complex) at the paper's sizes, then the bf16
+matmul at 3mm's 512^3 and granite-3-2b's MLP up-projection, and prints a
 SHA-256 of each output and its ms (CUDA events and device time): run in
 two checkouts (this script copied into the other one's root, where it
 imports that checkout's kernels), the lines say whether their kernels
@@ -22,9 +23,9 @@ these phases, each printing its seconds:
   2. build     one nvcc per ``src/repro_torch/csrc/*.cu`` (matmul, tdfir,
                flash_attention, decode_attention, flash_attention_bwd),
                all started together,
-               with each kernel's ``-Xptxas -v`` report; the flash and
-               flash backward libraries' SASS (cuobjdump) must hold HGMMA
-               (wgmma) instructions, and the matmul and decode-attention
+               with each kernel's ``-Xptxas -v`` report; the flash, flash
+               backward and matmul libraries' SASS (cuobjdump) must hold
+               HGMMA (wgmma) instructions, and the matmul and decode-attention
                libraries' SASS LDGSTS (cp.async) instructions; their counts
                are printed; the tdfir kernels and the backward's
                tensor-core kernels must not spill, and the tdfir kernels'
@@ -32,6 +33,11 @@ these phases, each printing its seconds:
                ``plan`` is held to the compiled one and printed;
   3. check     every kernel against its plain PyTorch version on the card: the
                JAX tests' shapes at their tolerances, the main-path shapes,
+               the bf16 matmul on each route (``check_matmul_bf16``: 512^3
+               and granite's MLP up-projection through TMA, 513x1001x511
+               through registers, all on wgmma, at 2e-2, each call twice
+               for the same bits, beside two simulated faults the limit
+               must reject: the last K tile dropped, B read K-major),
                and lengths that are not multiples of the tile (matmul ragged
                in M, N and K, K below one 16-byte vector; decode lengths
                around the split size, all at 1, at and above the cache
@@ -113,7 +119,9 @@ these phases, each printing its seconds:
                also at the ragged S=1000 and at D=128, decode attention also
                with every slot at 2112, the complex tdFIR bank beside one
                grouped ``F.conv1d`` and beside four real launches, the bf16
-               matmul beside ``torch.matmul``; the matmul, tdfir and decode
+               matmul (PERF.md rows 1', 1'' and the unaligned route: 512^3,
+               the MLP up-projection, 513x1001x511) beside ``torch.matmul``
+               with its route and plan; the matmul, tdfir and decode
                launch plans; the flash backward at granite's training
                shape (B 4, S 2048, bf16) and at nemotron-4-15b's heads (B
                1, H 48 over KV 8, S 2048, D 128) beside SDPA's backward,
@@ -461,6 +469,12 @@ FP32_PEAK_FLOPS = PEAK_FLOPS_BY_DTYPE["fp32"]     # non-tensor fp32
 BF16_PEAK_FLOPS = PEAK_FLOPS_BY_DTYPE["bf16"]     # dense bf16, tensor cores
 
 MATMUL_MAIN = (512, 512, 512)              # 3mm at N=512, fp32
+# (M, K, N) of the bf16 matmul's rows beyond 3mm's shape (phases 3 and 4):
+# granite-3-2b's MLP up-projection at phase 13 (b)'s tokens (B 4 x S 2048,
+# d_model 2048, d_ff 8192), and operands TMA cannot map (K and N not
+# multiples of 8: the route that fills its stages from registers)
+MATMUL_MLP = (8192, 2048, 8192)
+MATMUL_UNALIGNED = (513, 1001, 511)
 # the planner's apps at the paper's sizes (phases 5 and 11), and the
 # policies phase 11 selects under
 PLANNER_APPS = ("3mm", "tdFIR", "NAS.BT")
@@ -889,9 +903,7 @@ def check_kernels(ops, ref):
     a, b = randn(gen, m, k), randn(gen, k, n)
     errs["matmul"] = check_close("matmul 512^3 float32 (main path)",
                                  ops.matmul(a, b), ref.matmul_ref(a, b), 1e-4)
-    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    check_close("matmul 512^3 bfloat16", ops.matmul(a16, b16),
-                ref.matmul_ref(a16, b16), 2e-2)
+    check_matmul_bf16(ops, ref, a.to(torch.bfloat16), b.to(torch.bfloat16))
     a, b = randn(gen, 192, 1000), randn(gen, 1000, 130)
     check_close("matmul 192x1000x130 float32 (ragged K, N)",
                 ops.matmul(a, b), ref.matmul_ref(a, b), 1e-4)
@@ -953,6 +965,45 @@ def check_kernels(ops, ref):
     errs["flash_attention_bwd"] = check_flash_backward(ops, ref, gen)
     check_softcap(ops, ref, gen)
     return errs
+
+
+def check_matmul_bf16(ops, ref, a512, b512):
+    """Phase 3: the bf16 matmul on each of its routes (``matmul.bf16_plan``)
+    at 3mm's 512^3, granite-3-2b's MLP up-projection and the unaligned
+    shape, within 2e-2 of the plain version, the same bits on a second
+    call, the limit rejecting the simulated faults of
+    ``parity.matmul_fault_controls`` (the last K tile dropped, B read
+    K-major)."""
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import parity
+    print(" matmul bf16 on its routes (2e-2; repeated calls bitwise; the "
+          "limit must reject the simulated faults)")
+    gen = torch.Generator().manual_seed(30)   # phase 3's draws stay as
+    cases = [("512^3", a512, b512)]          # they were before these
+    for what, (m, k, n) in (("MLP up-projection", MATMUL_MLP),
+                            ("unaligned", MATMUL_UNALIGNED)):
+        cases.append((what, randn(gen, m, k, dtype=torch.bfloat16),
+                      randn(gen, k, n, dtype=torch.bfloat16)))
+    for what, a, b in cases:
+        (m, k), n = a.shape, b.shape[1]
+        route = mm.bf16_plan(m, n, k, mm.bf16_mappable(
+            n, k, a.data_ptr(), b.data_ptr())).route
+        want = ref.matmul_ref(a, b)
+        got = ops.matmul(a, b)
+        check_close(f"matmul {m}x{k}x{n} bfloat16 ({what}, {route})", got,
+                    want, parity.MATMUL_BF16_TOL)
+        require_same_bits(f"matmul {m}x{k}x{n} bfloat16 twice", got,
+                          ops.matmul(a, b), "the bf16 matmul's bits vary "
+                          "between calls")
+        require((route == "unaligned") == ((m, k, n) == MATMUL_UNALIGNED),
+                f"matmul {m}x{k}x{n} bfloat16 took the {route} route")
+        for fault, bad in parity.matmul_fault_controls(a, b).items():
+            rejected = not parity.matmul_within(bad, want)
+            print(f"  fault control {fault:24s} max_abs_err "
+                  f"{max_abs_err(bad, want):.3e}  "
+                  f"{'rejected' if rejected else 'PASSES THE LIMIT'}")
+            require(rejected, f"the bf16 matmul limit passes a simulated "
+                    f"fault ({fault}) at {m}x{k}x{n}")
 
 
 def check_flash_windows(ops, ref, gen):
@@ -1573,24 +1624,7 @@ def time_kernels(ops, ref):
           f"{p.blocks} blocks of {mm.BLOCK_M}x{mm.BLOCK_N} tiles, K split "
           f"over {p.warps} warps of each block (no split across blocks)")
     require(p.blocks >= 128, "the matmul grid at 512^3 is under 128 blocks")
-    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    t16, by16 = bound(*mm.work(m, n, k, itemsize=2), BF16_PEAK_FLOPS)
-
-    def kernel16():
-        return ops.matmul(a16, b16)
-
-    def library16():
-        return torch.matmul(a16, b16)
-
-    def plain16():
-        return ref.matmul_ref(a16, b16)
-
-    print(f"  matmul 512^3 bfloat16: kernel {time_ms(kernel16, 200):.4f} ms "
-          f"(device {device_profile(kernel16)[0]:.4f})  bound {t16:.5f} ms "
-          f"({by16})  plain {time_ms(plain16, 20):.4f} ms (device "
-          f"{device_profile(plain16, 3)[0]:.4f})  torch.matmul "
-          f"{time_ms(library16, 200):.4f} ms (device "
-          f"{device_profile(library16)[0]:.4f})")
+    time_matmul_bf16(ops, ref, a, b, rows, dev)
 
     f, nn, kk = TDFIR_MAIN
     x, h = randn(gen, f, nn), randn(gen, f, kk) * 0.1
@@ -1650,7 +1684,9 @@ def time_kernels(ops, ref):
     time_backward(ops, ref, gen, rows, dev)
     check_decode_lse(ops, ref, gen)
     time_softcap(ops, ref, gen, rows, dev)
-    listed = dict(rows, tdfir_complex=rows["tdfir"]["complex"])
+    listed = dict(rows, tdfir_complex=rows["tdfir"]["complex"],
+                  **{f"matmul_{k}": rows["matmul"][k]
+                     for k in ("bf16", "bf16_mlp", "bf16_unaligned")})
     for name, r in listed.items():
         print(f"  {name:16s} kernel {r['ms']:.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  plain "
@@ -1660,6 +1696,46 @@ def time_kernels(ops, ref):
         print(f"  {name:16s} kernel {d['kernel']:.4f} ms  plain "
               f"{d['plain']:.4f} ms  library {d['library']:.4f} ms")
     return rows
+
+
+def time_matmul_bf16(ops, ref, a, b, rows, dev) -> None:
+    """Phase 4, PERF.md rows 1', 1'' and the unaligned route: the bf16
+    matmul at 3mm's 512^3 (``a``, ``b`` rounded to bf16), at granite-3-2b's
+    MLP up-projection and at the unaligned shape, each beside its plain
+    version, ``torch.matmul`` and the bound (bf16 operations at the tensor
+    cores' peak, or the bytes); the rows join the ``matmul`` entry of the
+    JSON line under ``bf16``, ``bf16_mlp`` and ``bf16_unaligned``."""
+    from repro_torch.kernels import matmul as mm
+    gen = torch.Generator().manual_seed(31)   # phase 4's draws stay
+    cases = (("bf16", a.to(torch.bfloat16), b.to(torch.bfloat16)),)
+    for key, (m, k, n) in (("bf16_mlp", MATMUL_MLP),
+                           ("bf16_unaligned", MATMUL_UNALIGNED)):
+        cases += ((key, randn(gen, m, k, dtype=torch.bfloat16),
+                   randn(gen, k, n, dtype=torch.bfloat16)),)
+    for key, x, y in cases:
+        (m, k), n = x.shape, y.shape[1]
+        p = mm.bf16_plan(m, n, k, mm.bf16_mappable(
+            n, k, x.data_ptr(), y.data_ptr()))
+        t_bound, by = bound(*mm.work(m, n, k, itemsize=2), BF16_PEAK_FLOPS)
+        slow = m * n * k > 1e10
+        row, d = time_row(lambda: ops.matmul(x, y),
+                          lambda: ref.matmul_ref(x, y),
+                          lambda: torch.matmul(x, y), t_bound, by,
+                          iters=50 if slow else 200,
+                          plain_iters=10 if slow else None)
+        row["route"] = p.route
+        rows["matmul"][key], dev[f"matmul_{key}"] = row, d
+        print(f"  matmul {m}x{k}x{n} bfloat16 ({p.route}: "
+              f"{p.tile.tile_m}x{p.tile.tile_n} tiles, {p.blocks} blocks of "
+              f"{p.tile.threads} threads, {p.tile.stages} stages, "
+              f"{p.tile.smem} B shared): kernel {row['ms']:.4f} ms (device "
+              f"{d['kernel']:.4f})  bound {t_bound:.5f} ms ({by}; "
+              f"{t_bound / d['kernel']:.1%} of it)  plain "
+              f"{row['plain_ms']:.4f} ms (device {d['plain']:.4f})  "
+              f"torch.matmul {row['library_ms']:.4f} ms (device "
+              f"{d['library']:.4f}; {d['kernel'] / d['library']:.2f}x)")
+    require(mm.bf16_plan(*MATMUL_MAIN).blocks >= 64,
+            "the bf16 matmul grid at 512^3 is under 64 blocks")
 
 
 def attended_pairs(s: int, window: int = 0) -> int:
@@ -6067,6 +6143,10 @@ def lint_launch_plans():
     m, k, n = MATMUL_MAIN
     factories += [p(kl.matmul_model, m, n, k, dtype="float32"),
                  p(kl.matmul_model, m, n, k, dtype="bfloat16"),
+                 p(kl.matmul_model, MATMUL_MLP[0], MATMUL_MLP[2],
+                   MATMUL_MLP[1], dtype="bfloat16"),
+                 p(kl.matmul_model, MATMUL_UNALIGNED[0], MATMUL_UNALIGNED[2],
+                   MATMUL_UNALIGNED[1], dtype="bfloat16"),
                  p(kl.tdfir_model, *TDFIR_MAIN),
                  p(kl.tdfir_model, *TDFIR_MAIN, planes=2)]
     flash = [(FLASH_MAIN[1], FLASH_MAIN[2], FLASH_MAIN[3], FLASH_MAIN[3],
@@ -6229,6 +6309,7 @@ def run_digests() -> int:
     a, b = randn(gen, m, k), randn(gen, k, n)
     cases.append((f"matmul {m}x{k}x{n} fp32",
                   functools.partial(ops.matmul, a, b)))
+
     f, nn, kk = TDFIR_MAIN
     x, xi = randn(gen, f, nn), randn(gen, f, nn)
     h, hi = randn(gen, f, kk) * 0.1, randn(gen, f, kk) * 0.1
@@ -6238,6 +6319,14 @@ def run_digests() -> int:
     cases.append((f"tdfir_complex {f}x{nn}x{kk}",
                   functools.partial(ops.tdfir_complex, x, xi, h, hi,
                                     block_n=TDFIR_MAIN_BLOCK_N)))
+    # the bf16 matmul at 3mm's shape and the MLP up-projection (a generator
+    # of their own: the inputs above stay those of earlier checkouts)
+    gen = torch.Generator().manual_seed(12)
+    for m, k, n in (MATMUL_MAIN, MATMUL_MLP):
+        x = randn(gen, m, k, dtype=torch.bfloat16)
+        y = randn(gen, k, n, dtype=torch.bfloat16)
+        cases.append((f"matmul {m}x{k}x{n} bf16",
+                      functools.partial(ops.matmul, x, y)))
     for what, fn in cases:
         out = fn()
         if isinstance(out, tuple):
@@ -6306,7 +6395,7 @@ def run_phases(tmp: str) -> int:
         logs = _build.build_all()
         for name, log in logs.items():
             print(f"  [{name}] {_build.library_path(name).name}\n{log}")
-        for name in ("flash_attention", "flash_attention_bwd"):
+        for name in ("flash_attention", "flash_attention_bwd", "matmul"):
             n_hgmma = count_sass(_build, name, "HGMMA")
             print(f"  {name} SASS: {n_hgmma} HGMMA (wgmma) instructions")
             require(n_hgmma > 0, f"the {name} library has no HGMMA: its "

@@ -223,29 +223,42 @@ def matmul_model(m: int = 300, n: int = 200, k: int = 150,
                  dtype: str = "float32"
                  ) -> Tuple[List[KernelModel], List[Finding]]:
     """``csrc/matmul.cu``: fp32 blocks of 64 x 32 of C (``matmul.plan``:
-    ``32 * warps`` threads, each warp's 3-stage ring of K slabs), the bf16
-    form 64 x 64 tiles of 256 threads; block (x, y) owns rows
-    ``[64 y, 64 y + 64)``; every edge masked."""
+    ``32 * warps`` threads, each warp's 3-stage ring of K slabs), block
+    (x, y) owning rows ``[64 y, 64 y + 64)``; bf16 as ``matmul.bf16_plan``
+    routes it: a one-dimensional grid, block x owning the tile
+    ``matmul.tile_of`` gives it, its warpgroups and stages of K tiles in
+    dynamic shared memory; every edge masked."""
     from repro_torch.kernels import matmul as mm
     if dtype == "float32":
         p = mm.plan(m, n, k)
         bm, bn = mm.BLOCK_M, mm.BLOCK_N
         threads = 32 * p.warps
         smem = p.warps * 3 * (bm * (mm.SLAB_K + 4) + mm.SLAB_K * bn) * 4
+        grid, route = (-(-n // bn), -(-m // bm), 1), "fp32"
+
+        def tile(x, y):
+            return y, x
     else:
-        bm = bn = 64
-        threads, smem = 256, 0
-    grid = (-(-n // bn), -(-m // bm), 1)
+        p = mm.bf16_plan(m, n, k)
+        bm, bn = p.tile.tile_m, p.tile.tile_n
+        threads, smem, route = p.tile.threads, p.tile.smem, p.route
+        grid = (p.blocks, 1, 1)
+
+        def tile(x, y):
+            return mm.tile_of(p, x)
     model = KernelModel(
         name=f"matmul.{dtype}", grid=grid, threads=threads, smem=smem,
         inputs=[OperandSpec("a", (m, k), (bm, k),
-                            lambda x, y, z: (y * bm, 0), masked=(0,)),
+                            lambda x, y, z: (tile(x, y)[0] * bm, 0),
+                            masked=(0,)),
                 OperandSpec("b", (k, n), (k, bn),
-                            lambda x, y, z: (0, x * bn), masked=(1,))],
+                            lambda x, y, z: (0, tile(x, y)[1] * bn),
+                            masked=(1,))],
         outputs=[OperandSpec("c", (m, n), (bm, bn),
-                             lambda x, y, z: (y * bm, x * bn),
+                             lambda x, y, z: (tile(x, y)[0] * bm,
+                                              tile(x, y)[1] * bn),
                              masked=(0, 1))],
-        size_tag=f"{m}x{k}@{k}x{n}")
+        size_tag=f"{m}x{k}@{k}x{n} {route}")
     return [model], []
 
 
@@ -484,6 +497,10 @@ def default_factories() -> List[Callable]:
     out: List[Callable] = []
     for dtype in ("float32", "bfloat16"):
         out.append(functools.partial(matmul_model, dtype=dtype))
+    # bf16's TMA routes: 64 x 64 and 128 x 256 tiles
+    for m, n, k in ((512, 512, 512), (8192, 8192, 2048)):
+        out.append(functools.partial(matmul_model, m, n, k, dtype="bfloat16"))
+    for dtype in ("float32", "bfloat16"):
         out.append(functools.partial(flash_attention_model, dtype=dtype))
         out.append(functools.partial(flash_attention_bwd_model, dtype=dtype))
         out.append(functools.partial(decode_attention_model, dtype=dtype))

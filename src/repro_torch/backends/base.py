@@ -26,7 +26,7 @@ derives from the declared ``verify_time`` values
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 METHOD_FUNCTION_BLOCK = "function_block"
@@ -153,4 +153,8 @@ class Backend:
         if self.mesh_verify_fn is None:
             return None
         return self.mesh_verify_fn(self, cost_runner, fn, inputs)
+
+    def with_(self, **changes) -> "Backend":
+        """Frozen-dataclass convenience: a copy with fields replaced."""
+        return replace(self, **changes)
 

@@ -16,7 +16,12 @@ changing the pipeline, so the objective is a pluggable
 Every consumer builds :class:`~repro_torch.core.candidates.Candidate`
 objects and calls one entry point, :meth:`SelectionPolicy.rank`;
 :meth:`SelectionPolicy.score_candidate` is the one ranking key a policy
-implements.  ``power_budget_w`` / ``max_slowdown`` constrain any policy.
+implements.  The pre-Candidate faces (``score`` / ``score_parts`` /
+``score_cell``) survive as thin shims, and a custom policy written against
+them keeps working: ``score_candidate``'s default bridges to whichever
+legacy face the subclass overrode (a Candidate carries a record's fields,
+so the old arithmetic ranks it unchanged).
+``power_budget_w`` / ``max_slowdown`` constrain any policy.
 Every policy ranks only *correct, finite* candidates — a penalized wrong
 result can never be the chosen destination, whatever the objective.
 """
@@ -37,9 +42,43 @@ class SelectionPolicy:
 
     def score_candidate(self, cand) -> float:
         """Ranking key for one :class:`~repro_torch.core.candidates.
-        Candidate` (or anything with its duck fields)."""
+        Candidate` (or anything with its duck fields).
+
+        Built-in policies override this; the default bridges a legacy
+        subclass, one that overrode ``score`` or ``score_parts``, through
+        its old face.
+        """
+        cls = type(self)
+        if cls.score is not SelectionPolicy.score:
+            return cls.score(self, cand)
+        if cls.score_parts is not SelectionPolicy.score_parts:
+            return cls.score_parts(self, cand.best_time_s,
+                                   getattr(cand, "price", 1.0),
+                                   getattr(cand, "mesh_time_s", None))
         raise NotImplementedError(
-            f"{type(self).__name__} must implement score_candidate")
+            f"{cls.__name__} must implement score_candidate "
+            f"(or a legacy score/score_parts face)")
+
+    def score(self, record) -> float:
+        """Shim (pre-Candidate face): rank one planner
+        ``VerificationRecord``, which carries the Candidate fields."""
+        return self.score_candidate(record)
+
+    def score_parts(self, time_s: float, price: float = 1.0,
+                    modeled_s: Optional[float] = None) -> float:
+        """Shim (pre-Candidate face): rank from raw parts."""
+        from repro_torch.core.candidates import Candidate
+        return self.score_candidate(Candidate(
+            best_time_s=time_s, price=price, mesh_time_s=modeled_s,
+            source="parts"))
+
+    def score_cell(self, step_time_s: float, price: float = 1.0,
+                   energy: Optional[Dict] = None) -> float:
+        """Shim (pre-Candidate face): rank one modeled mesh cell
+        (``Candidate.from_cell`` replaces it)."""
+        from repro_torch.core.candidates import Candidate
+        return self.score_candidate(Candidate.from_cell(
+            step_time_s, n_chips=price, energy=energy))
 
     def rank(self, candidates: List, *,
              power_budget_w: Optional[float] = None,
@@ -111,6 +150,22 @@ class PowerPolicy(SelectionPolicy):
         e = getattr(cand, "energy_j", None)
         return e if e is not None else self._fallback_joules(cand)
 
+    def score_parts(self, time_s, price=1.0, modeled_s=None):
+        # shim; keeps the price scaling (a machine-size stand-in) of the
+        # uncharged joule-scale fallback
+        from repro_torch.power import GENERIC
+        t = modeled_s if modeled_s is not None else time_s
+        return GENERIC.peak_w * t * price
+
+    def score_cell(self, step_time_s, price=1.0, energy=None):
+        if energy is not None:
+            return super().score_cell(step_time_s, price, energy)
+        # shim, uncharged cell: the fallback's unit rule scaled by the
+        # cell's price (chip count), so an unmodelled big slice cannot
+        # under-score a modeled one
+        from repro_torch.power import GENERIC
+        return GENERIC.peak_w * step_time_s * price
+
 
 class EdpPolicy(SelectionPolicy):
     """Rank by the energy-delay product (joules × seconds per step)."""
@@ -122,6 +177,19 @@ class EdpPolicy(SelectionPolicy):
         if e is None:
             e = PowerPolicy._fallback_joules(cand)
         return e * _modeled_or_host(cand)
+
+    def score_parts(self, time_s, price=1.0, modeled_s=None):
+        # shim; see PowerPolicy.score_parts
+        from repro_torch.power import GENERIC
+        t = modeled_s if modeled_s is not None else time_s
+        return GENERIC.peak_w * t * t * price
+
+    def score_cell(self, step_time_s, price=1.0, energy=None):
+        if energy is not None:
+            return energy["edp"]
+        # shim, uncharged cell; see PowerPolicy.score_cell
+        from repro_torch.power import GENERIC
+        return GENERIC.peak_w * step_time_s * step_time_s * price
 
 
 POLICIES: Dict[str, SelectionPolicy] = {}

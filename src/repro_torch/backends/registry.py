@@ -10,7 +10,7 @@ slots it into the order automatically — no planner surgery.
 """
 from __future__ import annotations
 
-from typing import Iterable, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 from repro_torch.backends.base import Backend, METHOD_ORDER
 
@@ -21,12 +21,17 @@ class BackendRegistry:
         for b in backends:
             self.register(b)
 
-    def register(self, backend: Backend) -> Backend:
-        """Add a backend; a key may be registered once."""
-        if any(b.key == backend.key for b in self._backends):
-            raise ValueError(
-                f"backend key {backend.key!r} already registered")
-        self._backends.append(backend)
+    def register(self, backend: Backend, *, replace: bool = False) -> Backend:
+        """Add a backend; ``replace=True`` swaps an existing one by key."""
+        existing = {b.key: i for i, b in enumerate(self._backends)}
+        if backend.key in existing:
+            if not replace:
+                raise ValueError(
+                    f"backend key {backend.key!r} already registered "
+                    f"(pass replace=True to swap it)")
+            self._backends[existing[backend.key]] = backend
+        else:
+            self._backends.append(backend)
         return backend
 
     def copy(self) -> "BackendRegistry":
@@ -38,6 +43,17 @@ class BackendRegistry:
 
     def __len__(self) -> int:
         return len(self._backends)
+
+    def get(self, key: str) -> Optional[Backend]:
+        return next((b for b in self._backends if b.key == key), None)
+
+    @property
+    def by_name(self) -> Dict[str, Backend]:
+        return {b.name: b for b in self._backends}
+
+    @property
+    def by_analogue(self) -> Dict[str, Backend]:
+        return {b.paper_analogue: b for b in self._backends}
 
     # ---------------------------------------------------------------- order
     def verification_order(self) -> List[Tuple[Backend, str]]:

@@ -66,3 +66,12 @@ def narrow(app: OffloadableApp, small_state, top_intensity: int = 5,
                     reverse=True)[:top_efficiency]
     return stage2
 
+
+def fpga_patterns(candidates: List[NestProfile]) -> List[tuple]:
+    """Paper §III.A: measure the top-3 single-nest patterns, then one combo
+    of the two best performers => at most 4 measured patterns.
+
+    Returns a list of tuples of nest names; the combo is appended by the
+    caller after the singles are measured.
+    """
+    return [(p.nest.name,) for p in candidates]

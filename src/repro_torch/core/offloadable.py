@@ -64,3 +64,14 @@ class OffloadableApp:
     def reference_fn(self) -> Callable[[State], object]:
         return self.build({})
 
+    def choice_from_genes(self, genes, dest_key: str) -> Dict[str, str]:
+        """The choice a gene string makes: each nest whose gene is set and
+        that has a ``dest_key`` implementation runs it, the rest ``seq``."""
+        choice = {}
+        for nest, g in zip(self.nests, genes):
+            if g and dest_key in nest.impls:
+                choice[nest.name] = dest_key
+            else:
+                choice[nest.name] = "seq"
+        return choice
+

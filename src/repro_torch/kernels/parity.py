@@ -36,6 +36,12 @@ offset dropped (:func:`cap_fault_controls`, :func:`bwd_cap_fault_controls`,
 :func:`decode_cap_fault_controls`), which the limits must reject at a cap
 that bends the checked scores (about 2 for unit-scale scores).
 
+The bf16 matmul is held to the plain version (``ref.matmul_ref``, the
+correctly rounded product) at ``MATMUL_BF16_TOL`` absolute and relative
+(the JAX tests' 2e-2), a limit that must reject the simulated faults of
+:func:`matmul_fault_controls`: the ring's last K tile dropped, and B read
+K-major (the transpose bit lost).
+
 The fp32 tdfir kernels are held at a flat 3e-4 (the reference's own limit)
 at the shapes of ``tdfir_edges``: the edges of their blocked tap loop, kept
 here once for ``chip_smoke.py``, ``tests/test_torch_cuda.py`` and the plan
@@ -48,7 +54,9 @@ import math
 import torch
 
 from . import flash_attention as _fa
+from . import matmul as _mm
 from . import tdfir as _fir
+from . import ref
 from .ref import NEG_INF
 
 BF16_ABS_TOL = 5e-2
@@ -445,3 +453,27 @@ def tdfir_edges() -> tuple:
     real."""
     return TDFIR_EDGES + ((2, 3000, _fir.max_taps(2)),
                           (2, 3000, _fir.max_taps(1)))
+
+
+MATMUL_BF16_TOL = 2e-2
+
+
+def matmul_within(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether a bf16 product is within ``MATMUL_BF16_TOL`` of the plain
+    version, absolute and relative, at every entry."""
+    return torch.allclose(got.float(), want.float(), rtol=MATMUL_BF16_TOL,
+                          atol=MATMUL_BF16_TOL)
+
+
+def matmul_fault_controls(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """Outputs of bf16 matmul kernel faults, simulated on the plain
+    version: the last TMA_K-deep K tile of the ring dropped (a producer
+    that stops one tile short), and B [K, N] read K-major, as if its
+    memory held [N, K] (the wgmma transpose bit lost)."""
+    k, n = b.shape
+    last = (k - 1) // _mm.TMA_K * _mm.TMA_K
+    return {
+        f"K tile {last // _mm.TMA_K} dropped":
+            ref.matmul_ref(a[:, :last], b[:last]),
+        "B read K-major": ref.matmul_ref(a, b.reshape(n, k).t()),
+    }

@@ -210,6 +210,35 @@ def test_cuda_matmul_main_and_ragged_shapes(m, k, n, dtype, tol):
     assert ops.launch_counts()["matmul"] == 1
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,route", [
+    (512, 512, 512, "small"), (8192, 2048, 8192, "wide"),
+    (2048, 2048, 2048, "wide"), (513, 1001, 511, "unaligned"),
+    (64, 3, 64, "unaligned"), (200, 136, 264, "small")])
+def test_cuda_bf16_matmul_routes(m, k, n, route):
+    """The bf16 matmul on each route of ``matmul.bf16_plan``: 3mm's 512^3
+    (64 x 64 tiles), granite-3-2b's MLP up-projection and 2048^3 (128 x
+    256), ragged M and N through TMA, and operands TMA
+    cannot map (registers fill the stages): within 2e-2 of the plain
+    version, the same bits on a second call, one launch a call, and the
+    limit rejects the simulated faults."""
+    from repro_torch.kernels import matmul as mm
+    gen = _card()
+    a = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+    b = torch.randn(k, n, generator=gen).to("cuda", torch.bfloat16)
+    assert mm.bf16_plan(m, n, k, mm.bf16_mappable(
+        n, k, a.data_ptr(), b.data_ptr())).route == route
+    ops.reset_launch_counts()
+    got, again = ops.matmul(a, b), ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["matmul"] == 2
+    want = ref.matmul_ref(a, b)
+    assert parity.matmul_within(got, want)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    for what, bad in parity.matmul_fault_controls(a, b).items():
+        assert not parity.matmul_within(bad, want), what
+
+
 _WRAP_LENS = (1, 17, 300, 640, 1000, 2111, 2112, 2500) * 8
 
 
