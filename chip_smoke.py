@@ -25,10 +25,12 @@ these phases, each printing its seconds:
                all started together,
                with each kernel's ``-Xptxas -v`` report; the flash, flash
                backward and matmul libraries' SASS (cuobjdump) must hold
-               HGMMA (wgmma) instructions, and the matmul and decode-attention
-               libraries' SASS LDGSTS (cp.async) instructions; their counts
-               are printed; the tdfir kernels and the backward's
-               tensor-core kernels must not spill, and the tdfir kernels'
+               HGMMA (wgmma) instructions, the decode-attention library's
+               HMMA (mma.sync: its grouped bf16 route), and the matmul and
+               decode-attention libraries' SASS LDGSTS (cp.async)
+               instructions; their counts are printed; the tdfir kernels,
+               the backward's and decode's tensor-core kernels must not
+               spill, and the tdfir kernels'
                16-byte shared loads (LDS.128) are counted; the backward's
                ``plan`` is held to the compiled one and printed;
   3. check     every kernel against its plain PyTorch version on the card: the
@@ -88,7 +90,14 @@ these phases, each printing its seconds:
                over [4,2112,8,128] and the full [4,1024,8,128] context, at
                one over [4,2112,16,64] and the full [4,3072,16,64] frames
                (bf16 at 5e-2 and the row limit beside simulated faults,
-               fp32 at 2e-4, each call twice for the same bits); the flash
+               fp32 at 2e-4, each call twice for the same bits); the bf16
+               decode kernel's tensor-core route over every group it takes
+               (``DECODE_MMA_GROUPS``: 2 to 16 query heads a KV head, 10 at
+               D=256) at every head dim (``check_decode_routes``: a row of
+               length 0, one ending inside a key tile and one whole, with
+               its lse; at 5e-2 and the row limit beside simulated faults,
+               each call twice for the same bits), every decode row above
+               printing its route; the flash
                backward (``BWD_CASES``: granite's H=32 over KV=8 at D=64,
                S 2048, 1000 and 50, h2o-danube's D=80 under its window at
                S=5000, recurrentgemma's D=256 at 10 query heads a KV head
@@ -127,7 +136,8 @@ these phases, each printing its seconds:
                1, H 48 over KV 8, S 2048, D 128) beside SDPA's backward,
                three device kernels a call, each kernel's device time;
                a profile of one decode-attention call must hold exactly one
-               device kernel; h2o-danube's windowed and unwindowed S=5000,
+               device kernel; each decode row names its route (``hmma``:
+               the tensor cores; ``lanes``: the CUDA cores); h2o-danube's windowed and unwindowed S=5000,
                D=80 prefill beside SDPA (with the boolean causal-and-window
                mask) and its decode pool beside masked SDPA, the same
                S=1000 prefill under the window, and flash and decode at
@@ -502,6 +512,18 @@ FLASH_WIDE_D = 128             # nemotron, command-r+, arctic, ... head dim
 DECODE_MAIN = (4, 32, 8, 2112, 64)
 DECODE_MAIN_LENS = (1, 300, 1000, 2112)
 # a 64-slot pool: one split a row, so each warp's cp.async ring wraps
+# the bf16 decode kernel's tensor-core route: every group it takes (up to
+# 16 query heads a KV head, 10 at D = 256), swept over each head dim on a
+# [3, 700, 2, D] pool at lengths 0 (no key), 333 (inside a key tile), 700
+# decode attention's device kernels: the CUDA-core route's, the tensor-core
+# route's
+DECODE_KERNELS = ("decode_kernel", "decode_mma_kernel")
+DECODE_MMA_GROUPS = (2, 3, 4, 6, 7, 8, 10, 12, 16)
+DECODE_MMA_SWEEP = (3, 2, 700, (0, 333, 700))   # B, KV, S, lengths
+# long caches over one KV head, whose live splits merge in the route's tree
+# (more than MERGE_FAN of them): (B, H, KV, S, D), lengths
+DECODE_MMA_TREE = (((2, 12, 1, 32768, 128), (30001, 777)),
+                   ((1, 10, 1, 32768, 256), (32768,)))
 DECODE_WRAP = (64, 32, 8, 2112, 64)
 DECODE_WRAP_LENS = (1, 17, 300, 640, 1000, 2111, 2112, 2500) * 8
 SERVE_ARCH = "granite-3-2b"
@@ -1319,6 +1341,7 @@ def check_attention(ops, ref, gen):
     check_wide_groups(ops, ref, gen, readings)
     check_head_dim_256(ops, ref, gen, readings)
     check_cross_attention(ops, ref, gen, readings)
+    check_decode_routes(ops, ref, gen, readings)
     print(f"  decode bf16 row_err: largest sound reading "
           f"{readings['sound']:.3e}, limit {parity.DECODE_ROW_TOL}, smallest "
           f"fault reading {readings['fault']:.3e}")
@@ -1369,8 +1392,11 @@ def check_wide_groups(ops, ref, gen, readings):
             q, kc, vc, ln = decode_inputs(gen, dtype, *shape,
                                           DECODE_MAIN_LENS)
             what = f"decode {b}x{h} over [{b},{s_pool},{kv},{d}] {dtype}"
-            print(f"    {what}: {h // kv} query rows a KV head, {rows} a "
-                  f"pass, {-(-(h // kv) // rows)} passes")
+            route = decode_plan(dtype, shape).route
+            print(f"    {what}: {h // kv} query rows a KV head, route "
+                  f"{route}: " + ("one 16-row tile" if route == "hmma" else
+                                  f"{rows} a pass, "
+                                  f"{-(-(h // kv) // rows)} passes"))
             got = ops.decode_attention(q, kc, vc, ln)
             check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln),
                         tol)
@@ -1421,15 +1447,89 @@ def check_head_dim_256(ops, ref, gen, readings):
         q, kc, vc, ln = decode_inputs(gen, dtype, *GRIFFIN_DECODE,
                                       GRIFFIN_DECODE_LENS)
         what = f"decode {b}x{h} over [{b},{s_pool},{kv},{d}] {dtype}"
-        print(f"    {what}: {da.lanes_per_row(d, dtype)} lanes a row, "
-              f"{da.chunks_per_lane(d, dtype)} chunk(s) a lane, "
-              f"{h // kv} passes, warp tiles of "
-              f"{da.warp_tile(d, dtype)} keys")
+        p = decode_plan(dtype, GRIFFIN_DECODE)
+        print(f"    {what}: route {p.route} ("
+              + ("one 16-row tile, m16n8k8 P V" if p.route == "hmma" else
+                 f"{da.lanes_per_row(d, dtype)} lanes a row, "
+                 f"{da.chunks_per_lane(d, dtype)} chunk(s) a lane, "
+                 f"{h // kv} passes")
+              + f"), warp tiles of {da.warp_tile(d, dtype)} keys, "
+              f"{p.n_splits} splits of {p.chunk}, "
+              f"{da.live_blocks(p, GRIFFIN_DECODE_LENS, kv)} live")
         got = ops.decode_attention(q, kc, vc, ln)
         check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln), tol)
         if dtype == torch.bfloat16:
             check_decode_rows(what, got, q, kc, vc, ln, readings,
                               decode_plan(dtype, GRIFFIN_DECODE).chunk)
+        require_same_bits(f"{what}, called twice", got,
+                          ops.decode_attention(q, kc, vc, ln))
+
+
+def check_decode_routes(ops, ref, gen, readings) -> None:
+    """Phase 3: the bf16 decode kernel's tensor-core route at every group
+    it takes (``DECODE_MMA_GROUPS``, up to 10 at D=256) and every head
+    dim, on a [3, 700, 2, D] pool at lengths 0, 333 and 700: one launch a
+    call through that route, within 5e-2 of the plain version and the row
+    limit beside the simulated faults, its lse within 1e-3 of the plain
+    version's in fp32, zeros and -1e30 at length 0, and the same bits on
+    a second call; then ``DECODE_MMA_TREE``, long caches whose live splits
+    merge in the route's two-level tree, held the same way."""
+    from repro_torch.kernels import decode_attention as da
+    b, kv, s, lens = DECODE_MMA_SWEEP
+    print(f" decode_attention tensor-core route: groups {DECODE_MMA_GROUPS} "
+          f"(up to {da.hmma_group(256)} at D=256) x D in {da.HEAD_DIMS} over "
+          f"[{b},{s},{kv},D] at lens {lens}: 5e-2 and the row limit beside "
+          f"simulated faults, the lse at 1e-3, called twice")
+    empty = torch.tensor([n == 0 for n in lens], device="cuda")
+    neg = float(np.float32(ref.NEG_INF))
+    for d in da.HEAD_DIMS:
+        worst, worst_lse = 0.0, 0.0
+        for rep in DECODE_MMA_GROUPS:
+            if rep > da.hmma_group(d):
+                continue
+            shape = (b, rep * kv, kv, s, d)
+            p = decode_plan(torch.bfloat16, shape)
+            what = f"decode group {rep} D={d} bf16"
+            require(p.route == "hmma", f"{what}: plan takes route {p.route}")
+            q, kc, vc, ln = decode_inputs(gen, torch.bfloat16, *shape, lens)
+            lse = torch.empty((b, rep * kv), dtype=torch.float32,
+                              device="cuda")
+            before = ops.launch_counts()["decode_attention"]
+            got = ops.decode_attention(q, kc, vc, ln, lse=lse)
+            torch.cuda.synchronize()
+            require(ops.launch_counts()["decode_attention"] == before + 1,
+                    f"{what}: not one launch")
+            want = ref.decode_attention_ref(q, kc, vc, ln)
+            err = max_abs_err(got, want)
+            require(err <= 5e-2, f"{what}: max_abs_err {err:.3e} > 5e-2")
+            _, want_lse = ref.decode_attention_ref(
+                q.float(), kc.float(), vc.float(), ln, return_lse=True)
+            lse_err = max_abs_err(lse, want_lse)
+            require(lse_err <= 1e-3, f"{what}: the lse is {lse_err:.2e} "
+                    f"from the plain version's")
+            require(bool((lse[empty] == neg).all()) and not got[empty].any(),
+                    f"{what}: a row with no valid key is not zeros and "
+                    f"-1e30")
+            print(f"  {what:28s} chunk {p.chunk} x {p.n_splits}: "
+                  f"max_abs_err {err:.3e}, lse {lse_err:.1e}")
+            check_decode_rows(what, got, q, kc, vc, ln, readings, p.chunk)
+            require_same_bits(f"{what}, called twice", got,
+                              ops.decode_attention(q, kc, vc, ln))
+            worst, worst_lse = max(worst, err), max(worst_lse, lse_err)
+        print(f"  decode tensor-core route D={d:<3d} max_abs_err "
+              f"{worst:.3e}  lse {worst_lse:.1e}  ok")
+    for shape, lens in DECODE_MMA_TREE:
+        p = decode_plan(torch.bfloat16, shape)
+        live = [-(-n // p.chunk) for n in lens]
+        what = f"decode {list(shape)} lens {lens} bf16"
+        require(p.route == "hmma" and max(live) > da.MERGE_FAN,
+                f"{what}: not the tensor-core route's merge tree ({p})")
+        q, kc, vc, ln = decode_inputs(gen, torch.bfloat16, *shape, lens)
+        got = ops.decode_attention(q, kc, vc, ln)
+        print(f"  {what}: {p.n_splits} splits of {p.chunk}, {live} live, "
+              f"merged in groups of {da.MERGE_FAN}")
+        check_close(what, got, ref.decode_attention_ref(q, kc, vc, ln), 5e-2)
+        check_decode_rows(what, got, q, kc, vc, ln, readings, p.chunk)
         require_same_bits(f"{what}, called twice", got,
                           ops.decode_attention(q, kc, vc, ln))
 
@@ -1835,7 +1935,8 @@ def time_attention(ops, ref, gen, rows, dev):
         kernel, plain, library, t_bound, by, plain_iters=50)
     from repro_torch.kernels import decode_attention as da
     p = decode_plan(torch.bfloat16)
-    print(f"  decode_attention plan: chunk {p.chunk} keys, grid {p.n_splits}"
+    print(f"  decode_attention plan: route {p.route}, chunk {p.chunk} keys, "
+          f"grid {p.n_splits}"
           f" splits x {b * kv} (slot, KV head) = {p.n_splits * b * kv} "
           f"blocks, {da.live_blocks(p, DECODE_MAIN_LENS, kv)} live at lengths"
           f" {DECODE_MAIN_LENS}")
@@ -1930,8 +2031,7 @@ def time_family_rows(ops, ref, gen):
               flash_case(ops, ref, gen, s, d, w), 50, 3)
              for s, w in ((H2O_FLASH[3], H2O_WINDOW), (H2O_FLASH[3], 0),
                           (FLASH_RAGGED_S, H2O_WINDOW))]
-    cases.append((f"decode_attention over {list(H2O_DECODE)} lens "
-                   f"{H2O_DECODE_LENS}",
+    cases.append((decode_label(H2O_DECODE, H2O_DECODE_LENS),
                    decode_case(ops, ref, gen, H2O_DECODE, H2O_DECODE_LENS),
                    200, 50))
     b, _, _, s_pool, _ = DECODE_MAIN
@@ -1943,8 +2043,7 @@ def time_family_rows(ops, ref, gen):
                                      kv=kv),
                           50, 3))
         shape = (b, h, kv, s_pool, FLASH_WIDE_D)
-        cases.append((f"decode_attention over {list(shape)} lens "
-                      f"{DECODE_MAIN_LENS}",
+        cases.append((decode_label(shape, DECODE_MAIN_LENS),
                       decode_case(ops, ref, gen, shape, DECODE_MAIN_LENS),
                       200, 50))
     _, h, kv, s_main, d = GRIFFIN_FLASH
@@ -1956,8 +2055,8 @@ def time_family_rows(ops, ref, gen):
                       flash_case(ops, ref, gen, s, d, GRIFFIN_WINDOW, h=h,
                                  kv=kv),
                       50, 3))
-    cases.append((f"decode_attention over {list(GRIFFIN_DECODE)} at {h} "
-                   f"query heads, lens {GRIFFIN_DECODE_LENS}",
+    cases.append((decode_label(GRIFFIN_DECODE, GRIFFIN_DECODE_LENS,
+                               f" at {h} query heads,"),
                    decode_case(ops, ref, gen, GRIFFIN_DECODE,
                                GRIFFIN_DECODE_LENS),
                    200, 50))
@@ -2026,9 +2125,8 @@ def time_cross_rows(ops, ref, gen):
     for hh, kk, ctx, dd in ((h, kv, VLM_CTX, d), (ah, akv, AUDIO_CTX, ad)):
         for ss, lens in ((s_pool, DECODE_MAIN_LENS), (ctx, (ctx,) * b)):
             shape = (b, hh, kk, ss, dd)
-            cases.append((f"decode_attention over {list(shape)} lens "
-                          f"{lens}", decode_case(ops, ref, gen, shape,
-                                                 lens)))
+            cases.append((decode_label(shape, lens),
+                           decode_case(ops, ref, gen, shape, lens)))
     for what, (kernel, plain, library, t_bound, by) in cases:
         decode = what.startswith("decode")
         row, dev = time_row(kernel, plain, library, t_bound, by,
@@ -2037,11 +2135,23 @@ def time_cross_rows(ops, ref, gen):
         print_row(what, row, dev)
 
 
+def decode_label(shape, lens, extra: str = "") -> str:
+    """Phase 4's name of a bf16 decode row: its pool, lengths and route."""
+    route = decode_plan(torch.bfloat16, shape).route
+    return f"decode_attention over {list(shape)}{extra} lens {lens} [{route}]"
+
+
 def decode_plan(dtype, shape=DECODE_MAIN):
     """The decode kernel's splits at ``shape`` (B, H, KV, S, D)."""
     from repro_torch.kernels import decode_attention as da
     b, h, kv, s, d = shape
     return da.plan(b, h, kv, s, d, dtype)
+
+
+def is_decode_kernel(name: str) -> bool:
+    """Whether a device kernel's name is one of decode attention's (the
+    CUDA-core route's or the tensor-core route's)."""
+    return any(k in name for k in DECODE_KERNELS)
 
 
 def device_kernels(fn) -> list:
@@ -2054,13 +2164,19 @@ def device_kernels(fn) -> list:
     return [name for name, _ in traced]
 
 
+@functools.lru_cache(maxsize=None)
+def library_sass(cuobjdump: str, library: str) -> str:
+    """The SASS of a kernel library (named by its content hash, so one
+    disassembly serves every count of phase 2)."""
+    return subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
 def count_sass(build, name: str, opcode: str) -> int:
     """How many ``opcode`` instructions the SASS of kernel library ``name``
     holds (cuobjdump from the toolkit that built it)."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
+    sass = library_sass(cuobjdump, str(build.library_path(name)))
     return len(re.findall(rf"\b{re.escape(opcode)}[.\s]", sass))
 
 
@@ -2092,6 +2208,26 @@ def check_bwd_build(log: str) -> None:
         for d in fab.HEAD_DIMS:
             print(f"  flash_attention_bwd plan D={d} {dtype}: "
                   f"{fab.plan(d, dtype)}")
+
+
+def check_decode_build(log: str) -> None:
+    """Phase 2, the decode library's build: its grouped bf16 route runs on
+    the tensor cores (HMMA, mma.sync, in its SASS), and none of that
+    route's kernels spills (``-Xptxas -v``)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    n_hmma = count_sass(_build, "decode_attention", "HMMA")
+    print(f"  decode_attention SASS: {n_hmma} HMMA (mma.sync) instructions")
+    require(n_hmma > 0, "the decode_attention library has no HMMA: its "
+            "grouped bf16 route does not run on the tensor cores")
+    mma = [k for k in ptxas_kernels(log) if "decode_mma_kernel" in k[0]]
+    for name, regs, spill in mma:
+        print(f"  decode_attention {name[:70]}: {regs} registers, {spill} "
+              f"bytes spill stores")
+    require(len(mma) == 2 * len(da.HEAD_DIMS)
+            and not any(spill for _, _, spill in mma),
+            "a tensor-core decode kernel spills registers (or the report "
+            "lists fewer than one capped and one uncapped a head dim)")
 
 
 def check_plan_report(name: str, report) -> None:
@@ -3015,7 +3151,7 @@ def reference_tokens(ops, lm, reqs, label: str,
 
 
 def print_profile(what: str, wall_ms: float, fn, iters: int,
-                  share_of: str = "") -> None:
+                  share_of: tuple = ()) -> None:
     """Where one call's time goes: device time against its host-clock
     wall time, the heaviest kernels, the heaviest host ops, and the share of
     the device time that kernels named ``share_of`` take."""
@@ -3031,8 +3167,10 @@ def print_profile(what: str, wall_ms: float, fn, iters: int,
     for name, ms in kernels[:8]:
         print(f"      {ms:8.4f}  {name[:90]}")
     if share_of:
-        mine = sum(ms for name, ms in kernels if share_of in name)
-        print(f"      {share_of}: {mine:.4f} ms per call, {mine / dev_ms:.1%}"
+        mine = sum(ms for name, ms in kernels
+                   if any(k in name for k in share_of))
+        print(f"      {' + '.join(share_of)}: {mine:.4f} ms per call, "
+              f"{mine / dev_ms:.1%}"
               f" of the device time")
     print("      heaviest host ops by self CPU time under the profiler, ms "
           "per call:")
@@ -3142,7 +3280,7 @@ def run_serve(ops, cells: list):
     note_cell(cells, "b", lm, None, SERVE_CACHE_LEN, SERVE_PROMPTS, before,
               engine, step_wall)
     print_profile("decode step (graph replay)", step_wall, engine._step, 5,
-                  share_of="decode_kernel")
+                  share_of=DECODE_KERNELS)
 
     want = reference_tokens(ops, lm, reqs, "b")
     agree = sum(int((out[r.rid] == want[r.rid]).sum()) for r in reqs)
@@ -3384,9 +3522,9 @@ def moe_step_split(lm, engine, label: str) -> None:
     of the MoE gets no device time."""
     from torch.profiler import ProfilerActivity
     dev_ms, kernels, _ = device_profile(engine._step, 5)
-    attn = sum(ms for n, ms in kernels if "decode_kernel" in n)
+    attn = sum(ms for n, ms in kernels if is_decode_kernel(n))
     gemm = sum(ms for n, ms in kernels
-               if any(g in n for g in GEMM_NAMES) and "decode_kernel" not in n)
+               if any(g in n for g in GEMM_NAMES) and not is_decode_kernel(n))
     rest = dev_ms - attn - gemm
     print(f"  ({label}) graph replay, {dev_ms:.3f} ms of device time: decode "
           f"attention {attn:.3f} ms ({attn / dev_ms:.1%}), cuBLAS GEMMs "
@@ -3415,7 +3553,7 @@ def moe_step_split(lm, engine, label: str) -> None:
     # the ranges' own device-side spans are not kernels
     traced = [(n, ms) for n, ms in traced if not n.startswith("moe.")]
     total = sum(ms for _, ms in traced)
-    attn = sum(ms for n, ms in traced if "decode_kernel" in n)
+    attn = sum(ms for n, ms in traced if is_decode_kernel(n))
     ms = {tag: sum(e.device_time_total for e in prof.events()
                    if e.name == tag
                    and not str(e.device_type).endswith("CUDA")) / 1e3
@@ -3727,9 +3865,9 @@ def recurrent_step_split(lm, engine, label: str) -> None:
     unembedding's mask).  Fails where the ranges get no device time."""
     from torch.profiler import ProfilerActivity
     dev_ms, kernels, _ = device_profile(engine._step, 5)
-    attn = sum(ms for n, ms in kernels if "decode_kernel" in n)
+    attn = sum(ms for n, ms in kernels if is_decode_kernel(n))
     gemm = sum(ms for n, ms in kernels
-               if any(g in n for g in GEMM_NAMES) and "decode_kernel" not in n)
+               if any(g in n for g in GEMM_NAMES) and not is_decode_kernel(n))
     rest = dev_ms - attn - gemm
     print(f"  ({label}) graph replay, {dev_ms:.3f} ms of device time: decode "
           f"attention {attn:.3f} ms ({attn / dev_ms:.1%}), cuBLAS GEMMs "
@@ -3749,9 +3887,9 @@ def recurrent_step_split(lm, engine, label: str) -> None:
     tag = "ssm.state" if lm.cfg.family == "ssm" else "rglru.state"
     traced = [(n, ms) for n, ms in traced if n != tag]
     total = sum(ms for _, ms in traced)
-    attn = sum(ms for n, ms in traced if "decode_kernel" in n)
+    attn = sum(ms for n, ms in traced if is_decode_kernel(n))
     gemm = sum(ms for n, ms in traced
-               if any(g in n for g in GEMM_NAMES) and "decode_kernel" not in n)
+               if any(g in n for g in GEMM_NAMES) and not is_decode_kernel(n))
     state = sum(e.device_time_total for e in prof.events()
                 if e.name == tag
                 and not str(e.device_type).endswith("CUDA")) / 1e3
@@ -3886,8 +4024,8 @@ def range_split(lm, fn, what: str, label: str, n_attn: int) -> None:
         if str(e.device_type).endswith("CUDA") and PAD_KERNEL not in e.name)]
     total = sum(ms for _, ms in kernels)
     attn = [ms for n, ms in kernels if any(
-        k in n for k in ("flash_bf16_kernel", "flash_f32_kernel",
-                         "decode_kernel"))]
+        k in n for k in ("flash_bf16_kernel", "flash_f32_kernel")
+        + DECODE_KERNELS)]
     require(len(attn) == n_attn, f"({label}) the {what} ran {len(attn)} "
             f"attention kernels, not {n_attn}")
     n_enc = n_attn - len(lm.layers)
@@ -6406,6 +6544,7 @@ def run_phases(tmp: str) -> int:
             print(f"  {name} SASS: {n_ldgsts} LDGSTS (cp.async) instructions")
             require(n_ldgsts > 0, f"the {name} library has no LDGSTS: its "
                     "copies are not asynchronous")
+        check_decode_build(logs["decode_attention"])
         spills = [int(v) for v in
                   re.findall(r"(\d+) bytes spill stores", logs["tdfir"])]
         n_lds128 = count_sass(_build, "tdfir", "LDS.128")

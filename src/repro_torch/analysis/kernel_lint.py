@@ -441,7 +441,11 @@ def decode_attention_model(b: int = 8, h: int = 1, kvh: int = 1,
     slot's length masked); the group's splits merge in one block, which
     writes the output rows and log-sum-exps.  Its partials and merge
     counters are scratch kept per (device, stream), or a captured graph's
-    own (``decode_attention.scratch_key``)."""
+    own (``decode_attention.scratch_key``).  The plan's route names the
+    model: ``decode_attention.<dtype>`` for the CUDA-core kernel,
+    ``decode_attention.hmma.bfloat16`` for the tensor-core route, whose
+    block also holds the group's 16-row Q tile and the split merge's
+    weights (``decode_attention.block_smem``)."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
@@ -453,10 +457,8 @@ def decode_attention_model(b: int = 8, h: int = 1, kvh: int = 1,
             subject="decode_attention")]
     p = da.plan(b, h, kvh, s, d, dt)
     rep = h // kvh
-    itemsize = dt.itemsize
-    ring = 8 * 3 * 2 * da.warp_tile(d, dt) * d * itemsize
-    merge = 8 * rep * (d + 2) * 4
     floats = b * h * p.n_splits * (d + 2)
+    route = "" if p.route == "lanes" else f"{p.route}."
 
     def group(x, y, z):
         return y // kvh, (y % kvh) * rep
@@ -465,8 +467,9 @@ def decode_attention_model(b: int = 8, h: int = 1, kvh: int = 1,
                          lambda x, y, z: (y // kvh, x * p.chunk, y % kvh, 0),
                          masked=(1,)) for nm in ("k_cache", "v_cache")]
     return [KernelModel(
-        name=f"decode_attention.{dtype}", grid=(p.n_splits, b * kvh, 1),
-        threads=da.THREADS, smem=max(ring, merge),
+        name=f"decode_attention.{route}{dtype}",
+        grid=(p.n_splits, b * kvh, 1),
+        threads=da.THREADS, smem=da.block_smem(p, rep, d, dt),
         inputs=[OperandSpec("q", (b, h, d), (1, rep, d),
                             lambda x, y, z: (*group(x, y, z), 0))] + cache
         + [OperandSpec("lens", (b,), (1,), lambda x, y, z: (y // kvh,))],
@@ -492,7 +495,9 @@ def _store_entry(scratch_key: Callable) -> Callable:
 def default_factories() -> List[Callable]:
     """Every kernel at the reference's representative sizes, on each of
     its routes: fp32 and bf16 matmul, bf16 (tensor cores) and fp32 (CUDA
-    cores) flash forward and backward and decode, real and complex tdFIR."""
+    cores) flash forward and backward and decode (bf16 decode on both
+    routes: one query head a KV head on the CUDA cores, grouped ones on the
+    tensor cores), real and complex tdFIR."""
     import functools
     out: List[Callable] = []
     for dtype in ("float32", "bfloat16"):
@@ -504,6 +509,12 @@ def default_factories() -> List[Callable]:
         out.append(functools.partial(flash_attention_model, dtype=dtype))
         out.append(functools.partial(flash_attention_bwd_model, dtype=dtype))
         out.append(functools.partial(decode_attention_model, dtype=dtype))
+    # the bf16 decode's tensor-core route: command-r-plus's 12 query heads
+    # a KV head, and recurrentgemma's ring (10 heads at D = 256, 8 splits)
+    out.append(functools.partial(decode_attention_model, 4, 96, 8, 2112,
+                                 128))
+    out.append(functools.partial(decode_attention_model, 4, 10, 1, 2048,
+                                 256))
     out += [tdfir_model, functools.partial(tdfir_model, planes=2)]
     return out
 

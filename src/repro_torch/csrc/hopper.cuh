@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
 // mbarriers, TMA tile loads through a host-encoded CUtensorMap, warpgroup
-// matrix multiplies (wgmma) with shared-memory descriptors, and cp.async
+// matrix multiplies (wgmma) with shared-memory descriptors, warp matrix
+// multiplies (mma.sync) with their ldmatrix loads, and cp.async
 // copies with their group waits, and the host side of the tensor maps
 // (cuTensorMapEncodeTiled fetched from the driver).  Header-only; every
 // csrc/*.cu but tdfir.cu includes it.  The build hashes every csrc/*.cuh
@@ -344,6 +345,57 @@ template <> struct WgmmaSSt<256> {
         : "l"(da), "l"(db), "r"(accumulate));
   }
 };
+
+// ---- mma.sync (HMMA) and ldmatrix -----------------------------------------
+
+// Four 8x8 16-bit matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes) and receives, of each
+// matrix, the element pair (row l / 4, columns 2 (l % 4) and + 1): the
+// fragment layout of mma.sync's operands.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The same, each matrix transposed: lane l receives rows 2 (l % 4) and + 1
+// of column l / 4 (a row-major [K][N] tile as a column-major B fragment).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[4] += A[16x16] B[16x8], bf16 operands, fp32 sums (one warp): A a
+// row-major fragment (a[0]: row l / 4, columns 2 (l % 4) + {0, 1}; a[1]:
+// row + 8; a[2], a[3]: columns + 8), B column-major (b0: rows 2 (l % 4) +
+// {0, 1} of column l / 4; b1: rows + 8), d[0..1] row l / 4 and d[2..3] row
+// + 8, columns 2 (l % 4) + {0, 1}
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[4] += A[16x8] B[8x8]: the k8 form (a0: row l / 4, a1: row + 8; b0)
+__device__ __forceinline__ void mma_1688(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
 
 // ---- cp.async (LDGSTS) ----------------------------------------------------
 

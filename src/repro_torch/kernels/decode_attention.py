@@ -25,14 +25,26 @@ start of every replay), held as long as the graph, and shared with no
 other graph or stream.  The kernel leaves the counters at zero after every
 launch.
 
-A lane of the kernel owns one 16-byte chunk of a query row; a row takes
-:func:`lanes_per_row` lanes, the chunk count rounded up to a power of two
-(D = 80 is 10 chunks in bf16 and 20 in fp32, so 16 and 32 lanes), and the
-lanes past the row's chunks hold zeros.  A row of more than 32 chunks
-(fp32 at D = 256: 64) takes the whole warp, :func:`chunks_per_lane` chunks
-a lane.  The group's padded width, (H / KV) times the padded D, is at most
-2048, and at D = 256 the 10 query heads over one KV head of
-recurrentgemma, in 10 row passes (:func:`max_group`).
+The kernel has two routes, and :func:`plan` picks one from the shape
+(``DecodePlan.route``):
+
+- ``"hmma"``, bf16 with 2 to 16 query heads a KV head (10 at D = 256): the
+  group's rows, padded to 16, share each K/V tile in one warp matrix
+  product on the tensor cores (``mma.sync`` m16n8k16, HMMA): Q K^T with
+  fp32 sums, the online softmax on the score fragments, p rounded to bf16
+  and repacked as the A fragment of P V.  K and V come from each warp's
+  cp.async ring by ``ldmatrix``, its 16-byte chunks XOR-swizzled
+  (:func:`ring_chunk`).
+- ``"lanes"``, fp32, bf16 at group 1 and bf16 groups past 16 (D <= 64):
+  the CUDA-core kernel.  A lane owns one 16-byte chunk of a query row; a
+  row takes :func:`lanes_per_row` lanes, the chunk count rounded up to a
+  power of two (D = 80 is 10 chunks in bf16 and 20 in fp32, so 16 and 32
+  lanes), and the lanes past the row's chunks hold zeros.  A row of more
+  than 32 chunks (fp32 at D = 256: 64) takes the whole warp,
+  :func:`chunks_per_lane` chunks a lane.  The group's padded width, (H /
+  KV) times the padded D, is at most 2048, and at D = 256 the 10 query
+  heads over one KV head of recurrentgemma, in 10 row passes
+  (:func:`max_group`).
 """
 from __future__ import annotations
 
@@ -60,6 +72,21 @@ KEY_TILE = {torch.float32: 8, torch.bfloat16: 16}
 SMS = 132                       # H100 SXM
 THREADS = 256                   # a block's threads (8 warps)
 MERGE_LOADS = 160               # partials a merging thread loads, at most
+# the tensor-core route: the most query heads a KV head (one 16-row tile;
+# 10 at D = 256, held to the library's at load)
+HMMA_ROWS = 16
+HMMA_GROUP_256 = 10
+# the tensor-core route's grid: 0.75 waves of the SMs over the whole cache,
+# splits of at least HMMA_MIN_CHUNK keys (scripts/decode_routes.py: a
+# block's fixed costs, its first loads, its partial and the merge, outweigh
+# its keys, so fewer and longer splits win; PERF.md rows 4-4i)
+HMMA_WAVES = 0.75
+HMMA_MIN_CHUNK = 256
+ROUTES = {"lanes": 0, "hmma": 1}
+# the tensor-core route merges its splits in a tree: the last of each
+# MERGE_FAN consecutive live splits to arrive merges them, the last of
+# those merges the groups (a merge counter each, beside the top one)
+MERGE_FAN = 16
 
 
 def lanes_per_row(d: int, dtype: torch.dtype) -> int:
@@ -78,8 +105,9 @@ def chunks_per_lane(d: int, dtype: torch.dtype) -> int:
 
 
 def warp_tile(d: int, dtype: torch.dtype) -> int:
-    """Keys a warp takes per stage of its ring: the key tile, halved at
-    D = 256 so that the 8 warps' 3-stage K/V rings stay within 192 KB."""
+    """Keys a warp takes per stage of its ring, on either route: the key
+    tile, halved at D = 256 so that the 8 warps' 3-stage K/V rings stay
+    within 192 KB."""
     return KEY_TILE[dtype] // 2 if d > 128 else KEY_TILE[dtype]
 
 
@@ -94,32 +122,118 @@ def max_group(d: int, dtype: torch.dtype) -> int:
                                * 16 // dtype.itemsize)
 
 
+def hmma_group(d: int) -> int:
+    """The most query heads a KV head the tensor-core route takes at
+    ``d``: one 16-row tile, 10 at D = 256."""
+    return HMMA_GROUP_256 if d > 128 else HMMA_ROWS
+
+
+def route(h: int, kvh: int, d: int, dtype: torch.dtype) -> str:
+    """The kernel route of a call: ``"hmma"`` for bf16 groups of 2 to
+    :func:`hmma_group` query heads a KV head, ``"lanes"`` for the rest."""
+    rep = h // max(kvh, 1)
+    if dtype == torch.bfloat16 and 2 <= rep <= hmma_group(d):
+        return "hmma"
+    return "lanes"
+
+
+def ring_chunk(r: int, c: int, d: int) -> int:
+    """Where the tensor-core route puts 16-byte chunk ``c`` of row ``r`` of
+    a [rows, D] bf16 tile in shared memory, in chunks (``swz`` in
+    ``csrc/decode_attention.cu``): c's low three bits XOR the row's where
+    its 8-chunk group is whole (D = 80's last two chunks stay), and at 2 or
+    4 chunks a row (D = 16, 32) XOR the row's group of 8 / CPR rows."""
+    cpr = d // 8
+    if cpr < 8:
+        return r * cpr + (c ^ ((r // (8 // cpr)) & (cpr - 1)))
+    return r * cpr + (c ^ (r & 7) if c < cpr // 8 * 8 else c)
+
+
 class DecodePlan(NamedTuple):
     chunk: int           # keys per split, a multiple of the key tile
     n_splits: int        # ceil(s_len / chunk): the grid is n_splits x B*KV
+    route: str           # a key of ROUTES: the kernel that runs
 
 
 @functools.lru_cache(maxsize=256)
 def plan(b: int, h: int, kvh: int, s_len: int, d: int,
          dtype: torch.dtype) -> DecodePlan:
     """Splits of q [B, H, D] over a [B, S, KV, D] cache of ``dtype``: its
-    B * KV rows of ``s_len`` keys.  The lengths live on the device, so the
-    grid is sized for 2.5 waves of the 132 SMs over the whole cache: with
-    the slots about half full, as in a serving pool, the live blocks then
-    fill a little over one wave ([4, 2112, 8, 64] at lengths
-    1/300/1000/2112: chunk 192, 160 of 352 blocks live).  Splits past a
-    row's length return at once.  The splits are capped so that each thread
-    of the block that merges them loads at most ``MERGE_LOADS`` of the
-    group's (H / KV) * D partial sums: the merge runs in split order in one
-    block, so its serial chain grows with splits times width
-    (recurrentgemma's [4, 2048, 1, 256] ring at 10 query heads: 16
-    splits, where 2.5 waves would ask for 83)."""
-    rows, key_tile = b * kvh, KEY_TILE[dtype]
-    want = max(1, -(-5 * SMS // (2 * max(rows, 1))))
-    want = min(want, max(1, MERGE_LOADS * THREADS // max(1, h // kvh * d)))
-    per = -(-max(s_len, 1) // want)
+    B * KV rows of ``s_len`` keys, and the route (:func:`route`).  The
+    lengths live on the device, so the grid is sized for 2.5 waves of the
+    132 SMs over the whole cache: with the slots about half full, as in a
+    serving pool, the live blocks then fill a little over one wave ([4,
+    2112, 8, 64] at lengths 1/300/1000/2112: chunk 192, 160 of 352 blocks
+    live).  Splits past a row's length return at once.  The splits are
+    capped on the CUDA-core route so that each thread of the block that
+    merges them loads at most ``MERGE_LOADS`` of the group's (H / KV) * D
+    partial sums: its merge runs each output's splits in turn, so its
+    chain grows with splits times width (recurrentgemma's [4, 2048, 1,
+    256] ring at 10 query heads: 16 splits, where 2.5 waves ask for 83).
+    The tensor-core route's merge loads the splits of all of a thread's
+    outputs together, and past MERGE_FAN of them merges in a tree, so its
+    chain grows with the splits alone, and it takes no cap.  The tensor-core
+    route sizes its grid for 0.75 waves with splits of at least 256 keys
+    (:func:`hmma_splits`): its blocks are short, and their fixed costs set
+    the pace (scripts/decode_routes.py on an H100: the [4, 2112, 8, 128]
+    pool at 12 query heads a KV head 0.0174 ms device at 0.75 waves, 0.0222
+    at 2.5; recurrentgemma's ring 0.0172 at 8 splits, 0.0292 at 64).
+
+    The route's group threshold is 2: on the CUDA-core kernel, groups of 2
+    to 4 at D = 64 take one row pass and ran 0.0101-0.0103 ms device
+    against the tensor-core route's 0.0098-0.0101 at the main pool (NVIDIA
+    H100 80GB HBM3, 700.00 W; PERF.md, PR 31)."""
+    way = route(h, kvh, d, dtype)
+    if way == "hmma":
+        return DecodePlan(*hmma_splits(b * kvh, s_len, h // kvh * d), way)
+    return DecodePlan(*splits(b * kvh, s_len, h // kvh * d, KEY_TILE[dtype],
+                              MERGE_LOADS), way)
+
+
+def hmma_splits(rows: int, s_len: int, width: int,
+                waves: float = HMMA_WAVES) -> Tuple[int, int]:
+    """(chunk, n_splits) of the tensor-core route: ``waves`` waves of the
+    SMs over the whole cache, at least HMMA_MIN_CHUNK keys a split, no cap
+    on the splits (:func:`splits`)."""
+    return splits(rows, s_len, width, KEY_TILE[torch.bfloat16], None,
+                  waves, HMMA_MIN_CHUNK)
+
+
+def splits(rows: int, s_len: int, width: int, key_tile: int,
+           loads: Optional[int], waves: float = 2.5,
+           min_chunk: int = 1) -> Tuple[int, int]:
+    """(chunk, n_splits) of :func:`plan`: ``rows`` (slot, KV head) rows of
+    ``s_len`` keys for ``waves`` waves of the SMs, whole ``key_tile``s a
+    split and at least ``min_chunk`` keys, the splits capped (unless
+    ``loads`` is None) at ``loads`` partials a merging thread over the
+    group's ``width`` = (H / KV) * D partial sums."""
+    want = max(1, math.ceil(waves * SMS / max(rows, 1)))
+    if loads is not None:
+        want = min(want, max(1, loads * THREADS // max(1, width)))
+    per = max(-(-max(s_len, 1) // want), min_chunk)
     chunk = key_tile * -(-per // key_tile)
-    return DecodePlan(chunk, max(1, -(-s_len // chunk)))
+    return chunk, max(1, -(-s_len // chunk))
+
+
+def block_smem(p: DecodePlan, rep: int, d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the launch: the warps' 3-stage
+    K/V rings, which the warp merge (an (m, l, sums) row a warp and query
+    row) reuses; on the tensor-core route also the 16-row Q tile, and the
+    split merge's weights (a float a query row and split) in the rings."""
+    ring = 8 * 3 * 2 * warp_tile(d, dtype) * d * dtype.itemsize
+    if p.route == "lanes":
+        return max(ring, 8 * rep * (d + 2) * 4)
+    # the tensor-core route pads the warp merge's rows by 8 floats and
+    # keeps each warp's weights and each row's max and denominator beside
+    most = max(MERGE_FAN, -(-p.n_splits // MERGE_FAN))
+    return HMMA_ROWS * d * 2 + max(ring, 4 * (8 * rep * (d + 11) + 2 * rep),
+                                   4 * (2 * rep * most + 2 * rep))
+
+
+def counters(b: int, kvh: int, n_splits: int) -> int:
+    """Merge counters a launch uses: one a (slot, KV head), and one for
+    each MERGE_FAN splits of it (the tensor-core route's first level)."""
+    return b * kvh * (1 + -(-n_splits // MERGE_FAN))
 
 
 def valid_rows(cache_len, b: int, s_len: int) -> int:
@@ -157,14 +271,20 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     lib.repro_decode_attention.argtypes = (
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.repro_decode_attention.restype = ctypes.c_int
-    lib.repro_decode_attention_key_tile.argtypes = [ctypes.c_int]
-    lib.repro_decode_attention_key_tile.restype = ctypes.c_int
+    for fn in (lib.repro_decode_attention_key_tile,
+               lib.repro_decode_attention_mma_group):
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_int
     for dtype, code in _DTYPE_CODES.items():
         if lib.repro_decode_attention_key_tile(code) != KEY_TILE[dtype]:
             raise RuntimeError("csrc/decode_attention.cu's key tile differs "
                                "from KEY_TILE")
+    for d in HEAD_DIMS:
+        if lib.repro_decode_attention_mma_group(d) != hmma_group(d):
+            raise RuntimeError(f"csrc/decode_attention.cu's tensor-core "
+                               f"group at D={d} differs from hmma_group")
     return lib
 
 
@@ -283,16 +403,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lib = _lib()
     p = plan(b, h, kvh, s_len, d, q.dtype)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part, counters = _scratch(dev, stream, b * h * p.n_splits * (d + 2),
-                              b * kvh)
+    part, cnt = _scratch(dev, stream, b * h * p.n_splits * (d + 2),
+                         counters(b, kvh, p.n_splits))
     with _build.on_device(dev):
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), part.data_ptr(),
-            counters.data_ptr(), b, h, kvh, s_len, d, p.chunk, p.n_splits,
+            cnt.data_ptr(), b, h, kvh, s_len, d, p.chunk, p.n_splits,
             1.0 / math.sqrt(d), float(softcap), _DTYPE_CODES[q.dtype],
-            stream)
+            ROUTES[p.route], stream)
     _build.check(lib, err, "decode_attention")
     launches += 1
     return out

@@ -8,6 +8,7 @@ rule for rule, ``--strict`` and the exit-1 cases of
 import json
 
 import pytest
+import torch
 
 from repro.analysis import gene_audit as jax_gene_audit
 from repro.analysis.lint import lint_cells as jax_lint_cells
@@ -174,6 +175,36 @@ def test_kernel_lint_k003_catches_aliasing(monkeypatch):
                         lambda dev, stream, graph=None: (da._SCRATCH, dev))
     (bad,), _ = kernel_lint.decode_attention_model()
     assert len(_rules(check_model(bad), "K003")) == 2
+
+
+@pytest.mark.parametrize("shape,grid", [((4, 96, 8, 2112, 128), (4, 32)),
+                                        ((4, 10, 1, 2048, 256), (8, 4)),
+                                        ((4, 32, 8, 2112, 64), (4, 32))])
+def test_kernel_lint_models_the_decode_tensor_core_route(shape, grid,
+                                                         monkeypatch):
+    """bf16 decode of a grouped query over its KV head takes the
+    tensor-core route: its model's grid is the plan's splits by (slot, KV
+    head), its block holds the Q tile beside the rings (within the 227 KB
+    a block may opt into), and K001-K003 are clean; a block past the limit
+    is K002, and scratch kept per device alone (two streams sharing it) is
+    K003."""
+    from repro_torch.kernels import decode_attention as da
+    b, h, kvh, s, d = shape
+    (m,), errs = kernel_lint.decode_attention_model(b, h, kvh, s, d)
+    assert not errs and m.name == "decode_attention.hmma.bfloat16"
+    p = da.plan(b, h, kvh, s, d, torch.bfloat16)
+    assert (p.route, m.grid) == ("hmma", (*grid, 1))
+    assert m.smem == da.block_smem(p, h // kvh, d, torch.bfloat16)
+    assert da.HMMA_ROWS * d * 2 < m.smem <= 232448
+    assert not has_errors(check_model(m))
+    monkeypatch.setattr(da, "block_smem", lambda *a: 240 * 1024)
+    (big,), _ = kernel_lint.decode_attention_model(b, h, kvh, s, d)
+    assert _rules(check_model(big), "K002")
+    monkeypatch.undo()
+    monkeypatch.setattr(da, "scratch_key",
+                        lambda dev, stream, graph=None: (da._SCRATCH, dev))
+    (shared,), _ = kernel_lint.decode_attention_model(b, h, kvh, s, d)
+    assert len(_rules(check_model(shared), "K003")) == 2
 
 
 def test_kernel_lint_models_refuse_what_the_wrappers_refuse():

@@ -18,7 +18,10 @@ kernel's index arithmetic cover every output and every (output, tap) pair
 once and read inside the staged window, the window swizzle is free of bank
 conflicts, a plain simulation of the blocked tap loop matches the Pallas
 tdfir, and the card's 3e-4 limit rejects simulated faults of that loop.
-The kernels themselves run on the card (tests/test_torch_cuda.py)."""
+The bf16 groups of 2 to 16 query heads a KV head take the decode kernel's
+tensor-core route, simulated by ``decode_mma_sim`` (its own checks:
+tests/test_torch_decode_mma.py).  The kernels themselves run on the card
+(tests/test_torch_cuda.py)."""
 import math
 
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+import decode_mma_sim
 from repro.kernels import decode_attention as jax_da
 from repro.kernels import tdfir as jax_fir
 from repro_torch.kernels import decode_attention as da
@@ -94,7 +98,14 @@ def test_decode_plan_splits_whole_tiles_over_the_cache(b, kv, s_len, d,
     if s_len:       # a full cache makes every split live
         assert da.live_blocks(p, [s_len] * b, kv) == b * kv * p.n_splits
     # the merging block's threads load at most MERGE_LOADS partials each
-    assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
+    # on the CUDA-core route; the tensor-core route (bf16 groups of 2-16)
+    # sizes 0.75 waves of splits of 256 keys or more, and merges in a tree
+    assert p.route == da.route(rep * kv, kv, d, dtype)
+    if p.route == "lanes":
+        assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
+    else:
+        assert p.n_splits <= max(1, -(-3 * da.SMS // (4 * b * kv)))
+        assert p.chunk >= da.HMMA_MIN_CHUNK
     chunks_per_row = d * dtype.itemsize // 16
     lanes = da.lanes_per_row(d, dtype)
     per_lane = da.chunks_per_lane(d, dtype)
@@ -110,9 +121,18 @@ def test_decode_plan_splits_whole_tiles_over_the_cache(b, kv, s_len, d,
 
 
 def test_decode_plan_fills_the_card_at_the_serving_shape():
-    p = da.plan(4, 32, 8, 2112, 64, torch.bfloat16)
-    assert 192 <= p.chunk <= 256
+    """The CUDA-core route (fp32 here) sizes its grid for 2.5 waves: about
+    one wave of live blocks at the serving lengths.  The tensor-core route
+    (bf16 at 4 query heads a KV head) sizes it for 0.75 waves of splits of
+    at least 256 keys: half the SMs at the serving lengths, all of them
+    (128 blocks) with every slot full."""
+    p = da.plan(4, 32, 8, 2112, 64, torch.float32)
+    assert p.route == "lanes" and 192 <= p.chunk <= 256
     assert da.live_blocks(p, (1, 300, 1000, 2112), 8) >= 120
+    p = da.plan(4, 32, 8, 2112, 64, torch.bfloat16)
+    assert p == da.DecodePlan(528, 4, "hmma")
+    assert da.live_blocks(p, (1, 300, 1000, 2112), 8) == 64
+    assert da.live_blocks(p, (2112,) * 4, 8) == 128 <= da.SMS
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -192,6 +212,17 @@ def _simulate(q, kc, vc, lens, dtype, dot=torch.matmul):
     return out
 
 
+def _route_sim(q, kc, vc, lens, dtype, dot=torch.matmul):
+    """The simulation of the route the plan takes: the tensor-core route's
+    (``decode_mma_sim``) for bf16 groups of 2 to 16 query heads a KV head,
+    else the CUDA-core kernel's splits and warp tiles with ``dot``."""
+    b, h, d = q.shape
+    kvh = kc.shape[2]
+    if da.plan(b, h, kvh, kc.shape[1], d, dtype).route == "hmma":
+        return decode_mma_sim.simulate(q, kc, vc, lens)[0]
+    return _simulate(q, kc, vc, lens, dtype, dot)
+
+
 def test_decode_split_merge_matches_pallas():
     """Lengths 1, chunk - 1, chunk, chunk + 1 and s_len, grouped heads
     (H=8 over KV=2): the simulation against the Pallas kernel, run per slot
@@ -248,10 +279,12 @@ def _lane_dot(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_d80_padded_lanes_match_pallas(dtype):
     """D = 80 (h2o-danube): 10 chunks a row on 16 lanes in bf16, 20 on 32
-    in fp32.  The simulation of the kernel's splits with its lane sums
-    against the Pallas kernel (interpret mode) on the same values, per slot
-    with K/V repeated per query head: 2e-4 in fp32, the bf16 limits against
-    the fp32 plain version in bf16."""
+    in fp32 (the CUDA-core kernel's rows; bf16 at 4 query heads a KV head
+    takes the tensor-core route, on five k16 steps of D).  The simulation
+    of the route's splits (with the CUDA-core kernel's lane sums) against
+    the Pallas kernel (interpret mode) on the same values, per slot with K/V
+    repeated per query head: 2e-4 in fp32, the bf16 limits against the fp32
+    plain version in bf16."""
     b, h, kvh, s_len, d = 3, 8, 2, 700, 80
     assert da.lanes_per_row(d, dtype) == (16 if dtype == torch.bfloat16
                                           else 32)
@@ -262,7 +295,9 @@ def test_decode_d80_padded_lanes_match_pallas(dtype):
                  .to(dtype).float()
                  for shape in ((b, h, d), (b, s_len, kvh, d),
                                (b, s_len, kvh, d)))
-    got = _simulate(q, kc, vc, lens, dtype, _lane_dot(dtype))
+    assert da.plan(b, h, kvh, s_len, d, dtype).route == (
+        "hmma" if dtype == torch.bfloat16 else "lanes")
+    got = _route_sim(q, kc, vc, lens, dtype, _lane_dot(dtype))
     rep = h // kvh
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
@@ -289,14 +324,16 @@ def test_decode_d80_padded_lanes_match_pallas(dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,kvh", [(14, 2), (16, 16)])
 def test_decode_row_passes_at_the_moe_groups_match_pallas(h, kvh, dtype):
-    """D = 128 at arctic's group of 7 query heads a KV head (bf16: 2 rows a
-    pass, 4 passes, the last half empty; fp32: 1 row a pass, 7 passes on
-    the 8-pass instantiation) and at moonshot's group of 1 over 16 KV rows
-    a slot (one pass).  Each row of the group is placed once and the rows
-    past it only in the last pass; the kernel's splits, lane sums and
-    passes, simulated with zero queries in the empty rows, against the
-    Pallas kernel (interpret mode) per slot on K/V repeated per query
-    head: 2e-4 in fp32, the bf16 limits in bf16."""
+    """D = 128 at arctic's group of 7 query heads a KV head (the CUDA-core
+    kernel's rows, bf16: 2 rows a pass, 4 passes, the last half empty;
+    fp32: 1 row a pass, 7 passes on the 8-pass instantiation) and at
+    moonshot's group of 1 over 16 KV rows a slot (one pass).  Each row of
+    the group is placed once and the rows past it only in the last pass;
+    the kernel's splits, lane sums and passes, simulated with zero queries
+    in the empty rows, against the Pallas kernel (interpret mode) per slot
+    on K/V repeated per query head: 2e-4 in fp32, the bf16 limits in bf16.
+    bf16 at group 7 takes the tensor-core route: its 7 rows in one 16-row
+    tile over 9 zero rows, simulated so."""
     b, s_len, d = 2, 300, 128
     rep = h // kvh
     # a pass holds the rows whose lanes fill the warp; the kernel runs the
@@ -320,11 +357,15 @@ def test_decode_row_passes_at_the_moe_groups_match_pallas(h, kvh, dtype):
                  for shape in ((b, h, d), (b, s_len, kvh, d),
                                (b, s_len, kvh, d)))
     # the warp's rows: the group's rep queries, then zeros to n_pass * rows
-    width = n_pass * rows
+    # (to the 16-row tile on the tensor-core route)
+    hmma = da.plan(b, h, kvh, s_len, d, dtype).route == "hmma"
+    assert hmma == (dtype == torch.bfloat16 and rep == 7)
+    width = da.HMMA_ROWS if hmma else n_pass * rows
     padded = torch.zeros(b, kvh, width, d)
     padded[:, :, :rep] = q.reshape(b, kvh, rep, d)
-    sim = _simulate(padded.reshape(b, kvh * width, d), kc, vc, lens, dtype,
-                    _lane_dot(dtype))
+    flat = padded.reshape(b, kvh * width, d)
+    sim = (decode_mma_sim.simulate(flat, kc, vc, lens)[0] if hmma
+           else _simulate(flat, kc, vc, lens, dtype, _lane_dot(dtype)))
     got = sim.reshape(b, kvh, width, d)[:, :, :rep].reshape(b, h, d)
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
@@ -353,7 +394,8 @@ def test_decode_bf16_limits_pass_tiled_kernels_and_reject_faults(d):
     """The card's bf16 decode limits (absolute, and row-scaled against the
     fp32 plain version) pass two sound tiled online softmaxes, the Pallas
     kernel (128-key tiles, interpret mode) and the simulation of the CUDA
-    kernel's splits and warp tiles, and reject each simulated fault of
+    kernel's splits and warp tiles (at 4 query heads a KV head its
+    tensor-core route's), and reject each simulated fault of
     ``parity.decode_fault_controls`` by over twice the row limit."""
     b, h, kvh, s_len = 3, 8, 2, 1024
     lens = torch.tensor([s_len, 700, 450], dtype=torch.int32)
@@ -373,7 +415,8 @@ def test_decode_bf16_limits_pass_tiled_kernels_and_reject_faults(d):
                     .float().numpy(), jnp.bfloat16),
         jnp.int32(int(lens[bi])), block_kv=128, interpret=True), np.float32))
         for bi in range(b)]).to(torch.bfloat16)
-    simulated = _simulate(q, kc, vc, lens, torch.bfloat16).to(torch.bfloat16)
+    assert da.plan(b, h, kvh, s_len, d, torch.bfloat16).route == "hmma"
+    simulated = _route_sim(q, kc, vc, lens, torch.bfloat16).to(torch.bfloat16)
     for got in (pallas, simulated):
         assert parity.within_decode_limits(got, want, want32)[0]
     tile = da.KEY_TILE[torch.bfloat16]
@@ -426,21 +469,26 @@ def test_decode_plan_at_head_dim_256_group_10(dtype):
     assert max(ring, merge) <= 192 * 1024
     # the splits are capped so that the block merging them loads at most
     # MERGE_LOADS partials a thread: 16 splits, where 2.5 waves of 4 rows
-    # would ask for 83 (64 of 32 keys, whole key tiles)
+    # would ask for 83; bf16 takes the tensor-core route, whose grid is
+    # 0.75 waves of splits of 256 keys or more: 8 splits, 21 of them live
     p = da.plan(4, rep, 1, 2048, d, dtype)
+    hmma = dtype == torch.bfloat16
+    assert p.route == ("hmma" if hmma else "lanes")
     assert p.chunk % tile == 0 and p.chunk * p.n_splits >= 2048
-    assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
-    assert (p.chunk, p.n_splits) == (128, 16)
+    assert hmma or p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
+    assert (p.chunk, p.n_splits) == ((256, 8) if hmma else (128, 16))
     assert p.n_splits < -(-5 * da.SMS // (2 * 4)) == 83
-    assert da.live_blocks(p, (1, 1000, 2048, 2048), 1) == 41
+    assert da.live_blocks(p, (1, 1000, 2048, 2048), 1) == (21 if hmma
+                                                           else 41)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_decode_d256_group_10_matches_pallas(dtype):
     """The simulation of the kernel at D = 256 with 10 query heads over one
     KV head (its splits, half-size warp tiles, and lane sums: two chunks a
-    lane in fp32) against the Pallas kernel (interpret mode) per slot, on
-    K/V repeated per query head: 2e-4 in fp32, the bf16 limits in bf16."""
+    lane in fp32; in bf16 the tensor-core route's k16 steps and m16n8k8
+    P V) against the Pallas kernel (interpret mode) per slot, on K/V
+    repeated per query head: 2e-4 in fp32, the bf16 limits in bf16."""
     b, h, kvh, s_len, d = 2, 10, 1, 300, 256
     lens = [1, 257]
     rng = np.random.default_rng(19)
@@ -448,7 +496,7 @@ def test_decode_d256_group_10_matches_pallas(dtype):
                  .to(dtype).float()
                  for shape in ((b, h, d), (b, s_len, kvh, d),
                                (b, s_len, kvh, d)))
-    got = _simulate(q, kc, vc, lens, dtype, _lane_dot(dtype))
+    got = _route_sim(q, kc, vc, lens, dtype, _lane_dot(dtype))
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
         jnp.asarray(q[bi].numpy(), jdt),
@@ -669,11 +717,12 @@ CROSS_DECODE = [((4, 64, 8, 2112, 128), (1, 300, 1000, 2112)),
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape,lens", CROSS_DECODE)
 def test_decode_plans_of_the_cross_attention_families(shape, lens, dtype):
-    """Group 8 at D = 128 (bf16: 2 rows a pass on 16 lanes each, 4 passes;
-    fp32: one row on the whole warp, 8 passes) and group 1 at D = 64 (one
-    pass); whole warp tiles that cover the cache, the merge within its
-    cap, and, with every row full, every split live: 11 x 32 blocks over
-    either VLM pool, 6 x 64 over the audio context."""
+    """Group 8 at D = 128 (the CUDA-core kernel's rows, bf16: 2 rows a pass
+    on 16 lanes each, 4 passes; fp32: one row on the whole warp, 8 passes;
+    bf16 takes the tensor-core route, one 16-row tile) and group 1 at D =
+    64 (one pass); whole warp tiles that cover the cache, the merge within
+    its route's cap, and, with every row full, every split live: 11 x 32
+    blocks over either VLM pool, 6 x 64 over the audio context."""
     b, h, kv, s, d = shape
     rep = h // kv
     assert rep <= da.max_group(d, dtype)
@@ -685,9 +734,15 @@ def test_decode_plans_of_the_cross_attention_families(shape, lens, dtype):
     p = da.plan(b, h, kv, s, d, dtype)
     assert p.chunk % da.warp_tile(d, dtype) == 0
     assert p.chunk * p.n_splits >= s > p.chunk * (p.n_splits - 1)
-    assert p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS
-    assert (p.chunk, p.n_splits) == {2112: (192, 11), 1024: (96, 11),
-                                     3072: (512, 6)}[s]
+    assert p.route == ("hmma" if dtype == torch.bfloat16 and rep == 8
+                       else "lanes")
+    assert (p.route == "hmma"
+            or p.n_splits * rep * d <= da.MERGE_LOADS * da.THREADS)
+    # the tensor-core route's grid: 0.75 waves, splits of 256 keys or more
+    assert (p.chunk, p.n_splits) == ({2112: (528, 4), 1024: (256, 4)}
+                                     if p.route == "hmma" else
+                                     {2112: (192, 11), 1024: (96, 11),
+                                      3072: (512, 6)})[s]
     live = da.live_blocks(p, lens, kv)
     if set(lens) == {s}:
         assert live == b * kv * p.n_splits
@@ -698,9 +753,10 @@ def test_decode_plans_of_the_cross_attention_families(shape, lens, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,kvh,d", [(16, 2, 128), (4, 4, 64)])
 def test_decode_full_context_rows_match_pallas(h, kvh, d, dtype):
-    """The kernel's splits, lane sums and passes, simulated at the cross
-    layouts (8 query heads a KV head at D = 128, one at D = 64) with every
-    row's length the whole cache (a context), against the Pallas kernel
+    """The kernel's splits, lane sums and passes (bf16 at 8 query heads a
+    KV head: the tensor-core route's tile), simulated at the cross layouts
+    (8 query heads a KV head at D = 128, one at D = 64) with every row's
+    length the whole cache (a context), against the Pallas kernel
     (interpret mode) per slot on K/V repeated per query head: 2e-4 in fp32,
     the bf16 limits in bf16."""
     b, s_len = 2, 300
@@ -711,7 +767,7 @@ def test_decode_full_context_rows_match_pallas(h, kvh, d, dtype):
                  .to(dtype).float()
                  for shape in ((b, h, d), (b, s_len, kvh, d),
                                (b, s_len, kvh, d)))
-    got = _simulate(q, kc, vc, lens, dtype, _lane_dot(dtype))
+    got = _route_sim(q, kc, vc, lens, dtype, _lane_dot(dtype))
     jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
     want = torch.stack([torch.from_numpy(np.array(jax_da.decode_attention(
         jnp.asarray(q[bi].numpy(), jdt),
