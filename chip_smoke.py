@@ -10,7 +10,9 @@ kernels without a window, cap or offset at the serving shapes (the flash
 backward at 13 (b)'s training shape, and the VLM's non-causal cross
 shape, Sq 2048 over 1024 keys), then the planner's fp32 matmul and
 tdFIR kernels (real and complex) at the paper's sizes, then the bf16
-matmul at 3mm's 512^3 and granite-3-2b's MLP up-projection, and prints a
+matmul at 3mm's 512^3 and granite-3-2b's MLP up-projection, then the
+bf16 flash backward at 13 (d)'s training shape (D 256) and at B 4 × S
+2048, and prints a
 SHA-256 of each output and its ms (CUDA events and device time): run in
 two checkouts (this script copied into the other one's root, where it
 imports that checkout's kernels), the lines say whether their kernels
@@ -134,7 +136,11 @@ these phases, each printing its seconds:
                launch plans; the flash backward at granite's training
                shape (B 4, S 2048, bf16) and at nemotron-4-15b's heads (B
                1, H 48 over KV 8, S 2048, D 128) beside SDPA's backward,
-               three device kernels a call, each kernel's device time;
+               and at recurrentgemma-2b's (H 10 over KV 1, D 256, window
+               2048: B 2 x S 4096 and B 4 x S 2048, each first held to the
+               plain backward at phase 3's bf16 limits, twice for the same
+               bits, beside a control with the KV rows swapped), three
+               device kernels a call, each kernel's device time;
                a profile of one decode-attention call must hold exactly one
                device kernel; each decode row names its route (``hmma``:
                the tensor cores; ``lanes``: the CUDA cores); h2o-danube's windowed and unwindowed S=5000,
@@ -333,9 +339,18 @@ these phases, each printing its seconds:
                reduced granite: 25 steps whose loss falls by more than
                0.2, then 10 steps saving every 5 and 15 resuming at step
                10 with the restored parameters bitwise equal to the
-               saved;
+               saved; (d) recurrentgemma-2b whole (26 layers, 8 of them
+               local attention at D 256, 10 query heads over 1 KV head,
+               window 2048) in bf16 at B 2, S 4096 as (b), 3 timed steps
+               (16 forward and 8 backward launches a step, the profiled
+               step's backward all on the D = 256 tensor-core kernels),
+               after its checks on the step cut to 3 layers at B 1: the
+               first bf16 loss within 2e-2 relative of the same weights'
+               fp32 loss, and the backward's outputs in that step, on the
+               inputs it was given, at phase 3's bf16 limits;
  14. dist      distribution with explicit collectives: (a) granite-3-2b
-               whole in bf16 at (b)'s shape, seed and AdamW on one NCCL
+               at full width, 20 of its 40 layers, in bf16 at (b)'s
+               shape, seed and AdamW on one NCCL
                rank, a ("pod", "data", "model") mesh of (1, 1, 1): the
                uncompressed pod-parallel step's loss, gradients and
                updated parameters bitwise equal to ``make_train_step``'s
@@ -343,7 +358,7 @@ these phases, each printing its seconds:
                gradients within max|g| / 254 of each leaf's and its error
                feedback exactly g - out, then a warm-up and 4 timed
                compressed steps from the initial weights (losses finite
-               and falling, 80 flash forward and 40 backward launches a
+               and falling, 40 flash forward and 20 backward launches a
                step), the plain and compressed pod steps' wall and device
                ms, the error feedback's bytes and the peak memory; (b) two
                spawned processes on the one card over a gloo group (card
@@ -607,8 +622,9 @@ CROSS_CELLS = (("k", "llama-3.2-vision-90b", 5, 5, 5),
 # the flash backward's shapes (phase 3): (what, H, KV, Sq, Skv, D, causal,
 # window); granite's first at S 2048 (its main path's heads), then ragged
 # S, S under one tile, h2o-danube's D 80 under its window, recurrentgemma's
-# D 256 at 10 query heads a KV head under its window, the VLM's cross
-# attention and seamless's non-causal MHA over its frames
+# D 256 at 10 query heads a KV head under its window (13 (d)'s attention
+# at B 1), the VLM's cross attention and seamless's non-causal MHA over its
+# frames
 BWD_CASES = (
     ("granite", 32, 8, 2048, 2048, 64, True, 0),
     ("granite ragged", 32, 8, FLASH_RAGGED_S, FLASH_RAGGED_S, 64, True, 0),
@@ -631,13 +647,27 @@ TRAIN_SHAPE = (4, 2048)             # B, S
 TRAIN_VOCAB_CHUNK = 2048
 TRAIN_STEPS = 8
 TRAIN_LR = 3e-4
-# phase 14, distribution: (a) the pod-parallel step of granite-3-2b whole in
-# bf16 at 13 (b)'s shape and seed on one NCCL rank, a (pod, data, model)
-# mesh of (1, 1, 1), a warm-up and DIST_STEPS timed compressed steps; (b)
+# (d) recurrentgemma-2b whole in bf16 (26 layers, the third of each group
+# of three a local attention: 8, window 2048, D 256, 10 query heads over 1
+# KV head) at B 2, S 4096 (13 (b)'s 8192 tokens a step; the window masks
+# half the causal pairs), as (b): a warm-up step, TRAIN_RG_STEPS timed
+# steps and a profiled one.  Its checks run first on the step cut to one
+# group (layers, B), at PART_BF16_TOL and phase 3's bf16 backward limits,
+# both set before the cell first ran
+TRAIN_RG_ARCH = "recurrentgemma-2b"
+TRAIN_RG_SHAPE = (2, 4096)          # B, S
+TRAIN_RG_STEPS = 3
+TRAIN_RG_CHECK = (3, 1)             # layers, B
+# phase 14, distribution: (a) the pod-parallel step of granite-3-2b at full
+# width, DIST_POD_LAYERS of its 40 layers (whole until 13 (d) came, to pay
+# for it), in bf16 at 13 (b)'s shape and seed on one NCCL rank, a (pod,
+# data, model) mesh of (1, 1, 1), a warm-up and DIST_STEPS timed
+# compressed steps; (b)
 # two gloo ranks on the one card: the pod step at full width (layers, B, S)
 # with pod = 2, the pipeline's tanh(h @ w) stages at granite's width
 # (D, B), and moonshot's MoE layer (x of B, S) over model = 2
 DIST_STEPS = 4
+DIST_POD_LAYERS = 20
 DIST_POD = (2, 4, 256)
 DIST_PIPE = (2048, 64)
 DIST_PIPE_CASES = (("gpipe", 2, 1), ("one_f_one_b", 2, 1),
@@ -714,7 +744,8 @@ OFFSET = OFFSET_CASE[1] - OFFSET_CASE[0]
 # the backward's capped and offset cases (phase 3), BWD_CASES' fields and
 # the cap and the offset: granite's heads at its main shape, the offset
 # case with and without the cap, and the general kernels' other tiles
-# (D 80 on the D 128 tile under a window; D 256 on the CUDA cores)
+# (D 80 on the D 128 tile under a window; D 256, whose warpgroups split
+# the head dim, capped and at the offset under a window)
 SOFTCAP_BWD_CASES = (
     ("granite capped", 32, 8, 2048, 2048, 64, True, 0, SOFTCAP_CHECK, 0),
     ("granite chunk", 32, 8, *OFFSET_CASE, 64, True, 0, 0.0, OFFSET),
@@ -724,6 +755,8 @@ SOFTCAP_BWD_CASES = (
      0),
     ("recurrentgemma capped", 10, 1, 1000, 1000, 256, True, 500,
      SOFTCAP_CHECK, 0),
+    ("recurrentgemma chunk", 10, 1, *OFFSET_CASE, 256, True, 500, 0.0,
+     OFFSET),
 )
 # phase 18 (a): granite-3-2b at full width, 2 layers in fp32, its cap at
 # SOFTCAP_PARITY: 4 requests (prompt lengths in turn, max_gen each) through
@@ -1697,6 +1730,22 @@ def check_decode_lse(ops, ref, gen) -> None:
         q, kc, vc, ln = next(caches)
         return ref.decode_attention_ref(q, kc, vc, ln, return_lse=True)
 
+    # the library call that returns a log-sum-exp (natural, a yardstick no
+    # path calls): memory-efficient SDPA with compute_log_sumexp over each
+    # cache, its KV heads repeated to the query heads and the slots'
+    # lengths as a -inf bias, both made before the timing
+    pos = torch.arange(s, device="cuda")[None, None, None, :]
+    lib_in = itertools.cycle([
+        (q[:, :, None, :],
+         *(x.transpose(1, 2).repeat_interleave(h // kv, 1) for x in (kc, vc)),
+         torch.zeros(b, h, 1, s, dtype=q.dtype, device="cuda").masked_fill(
+             pos >= ln[:, None, None, None], float("-inf")))
+        for q, kc, vc, ln in (next(caches) for _ in range(4))])
+
+    def library():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            *next(lib_in), True)
+
     print(f"  decode 4x32 over [4,2112,8,64] bf16 at lens "
           f"{'/'.join(map(str, DECODE_MAIN_LENS))}: with lse "
           f"{time_ms(with_lse, 200):.4f} ms (device "
@@ -1704,7 +1753,10 @@ def check_decode_lse(ops, ref, gen) -> None:
           f"{time_ms(without, 200):.4f} ms (device "
           f"{device_profile(without)[0]:.4f}); the plain version with its "
           f"lse {time_ms(plain, 50):.4f} ms (device "
-          f"{device_profile(plain)[0]:.4f})")
+          f"{device_profile(plain)[0]:.4f}); the library call with its lse "
+          f"(memory-efficient SDPA, compute_log_sumexp, KV repeated to "
+          f"{h} heads) {time_ms(library, 200):.4f} ms (device "
+          f"{device_profile(library)[0]:.4f})")
 
 
 def time_kernels(ops, ref):
@@ -2191,18 +2243,45 @@ def ptxas_kernels(log: str) -> list:
     return found
 
 
+def function_sass(build, name: str) -> dict:
+    """The SASS of each kernel of library ``name``, by mangled name."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = library_sass(cuobjdump, str(build.library_path(name)))
+    parts = re.split(r"Function : (\S+)", sass)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
 def check_bwd_build(log: str) -> None:
     """Phase 2, the flash backward's build: its tensor-core kernels must
-    not spill, and ``kernels/flash_attention_bwd.plan`` must equal the
-    compiled plan (the wrapper checks when it loads)."""
+    not spill, the D = 256 ones (``*_wgmma256_kernel``: dK/dV and dQ,
+    general or not) must be there with ``HGMMA`` in their own SASS, no
+    bf16 instance of the CUDA-core kernels may be left, and
+    ``kernels/flash_attention_bwd.plan`` must equal the compiled plan (the
+    wrapper checks when it loads)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention_bwd as fab
-    wgmma = [k for k in ptxas_kernels(log) if "wgmma" in k[0]]
+    kernels = ptxas_kernels(log)
+    wgmma = [k for k in kernels if "wgmma" in k[0]]
     for name, regs, spill in wgmma:
         print(f"  flash_attention_bwd {name[:70]}: {regs} registers, "
               f"{spill} bytes spill stores")
     require(wgmma and not any(spill for _, _, spill in wgmma),
             "a tensor-core kernel of the flash backward spills registers "
             "(or the report lists none)")
+    sass = function_sass(_build, "flash_attention_bwd")
+    d256 = {n: len(re.findall(r"\bHGMMA[.\s]", text))
+            for n, text in sass.items() if "wgmma256" in n}
+    print(f"  flash_attention_bwd D = 256 kernels, HGMMA in each: "
+          + ", ".join(f"{n[:60]} {c}" for n, c in d256.items()))
+    require(len(d256) == 4 and all(d256.values())
+            and len([k for k in wgmma if "wgmma256" in k[0]]) == 4,
+            "the flash backward's D = 256 tensor-core kernels (dK/dV and "
+            "dQ, general or not) are missing or have no HGMMA")
+    cuda_cores = [n for n, _, _ in kernels if re.search(
+        r"bwd_(dkdv|dq)_kernel", n)]
+    require(cuda_cores and not any("bfloat16" in n for n in cuda_cores),
+            f"a bf16 instance of the CUDA-core backward is left: "
+            f"{[n for n in cuda_cores if 'bfloat16' in n]}")
     fab._lib()
     for dtype in (torch.bfloat16, torch.float32):
         for d in fab.HEAD_DIMS:
@@ -4334,38 +4413,88 @@ def check_softcap(ops, ref, gen) -> None:
     check_flash_backward(ops, ref, gen, SOFTCAP_BWD_CASES)
 
 
-def backward_case(ops, ref, gen, b, h, kv, s, d):
-    """The flash backward at B, H over KV, S, D (causal, bf16): (kernel,
-    plain, library, bound ms, bound_by).  The bound: 10 FLOP per attended
-    pair and head dim at the bf16 tensor-core peak; q, k, v, o, do read and
-    dq, dk, dv written once.  The library call: SDPA's backward (autograd
-    through ``F.scaled_dot_product_attention``: a yardstick, never on the
-    path)."""
+def backward_case(ops, ref, gen, b, h, kv, s, d, window=0, check=False):
+    """The flash backward at B, H over KV, S, D (causal, bf16, under
+    ``window``; 0: none): (kernel, plain, library, bound ms, bound_by).
+    The bound: 10 FLOP per attended pair and head dim at the bf16
+    tensor-core peak; q, k, v, o, do read and dq, dk, dv written once.
+    The library call: SDPA's backward (autograd through
+    ``F.scaled_dot_product_attention``: a yardstick, never on the path),
+    ``is_causal`` where the window masks nothing, else under the boolean
+    causal-and-window mask.  ``check``: first hold the kernel at these
+    inputs to the plain backward in fp32 at phase 3's bf16 limits
+    (:func:`check_backward_rows`)."""
     from repro_torch.kernels import flash_attention_bwd as fab
     q, k, v, do = bwd_inputs(gen, h, kv, s, s, d, torch.bfloat16, b=b)
-    o, lse = ops.flash_attention_lse(q, k, v, kv_group=h // kv)
+    kw = dict(kv_group=h // kv, window=window)
+    o, lse = ops.flash_attention_lse(q, k, v, **kw)
+    if check:
+        check_backward_rows(ops, f"B={b} H={h} KV={kv} S={s} D={d} window "
+                            f"{window}", (q, k, v, o, do, lse), kw, b * kv)
     q4, k4, v4 = (x.detach().reshape(b, -1, s, d).requires_grad_()
                   for x in (q, k, v))
-    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                         enable_gqa=True)
+    if window and window < s:
+        pos = torch.arange(s, device="cuda")
+        diff = pos[:, None] - pos[None, :]
+        out = F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=(diff >= 0) & (diff < window),
+            enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                             enable_gqa=True)
     do4 = do.reshape(b, h, s, d)
-    t_bound, by = bound(*fab.work(b * h, s, s, d, h // kv, True),
+    t_bound, by = bound(*fab.work(b * h, s, s, d, h // kv, True, window),
                         BF16_PEAK_FLOPS)
-    return (lambda: ops.flash_attention_bwd(q, k, v, o, do, lse,
-                                            kv_group=h // kv),
-            lambda: ref.mha_backward_ref(q, k, v, o, do, lse,
-                                         kv_group=h // kv),
+    return (lambda: ops.flash_attention_bwd(q, k, v, o, do, lse, **kw),
+            lambda: ref.mha_backward_ref(q, k, v, o, do, lse, **kw),
             lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
                                         retain_graph=True),
             t_bound, by)
 
 
+def check_backward_rows(ops, what: str, inputs, kw, kv_rows: int) -> None:
+    """Phase 4, a timed backward shape with more than one KV row (B > 1 at
+    one KV head) against the plain backward in fp32 at phase 3's bf16
+    limits (``parity.bwd_within_limits``), called twice for the same bits,
+    beside a control that the limits must reject: each KV row's dk and dv
+    and its query heads' dq in another KV row's place (what a kernel that
+    reads or writes the wrong KV row's tiles gives)."""
+    from repro_torch.kernels import parity
+    q, k, v, o, do, lse = inputs
+    got = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = ops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    for name, g, a in zip(("dq", "dk", "dv"), got, again):
+        require(torch.equal(g, a), f"flash_attention_bwd {what}: {name} of "
+                f"two identical calls differ")
+    want32 = parity.bwd_want32(q, k, v, o, do, **kw)
+    ok, err, rerr = parity.bwd_within_limits(got, want32)
+    print(f"  bwd {what} bf16 ({kv_rows} KV rows): err {err:.3e} of max  "
+          f"row_err {rerr:.3e}  {'ok' if ok else 'MISMATCH'}  (twice: same "
+          f"bits)")
+    require(ok, f"flash_attention_bwd {what} bf16: kernel disagrees with "
+            f"its plain version (abs {err:.3e}, row {rerr:.3e})")
+    dq, dk, dv = got
+    swapped = (dq.roll(q.shape[0] // kv_rows, 0), dk.roll(1, 0),
+               dv.roll(1, 0))
+    fok, ferr, frerr = parity.bwd_within_limits(swapped, want32)
+    print(f"    control, {'KV rows swapped':28s} err {ferr:.3e}  row_err "
+          f"{frerr:.3e}  {'PASSES' if fok else 'rejected'}")
+    require(not fok, f"flash_attention_bwd {what}: the bf16 limits pass "
+            f"gradients in another KV row's place")
+    del got, again, want32, swapped
+    free_card()
+
+
 def time_backward(ops, ref, gen, rows, dev) -> None:
     """Phase 4, the flash backward at granite-3-2b's training shape (B 4,
-    so 128 query rows over 32 KV rows, S 2048, D 64, causal, bf16) and at
-    nemotron-4-15b's heads (B 1, H 48 over KV 8, S 2048, D 128), each beside
-    its bound, the plain backward and SDPA's backward (``backward_case``),
-    with the device time of each of a call's three kernels."""
+    so 128 query rows over 32 KV rows, S 2048, D 64, causal, bf16), at
+    nemotron-4-15b's heads (B 1, H 48 over KV 8, S 2048, D 128) and at
+    recurrentgemma-2b's (H 10 over KV 1, D 256, window 2048: its training
+    shape, B 2 at S 4096, and B 4 at S 2048, where the window masks
+    nothing), each beside its bound, the plain backward and SDPA's backward
+    (``backward_case``), with the device time of each of a call's three
+    kernels."""
     b, s = TRAIN_SHAPE
     _, h, kv, _, d = FLASH_MAIN
     kernel, plain, library, t_bound, by = backward_case(ops, ref, gen, b, h,
@@ -4386,6 +4515,22 @@ def time_backward(ops, ref, gen, rows, dev) -> None:
               f"call)", row, rdev)
     three_kernels(kernel, f"D={d}")
     free_card()
+    # recurrentgemma-2b's attention backward (13 (d)): its training shape
+    # under the window, and S 2048, where the window masks nothing; each
+    # held to the plain backward first (phase 3's D = 256 cases have one
+    # KV row, these two and four)
+    _, h, kv, s, d = GRIFFIN_FLASH
+    for b, s, lib in ((2, s, "boolean causal-and-window mask"),
+                      (4, s // 2, "is_causal, GQA")):
+        kernel, plain, library, t_bound, by = backward_case(
+            ops, ref, gen, b, h, kv, s, d, GRIFFIN_WINDOW, check=True)
+        row, rdev = time_row(kernel, plain, library, t_bound, by, iters=20,
+                             plain_iters=2)
+        print_row(f"flash_attention_bwd B={b} H={h} KV={kv} S={s} D={d} "
+                  f"causal window {GRIFFIN_WINDOW} bf16 (recurrentgemma-2b; "
+                  f"SDPA backward, {lib}, as the library call)", row, rdev)
+        three_kernels(kernel, f"D={d} S={s}")
+        free_card()
 
 
 def uncapped(rows, dev, name: str) -> None:
@@ -4618,12 +4763,12 @@ def check_train_parity(ops, softcap: float = 0.0, label: str = "a'",
             f"and backward once a layer")
 
 
-def train_split(lm, step, xent_ms: float, xent_gemm_ms: float) -> float:
+def train_split(label: str, step, xent_ms: float, xent_gemm_ms: float):
     """One profiled training step's device time split into GEMMs, flash
     forward, flash backward, the loss (``xent_ms``: its forward, recompute
     and backward traced alone, ``xent_gemm_ms`` of it GEMMs), the
     optimizer (its ``train.optimizer`` profiler range) and the rest;
-    returns the step's device ms."""
+    returns the step's device ms and the names of its kernels."""
     from torch.profiler import ProfilerActivity
     prof, traced = traced_kernels(step, [ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA])
@@ -4640,57 +4785,55 @@ def train_split(lm, step, xent_ms: float, xent_gemm_ms: float) -> float:
     rest = total - gemm - fwd - bwd - xent_ms - opt
     parts = (("GEMMs", gemm), ("flash fwd", fwd), ("flash bwd", bwd),
              ("xent", xent_ms), ("optimizer", opt), ("the rest", rest))
-    print(f"  (b) one step, {len(traced)} kernels, {total:.1f} ms of device "
-          f"time: " + ", ".join(f"{w} {ms:.1f} ({ms / total:.1%})"
-                                for w, ms in parts))
-    print("  (b) heaviest kernels of the step:")
+    print(f"  ({label}) one step, {len(traced)} kernels, {total:.1f} ms of "
+          f"device time: " + ", ".join(f"{w} {ms:.1f} ({ms / total:.1%})"
+                                       for w, ms in parts))
+    print(f"  ({label}) heaviest kernels of the step:")
     by_name = {}
     for n, ms in traced:
         by_name[n] = by_name.get(n, 0.0) + ms
     for n, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"      {ms:9.3f}  {n[:90]}")
-    require(fwd > 0 and bwd > 0 and opt > 0, "(b) the step's split found no "
-            "flash forward, flash backward or optimizer time")
-    return total
+    require(fwd > 0 and bwd > 0 and opt > 0, f"({label}) the step's split "
+            f"found no flash forward, flash backward or optimizer time")
+    return total, set(by_name)
 
 
-def run_train(ops) -> dict:
-    """Phase 13: (a') the parity cell, (b) granite-3-2b whole in bf16 with
-    AdamW (fp32 moments, no master copy): a warm-up step, TRAIN_STEPS
-    timed steps (every loss finite, the last below the first, no NaN in
-    the parameters), step wall and device ms, tokens per second, the
-    model-FLOPs share of the bf16 peak, the idle share, the device split
-    and peak memory; (c) ``launch.train.main`` on reduced granite.
-    Returns (b)'s launches, and its peak memory, profiled step's device
-    ms (phase 17 (d)) and its mean step wall ms (phase 18)."""
-    from repro_torch.configs import get_config
+def train_cell(ops, label: str, cfg, b: int, s: int, steps: int,
+               seed: int) -> dict:
+    """One training cell: ``cfg`` in bf16 with AdamW (fp32 moments, no
+    master copy), block remat and vocab_chunk TRAIN_VOCAB_CHUNK at B, S: a
+    warm-up step, ``steps`` timed steps (every loss finite, the last below
+    the first, no NaN in the parameters, the flash forward twice and the
+    backward once an attention layer a step), step wall and device ms,
+    tokens per second, the model-FLOPs share of the bf16 peak, the idle
+    share, the device split and peak memory.  Returns the timed steps'
+    launches, the peak, the profiled step's device ms and its kernels'
+    names, and the mean step wall ms."""
     from repro_torch.configs.base import TrainConfig
     from repro_torch.dist.plan import Plan
-    from repro_torch.train import optimizer, train_step
     from repro_torch.kernels import flash_attention_bwd as fab
-    check_train_parity(ops)
-    free_card()
-
-    cfg = get_config(TRAIN_ARCH)
-    b, s = TRAIN_SHAPE
+    from repro_torch.train import optimizer, train_step
     plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
-    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1,
-                       total_steps=TRAIN_STEPS + 2)
-    lm = watched_lm(cfg, 6, plan)
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=steps + 2)
+    lm = watched_lm(cfg, seed, plan)
     n_params = sum(p.numel() for p in lm.params().values())
+    n_attn = cfg.n_attention_layers
     step_fn = train_step.make_train_step(lm, tcfg)
     opt = optimizer.init(lm.params(), tcfg)
-    batches = [train_batch(cfg, b, s, i) for i in range(TRAIN_STEPS + 2)]
-    print(f"  (b) {TRAIN_ARCH} whole: {cfg.n_layers} layers, d_model "
+    batches = [train_batch(cfg, b, s, i) for i in range(steps + 2)]
+    window = cfg.window if cfg.attn_kind == "local" else 0
+    print(f"  ({label}) {cfg.name} {describe_depth(cfg)}: d_model "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, D="
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
+          f"{cfg.head_dim}{f', window {window}' if window else ''}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, bf16, "
           f"{n_params / 1e9:.3f} B parameters, "
           f"B={b} S={s}, remat block, vocab_chunk {TRAIN_VOCAB_CHUNK}, "
           f"AdamW fp32 moments; {torch.cuda.memory_allocated() / 2**30:.1f} "
           f"GiB held before the first step")
     torch.cuda.reset_peak_memory_stats()
     losses, walls = [], []
-    for i, batch in enumerate(batches[:TRAIN_STEPS + 1]):
+    for i, batch in enumerate(batches[:steps + 1]):
         if i == 1:
             ops.reset_launch_counts()
         torch.cuda.synchronize()
@@ -4699,25 +4842,27 @@ def run_train(ops) -> dict:
         losses.append(metrics["loss"].item())
         walls.append((time.perf_counter() - t0) * 1e3)
     launches = ops.launch_counts()
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+    per_step = {k: v / steps for k, v in launches.items() if v}
     peak = torch.cuda.max_memory_allocated()
-    print(f"  (b) losses {[round(x, 4) for x in losses]} (warm-up first)")
+    print(f"  ({label}) losses {[round(x, 4) for x in losses]} (warm-up "
+          f"first)")
     nan = any(torch.isnan(p).any().item() for p in lm.params().values())
-    require(all(np.isfinite(losses)), "(b) a training loss is not finite")
-    require(losses[-1] < losses[0], f"(b) the loss did not fall: "
+    require(all(np.isfinite(losses)), f"({label}) a training loss is not "
+            f"finite")
+    require(losses[-1] < losses[0], f"({label}) the loss did not fall: "
             f"{losses[0]:.4f} -> {losses[-1]:.4f}")
-    require(not nan, "(b) a parameter is NaN after training")
-    require(per_step.get("flash_attention") == 2 * cfg.n_layers
-            and per_step.get("flash_attention_bwd") == cfg.n_layers,
-            f"(b) launches per step {per_step}, not {2 * cfg.n_layers} "
-            f"flash forward (block remat) and {cfg.n_layers} backward")
+    require(not nan, f"({label}) a parameter is NaN after training")
+    require(per_step.get("flash_attention") == 2 * n_attn
+            and per_step.get("flash_attention_bwd") == n_attn,
+            f"({label}) launches per step {per_step}, not {2 * n_attn} "
+            f"flash forward (block remat) and {n_attn} backward")
     wall = float(np.mean(walls[1:]))
     tokens = b * s
     # 6 N per token, and causal attention: 12 FLOP per attended pair, head
-    # dim, head and layer (2 + 2 forward, twice that backward)
-    model_flops = (6.0 * n_params * tokens + 12.0 * cfg.n_layers * b
+    # dim, head and attention layer (2 + 2 forward, twice that backward)
+    model_flops = (6.0 * n_params * tokens + 12.0 * n_attn * b
                    * cfg.n_heads * cfg.head_dim * fab.attended_pairs(
-                       s, s, True))
+                       s, s, True, window))
 
     # the loss alone, traced: its forward, recompute and backward (the
     # unembedding's weight gradient too)
@@ -4737,22 +4882,139 @@ def run_train(ops) -> dict:
     batch = batches[-1]
 
     def step():
-        step_fn(lm.params(), opt, batch, TRAIN_STEPS + 1)
-    dev_ms = train_split(lm, step, xent_ms, xent_gemm)
+        step_fn(lm.params(), opt, batch, steps + 1)
+    dev_ms, names = train_split(label, step, xent_ms, xent_gemm)
     share = model_flops / (wall / 1e3) / BF16_PEAK_FLOPS
-    print(f"  (b) step wall {wall:.1f} ms (mean of {TRAIN_STEPS}; each "
+    print(f"  ({label}) step wall {wall:.1f} ms (mean of {steps}; each "
           f"{[round(w, 1) for w in walls[1:]]}), device {dev_ms:.1f} ms "
           f"(profiled step), idle share {max(0.0, 1 - dev_ms / wall):.1%}; "
           f"{tokens / (wall / 1e3):.0f} tokens/s; model FLOPs "
           f"{model_flops:.3e} a step, {share:.1%} of the "
           f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16 peak; peak memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated); "
-          f"launches a step {per_step}")
+          f"launches a step {per_step}; {nvidia_smi_line()}")
     del lm, opt, step_fn, batches, batch
     free_card()
+    return {"launches": launches, "peak_bytes": peak, "device_ms": dev_ms,
+            "wall_ms": wall, "kernels": names}
+
+
+def describe_depth(cfg) -> str:
+    attn = cfg.n_attention_layers
+    return (f"{cfg.n_layers} layers" if attn == cfg.n_layers
+            else f"{cfg.n_layers} layers ({attn} attention)")
+
+
+@contextmanager
+def recorded_backward(ops):
+    """Every flash backward call the kernels' autograd function makes,
+    recorded as (its inputs, its keywords, its outputs), each cloned."""
+    calls, bwd = [], ops.flash_attention_bwd
+
+    def record(*args, **kw):
+        out = bwd(*args, **kw)
+        calls.append(([t.detach().clone() for t in args], dict(kw),
+                      [t.detach().clone() for t in out]))
+        return out
+    ops.flash_attention_bwd = record
+    try:
+        yield calls
+    finally:
+        ops.flash_attention_bwd = bwd
+
+
+def check_griffin_step(ops) -> None:
+    """(d)'s checks, on its step cut to one group of the pattern
+    (TRAIN_RG_CHECK: 3 layers, the third local attention) at full width,
+    B 1, S 4096: the first bf16 step's loss within PART_BF16_TOL relative
+    of the same weights' loss in fp32 on the card, and the flash
+    backward's dq, dk, dv in that step, on the inputs the step passed it
+    (q, k, v, o, dO and lse, recorded by :func:`recorded_backward`), held
+    to the plain backward in fp32 at phase 3's bf16 limits
+    (``parity.bwd_within_limits``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.dist.plan import Plan
+    from repro_torch.kernels import parity
+    from repro_torch.models.lm import LM
+    from repro_torch.train import optimizer, train_step
+    layers, b = TRAIN_RG_CHECK
+    s = TRAIN_RG_SHAPE[1]
+    cfg, cut = cut_depth(get_config(TRAIN_RG_ARCH), layers,
+                         "one group of the pattern, for the checks")
+    plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
+    lm = watched_lm(cfg, 8, plan)
+    batch = train_batch(cfg, b, s, 0)
+    with torch.no_grad():
+        lm32 = LM(dataclasses.replace(cfg, dtype="float32",
+                                      param_dtype="float32"),
+                  {n: p.detach().float() for n, p in lm.params().items()},
+                  plan)
+        loss32 = lm32.train_loss(batch)[0].item()
+        del lm32
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=2)
+    step_fn = train_step.make_train_step(lm, tcfg)
+    with recorded_backward(ops) as calls:
+        _, _, metrics = step_fn(lm.params(), optimizer.init(lm.params(),
+                                                            tcfg), batch, 0)
+    loss16 = metrics["loss"].item()
+    rel = abs(loss16 - loss32) / abs(loss32)
+    print(f"  (d) checks, {cut}, B={b} S={s}: first bf16 loss {loss16:.5f}, "
+          f"the same weights in fp32 {loss32:.5f} (rel {rel:.2e}, limit "
+          f"{PART_BF16_TOL:g}); {len(calls)} flash backward call(s) "
+          f"recorded")
+    require(rel <= PART_BF16_TOL, f"(d) the bf16 loss is {rel:.2e} from "
+            f"the fp32 loss of the same weights")
+    require(len(calls) == cfg.n_attention_layers, f"(d) the step made "
+            f"{len(calls)} flash backward calls, not one an attention "
+            f"layer")
+    for (q, k, v, o, do, lse), kw, got in calls:
+        want32 = parity.bwd_want32(q, k, v, o, do, **kw)
+        ok, err, rerr = parity.bwd_within_limits(got, want32)
+        print(f"  (d) the step's backward, q {list(q.shape)} k "
+              f"{list(k.shape)} {q.dtype} {kw}: err {err:.3e} of max, "
+              f"row_err {rerr:.3e} (limits {parity.BWD_ABS_TOL}, "
+              f"{parity.BWD_ROW_TOL}) {'ok' if ok else 'MISMATCH'}")
+        require(q.shape[-1] == 256 and q.dtype == torch.bfloat16,
+                f"(d) the step's backward is not bf16 at D = 256")
+        require(ok, f"(d) the step's flash backward disagrees with the "
+                f"plain backward (abs {err:.3e}, row {rerr:.3e})")
+    del lm, step_fn, calls, batch
+    free_card()
+
+
+def run_train(ops) -> dict:
+    """Phase 13: (a') the parity cell, (b) granite-3-2b whole in bf16 with
+    AdamW (fp32 moments, no master copy), TRAIN_STEPS timed steps, and (d)
+    recurrentgemma-2b whole in bf16 at TRAIN_RG_SHAPE, TRAIN_RG_STEPS timed
+    steps, whose attention backward runs the D = 256 tensor-core kernels
+    (``train_cell``; (d)'s checks first, ``check_griffin_step``); (c)
+    ``launch.train.main`` on reduced granite.  Returns the launches of (b)
+    and (d), and (b)'s peak memory, profiled step's device ms (phase 17
+    (d)) and mean step wall ms (phase 18)."""
+    from repro_torch.configs import get_config
+    check_train_parity(ops)
+    free_card()
+    b, s = TRAIN_SHAPE
+    meas = train_cell(ops, "b", get_config(TRAIN_ARCH), b, s, TRAIN_STEPS, 6)
     run_train_cli()
-    return launches, {"peak_bytes": peak, "device_ms": dev_ms,
-                      "wall_ms": wall}
+    check_griffin_step(ops)
+    b, s = TRAIN_RG_SHAPE
+    griffin = train_cell(ops, "d", get_config(TRAIN_RG_ARCH), b, s,
+                         TRAIN_RG_STEPS, 7)
+    d256 = [n for n in griffin["kernels"] if "wgmma256" in n]
+    cuda_cores = [n for n in griffin["kernels"]
+                  if re.search(r"bwd_(dkdv|dq)_kernel", n)]
+    print(f"  (d) the step's backward kernels: {[n[:50] for n in d256]}; "
+          f"CUDA-core backward kernels: {cuda_cores or 'none'}")
+    require(any("dkdv" in n for n in d256) and any("dq" in n for n in d256)
+            and not cuda_cores, "(d) the step's flash backward did not run "
+            "the D = 256 tensor-core kernels alone")
+    launches = meas["launches"]
+    for name, n in griffin["launches"].items():
+        launches[name] = launches.get(name, 0) + n
+    return launches, {k: meas[k] for k in ("peak_bytes", "device_ms",
+                                           "wall_ms")}
 
 
 def run_train_cli() -> None:
@@ -4796,7 +5058,7 @@ def run_train_cli() -> None:
 # ---------------------------------------------------------------------------
 
 def run_dist(ops) -> dict:
-    """Phase 14: (a) the pod-parallel step on one NCCL rank at full size,
+    """Phase 14: (a) the pod-parallel step on one NCCL rank at full width,
     (b) two gloo ranks on the one card; returns (a)'s timed steps'
     launches."""
     launches = dist_pod_step(ops)
@@ -4806,7 +5068,8 @@ def run_dist(ops) -> dict:
 
 
 def dist_pod_step(ops, device="cuda") -> dict:
-    """(a): granite-3-2b whole in bf16 at 13 (b)'s shape, seed, plan and
+    """(a): granite-3-2b at full width, DIST_POD_LAYERS of its layers, in
+    bf16 at 13 (b)'s shape, seed, plan and
     AdamW, on a ("pod", "data", "model") mesh of (1, 1, 1) over a one-rank
     NCCL group.  From the same state: the uncompressed pod step's loss,
     gradients and updated parameters bitwise equal to ``make_train_step``'s
@@ -4814,10 +5077,11 @@ def dist_pod_step(ops, device="cuda") -> dict:
     reduced gradients within max|g| / 254 of each leaf's plain gradient
     (plus fp32 rounding: one rank's ``compressed_psum`` is the int8 round
     trip) and its error feedback exactly g - out; then a warm-up and
-    DIST_STEPS timed compressed steps (losses finite and falling, 80 flash
-    forward and 40 backward launches a step), step wall and device ms of
-    the plain and the compressed pod step, the error feedback's bytes and
-    the peak memory.  Returns the timed steps' launches."""
+    DIST_STEPS timed compressed steps (losses finite and falling, the flash
+    forward twice and the backward once a layer a step), step wall and
+    device ms of the plain and the compressed pod step, the error
+    feedback's bytes and the peak memory.  Returns the timed steps'
+    launches."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
@@ -4826,7 +5090,8 @@ def dist_pod_step(ops, device="cuda") -> dict:
     from repro_torch.models.lm import LM, init_params
     from repro_torch.train import grad_compression, optimizer, train_step
     from torch.profiler import ProfilerActivity
-    cfg = get_config(TRAIN_ARCH)
+    cfg, cut = cut_depth(get_config(TRAIN_ARCH), DIST_POD_LAYERS,
+                         "cut to pay for 13 (d)")
     b, s = TRAIN_SHAPE
     plan = Plan(remat="block", vocab_chunk=TRAIN_VOCAB_CHUNK)
     tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1,
@@ -4845,7 +5110,7 @@ def dist_pod_step(ops, device="cuda") -> dict:
         params = lm.params()
         batches = [train_batch(cfg, b, s, i, device)
                    for i in range(DIST_STEPS + 2)]
-        print(f"  (a) {TRAIN_ARCH} whole, bf16, B={b} S={s}, remat block, "
+        print(f"  (a) {TRAIN_ARCH}, {cut}, bf16, B={b} S={s}, remat block, "
               f"AdamW; {dist.get_backend()} group of "
               f"{dist.get_world_size()}, mesh {mesh}")
         # the gradients: the plain path and the pod path, uncompressed
@@ -6303,6 +6568,9 @@ def lint_launch_plans():
               in BWD_CASES]
     b_train, s_train = TRAIN_SHAPE
     flash.append((b_train * 32, 8 * b_train, s_train, s_train, 64))
+    b_train, s_train = TRAIN_RG_SHAPE
+    flash.append((b_train * GRIFFIN_FLASH[1], b_train * GRIFFIN_FLASH[2],
+                  s_train, s_train, GRIFFIN_FLASH[4]))
     for h, kv, sq, skv, d in flash:
         for dtype in ("bfloat16", "float32"):
             factories.append(p(kl.flash_attention_model, h, sq, skv, d,
@@ -6465,6 +6733,18 @@ def run_digests() -> int:
         y = randn(gen, k, n, dtype=torch.bfloat16)
         cases.append((f"matmul {m}x{k}x{n} bf16",
                       functools.partial(ops.matmul, x, y)))
+    # the flash backward at recurrentgemma-2b's training shape (13 (d)) and
+    # at S 2048, where its window masks nothing (a generator of their own)
+    gen = torch.Generator().manual_seed(13)
+    _, h, kv, s, d = GRIFFIN_FLASH
+    for b, s in ((TRAIN_RG_SHAPE[0], s), (4, s // 2)):
+        q, k, v, do = bwd_inputs(gen, h, kv, s, s, d, torch.bfloat16, b=b)
+        kw = dict(kv_group=h // kv, window=GRIFFIN_WINDOW)
+        o, lse = ops.flash_attention_lse(q, k, v, **kw)
+        cases.append((f"flash bwd B={b} H={h} KV={kv} S={s} D={d} window "
+                      f"{GRIFFIN_WINDOW} bf16",
+                      functools.partial(ops.flash_attention_bwd, q, k, v, o,
+                                        do, lse, **kw)))
     for what, fn in cases:
         out = fn()
         if isinstance(out, tuple):

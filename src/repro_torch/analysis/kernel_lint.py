@@ -359,7 +359,14 @@ def flash_attention_bwd_model(bh: int = 8, sq: int = 1024, skv: int = 1024,
     """``csrc/flash_attention_bwd.cu``'s three launches
     (``flash_attention_bwd.plan``): the row statistics (block (x, y): head
     y's 64-row tile x), dK/dV (one block a key tile of a KV head, over
-    every query row of its group) and dQ (one block a query tile)."""
+    every query row of its group) and dQ (one block a query tile).  The
+    tensor-core route's grids are 1-D (bf16: 128 keys or rows a block, 64
+    at D = 256, where the block's two warpgroups split the head dim and
+    share the tile), the CUDA cores' (fp32) 2-D.  At D = 256 a key tile's
+    group may split over blocks (``flash_attention_bwd.heads_per_block``),
+    modelled as grid dim y merged into one tile (the last block adds the
+    partials, per-call scratch); otherwise a block writes only its own
+    keys or rows."""
     import torch
 
     from repro_torch.kernels import flash_attention_bwd as fab
@@ -384,13 +391,16 @@ def flash_attention_bwd_model(bh: int = 8, sq: int = 1024, skv: int = 1024,
         size_tag=tag)
     kb, qb = p.dkdv_keys, p.dq_rows
     n_kt, n_qt = -(-skv // kb), -(-sq // qb)
+    # the D = 256 route's blocks of one key tile (y) split its group's
+    # heads and merge their partials into one tile
+    split = -(-kv_group // fab.heads_per_block(d, dt, bh, skv, kv_group))
     if p.route == "wgmma":
         def kv_of(x, y):
             return x % n_kv, x // n_kv * kb
 
         def q_of(x, y):
             return x % bh, (n_qt - 1 - x // bh) * qb
-        dkdv_grid, dq_grid = (n_kt * n_kv, 1, 1), (n_qt * bh, 1, 1)
+        dkdv_grid, dq_grid = (n_kt * n_kv, split, 1), (n_qt * bh, 1, 1)
     else:
         def kv_of(x, y):
             return y, x * kb
@@ -407,7 +417,7 @@ def flash_attention_bwd_model(bh: int = 8, sq: int = 1024, skv: int = 1024,
                          masked=(1,)) for nm in ("k", "v")]
     dkdv = KernelModel(
         name=f"flash_attention_bwd.dkdv.{dtype}", grid=dkdv_grid,
-        threads=256, smem=p.dkdv_smem,
+        threads=256, smem=p.dkdv_smem, merge_dims=(1,) if split > 1 else (),
         inputs=q_in + kv_in,
         outputs=[OperandSpec(nm, (n_kv, skv, d), (1, kb, d),
                              lambda x, y, z: (kv_of(x, y)[0],

@@ -107,8 +107,7 @@ def serve_kv_bytes(cfg, cache_len: int, *, quant: bool = False) -> int:
         else cache_len
     if cfg.family == "hybrid":
         h = cfg.hybrid
-        n_att = sum(1 for i in range(cfg.n_layers)
-                    if h.pattern[i % len(h.pattern)] != "recurrent")
+        n_att = cfg.n_attention_layers
         w = h.lru_width or cfg.d_model
         rec_state = (cfg.n_layers - n_att) * w * 4
         return n_att * eff * per_tok * el + rec_state

@@ -108,6 +108,19 @@ class ModelConfig:
     def has_decoder(self) -> bool:
         return True  # all assigned archs have an autoregressive decoder
 
+    @property
+    def n_attention_layers(self) -> int:
+        """Layers with attention: none of an SSM's, a hybrid's layers whose
+        kind in its repeated pattern is not ``recurrent``, every layer
+        otherwise."""
+        if self.family == "ssm":
+            return 0
+        if self.family != "hybrid":
+            return self.n_layers
+        pat = self.hybrid.pattern
+        return sum(pat[i % len(pat)] != "recurrent"
+                   for i in range(self.n_layers))
+
     def n_params(self) -> int:
         """Analytic parameter count (used for MODEL_FLOPS = 6*N*D)."""
         d, hd = self.d_model, self.head_dim
@@ -134,9 +147,8 @@ class ModelConfig:
             w = h.lru_width or d
             rec = d * w * 2 + w * d + w * h.conv_kernel + 4 * w  # proj+gates+conv
             att = attn_params()
-            n_rec = sum(1 for i in range(self.n_layers)
-                        if h.pattern[i % len(h.pattern)] == "recurrent")
-            n_att = self.n_layers - n_rec
+            n_att = self.n_attention_layers
+            n_rec = self.n_layers - n_att
             layers = n_rec * rec + n_att * att \
                 + self.n_layers * (ffn_params(self.d_ff, gated) + 2 * d)
         else:

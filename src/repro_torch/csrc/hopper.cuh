@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for the port's kernels, in inline PTX:
-// mbarriers, TMA tile loads through a host-encoded CUtensorMap, warpgroup
+// mbarriers, named barriers between warpgroups, TMA tile loads through a
+// host-encoded CUtensorMap, warpgroup
 // matrix multiplies (wgmma) with shared-memory descriptors, warp matrix
 // multiplies (mma.sync) with their ldmatrix loads, and cp.async
 // copies with their group waits, and the host side of the tensor maps
@@ -98,6 +99,19 @@ __device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map,
                                          bool heads_inner, uint32_t bar) {
   tma_load_3d(dst, map, col, heads_inner ? head : row,
               heads_inner ? row : head, bar);
+}
+
+// ---- named barriers --------------------------------------------------------
+
+// Barrier ``id`` (1..15; 0 is __syncthreads) over ``threads`` threads (a
+// multiple of 32): ``bar_arrive`` counts this warp in and goes on,
+// ``bar_sync`` counts it in and waits for the rest.  Shared-memory writes
+// before an arrive are visible to reads after the matching sync.
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -14,13 +14,16 @@ returned in the inputs' dtype), D in ``HEAD_DIMS``, causal or not (then
 of the capped scores times the cap's derivative ``1 - tanh^2``),
 ``q_offset``, ragged lengths, and strided
 q/k/v/o/do views whose last dimension is contiguous; it refuses, with a
-message, what the forward refuses.  bf16 at D up to 128 runs on the tensor
-cores (``wgmma`` fed by TMA: bases and strides of q, k, v, o and do must be
-16-byte aligned, as the forward's); fp32, and bf16 at D = 256, on the CUDA
-cores (:func:`plan` says which, and with what tiles).  dk and dv of a KV
-head sum over its ``kv_group`` query heads in one block, in a fixed order:
-repeated calls agree bit for bit.  One call is three kernel launches (Delta,
-then dK/dV, then dQ) and counts as one.
+message, what the forward refuses.  bf16 runs on the tensor cores
+(``wgmma`` fed by TMA: bases and strides of q, k, v, o and do must be
+16-byte aligned, as the forward's; at D = 256 the block's two warpgroups
+split the head dim and exchange P and dS through shared memory), fp32 on
+the CUDA cores (:func:`plan` says which, and with what tiles).  dk and dv
+of a KV head sum over its ``kv_group`` query heads in a fixed order, in one
+block (at D = 256 in several, each with a share of the heads
+(:func:`heads_per_block`), whose fp32 partials the key tile's last block
+adds up in split order): repeated calls agree bit for bit.  One call is
+three kernel launches (Delta, then dK/dV, then dQ) and counts as one.
 """
 from __future__ import annotations
 
@@ -39,9 +42,15 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, _tma_strides,
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# bf16 head dims that run on the tensor cores (D = 80 on the D = 128 tile);
-# D = 256 would need 256 fp32 registers a thread for dK and dV alone
-WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128)
+# bf16 head dims that run on the tensor cores (D = 80 on the D = 128 tile;
+# D = 256 on a tile of its own, the head dim split between the warpgroups)
+WGMMA_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# the D = 256 tile's exchange: a warpgroup's 64 x 64 fp32 score fragment
+EXCHANGE_BYTES = 64 * 64 * 4
+# the D = 256 route splits a KV head's group over dK/dV blocks until its
+# grid holds about this many waves of the card's SMs
+SPLIT_WAVES = 4
+SMS = 132                       # H100 SXM: the plans' default
 # rows of a tile of the Delta / L2 scratch
 STAT_ROWS = 64
 # the largest dynamic shared memory a block may opt into on the H100
@@ -64,16 +73,24 @@ class Plan(NamedTuple):
 
 def plan(d: int, dtype: torch.dtype) -> Plan:
     """The backward's tiles, ring stages and shared memory at head dim ``d``
-    and ``dtype`` (``Wg<DT>`` and ``Cfg<D>`` in the source).  Tensor
-    cores: 128 keys a dK/dV block over 64-row Q/dO tiles in a ring of 4
-    stages (3 from D = 128), 128 rows a dQ block over K/V tiles of 128 keys
-    (64 from D = 128) in 3 stages, D = 80 on the D = 128 tile.  CUDA cores:
-    64-row and 64-key tiles (32 at D = 256) staged as fp32 with padded
-    rows."""
+    and ``dtype`` (``Wg<DT>``, ``W256`` and ``Cfg<D>`` in the source).
+    Tensor cores: 128 keys a dK/dV block over 64-row Q/dO tiles in a ring
+    of 4 stages (3 from D = 128), 128 rows a dQ block over K/V tiles of 128
+    keys (64 from D = 128) in 3 stages, D = 80 on the D = 128 tile; at D =
+    256 64 keys a dK/dV block and 64 rows a dQ block (both warpgroups on
+    them, each with half of D) over 64-row tiles in 2 stages, beside the
+    warpgroups' exchange.  CUDA cores (fp32): 64-row and 64-key tiles (32 at
+    D = 256) staged as fp32 with padded rows."""
     if d not in HEAD_DIMS or dtype not in _DTYPE_CODES:
         raise ValueError(f"the flash backward takes D in {HEAD_DIMS} and "
                          f"float32 or bfloat16, got D={d}, {dtype}")
-    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16 and d == 256:
+        tile, stages, bars = 64 * d * 2, 2, 8 * 5
+        dkdv = (1024 + 2 * tile + stages * (2 * tile + 2 * STAT_ROWS * 4)
+                + EXCHANGE_BYTES + bars)
+        dq = 1024 + 2 * tile + stages * 2 * tile + EXCHANGE_BYTES + bars
+        return Plan("wgmma", 64, STAT_ROWS, stages, dkdv, 64, 64, stages, dq)
+    if dtype == torch.bfloat16:
         dt = 128 if d == 80 else d
         stages = 3 if dt >= 128 else 4
         keys = 64 if dt >= 128 else 128
@@ -87,6 +104,27 @@ def plan(d: int, dtype: torch.dtype) -> Plan:
     dkdv = 4 * (4 * bq * row + 2 * bq * score + 2 * bq)
     dq = 4 * (4 * bq * row + bq * score + 2 * bq)
     return Plan("cuda-cores", bq, bq, 0, dkdv, bq, bq, 0, dq)
+
+
+def heads_per_block(d: int, dtype: torch.dtype, bh: int, skv: int,
+                    kv_group: int, sms: int = SMS) -> int:
+    """Query heads of a KV head's group that one dK/dV block walks: the
+    whole group, but on the bf16 D = 256 route, whose 64-key blocks would
+    leave the card's SMs short at a small KV head count; there the group
+    splits over ceil(kv_group / heads) blocks until the grid holds about
+    ``SPLIT_WAVES`` waves of ``sms`` (each block's fp32 sums merged in
+    order by the key tile's last block)."""
+    if dtype != torch.bfloat16 or d != 256:
+        return kv_group
+    blocks = -(-skv // plan(d, dtype).dkdv_keys) * (bh // kv_group)
+    split = min(kv_group, -(-SPLIT_WAVES * sms // max(blocks, 1)))
+    return -(-kv_group // split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """The SMs of ``device``'s card."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=1024)
@@ -121,7 +159,7 @@ def work(bh: int, sq: int, skv: int, d: int, kv_group: int, causal: bool,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
     lib.repro_flash_attention_bwd.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
         + [ctypes.c_longlong] * 10 + [ctypes.c_int, ctypes.c_void_p])
     lib.repro_flash_attention_bwd.restype = ctypes.c_int
     lib.repro_flash_attention_bwd_plan.argtypes = [ctypes.c_int] * 3
@@ -183,7 +221,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if any(t.stride(2) != 1 for t in ts):
         raise ValueError("flash attention backward needs a contiguous last "
                          "(D) dim")
-    if plan(d, q.dtype).route == "wgmma":
+    if q.dtype == torch.bfloat16:
         strides = [x for t in ts for x in _tma_strides(
             t, "the bf16 flash backward loads q/k/v/o/do")]
     else:
@@ -197,14 +235,26 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # per 64-row tile: its rows' L2, then their Delta (zero past Sq)
     stats = torch.empty((bh, -(-sq // STAT_ROWS), 2, STAT_ROWS),
                         dtype=torch.float32, device=q.device)
+    # the D = 256 route's split group: each block's fp32 dK and dV, and a
+    # merge counter a key tile (zeroed by the kernels' first launch)
+    hpb = heads_per_block(d, q.dtype, bh, skv, kv_group,
+                          _sms(q.device))
+    part = counters = None
+    if hpb < kv_group:
+        keys = plan(d, q.dtype).dkdv_keys
+        tiles = bh // kv_group * -(-skv // keys)
+        part = torch.empty((tiles, -(-kv_group // hpb), 2, keys, d),
+                           dtype=torch.float32, device=q.device)
+        counters = torch.empty(tiles, dtype=torch.int32, device=q.device)
     lib = _lib()
     with _build.on_device(q.device):
         err = lib.repro_flash_attention_bwd(
             *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv,
                                      stats)),
+            *(None if t is None else t.data_ptr() for t in (part, counters)),
             bh, sq, skv, d, kv_group, int(causal), int(window), int(q_offset),
-            1.0 / math.sqrt(d), float(softcap), *strides, _DTYPE_CODES[q.dtype],
-            _build.raw_stream(q.device))
+            hpb, 1.0 / math.sqrt(d), float(softcap), *strides,
+            _DTYPE_CODES[q.dtype], _build.raw_stream(q.device))
     _build.check(lib, err, "flash_attention_bwd")
     launches += 1
     return dq, dk, dv

@@ -170,7 +170,8 @@ def fault_controls(q, k, v, kv_group: int, window: int = 0,
 BWD_ABS_TOL = 1e-2      # of each gradient's largest entry
 BWD_ROW_TOL = 0.05
 BWD_ROW_FLOOR = 0.05    # of the tensor's rms: the least row rms divided by
-# csrc/flash_attention_bwd.cu's query-row tile at D < 256 (32 at 256)
+# csrc/flash_attention_bwd.cu's query-row tile on the bf16 route (64 at
+# every head dim)
 BWD_TILE = 64
 
 

@@ -113,6 +113,25 @@ def test_kernel_lint_is_clean_on_the_defaults():
         assert name in subjects
 
 
+@pytest.mark.parametrize("dtype,grids,smem", [
+    ("bfloat16", ((64, 5, 1), (640, 1, 1)), (215080, 214056)),
+    ("float32", ((128, 1, 1), (128, 10, 1)), (140288, 136064))],
+    ids=["bf16 tensor cores", "fp32 CUDA cores"])
+def test_kernel_lint_models_the_d256_backward(dtype, grids, smem):
+    """The backward at recurrentgemma-2b's heads (10 over 1 KV head, S
+    4096, D 256): bf16 on the tensor cores, a block per 64 rows and per 64
+    keys and 2 of the group's heads (5 blocks a key tile, merged); fp32 on
+    the CUDA cores, 32-key and 32-row tiles; both clean."""
+    models, findings = kernel_lint.flash_attention_bwd_model(
+        bh=10, sq=4096, skv=4096, d=256, dtype=dtype, kv_group=10)
+    assert not findings
+    by = {m.name.split(".")[1]: m for m in models}
+    assert (by["dkdv"].grid, by["dq"].grid) == grids
+    assert by["dkdv"].merge_dims == ((1,) if dtype == "bfloat16" else ())
+    assert (by["dkdv"].smem, by["dq"].smem) == smem
+    assert not has_errors([f for m in models for f in check_model(m)])
+
+
 def _rules(findings, rule_id):
     return [f for f in findings if f.rule_id == rule_id
             and f.severity == "error"]

@@ -168,19 +168,23 @@ def test_flash_attention_function_saves_lse_on_cpu():
 @pytest.mark.parametrize("d", fab.HEAD_DIMS)
 def test_plan(d, dtype):
     p = fab.plan(d, dtype)
-    wgmma = dtype == torch.bfloat16 and d != 256
+    wgmma = dtype == torch.bfloat16
     assert p.route == ("wgmma" if wgmma else "cuda-cores")
     assert max(p.dkdv_smem, p.dq_smem) <= fab.SMEM_LIMIT
     if wgmma:
         # wgmma takes 64-row tiles: two warpgroups of 64 keys (dK/dV) or
         # rows (dQ) a block, 64-row Q/dO tiles (whose statistics are one
-        # tile of the scratch), key tiles of 64 or 128
+        # tile of the scratch), key tiles of 64 or 128; at D = 256 both
+        # warpgroups on 64 keys or rows, each with half of D
         for rows in (p.dkdv_keys, p.dkdv_rows, p.dq_rows, p.dq_keys):
             assert rows % 64 == 0
-        assert (p.dkdv_keys, p.dkdv_rows, p.dq_rows) == (128, 64, 128)
-        assert p.dkdv_rows == fab.STAT_ROWS
-        assert p.dq_keys == (64 if d in (80, 128) else 128)
-        assert p.dkdv_stages >= 3 and p.dq_stages >= 3
+        assert p.dkdv_rows == fab.STAT_ROWS == 64
+        assert (p.dkdv_keys, p.dq_rows) == ((64, 64) if d == 256
+                                            else (128, 128))
+        assert p.dq_keys == (64 if d in (80, 128, 256) else 128)
+        assert (p.dkdv_stages, p.dq_stages) == ((2, 2) if d == 256
+                                                else (p.dkdv_stages, 3))
+        assert p.dkdv_stages >= (2 if d == 256 else 3)
         assert fab.plan(80, dtype) == fab.plan(128, dtype) or d != 80
     else:
         assert p.dkdv_stages == p.dq_stages == 0

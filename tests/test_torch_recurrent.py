@@ -442,3 +442,21 @@ def test_cli_serves_the_recurrent_families_on_the_cpu(arch, prompt_len):
     assert all(len(t) == 3 for t in out.values())
     with pytest.raises(SystemExit):
         main(["--device", "cpu", "--arch", MAMBA, "--prompt-len", "20"])
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "granite-3-2b",
+                                  "mamba2-1.3b"])
+@pytest.mark.parametrize("n_layers", [2, 3, 5, 7])
+def test_n_attention_layers_counts_the_attention_blocks(arch, n_layers):
+    """``ModelConfig.n_attention_layers`` (the training steps' flash
+    launch counts, the plan lint's cache size, the parameter count) is the
+    number of blocks with attention weights the LM lays out: the hybrid's
+    pattern repeated and cut, none in the SSM; the parameter count it
+    feeds equals the reference's."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n_layers)
+    names = init_params(cfg, device="cpu")
+    assert cfg.n_attention_layers == sum(n.endswith(".attn.wq")
+                                         for n in names)
+    jcfg = dataclasses.replace(jax_config(arch), n_layers=n_layers)
+    assert dataclasses.replace(get_config(arch), n_layers=n_layers
+                               ).n_params() == jcfg.n_params()
